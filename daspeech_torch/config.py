@@ -1,0 +1,117 @@
+"""The configuration dataclasses the port's modules read.
+
+They mirror the fields of ``daspeech_tpu/core/config.py`` that the serving
+slice uses, with the same names and defaults (the recipe's:
+``tests/test_torch_models.py::test_config_mirrors_jax`` holds them to the
+JAX package's), and leave out training-only fields and the TPU kernel
+switches. The port's modules read configs by attribute, so the JAX
+package's config objects work in their place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class VocabConfig:
+    size: int = 200
+    bos: int = 0
+    pad: int = 1
+    eos: int = 2
+    unk: int = 3
+
+
+@dataclass(frozen=True)
+class ConformerConfig:
+    """Encoder: 12L x 256d, FFN 2048, 4 heads."""
+    embed_dim: int = 256
+    ffn_dim: int = 2048
+    num_layers: int = 12
+    num_heads: int = 4
+    depthwise_kernel_size: int = 31
+    conv_channels: int = 1024
+    conv_kernel_sizes: Tuple[int, ...] = (5, 5)
+    input_feat_dim: int = 80
+    no_scale_embedding: bool = False
+
+
+@dataclass(frozen=True)
+class DAGDecoderConfig:
+    """DAG (DA-Transformer) decoder: 4L x 512d, 8 heads."""
+    embed_dim: int = 512
+    ffn_dim: int = 2048
+    num_layers: int = 4
+    num_heads: int = 8
+    activation: str = "gelu"
+    learned_pos: bool = True
+    share_input_output_embed: bool = True
+    max_target_positions: int = 1024
+    links_feature: str = "feature:position"
+    max_transition_length: int = 99999
+    src_upsample_scale: float = 0.5
+
+
+@dataclass(frozen=True)
+class DecodeConfig:
+    strategy: str = "lookahead"      # the port decodes lookahead | greedy
+    beta: float = 1.0                # logit scale (decode_beta)
+    length_beam: int = 1
+    iter_decode_max_iter: int = 0
+
+
+@dataclass(frozen=True)
+class FastSpeech2Config:
+    """4+4L x 256d, FFT hidden 1024."""
+    encoder_layers: int = 4
+    encoder_embed_dim: int = 256
+    encoder_heads: int = 4
+    decoder_layers: int = 4
+    decoder_embed_dim: int = 256
+    decoder_heads: int = 4
+    fft_hidden_dim: int = 1024
+    fft_kernel_size: int = 9
+    output_frame_dim: int = 80
+    n_frames_per_step: int = 1
+    var_pred_n_bins: int = 256
+    var_pred_hidden_dim: int = 256
+    var_pred_kernel_size: int = 3
+    pitch_min: float = 0.0
+    pitch_max: float = 600.0
+    energy_min: float = 0.0
+    energy_max: float = 5000.0
+    add_postnet: bool = False        # not ported: True raises
+    speaker_embed_dim: int = 64
+    num_speakers: int = 0            # not ported: > 0 raises
+
+
+@dataclass(frozen=True)
+class HiFiGANConfig:
+    """HiFi-GAN config_v1 (22.05 kHz, hop 256)."""
+    resblock: str = "1"
+    upsample_rates: Tuple[int, ...] = (8, 8, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4)
+    upsample_initial_channel: int = 512
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = (
+        (1, 3, 5), (1, 3, 5), (1, 3, 5))
+    num_mels: int = 80
+    sampling_rate: int = 22050
+    hop_size: int = 256
+
+
+@dataclass(frozen=True)
+class DAGModelConfig:
+    vocab: VocabConfig = field(default_factory=VocabConfig)
+    encoder: ConformerConfig = field(default_factory=ConformerConfig)
+    decoder: DAGDecoderConfig = field(default_factory=DAGDecoderConfig)
+    decode: DecodeConfig = field(default_factory=DecodeConfig)
+
+
+@dataclass(frozen=True)
+class S2SModelConfig:
+    """Two-pass S2ST: Conformer-DAG + FFN adaptor + FastSpeech 2."""
+    dag: DAGModelConfig = field(default_factory=DAGModelConfig)
+    tts: FastSpeech2Config = field(default_factory=FastSpeech2Config)
+    adaptor_ffn_dim: int = 1024

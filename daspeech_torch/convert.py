@@ -1,0 +1,109 @@
+"""Carry the JAX package's weights into the port's modules.
+
+The port's modules mirror the flax module tree name for name, so a flax
+variable path maps to a torch attribute path: ``layers_3`` / ``conv0``
+become index 3 / 0 of the ModuleList ``layers`` / ``conv`` when no attribute
+of the flax name exists. Each leaf is converted by the type of the torch
+module that owns it, following the inverses of
+``daspeech_tpu/train/torch_import.py:42-55``:
+
+- Dense ``kernel [in, out]`` -> ``nn.Linear.weight [out, in]``;
+- Conv ``kernel [k, in, out]`` -> ``nn.Conv1d.weight [out, in, k]`` (the
+  depthwise ``[k, 1, C]`` -> ``[C, 1, k]`` is the same transpose);
+- ``ConvTranspose1dTorch`` ``kernel [k, in, out]`` ->
+  ``nn.ConvTranspose1d.weight [in, out, k]``;
+- LayerNorm / BatchNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
+  (``batch_stats``) -> ``running_mean``/``running_var``;
+- Embed ``embedding`` -> ``nn.Embedding.weight``; bare params keep their name.
+
+The port keeps the JAX structure where it differs from fairseq: ``enc_proj``
+(256 -> 512) and the 512-wide cross-attention k/v inputs.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from daspeech_torch.models.hifigan import HiFiGANGenerator
+from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
+
+_INDEXED = re.compile(r"^(.*?)_?(\d+)$")
+
+
+def _leaves(tree: Dict[str, Any], prefix=()) -> Iterator[Tuple[tuple, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _resolve(module: nn.Module, name: str) -> nn.Module:
+    if hasattr(module, name):
+        return getattr(module, name)
+    m = _INDEXED.match(name)
+    if m and isinstance(getattr(module, m.group(1), None), nn.ModuleList):
+        return getattr(module, m.group(1))[int(m.group(2))]
+    raise KeyError(f"{type(module).__name__} has no submodule for {name!r}")
+
+
+def _convert(owner: nn.Module, leaf: str, value: np.ndarray):
+    """(torch attribute name, tensor) for one flax leaf of ``owner``."""
+    x = np.asarray(value, dtype=np.float32)
+    if leaf == "kernel":
+        if isinstance(owner, nn.ConvTranspose1d):
+            return "weight", np.transpose(x, (1, 2, 0))
+        if isinstance(owner, nn.Conv1d):
+            return "weight", np.transpose(x, (2, 1, 0))
+        if isinstance(owner, nn.Linear):
+            return "weight", x.T
+    elif leaf == "scale":
+        return "weight", x
+    elif leaf == "embedding":
+        return "weight", x
+    elif leaf in ("mean", "var"):
+        return f"running_{leaf}", x
+    return leaf, x
+
+
+def load_flax_(module: nn.Module, variables: Dict[str, Any]) -> nn.Module:
+    """Copy a flax ``{"params", "batch_stats"}`` tree (nested dicts of numpy
+    arrays) into ``module`` in place; every port tensor must be covered."""
+    loaded = set()
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            owner = module
+            for name in path[:-1]:
+                owner = _resolve(owner, name)
+            attr, x = _convert(owner, path[-1], value)
+            target = getattr(owner, attr)
+            if tuple(target.shape) != x.shape:
+                raise ValueError(f"{'/'.join(path)}: flax {x.shape} -> "
+                                 f"{type(owner).__name__}.{attr} "
+                                 f"{tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(torch.tensor(x))
+            loaded.add(id(target))
+    missing = [n for n, t in module.state_dict(keep_vars=True).items()
+               if id(t) not in loaded]
+    if missing:
+        raise KeyError(f"flax tree does not cover {missing}")
+    return module
+
+
+def from_flax(variables: Dict[str, Any], cfg) -> S2SConformerDAGFastSpeech2:
+    """The two-pass S2ST model with the JAX package's weights, on the CPU in
+    eval mode."""
+    return load_flax_(S2SConformerDAGFastSpeech2(cfg), variables).eval()
+
+
+def vocoder_from_flax(variables: Dict[str, Any], cfg) -> HiFiGANGenerator:
+    """HiFi-GAN with the JAX package's weights, on the CPU in eval mode. The
+    flax tree is the same for ``fold_to=0`` and ``fold_to=128``."""
+    return load_flax_(HiFiGANGenerator(cfg), variables).eval()

@@ -1,0 +1,196 @@
+"""Conformer speech encoder (PyTorch), batch-first, eval mode.
+
+Counterpart of ``daspeech_tpu/models/conformer.py``: Conv1d 2x-stride-2 GLU
+subsampler, scaled embedding, rel-pos MHSA in the rotation form, macaron
+FFNs and the depthwise-conv module. The rel-pos attention always goes
+through ``ops.fused_relpos.fused_attention_relpos`` (CUDA kernel for CUDA
+tensors, plain version for CPU tensors).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from daspeech_torch.models.layers import layer_norm, padding_bias
+from daspeech_torch.ops import fused_relpos as _fr
+
+
+class Conv1dSubsampler(nn.Module):
+    """Two stride-2 Conv1d + GLU (``conformer.py:23-60``); frames beyond
+    ``lengths`` are zeroed before each conv and after the last."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int,
+                 kernel_sizes: Tuple[int, ...] = (5, 5)):
+        super().__init__()
+        n = len(kernel_sizes)
+        self.conv = nn.ModuleList()     # flax conv0, conv1, ...
+        cin = in_channels
+        for i, k in enumerate(kernel_sizes):
+            cout = mid_channels if i < n - 1 else out_channels * 2
+            self.conv.append(nn.Conv1d(cin, cout, k, stride=2,
+                                       padding=k // 2))
+            cin = cout // 2
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+        # x: [B, T, F] -> [B, T', C]
+        for conv in self.conv:
+            mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                    < lengths[:, None])
+            x = x * mask[:, :, None]
+            x = F.glu(conv(x.transpose(1, 2)), dim=1).transpose(1, 2)
+            lengths = torch.floor((lengths.float() - 1) / 2 + 1).long()
+        mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < lengths[:, None])
+        return x * mask[:, :, None], lengths
+
+
+class RelPosMultiHeadAttention(nn.Module):
+    """Transformer-XL rel-pos MHSA with learned pos_bias_u/v in the rotation
+    form (``conformer.py:99-189``)."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        C, d = embed_dim, embed_dim // num_heads
+        self.linear_q = nn.Linear(C, C)
+        self.linear_k = nn.Linear(C, C)
+        self.linear_v = nn.Linear(C, C)
+        self.linear_out = nn.Linear(C, C)
+        self.linear_pos = nn.Linear(C, C, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, d))
+        self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, d))
+        # split-half (sin | cos) channel order of W_p's input rows
+        self.register_buffer(
+            "perm", torch.cat([torch.arange(0, C, 2), torch.arange(1, C, 2)]),
+            persistent=False)
+
+    def forward(self, x: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        B, T, C = x.shape
+        H = self.num_heads
+        d = C // H
+        q = self.linear_q(x)
+        k = self.linear_k(x)
+        v = self.linear_v(x)
+        q_u = q + self.pos_bias_u.reshape(-1)
+        q_v = (q + self.pos_bias_v.reshape(-1)).reshape(B, T, H, d)
+        # z = W_p^T q_v per head; flax's kernel [in, out] is weight^T
+        Kr = self.linear_pos.weight.t()[self.perm].reshape(C, H, d)
+        z = torch.einsum("bthm,chm->bthc", q_v, Kr)          # [B, T, H, C]
+        s_i, c_i, e = _fr.relpos_basis(T, C, device=x.device)
+        a = _fr.relpos_rotate(z, s_i[:, None], c_i[:, None])
+        bias = padding_bias(key_padding_mask, B, T, x.device)
+        out = _fr.fused_attention_relpos(
+            q_u, k, v, a.reshape(B, T, H * C), e, bias, H, 1.0 / math.sqrt(d))
+        return self.linear_out(out)
+
+
+class MaskedBatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the channel axis of [B, T, C] with the
+    running statistics (``conformer.py:203-240``; eps 1e-5)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return y * self.weight + self.bias
+
+
+class ConvolutionModule(nn.Module):
+    """Pointwise-GLU -> depthwise conv -> BatchNorm -> swish -> pointwise
+    (``conformer.py:243-290``); padded frames are zeroed before the
+    depthwise conv."""
+
+    def __init__(self, embed_dim: int, kernel_size: int = 31):
+        super().__init__()
+        self.layer_norm = layer_norm(embed_dim)
+        self.pointwise_conv1 = nn.Linear(embed_dim, 2 * embed_dim, bias=False)
+        self.depthwise_conv = nn.Conv1d(
+            embed_dim, embed_dim, kernel_size, padding=(kernel_size - 1) // 2,
+            groups=embed_dim, bias=False)
+        self.batch_norm = MaskedBatchNorm(embed_dim)
+        self.pointwise_conv2 = nn.Linear(embed_dim, embed_dim, bias=False)
+
+    def forward(self, x: torch.Tensor,
+                pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        x = F.glu(self.pointwise_conv1(self.layer_norm(x)), dim=-1)
+        if pad_mask is not None:
+            x = x * (~pad_mask)[:, :, None]
+        x = self.depthwise_conv(x.transpose(1, 2)).transpose(1, 2)
+        return self.pointwise_conv2(F.silu(self.batch_norm(x)))
+
+
+class FeedForwardModule(nn.Module):
+    """Macaron FFN with swish, unfused (``conformer.py:321-370``)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int):
+        super().__init__()
+        self.layer_norm = layer_norm(embed_dim)
+        self.w_1 = nn.Linear(embed_dim, ffn_dim)
+        self.w_2 = nn.Linear(ffn_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(F.silu(self.w_1(self.layer_norm(x))))
+
+
+class ConformerEncoderLayer(nn.Module):
+    """Macaron block (``conformer.py:373-412``)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 depthwise_kernel_size: int = 31):
+        super().__init__()
+        self.ffn1 = FeedForwardModule(embed_dim, ffn_dim)
+        self.self_attn_layer_norm = layer_norm(embed_dim)
+        self.self_attn = RelPosMultiHeadAttention(embed_dim, num_heads)
+        self.conv_module = ConvolutionModule(embed_dim, depthwise_kernel_size)
+        self.ffn2 = FeedForwardModule(embed_dim, ffn_dim)
+        self.final_layer_norm = layer_norm(embed_dim)
+
+    def forward(self, x: torch.Tensor,
+                pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        x = x + 0.5 * self.ffn1(x)
+        x = x + self.self_attn(self.self_attn_layer_norm(x),
+                               key_padding_mask=pad_mask)
+        x = x + self.conv_module(x, pad_mask)
+        x = x + 0.5 * self.ffn2(x)
+        return self.final_layer_norm(x)
+
+
+class ConformerEncoder(nn.Module):
+    """``S2TConformerEncoder``, rel_pos variant (``conformer.py:415-463``):
+    fbank [B, T, 80] + lengths -> states [B, T', C], padding mask [B, T']
+    (True = pad) and T' lengths."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
+        self.subsample = Conv1dSubsampler(
+            cfg.input_feat_dim, cfg.conv_channels, cfg.embed_dim,
+            tuple(cfg.conv_kernel_sizes))
+        self.linear = nn.Linear(cfg.embed_dim, cfg.embed_dim)
+        self.layers = nn.ModuleList(
+            ConformerEncoderLayer(cfg.embed_dim, cfg.ffn_dim, cfg.num_heads,
+                                  cfg.depthwise_kernel_size)
+            for _ in range(cfg.num_layers))
+
+    def forward(self, fbank: torch.Tensor, lengths: torch.Tensor):
+        x, out_lengths = self.subsample(fbank, lengths)
+        T = x.shape[1]
+        pad_mask = (torch.arange(T, device=x.device)[None, :]
+                    >= out_lengths[:, None])
+        x = self.linear(x * self.scale)
+        for layer in self.layers:
+            x = layer(x, pad_mask)
+        return x.masked_fill(pad_mask[:, :, None], 0.0), pad_mask, out_lengths

@@ -1,0 +1,146 @@
+"""DA-Transformer (DAG) decoder + S2T Conformer-DAG model (PyTorch).
+
+Counterpart of ``daspeech_tpu/models/dag_model.py``: a non-causal
+transformer decoder over a graph of lambda * src_len vertices, and a
+multi-head link predictor whose gated logsumexp gives the [B, L, L] DAG
+transition matrix. Link extraction always goes through
+``ops.fused_links.fused_extract_links`` (CUDA kernel for CUDA tensors, plain
+version for CPU tensors). The banded and fused-vocab variants are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from daspeech_torch.models.conformer import ConformerEncoder
+from daspeech_torch.models.layers import (
+    LearnedPositionalEmbedding,
+    SinusoidalPositionalEmbedding,
+    TransformerDecoderLayer,
+)
+from daspeech_torch.ops.fused_links import fused_extract_links
+
+
+class GlatLinkDecoder(nn.Module):
+    """NAT transformer decoder + link predictor (``dag_model.py:41-199``)."""
+
+    def __init__(self, vocab_size: int, pad: int, cfg):
+        super().__init__()
+        D = cfg.embed_dim
+        self.pad = pad
+        self.num_heads = cfg.num_heads
+        self.share_input_output_embed = cfg.share_input_output_embed
+        self.max_transition_length = cfg.max_transition_length
+        self.embed_tokens = nn.Embedding(vocab_size, D)
+        pos_cls = (LearnedPositionalEmbedding if cfg.learned_pos
+                   else SinusoidalPositionalEmbedding)
+        self.embed_positions = pos_cls(cfg.max_target_positions, D, pad)
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(D, cfg.ffn_dim, cfg.num_heads,
+                                    cfg.activation)
+            for _ in range(cfg.num_layers))
+        if not self.share_input_output_embed:
+            self.output_projection = nn.Linear(D, vocab_size, bias=False)
+        feats = cfg.links_feature.split(":")
+        self._use_feature = "feature" in feats
+        use_position = "position" in feats or "sinposition" in feats
+        n_parts = int(self._use_feature) + int(use_position)
+        self.link_positional = None
+        if use_position:
+            self.link_positional = (
+                LearnedPositionalEmbedding(cfg.max_target_positions, D, pad)
+                if "position" in feats else
+                SinusoidalPositionalEmbedding(cfg.max_target_positions, D, pad))
+        self.query_linear = nn.Linear(n_parts * D, D)
+        self.key_linear = nn.Linear(n_parts * D, D)
+        self.gate_linear = nn.Linear(n_parts * D, cfg.num_heads)
+
+    def extract_features(self, prev_output_tokens: torch.Tensor,
+                         enc_out: torch.Tensor,
+                         enc_pad_mask: torch.Tensor) -> torch.Tensor:
+        x = self.embed_tokens(prev_output_tokens) * math.sqrt(
+            self.embed_tokens.embedding_dim)
+        x = x + self.embed_positions(prev_output_tokens)
+        pad_mask = prev_output_tokens == self.pad
+        for layer in self.layers:
+            x = layer(x, pad_mask, enc_out, enc_pad_mask)
+        return x
+
+    def output_layer(self, features: torch.Tensor) -> torch.Tensor:
+        if self.share_input_output_embed:
+            return features @ self.embed_tokens.weight.t()   # tied ``attend``
+        return self.output_projection(features)
+
+    def extract_links(self, features: torch.Tensor,
+                      prev_output_tokens: torch.Tensor) -> torch.Tensor:
+        """links [B, L, L] f32 log-transitions, -inf where invalid
+        (``dag_model.py:120-199``)."""
+        parts = []
+        if self._use_feature:
+            parts.append(features)
+        if self.link_positional is not None:
+            parts.append(self.link_positional(prev_output_tokens))
+        feats = torch.cat(parts, dim=-1)
+        L = features.shape[1]
+        dk = features.shape[-1] // self.num_heads
+        q = self.query_linear(feats)
+        k = self.key_linear(feats)
+        log_gates = torch.log_softmax(self.gate_linear(feats).float(), dim=-1)
+        out_len = (prev_output_tokens != self.pad).sum(dim=-1)
+        mtl = (self.max_transition_length
+               if 0 < self.max_transition_length < L - 1 else None)
+        return fused_extract_links(q, k, log_gates, out_len, self.num_heads,
+                                   1.0 / math.sqrt(dk), mtl)
+
+
+class S2TConformerDAG(nn.Module):
+    """Conformer encoder + GlatLinkDecoder (``dag_model.py:287-394``)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        e, d = cfg.encoder, cfg.decoder
+        self.encoder = ConformerEncoder(e)
+        self.enc_proj = (nn.Linear(e.embed_dim, d.embed_dim)
+                         if e.embed_dim != d.embed_dim else None)
+        self.decoder = GlatLinkDecoder(cfg.vocab.size, cfg.vocab.pad, d)
+
+    def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor):
+        enc, enc_pad, enc_lens = self.encoder(fbank, src_lengths)
+        if self.enc_proj is not None:
+            enc = self.enc_proj(enc)
+        return enc, enc_pad, enc_lens
+
+    def decode(self, prev_output_tokens: torch.Tensor, enc: torch.Tensor,
+               enc_pad: torch.Tensor, require_links: bool = True):
+        features = self.decoder.extract_features(prev_output_tokens, enc,
+                                                 enc_pad)
+        logits = self.decoder.output_layer(features)
+        links = (self.decoder.extract_links(features, prev_output_tokens)
+                 if require_links else None)
+        return logits, links, features
+
+    def forward(self, fbank, src_lengths, prev_output_tokens):
+        enc, enc_pad, _ = self.encode(fbank, src_lengths)
+        return self.decode(prev_output_tokens, enc, enc_pad)
+
+
+def graph_lengths(src_lengths: torch.Tensor, upsample_scale: float,
+                  max_positions: int) -> torch.Tensor:
+    """lambda * src_len graph size (``dag_model.py:397-404``)."""
+    return torch.clamp((src_lengths * upsample_scale).to(torch.int32),
+                       2, max_positions)
+
+
+def initialize_output_tokens(length_tgt: torch.Tensor, max_length: int,
+                             vocab) -> torch.Tensor:
+    """[B] graph lengths -> [B, max_length] tokens: <bos> unk... <eos> pad...
+    (``dag_model.py:407-417``)."""
+    idx = torch.arange(max_length, device=length_tgt.device)[None, :]
+    toks = torch.where(idx < length_tgt[:, None], vocab.unk, vocab.pad)
+    toks[:, 0] = vocab.bos
+    toks = torch.where(idx == length_tgt[:, None] - 1, vocab.eos, toks)
+    return toks.to(torch.int64)

@@ -1,0 +1,160 @@
+"""Shared building blocks (PyTorch), batch-first ``[B, T, C]``.
+
+Counterpart of ``daspeech_tpu/models/layers.py``. Every LayerNorm uses
+eps 1e-6, flax's default (torch's is 1e-5). Attention always goes through
+``ops.fused_attention.fused_attention_packed``, which launches the CUDA
+kernel for CUDA tensors and takes the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from daspeech_torch.ops.fused_attention import NEG, fused_attention_packed
+
+LN_EPS = 1e-6
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+# "gelu" is the exact erf form, which the JAX package takes in f32
+# (``layers.py:19-27``); the port runs in f32 only
+ACTIVATIONS = {"relu": F.relu, "gelu": F.gelu, "swish": F.silu,
+               "silu": F.silu, "tanh": torch.tanh}
+
+
+def make_positions(tokens: torch.Tensor, padding_idx: int) -> torch.Tensor:
+    """fairseq ``utils.make_positions``: numbering starts at
+    ``padding_idx + 1``; pads keep ``padding_idx``."""
+    mask = (tokens != padding_idx).long()
+    return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+class LearnedPositionalEmbedding(nn.Embedding):
+    """fairseq learned positional embedding (offset by padding_idx + 1)."""
+
+    def __init__(self, max_positions: int, dim: int, padding_idx: int = 1):
+        super().__init__(max_positions + padding_idx + 1, dim)
+        self.pad = padding_idx
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(make_positions(tokens, self.pad), self.weight)
+
+
+def sinusoidal_embedding_table(num_positions: int, dim: int,
+                               padding_idx: Optional[int] = 1,
+                               device=None) -> torch.Tensor:
+    """fairseq ``SinusoidalPositionalEmbedding.get_embedding``."""
+    half_dim = dim // 2
+    scale = math.log(10000) / (half_dim - 1)
+    freq = torch.exp(torch.arange(half_dim, dtype=torch.float32,
+                                  device=device) * -scale)
+    ang = (torch.arange(num_positions, dtype=torch.float32,
+                        device=device)[:, None] * freq[None, :])
+    emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+    if dim % 2 == 1:
+        emb = torch.cat([emb, emb.new_zeros(num_positions, 1)], dim=1)
+    if padding_idx is not None:
+        emb[padding_idx] = 0
+    return emb
+
+
+class SinusoidalPositionalEmbedding(nn.Module):
+    def __init__(self, max_positions: int, dim: int, padding_idx: int = 1):
+        super().__init__()
+        self.max_positions, self.dim, self.pad = max_positions, dim, padding_idx
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        table = sinusoidal_embedding_table(
+            self.max_positions + self.pad + 1, self.dim, self.pad,
+            device=tokens.device)
+        return F.embedding(make_positions(tokens, self.pad), table)
+
+
+def padding_bias(key_padding_mask: Optional[torch.Tensor], B: int, Tk: int,
+                 device) -> torch.Tensor:
+    """[B, Tk] additive column bias: NEG at padded keys, 0 elsewhere. Rows
+    whose keys are ALL padding attend uniformly instead of producing NaN
+    (``layers.py:182-185``); downstream masks discard them."""
+    if key_padding_mask is None:
+        return torch.zeros((B, Tk), dtype=torch.float32, device=device)
+    all_masked = key_padding_mask.all(dim=-1, keepdim=True)
+    kpm = key_padding_mask & ~all_masked
+    return torch.where(kpm, NEG, 0.0).to(torch.float32)
+
+
+class MultiHeadAttention(nn.Module):
+    """Non-causal MHA with an optional key-padding mask (True = pad);
+    ``layers.py:128-237``."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        d_head = query.shape[-1] // self.num_heads
+        q = self.q_proj(query) * (d_head ** -0.5)
+        k = self.k_proj(key)
+        v = self.v_proj(value)
+        bias = padding_bias(key_padding_mask, key.shape[0], key.shape[1],
+                            key.device)
+        out = fused_attention_packed(q, k, v, bias, self.num_heads, 1.0)
+        return self.out_proj(out)
+
+
+class TransformerFFN(nn.Module):
+    def __init__(self, ffn_dim: int, embed_dim: int, activation: str = "relu"):
+        super().__init__()
+        self.fc1 = nn.Linear(embed_dim, ffn_dim)
+        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.act = ACTIVATIONS[activation]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm transformer decoder layer with non-causal self-attention
+    (the NAT decoder; ``layers.py:257-321`` with normalize_before=False)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 activation: str = "gelu"):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.self_attn_layer_norm = layer_norm(embed_dim)
+        self.encoder_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.encoder_attn_layer_norm = layer_norm(embed_dim)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim, activation)
+        self.final_layer_norm = layer_norm(embed_dim)
+
+    def forward(self, x: torch.Tensor, self_pad_mask: Optional[torch.Tensor],
+                enc_out: Optional[torch.Tensor],
+                enc_pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.self_attn_layer_norm(
+            x + self.self_attn(x, x, x, key_padding_mask=self_pad_mask))
+        if enc_out is not None:
+            x = self.encoder_attn_layer_norm(
+                x + self.encoder_attn(x, enc_out, enc_out,
+                                      key_padding_mask=enc_pad_mask))
+        return self.final_layer_norm(x + self.ffn(x))
+
+
+def lengths_to_padding_mask(lengths: torch.Tensor, max_len: int
+                            ) -> torch.Tensor:
+    """[B] -> [B, max_len] bool, True = pad."""
+    return (torch.arange(max_len, device=lengths.device)[None, :]
+            >= lengths[:, None])

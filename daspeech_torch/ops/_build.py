@@ -1,0 +1,129 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``.cu``/``.cuh`` under ``daspeech_torch/csrc/`` is compiled by ``nvcc``
+for ``sm_90a`` into ONE shared library with a plain C interface, loaded with
+``ctypes``. The library's file name carries a hash of the sources and flags,
+so an edited kernel rebuilds and an unchanged one is reused. The build runs
+at first use (never at import) into ``build/daspeech_torch/`` at the root of
+the checkout.
+
+Each C entry point returns a ``cudaError_t`` (0 on success): the caller
+raises on anything else, because a refused launch never runs and a later
+``torch.cuda.synchronize()`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "daspeech_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points in csrc/*.cu
+SIGNATURES = {
+    "daspeech_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "daspeech_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _F, _P),
+    "daspeech_links_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+}
+
+
+class Build(NamedTuple):
+    path: Path
+    seconds: float      # nvcc wall time; 0.0 when the library existed
+    ptxas: str          # nvcc's -Xptxas -v report (registers, spills, smem)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "daspeech_torch cannot be built")
+
+
+def _library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libdaspeech_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Build:
+    """Compile the kernels unless a library for these sources exists."""
+    out = _library_path()
+    if out.exists():
+        return Build(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)            # atomic: a half-written .so never loads
+    return Build(out, time.perf_counter() - t0, proc.stderr)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_inputs(name: str, *tensors, int32=()) -> None:
+    """Raise unless every tensor is a contiguous float32 (``int32``: int32)
+    tensor on one CUDA device — what the kernels take."""
+    dev = tensors[0].device
+    for t in (*tensors, *int32):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel takes contiguous inputs")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+    for t in int32:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: kernel takes int32 lengths, got {t.dtype}")
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with cudaError_t {rc}")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
