@@ -4,25 +4,40 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc;
-3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the shapes the serving path gives it (max abs error <= 1e-4; for links
-   also the identical -inf pattern), with median CUDA-event times of both;
-4. end-to-end phase: the two-pass S2ST serving path
+3. kernel phase: every kernel against its plain PyTorch version on the card,
+   at the shapes the serving and training paths give it (forward and, for
+   the training path, backward with dropout 0.1 on the same Philox bits;
+   max abs error <= 1e-4; the DP's log-probabilities against the plain
+   loop in float64, within 2 sqrt(T) ulp of the largest magnitude, over
+   three shapes and four seeds; Viterbi paths equal), with median
+   CUDA-event times of the kernel, the plain version and, for attention,
+   ``scaled_dot_product_attention`` with dropout at the same rate (timed
+   here, used nowhere in the port), and the least time the card could
+   take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+4. serving phase: the two-pass S2ST serving path
    (``daspeech_torch.decode.generator.S2SNATGenerator``) at the recipe's
    full width (Conformer 12Lx256d, DAG decoder 4Lx512d, FastSpeech 2
    4+4Lx256d, HiFi-GAN config_v1) with random weights from a seed, on two
-   batches; checks finite outputs, waveform lengths, that every kernel was
-   launched by that run, and that a CPU run of each batch (plain versions)
-   agrees;
-5. where the time goes, per batch: the median host-clock time of each
+   batches; checks finite outputs, waveform lengths, that every forward
+   kernel was launched by that run, and that a CPU run of each batch (plain
+   versions) agrees; per batch, the median host-clock time of each
    sub-stage of ``generate()``, audio seconds per wall second, and one
-   ``generate()`` under ``torch.profiler`` (device busy share of the wall
-   time, the costliest kernels; the trace goes to ``build/profile/``).
+   ``generate()`` under ``torch.profiler``;
+5. training phase: the S2TT DAG step (``daspeech_torch.train.make_train_step``
+   over ``daspeech_torch.losses.nat_dag_loss``) at the recipe's widths on
+   bench.py config 5's batch (B=80, 480 frames, 240 vertices, 64 target
+   tokens): one step on the card against one on the CPU (dropout 0, GLAT
+   p=0, 8 utterances), the kernel path against the plain path on the card
+   (dropout 0.1, GLAT p=0.5), 13 timed updates (the run whose launch counts
+   are read: every kernel must have run), sub-stage times, the device busy
+   share of one profiled update, peak memory, and 30 updates on one batch
+   that must bring the loss down.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it holds the kernels' JSON summary, and the nvidia-smi line
-comes before that. Any failed check raises. Without a CUDA device the
-script exits non-zero and prints no result.
+Traces go to ``build/profile/``. The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it holds the kernels'
+JSON summary, and the nvidia-smi line comes before that. Any failed check
+raises. Without a CUDA device the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -69,6 +84,83 @@ def cuda_ms(fn) -> float:
 # kernel phase
 # ---------------------------------------------------------------------------
 
+PEAK_FLOPS = 67e12        # fp32 outside the tensor cores, H100 SXM
+PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
+F32 = 4
+
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_attention_packed": ("daspeech_torch/csrc/fused_attention.cu",
+                               "daspeech_tpu/ops/fused_attention.py:522"),
+    "fused_extract_links": ("daspeech_torch/csrc/fused_links.cu",
+                            "daspeech_tpu/ops/fused_links.py:141"),
+    "fused_attention_relpos": ("daspeech_torch/csrc/fused_relpos.cu",
+                               "daspeech_tpu/ops/fused_relpos.py:373"),
+    "dag_loss_forward": ("daspeech_torch/csrc/dag_fb.cu",
+                         "daspeech_tpu/ops/dag_pallas.py:108"),
+    "dag_best_alignment": ("daspeech_torch/csrc/dag_viterbi.cu",
+                           "daspeech_tpu/ops/dag_pallas.py:285"),
+    "fused_attention_packed_bwd": ("daspeech_torch/csrc/fused_attention.cu",
+                                   "daspeech_tpu/ops/fused_attention.py:324"),
+    "fused_attention_relpos_bwd": ("daspeech_torch/csrc/fused_relpos.cu",
+                                   "daspeech_tpu/ops/fused_relpos.py:125"),
+    "fused_extract_links_bwd": ("daspeech_torch/csrc/fused_links.cu",
+                                "daspeech_tpu/ops/fused_links.py:91"),
+}
+# The DP is held against its plain loop run in float64 (dp_numerics). Each
+# step shifts by the previous row's maximum, so in fp32 (kernel, plain loop
+# and the JAX scan alike) a term more than ~87 nats below that shift
+# underflows, and an entry whose mass comes through such terms comes out
+# too small; the loss spreads to later steps, and the wider the links'
+# spread, the closer to the row's maximum. On H100 readings over 24 cases
+# both fp32 versions sit up to 9 nats off float64 at 40-80 nats below the
+# row's maximum, and within 4.6 ulp of the largest magnitude closer to it.
+# So the kernel is held (a) within DP_NEGLIGIBLE nats of the row's maximum
+# (e^-20 of the row's mass, under fp32's rounding of its sum) to 2 sqrt(T)
+# ulp of the largest magnitude (each step rounds by ~1 ulp, a random walk
+# over T steps; the limit is twice that), and (b) in every band of
+# DP_BANDS to no more than the fp32 loop's error there plus that limit.
+DP_NEGLIGIBLE = 20.0
+DP_BANDS = (0, 20, 40, 60, 70, 80)
+DP_SHAPES = ((80, 64, 240), (16, 64, 600), (4, 64, 1024))
+DP_SEEDS = (0, 1, 2, 3)
+SERVING_KERNELS = ("fused_attention_packed", "fused_extract_links",
+                   "fused_attention_relpos")
+
+
+def launch_counters():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from daspeech_torch.ops import dag_kernels as dk
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_links as fl
+    from daspeech_torch.ops import fused_relpos as fr
+
+    return {"fused_attention_packed": fa.fused_attention_packed,
+            "fused_extract_links": fl.fused_extract_links,
+            "fused_attention_relpos": fr.fused_attention_relpos,
+            "dag_loss_forward": dk.dag_loss_forward_kernel,
+            "dag_best_alignment": dk.dag_best_alignment_kernel,
+            "fused_attention_packed_bwd": fa.attention_bwd_kernel,
+            "fused_attention_relpos_bwd": fr.relpos_bwd_kernel,
+            "fused_extract_links_bwd": fl.links_bwd_kernel}
+
+
+def reset_launches():
+    for w in launch_counters().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {n: w.launches for n, w in launch_counters().items()}
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for this work on the card."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def _randn(g, *shape, scale=1.0):
     return (torch.randn(*shape, generator=g) * scale).cuda()
 
@@ -84,73 +176,334 @@ def _key_bias(B, Tk, g):
     return torch.where(pad, NEG, 0.0).float().cuda()
 
 
+def _seeds(g, B):
+    return torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g,
+                         dtype=torch.int32).cuda()
+
+
+def _max_err(got, want):
+    if isinstance(got, (tuple, list)):
+        return max(_max_err(a, b) for a, b in zip(got, want))
+    return (got - want).abs().max().item()
+
+
+def _finite_err(got, want, what):
+    """Max abs difference over the finite entries; the -inf pattern must
+    be the same."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin) or not torch.equal(
+            got[~fin], want[~fin]):
+        raise AssertionError(f"{what}: -inf pattern differs")
+    return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def dp_diff(got, want, what, window=DP_NEGLIGIBLE):
+    """|got - want| (float64) of two [B, T, L] (or [B]) log-probability
+    tensors over the entries within ``window`` nats of their row's maximum
+    in ``want`` (inf where ``got`` is -inf there: all its terms
+    underflowed), 0 elsewhere, and each entry's distance below that
+    maximum. ``got`` may have no mass where ``want`` has none."""
+    got, want = got.double(), want.double()
+    fin_w, fin_g = torch.isfinite(want), torch.isfinite(got)
+    if bool((fin_g & ~fin_w).any()) or not torch.equal(
+            got[~fin_g & ~fin_w], want[~fin_g & ~fin_w]):
+        raise AssertionError(f"{what}: mass where the reference has none")
+    if got.dim() == 1:
+        rowmax = torch.where(fin_w, want, 0.0)
+    else:
+        rowmax = torch.where(fin_w, want, -math.inf).amax(dim=-1,
+                                                          keepdim=True)
+        rowmax = torch.where(torch.isfinite(rowmax), rowmax, 0.0)
+    gap = torch.where(fin_w, rowmax - want, math.inf)
+    keep = gap <= window
+    d = torch.where(fin_g, (got - want).abs(), math.inf)
+    return torch.where(keep, d, 0.0), torch.where(keep, gap, 0.0)
+
+
+def dp_err(got, want, what):
+    """Max of :func:`dp_diff` over the pairs (logprob, alpha, beta)."""
+    return max(float(dp_diff(x, y, what)[0].max())
+               for x, y in zip(got, want))
+
+
+def ulp32(x: float) -> float:
+    """The spacing of fp32 numbers at magnitude x (> 0)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 23)
+
+
+def dp_tol(T: int, big: float) -> float:
+    """2 sqrt(T) ulp of the largest magnitude (see DP_NEGLIGIBLE)."""
+    return 2.0 * math.sqrt(T) * ulp32(max(big, 1.0))
+
+
+def dp_numerics():
+    """The alpha/beta kernel and the fp32 plain loop, each against the plain
+    loop in float64 on the same inputs, over DP_SHAPES x DP_SEEDS: the
+    largest error in each band of DP_BANDS (nats below the entry's row
+    maximum). Returns the kernel's worst error over its bound (a) and (b)
+    (see DP_NEGLIGIBLE)."""
+    from daspeech_torch.ops import dag_kernels as dk
+    from daspeech_torch.ops import dag_ref as dr
+
+    def band_errs(got, want, what):
+        out = [0.0] * (len(DP_BANDS) - 1)
+        for x, y in zip(got, want):
+            d, gap = dp_diff(x, y, what, window=DP_BANDS[-1])
+            for k, (lo, hi) in enumerate(zip(DP_BANDS[:-1], DP_BANDS[1:])):
+                sel = (gap >= lo) & (gap < hi)
+                out[k] = max(out[k], float(torch.where(sel, d, 0.0).max()))
+        return out
+
+    bands = ", ".join(f"{lo}-{hi}" for lo, hi in zip(DP_BANDS[:-1],
+                                                      DP_BANDS[1:]))
+    log(f"  alpha/beta against float64, max abs error by nats below the row "
+        f"max ({bands})")
+    worst = 0.0
+    for (B, T, L) in DP_SHAPES:
+        for seed in DP_SEEDS:
+            g = torch.Generator().manual_seed(seed)
+            match, links, ol, tl = train_dp_inputs(g, B, T, L)
+            exact = dr.dag_loss_forward_plain(match.double(), links.double(),
+                                              ol, tl)
+            kern = dk.dag_loss_forward_kernel(match, links, ol, tl)
+            plain = dr.dag_loss_forward_plain(match, links, ol, tl)
+            what = f"dag [{B},{T},{L}] seed {seed}"
+            big = max(float(torch.where(torch.isfinite(y), y, 0.0).abs().max())
+                      for y in exact)
+            tol = dp_tol(T, big)
+            e_k = dp_err(kern, exact, what)
+            b_k, b_p = band_errs(kern, exact, what), band_errs(plain, exact,
+                                                               what)
+            fmt = lambda xs: " ".join(f"{x:.3g}" for x in xs)  # noqa: E731
+            log(f"  {what}: |x| <= {big:.1f} (ulp {ulp32(big):.3g}); kernel "
+                f"{fmt(b_k)}; fp32 plain {fmt(b_p)}; kernel within "
+                f"{DP_NEGLIGIBLE:g} nats {e_k:.3g} (<= {tol:.3g})")
+            worst = max(worst, e_k / tol,
+                        *((k - p) / tol for k, p in zip(b_k, b_p)))
+    return worst
+
+
 def kernel_phase():
+    from daspeech_torch.ops import dag_kernels as dk
+    from daspeech_torch.ops import dag_ref as dr
     from daspeech_torch.ops import fused_attention as fa
     from daspeech_torch.ops import fused_links as fl
     from daspeech_torch.ops import fused_relpos as fr
 
     g = torch.Generator().manual_seed(SEED)
-    cases = {"fused_attention_packed": [], "fused_extract_links": [],
-             "fused_attention_relpos": []}
+    cases = {name: [] for name in KERNELS}
 
-    def record(name, shape, err, run_kernel, run_plain):
+    def record(name, shape, err, run_kernel, run_plain, flops, nbytes,
+               run_library=None, tol=TOL_KERNEL):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
-        cases[name].append({"shape": shape, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms})
-        log(f"  {name} {shape}: max_abs_err {err:.3g}  kernel {ms:.4f} ms"
-            f"  plain {plain_ms:.4f} ms")
-        if not err <= TOL_KERNEL:
-            raise AssertionError(f"{name} {shape}: max abs err {err} > "
-                                 f"{TOL_KERNEL}")
+        lib_ms = cuda_ms(run_library) if run_library is not None else None
+        b_ms, b_by = bound(flops, nbytes)
+        cases[name].append({"shape": shape, "max_abs_err": err, "tol": tol,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": lib_ms})
+        log(f"  {name} {shape}: max_abs_err {err:.3g} (<= {tol})  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})  library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+        if not err <= tol:
+            raise AssertionError(f"{name} {shape}: max abs err {err} > {tol}")
 
-    # decoder self-attention, cross-attention (Tk = T') and FastSpeech 2
-    # self-attention, for batch A and then batch B (1040 mel frames: where
-    # the JAX layer leaves the packed kernel for the head-major one)
-    for (B, Tq, Tk, C, H) in ((8, 240, 240, 512, 8), (8, 240, 120, 512, 8),
-                              (8, 416, 416, 256, 4), (2, 600, 600, 512, 8),
-                              (2, 600, 300, 512, 8), (2, 1040, 1040, 256, 4)):
-        q = _randn(g, B, Tq, C, scale=(C // H) ** -0.5)
+    def sdpa(q, k, v, bias, H, p):
+        """The one PyTorch call for the same function (timed here only),
+        with its own dropout draws at the same rate."""
+        B, Tq, C = q.shape
+
+        def h4(x):
+            return x.reshape(B, x.shape[1], H, C // H).transpose(1, 2)
+
+        return torch.nn.functional.scaled_dot_product_attention(
+            h4(q), h4(k), h4(v), attn_mask=bias[:, None, None, :],
+            dropout_p=p, scale=1.0)
+
+    # --- attention: the serving shapes of batches A and B (forward), then
+    # the training shapes (decoder self- and cross-attention at B = 80),
+    # forward and backward with dropout 0.1
+    for (B, Tq, Tk, C, H, p) in ((8, 240, 240, 512, 8, 0.0),
+                                 (8, 240, 120, 512, 8, 0.0),
+                                 (8, 416, 416, 256, 4, 0.0),
+                                 (2, 600, 600, 512, 8, 0.0),
+                                 (2, 600, 300, 512, 8, 0.0),
+                                 (2, 1040, 1040, 256, 4, 0.0),
+                                 (80, 240, 240, 512, 8, 0.1),
+                                 (80, 240, 120, 512, 8, 0.1)):
+        d = C // H
+        q = _randn(g, B, Tq, C, scale=d ** -0.5)
         k, v = _randn(g, B, Tk, C), _randn(g, B, Tk, C)
         bias = _key_bias(B, Tk, g)
-        got = fa.fused_attention_packed(q, k, v, bias, H)
-        want = fa.attention_plain(q, k, v, bias, H)
-        err = (got - want).abs().max().item()
-        record("fused_attention_packed", f"q[{B},{Tq},{C}] kv_T={Tk} H={H}",
-               err, lambda: fa.fused_attention_packed(q, k, v, bias, H),
-               lambda: fa.attention_plain(q, k, v, bias, H))
+        seeds = _seeds(g, B) if p else None
+        shape = f"q[{B},{Tq},{C}] kv_T={Tk} H={H} p={p}"
+        out, stats = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                             with_stats=bool(p))
+        record("fused_attention_packed", shape,
+               _max_err(out, fa.attention_plain(q, k, v, bias, H, 1.0, p,
+                                                seeds)),
+               lambda: fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p,
+                                               seeds),
+               lambda: fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds),
+               4 * B * H * Tq * Tk * d,
+               (2 * B * Tq * C + 2 * B * Tk * C + B * Tk) * F32,
+               lambda: sdpa(q, k, v, bias, H, p))
+        if not p:
+            continue
+        do = _randn(g, B, Tq, C)
+        got = fa.attention_bwd_kernel(q, k, v, bias, out, stats, do, H, 1.0,
+                                      p, seeds)
+        want = fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p, seeds)
+        qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o_lib = sdpa(qr, kr, vr, bias, H, p)
+        do4 = do.reshape(B, Tq, H, d).transpose(1, 2)
+        # five products (s recomputed, dO·Vᵀ, dV, dQ, dK); q, k, v, bias
+        # and dout read, dq, dk, dv written
+        record("fused_attention_packed_bwd", shape, _max_err(got, want),
+               lambda: fa.attention_bwd_kernel(q, k, v, bias, out, stats, do,
+                                               H, 1.0, p, seeds),
+               lambda: fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p,
+                                              seeds),
+               10 * B * H * Tq * Tk * d,
+               (3 * B * Tq * C + 4 * B * Tk * C + B * Tk) * F32,
+               lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do4,
+                                           retain_graph=True))
 
-    for (B, L, C, H) in ((8, 240, 512, 8), (8, 600, 512, 8)):
-        q, k = _randn(g, B, L, C), _randn(g, B, L, C)
+    # --- link extraction: serving batches A and B (forward), then the
+    # training shape, forward and backward; the work is the valid
+    # transitions (j > i, j < out_len) of these graphs
+    for (B, L, C, H, train) in ((8, 240, 512, 8, False),
+                                (8, 600, 512, 8, False),
+                                (80, 240, 512, 8, True)):
+        dkh = C // H
+        q, k = _randn(g, B, L, C, scale=0.5), _randn(g, B, L, C)
         gates = torch.log_softmax(_randn(g, B, L, H), dim=-1)
         ol = torch.randint(L // 2, L + 1, (B,), generator=g)
         ol[0] = L
+        n_valid = int(sum(int(n) * (int(n) - 1) // 2 for n in ol))
         ol = ol.cuda()
-        sc = 1.0 / math.sqrt(C // H)
-        got = fl.fused_extract_links(q, k, gates, ol, H, sc, None)
+        sc = 1.0 / math.sqrt(dkh)
+        shape = f"[{B},{L}] C={C} H={H}"
+        links, lse = fl.links_fwd_kernel(q, k, gates, ol, H, sc, None,
+                                         with_lse=train)
         want = fl.links_plain(q, k, gates, ol, H, sc, None)
-        finite = torch.isfinite(want)
-        if not torch.equal(torch.isfinite(got), finite) or not bool(
-                (got[~finite] == -math.inf).all()):
-            raise AssertionError(f"links [{B},{L}]: -inf pattern differs")
-        err = (got[finite] - want[finite]).abs().max().item()
-        record("fused_extract_links", f"[{B},{L}] C={C} H={H}", err,
-               lambda: fl.fused_extract_links(q, k, gates, ol, H, sc, None),
-               lambda: fl.links_plain(q, k, gates, ol, H, sc, None))
+        record("fused_extract_links", shape,
+               _finite_err(links, want, f"links {shape}"),
+               lambda: fl.links_fwd_kernel(q, k, gates, ol, H, sc, None),
+               lambda: fl.links_plain(q, k, gates, ol, H, sc, None),
+               2 * n_valid * H * dkh,
+               (2 * B * L * C + B * L * H + B * L * L) * F32)
+        if not train:
+            continue
+        dlinks = _randn(g, B, L, L)
+        got = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H, sc,
+                                  None)
+        want = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, None)
+        # three products over the valid transitions (s, dq, dk); q, k,
+        # gates and dlinks read, dq, dk, dgates written
+        record("fused_extract_links_bwd", shape, _max_err(got, want),
+               lambda: fl.links_bwd_kernel(q, k, gates, ol, links, lse,
+                                           dlinks, H, sc, None),
+               lambda: fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc,
+                                          None),
+               6 * n_valid * H * dkh,
+               (4 * B * L * C + 2 * B * L * H + B * L * L) * F32)
 
-    for (B, T, C, H) in ((8, 120, 256, 4), (8, 300, 256, 4)):
-        q, k, v = (_randn(g, B, T, C) for _ in range(3))
-        a = _randn(g, B, T, H * C, scale=0.3)
-        e = fr.relpos_basis(T, C, device="cuda")[2].contiguous()
+    # --- rel-pos attention: serving batches A and B (forward), then the
+    # training shape and the T' >= 256 regime, forward and backward with
+    # dropout 0.1
+    for (B, T, C, H, p) in ((8, 120, 256, 4, 0.0), (8, 300, 256, 4, 0.0),
+                            (80, 120, 256, 4, 0.1), (8, 300, 256, 4, 0.1)):
+        P = fr.POS_DIM
+        d = C // H
+        q, k, v = (_randn(g, B, T, C, scale=0.5) for _ in range(3))
+        a = _randn(g, B, T, H * P, scale=0.1)
+        e = fr.relpos_basis(T, P, device="cuda")[2].contiguous()
         bias = _key_bias(B, T, g)
-        sc = 1.0 / math.sqrt(C // H)
-        got = fr.fused_attention_relpos(q, k, v, a, e, bias, H, sc)
-        want = fr.relpos_plain(q, k, v, a, e, bias, H, sc)
-        err = (got - want).abs().max().item()
-        record("fused_attention_relpos", f"[{B},{T},{C}] H={H}", err,
-               lambda: fr.fused_attention_relpos(q, k, v, a, e, bias, H, sc),
-               lambda: fr.relpos_plain(q, k, v, a, e, bias, H, sc))
+        seeds = _seeds(g, B) if p else None
+        sc = 1.0 / math.sqrt(d)
+        shape = f"[{B},{T},{C}] H={H} p={p}"
+        out, stats = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p,
+                                          seeds, with_stats=bool(p))
+        record("fused_attention_relpos", shape,
+               _max_err(out, fr.relpos_plain(q, k, v, a, e, bias, H, sc, p,
+                                             seeds)),
+               lambda: fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p,
+                                            seeds),
+               lambda: fr.relpos_plain(q, k, v, a, e, bias, H, sc, p, seeds),
+               2 * B * H * T * T * (2 * d + P),
+               (4 * B * T * C + B * T * H * P + T * P + B * T) * F32)
+        if not p:
+            continue
+        do = _randn(g, B, T, C)
+        got = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, do, H,
+                                   sc, p, seeds)
+        want = fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc, p, seeds)
+        # products: s (depth d + P), dO·Vᵀ, dV, dQ, dK (depth d), dA (P)
+        record("fused_attention_relpos_bwd", shape, _max_err(got, want),
+               lambda: fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, stats,
+                                            do, H, sc, p, seeds),
+               lambda: fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc, p,
+                                           seeds),
+               2 * B * H * T * T * (5 * d + 2 * P),
+               (7 * B * T * C + 2 * B * T * H * P + T * P + B * T) * F32)
+
+    # --- the DAG DP and Viterbi at the training shape and at the recipe's
+    # L cap; the work is the finite transitions, for the steps each sweep
+    # computes (alpha all T - 1, beta and Viterbi up to target_len - 1)
+    for (B, T, L) in ((80, 64, 240), (4, 64, 1024)):
+        match, links, ol, tl = train_dp_inputs(g, B, T, L)
+        n_links = torch.isfinite(links).sum(dim=(1, 2)).cpu()
+        steps = (tl.cpu() - 1).clamp(min=0)
+        shape = f"[{B},{T},{L}]"
+        # held against the plain loop run in float64 on the same inputs, so
+        # that the error is the kernel's own rounding (dp_numerics)
+        got = dk.dag_loss_forward_kernel(match, links, ol, tl)
+        want = dr.dag_loss_forward_plain(match.double(), links.double(), ol,
+                                         tl)
+        err = dp_err(got, want, f"dag {shape}")
+        big = max(float(torch.where(torch.isfinite(y), y, 0.0).abs().max())
+                  for y in want)
+        record("dag_loss_forward", shape, err,
+               lambda: dk.dag_loss_forward_kernel(match, links, ol, tl),
+               lambda: dr.dag_loss_forward_plain(match, links, ol, tl),
+               2 * int((n_links * (T - 1 + steps)).sum()),
+               (3 * B * T * L + B * L * L + 2 * B) * F32,
+               tol=dp_tol(T, big))
+        got = dk.dag_best_alignment_kernel(match, links, ol, tl)
+        want = dr.dag_best_alignment_plain(match, links, ol, tl)
+        n_diff = int((got != want).sum())
+        log(f"  dag_best_alignment {shape}: {n_diff} path entries differ")
+        record("dag_best_alignment", shape, float(n_diff),
+               lambda: dk.dag_best_alignment_kernel(match, links, ol, tl),
+               lambda: dr.dag_best_alignment_plain(match, links, ol, tl),
+               2 * int((n_links * steps).sum()),
+               (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0)
+    worst = dp_numerics()
+    if not worst <= 1.0:
+        raise AssertionError(f"alpha/beta kernel off float64 by {worst:.3g}"
+                             " times its bound")
     torch.cuda.synchronize()
     return cases
+
+
+def train_dp_inputs(g, B, T, L):
+    """match [B, T, L] and log-softmax links [B, L, L] over the valid
+    transitions of graphs of >= L/2 vertices, targets of >= T/2 tokens."""
+    ol = torch.randint(L // 2, L + 1, (B,), generator=g)
+    tl = torch.randint(T // 2, T + 1, (B,), generator=g)
+    ol[0], tl[0] = L, T
+    i = torch.arange(L)
+    valid = ((i[None, None, :] > i[None, :, None])
+             & (i[None, None, :] < ol[:, None, None])
+             & (i[None, :, None] < ol[:, None, None]))
+    x = torch.where(valid, torch.randn(B, L, L, generator=g), -math.inf)
+    links = torch.where(valid, torch.log_softmax(x, dim=-1), -math.inf)
+    match = torch.randn(B, T, L, generator=g) - 2.0
+    match = torch.where(i[None, None, :] < ol[:, None, None], match,
+                        -math.inf)
+    return (match.cuda().contiguous(), links.cuda().contiguous(), ol.cuda(),
+            tl.cuda())
 
 
 # ---------------------------------------------------------------------------
@@ -323,10 +676,6 @@ def e2e_phase():
     from daspeech_torch.decode import S2SNATGenerator
     from daspeech_torch.models import (HiFiGANGenerator,
                                        S2SConformerDAGFastSpeech2)
-    from daspeech_torch.ops import fused_attention as fa
-    from daspeech_torch.ops import fused_links as fl
-    from daspeech_torch.ops import fused_relpos as fr
-
     # the recipe's widths with the phoneme vocab rounded to 128, as bench.py
     cfg = S2SModelConfig(dag=DAGModelConfig(vocab=VocabConfig(size=128)))
     voc_cfg = HiFiGANConfig()
@@ -353,21 +702,19 @@ def e2e_phase():
     log(f"  durations: batch A {d_a} frames/token (longest path {n_a}), "
         f"batch B {d_b} (longest path {n_b})")
 
-    wrappers = (fa.fused_attention_packed, fl.fused_extract_links,
-                fr.fused_attention_relpos)
-    # --- the main path's run: counters from 0, both batches served once
-    for w in wrappers:
-        w.launches = 0
+    # --- the serving path's run: counters from 0, both batches served once
+    reset_launches()
     set_durations_(model, d_a)
     hyp_a = gen_a.generate(batch_a)
     set_durations_(model, d_b)
     hyp_b = gen_b.generate(batch_b)
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = read_launches()
     log(f"  launches in the served run: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the serving "
+                                 "path")
 
     for tag, hyps, M in (("A", hyp_a, 416), ("B", hyp_b, 1040)):
         log(f"  batch {tag}: tokens/utt "
@@ -432,7 +779,7 @@ def e2e_phase():
             f"{med['vocoder']:.3f}; generate() {med['generate']:.3f} ms for "
             f"{audio_s:.2f} s of audio = "
             f"{audio_s / (med['generate'] / 1e3):.1f} audio-s per wall-s")
-        device_busy(gen, batch, tag)
+        device_busy(lambda: gen.generate(batch), f"generate batch{tag}")
     return launches
 
 
@@ -481,8 +828,8 @@ def sub_stage_ms(gen, batch, reps=5):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def device_busy(gen, batch, tag):
-    """One ``generate()`` under ``torch.profiler``: the device's busy time
+def device_busy(fn, tag):
+    """``fn()`` once under ``torch.profiler``: the device's busy time
     (union of kernel intervals) against the wall time, and the kernels that
     took the most device time. The trace goes to ``build/profile/``."""
     from torch.profiler import ProfilerActivity, profile
@@ -490,29 +837,29 @@ def device_busy(gen, batch, tag):
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gen.generate(batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(out_dir, f"trace_batch{tag}.json")
+    path = os.path.join(out_dir, f"trace_{tag.replace(' ', '_')}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "kernel"]
     if not events:
-        log(f"  batch {tag} profiled generate(): wall {wall:.2f} ms; the "
-            "profiler saw no kernels, device busy not measured")
+        log(f"  {tag} profiled: wall {wall:.2f} ms; the profiler saw no "
+            "kernels, device busy not measured")
         return
     busy, end = 0.0, -1.0
     for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     busy /= 1e3
-    log(f"  batch {tag} profiled generate(): wall {wall:.2f} ms, "
-        f"{len(events)} kernels, device busy {busy:.2f} ms "
-        f"({busy / wall:.3f} of wall)")
+    log(f"  {tag} profiled: wall {wall:.2f} ms, {len(events)} kernels, "
+        f"device busy {busy:.2f} ms ({busy / wall:.3f} of wall)")
     by_name = {}
     for e in events:
         n = by_name.setdefault(e["name"][:100], [0, 0.0])
@@ -521,6 +868,400 @@ def device_busy(gen, batch, tag):
     for name, (count, ms) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:12]:
         log(f"    {ms:9.3f} ms {count:6d}x  {name}")
+
+
+# ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"
+TRAIN_B, TRAIN_S, TRAIN_T = 80, 480, 64   # bench.py config 5 (40k tokens)
+PARITY_B = 8
+TOL_LOSS = 1e-4          # relative, loss of one step
+TOL_GRAD = 1e-3          # relative, per parameter (floor: see grad_error)
+NEAR_TIE = 1e-3          # a glance that differs must be this close to a tie
+LEARN_STEPS, LEARN_FRACTION = 30, 0.9
+
+
+def sync():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_configs():
+    from daspeech_torch.config import (ConformerConfig, DAGDecoderConfig,
+                                       DAGModelConfig, VocabConfig)
+
+    vocab = VocabConfig(size=128)
+    no_drop = DAGModelConfig(
+        vocab=vocab, encoder=ConformerConfig(dropout=0.0, attn_dropout=0.0),
+        decoder=DAGDecoderConfig(dropout=0.0, attn_dropout=0.0,
+                                 activation_dropout=0.0))
+    return DAGModelConfig(vocab=vocab), no_drop
+
+
+def make_train_batch(B, S, T, cfg, seed, device):
+    """bench.py config 5's batch: B utterances of S fbank frames, graphs of
+    S/2 vertices, targets of T random phonemes between <bos> and <eos>."""
+    from daspeech_torch.models import graph_lengths, initialize_output_tokens
+
+    rng = np.random.default_rng(seed)
+    lens = torch.full((B,), S, dtype=torch.long)
+    prev = initialize_output_tokens(
+        graph_lengths(lens, cfg.decoder.src_upsample_scale,
+                      cfg.decoder.max_target_positions), S // 2, cfg.vocab)
+    tgt = rng.integers(4, cfg.vocab.size, size=(B, T))
+    tgt[:, 0], tgt[:, -1] = cfg.vocab.bos, cfg.vocab.eos
+    batch = {"fbank": torch.from_numpy(
+                 rng.normal(size=(B, S, 80)).astype(np.float32)),
+             "src_lengths": lens, "target": torch.from_numpy(tgt),
+             "prev_output_tokens": prev}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def loss_fn_for(cfg, glat_p):
+    from daspeech_torch.losses import nat_dag_loss
+
+    return lambda m, b, g: nat_dag_loss(m, b, g, glat_p, cfg.vocab)
+
+
+def grad_error(names, got, want, tag):
+    """Worst per-parameter ||got - want|| / max(||want||, 1e-4 * global
+    norm): key biases shift every score of a softmax row alike, so their
+    exact gradient is 0 and both sides hold rounding noise. Every
+    parameter's value goes to ``build/profile/grads_<tag>.tsv``, the five
+    worst to the log."""
+    g_norm = math.sqrt(sum(float(w.norm()) ** 2 for w in want))
+    floor = 1e-4 * g_norm
+    rel = [(float((a.cpu() - b.cpu()).norm()) / max(float(b.norm()), floor),
+            n) for n, a, b in zip(names, got, want)]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"grads_{tag}.tsv"), "w") as f:
+        f.writelines(f"{n}\t{r:.6g}\n" for r, n in rel)
+    worst = sorted(rel, reverse=True)
+    log(f"  {tag}: gradient difference relative to its norm, {len(rel)} "
+        "parameters, worst five: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst[:5]))
+    return worst[0][0]
+
+
+class plain_kernels:
+    """Within the block the model's kernels are replaced by their plain
+    PyTorch versions on the card (autograd differentiates them), for the
+    kernel-path-against-plain-path comparison."""
+
+    def __enter__(self):
+        from daspeech_torch.models import dag_model
+        from daspeech_torch.ops import dag_kernels as dk
+        from daspeech_torch.ops import dag_ref as dr
+        from daspeech_torch.ops import fused_attention as fa
+        from daspeech_torch.ops import fused_links as fl
+        from daspeech_torch.ops import fused_relpos as fr
+
+        self.saved = [(fa, "fused_attention_packed", fa.attention_plain),
+                      (fr, "fused_attention_relpos", fr.relpos_plain),
+                      (dag_model, "fused_extract_links", fl.links_plain),
+                      (dk, "dag_loss_forward_kernel",
+                       dr.dag_loss_forward_plain),
+                      (dk, "dag_best_alignment_kernel",
+                       dr.dag_best_alignment_plain)]
+        self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
+        for m, n, _, f in self.saved:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, orig, _ in self.saved:
+            setattr(m, n, orig)
+
+
+class glance_spy:
+    """Records what ``glat_glance`` returns (and its inputs) in the block."""
+
+    def __enter__(self):
+        from daspeech_torch.losses import dag_loss as dl
+
+        self.module, self.orig, self.calls = dl, dl.glat_glance, []
+
+        def spy(logits, links, *a, **kw):
+            info = self.orig(logits, links, *a, **kw)
+            self.calls.append((logits, links, a, info))
+            return info
+
+        dl.glat_glance = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.glat_glance = self.orig
+
+
+def viterbi_margin(logits, links, tgt, prev, pad, b):
+    """The smallest top-2 gap of sample b's glance decisions: the first
+    max over predecessors at every Viterbi step and the vertex argmax
+    tokens (on the inputs of one path's glance)."""
+    from daspeech_torch.ops.dag_ref import dag_logsoftmax_gather_tokens
+
+    match = dag_logsoftmax_gather_tokens(logits[b:b + 1], tgt[b:b + 1])
+    match = match.transpose(1, 2)[0]
+    tl = int((tgt[b] != pad).sum())
+    f = torch.full_like(match[0], -math.inf)
+    f[0] = match[0, 0]
+    margin = math.inf
+    for t in range(1, tl):
+        scores = f[:, None] + links[b]
+        top = scores.topk(2, dim=0).values
+        fin = torch.isfinite(top[0]) & torch.isfinite(top[1])
+        if fin.any():
+            margin = min(margin, float((top[0] - top[1])[fin].min()))
+        f = top[0] + match[t]
+    tok = logits[b].float().topk(2, dim=-1).values
+    n = int((prev[b] != pad).sum())
+    return min(margin, float((tok[:n, 0] - tok[:n, 1]).min()))
+
+
+def loss_and_grads(model, batch, seed, cfg, glat_p):
+    """One criterion pass + backward: (loss, grads, glance infos)."""
+    for p in model.parameters():
+        p.grad = None
+    with glance_spy() as spy:
+        loss, _ = loss_fn_for(cfg, glat_p)(
+            model, batch, torch.Generator().manual_seed(seed))
+        loss.backward()
+    return (loss.detach(), [p.grad.detach().clone() for p in
+                            model.parameters()], spy.calls)
+
+
+def parity_step(model_cpu, no_drop_cfg):
+    """One step, dropout 0 and GLAT p = 0, on the card and on the CPU (plain
+    versions), same weights, sub-batch of PARITY_B."""
+    from daspeech_torch.models import S2TConformerDAG
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    out = {}
+    opt = GuardedAdam(lr=5e-4, warmup_updates=1)
+    for dev in (DEVICE, "cpu"):
+        model = S2TConformerDAG(no_drop_cfg)
+        model.load_state_dict(model_cpu.state_dict())
+        model.to(dev)
+        state = TrainState.create(model, opt)
+        before = [p.detach().clone() for p in state.params]
+        step = make_train_step(loss_fn_for(no_drop_cfg, 0.0), opt)
+        batch = make_train_batch(PARITY_B, TRAIN_S, TRAIN_T, no_drop_cfg,
+                                 SEED + 2, dev)
+        t0 = time.perf_counter()
+        metrics = step(state, batch, torch.Generator().manual_seed(SEED))
+        sync()
+        out[dev] = (metrics, [p.grad.detach().cpu() for p in state.params],
+                    [p.detach().cpu() for p in state.params],
+                    [b.detach().cpu() for b in model.buffers()],
+                    [b.cpu() for b in before])
+        log(f"  parity step on {dev}: loss {metrics['loss'].item():.6f}, "
+            f"gnorm {metrics['gnorm'].item():.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    (mg, gg, pg, bg, p0), (mc, gc, pc, bc, _) = out[DEVICE], out["cpu"]
+    dloss = abs(mg["loss"].item() - mc["loss"].item()) / abs(
+        mc["loss"].item())
+    gerr = grad_error([n for n, _ in model_cpu.named_parameters()], gg, gc,
+                      "gpu_vs_cpu")
+    upd = [(a - b) for a, b in zip(pc, p0)]
+    perr = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
+    n_far = sum(int(((a - b).abs() > 1e-3 * 5e-4).sum())
+                for a, b in zip(pg, pc))
+    n_all = sum(x.numel() for x in pc)
+    berr = max(float((a - b).abs().max()) for a, b in zip(bg, bc))
+    moved = max(float(u.abs().max()) for u in upd)
+    log(f"  GPU vs CPU, one step on {PARITY_B} utterances: loss rel diff "
+        f"{dloss:.3g} (<= {TOL_LOSS}); worst per-parameter gradient rel diff "
+        f"{gerr:.3g} (<= {TOL_GRAD}); updated params max abs diff "
+        f"{perr:.3g} with the step moving them by up to {moved:.3g}, "
+        f"{n_far} of {n_all} entries differ by > 1e-3 of lr; BatchNorm "
+        f"statistics max abs diff {berr:.3g}")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD and berr <= TOL_KERNEL
+            and moved > 0):
+        raise AssertionError("GPU and CPU training steps disagree")
+    # Adam's first step moves each weight by lr * g / (|g| + 1e-8), +-lr
+    # whatever |g|, so the two runs' weights can never differ by more than
+    # ~2 lr and perr tells nothing. What separates a wrong update is the
+    # share of entries that differ by more than 1e-3 lr (~130 ulp of a
+    # weight of 0.05, far above rounding): only those whose gradient is
+    # rounding noise (the key biases, exactly 0 in exact arithmetic) may
+    # flip sign; a wrong moment, bias correction or sign moves nearly all
+    if not n_far <= 1e-2 * n_all:
+        raise AssertionError(f"updated parameters differ: {n_far} of "
+                             f"{n_all} entries by > 1e-3 lr")
+    return {"loss_rel": dloss, "grad_rel": gerr, "param_abs": perr}
+
+
+def kernel_vs_plain(model, cfg):
+    """B = TRAIN_B, dropout 0.1, GLAT p = 0.5: the criterion's loss and
+    gradients through the kernels and through their plain versions, on the
+    card, same weights and seeds (same dropout bits)."""
+    batch = make_train_batch(TRAIN_B, TRAIN_S, TRAIN_T, cfg, SEED + 3,
+                             DEVICE)
+    pad = cfg.vocab.pad
+    for attempt in range(2):
+        lk, gk, ck = loss_and_grads(model, batch, SEED, cfg, 0.5)
+        with plain_kernels():
+            lp, gp, cp = loss_and_grads(model, batch, SEED, cfg, 0.5)
+        prev_k = ck[0][3].prev_output_tokens
+        prev_p = cp[0][3].prev_output_tokens
+        differ = (prev_k != prev_p).any(dim=1).nonzero()[:, 0].tolist()
+        if not differ:
+            break
+        for b in differ:
+            logits, links, (tgt, prev, *_), _ = cp[0]
+            m = viterbi_margin(logits, links, tgt, prev, pad, b)
+            log(f"  sample {b}: the glance differs between kernel and plain "
+                f"path; top-2 margin of its decisions {m:.3g}")
+            if not m < NEAR_TIE:
+                raise AssertionError(f"sample {b}: glance differs with "
+                                     f"margin {m} >= {NEAR_TIE}")
+        # compare on the other samples
+        mask = torch.ones(TRAIN_B, device=DEVICE)
+        mask[differ] = 0.0
+        batch = dict(batch, sample_mask=mask)
+    dloss = abs(lk.item() - lp.item()) / abs(lp.item())
+    gerr = grad_error([n for n, _ in model.named_parameters()], gk, gp,
+                      "kernel_vs_plain")
+    log(f"  kernel vs plain path on the card (B={TRAIN_B}, dropout 0.1, "
+        f"GLAT 0.5): loss {lk.item():.6f} vs {lp.item():.6f}, rel diff "
+        f"{dloss:.3g} (<= {TOL_LOSS}); worst per-parameter gradient rel "
+        f"diff {gerr:.3g} (<= {TOL_GRAD})")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD):
+        raise AssertionError("kernel and plain training paths disagree")
+    return {"loss_rel": dloss, "grad_rel": gerr}
+
+
+def train_sub_stages(state, batch, opt, cfg, reps=5):
+    """Median host-clock ms of each stage of one update, each closed by a
+    synchronize (the steps of ``nat_dag_loss`` and ``make_train_step``
+    spelled out); the first of ``reps + 1`` rounds is a warm-up."""
+    from daspeech_torch.losses.dag_loss import (compute_dag_loss,
+                                                device_generator,
+                                                glat_glance)
+    from daspeech_torch.train import global_norm
+
+    model = state.model
+    names = ("encode", "glance pass + Viterbi", "second decode",
+             "logsoftmax + DP", "backward", "optimizer")
+    times = {k: [] for k in names}
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for rep in range(reps + 1):
+        for p in state.params:
+            p.grad = None
+        sync()
+        ts = [time.perf_counter()]
+
+        def mark():
+            sync()
+            ts.append(time.perf_counter())
+
+        e_seed, d_seed, g_seed = (int(x) for x in torch.randint(
+            0, 2 ** 62, (3,), generator=gen))
+        prev = batch["prev_output_tokens"]
+        enc, enc_pad, _ = model.encode(batch["fbank"], batch["src_lengths"],
+                                       rng=device_generator(DEVICE, e_seed))
+        mark()
+        with torch.no_grad():
+            logits1, links1, _ = model.decode(
+                prev, enc, enc_pad, rng=device_generator(DEVICE, d_seed))
+            info = glat_glance(logits1, links1, batch["target"], prev, 0.5,
+                               cfg.vocab.pad,
+                               rng=device_generator(DEVICE, g_seed))
+        mark()
+        logits, links, _ = model.decode(
+            info.prev_output_tokens, enc, enc_pad,
+            rng=device_generator(DEVICE, d_seed))
+        mark()
+        loss, _ = compute_dag_loss(logits, links, batch["target"],
+                                   info.prev_output_tokens, cfg.vocab.pad,
+                                   info.matchmask, info.keep_word_mask)
+        mark()
+        loss.backward()
+        mark()
+        grads = [p.grad for p in state.params]
+        gnorm = global_norm(grads)
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        state.opt_state = opt.update_(state.params, grads, state.opt_state,
+                                      gnorm, ok)
+        mark()
+        if rep:
+            for k, a, b in zip(names, ts[:-1], ts[1:]):
+                times[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def train_phase():
+    """The S2TT DAG training step (``make_train_step`` over
+    ``nat_dag_loss``) at the recipe's widths, random weights from a seed:
+    GPU-vs-CPU parity, kernel-vs-plain on the card, the timed main-path run
+    (launch counts), sub-stages, busy share, peak memory, learning."""
+    from daspeech_torch.models import S2TConformerDAG
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    cfg, no_drop_cfg = train_configs()
+    model_cpu = init_random_(S2TConformerDAG(cfg), SEED)
+    results = {"parity": parity_step(model_cpu, no_drop_cfg)}
+
+    model = copy.deepcopy(model_cpu).to(DEVICE)
+    results["kernel_vs_plain"] = kernel_vs_plain(model, cfg)
+
+    # --- the training path's run: counters from 0, 3 warm-up and 10 timed
+    # updates of bench config 5 (recipe optimizer: lr 5e-4, 10k warm-up)
+    opt = GuardedAdam()
+    state = TrainState.create(model, opt)
+    step = make_train_step(loss_fn_for(cfg, 0.5), opt)
+    batch = make_train_batch(TRAIN_B, TRAIN_S, TRAIN_T, cfg, SEED + 4,
+                             DEVICE)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(13):
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, gen)
+        sync()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  launches in the training run (13 updates): {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the training "
+                                 "path")
+    if not (torch.isfinite(metrics["loss"]) and metrics["skipped"] == 0):
+        raise AssertionError(f"training step failed: {metrics}")
+    q25, med, q75 = np.percentile(times, [25, 50, 75])
+    log(f"  update at B={TRAIN_B} (S={TRAIN_S}, L={TRAIN_S // 2}, "
+        f"T={TRAIN_T}): median {med:.3f} ms over 10 (IQR {q25:.3f}-"
+        f"{q75:.3f}, min {min(times):.3f}, max {max(times):.3f}); loss "
+        f"{metrics['loss'].item():.4f}, gnorm {metrics['gnorm'].item():.4f};"
+        f" peak memory {peak:.2f} GiB")
+    results.update(step_ms=med, step_iqr=(q25, q75), peak_gib=peak)
+
+    med_st = train_sub_stages(state, batch, opt, cfg)
+    log("  training sub-stages (median of 5, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med_st.items())
+        + f"; sum {sum(med_st.values()):.3f}")
+    device_busy(lambda: step(state, batch, gen), "train step")
+
+    # --- learning: LEARN_STEPS updates on one fixed batch, warm-up 10
+    learn_model = copy.deepcopy(model_cpu).to(DEVICE)
+    opt = GuardedAdam(warmup_updates=10)
+    state = TrainState.create(learn_model, opt)
+    step = make_train_step(loss_fn_for(cfg, 0.5), opt)
+    losses = [step(state, batch, gen)["loss"] for _ in range(LEARN_STEPS)]
+    losses = [x.item() for x in losses]
+    log(f"  learning, {LEARN_STEPS} updates on one batch: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (must fall below "
+        f"{LEARN_FRACTION} of the first); every fifth: "
+        + " ".join(f"{x:.3f}" for x in losses[::5]))
+    if not losses[-1] < LEARN_FRACTION * losses[0]:
+        raise AssertionError("the training step does not learn")
+    return launches
 
 
 def main() -> int:
@@ -554,27 +1295,28 @@ def main() -> int:
 
     log("kernel phase:")
     cases = kernel_phase()
-    log("end-to-end phase:")
-    launches = e2e_phase()
+    log("end-to-end phase (serving):")
+    serving = e2e_phase()
+    log("training phase:")
+    training = train_phase()
 
-    sources = {"fused_attention_packed": (
-                   "daspeech_torch/csrc/fused_attention.cu",
-                   "daspeech_tpu/ops/fused_attention.py:522"),
-               "fused_extract_links": (
-                   "daspeech_torch/csrc/fused_links.cu",
-                   "daspeech_tpu/ops/fused_links.py:141"),
-               "fused_attention_relpos": (
-                   "daspeech_torch/csrc/fused_relpos.cu",
-                   "daspeech_tpu/ops/fused_relpos.py:373")}
+    # launches: the serving kernels count the serving run, the kernels of
+    # the training slice the training run; both counts are kept
     kernels = []
     for name, shapes in cases.items():
-        src, replaces = sources[name]
+        src, replaces = KERNELS[name]
+        first = shapes[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (serving if name in SERVING_KERNELS
+                         else training)[name],
+            "launches_by_path": {"serving": serving[name],
+                                 "training": training[name]},
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "ms": shapes[0]["ms"], "plain_ms": shapes[0]["plain_ms"],
-            "shapes": shapes})
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shapes": shapes})
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "daspeech_tpu"))
     if foreign:

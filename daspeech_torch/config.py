@@ -1,17 +1,17 @@
 """The configuration dataclasses the port's modules read.
 
 They mirror the fields of ``daspeech_tpu/core/config.py`` that the serving
-slice uses, with the same names and defaults (the recipe's:
-``tests/test_torch_models.py::test_config_mirrors_jax`` holds them to the
-JAX package's), and leave out training-only fields and the TPU kernel
-switches. The port's modules read configs by attribute, so the JAX
-package's config objects work in their place.
+slice and the S2TT DAG training step use, with the same names and defaults
+(the recipe's: ``tests/test_torch_models.py::test_config_mirrors_jax``
+holds them to the JAX package's), and leave out the fields of paths not
+ported yet and the TPU kernel switches. The port's modules read configs by
+attribute, so the JAX package's config objects work in their place.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -30,6 +30,8 @@ class ConformerConfig:
     ffn_dim: int = 2048
     num_layers: int = 12
     num_heads: int = 4
+    dropout: float = 0.1
+    attn_dropout: float = 0.1
     depthwise_kernel_size: int = 31
     conv_channels: int = 1024
     conv_kernel_sizes: Tuple[int, ...] = (5, 5)
@@ -44,6 +46,9 @@ class DAGDecoderConfig:
     ffn_dim: int = 2048
     num_layers: int = 4
     num_heads: int = 8
+    dropout: float = 0.1
+    attn_dropout: float = 0.1
+    activation_dropout: float = 0.1
     activation: str = "gelu"
     learned_pos: bool = True
     share_input_output_embed: bool = True
@@ -115,3 +120,28 @@ class S2SModelConfig:
     dag: DAGModelConfig = field(default_factory=DAGModelConfig)
     tts: FastSpeech2Config = field(default_factory=FastSpeech2Config)
     adaptor_ffn_dim: int = 1024
+
+
+@dataclass(frozen=True)
+class GlatConfig:
+    """Glancing training (``nat_dag_loss.py:60-67``). The port's criterion
+    (``losses/dag_loss.py``) implements the defaults only: ``number-random``
+    with forced emission."""
+    p_schedule: str = "0.5:0.1@100k"
+    strategy: Optional[str] = "number-random"
+    no_force_emit: bool = False
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """Adam + inverse-sqrt schedule + clipping of the S2TT DAG step."""
+    lr: float = 5e-4
+    warmup_updates: int = 10000
+    warmup_init_lr: float = 1e-7
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    weight_decay: float = 0.01
+    clip_norm: float = 1.0
+    update_freq: int = 1
+    seed: int = 1
+    glat: GlatConfig = field(default_factory=GlatConfig)

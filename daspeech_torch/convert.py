@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from daspeech_torch.models.dag_model import S2TConformerDAG
 from daspeech_torch.models.hifigan import HiFiGANGenerator
 from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
 
@@ -97,13 +98,24 @@ def load_flax_(module: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     return module
 
 
-def from_flax(variables: Dict[str, Any], cfg) -> S2SConformerDAGFastSpeech2:
-    """The two-pass S2ST model with the JAX package's weights, on the CPU in
-    eval mode."""
-    return load_flax_(S2SConformerDAGFastSpeech2(cfg), variables).eval()
+def from_flax(variables: Dict[str, Any], cfg,
+              device="cuda") -> S2SConformerDAGFastSpeech2:
+    """The two-pass S2ST model with the JAX package's weights, on ``device``
+    (the card unless the caller asks for the CPU), in eval mode."""
+    return load_flax_(S2SConformerDAGFastSpeech2(cfg),
+                      variables).to(device).eval()
 
 
-def vocoder_from_flax(variables: Dict[str, Any], cfg) -> HiFiGANGenerator:
-    """HiFi-GAN with the JAX package's weights, on the CPU in eval mode. The
-    flax tree is the same for ``fold_to=0`` and ``fold_to=128``."""
-    return load_flax_(HiFiGANGenerator(cfg), variables).eval()
+def dag_from_flax(variables: Dict[str, Any], cfg,
+                  device="cuda") -> S2TConformerDAG:
+    """The S2TT Conformer-DAG model (``cfg`` a ``DAGModelConfig``) with the
+    JAX package's weights and BatchNorm statistics, on ``device``, in eval
+    mode; a forward given a generator is a training pass."""
+    return load_flax_(S2TConformerDAG(cfg), variables).to(device).eval()
+
+
+def vocoder_from_flax(variables: Dict[str, Any], cfg,
+                      device="cuda") -> HiFiGANGenerator:
+    """HiFi-GAN with the JAX package's weights, on ``device``, in eval mode.
+    The flax tree is the same for ``fold_to=0`` and ``fold_to=128``."""
+    return load_flax_(HiFiGANGenerator(cfg), variables).to(device).eval()

@@ -1,44 +1,100 @@
-// Flash-style fp32 attention forward shared by the packed multi-head
-// attention kernel (fused_attention.cu) and the Conformer rel-pos attention
-// kernel (fused_relpos.cu).
+// Flash-style fp32 attention, forward and backward, shared by the packed
+// multi-head attention kernels (fused_attention.cu) and the Conformer
+// rel-pos attention kernels (fused_relpos.cu).
 //
-// One block per (query tile, head, batch row). TPR threads share one query
-// row: each holds DQ/TPR of the row's score-side channels and DV/TPR of its
-// output channels in registers, interleaved (thread `sub` owns channels
-// sub, sub+TPR, ...) so that a warp's reads of a shared-memory key row hit
-// TPR consecutive banks and broadcast across the rows. Keys stream through
-// shared memory BN at a time with an online softmax in fp32, so no
-// [Tq, Tk] score matrix is ever stored.
+// Forward: one block per (query tile, head, batch row). TPR threads share
+// one query row: each holds DQ/TPR of the row's score-side channels and
+// DV/TPR of its output channels in registers, interleaved (thread `sub`
+// owns channels sub, sub+TPR, ...) so that a warp's reads of a shared-memory
+// key row hit TPR consecutive banks and broadcast across the rows. Keys
+// stream through shared memory BN at a time with an online softmax in fp32,
+// so no [Tq, Tk] score matrix is ever stored. For training it also writes
+// each row's softmax statistics (max m and sum l of exp(s - m)), which the
+// backward reuses instead of a second softmax pass. They are kept apart, not
+// as m + log(l): in a fully padded row every score is -1e30 plus O(1),
+// which fp32 rounds to -1e30 exactly, and log(l) would vanish beside it.
 //
 // The score side is the concatenation of two operand pairs:
 //   s[i, j] = (q[i] . k[j] + a[i] . e[j]) * scale + bias[j]
 // with depths D1 (q/k) and D2 (a/e). Plain attention is D2 = 0. Each operand
 // is addressed by (batch, row, head) strides in elements, so the packed
 // [B, T, H*d] projections are read in place with no transposes.
+//
+// Dropout (philox.cuh) multiplies the softmax probabilities by keep/keep_p;
+// the normalizer is taken before dropout, as in the Pallas kernels.
+//
+// Backward, with P = softmax(s), Z the dropout multipliers, O the output:
+//   dV[j]   = sum_i P[i,j] Z[i,j] dO[i]
+//   dS[i,j] = P[i,j] (Z[i,j] dO[i].V[j] - delta[i]),  delta[i] = dO[i].O[i]
+//   dQ[i]   = scale sum_j dS[i,j] K[j]    (and dA[i] = scale sum_j dS e[j])
+//   dK[j]   = scale sum_i dS[i,j] Q[i]    (e is a constant: no dE)
+// Two kernels: a row-parallel one for dQ/dA (it also writes delta) and a
+// column-parallel one for dK/dV, each with the forward's thread layout, so
+// neither needs atomics; P = exp(s - m) / l is recomputed from the saved
+// row statistics.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "philox.cuh"
 
 namespace daspeech {
 
-struct Operand {
-  const float* ptr;
+template <typename T>
+struct View {
+  T* ptr;
   long long sb, sr, sh;  // batch, row and head strides in elements
-  __device__ __forceinline__ const float* at(int b, int r, int h) const {
+  __device__ __forceinline__ T* at(int b, int r, int h) const {
     return ptr + b * sb + r * sr + h * sh;
   }
+};
+using Operand = View<const float>;
+
+struct DropoutArgs {
+  const uint32_t* seeds;  // [B] per-row Philox keys; nullptr = no dropout
+  uint32_t thresh;        // keep where bits <= thresh
+  float scale;            // 1 / keep_p
 };
 
 struct AttnArgs {
   Operand q, a, k, e, v;
   const float* bias;     // [B, Tk] additive column bias (0 or -1e30)
   long long bias_sb;
-  float* o;
-  long long o_sb, o_sr, o_sh;
-  int Tq, Tk;
+  View<float> o;
+  float* stats;          // [B, H, Tq, 2] row (max, sum) out, or nullptr
+  int H, Tq, Tk;
   float scale;
+  DropoutArgs drop;
 };
+
+struct AttnBwdArgs {
+  AttnArgs f;            // the forward's inputs, its output o and stats
+  Operand dout;          // layout of o
+  View<float> dq, da;    // layouts of q and a (da unused when D2 == 0)
+  View<float> dk, dv;    // layouts of k and v
+  float* delta;          // [B, H, Tq] scratch: rowsum(dout * o)
+};
+
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// one Philox draw per thread gives 4 keys' bits; the TPR threads of a row
+// draw for 4 * TPR consecutive keys and share them by shuffles
+template <int TPR>
+__device__ __forceinline__ uint4 keys_bits(const DropoutArgs& d, uint32_t seed,
+                                           int j_first, int i, int h,
+                                           int sub) {
+  if (d.seeds == nullptr) return make_uint4(0u, 0u, 0u, 0u);
+  return philox4x32_10(make_uint4((j_first >> 2) + sub, i, h, 0u), seed, 0u);
+}
 
 template <int D1, int D2, int DV, int TPR, int BM, int BN>
 __global__ void __launch_bounds__(BM * TPR)
@@ -47,9 +103,11 @@ attn_fwd_kernel(const AttnArgs args) {
   constexpr int DQ = D1 + D2;
   constexpr int QPT = DQ / TPR;
   constexpr int VPT = DV / TPR;
+  constexpr int G = 4 * TPR;   // keys per Philox round of the row's threads
   static_assert(D1 % TPR == 0 && D2 % TPR == 0 && DV % TPR == 0,
                 "channel counts must split evenly over a row's threads");
   static_assert(32 % TPR == 0, "a row's threads must share one warp");
+  static_assert(BN % G == 0, "key tiles must hold whole Philox groups");
 
   __shared__ float Ks[BN][DQ];
   __shared__ float Vs[BN][DV];
@@ -57,10 +115,13 @@ attn_fwd_kernel(const AttnArgs args) {
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
+  const int lane0 = (tid % 32) - sub;
   const int i = blockIdx.x * BM + tid / TPR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bool row_ok = i < args.Tq;
+  const bool drop = args.drop.seeds != nullptr;
+  const uint32_t seed = drop ? args.drop.seeds[b] : 0u;
 
   float qr[QPT];
 #pragma unroll
@@ -105,10 +166,7 @@ attn_fwd_kernel(const AttnArgs args) {
       float p = 0.f;
 #pragma unroll
       for (int t = 0; t < QPT; ++t) p = fmaf(qr[t], Ks[jj][sub + TPR * t], p);
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) {
-        p += __shfl_xor_sync(0xffffffffu, p, off);
-      }
+      p = row_sum<TPR>(p);
       const float sc = (jj < nvalid) ? p * args.scale + Bs[jj] : -INFINITY;
       s[jj] = sc;
       tile_max = fmaxf(tile_max, sc);
@@ -120,12 +178,23 @@ attn_fwd_kernel(const AttnArgs args) {
 #pragma unroll
     for (int t = 0; t < VPT; ++t) acc[t] *= corr;
 #pragma unroll
-    for (int jj = 0; jj < BN; ++jj) {
-      const float p = expf(s[jj] - m_new);
-      l += p;
+    for (int g0 = 0; g0 < BN; g0 += G) {
+      const uint4 bits = keys_bits<TPR>(args.drop, seed, j0 + g0, i, h, sub);
 #pragma unroll
-      for (int t = 0; t < VPT; ++t) {
-        acc[t] = fmaf(p, Vs[jj][sub + TPR * t], acc[t]);
+      for (int u = 0; u < G; ++u) {
+        const int jj = g0 + u;
+        const float p = expf(s[jj] - m_new);
+        l += p;
+        float pz = p;
+        if (drop) {
+          const uint32_t w = __shfl_sync(0xffffffffu, philox_word(bits, u & 3),
+                                         lane0 + (u >> 2));
+          pz = (w <= args.drop.thresh) ? p * args.drop.scale : 0.f;
+        }
+#pragma unroll
+        for (int t = 0; t < VPT; ++t) {
+          acc[t] = fmaf(pz, Vs[jj][sub + TPR * t], acc[t]);
+        }
       }
     }
     m = m_new;
@@ -133,18 +202,277 @@ attn_fwd_kernel(const AttnArgs args) {
   }
 
   if (row_ok) {
-    float* out = args.o + b * args.o_sb + i * args.o_sr + h * args.o_sh;
+    float* out = args.o.at(b, i, h);
     const float inv = 1.f / l;
 #pragma unroll
     for (int t = 0; t < VPT; ++t) out[sub + TPR * t] = acc[t] * inv;
+    if (args.stats != nullptr && sub == 0) {
+      float* st = args.stats +
+                  2 * ((static_cast<long long>(b) * args.H + h) * args.Tq + i);
+      st[0] = m;
+      st[1] = l;
+    }
   }
 }
 
 template <int D1, int D2, int DV, int TPR, int BM, int BN>
-cudaError_t launch_attn_fwd(const AttnArgs& args, int B, int H,
+__global__ void __launch_bounds__(BM * TPR)
+attn_bwd_dq_kernel(const AttnBwdArgs args) {
+  constexpr int NT = BM * TPR;
+  constexpr int DQ = D1 + D2;
+  constexpr int QPT = DQ / TPR;
+  constexpr int VPT = DV / TPR;
+  constexpr int G = 4 * TPR;
+  static_assert(BN % G == 0, "key tiles must hold whole Philox groups");
+  const AttnArgs& f = args.f;
+
+  __shared__ float Ks[BN][DQ];
+  __shared__ float Vs[BN][DV];
+  __shared__ float Bs[BN];
+
+  const int tid = threadIdx.x;
+  const int sub = tid % TPR;
+  const int lane0 = (tid % 32) - sub;
+  const int i = blockIdx.x * BM + tid / TPR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool row_ok = i < f.Tq;
+  const bool drop = f.drop.seeds != nullptr;
+  const uint32_t seed = drop ? f.drop.seeds[b] : 0u;
+  const long long stat = (static_cast<long long>(b) * f.H + h) * f.Tq + i;
+
+  float qr[QPT], dqa[QPT];
+#pragma unroll
+  for (int t = 0; t < QPT; ++t) {
+    const int c = sub + TPR * t;
+    float x = 0.f;
+    if (row_ok) x = (c < D1) ? f.q.at(b, i, h)[c] : f.a.at(b, i, h)[c - D1];
+    qr[t] = x;
+    dqa[t] = 0.f;
+  }
+  float dor[VPT];
+  float delta = 0.f;
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    const int c = sub + TPR * t;
+    dor[t] = row_ok ? args.dout.at(b, i, h)[c] : 0.f;
+    delta = fmaf(dor[t], row_ok ? f.o.at(b, i, h)[c] : 0.f, delta);
+  }
+  delta = row_sum<TPR>(delta);
+  const float rmax = row_ok ? f.stats[2 * stat] : 0.f;
+  const float rinv = row_ok ? 1.f / f.stats[2 * stat + 1] : 0.f;
+  if (row_ok && sub == 0) args.delta[stat] = delta;
+
+  for (int j0 = 0; j0 < f.Tk; j0 += BN) {
+    const int nvalid = min(BN, f.Tk - j0);
+    for (int idx = tid; idx < BN * DQ; idx += NT) {
+      const int jj = idx / DQ, c = idx % DQ, j = j0 + jj;
+      float x = 0.f;
+      if (jj < nvalid) {
+        x = (c < D1) ? f.k.at(b, j, h)[c] : f.e.at(b, j, h)[c - D1];
+      }
+      Ks[jj][c] = x;
+    }
+    for (int idx = tid; idx < BN * DV; idx += NT) {
+      const int jj = idx / DV, c = idx % DV;
+      Vs[jj][c] = (jj < nvalid) ? f.v.at(b, j0 + jj, h)[c] : 0.f;
+    }
+    for (int jj = tid; jj < BN; jj += NT) {
+      Bs[jj] = (jj < nvalid) ? f.bias[b * f.bias_sb + j0 + jj] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int g0 = 0; g0 < BN; g0 += G) {
+      const uint4 bits = keys_bits<TPR>(f.drop, seed, j0 + g0, i, h, sub);
+#pragma unroll 4
+      for (int u = 0; u < G; ++u) {
+        const int jj = g0 + u;
+        float sdot = 0.f, pdot = 0.f;
+#pragma unroll
+        for (int t = 0; t < QPT; ++t) {
+          sdot = fmaf(qr[t], Ks[jj][sub + TPR * t], sdot);
+        }
+#pragma unroll
+        for (int t = 0; t < VPT; ++t) {
+          pdot = fmaf(dor[t], Vs[jj][sub + TPR * t], pdot);
+        }
+        sdot = row_sum<TPR>(sdot);
+        pdot = row_sum<TPR>(pdot);
+        const float p =
+            (jj < nvalid) ? expf(sdot * f.scale + Bs[jj] - rmax) * rinv : 0.f;
+        float z = 1.f;
+        if (drop) {
+          const uint32_t w = __shfl_sync(0xffffffffu, philox_word(bits, u & 3),
+                                         lane0 + (u >> 2));
+          z = (w <= f.drop.thresh) ? f.drop.scale : 0.f;
+        }
+        const float ds = p * (z * pdot - delta);
+#pragma unroll
+        for (int t = 0; t < QPT; ++t) {
+          dqa[t] = fmaf(ds, Ks[jj][sub + TPR * t], dqa[t]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (row_ok) {
+#pragma unroll
+    for (int t = 0; t < QPT; ++t) {
+      const int c = sub + TPR * t;
+      const float g = dqa[t] * f.scale;
+      if (c < D1) {
+        args.dq.at(b, i, h)[c] = g;
+      } else {
+        args.da.at(b, i, h)[c - D1] = g;
+      }
+    }
+  }
+}
+
+template <int D1, int D2, int DV, int TPR, int BMQ, int BNK>
+__global__ void __launch_bounds__(BNK * TPR)
+attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
+  constexpr int NT = BNK * TPR;
+  constexpr int DQ = D1 + D2;
+  constexpr int QPT = DQ / TPR;
+  constexpr int KPT = D1 / TPR;   // the key channels that get a gradient
+  constexpr int VPT = DV / TPR;
+  static_assert(BMQ % TPR == 0, "query tiles must hold whole Philox groups");
+  const AttnArgs& f = args.f;
+
+  __shared__ float Qs[BMQ][DQ];
+  __shared__ float Os[BMQ][DV];   // dout
+  __shared__ float Ms[BMQ];    // row max
+  __shared__ float Is[BMQ];    // 1 / row sum
+  __shared__ float Ds[BMQ];
+
+  const int tid = threadIdx.x;
+  const int sub = tid % TPR;
+  const int lane0 = (tid % 32) - sub;
+  const int j = blockIdx.x * BNK + tid / TPR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool col_ok = j < f.Tk;
+  const bool drop = f.drop.seeds != nullptr;
+  const uint32_t seed = drop ? f.drop.seeds[b] : 0u;
+
+  float kr[QPT];
+#pragma unroll
+  for (int t = 0; t < QPT; ++t) {
+    const int c = sub + TPR * t;
+    float x = 0.f;
+    if (col_ok) x = (c < D1) ? f.k.at(b, j, h)[c] : f.e.at(b, j, h)[c - D1];
+    kr[t] = x;
+  }
+  float vr[VPT], dva[VPT], dka[KPT];
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    vr[t] = col_ok ? f.v.at(b, j, h)[sub + TPR * t] : 0.f;
+    dva[t] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) dka[t] = 0.f;
+  const float bj = col_ok ? f.bias[b * f.bias_sb + j] : 0.f;
+  const long long stat0 = (static_cast<long long>(b) * f.H + h) * f.Tq;
+
+  for (int i0 = 0; i0 < f.Tq; i0 += BMQ) {
+    const int nq = min(BMQ, f.Tq - i0);
+    for (int idx = tid; idx < BMQ * DQ; idx += NT) {
+      const int ii = idx / DQ, c = idx % DQ, i = i0 + ii;
+      float x = 0.f;
+      if (ii < nq) {
+        x = (c < D1) ? f.q.at(b, i, h)[c] : f.a.at(b, i, h)[c - D1];
+      }
+      Qs[ii][c] = x;
+    }
+    for (int idx = tid; idx < BMQ * DV; idx += NT) {
+      const int ii = idx / DV, c = idx % DV;
+      Os[ii][c] = (ii < nq) ? args.dout.at(b, i0 + ii, h)[c] : 0.f;
+    }
+    for (int ii = tid; ii < BMQ; ii += NT) {
+      const long long st = stat0 + i0 + ii;
+      Ms[ii] = (ii < nq) ? f.stats[2 * st] : 0.f;
+      Is[ii] = (ii < nq) ? 1.f / f.stats[2 * st + 1] : 0.f;
+      Ds[ii] = (ii < nq) ? args.delta[st] : 0.f;
+    }
+    __syncthreads();
+
+    for (int g0 = 0; g0 < BMQ; g0 += TPR) {
+      // thread `sub` draws the bits of query i0 + g0 + sub for this key
+      uint32_t wbits = 0u;
+      if (drop) {
+        const uint4 r = philox4x32_10(
+            make_uint4(j >> 2, i0 + g0 + sub, h, 0u), seed, 0u);
+        wbits = philox_word(r, j & 3);
+      }
+#pragma unroll
+      for (int u = 0; u < TPR; ++u) {
+        const int ii = g0 + u;
+        float sdot = 0.f, pdot = 0.f;
+#pragma unroll
+        for (int t = 0; t < QPT; ++t) {
+          sdot = fmaf(kr[t], Qs[ii][sub + TPR * t], sdot);
+        }
+#pragma unroll
+        for (int t = 0; t < VPT; ++t) {
+          pdot = fmaf(vr[t], Os[ii][sub + TPR * t], pdot);
+        }
+        sdot = row_sum<TPR>(sdot);
+        pdot = row_sum<TPR>(pdot);
+        const float p =
+            (ii < nq) ? expf(sdot * f.scale + bj - Ms[ii]) * Is[ii] : 0.f;
+        float z = 1.f;
+        if (drop) {
+          const uint32_t w = __shfl_sync(0xffffffffu, wbits, lane0 + u);
+          z = (w <= f.drop.thresh) ? f.drop.scale : 0.f;
+        }
+        const float pz = p * z;
+        const float ds = p * (z * pdot - Ds[ii]);
+#pragma unroll
+        for (int t = 0; t < VPT; ++t) {
+          dva[t] = fmaf(pz, Os[ii][sub + TPR * t], dva[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < KPT; ++t) {
+          dka[t] = fmaf(ds, Qs[ii][sub + TPR * t], dka[t]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (col_ok) {
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) {
+      args.dk.at(b, j, h)[sub + TPR * t] = dka[t] * f.scale;
+    }
+#pragma unroll
+    for (int t = 0; t < VPT; ++t) args.dv.at(b, j, h)[sub + TPR * t] = dva[t];
+  }
+}
+
+template <int D1, int D2, int DV, int TPR, int BM, int BN>
+cudaError_t launch_attn_fwd(const AttnArgs& args, int B,
                             cudaStream_t stream) {
-  dim3 grid((args.Tq + BM - 1) / BM, H, B);
+  dim3 grid((args.Tq + BM - 1) / BM, args.H, B);
   attn_fwd_kernel<D1, D2, DV, TPR, BM, BN><<<grid, BM * TPR, 0, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <int D1, int D2, int DV, int TPR, int BM, int BN, int BMQ, int BNK>
+cudaError_t launch_attn_bwd(const AttnBwdArgs& args, int B,
+                            cudaStream_t stream) {
+  // the dq kernel writes delta, which the dk/dv kernel reads: same stream
+  dim3 grid_q((args.f.Tq + BM - 1) / BM, args.f.H, B);
+  attn_bwd_dq_kernel<D1, D2, DV, TPR, BM, BN>
+      <<<grid_q, BM * TPR, 0, stream>>>(args);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_k((args.f.Tk + BNK - 1) / BNK, args.f.H, B);
+  attn_bwd_dkdv_kernel<D1, D2, DV, TPR, BMQ, BNK>
+      <<<grid_k, BNK * TPR, 0, stream>>>(args);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
-"""Conformer speech encoder (PyTorch), batch-first, eval mode.
+"""Conformer speech encoder (PyTorch), batch-first.
 
 Counterpart of ``daspeech_tpu/models/conformer.py``: Conv1d 2x-stride-2 GLU
 subsampler, scaled embedding, rel-pos MHSA in the rotation form, macaron
 FFNs and the depthwise-conv module. The rel-pos attention always goes
-through ``ops.fused_relpos.fused_attention_relpos`` (CUDA kernel for CUDA
-tensors, plain version for CPU tensors).
+through ``ops.fused_relpos.fused_attention_relpos`` (CUDA kernels for CUDA
+tensors, plain versions for CPU tensors). A forward given ``rng`` is a
+training pass (``models/layers.py``): dropout on, BatchNorm on the batch's
+valid frames.
 """
 
 from __future__ import annotations
@@ -16,7 +18,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from daspeech_torch.models.layers import layer_norm, padding_bias
+from daspeech_torch.models.layers import (
+    dropout,
+    layer_norm,
+    padding_bias,
+    row_seeds,
+)
 from daspeech_torch.ops import fused_relpos as _fr
 
 
@@ -51,11 +58,12 @@ class Conv1dSubsampler(nn.Module):
 
 class RelPosMultiHeadAttention(nn.Module):
     """Transformer-XL rel-pos MHSA with learned pos_bias_u/v in the rotation
-    form (``conformer.py:99-189``)."""
+    form (``conformer.py:99-189``), dropout on the probabilities."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         C, d = embed_dim, embed_dim // num_heads
         self.linear_q = nn.Linear(C, C)
         self.linear_k = nn.Linear(C, C)
@@ -70,8 +78,8 @@ class RelPosMultiHeadAttention(nn.Module):
             persistent=False)
 
     def forward(self, x: torch.Tensor,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, C = x.shape
         H = self.num_heads
         d = C // H
@@ -86,14 +94,21 @@ class RelPosMultiHeadAttention(nn.Module):
         s_i, c_i, e = _fr.relpos_basis(T, C, device=x.device)
         a = _fr.relpos_rotate(z, s_i[:, None], c_i[:, None])
         bias = padding_bias(key_padding_mask, B, T, x.device)
+        seeds = row_seeds(rng, self.dropout, B, x.device)
         out = _fr.fused_attention_relpos(
-            q_u, k, v, a.reshape(B, T, H * C), e, bias, H, 1.0 / math.sqrt(d))
+            q_u, k, v, a.reshape(B, T, H * C), e, bias, H, 1.0 / math.sqrt(d),
+            0.0 if seeds is None else self.dropout, seeds)
         return self.linear_out(out)
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the channel axis of [B, T, C] with the
-    running statistics (``conformer.py:203-240``; eps 1e-5)."""
+    """BatchNorm over the channel axis of [B, T, C] (``conformer.py:
+    203-240``; eps 1e-5). Inference uses the running statistics; a training
+    pass (``valid`` given) normalizes by the mean and biased variance of the
+    valid frames only and moves the running statistics toward them with
+    flax's momentum 0.9 (in place, outside autograd)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -103,18 +118,32 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if valid is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            w = valid[:, :, None].to(x.dtype)
+            n = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(dim=(0, 1)) / n
+            var = (torch.square(x - mean) * w).sum(dim=(0, 1)) / n
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
 class ConvolutionModule(nn.Module):
     """Pointwise-GLU -> depthwise conv -> BatchNorm -> swish -> pointwise
-    (``conformer.py:243-290``); padded frames are zeroed before the
-    depthwise conv."""
+    -> dropout (``conformer.py:243-290``); padded frames are zeroed before
+    the depthwise conv and left out of the BatchNorm statistics."""
 
-    def __init__(self, embed_dim: int, kernel_size: int = 31):
+    def __init__(self, embed_dim: int, kernel_size: int = 31,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.layer_norm = layer_norm(embed_dim)
         self.pointwise_conv1 = nn.Linear(embed_dim, 2 * embed_dim, bias=False)
         self.depthwise_conv = nn.Conv1d(
@@ -123,48 +152,63 @@ class ConvolutionModule(nn.Module):
         self.batch_norm = MaskedBatchNorm(embed_dim)
         self.pointwise_conv2 = nn.Linear(embed_dim, embed_dim, bias=False)
 
-    def forward(self, x: torch.Tensor,
-                pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         x = F.glu(self.pointwise_conv1(self.layer_norm(x)), dim=-1)
         if pad_mask is not None:
             x = x * (~pad_mask)[:, :, None]
         x = self.depthwise_conv(x.transpose(1, 2)).transpose(1, 2)
-        return self.pointwise_conv2(F.silu(self.batch_norm(x)))
+        valid = None
+        if rng is not None:
+            valid = (torch.ones(x.shape[:2], dtype=torch.bool,
+                                device=x.device)
+                     if pad_mask is None else ~pad_mask)
+        x = self.pointwise_conv2(F.silu(self.batch_norm(x, valid)))
+        return dropout(x, self.dropout, rng)
 
 
 class FeedForwardModule(nn.Module):
-    """Macaron FFN with swish, unfused (``conformer.py:321-370``)."""
+    """Macaron FFN with swish, unfused (``conformer.py:321-370``): LN ->
+    W1 -> swish -> dropout -> W2 -> dropout."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int):
+    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.layer_norm = layer_norm(embed_dim)
         self.w_1 = nn.Linear(embed_dim, ffn_dim)
         self.w_2 = nn.Linear(ffn_dim, embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(F.silu(self.w_1(self.layer_norm(x))))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(F.silu(self.w_1(self.layer_norm(x))), self.dropout, rng)
+        return dropout(self.w_2(x), self.dropout, rng)
 
 
 class ConformerEncoderLayer(nn.Module):
     """Macaron block (``conformer.py:373-412``)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 depthwise_kernel_size: int = 31):
+                 depthwise_kernel_size: int = 31, dropout: float = 0.0,
+                 attn_dropout: float = 0.0):
         super().__init__()
-        self.ffn1 = FeedForwardModule(embed_dim, ffn_dim)
+        self.dropout = dropout
+        self.ffn1 = FeedForwardModule(embed_dim, ffn_dim, dropout)
         self.self_attn_layer_norm = layer_norm(embed_dim)
-        self.self_attn = RelPosMultiHeadAttention(embed_dim, num_heads)
-        self.conv_module = ConvolutionModule(embed_dim, depthwise_kernel_size)
-        self.ffn2 = FeedForwardModule(embed_dim, ffn_dim)
+        self.self_attn = RelPosMultiHeadAttention(embed_dim, num_heads,
+                                                  attn_dropout)
+        self.conv_module = ConvolutionModule(embed_dim, depthwise_kernel_size,
+                                             dropout)
+        self.ffn2 = FeedForwardModule(embed_dim, ffn_dim, dropout)
         self.final_layer_norm = layer_norm(embed_dim)
 
-    def forward(self, x: torch.Tensor,
-                pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = x + 0.5 * self.ffn1(x)
-        x = x + self.self_attn(self.self_attn_layer_norm(x),
-                               key_padding_mask=pad_mask)
-        x = x + self.conv_module(x, pad_mask)
-        x = x + 0.5 * self.ffn2(x)
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + 0.5 * self.ffn1(x, rng)
+        y = self.self_attn(self.self_attn_layer_norm(x),
+                           key_padding_mask=pad_mask, rng=rng)
+        x = x + dropout(y, self.dropout, rng)
+        x = x + self.conv_module(x, pad_mask, rng)
+        x = x + 0.5 * self.ffn2(x, rng)
         return self.final_layer_norm(x)
 
 
@@ -176,21 +220,24 @@ class ConformerEncoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
+        self.dropout = cfg.dropout
         self.subsample = Conv1dSubsampler(
             cfg.input_feat_dim, cfg.conv_channels, cfg.embed_dim,
             tuple(cfg.conv_kernel_sizes))
         self.linear = nn.Linear(cfg.embed_dim, cfg.embed_dim)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(cfg.embed_dim, cfg.ffn_dim, cfg.num_heads,
-                                  cfg.depthwise_kernel_size)
+                                  cfg.depthwise_kernel_size, cfg.dropout,
+                                  cfg.attn_dropout)
             for _ in range(cfg.num_layers))
 
-    def forward(self, fbank: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, fbank: torch.Tensor, lengths: torch.Tensor,
+                rng: Optional[torch.Generator] = None):
         x, out_lengths = self.subsample(fbank, lengths)
         T = x.shape[1]
         pad_mask = (torch.arange(T, device=x.device)[None, :]
                     >= out_lengths[:, None])
-        x = self.linear(x * self.scale)
+        x = dropout(self.linear(x * self.scale), self.dropout, rng)
         for layer in self.layers:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, rng)
         return x.masked_fill(pad_mask[:, :, None], 0.0), pad_mask, out_lengths

@@ -5,13 +5,15 @@ transformer decoder over a graph of lambda * src_len vertices, and a
 multi-head link predictor whose gated logsumexp gives the [B, L, L] DAG
 transition matrix. Link extraction always goes through
 ``ops.fused_links.fused_extract_links`` (CUDA kernel for CUDA tensors, plain
-version for CPU tensors). The banded and fused-vocab variants are not
-ported yet.
+versions for CPU tensors). A forward given ``rng`` is a training pass
+(``models/layers.py``). The banded and fused-vocab variants are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -19,6 +21,7 @@ from torch import nn
 from daspeech_torch.models.conformer import ConformerEncoder
 from daspeech_torch.models.layers import (
     LearnedPositionalEmbedding,
+    dropout,
     SinusoidalPositionalEmbedding,
     TransformerDecoderLayer,
 )
@@ -33,6 +36,7 @@ class GlatLinkDecoder(nn.Module):
         D = cfg.embed_dim
         self.pad = pad
         self.num_heads = cfg.num_heads
+        self.dropout = cfg.dropout
         self.share_input_output_embed = cfg.share_input_output_embed
         self.max_transition_length = cfg.max_transition_length
         self.embed_tokens = nn.Embedding(vocab_size, D)
@@ -41,7 +45,8 @@ class GlatLinkDecoder(nn.Module):
         self.embed_positions = pos_cls(cfg.max_target_positions, D, pad)
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(D, cfg.ffn_dim, cfg.num_heads,
-                                    cfg.activation)
+                                    cfg.activation, cfg.dropout,
+                                    cfg.attn_dropout, cfg.activation_dropout)
             for _ in range(cfg.num_layers))
         if not self.share_input_output_embed:
             self.output_projection = nn.Linear(D, vocab_size, bias=False)
@@ -61,13 +66,16 @@ class GlatLinkDecoder(nn.Module):
 
     def extract_features(self, prev_output_tokens: torch.Tensor,
                          enc_out: torch.Tensor,
-                         enc_pad_mask: torch.Tensor) -> torch.Tensor:
+                         enc_pad_mask: torch.Tensor,
+                         rng: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         x = self.embed_tokens(prev_output_tokens) * math.sqrt(
             self.embed_tokens.embedding_dim)
-        x = x + self.embed_positions(prev_output_tokens)
+        x = dropout(x + self.embed_positions(prev_output_tokens), self.dropout,
+                    rng)
         pad_mask = prev_output_tokens == self.pad
         for layer in self.layers:
-            x = layer(x, pad_mask, enc_out, enc_pad_mask)
+            x = layer(x, pad_mask, enc_out, enc_pad_mask, rng)
         return x
 
     def output_layer(self, features: torch.Tensor) -> torch.Tensor:
@@ -108,16 +116,18 @@ class S2TConformerDAG(nn.Module):
                          if e.embed_dim != d.embed_dim else None)
         self.decoder = GlatLinkDecoder(cfg.vocab.size, cfg.vocab.pad, d)
 
-    def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor):
-        enc, enc_pad, enc_lens = self.encoder(fbank, src_lengths)
+    def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor,
+               rng: Optional[torch.Generator] = None):
+        enc, enc_pad, enc_lens = self.encoder(fbank, src_lengths, rng)
         if self.enc_proj is not None:
             enc = self.enc_proj(enc)
         return enc, enc_pad, enc_lens
 
     def decode(self, prev_output_tokens: torch.Tensor, enc: torch.Tensor,
-               enc_pad: torch.Tensor, require_links: bool = True):
+               enc_pad: torch.Tensor, require_links: bool = True,
+               rng: Optional[torch.Generator] = None):
         features = self.decoder.extract_features(prev_output_tokens, enc,
-                                                 enc_pad)
+                                                 enc_pad, rng)
         logits = self.decoder.output_layer(features)
         links = (self.decoder.extract_links(features, prev_output_tokens)
                  if require_links else None)

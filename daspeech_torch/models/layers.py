@@ -3,7 +3,14 @@
 Counterpart of ``daspeech_tpu/models/layers.py``. Every LayerNorm uses
 eps 1e-6, flax's default (torch's is 1e-5). Attention always goes through
 ``ops.fused_attention.fused_attention_packed``, which launches the CUDA
-kernel for CUDA tensors and takes the plain version for CPU tensors.
+kernels for CUDA tensors and takes the plain versions for CPU tensors.
+
+Training mode is an argument, as ``train=True`` is in the JAX modules: a
+forward given ``rng`` (a ``torch.Generator`` on the tensors' device) is a
+training pass. It draws its dropout masks and the attention kernels'
+per-row dropout seeds from ``rng``, in call order, so two passes handed
+generators with the same seed drop the same elements; BatchNorm takes batch
+statistics. Without ``rng`` a forward is the inference path.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from daspeech_torch.ops.fused_attention import NEG, fused_attention_packed
+from daspeech_torch.ops import fused_attention as _fa
+from daspeech_torch.ops.fused_attention import NEG
 
 LN_EPS = 1e-6
 
@@ -28,6 +36,33 @@ def layer_norm(dim: int) -> nn.LayerNorm:
 # (``layers.py:19-27``); the port runs in f32 only
 ACTIVATIONS = {"relu": F.relu, "gelu": F.gelu, "swish": F.silu,
                "silu": F.silu, "tanh": torch.tanh}
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """JAX's u16-threshold dropout (``layers.py:39-71``): keep where a
+    16-bit draw is below q = round((1 - rate) * 65536), scale kept values
+    by 1 / keep_p with keep_p = q / 65536. Off without ``rng``."""
+    if rng is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    q = int(round((1.0 - rate) * 65536))
+    if q >= 65536:            # rate below 2**-17 rounds to keep-all
+        return x
+    bits = torch.randint(0, 65536, x.shape, generator=rng, device=x.device,
+                         dtype=torch.int32)
+    return torch.where(bits < q, x * (65536.0 / q), torch.zeros_like(x))
+
+
+def row_seeds(rng: Optional[torch.Generator], rate: float, B: int,
+              device) -> Optional[torch.Tensor]:
+    """[B] int32 per-row seeds of an attention kernel's dropout stream
+    (``layers.py:194-196``), or None when the pass drops nothing."""
+    if rng is None or rate == 0.0:
+        return None
+    return torch.randint(-2 ** 31, 2 ** 31, (B,), generator=rng,
+                         device=device, dtype=torch.int32)
 
 
 def make_positions(tokens: torch.Tensor, padding_idx: int) -> torch.Tensor:
@@ -91,12 +126,13 @@ def padding_bias(key_padding_mask: Optional[torch.Tensor], B: int, Tk: int,
 
 
 class MultiHeadAttention(nn.Module):
-    """Non-causal MHA with an optional key-padding mask (True = pad);
-    ``layers.py:128-237``."""
+    """Non-causal MHA with an optional key-padding mask (True = pad) and
+    dropout on the attention probabilities; ``layers.py:128-237``."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
@@ -104,27 +140,34 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         d_head = query.shape[-1] // self.num_heads
         q = self.q_proj(query) * (d_head ** -0.5)
         k = self.k_proj(key)
         v = self.v_proj(value)
-        bias = padding_bias(key_padding_mask, key.shape[0], key.shape[1],
-                            key.device)
-        out = fused_attention_packed(q, k, v, bias, self.num_heads, 1.0)
+        B, Tk = key.shape[0], key.shape[1]
+        bias = padding_bias(key_padding_mask, B, Tk, key.device)
+        seeds = row_seeds(rng, self.dropout, B, key.device)
+        out = _fa.fused_attention_packed(
+            q, k, v, bias, self.num_heads, 1.0,
+            0.0 if seeds is None else self.dropout, seeds)
         return self.out_proj(out)
 
 
 class TransformerFFN(nn.Module):
-    def __init__(self, ffn_dim: int, embed_dim: int, activation: str = "relu"):
+    def __init__(self, ffn_dim: int, embed_dim: int, activation: str = "relu",
+                 dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(embed_dim, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, embed_dim)
         self.act = ACTIVATIONS[activation]
+        self.dropout, self.activation_dropout = dropout, activation_dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(self.act(self.fc1(x)), self.activation_dropout, rng)
+        return dropout(self.fc2(x), self.dropout, rng)
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -132,25 +175,33 @@ class TransformerDecoderLayer(nn.Module):
     (the NAT decoder; ``layers.py:257-321`` with normalize_before=False)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", dropout: float = 0.0,
+                 attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads,
+                                            attention_dropout)
         self.self_attn_layer_norm = layer_norm(embed_dim)
-        self.encoder_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.encoder_attn = MultiHeadAttention(embed_dim, num_heads,
+                                               attention_dropout)
         self.encoder_attn_layer_norm = layer_norm(embed_dim)
-        self.ffn = TransformerFFN(ffn_dim, embed_dim, activation)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim, activation, dropout,
+                                  activation_dropout)
         self.final_layer_norm = layer_norm(embed_dim)
 
     def forward(self, x: torch.Tensor, self_pad_mask: Optional[torch.Tensor],
                 enc_out: Optional[torch.Tensor],
-                enc_pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.self_attn_layer_norm(
-            x + self.self_attn(x, x, x, key_padding_mask=self_pad_mask))
+                enc_pad_mask: Optional[torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.self_attn(x, x, x, key_padding_mask=self_pad_mask, rng=rng)
+        x = self.self_attn_layer_norm(x + dropout(y, self.dropout, rng))
         if enc_out is not None:
-            x = self.encoder_attn_layer_norm(
-                x + self.encoder_attn(x, enc_out, enc_out,
-                                      key_padding_mask=enc_pad_mask))
-        return self.final_layer_norm(x + self.ffn(x))
+            y = self.encoder_attn(x, enc_out, enc_out,
+                                  key_padding_mask=enc_pad_mask, rng=rng)
+            x = self.encoder_attn_layer_norm(x + dropout(y, self.dropout,
+                                                         rng))
+        return self.final_layer_norm(x + self.ffn(x, rng))
 
 
 def lengths_to_padding_mask(lengths: torch.Tensor, max_len: int

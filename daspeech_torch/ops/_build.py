@@ -33,13 +33,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
-    "daspeech_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "daspeech_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _F, _P),
-    "daspeech_links_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "daspeech_attention_fwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _I, _I, _I,
+                               _I, _I, _F, _P),
+    "daspeech_attention_bwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _P,
+                               _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "daspeech_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _U, _F, _P, _P, _I,
+                            _I, _I, _I, _I, _F, _P),
+    "daspeech_relpos_bwd": (_P, _P, _P, _P, _P, _P, _P, _U, _F, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "daspeech_links_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                           _P),
+    "daspeech_links_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _F, _I, _P),
+    "daspeech_dag_fb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "daspeech_dag_viterbi": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -117,6 +128,11 @@ def check_inputs(name: str, *tensors, int32=()) -> None:
     for t in int32:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: kernel takes int32 lengths, got {t.dtype}")
+
+
+def ptr(t) -> int:
+    """``t.data_ptr()``, or 0 (NULL) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def check(rc: int, name: str) -> None:

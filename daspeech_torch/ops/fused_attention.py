@@ -1,73 +1,199 @@
-"""Packed multi-head attention: plain PyTorch version and the CUDA kernel.
+"""Packed multi-head attention: plain PyTorch versions and the CUDA kernels.
 
-Counterpart of ``daspeech_tpu/ops/fused_attention.py``. The CUDA kernel
-(``csrc/fused_attention.cu``) replaces the Pallas ``fused_attention_packed``
-(``fused_attention.py:522``, kernel ``_attn_kernel_packed`` at :285), forward
-only; it streams keys, so it also covers the long-sequence shapes for which
-the JAX layer dispatches to the head-major ``fused_attention`` (:189).
+Counterpart of ``daspeech_tpu/ops/fused_attention.py``. The CUDA kernels
+(``csrc/fused_attention.cu``) replace the Pallas ``fused_attention_packed``
+(``fused_attention.py:522``: forward ``_attn_kernel_packed`` at :285,
+backward ``_attn_bwd_kernel_packed`` at :324), with in-kernel dropout on
+the probabilities; they stream keys, so they also cover the long-sequence
+shapes for which the JAX layer dispatches to the head-major
+``fused_attention`` (:189).
 
-:func:`fused_attention_packed` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; there is no fallback between the two.
+:func:`fused_attention_packed` is differentiable. Its forward and backward
+take the plain versions for CPU tensors and launch the kernels for CUDA
+tensors; there is no fallback between the two. Dropout multiplies the
+softmax probabilities by the Philox mask of ``ops/philox.py``, which the
+kernels draw from the same counters, so kernel and plain version agree
+element for element with dropout on.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from daspeech_torch.ops import _build
+from daspeech_torch.ops.philox import attention_keep, keep_threshold
 
 NEG = -1e30          # additive bias of a padded key (fused_attention.py:33)
-HEAD_DIM = 64        # the one head depth the kernel is built for
+HEAD_DIM = 64        # the one head depth the kernels are built for
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, T, C = x.shape
+    return x.reshape(B, T, num_heads, C // num_heads)
+
+
+def _probs(q, k, bias, num_heads, sm_scale):
+    s = torch.einsum("bqhd,bkhd->bhqk", _heads(q, num_heads),
+                     _heads(k, num_heads)) * sm_scale
+    return torch.softmax(s + bias[:, None, None, :], dim=-1)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, num_heads: int,
-                    sm_scale: float = 1.0) -> torch.Tensor:
+                    sm_scale: float = 1.0, dropout_p: float = 0.0,
+                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q_h k_hᵀ·sm_scale + bias[b]) v_h per head on packed
-    q [B, Tq, H·d], k/v [B, Tk, H·d], bias [B, Tk] -> [B, Tq, H·d]."""
+    q [B, Tq, H·d], k/v [B, Tk, H·d], bias [B, Tk] -> [B, Tq, H·d]; with
+    ``dropout_p`` > 0 the probabilities take the Philox mask of the int32
+    per-row ``seeds`` [B]."""
+    B, Tq, C = q.shape
+    p = _probs(q, k, bias, num_heads, sm_scale)
+    if dropout_p > 0.0:
+        p = p * attention_keep(seeds, num_heads, Tq, k.shape[1], dropout_p)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _heads(v, num_heads))
+    return out.reshape(B, Tq, C)
+
+
+def attention_bwd_plain(q, k, v, bias, dout, num_heads: int,
+                        sm_scale: float = 1.0, dropout_p: float = 0.0,
+                        seeds: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of :func:`attention_plain` for the cotangent ``dout``,
+    in closed form: dV = (P∘Z)ᵀ dO, dS = P∘(Z∘(dO Vᵀ) − rowsum(P∘Z∘(dO Vᵀ))),
+    dQ = dS K·scale, dK = dSᵀ Q·scale (Z the dropout multipliers)."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
-    d = C // num_heads
-    qh = q.reshape(B, Tq, num_heads, d)
-    kh = k.reshape(B, Tk, num_heads, d)
-    vh = v.reshape(B, Tk, num_heads, d)
-    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * sm_scale
-    p = torch.softmax(s + bias[:, None, None, :], dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(B, Tq, C)
+    p = _probs(q, k, bias, num_heads, sm_scale)
+    z = (attention_keep(seeds, num_heads, Tq, Tk, dropout_p)
+         if dropout_p > 0.0 else torch.ones_like(p))
+    do4, v4 = _heads(dout, num_heads), _heads(v, num_heads)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p * z, do4)
+    dp = z * torch.einsum("bqhd,bkhd->bhqk", do4, v4)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * sm_scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _heads(k, num_heads))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _heads(q, num_heads))
+    return dq.reshape(B, Tq, C), dk.reshape(B, Tk, C), dv.reshape(B, Tk, C)
+
+
+def _check(name, q, k, v, bias, num_heads, seeds, dropout_p):
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    drop = () if dropout_p == 0.0 else (seeds,)
+    _build.check_inputs(name, q, k, v, bias, int32=drop)
+    if C % num_heads or C // num_heads != HEAD_DIM:
+        raise ValueError(f"{name}: head depth {C / num_heads} unsupported "
+                         f"(kernel takes {HEAD_DIM})")
+    if (k.shape != (B, Tk, C) or v.shape != k.shape
+            or bias.shape != (B, Tk) or Tq < 1 or Tk < 1
+            or (drop and seeds.shape != (B,))):
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"bias{tuple(bias.shape)}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
+
+
+def _drop_args(dropout_p, seeds):
+    if dropout_p == 0.0:
+        return 0, 0, 1.0
+    return seeds.data_ptr(), keep_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
+
+
+def attention_fwd_kernel(q, k, v, bias, num_heads: int, sm_scale: float,
+                         dropout_p: float = 0.0, seeds=None,
+                         with_stats: bool = False):
+    """Launch the forward kernel: (out, stats) with stats the [B, H, Tq, 2]
+    row softmax (max, sum) the backward needs, or None."""
+    _check("fused_attention_packed", q, k, v, bias, num_heads, seeds,
+           dropout_p)
+    B, Tq, C = q.shape
+    out = torch.empty_like(q)
+    stats = (torch.empty((B, num_heads, Tq, 2), dtype=torch.float32,
+                         device=q.device) if with_stats else None)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *_drop_args(dropout_p, seeds), out.data_ptr(), _build.ptr(stats),
+            B, Tq, k.shape[1], num_heads, HEAD_DIM, float(sm_scale),
+            _build.stream_of(q))
+    _build.check(rc, "daspeech_attention_fwd")
+    fused_attention_packed.launches += 1
+    return out, stats
+
+
+def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
+                         sm_scale: float, dropout_p: float = 0.0,
+                         seeds=None):
+    """Launch the backward kernels: (dq, dk, dv)."""
+    _check("fused_attention_packed backward", q, k, v, bias, num_heads, seeds,
+           dropout_p)
+    _build.check_inputs("fused_attention_packed backward", out, stats, dout)
+    B, Tq, C = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            stats.shape != (B, num_heads, Tq, 2):
+        raise ValueError("fused_attention_packed backward: bad shapes "
+                         f"out{tuple(out.shape)} stats{tuple(stats.shape)} "
+                         f"dout{tuple(dout.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
+                        device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *_drop_args(dropout_p, seeds), out.data_ptr(), stats.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), B, Tq, k.shape[1], num_heads, HEAD_DIM,
+            float(sm_scale), _build.stream_of(q))
+    _build.check(rc, "daspeech_attention_bwd")
+    attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+class _PackedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads, sm_scale, dropout_p, seeds):
+        ctx.cfg = (num_heads, sm_scale, dropout_p)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias, seeds)
+            return attention_plain(q, k, v, bias, num_heads, sm_scale,
+                                   dropout_p, seeds)
+        out, stats = attention_fwd_kernel(
+            q, k, v, bias, num_heads, sm_scale, dropout_p, seeds,
+            with_stats=any(ctx.needs_input_grad))
+        ctx.save_for_backward(q, k, v, bias, seeds, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        num_heads, sm_scale, dropout_p = ctx.cfg
+        q, k, v, bias, seeds, *saved = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            grads = attention_bwd_plain(q, k, v, bias, dout, num_heads,
+                                        sm_scale, dropout_p, seeds)
+        else:
+            out, stats = saved
+            grads = attention_bwd_kernel(q, k, v, bias, out, stats, dout,
+                                         num_heads, sm_scale, dropout_p,
+                                         seeds)
+        return (*grads, None, None, None, None, None)
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, num_heads: int,
-                           sm_scale: float = 1.0) -> torch.Tensor:
-    """Packed-layout attention forward (see :func:`attention_plain`).
+                           sm_scale: float = 1.0, dropout_p: float = 0.0,
+                           seeds: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Packed-layout attention (see :func:`attention_plain`), differentiable
+    in q, k and v.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes fp32, contiguous inputs with head depth 64, and raises on
-    anything else."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, num_heads, sm_scale)
-    B, Tq, C = q.shape
-    Tk = k.shape[1]
-    _build.check_inputs("fused_attention_packed", q, k, v, bias)
-    if C % num_heads or C // num_heads != HEAD_DIM:
-        raise ValueError(f"fused_attention_packed: head depth "
-                         f"{C / num_heads} unsupported (kernel takes "
-                         f"{HEAD_DIM})")
-    if (k.shape != (B, Tk, C) or v.shape != k.shape
-            or bias.shape != (B, Tk) or Tq < 1 or Tk < 1):
-        raise ValueError(f"fused_attention_packed: bad shapes q{tuple(q.shape)}"
-                         f" k{tuple(k.shape)} v{tuple(v.shape)} "
-                         f"bias{tuple(bias.shape)}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, Tq, Tk, num_heads, HEAD_DIM, float(sm_scale),
-            _build.stream_of(q))
-    _build.check(rc, "daspeech_attention_fwd")
-    fused_attention_packed.launches += 1
-    return out
+    CPU tensors take the plain versions. CUDA tensors launch the kernels,
+    which take fp32, contiguous inputs with head depth 64 (and int32 seeds
+    with dropout), and raise on anything else."""
+    return _PackedAttention.apply(q, k, v, bias, num_heads, sm_scale,
+                                  dropout_p, seeds)
 
 
 fused_attention_packed.launches = 0
-
+attention_bwd_kernel.launches = 0

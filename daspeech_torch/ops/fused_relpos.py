@@ -5,20 +5,29 @@ Counterpart of ``daspeech_tpu/ops/fused_relpos.py``. The position score
 ``bd[i, j] = q_v[i] · (W_p pe(i-j))`` is computed without the [T, 2T-1]
 table by the angle-addition identity: ``bd = a @ eᵀ`` with ``a`` the rotated
 position queries (:func:`relpos_rotate`) and ``e`` a constant basis
-(:func:`relpos_basis`). The CUDA kernel (``csrc/fused_relpos.cu``) replaces
-the Pallas ``fused_attention_relpos`` (``fused_relpos.py:373``, kernel
-``_relpos_fwd_kernel`` at :90), forward only. Unlike the JAX layer, which
-takes its kernel only at T' >= 256 (a TPU measurement), the port launches
-the kernel at every length on the card.
+(:func:`relpos_basis`). The CUDA kernel (``csrc/fused_relpos.cu``) replace
+the Pallas ``fused_attention_relpos`` (``fused_relpos.py:373``: forward
+``_relpos_fwd_kernel`` at :90, backward ``_relpos_bwd_kernel`` at :125),
+with dropout on the probabilities drawn from the Philox mask of
+``ops/philox.py``. Unlike the JAX layer, which takes its kernel only at
+T' >= 256 (a TPU measurement), the port launches the kernels at every
+length on the card.
+
+:func:`fused_attention_relpos` is differentiable in q, k, v and a (``e`` is
+a constant basis). CPU tensors take the plain versions, CUDA tensors the
+kernels; there is no fallback between the two.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from daspeech_torch.ops import _build
+from daspeech_torch.ops.fused_attention import _drop_args
+from daspeech_torch.ops.philox import attention_keep
 
 NEG = -1e30
 HEAD_DIM = 64
@@ -44,57 +53,170 @@ def relpos_rotate(z: torch.Tensor, s: torch.Tensor, c: torch.Tensor):
     return torch.cat([z1 * s + z2 * c, -z1 * c + z2 * s], dim=-1)
 
 
-def relpos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 a: torch.Tensor, e: torch.Tensor, bias: torch.Tensor,
-                 num_heads: int, sm_scale: float) -> torch.Tensor:
-    """softmax((q_h k_hᵀ + a_h eᵀ)·sm_scale + bias[b]) v_h per head:
-    q/k/v [B, T, H·d], a [B, T, H·C], e [T, C], bias [B, T]."""
+def _relpos_probs(q, k, a, e, bias, num_heads, sm_scale):
     B, T, Cq = q.shape
     d = Cq // num_heads
     q4 = q.reshape(B, T, num_heads, d)
     k4 = k.reshape(B, T, num_heads, d)
-    v4 = v.reshape(B, T, num_heads, d)
     a4 = a.reshape(B, T, num_heads, -1)
     ac = torch.einsum("bqhd,bkhd->bhqk", q4, k4)
     bd = torch.einsum("bqhc,kc->bhqk", a4, e)
-    p = torch.softmax((ac + bd) * sm_scale + bias[:, None, None, :], dim=-1)
+    return torch.softmax((ac + bd) * sm_scale + bias[:, None, None, :],
+                         dim=-1)
+
+
+def relpos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 a: torch.Tensor, e: torch.Tensor, bias: torch.Tensor,
+                 num_heads: int, sm_scale: float, dropout_p: float = 0.0,
+                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax((q_h k_hᵀ + a_h eᵀ)·sm_scale + bias[b]) v_h per head:
+    q/k/v [B, T, H·d], a [B, T, H·C], e [T, C], bias [B, T]; with
+    ``dropout_p`` > 0 the probabilities take the Philox mask of the int32
+    per-row ``seeds`` [B]."""
+    B, T, Cq = q.shape
+    p = _relpos_probs(q, k, a, e, bias, num_heads, sm_scale)
+    if dropout_p > 0.0:
+        p = p * attention_keep(seeds, num_heads, T, T, dropout_p)
+    v4 = v.reshape(B, T, num_heads, -1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v4).reshape(B, T, Cq)
+
+
+def relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads: int,
+                     sm_scale: float, dropout_p: float = 0.0, seeds=None):
+    """(dq, dk, dv, da) of :func:`relpos_plain` for the cotangent ``dout``
+    in closed form (as ``attention_bwd_plain``; da = dS e·scale per head)."""
+    B, T, Cq = q.shape
+    H = num_heads
+    p = _relpos_probs(q, k, a, e, bias, H, sm_scale)
+    z = (attention_keep(seeds, H, T, T, dropout_p) if dropout_p > 0.0
+         else torch.ones_like(p))
+    do4, v4 = dout.reshape(B, T, H, -1), v.reshape(B, T, H, -1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p * z, do4)
+    dp = z * torch.einsum("bqhd,bkhd->bhqk", do4, v4)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * sm_scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.reshape(B, T, H, -1))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.reshape(B, T, H, -1))
+    da = torch.einsum("bhqk,kc->bqhc", ds, e)
+    return (dq.reshape(B, T, Cq), dk.reshape(B, T, Cq), dv.reshape(B, T, Cq),
+            da.reshape(B, T, -1))
+
+
+def _check(name, q, k, v, a, e, bias, num_heads, seeds, dropout_p):
+    B, T, Cq = q.shape
+    drop = () if dropout_p == 0.0 else (seeds,)
+    _build.check_inputs(name, q, k, v, a, e, bias, int32=drop)
+    d = Cq // num_heads
+    C = e.shape[1]
+    if Cq % num_heads or d != HEAD_DIM or C != POS_DIM:
+        raise ValueError(f"{name}: d={Cq / num_heads}, C={C} unsupported "
+                         f"(kernel takes d={HEAD_DIM}, C={POS_DIM})")
+    if (k.shape != q.shape or v.shape != q.shape
+            or a.shape != (B, T, num_heads * C) or e.shape != (T, C)
+            or bias.shape != (B, T) or T < 1
+            or (drop and seeds.shape != (B,))):
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"a{tuple(a.shape)} e{tuple(e.shape)} "
+                         f"bias{tuple(bias.shape)}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
+
+
+def relpos_fwd_kernel(q, k, v, a, e, bias, num_heads: int, sm_scale: float,
+                      dropout_p: float = 0.0, seeds=None,
+                      with_stats: bool = False):
+    """Launch the forward kernel: (out, stats) with stats the [B, H, T, 2]
+    row softmax (max, sum) the backward needs, or None."""
+    _check("fused_attention_relpos", q, k, v, a, e, bias, num_heads, seeds,
+           dropout_p)
+    B, T, Cq = q.shape
+    out = torch.empty_like(q)
+    stats = (torch.empty((B, num_heads, T, 2), dtype=torch.float32,
+                         device=q.device) if with_stats else None)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_relpos_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
+            e.data_ptr(), bias.data_ptr(), *_drop_args(dropout_p, seeds),
+            out.data_ptr(), _build.ptr(stats), B, T, num_heads, HEAD_DIM,
+            POS_DIM, float(sm_scale), _build.stream_of(q))
+    _build.check(rc, "daspeech_relpos_fwd")
+    fused_attention_relpos.launches += 1
+    return out, stats
+
+
+def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
+                      sm_scale: float, dropout_p: float = 0.0, seeds=None):
+    """Launch the backward kernels: (dq, dk, dv, da)."""
+    _check("fused_attention_relpos backward", q, k, v, a, e, bias, num_heads,
+           seeds, dropout_p)
+    _build.check_inputs("fused_attention_relpos backward", out, stats, dout)
+    B, T, Cq = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            stats.shape != (B, num_heads, T, 2):
+        raise ValueError("fused_attention_relpos backward: bad shapes "
+                         f"out{tuple(out.shape)} stats{tuple(stats.shape)} "
+                         f"dout{tuple(dout.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    da = torch.empty_like(a)
+    delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
+                        device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_relpos_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
+            e.data_ptr(), bias.data_ptr(), *_drop_args(dropout_p, seeds),
+            out.data_ptr(), stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), da.data_ptr(), delta.data_ptr(),
+            B, T, num_heads, HEAD_DIM, POS_DIM, float(sm_scale),
+            _build.stream_of(q))
+    _build.check(rc, "daspeech_relpos_bwd")
+    relpos_bwd_kernel.launches += 1
+    return dq, dk, dv, da
+
+
+class _RelPosAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, a, e, bias, num_heads, sm_scale, dropout_p,
+                seeds):
+        ctx.cfg = (num_heads, sm_scale, dropout_p)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, a, e, bias, seeds)
+            return relpos_plain(q, k, v, a, e, bias, num_heads, sm_scale,
+                                dropout_p, seeds)
+        out, stats = relpos_fwd_kernel(q, k, v, a, e, bias, num_heads,
+                                     sm_scale, dropout_p, seeds,
+                                     with_stats=any(ctx.needs_input_grad))
+        ctx.save_for_backward(q, k, v, a, e, bias, seeds, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        num_heads, sm_scale, dropout_p = ctx.cfg
+        q, k, v, a, e, bias, seeds, *saved = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            grads = relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads,
+                                     sm_scale, dropout_p, seeds)
+        else:
+            out, stats = saved
+            grads = relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout,
+                                      num_heads, sm_scale, dropout_p, seeds)
+        return (*grads, None, None, None, None, None, None)
 
 
 def fused_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            a: torch.Tensor, e: torch.Tensor,
                            bias: torch.Tensor, num_heads: int,
-                           sm_scale: float) -> torch.Tensor:
-    """Rel-pos attention forward (see :func:`relpos_plain`).
+                           sm_scale: float, dropout_p: float = 0.0,
+                           seeds: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Rel-pos attention (see :func:`relpos_plain`), differentiable in q, k,
+    v and a.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes fp32, contiguous inputs with d = 64 and C = 256, and raises
-    on anything else."""
-    if q.device.type == "cpu":
-        return relpos_plain(q, k, v, a, e, bias, num_heads, sm_scale)
-    B, T, Cq = q.shape
-    _build.check_inputs("fused_attention_relpos", q, k, v, a, e, bias)
-    d = Cq // num_heads
-    C = e.shape[1]
-    if Cq % num_heads or d != HEAD_DIM or C != POS_DIM:
-        raise ValueError(f"fused_attention_relpos: d={Cq / num_heads}, C={C} "
-                         f"unsupported (kernel takes d={HEAD_DIM}, "
-                         f"C={POS_DIM})")
-    if (k.shape != q.shape or v.shape != q.shape
-            or a.shape != (B, T, num_heads * C) or e.shape != (T, C)
-            or bias.shape != (B, T) or T < 1):
-        raise ValueError("fused_attention_relpos: bad shapes "
-                         f"q{tuple(q.shape)} a{tuple(a.shape)} "
-                         f"e{tuple(e.shape)} bias{tuple(bias.shape)}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_relpos_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
-            e.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, T, num_heads, d, C, float(sm_scale), _build.stream_of(q))
-    _build.check(rc, "daspeech_relpos_fwd")
-    fused_attention_relpos.launches += 1
-    return out
+    CPU tensors take the plain versions. CUDA tensors launch the kernels,
+    which take fp32, contiguous inputs with d = 64 and C = 256 (and int32
+    seeds with dropout), and raise on anything else."""
+    return _RelPosAttention.apply(q, k, v, a, e, bias, num_heads, sm_scale,
+                                  dropout_p, seeds)
 
 
 fused_attention_relpos.launches = 0
+relpos_bwd_kernel.launches = 0

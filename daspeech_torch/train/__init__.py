@@ -1,0 +1,24 @@
+from daspeech_torch.train.step import global_norm, make_train_step
+from daspeech_torch.train.train_state import (
+    AdamState,
+    GuardedAdam,
+    TrainState,
+    anneal_value,
+    guarded_adam_,
+    inverse_sqrt_schedule,
+    make_optimizer,
+    parse_anneal,
+)
+
+__all__ = [
+    "AdamState",
+    "GuardedAdam",
+    "TrainState",
+    "anneal_value",
+    "global_norm",
+    "guarded_adam_",
+    "inverse_sqrt_schedule",
+    "make_optimizer",
+    "make_train_step",
+    "parse_anneal",
+]

@@ -1,8 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at edge shapes the serving path can reach (ragged tiles, a single key,
-Tq != Tk, long mels, graphs of one vertex and of the 1024-vertex maximum,
-fully padded rows, the transition band). ``chip_smoke.py`` covers the
-serving shapes.
+at edge shapes the serving and training paths can reach (ragged tiles, a
+single key, Tq != Tk, long mels, graphs of one vertex and of the 1024-vertex
+maximum, fully padded rows, the transition band, one target token, targets
+and graphs shorter than their padding, dropout on, Viterbi ties).
+``chip_smoke.py`` covers the serving and training shapes.
+
+Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
+another order); the DP's log-probabilities grow with T: they are held
+against the plain loop run in float64, to 2 sqrt(T) ulp of the largest
+magnitude near each row's maximum (about one ulp of rounding per step,
+adding up as a random walk) and to the fp32 plain loop's own error farther
+below it (see ``_dp_close``); Viterbi paths must be equal.
 
 Marked ``cuda``: every test skips without a CUDA device. On a machine with
 one (the JAX package need not be installed there):
@@ -15,6 +23,8 @@ import math
 import pytest
 import torch
 
+from daspeech_torch.ops import dag_kernels as dk
+from daspeech_torch.ops import dag_ref as dr
 from daspeech_torch.ops import fused_attention as fa
 from daspeech_torch.ops import fused_links as fl
 from daspeech_torch.ops import fused_relpos as fr
@@ -101,3 +111,188 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                                      device="cuda"),
                                torch.tensor([1025], device="cuda"), 1, 0.1,
                                None)
+
+
+def _max_err(got, want):
+    return (got - want).abs().max().item()
+
+
+def _seeds(gen, B):
+    return torch.randint(-2 ** 31, 2 ** 31, (B,), generator=gen,
+                         dtype=torch.int32).cuda()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,p", [(2, 1, 1, 1, 0.0), (2, 37, 5, 2, 0.1),
+                                         (3, 70, 130, 8, 0.1),
+                                         (2, 240, 120, 8, 0.0),
+                                         (1, 240, 240, 8, 0.3)])
+def test_attention_dropout_and_backward(gen, B, Tq, Tk, H, p):
+    q = _randn(gen, B, Tq, H * 64, scale=0.125)
+    k, v = _randn(gen, B, Tk, H * 64), _randn(gen, B, Tk, H * 64)
+    bias = _bias(gen, B, Tk, all_padded_row=B > 1)
+    seeds = _seeds(gen, B) if p else None
+    out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                      with_stats=True)
+    assert _max_err(out, fa.attention_plain(q, k, v, bias, H, 1.0, p,
+                                            seeds)) <= TOL
+    do = _randn(gen, B, Tq, H * 64)
+    got = fa.attention_bwd_kernel(q, k, v, bias, out, st, do, H, 1.0, p,
+                                  seeds)
+    torch.cuda.synchronize()
+    want = fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p, seeds)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+@pytest.mark.parametrize("B,T,H,p", [(2, 1, 4, 0.0), (2, 17, 4, 0.1),
+                                     (3, 129, 4, 0.1), (2, 300, 4, 0.0)])
+def test_relpos_dropout_and_backward(gen, B, T, H, p):
+    C = 256
+    q, k, v = (_randn(gen, B, T, H * 64, scale=0.5) for _ in range(3))
+    a = _randn(gen, B, T, H * C, scale=0.1)
+    e = fr.relpos_basis(T, C, device="cuda")[2].contiguous()
+    bias = _bias(gen, B, T, all_padded_row=B > 2)
+    seeds = _seeds(gen, B) if p else None
+    out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, 0.125, p, seeds,
+                                   with_stats=True)
+    assert _max_err(out, fr.relpos_plain(q, k, v, a, e, bias, H, 0.125, p,
+                                         seeds)) <= TOL
+    do = _randn(gen, B, T, H * 64)
+    got = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, 0.125,
+                               p, seeds)
+    torch.cuda.synchronize()
+    want = fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, 0.125, p, seeds)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+@pytest.mark.parametrize("B,L,H,mtl", [(2, 1, 8, None), (2, 2, 8, None),
+                                       (3, 129, 2, None), (2, 300, 8, 5),
+                                       (1, 1024, 8, None)])
+def test_links_backward(gen, B, L, H, mtl):
+    q, k = _randn(gen, B, L, H * 64, scale=0.5), _randn(gen, B, L, H * 64)
+    gates = torch.log_softmax(_randn(gen, B, L, H), dim=-1)
+    ol = torch.randint(1, L + 1, (B,), generator=gen)
+    ol[0] = L
+    ol = ol.cuda()
+    links, lse = fl.links_fwd_kernel(q, k, gates, ol, H, 0.125, mtl,
+                                     with_lse=True)
+    dlinks = _randn(gen, B, L, L)
+    got = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H, 0.125,
+                              mtl)
+    torch.cuda.synchronize()
+    want = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, 0.125, mtl)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+def _dag_inputs(gen, B, T, L, ties=False):
+    """Random links with row-normalized valid transitions; ragged graphs
+    (ol < L) and targets (tl < T); one infeasible sample (tl > ol)."""
+    ol = torch.randint(max(1, min(L, T)), L + 1, (B,), generator=gen)
+    tl = torch.randint(1, T + 1, (B,), generator=gen)
+    ol[0], tl[0] = L, T
+    if B > 2:
+        ol[-1], tl[-1] = 2, min(T, 3)
+    scale = 0.0 if ties else 1.0
+    x = torch.randn(B, L, L, generator=gen) * (1 + 2 * scale)
+    i = torch.arange(L)
+    valid = ((i[None, None, :] > i[None, :, None])
+             & (i[None, None, :] < ol[:, None, None])
+             & (i[None, :, None] < ol[:, None, None]))
+    x = torch.where(valid, x, -math.inf)
+    links = torch.where(valid, torch.log_softmax(x, dim=-1), -math.inf)
+    match = torch.randn(B, T, L, generator=gen) - 2.0
+    if ties:
+        links = torch.where(valid, torch.round(links), links)
+        match = torch.round(match)
+    match = torch.where(i[None, None, :] < ol[:, None, None], match,
+                        -math.inf)
+    return (match.cuda().contiguous(), links.cuda().contiguous(), ol.cuda(),
+            tl.cuda())
+
+
+DP_BANDS = (0, 20, 40, 60, 70, 80)   # nats below the row's maximum
+
+
+def _band_errs(got, exact):
+    """Max |got - exact| in each band of DP_BANDS (distance of the entry
+    below its row's maximum in ``exact``); inf where ``got`` is -inf (all
+    the entry's terms underflowed). ``got`` may have no mass where
+    ``exact`` has none."""
+    got = got.double()
+    fin_w, fin_g = torch.isfinite(exact), torch.isfinite(got)
+    assert not (fin_g & ~fin_w).any()
+    if got.dim() == 1:                                  # logprob [B]
+        rowmax = torch.where(fin_w, exact, 0.0)
+    else:
+        rowmax = torch.where(fin_w, exact, -math.inf).amax(dim=-1,
+                                                           keepdim=True)
+        rowmax = torch.where(torch.isfinite(rowmax), rowmax, 0.0)
+    gap = torch.where(fin_w, rowmax - exact, math.inf)
+    d = torch.where(fin_g, (got - exact).abs(), math.inf)
+    return [torch.where((gap >= lo) & (gap < hi), d, 0.0).max().item()
+            for lo, hi in zip(DP_BANDS[:-1], DP_BANDS[1:])]
+
+
+def _dp_close(got, plain, exact, T):
+    """The kernel (``got``) and the fp32 plain loop against the loop in
+    float64. Each step shifts by the previous row's maximum, so in fp32 a
+    term more than ~87 nats below the shift underflows and the entries fed
+    by it come out too small, in the plain loop as in the kernel; within 20
+    nats of the row's maximum the kernel is held to 2 sqrt(T) ulp of the
+    largest magnitude, and in every band to the fp32 loop's error plus
+    that."""
+    big = max(float(torch.where(torch.isfinite(exact), exact,
+                                0.0).abs().max()), 1.0)
+    tol = 2.0 * math.sqrt(T) * 2.0 ** (math.floor(math.log2(big)) - 23)
+    k, p = _band_errs(got, exact), _band_errs(plain, exact)
+    assert k[0] <= tol, (k, tol)
+    assert all(a <= b + tol for a, b in zip(k, p)), (k, p, tol)
+
+
+@pytest.mark.parametrize("B,T,L", [(2, 1, 5), (3, 7, 33), (3, 64, 240),
+                                   (2, 16, 1024)])
+def test_dag_alpha_beta(gen, B, T, L):
+    match, links, ol, tl = _dag_inputs(gen, B, T, L)
+    got = dk.dag_loss_forward_kernel(match, links, ol, tl)
+    torch.cuda.synchronize()
+    plain = dr.dag_loss_forward_plain(match, links, ol, tl)
+    exact = dr.dag_loss_forward_plain(match.double(), links.double(), ol, tl)
+    for g, p, x in zip(got, plain, exact):
+        _dp_close(g, p, x, T)
+    if B > 2:
+        assert got[0][-1].item() == -math.inf      # infeasible: -inf, no NaN
+
+
+@pytest.mark.parametrize("B,T,L,ties", [(2, 1, 5, False), (3, 7, 33, False),
+                                        (3, 9, 33, True), (3, 64, 240, True),
+                                        (2, 16, 1024, False)])
+def test_dag_viterbi(gen, B, T, L, ties):
+    match, links, ol, tl = _dag_inputs(gen, B, T, L, ties)
+    got = dk.dag_best_alignment_kernel(match, links, ol, tl)
+    torch.cuda.synchronize()
+    want = dr.dag_best_alignment_plain(match, links, ol, tl)
+    assert torch.equal(got, want)
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    big = _randn(gen, 1, 3, 1025)
+    n = torch.ones((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="L <= 1024"):
+        dk.dag_loss_forward_kernel(big, _randn(gen, 1, 1025, 1025), n, n)
+    with pytest.raises(ValueError, match="bad shapes"):
+        dk.dag_best_alignment_kernel(_randn(gen, 1, 3, 4),
+                                     _randn(gen, 1, 5, 5), n, n)
+    x = _randn(gen, 1, 4, 64)
+    bias = torch.zeros((1, 4), device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):      # seeds on the CPU
+        fa.attention_fwd_kernel(x, x, x, bias, 1, 1.0, 0.1,
+                                torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.attention_bwd_kernel(x, x, x, bias, x, torch.zeros((1, 1, 3, 2),
+                                                              device="cuda"),
+                                x, 1, 1.0)

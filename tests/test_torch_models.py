@@ -91,7 +91,7 @@ def _pad_mask(B, T, n_pad):
 @pytest.mark.parametrize("name", [
     "VocabConfig", "ConformerConfig", "DAGDecoderConfig", "DecodeConfig",
     "FastSpeech2Config", "HiFiGANConfig", "DAGModelConfig",
-    "S2SModelConfig"])
+    "S2SModelConfig", "GlatConfig", "TrainingConfig"])
 def test_config_mirrors_jax(name):
     """Every field of the port's config has the JAX field's name and
     default, so the recipe's width is the same in both packages."""
@@ -310,7 +310,7 @@ class TestHiFiGAN:
         jm = jhg.HiFiGANGenerator(VOC_CFG, fold_to=fold_to)
         v = random_variables(jm, 12, mel)
         want = jm.apply(v, mel)
-        tm = convert.vocoder_from_flax(v, VOC_CFG)
+        tm = convert.vocoder_from_flax(v, VOC_CFG, device="cpu")
         got = tm(_t(mel))
         assert got.shape == (2, 24 * 4)
         _close(got, want, 2.5e-4)
@@ -328,7 +328,7 @@ class TestHiFiGAN:
         v = random_variables(jhg.HiFiGANGenerator(VOC_CFG), 0, mel)
         del v["params"]["conv_post"]
         with pytest.raises(KeyError, match="conv_post"):
-            convert.vocoder_from_flax(v, VOC_CFG)
+            convert.vocoder_from_flax(v, VOC_CFG, device="cpu")
 
 
 class TestDecode:

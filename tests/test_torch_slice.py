@@ -8,8 +8,8 @@ package and the frozen golden fixture, at the tiny configuration of
 * ``daspeech_torch.decode.generator.S2SNATGenerator.generate`` against the
   JAX ``S2SNATGenerator`` on one batch: same tokens, same mel lengths, mel
   and waveform within 1e-3;
-* an import guard: a fresh interpreter runs the port's CPU slice and never
-  imports jax or the JAX package.
+* an import guard: a fresh interpreter runs the port's CPU serving slice
+  and one training step, and never imports jax or the JAX package.
 """
 
 import os
@@ -103,8 +103,8 @@ def test_pipeline_matches_jax_and_golden(golden_setup):
     j_tokens, j_mel, j_wav = map(np.asarray,
                                  jax_pipeline(g["params"], g["vparams"]))
 
-    tm = convert.from_flax(g["params"], cfg)
-    tv = convert.vocoder_from_flax(g["vparams"], voc.cfg)
+    tm = convert.from_flax(g["params"], cfg, device="cpu")
+    tv = convert.vocoder_from_flax(g["vparams"], voc.cfg, device="cpu")
     prev_t = torch.from_numpy(prev).long()
     logits, links, feats = tm(torch.from_numpy(fbank),
                               torch.from_numpy(lens).long(), prev_t)
@@ -147,9 +147,10 @@ def test_generator_matches_jax(golden_setup):
         model, cfg.dag.vocab, decode_cfg, max_mel_len=M, vocoder=voc,
         vocoder_params=g["vparams"], gcmvn=gcmvn).generate(params, batch)
     got = tgen.S2SNATGenerator(
-        convert.from_flax(params, cfg), cfg.dag.vocab, decode_cfg,
-        max_mel_len=M, vocoder=convert.vocoder_from_flax(g["vparams"],
-                                                         voc.cfg),
+        convert.from_flax(params, cfg, device="cpu"), cfg.dag.vocab,
+        decode_cfg, max_mel_len=M,
+        vocoder=convert.vocoder_from_flax(g["vparams"], voc.cfg,
+                                          device="cpu"),
         gcmvn=gcmvn).generate(batch)
 
     assert len(got) == len(want) == B
@@ -208,6 +209,21 @@ assert len(hyps) == 2
 for h in hyps:
     assert np.isfinite(h["feature"]).all() and np.isfinite(h["waveform"]).all()
     assert h["feature"].shape[1] == 80
+
+# one training step of the S2TT DAG model on the CPU (plain versions)
+from daspeech_torch.losses import nat_dag_loss
+from daspeech_torch.models import S2TConformerDAG
+from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+dag = S2TConformerDAG(cfg.dag)
+opt = GuardedAdam(warmup_updates=1)
+state = TrainState.create(dag, opt)
+step = make_train_step(
+    lambda m, b, g: nat_dag_loss(m, b, g, 0.5, cfg.dag.vocab), opt)
+tgt = torch.tensor([[0, 5, 6, 7, 2], [0, 8, 9, 2, 1]])
+metrics = step(state, {"fbank": torch.randn(2, 40, 80), "src_lengths": lens,
+                       "target": tgt, "prev_output_tokens": prev}, torch.Generator())
+assert torch.isfinite(metrics["loss"]) and metrics["skipped"].item() == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "daspeech_tpu"))
 assert not bad, bad
