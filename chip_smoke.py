@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc;
+2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
+   (one process per source, started together);
 3. kernel phase: every kernel against its plain PyTorch version on the card,
    at the shapes the serving and training paths give it (forward and, for
-   the training path, backward with dropout 0.1 on the same Philox bits;
-   max abs error <= 1e-4; the DP's log-probabilities against the plain
-   loop in float64, within 2 sqrt(T) ulp of the largest magnitude, over
-   three shapes and four seeds; Viterbi paths equal), with median
+   the training paths, backward with dropout on the same Philox bits; max
+   abs error <= 1e-4; the DP's log-probabilities against the plain loop in
+   float64, within 2 sqrt(T) ulp of the largest magnitude, over three
+   shapes and four seeds; Viterbi paths equal; the head-major attention
+   against the packed kernel at a shape both take, <= 1e-6), with median
    CUDA-event times of the kernel, the plain version and, for attention,
    ``scaled_dot_product_attention`` with dropout at the same rate (timed
    here, used nowhere in the port), and the least time the card could
@@ -18,20 +20,31 @@
    (``daspeech_torch.decode.generator.S2SNATGenerator``) at the recipe's
    full width (Conformer 12Lx256d, DAG decoder 4Lx512d, FastSpeech 2
    4+4Lx256d, HiFi-GAN config_v1) with random weights from a seed, on two
-   batches; checks finite outputs, waveform lengths, that every forward
-   kernel was launched by that run, and that a CPU run of each batch (plain
-   versions) agrees; per batch, the median host-clock time of each
-   sub-stage of ``generate()``, audio seconds per wall second, and one
-   ``generate()`` under ``torch.profiler``;
-5. training phase: the S2TT DAG step (``daspeech_torch.train.make_train_step``
-   over ``daspeech_torch.losses.nat_dag_loss``) at the recipe's widths on
-   bench.py config 5's batch (B=80, 480 frames, 240 vertices, 64 target
-   tokens): one step on the card against one on the CPU (dropout 0, GLAT
-   p=0, 8 utterances), the kernel path against the plain path on the card
-   (dropout 0.1, GLAT p=0.5), 13 timed updates (the run whose launch counts
-   are read: every kernel must have run), sub-stage times, the device busy
-   share of one profiled update, peak memory, and 30 updates on one batch
-   that must bring the loss down.
+   batches; checks finite outputs, waveform lengths, that every kernel of
+   the path was launched by that run (batch B's 1040-frame FastSpeech 2
+   decoder takes the head-major attention), and that a CPU run of each
+   batch (plain versions) agrees; per batch, the median host-clock time of
+   each sub-stage of ``generate()``, audio seconds per wall second, and
+   one ``generate()`` under ``torch.profiler``;
+5. S2TT training phase: the DAG step (``daspeech_torch.train.make_train_step``
+   over ``daspeech_torch.losses.nat_dag_loss``) on bench.py config 5's
+   batch (B=80, 480 frames, 240 vertices, 64 target tokens): one step on
+   the card against one on the CPU (dropout 0, GLAT p=0, 8 utterances),
+   the kernel path against the plain path on the card (dropout 0.1, GLAT
+   p=0.5), 13 timed updates (the run whose launch counts are read: every
+   kernel must have run), sub-stages, the device busy share of one
+   profiled update, peak memory, and 30 updates on one batch that must
+   bring the loss down;
+6. joint S2ST training phase (``s2s_dag_fastspeech2_loss``): card-vs-CPU
+   steps at B=4 (``expect`` and ``argmax``), the kernel path against the
+   plain path at J-long with dropout on, 13 timed updates with sub-stages,
+   busy share and peak memory at J (bench.py's joint batch) and J-long (14
+   utterances of 14 s), checking the head-major kernel's launches per
+   update (0 at J, 12 forward and 8 backward at J-long), a frozen-DAG step
+   (every DAG and encoder gradient exactly 0), and 30 updates that must
+   end at <= 0.9 of the first loss;
+7. FastSpeech 2 pretraining phase (``fastspeech2_criterion``): a
+   card-vs-CPU step at B=4 and 7 updates (5 timed) at B=14, 1040 frames.
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -54,6 +67,7 @@ import numpy as np
 import torch
 
 TOL_KERNEL = 1e-4
+TOL_ROUTES = 1e-6         # head-major against packed kernel, same shape
 TOL_MEL = 1e-2
 MARGIN = 1e-4
 SEED = 0
@@ -106,6 +120,10 @@ KERNELS = {
                                    "daspeech_tpu/ops/fused_relpos.py:125"),
     "fused_extract_links_bwd": ("daspeech_torch/csrc/fused_links.cu",
                                 "daspeech_tpu/ops/fused_links.py:91"),
+    "fused_attention": ("daspeech_torch/csrc/fused_attention.cu",
+                        "daspeech_tpu/ops/fused_attention.py:189"),
+    "fused_attention_bwd": ("daspeech_torch/csrc/fused_attention.cu",
+                            "daspeech_tpu/ops/fused_attention.py:103"),
 }
 # The DP is held against its plain loop run in float64 (dp_numerics). Each
 # step shifts by the previous row's maximum, so in fp32 (kernel, plain loop
@@ -124,8 +142,15 @@ DP_NEGLIGIBLE = 20.0
 DP_BANDS = (0, 20, 40, 60, 70, 80)
 DP_SHAPES = ((80, 64, 240), (16, 64, 600), (4, 64, 1024))
 DP_SEEDS = (0, 1, 2, 3)
+# the kernels each path must launch (the serving run's batch B takes the
+# head-major attention in FastSpeech 2's decoder, at 1040 mel frames)
 SERVING_KERNELS = ("fused_attention_packed", "fused_extract_links",
-                   "fused_attention_relpos")
+                   "fused_attention_relpos", "fused_attention")
+TRAIN_KERNELS = ("fused_attention_packed", "fused_extract_links",
+                 "fused_attention_relpos", "dag_loss_forward",
+                 "dag_best_alignment", "fused_attention_packed_bwd",
+                 "fused_attention_relpos_bwd", "fused_extract_links_bwd")
+JOINT_KERNELS = TRAIN_KERNELS + ("fused_attention", "fused_attention_bwd")
 
 
 def launch_counters():
@@ -142,7 +167,9 @@ def launch_counters():
             "dag_best_alignment": dk.dag_best_alignment_kernel,
             "fused_attention_packed_bwd": fa.attention_bwd_kernel,
             "fused_attention_relpos_bwd": fr.relpos_bwd_kernel,
-            "fused_extract_links_bwd": fl.links_bwd_kernel}
+            "fused_extract_links_bwd": fl.links_bwd_kernel,
+            "fused_attention": fa.fused_attention,
+            "fused_attention_bwd": fa.attention_hm_bwd_kernel}
 
 
 def reset_launches():
@@ -165,13 +192,15 @@ def _randn(g, *shape, scale=1.0):
     return (torch.randn(*shape, generator=g) * scale).cuda()
 
 
-def _key_bias(B, Tk, g):
+def _key_bias(B, Tk, g, all_padded_row=False):
     """[B, Tk] padding bias: each row keeps a random prefix of >= Tk/2
-    keys."""
+    keys; with ``all_padded_row`` the last row keeps none."""
     from daspeech_torch.ops.fused_attention import NEG
 
     keep = torch.randint(Tk // 2, Tk + 1, (B,), generator=g)
     keep[0] = Tk
+    if all_padded_row:
+        keep[-1] = 0
     pad = torch.arange(Tk)[None, :] >= keep[:, None]
     return torch.where(pad, NEG, 0.0).float().cuda()
 
@@ -368,6 +397,78 @@ def kernel_phase():
                (3 * B * Tq * C + 4 * B * Tk * C + B * Tk) * F32,
                lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do4,
                                            retain_graph=True))
+
+    # --- head-major attention (#2): the joint step's long utterances
+    # (J-long: FastSpeech 2's decoder at 1040 frames, p = 0; the DAG
+    # decoder's self-attention at 700 vertices, p = 0.1), serving batch B's
+    # FastSpeech 2 decoder (forward), and a batch with a fully padded row
+    def sdpa_hm(q, k, v, bias, p):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias[:, None, None, :], dropout_p=p,
+            scale=1.0)
+
+    for (B, H, Tq, Tk, p, train, padded) in (
+            (14, 4, 1040, 1040, 0.0, True, False),
+            (14, 8, 700, 700, 0.1, True, False),
+            (2, 4, 1040, 1040, 0.0, False, False),
+            (4, 4, 1040, 1040, 0.1, True, True)):
+        d = fa.HEAD_DIM
+        q = _randn(g, B, H, Tq, d, scale=d ** -0.5)
+        k, v = _randn(g, B, H, Tk, d), _randn(g, B, H, Tk, d)
+        bias = _key_bias(B, Tk, g, all_padded_row=padded)
+        seeds = _seeds(g, B) if p else None
+        shape = (f"[{B},{H},{Tq},{d}] kv_T={Tk} p={p}"
+                 + (" last row padded" if padded else ""))
+        out, stats = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
+                                                with_stats=train)
+        record("fused_attention", shape,
+               _max_err(out, fa.attention_hm_plain(q, k, v, bias, 1.0, p,
+                                                   seeds)),
+               lambda: fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p,
+                                                  seeds),
+               lambda: fa.attention_hm_plain(q, k, v, bias, 1.0, p, seeds),
+               4 * B * H * Tq * Tk * d,
+               (2 * B * H * Tq * d + 2 * B * H * Tk * d + B * Tk) * F32,
+               lambda: sdpa_hm(q, k, v, bias, p))
+        if not train:
+            continue
+        do = _randn(g, B, H, Tq, d)
+        got = fa.attention_hm_bwd_kernel(q, k, v, bias, out, stats, do, 1.0,
+                                         p, seeds)
+        want = fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p, seeds)
+        qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o_lib = sdpa_hm(qr, kr, vr, bias, p)
+        record("fused_attention_bwd", shape, _max_err(got, want),
+               lambda: fa.attention_hm_bwd_kernel(q, k, v, bias, out, stats,
+                                                  do, 1.0, p, seeds),
+               lambda: fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p,
+                                                 seeds),
+               10 * B * H * Tq * Tk * d,
+               (3 * B * H * Tq * d + 4 * B * H * Tk * d + B * Tk) * F32,
+               lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,
+                                           retain_graph=True))
+    # at a shape both routes take, #2 drops what #1 drops and agrees with it
+    B, H, T, p = 8, 4, 416, 0.1
+    q = _randn(g, B, T, H * 64, scale=0.125)
+    k, v, do = (_randn(g, B, T, H * 64) for _ in range(3))
+    bias = _key_bias(B, T, g, all_padded_row=True)
+    seeds = _seeds(g, B)
+    heads = lambda x: x.reshape(B, T, H, 64).transpose(1, 2).contiguous()  # noqa: E731,E501
+    out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                      with_stats=True)
+    out_h, st_h = fa.attention_hm_fwd_kernel(heads(q), heads(k), heads(v),
+                                             bias, 1.0, p, seeds,
+                                             with_stats=True)
+    err = max(_max_err(heads(out), out_h), _max_err(
+        [heads(x) for x in fa.attention_bwd_kernel(q, k, v, bias, out, st,
+                                                   do, H, 1.0, p, seeds)],
+        fa.attention_hm_bwd_kernel(heads(q), heads(k), heads(v), bias,
+                                   out_h, st_h, heads(do), 1.0, p, seeds)))
+    log(f"  fused_attention vs fused_attention_packed [{B},{H},{T},64] "
+        f"p={p}: max abs diff {err:.3g} (<= {TOL_ROUTES}), forward and "
+        "backward")
+    if not err <= TOL_ROUTES:
+        raise AssertionError(f"head-major and packed kernels differ by {err}")
 
     # --- link extraction: serving batches A and B (forward), then the
     # training shape, forward and backward; the work is the valid
@@ -828,15 +929,21 @@ def sub_stage_ms(gen, batch, reps=5):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def profile_dir():
+    """``build/profile/`` at the root of the checkout (made if missing)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    return out_dir
+
+
 def device_busy(fn, tag):
     """``fn()`` once under ``torch.profiler``: the device's busy time
     (union of kernel intervals) against the wall time, and the kernels that
     took the most device time. The trace goes to ``build/profile/``."""
     from torch.profiler import ProfilerActivity, profile
 
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "profile")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = profile_dir()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -925,20 +1032,22 @@ def loss_fn_for(cfg, glat_p):
     return lambda m, b, g: nat_dag_loss(m, b, g, glat_p, cfg.vocab)
 
 
+def grad_errors(got, want):
+    """Per parameter ||got - want|| / max(||want||, 1e-4 * global norm of
+    ``want``), in float64: key biases shift every score of a softmax row
+    alike, so their exact gradient is 0 and both sides hold rounding
+    noise."""
+    want = [w.detach().cpu().double() for w in want]
+    floor = 1e-4 * math.sqrt(sum(float(w.norm()) ** 2 for w in want))
+    return [float((a.detach().cpu().double() - b).norm())
+            / max(float(b.norm()), floor) for a, b in zip(got, want)]
+
+
 def grad_error(names, got, want, tag):
-    """Worst per-parameter ||got - want|| / max(||want||, 1e-4 * global
-    norm): key biases shift every score of a softmax row alike, so their
-    exact gradient is 0 and both sides hold rounding noise. Every
-    parameter's value goes to ``build/profile/grads_<tag>.tsv``, the five
-    worst to the log."""
-    g_norm = math.sqrt(sum(float(w.norm()) ** 2 for w in want))
-    floor = 1e-4 * g_norm
-    rel = [(float((a.cpu() - b.cpu()).norm()) / max(float(b.norm()), floor),
-            n) for n, a, b in zip(names, got, want)]
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "profile")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"grads_{tag}.tsv"), "w") as f:
+    """Worst of :func:`grad_errors`. Every parameter's value goes to
+    ``build/profile/grads_<tag>.tsv``, the five worst to the log."""
+    rel = list(zip(grad_errors(got, want), names))
+    with open(os.path.join(profile_dir(), f"grads_{tag}.tsv"), "w") as f:
         f.writelines(f"{n}\t{r:.6g}\n" for r, n in rel)
     worst = sorted(rel, reverse=True)
     log(f"  {tag}: gradient difference relative to its norm, {len(rel)} "
@@ -961,6 +1070,7 @@ class plain_kernels:
         from daspeech_torch.ops import fused_relpos as fr
 
         self.saved = [(fa, "fused_attention_packed", fa.attention_plain),
+                      (fa, "fused_attention", fa.attention_hm_plain),
                       (fr, "fused_attention_relpos", fr.relpos_plain),
                       (dag_model, "fused_extract_links", fl.links_plain),
                       (dk, "dag_loss_forward_kernel",
@@ -977,23 +1087,65 @@ class plain_kernels:
 
 
 class glance_spy:
-    """Records what ``glat_glance`` returns (and its inputs) in the block."""
+    """Records what ``glat_glance`` returns (and its inputs) in the block,
+    for the S2TT and the joint criterion."""
 
     def __enter__(self):
         from daspeech_torch.losses import dag_loss as dl
+        from daspeech_torch.losses import s2s_loss as sl
 
-        self.module, self.orig, self.calls = dl, dl.glat_glance, []
+        self.modules, self.orig, self.calls = (dl, sl), dl.glat_glance, []
 
         def spy(logits, links, *a, **kw):
             info = self.orig(logits, links, *a, **kw)
             self.calls.append((logits, links, a, info))
             return info
 
-        dl.glat_glance = spy
+        for m in self.modules:
+            m.glat_glance = spy
         return self
 
     def __exit__(self, *exc):
-        self.module.glat_glance = self.orig
+        for m in self.modules:
+            m.glat_glance = self.orig
+
+
+class argmax_spy:
+    """Records the inputs and the Viterbi path of the joint criterion's
+    ``argmax`` strategy in the block (match [B, T, L], links, target
+    lengths, path), on the host."""
+
+    def __enter__(self):
+        from daspeech_torch.losses import s2s_loss as sl
+
+        self.module, self.orig, self.calls = sl, sl.dag_best_alignment, []
+
+        def spy(match, links, ol, tl):
+            path = self.orig(match, links, ol, tl)
+            self.calls.append(tuple(x.detach().cpu() for x in
+                                    (match, links, tl, path)))
+            return path
+
+        sl.dag_best_alignment = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.dag_best_alignment = self.orig
+
+
+def viterbi_step_margin(match, links, tl):
+    """The smallest top-2 gap of the first max over predecessors at every
+    Viterbi step of one sample (match [T, L], links [L, L])."""
+    f = torch.full_like(match[0], -math.inf)
+    f[0] = match[0, 0]
+    margin = math.inf
+    for t in range(1, tl):
+        top = (f[:, None] + links).topk(2, dim=0).values
+        fin = torch.isfinite(top[0]) & torch.isfinite(top[1])
+        if fin.any():
+            margin = min(margin, float((top[0] - top[1])[fin].min()))
+        f = top[0] + match[t]
+    return margin
 
 
 def viterbi_margin(logits, links, tgt, prev, pad, b):
@@ -1003,33 +1155,23 @@ def viterbi_margin(logits, links, tgt, prev, pad, b):
     from daspeech_torch.ops.dag_ref import dag_logsoftmax_gather_tokens
 
     match = dag_logsoftmax_gather_tokens(logits[b:b + 1], tgt[b:b + 1])
-    match = match.transpose(1, 2)[0]
-    tl = int((tgt[b] != pad).sum())
-    f = torch.full_like(match[0], -math.inf)
-    f[0] = match[0, 0]
-    margin = math.inf
-    for t in range(1, tl):
-        scores = f[:, None] + links[b]
-        top = scores.topk(2, dim=0).values
-        fin = torch.isfinite(top[0]) & torch.isfinite(top[1])
-        if fin.any():
-            margin = min(margin, float((top[0] - top[1])[fin].min()))
-        f = top[0] + match[t]
+    margin = viterbi_step_margin(match.transpose(1, 2)[0], links[b],
+                                 int((tgt[b] != pad).sum()))
     tok = logits[b].float().topk(2, dim=-1).values
     n = int((prev[b] != pad).sum())
     return min(margin, float((tok[:n, 0] - tok[:n, 1]).min()))
 
 
-def loss_and_grads(model, batch, seed, cfg, glat_p):
+def loss_and_grads(model, batch, seed, loss_fn):
     """One criterion pass + backward: (loss, grads, glance infos)."""
     for p in model.parameters():
         p.grad = None
     with glance_spy() as spy:
-        loss, _ = loss_fn_for(cfg, glat_p)(
-            model, batch, torch.Generator().manual_seed(seed))
+        loss, _ = loss_fn(model, batch, torch.Generator().manual_seed(seed))
         loss.backward()
-    return (loss.detach(), [p.grad.detach().clone() for p in
-                            model.parameters()], spy.calls)
+    return (loss.detach(), [torch.zeros_like(p) if p.grad is None
+                            else p.grad.detach().clone()
+                            for p in model.parameters()], spy.calls)
 
 
 def parity_step(model_cpu, no_drop_cfg):
@@ -1093,20 +1235,61 @@ def parity_step(model_cpu, no_drop_cfg):
     return {"loss_rel": dloss, "grad_rel": gerr, "param_abs": perr}
 
 
-def kernel_vs_plain(model, cfg):
-    """B = TRAIN_B, dropout 0.1, GLAT p = 0.5: the criterion's loss and
-    gradients through the kernels and through their plain versions, on the
-    card, same weights and seeds (same dropout bits)."""
-    batch = make_train_batch(TRAIN_B, TRAIN_S, TRAIN_T, cfg, SEED + 3,
-                             DEVICE)
-    pad = cfg.vocab.pad
+class float64_ops:
+    """Within the block (with :class:`plain_kernels`) a model and batch cast
+    to float64 run in float64 end to end: ``Tensor.float()`` keeps float64
+    and the rel-pos basis comes in float64. Only for the float64 reference
+    of :func:`kernel_vs_plain`."""
+
+    def __enter__(self):
+        from daspeech_torch.ops import fused_relpos as fr
+
+        self.fr, self.orig = fr, (torch.Tensor.float, fr.relpos_basis)
+        to_float = self.orig[0]
+        torch.Tensor.float = lambda t, *a, **k: (  # noqa: E731
+            t.double() if t.is_floating_point() else to_float(t, *a, **k))
+        fr.relpos_basis = lambda *a, **k: tuple(  # noqa: E731
+            x.double() for x in self.orig[1](*a, **k))
+
+    def __exit__(self, *exc):
+        torch.Tensor.float, self.fr.relpos_basis = self.orig
+
+
+def float64_loss_and_grads(model, batch, seed, loss_fn):
+    """:func:`loss_and_grads` of the plain versions in float64."""
+    m64 = copy.deepcopy(model).double()
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    with plain_kernels(), float64_ops():
+        out = loss_and_grads(m64, b64, seed, loss_fn)
+    del m64
+    return out
+
+
+def kernel_vs_plain(model, batch, loss_fn, pad, what, against_float64=False):
+    """The criterion's loss and gradients through the kernels and through
+    their plain versions, on the card, same weights and seeds (same dropout
+    bits): loss within TOL_LOSS relative and each gradient within TOL_GRAD
+    of its norm. With ``against_float64`` both are held to the plain
+    versions run in float64 instead: where fp32 rounding alone moves a
+    gradient by more than TOL_GRAD (the joint step at J-long), the kernel
+    path's error must stay within twice the fp32 plain path's own, or
+    TOL_GRAD. A glance that differs must be a near tie; its sample is
+    masked out of a second try."""
+    B = batch["prev_output_tokens"].shape[0]
     for attempt in range(2):
-        lk, gk, ck = loss_and_grads(model, batch, SEED, cfg, 0.5)
+        lk, gk, ck = loss_and_grads(model, batch, SEED, loss_fn)
         with plain_kernels():
-            lp, gp, cp = loss_and_grads(model, batch, SEED, cfg, 0.5)
-        prev_k = ck[0][3].prev_output_tokens
+            lp, gp, cp = loss_and_grads(model, batch, SEED, loss_fn)
+        runs = [ck, cp]
+        if against_float64:
+            l64, g64, c64 = float64_loss_and_grads(model, batch, SEED,
+                                                   loss_fn)
+            runs.append(c64)
         prev_p = cp[0][3].prev_output_tokens
-        differ = (prev_k != prev_p).any(dim=1).nonzero()[:, 0].tolist()
+        differ = sorted({b for c in runs for b in (
+            c[0][3].prev_output_tokens != prev_p).any(dim=1).nonzero()[:, 0]
+            .tolist()})
         if not differ:
             break
         for b in differ:
@@ -1118,19 +1301,37 @@ def kernel_vs_plain(model, cfg):
                 raise AssertionError(f"sample {b}: glance differs with "
                                      f"margin {m} >= {NEAR_TIE}")
         # compare on the other samples
-        mask = torch.ones(TRAIN_B, device=DEVICE)
+        mask = torch.ones(B, device=DEVICE)
         mask[differ] = 0.0
         batch = dict(batch, sample_mask=mask)
     dloss = abs(lk.item() - lp.item()) / abs(lp.item())
-    gerr = grad_error([n for n, _ in model.named_parameters()], gk, gp,
-                      "kernel_vs_plain")
-    log(f"  kernel vs plain path on the card (B={TRAIN_B}, dropout 0.1, "
-        f"GLAT 0.5): loss {lk.item():.6f} vs {lp.item():.6f}, rel diff "
-        f"{dloss:.3g} (<= {TOL_LOSS}); worst per-parameter gradient rel "
-        f"diff {gerr:.3g} (<= {TOL_GRAD})")
-    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD):
-        raise AssertionError("kernel and plain training paths disagree")
-    return {"loss_rel": dloss, "grad_rel": gerr}
+    names = [n for n, _ in model.named_parameters()]
+    tag = "kernel_vs_plain_" + what.split(",")[0].replace(" ", "_")
+    gerr = grad_error(names, gk, gp, tag)
+    log(f"  kernel vs plain path on the card ({what}): loss "
+        f"{lk.item():.6f} vs {lp.item():.6f}, rel diff {dloss:.3g} (<= "
+        f"{TOL_LOSS}); worst per-parameter gradient rel diff {gerr:.3g}")
+    if not against_float64:
+        if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD):
+            raise AssertionError(f"kernel and plain paths disagree ({what})")
+        return {"loss_rel": dloss, "grad_rel": gerr}
+    e_k = grad_errors(gk, g64)
+    e_p = grad_errors(gp, g64)
+    excess = max(k / max(2.0 * p, TOL_GRAD) for k, p in zip(e_k, e_p))
+    worst = max(range(len(names)), key=lambda i: e_k[i])
+    log(f"  against the plain versions in float64 (loss "
+        f"{l64.item():.9f}): kernel path worst per-parameter gradient rel "
+        f"diff {max(e_k):.3g} ({names[worst]}), fp32 plain path "
+        f"{max(e_p):.3g}; worst kernel error over max(2 x plain's, "
+        f"{TOL_GRAD}) {excess:.3g} (<= 1)")
+    with open(os.path.join(profile_dir(), f"grads_{tag}_float64.tsv"),
+              "w") as f:
+        f.writelines(f"{n}\t{k:.6g}\t{p:.6g}\n"
+                     for n, k, p in zip(names, e_k, e_p))
+    if not (dloss <= TOL_LOSS and excess <= 1.0):
+        raise AssertionError(f"kernel path off float64 beyond fp32 rounding "
+                             f"({what})")
+    return {"loss_rel": dloss, "grad_rel": gerr, "excess": excess}
 
 
 def train_sub_stages(state, batch, opt, cfg, reps=5):
@@ -1205,7 +1406,11 @@ def train_phase():
     results = {"parity": parity_step(model_cpu, no_drop_cfg)}
 
     model = copy.deepcopy(model_cpu).to(DEVICE)
-    results["kernel_vs_plain"] = kernel_vs_plain(model, cfg)
+    results["kernel_vs_plain"] = kernel_vs_plain(
+        model, make_train_batch(TRAIN_B, TRAIN_S, TRAIN_T, cfg, SEED + 3,
+                                DEVICE),
+        loss_fn_for(cfg, 0.5), cfg.vocab.pad,
+        f"S2TT B={TRAIN_B}, dropout 0.1, GLAT 0.5")
 
     # --- the training path's run: counters from 0, 3 warm-up and 10 timed
     # updates of bench config 5 (recipe optimizer: lr 5e-4, 10k warm-up)
@@ -1228,8 +1433,8 @@ def train_phase():
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  launches in the training run (13 updates): {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the training "
                                  "path")
     if not (torch.isfinite(metrics["loss"]) and metrics["skipped"] == 0):
@@ -1261,6 +1466,390 @@ def train_phase():
         + " ".join(f"{x:.3f}" for x in losses[::5]))
     if not losses[-1] < LEARN_FRACTION * losses[0]:
         raise AssertionError("the training step does not learn")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# joint S2ST phase and FastSpeech 2 pretraining phase
+# ---------------------------------------------------------------------------
+
+# (B, S fbank frames, T target tokens, M mel frames, frames per token). J:
+# bench.py's joint step (max-tokens 20k: L = 240, T' = 120). J-long: the
+# same 20k tokens as 14 utterances of 14 s (T' = 350, L = 700), where the
+# FastSpeech 2 decoder (1040 frames) and the DAG decoder's self-attention
+# (700 vertices) take the head-major kernel
+JOINT_SHAPES = {"J": (40, 480, 64, 512, 8), "J-long": (14, 1400, 128, 1040, 8)}
+# head-major forward / backward launches per update: FastSpeech 2's 4
+# decoder layers, the DAG decoder's 4 layers in 2 passes (the glance pass
+# without gradient)
+HM_PER_UPDATE = {"J": (0, 0), "J-long": (12, 8)}
+JOINT_PARITY_B = 4
+P_SHAPE = (14, 128, 1040, 8)    # B, T phonemes, M mel frames, frames/token
+P_PARITY_B = 4
+
+
+def joint_configs():
+    from daspeech_torch.config import (ConformerConfig, DAGDecoderConfig,
+                                       DAGModelConfig, FastSpeech2Config,
+                                       S2SModelConfig, VocabConfig)
+
+    vocab = VocabConfig(size=128)
+    no_drop = S2SModelConfig(
+        dag=DAGModelConfig(
+            vocab=vocab,
+            encoder=ConformerConfig(dropout=0.0, attn_dropout=0.0),
+            decoder=DAGDecoderConfig(dropout=0.0, attn_dropout=0.0,
+                                     activation_dropout=0.0)),
+        tts=FastSpeech2Config(dropout=0.0, var_pred_dropout=0.0),
+        adaptor_dropout=0.0)
+    return S2SModelConfig(dag=DAGModelConfig(vocab=vocab)), no_drop
+
+
+def _gold(rng, B, n, dur):
+    """Gold durations (``dur`` frames each), pitches and energies U(0, 2)
+    (a normalized feature's scale) of n tokens."""
+    f = lambda: torch.from_numpy(  # noqa: E731
+        rng.uniform(0, 2, size=(B, n)).astype(np.float32))
+    return {"durations": torch.full((B, n), dur), "pitches": f(),
+            "energies": f()}
+
+
+def make_joint_batch(B, S, T, M, dur, cfg, seed, device):
+    """B utterances of S fbank frames (graphs of S/2 vertices), targets of
+    T random phonemes between <bos> and <eos>, a mel target of M frames
+    N(0, 1) of which the T - 1 tokens fill (T - 1) * dur."""
+    from daspeech_torch.models import graph_lengths, initialize_output_tokens
+
+    rng = np.random.default_rng(seed)
+    vocab = cfg.dag.vocab
+    lens = torch.full((B,), S, dtype=torch.long)
+    prev = initialize_output_tokens(
+        graph_lengths(lens, cfg.dag.decoder.src_upsample_scale,
+                      cfg.dag.decoder.max_target_positions), S // 2, vocab)
+    tgt = rng.integers(4, vocab.size, size=(B, T))
+    tgt[:, 0], tgt[:, -1] = vocab.bos, vocab.eos
+    batch = {"fbank": torch.from_numpy(
+                 rng.normal(size=(B, S, 80)).astype(np.float32)),
+             "src_lengths": lens, "target_text": torch.from_numpy(tgt),
+             "prev_output_tokens": prev,
+             "target_audio": torch.from_numpy(
+                 rng.normal(size=(B, M, 80)).astype(np.float32)),
+             "target_audio_lengths": torch.full((B,), min((T - 1) * dur, M)),
+             **_gold(rng, B, T - 1, dur)}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def make_fs2_batch(B, T, M, dur, vocab, seed, device):
+    """B phoneme sequences of T tokens (no padding), a mel target of M
+    frames N(0, 1), gold durations, pitches and energies."""
+    rng = np.random.default_rng(seed)
+    batch = {"src_tokens": torch.from_numpy(
+                 rng.integers(4, vocab.size, size=(B, T))),
+             "target_audio": torch.from_numpy(
+                 rng.normal(size=(B, M, 80)).astype(np.float32)),
+             "target_audio_lengths": torch.full((B,), min(T * dur, M)),
+             **_gold(rng, B, T, dur)}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def joint_loss_fn(cfg, glat_p, strategy="expect", freeze_dag=False):
+    from daspeech_torch.losses import s2s_dag_fastspeech2_loss
+
+    return lambda m, b, g: s2s_dag_fastspeech2_loss(
+        m, b, g, glat_p, cfg.dag.vocab, training_strategy=strategy,
+        freeze_dag=freeze_dag)
+
+
+def fs2_loss_fn(vocab):
+    from daspeech_torch.losses import fastspeech2_criterion
+
+    return lambda m, b, g: fastspeech2_criterion(m, b, g, vocab)
+
+
+def step_parity(tag, model_cpu, loss_fn, batch):
+    """One ``make_train_step`` on the card and one on the CPU (plain
+    versions), same weights and batch: loss within TOL_LOSS relative, each
+    gradient within TOL_GRAD of its norm, BatchNorm statistics within
+    TOL_KERNEL. The ``argmax`` strategy's Viterbi paths must agree; a
+    sample whose path differs must be a near tie, and is masked out of a
+    second try."""
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    opt = GuardedAdam(lr=5e-4, warmup_updates=1)
+    B = next(iter(batch.values())).shape[0]
+    for attempt in range(2):
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            model = copy.deepcopy(model_cpu).to(dev)
+            state = TrainState.create(model, opt)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            with argmax_spy() as spy:
+                metrics = make_train_step(loss_fn, opt)(
+                    state, b, torch.Generator().manual_seed(SEED))
+            sync()
+            out[dev] = (metrics["loss"].item(),
+                        [torch.zeros(p.shape) if p.grad is None
+                         else p.grad.detach().cpu() for p in state.params],
+                        [x.detach().cpu() for x in model.buffers()],
+                        spy.calls)
+            log(f"  {tag} step on {dev}: loss {out[dev][0]:.6f}, gnorm "
+                f"{metrics['gnorm'].item():.4f} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        (lg, gg, bg, cg), (lc, gc, bc, cc) = out[DEVICE], out["cpu"]
+        differ = sorted({b for (_, _, _, pg), (_, _, _, pc) in zip(cg, cc)
+                         for b in (pg != pc).any(dim=1).nonzero()[:, 0]
+                         .tolist()})
+        if not differ:
+            break
+        for b in differ:
+            match, links, tl, _ = cc[0]
+            m = viterbi_step_margin(match[b], links[b], int(tl[b]))
+            log(f"  {tag} sample {b}: the argmax path differs between card "
+                f"and CPU; top-2 margin of its decisions {m:.3g}")
+            if not m < NEAR_TIE:
+                raise AssertionError(f"{tag} sample {b}: path differs with "
+                                     f"margin {m} >= {NEAR_TIE}")
+        mask = torch.ones(B)
+        mask[differ] = 0.0
+        batch = dict(batch, sample_mask=mask)
+    dloss = abs(lg - lc) / abs(lc)
+    gerr = grad_error([n for n, p in model_cpu.named_parameters()
+                       if p.requires_grad], gg, gc, tag.replace(" ", "_"))
+    berr = max((float((a - b).abs().max()) for a, b in zip(bg, bc)
+                if a.is_floating_point()), default=0.0)
+    log(f"  {tag}, card vs CPU: loss rel diff {dloss:.3g} (<= {TOL_LOSS}); "
+        f"worst per-parameter gradient rel diff {gerr:.3g} (<= {TOL_GRAD});"
+        f" buffers max abs diff {berr:.3g}")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD and berr <= TOL_KERNEL):
+        raise AssertionError(f"{tag}: card and CPU steps disagree")
+    return {"loss_rel": dloss, "grad_rel": gerr}
+
+
+def joint_sub_stages(state, batch, opt, cfg, reps=5):
+    """Median host-clock ms of each stage of one joint update, each closed
+    by a synchronize (the steps of ``s2s_dag_fastspeech2_loss`` and
+    ``make_train_step`` spelled out, ``expect`` strategy); the first of
+    ``reps + 1`` rounds is a warm-up."""
+    from daspeech_torch.losses import (compute_dag_loss, expected_features,
+                                       fastspeech2_losses, glat_glance)
+    from daspeech_torch.losses.dag_loss import device_generator
+    from daspeech_torch.models.layers import lengths_to_padding_mask
+    from daspeech_torch.train import global_norm
+
+    model, pad = state.model, cfg.dag.vocab.pad
+    names = ("encode", "glance pass + Viterbi", "second decode",
+             "DP with alpha/beta", "expected features", "FastSpeech 2",
+             "backward", "optimizer")
+    times = {k: [] for k in names}
+    gen = torch.Generator().manual_seed(SEED + 8)
+    tgt, prev = batch["target_text"], batch["prev_output_tokens"]
+    M = batch["target_audio"].shape[1]
+    for rep in range(reps + 1):
+        for p in state.params:
+            p.grad = None
+        sync()
+        ts = [time.perf_counter()]
+
+        def mark():
+            sync()
+            ts.append(time.perf_counter())
+
+        e, d, gl, tt = (int(x) for x in torch.randint(0, 2 ** 62, (4,),
+                                                      generator=gen))
+        enc, enc_pad, _ = model.encode(batch["fbank"], batch["src_lengths"],
+                                       rng=device_generator(DEVICE, e))
+        mark()
+        with torch.no_grad():
+            logits1, links1, _ = model.decode(
+                prev, enc, enc_pad, rng=device_generator(DEVICE, d))
+            info = glat_glance(logits1, links1, tgt, prev, 0.5, pad,
+                               rng=device_generator(DEVICE, gl))
+        mark()
+        logits, links, feats = model.decode(
+            info.prev_output_tokens, enc, enc_pad,
+            rng=device_generator(DEVICE, d))
+        mark()
+        dagloss, _, alpha, beta = compute_dag_loss(
+            logits, links, tgt, info.prev_output_tokens, pad,
+            info.matchmask, info.keep_word_mask, with_alpha_beta=True)
+        mark()
+        z = expected_features(alpha, beta, feats)
+        mark()
+        n = z.shape[1]
+        zpad = lengths_to_padding_mask((tgt != pad).sum(1) - 1, n)
+        gold = [batch[k][:, :n] for k in ("durations", "pitches",
+                                          "energies")]
+        mel, _, log_dur, pitch, energy = model.synthesize(
+            z, zpad, M, gold[0], pitches=gold[1], energies=gold[2],
+            rng=device_generator(DEVICE, tt))
+        tts, _ = fastspeech2_losses(
+            mel, log_dur, pitch, energy, batch["target_audio"], *gold, ~zpad,
+            ~lengths_to_padding_mask(batch["target_audio_lengths"], M))
+        loss = dagloss + 5.0 * tts
+        mark()
+        loss.backward()
+        mark()
+        grads = [p.grad for p in state.params]
+        gnorm = global_norm(grads)
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        state.opt_state = opt.update_(state.params, grads, state.opt_state,
+                                      gnorm, ok)
+        mark()
+        if rep:
+            for k, a, b in zip(names, ts[:-1], ts[1:]):
+                times[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def timed_updates(step, state, batch, n_warm, n_timed, tag):
+    """``n_warm`` + ``n_timed`` updates with the counters from 0: (median
+    ms, IQR, launches, peak GiB, last metrics)."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n_warm + n_timed):
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, gen)
+        sync()
+        if i >= n_warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (torch.isfinite(metrics["loss"]) and metrics["skipped"] == 0):
+        raise AssertionError(f"{tag}: update failed: {metrics}")
+    q25, med, q75 = np.percentile(times, [25, 50, 75])
+    log(f"  {tag}: median {med:.3f} ms per update over {n_timed} (IQR "
+        f"{q25:.3f}-{q75:.3f}, min {min(times):.3f}, max {max(times):.3f});"
+        f" loss {metrics['loss'].item():.4f}; peak memory {peak:.2f} GiB")
+    return med, (q25, q75), launches, peak, metrics
+
+
+def joint_phase():
+    """The joint S2ST step (``make_train_step`` over
+    ``s2s_dag_fastspeech2_loss``) at the recipe's widths, random weights
+    from a seed: card-vs-CPU steps (``expect`` and ``argmax``), kernel vs
+    plain path at J-long with dropout on, timed updates with sub-stages at
+    J and J-long (the head-major kernel's launches per update checked), a
+    frozen-DAG step, and 30 updates that must lower the loss. Returns the
+    launches of the J and J-long runs."""
+    from daspeech_torch.models import S2SConformerDAGFastSpeech2
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    cfg, no_drop = joint_configs()
+    model_cpu = init_random_(S2SConformerDAGFastSpeech2(cfg), SEED)
+    B, S, T, M, dur = JOINT_SHAPES["J"]
+    parity_batch = make_joint_batch(JOINT_PARITY_B, S, T, M, dur, cfg,
+                                    SEED + 10, "cpu")
+    ref = S2SConformerDAGFastSpeech2(no_drop)
+    ref.load_state_dict(model_cpu.state_dict())
+    for strategy in ("expect", "argmax"):
+        step_parity(f"joint {strategy} B={JOINT_PARITY_B}", ref,
+                    joint_loss_fn(no_drop, 0.0, strategy), parity_batch)
+
+    model = copy.deepcopy(model_cpu).to(DEVICE)
+    kernel_vs_plain(model, make_joint_batch(*JOINT_SHAPES["J-long"], cfg,
+                                            SEED + 11, DEVICE),
+                    joint_loss_fn(cfg, 0.5), cfg.dag.vocab.pad,
+                    "joint J-long, dropout on, GLAT 0.5",
+                    against_float64=True)
+
+    runs = {}
+    for tag, shape in JOINT_SHAPES.items():
+        opt = GuardedAdam()
+        state = TrainState.create(model, opt)
+        step = make_train_step(joint_loss_fn(cfg, 0.5), opt)
+        batch = make_joint_batch(*shape, cfg, SEED + 12, DEVICE)
+        what = (f"joint {tag} (B={shape[0]}, S={shape[1]}, L={shape[1] // 2},"
+                f" T={shape[2]}, M={shape[3]})")
+        _, _, launches, _, _ = timed_updates(step, state, batch, 3, 10, what)
+        per = {n: launches[n] / 13 for n in JOINT_KERNELS}
+        log(f"  {tag} launches per update: "
+            + ", ".join(f"{n} {v:g}" for n, v in per.items()))
+        for name in (JOINT_KERNELS if HM_PER_UPDATE[tag][0]
+                     else TRAIN_KERNELS):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by {what}")
+        if (per["fused_attention"], per["fused_attention_bwd"]) != \
+                HM_PER_UPDATE[tag]:
+            raise AssertionError(f"{what}: head-major launches per update "
+                                 f"{per['fused_attention']} / "
+                                 f"{per['fused_attention_bwd']}, expected "
+                                 f"{HM_PER_UPDATE[tag]}")
+        runs[tag] = launches
+        med = joint_sub_stages(state, batch, opt, cfg)
+        log(f"  {tag} sub-stages (median of 5, ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+            + f"; sum {sum(med.values()):.3f}")
+        device_busy(lambda: step(state, batch, torch.Generator()),
+                    f"joint step {tag}")
+
+    # --- a frozen-DAG step: no gradient reaches the encoder or the DAG
+    # decoder; the adaptor and FastSpeech 2 train
+    batch = make_joint_batch(*JOINT_SHAPES["J"], cfg, SEED + 13, DEVICE)
+    loss, grads, _ = loss_and_grads(model, batch, SEED,
+                                    joint_loss_fn(cfg, 0.5, freeze_dag=True))
+    named = list(zip((n for n, _ in model.named_parameters()), grads))
+    moved = [n for n, g in named if n.startswith("dag.") and g.any()]
+    still = [n for n, g in named if not n.startswith("dag.")
+             and not g.any()]
+    log(f"  frozen-DAG step: loss {loss.item():.4f}; "
+        f"{sum(n.startswith('dag.') for n, _ in named)} DAG parameters "
+        f"with any nonzero gradient: {len(moved)}; adaptor and FastSpeech 2 "
+        f"parameters with an all-zero gradient: {len(still)}")
+    if moved or still:
+        raise AssertionError(f"freeze_dag: {moved[:5]} {still[:5]}")
+
+    # --- learning: LEARN_STEPS updates on one J batch, warm-up 10
+    opt = GuardedAdam(warmup_updates=10)
+    state = TrainState.create(copy.deepcopy(model_cpu).to(DEVICE), opt)
+    step = make_train_step(joint_loss_fn(cfg, 0.5), opt)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    losses = [step(state, batch, gen)["loss"] for _ in range(LEARN_STEPS)]
+    losses = [x.item() for x in losses]
+    log(f"  joint learning, {LEARN_STEPS} updates on one J batch: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (must end at <= "
+        f"{LEARN_FRACTION} of the first); every fifth: "
+        + " ".join(f"{x:.3f}" for x in losses[::5]))
+    if not losses[-1] <= LEARN_FRACTION * losses[0]:
+        raise AssertionError("the joint step does not learn")
+    return runs
+
+
+def fs2_phase():
+    """FastSpeech 2 pretraining (``make_train_step`` over
+    ``fastspeech2_criterion``, token input) at the recipe's widths: one
+    card-vs-CPU step at B = P_PARITY_B, then 5 timed updates at P."""
+    from daspeech_torch.config import FastSpeech2Config, VocabConfig
+    from daspeech_torch.models import FastSpeech2Encoder
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    vocab = VocabConfig(size=128)
+    cfg = FastSpeech2Config()
+    model_cpu = init_random_(FastSpeech2Encoder(cfg, vocab.size), SEED + 20)
+    ref = FastSpeech2Encoder(FastSpeech2Config(dropout=0.0,
+                                               var_pred_dropout=0.0),
+                             vocab.size)
+    ref.load_state_dict(model_cpu.state_dict())
+    B, T, M, dur = P_SHAPE
+    step_parity(f"FastSpeech 2 B={P_PARITY_B}", ref, fs2_loss_fn(vocab),
+                make_fs2_batch(P_PARITY_B, T, M, dur, vocab, SEED + 21,
+                               "cpu"))
+    opt = GuardedAdam()
+    state = TrainState.create(copy.deepcopy(model_cpu).to(DEVICE), opt)
+    step = make_train_step(fs2_loss_fn(vocab), opt)
+    batch = make_fs2_batch(B, T, M, dur, vocab, SEED + 22, DEVICE)
+    _, _, launches, _, _ = timed_updates(
+        step, state, batch, 2, 5,
+        f"FastSpeech 2 pretraining P (B={B}, T={T}, M={M})")
+    log(f"  P launches over 7 updates: "
+        + ", ".join(f"{n} {launches[n]}" for n in JOINT_KERNELS))
+    for name in ("fused_attention_packed", "fused_attention",
+                 "fused_attention_packed_bwd", "fused_attention_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by pretraining")
     return launches
 
 
@@ -1297,22 +1886,33 @@ def main() -> int:
     cases = kernel_phase()
     log("end-to-end phase (serving):")
     serving = e2e_phase()
-    log("training phase:")
+    log("training phase (S2TT):")
     training = train_phase()
+    log("joint S2ST training phase:")
+    joint = joint_phase()
+    log("FastSpeech 2 pretraining phase:")
+    pretrain = fs2_phase()
 
-    # launches: the serving kernels count the serving run, the kernels of
-    # the training slice the training run; both counts are kept
+    # launches: each kernel's count is that of the run of the path it was
+    # ported for (the forward kernels of the first slice: serving; the
+    # second slice's: the S2TT training run; the head-major attention: the
+    # joint step at J-long); every path's count is kept
+    by_path = {"serving": serving, "training": training,
+               "joint_J": joint["J"], "joint_J-long": joint["J-long"],
+               "fs2_pretraining": pretrain}
     kernels = []
     for name, shapes in cases.items():
         src, replaces = KERNELS[name]
         first = shapes[0]
+        main_path = ("joint_J-long" if name in ("fused_attention",
+                                                "fused_attention_bwd")
+                     else "serving" if name in SERVING_KERNELS
+                     else "training")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": (serving if name in SERVING_KERNELS
-                         else training)[name],
-            "launches_by_path": {"serving": serving[name],
-                                 "training": training[name]},
+            "launches": by_path[main_path][name],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -2,13 +2,15 @@
 
 It serves two-pass S2ST (fbank -> Conformer -> DAG decoder + links ->
 lookahead decode -> FFN adaptor + FastSpeech 2 -> HiFi-GAN -> waveform)
-through ``decode.generator.S2SNATGenerator``, and trains the S2TT DAG model
-through ``train.make_train_step`` over ``losses.nat_dag_loss``.
-Hand-written CUDA kernels for sm_90a (``csrc/``) carry attention and
-rel-pos attention (forward and backward, with dropout), link extraction
-(forward and backward), the DAG alpha/beta recursion and the Viterbi
-alignment on the card; CPU tensors take each kernel's plain PyTorch version
-instead.
+through ``decode.generator.S2SNATGenerator``, and trains through
+``train.make_train_step`` over ``losses.nat_dag_loss`` (the S2TT DAG
+model), ``losses.s2s_dag_fastspeech2_loss`` (the joint S2ST model) and
+``losses.fastspeech2_criterion`` (FastSpeech 2 pretraining on phonemes).
+Hand-written CUDA kernels for sm_90a (``csrc/``) carry attention, packed
+and head-major, and rel-pos attention (forward and backward, with
+dropout), link extraction (forward and backward), the DAG alpha/beta
+recursion and the Viterbi alignment on the card; CPU tensors take each
+kernel's plain PyTorch version instead.
 
 Serving and training run in float32, as the JAX default does. Importing this
 package sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and

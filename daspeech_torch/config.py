@@ -1,7 +1,8 @@
 """The configuration dataclasses the port's modules read.
 
 They mirror the fields of ``daspeech_tpu/core/config.py`` that the serving
-slice and the S2TT DAG training step use, with the same names and defaults
+slice, the S2TT DAG training step, the joint S2ST step and FastSpeech 2
+pretraining use, with the same names and defaults
 (the recipe's: ``tests/test_torch_models.py::test_config_mirrors_jax``
 holds them to the JAX package's), and leave out the fields of paths not
 ported yet and the TPU kernel switches. The port's modules read configs by
@@ -77,18 +78,24 @@ class FastSpeech2Config:
     decoder_heads: int = 4
     fft_hidden_dim: int = 1024
     fft_kernel_size: int = 9
+    dropout: float = 0.2
+    attention_dropout: float = 0.0
     output_frame_dim: int = 80
     n_frames_per_step: int = 1
     var_pred_n_bins: int = 256
     var_pred_hidden_dim: int = 256
     var_pred_kernel_size: int = 3
+    var_pred_dropout: float = 0.5
     pitch_min: float = 0.0
     pitch_max: float = 600.0
     energy_min: float = 0.0
     energy_max: float = 5000.0
     add_postnet: bool = False        # not ported: True raises
+    fused_attention: bool = True     # the unfused path is not ported:
+    #                                  False raises
     speaker_embed_dim: int = 64
     num_speakers: int = 0            # not ported: > 0 raises
+    ctc_weight: float = 0.0          # the CTC head is not ported: > 0 raises
 
 
 @dataclass(frozen=True)
@@ -120,6 +127,7 @@ class S2SModelConfig:
     dag: DAGModelConfig = field(default_factory=DAGModelConfig)
     tts: FastSpeech2Config = field(default_factory=FastSpeech2Config)
     adaptor_ffn_dim: int = 1024
+    adaptor_dropout: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -134,7 +142,9 @@ class GlatConfig:
 
 @dataclass(frozen=True)
 class TrainingConfig:
-    """Adam + inverse-sqrt schedule + clipping of the S2TT DAG step."""
+    """Adam + inverse-sqrt schedule + clipping, and the joint S2ST step's
+    loss weight, feature strategy (``expect`` | ``argmax``) and DAG
+    freezing (frozen while step <= ``dag_freezing_steps``; -1 never)."""
     lr: float = 5e-4
     warmup_updates: int = 10000
     warmup_init_lr: float = 1e-7
@@ -145,3 +155,6 @@ class TrainingConfig:
     update_freq: int = 1
     seed: int = 1
     glat: GlatConfig = field(default_factory=GlatConfig)
+    tts_loss_weight: float = 5.0
+    dag_freezing_steps: int = -1
+    training_strategy: str = "expect"

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from daspeech_torch.models.dag_model import S2TConformerDAG
+from daspeech_torch.models.fastspeech2 import FastSpeech2Encoder
 from daspeech_torch.models.hifigan import HiFiGANGenerator
 from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
 
@@ -104,6 +105,25 @@ def from_flax(variables: Dict[str, Any], cfg,
     (the card unless the caller asks for the CPU), in eval mode."""
     return load_flax_(S2SConformerDAGFastSpeech2(cfg),
                       variables).to(device).eval()
+
+
+def s2s_from_flax(variables: Dict[str, Any], cfg,
+                  device="cuda") -> S2SConformerDAGFastSpeech2:
+    """The two-pass S2ST model for joint training: the JAX package's
+    weights (DAG, adaptor, FastSpeech 2) and BatchNorm statistics, on
+    ``device``, in train mode; a call given a generator is a training
+    pass."""
+    return load_flax_(S2SConformerDAGFastSpeech2(cfg),
+                      variables).to(device).train()
+
+
+def fs2_from_flax(variables: Dict[str, Any], cfg, vocab_size: int,
+                  pad: int = 1, device="cuda") -> FastSpeech2Encoder:
+    """The token-input FastSpeech 2 of TTS pretraining (``cfg`` a
+    ``FastSpeech2Config``; ``embed_tokens`` of ``vocab_size`` rows) with
+    the JAX package's weights, on ``device``, in train mode."""
+    return load_flax_(FastSpeech2Encoder(cfg, vocab_size, pad),
+                      variables).to(device).train()
 
 
 def dag_from_flax(variables: Dict[str, Any], cfg,

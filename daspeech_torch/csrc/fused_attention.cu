@@ -1,22 +1,26 @@
-// Packed multi-head attention, forward and backward, for Hopper (sm_90a),
-// fp32.
+// Multi-head attention, forward and backward, for Hopper (sm_90a), fp32, in
+// two layouts.
 //
-// Replaces the Pallas kernels of daspeech_tpu/ops/fused_attention.py:522
-// (fused_attention_packed: forward _attn_kernel_packed, :285; backward
-// _attn_bwd_kernel_packed, :324), dropout included, and with them the
-// head-major dispatch of :189 (fused_attention) that the JAX layer takes
-// when the packed kernel overflows its VMEM budget: these kernels stream
-// keys (forward, dq) and queries (dk/dv), so one entry point serves every
-// length.
+// Replaces two Pallas kernels of daspeech_tpu/ops/fused_attention.py:
+//   - packed, fused_attention_packed (:522; forward _attn_kernel_packed,
+//     :285; backward _attn_bwd_kernel_packed, :324): q [B, Tq, H*64],
+//     k/v [B, Tk, H*64];
+//   - head-major, fused_attention (:189; forward _attn_kernel, :76;
+//     backward _attn_bwd_kernel, :103): q [B, H, Tq, 64], k/v [B, H, Tk, 64].
+// The JAX layer takes the packed kernel while packed_fits_vmem holds and the
+// head-major one for longer sequences; the port's layer mirrors that route
+// (ops/fused_attention.py packed_route). Both layouts run the same kernels
+// of attention.cuh, which address every operand by (batch, row, head)
+// strides: only the strides differ between the entry points below. Dropout
+// is keyed by (seed of the batch row, j/4, i, h) in both, so at a shape that
+// both routes take they drop the same elements and agree.
 //
 // Computes, per batch row b and head h,
-//   out[b, :, h] = dropout(softmax(q[b, :, h] k[b, :, h]^T * scale + bias[b]))
-//                  v[b, :, h]
-// on the packed [B, T, H*64] projections, with bias [B, Tk] an additive
-// column bias (0 or -1e30). q arrives pre-scaled (scale = 1 at the caller).
-// The backward takes the forward's output and its row softmax statistics
-// and returns dq, dk, dv; the dropout mask is regenerated from the same
-// Philox counters.
+//   out[b, h] = dropout(softmax(q[b, h] k[b, h]^T * scale + bias[b])) v[b, h]
+// with bias [B, Tk] an additive column bias (0 or -1e30). q arrives
+// pre-scaled (scale = 1 at the layer). The backward takes the forward's
+// output and its row softmax statistics and returns dq, dk, dv; the dropout
+// mask is regenerated from the same Philox counters.
 //
 // What bounds it on this card: the port trains and serves in fp32 for
 // parity with the JAX reference, so the products run on the fp32 FMA pipes
@@ -24,32 +28,42 @@
 // reads one shared-memory operand, which makes shared-memory bandwidth the
 // practical limit. At the training decoder shape (B=80, H=8, T=240, d=64)
 // the forward is 9.4 GFLOP against 157 MB of q/k/v/out traffic, the
-// backward (five products) 23.6 GFLOP against 315 MB: both compute-bound.
-// The design keeps the score matrix out of device memory (online softmax
-// over key tiles; the backward recomputes P from the saved row statistics)
-// and draws dropout bits in registers; a tensor-core (TF32 or bf16 wgmma)
-// version is where speed comes from.
+// backward (five products) 23.6 GFLOP against 315 MB; at the long-utterance
+// FastSpeech 2 decoder shape (B=14, H=4, T=1040) the forward is 15.5 GFLOP
+// against 60 MB: all compute-bound. The design keeps the score matrix out
+// of device memory (online softmax over key tiles; the backward recomputes
+// P from the saved row statistics) and draws dropout bits in registers; a
+// tensor-core (TF32 or bf16 wgmma) version is where speed comes from.
 #include "attention.cuh"
 
 namespace {
 
 using namespace daspeech;
 
-AttnArgs packed_args(const float* q, const float* k, const float* v,
-                     const float* bias, const uint32_t* seeds,
-                     uint32_t thresh, float keep_scale, float* out,
-                     float* stats, int Tq, int Tk, int H, float scale) {
-  constexpr long long D = 64;
-  const long long HD = H * D;
+constexpr long long kD = 64;
+
+// (batch, row, head) strides of a [B, T, H*64] packed or a [B, H, T, 64]
+// head-major tensor of `rows` rows
+template <typename T>
+View<T> view(T* p, int rows, int H, bool head_major) {
+  const long long n = static_cast<long long>(rows) * H * kD;
+  return head_major ? View<T>{p, n, kD, rows * kD}
+                    : View<T>{p, n, H * kD, kD};
+}
+
+AttnArgs attn_args(const float* q, const float* k, const float* v,
+                   const float* bias, const uint32_t* seeds, uint32_t thresh,
+                   float keep_scale, float* out, float* stats, int Tq, int Tk,
+                   int H, float scale, bool head_major) {
   AttnArgs args;
-  args.q = {q, Tq * HD, HD, D};
+  args.q = view(q, Tq, H, head_major);
   args.a = {nullptr, 0, 0, 0};
-  args.k = {k, Tk * HD, HD, D};
+  args.k = view(k, Tk, H, head_major);
   args.e = {nullptr, 0, 0, 0};
-  args.v = {v, Tk * HD, HD, D};
+  args.v = view(v, Tk, H, head_major);
   args.bias = bias;
   args.bias_sb = Tk;
-  args.o = {out, Tq * HD, HD, D};
+  args.o = view(out, Tq, H, head_major);
   args.stats = stats;
   args.H = H;
   args.Tq = Tq;
@@ -57,6 +71,39 @@ AttnArgs packed_args(const float* q, const float* k, const float* v,
   args.scale = scale;
   args.drop = {seeds, thresh, keep_scale};
   return args;
+}
+
+int attention_fwd(const float* q, const float* k, const float* v,
+                  const float* bias, const uint32_t* seeds, uint32_t thresh,
+                  float keep_scale, float* out, float* stats, int B, int Tq,
+                  int Tk, int H, int D, float scale, void* stream,
+                  bool head_major) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  const AttnArgs args = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
+                                  out, stats, Tq, Tk, H, scale, head_major);
+  return static_cast<int>(launch_attn_fwd<64, 0, 64, 4, 32, 64>(
+      args, B, static_cast<cudaStream_t>(stream)));
+}
+
+int attention_bwd(const float* q, const float* k, const float* v,
+                  const float* bias, const uint32_t* seeds, uint32_t thresh,
+                  float keep_scale, const float* out, const float* stats,
+                  const float* dout, float* dq, float* dk, float* dv,
+                  float* delta, int B, int Tq, int Tk, int H, int D,
+                  float scale, void* stream, bool head_major) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  AttnBwdArgs args;
+  args.f = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
+                     const_cast<float*>(out), const_cast<float*>(stats), Tq,
+                     Tk, H, scale, head_major);
+  args.dout = view(dout, Tq, H, head_major);
+  args.dq = view(dq, Tq, H, head_major);
+  args.da = {nullptr, 0, 0, 0};
+  args.dk = view(dk, Tk, H, head_major);
+  args.dv = view(dv, Tk, H, head_major);
+  args.delta = delta;
+  return static_cast<int>(launch_attn_bwd<64, 0, 64, 4, 32, 64, 64, 32>(
+      args, B, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -68,12 +115,8 @@ extern "C" int daspeech_attention_fwd(const float* q, const float* k,
                                       float* stats, int B, int Tq, int Tk,
                                       int H, int D, float scale,
                                       void* stream) {
-  using namespace daspeech;
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const AttnArgs args = packed_args(q, k, v, bias, seeds, thresh, keep_scale,
-                                    out, stats, Tq, Tk, H, scale);
-  return static_cast<int>(launch_attn_fwd<64, 0, 64, 4, 32, 64>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       B, Tq, Tk, H, D, scale, stream, false);
 }
 
 extern "C" int daspeech_attention_bwd(
@@ -82,19 +125,29 @@ extern "C" int daspeech_attention_bwd(
     const float* out, const float* stats, const float* dout, float* dq,
     float* dk, float* dv, float* delta, int B, int Tq, int Tk, int H, int D,
     float scale, void* stream) {
-  using namespace daspeech;
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const long long HD = static_cast<long long>(H) * 64;
-  AttnBwdArgs args;
-  args.f = packed_args(q, k, v, bias, seeds, thresh, keep_scale,
-                       const_cast<float*>(out), const_cast<float*>(stats), Tq,
-                       Tk, H, scale);
-  args.dout = {dout, Tq * HD, HD, 64};
-  args.dq = {dq, Tq * HD, HD, 64};
-  args.da = {nullptr, 0, 0, 0};
-  args.dk = {dk, Tk * HD, HD, 64};
-  args.dv = {dv, Tk * HD, HD, 64};
-  args.delta = delta;
-  return static_cast<int>(launch_attn_bwd<64, 0, 64, 4, 32, 64, 64, 32>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
+                       stream, false);
+}
+
+extern "C" int daspeech_attention_hm_fwd(const float* q, const float* k,
+                                         const float* v, const float* bias,
+                                         const uint32_t* seeds,
+                                         uint32_t thresh, float keep_scale,
+                                         float* out, float* stats, int B,
+                                         int Tq, int Tk, int H, int D,
+                                         float scale, void* stream) {
+  return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       B, Tq, Tk, H, D, scale, stream, true);
+}
+
+extern "C" int daspeech_attention_hm_bwd(
+    const float* q, const float* k, const float* v, const float* bias,
+    const uint32_t* seeds, uint32_t thresh, float keep_scale,
+    const float* out, const float* stats, const float* dout, float* dq,
+    float* dk, float* dv, float* delta, int B, int Tq, int Tk, int H, int D,
+    float scale, void* stream) {
+  return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
+                       stream, true);
 }

@@ -28,7 +28,16 @@ from daspeech_torch.ops.dag_ref import (
     dag_best_alignment,
     dag_logsoftmax_gather_tokens,
     dag_loss,
+    dag_loss_with_alpha_beta,
 )
+
+
+def conditional_stop_gradient(x: torch.Tensor, frozen: bool) -> torch.Tensor:
+    """``x`` detached when ``frozen`` (``dag_loss.py:29-41``): the value is
+    unchanged, no gradient flows back through it. ``frozen`` is a host bool
+    (``dag_freezing_steps`` and ``encoder_freezing_updates`` are decided
+    from the host's step count), so this reads nothing from the device."""
+    return x.detach() if frozen else x
 
 
 class GlanceDraws(NamedTuple):
@@ -115,10 +124,13 @@ def compute_dag_loss(logits: torch.Tensor, links: torch.Tensor,
                      tgt_tokens: torch.Tensor,
                      prev_output_tokens: torch.Tensor, pad: int,
                      matchmask: torch.Tensor, keep_word_mask: torch.Tensor,
-                     sample_mask: Optional[torch.Tensor] = None):
-    """``_compute_dag_loss`` (``dag_loss.py:208-299``): (loss, metrics).
-    Non-finite sentences (unsatisfiable graphs) are masked out of the mean
-    and carry no gradient."""
+                     sample_mask: Optional[torch.Tensor] = None,
+                     with_alpha_beta: bool = False):
+    """``_compute_dag_loss`` (``dag_loss.py:208-299``): (loss, metrics), and
+    with ``with_alpha_beta`` also the DP's alpha and beta [B, T, L] (both
+    including the emission term; constants, no gradient). Non-finite
+    sentences (unsatisfiable graphs) are masked out of the mean and carry no
+    gradient."""
     B = prev_output_tokens.shape[0]
     output_length = (prev_output_tokens != pad).sum(dim=1)
     target_length = (tgt_tokens != pad).sum(dim=1)
@@ -128,8 +140,12 @@ def compute_dag_loss(logits: torch.Tensor, links: torch.Tensor,
     match_all = force_emit_match(
         dag_logsoftmax_gather_tokens(logits, tgt_tokens).transpose(1, 2),
         matchmask, keep_word_mask)
-    logprob = dag_loss(match_all.contiguous(), links, output_length,
-                       target_length)
+    if with_alpha_beta:
+        logprob, alpha, beta = dag_loss_with_alpha_beta(
+            match_all.contiguous(), links, output_length, target_length)
+    else:
+        logprob = dag_loss(match_all.contiguous(), links, output_length,
+                           target_length)
 
     invalid = ~torch.isfinite(logprob)
     safe_logprob = torch.where(invalid, torch.zeros_like(logprob), logprob)
@@ -142,6 +158,8 @@ def compute_dag_loss(logits: torch.Tensor, links: torch.Tensor,
         "ntokens": (target_length * smask).sum().to(torch.int32),
         "nvalidtokens": (output_length * smask).sum().to(torch.int32),
     }
+    if with_alpha_beta:
+        return loss, metrics, alpha, beta
     return loss, metrics
 
 

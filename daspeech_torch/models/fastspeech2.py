@@ -1,9 +1,15 @@
-"""FastSpeech 2 acoustic decoder (PyTorch), continuous-input (NoEmb) path.
+"""FastSpeech 2 acoustic decoder (PyTorch): the continuous-input (NoEmb)
+path of the two-pass model and the token-input path of TTS pretraining.
 
 Counterpart of ``daspeech_tpu/models/fastspeech2.py``: FFT blocks, variance
 adaptor with bucketed pitch/energy embeddings, and a vectorized length
-regulator (cumsum + searchsorted). The token-input path, speaker embedding,
-CTC head and Postnet (all off in the recipe) are not ported yet.
+regulator (cumsum + searchsorted). A forward given ``rng`` is a training
+pass (``models/layers.py``): dropout on the encoder input, after each conv
+FFN and in the variance predictors, and on the FFT attention probabilities
+at ``attention_dropout``; gold pitches and energies, when given, pick the
+bucket embeddings in place of the predictions. The speaker embedding, the
+CTC head and the Postnet (all off in every recipe) are not ported: their
+settings raise.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from torch import nn
 
 from daspeech_torch.models.layers import (
     MultiHeadAttention,
+    dropout,
     layer_norm,
     lengths_to_padding_mask,
     sinusoidal_embedding_table,
@@ -28,42 +35,52 @@ def _conv_btc(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class PositionwiseConvFFN(nn.Module):
-    """Conv1d(k) -> ReLU -> Conv1d(k) + residual + LN
+    """Conv1d(k) -> ReLU -> Conv1d(k) -> dropout, + residual, LN
     (``fastspeech2.py:28-48``)."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, kernel_size: int):
+    def __init__(self, in_dim: int, hidden_dim: int, kernel_size: int,
+                 dropout: float = 0.0):
         super().__init__()
         p = (kernel_size - 1) // 2
+        self.dropout = dropout
         self.conv1 = nn.Conv1d(in_dim, hidden_dim, kernel_size, padding=p)
         self.conv2 = nn.Conv1d(hidden_dim, in_dim, kernel_size, padding=p)
         self.layer_norm = layer_norm(in_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         y = _conv_btc(self.conv2, F.relu(_conv_btc(self.conv1, x)))
-        return self.layer_norm(y + x)
+        return self.layer_norm(dropout(y, self.dropout, rng) + x)
 
 
 class FFTLayer(nn.Module):
     """Self-attention + conv FFN (``fastspeech2.py:51-76``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, hidden_dim: int,
-                 kernel_size: int):
+                 kernel_size: int, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads,
+                                            attention_dropout)
         self.layer_norm = layer_norm(embed_dim)
-        self.ffn = PositionwiseConvFFN(embed_dim, hidden_dim, kernel_size)
+        self.ffn = PositionwiseConvFFN(embed_dim, hidden_dim, kernel_size,
+                                       dropout)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.layer_norm(
-            x + self.self_attn(x, x, x, key_padding_mask=pad_mask))
-        return self.ffn(x)
+            x + self.self_attn(x, x, x, key_padding_mask=pad_mask, rng=rng))
+        return self.ffn(x, rng)
 
 
 class VariancePredictor(nn.Module):
-    """Conv -> ReLU -> LN (x2) -> Linear (``fastspeech2.py:79-103``)."""
+    """Conv -> ReLU -> LN -> dropout (x2) -> Linear
+    (``fastspeech2.py:79-103``)."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, kernel_size: int):
+    def __init__(self, in_dim: int, hidden_dim: int, kernel_size: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = nn.Conv1d(in_dim, hidden_dim, kernel_size,
                                padding=(kernel_size - 1) // 2)
         self.ln1 = layer_norm(hidden_dim)
@@ -72,9 +89,12 @@ class VariancePredictor(nn.Module):
         self.ln2 = layer_norm(hidden_dim)
         self.proj = nn.Linear(hidden_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ln1(F.relu(_conv_btc(self.conv1, x)))
-        x = self.ln2(F.relu(_conv_btc(self.conv2, x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(self.ln1(F.relu(_conv_btc(self.conv1, x))), self.dropout,
+                    rng)
+        x = dropout(self.ln2(F.relu(_conv_btc(self.conv2, x))), self.dropout,
+                    rng)
         return self.proj(x)[..., 0]                               # [B, T]
 
 
@@ -101,8 +121,9 @@ class VarianceAdaptor(nn.Module):
 
     def __init__(self, cfg, dim: int):
         super().__init__()
-        vp = lambda: VariancePredictor(dim, cfg.var_pred_hidden_dim,
-                                       cfg.var_pred_kernel_size)
+        vp = lambda: VariancePredictor(dim, cfg.var_pred_hidden_dim,  # noqa
+                                       cfg.var_pred_kernel_size,
+                                       cfg.var_pred_dropout)
         self.duration_predictor = vp()
         self.pitch_predictor = vp()
         self.energy_predictor = vp()
@@ -118,18 +139,29 @@ class VarianceAdaptor(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 max_out_len: int, durations: Optional[torch.Tensor] = None,
-                d_factor: float = 1.0):
-        log_dur_out = self.duration_predictor(x)
+                d_factor: float = 1.0,
+                pitches: Optional[torch.Tensor] = None,
+                energies: Optional[torch.Tensor] = None,
+                p_factor: float = 1.0, e_factor: float = 1.0,
+                rng: Optional[torch.Generator] = None):
+        """Gold ``durations``, ``pitches`` and ``energies`` (training) take
+        the place of the predictions where given."""
+        log_dur_out = self.duration_predictor(x, rng)
         dur_out = torch.clamp(torch.round((torch.exp(log_dur_out) - 1)
                                           * d_factor), min=0).long()
         dur_out = dur_out.masked_fill(pad_mask, 0)
 
-        pitch_out = self.pitch_predictor(x)
+        pitch_out = self.pitch_predictor(x, rng)
+        pitch_src = pitches if pitches is not None else pitch_out * p_factor
         x = x + self.embed_pitch(
-            torch.searchsorted(self.pitch_bins, pitch_out, right=True))
-        energy_out = self.energy_predictor(x)
+            torch.searchsorted(self.pitch_bins, pitch_src.contiguous(),
+                               right=True))
+        energy_out = self.energy_predictor(x, rng)
+        energy_src = (energies if energies is not None
+                      else energy_out * e_factor)
         x = x + self.embed_energy(
-            torch.searchsorted(self.energy_bins, energy_out, right=True))
+            torch.searchsorted(self.energy_bins, energy_src.contiguous(),
+                               right=True))
 
         use_dur = durations if durations is not None else dur_out
         x, out_lens = length_regulate(x, use_dur, max_out_len)
@@ -142,45 +174,67 @@ def _positions(pad_mask: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 class FastSpeech2Encoder(nn.Module):
-    """FastSpeech2 on the continuous-input (NoEmb) path
-    (``fastspeech2.py:215-331``): hidden states [B, T, C] -> mel."""
+    """FastSpeech2 (``fastspeech2.py:215-331``): hidden states [B, T, C]
+    (NoEmb path) or, with ``vocab_size`` > 0, phoneme tokens [B, T] (the
+    ``embed_tokens`` path) -> mel."""
 
-    def __init__(self, cfg, pad: int = 1):
+    def __init__(self, cfg, vocab_size: int = 0, pad: int = 1):
         super().__init__()
         if cfg.add_postnet or (cfg.speaker_embed_dim > 0
                                and cfg.num_speakers > 0):
             raise NotImplementedError(
                 "Postnet and speaker embeddings are not ported yet")
+        if cfg.ctc_weight > 0.0 or not cfg.fused_attention:
+            raise NotImplementedError(
+                "the CTC head and the unfused attention path are not ported")
         self.cfg, self.pad = cfg, pad
+        if vocab_size > 0:
+            self.embed_tokens = nn.Embedding(vocab_size,
+                                             cfg.encoder_embed_dim)
         self.pos_emb_alpha = nn.Parameter(torch.ones(1))
         self.encoder_fft = nn.ModuleList(
             FFTLayer(cfg.encoder_embed_dim, cfg.encoder_heads,
-                     cfg.fft_hidden_dim, cfg.fft_kernel_size)
+                     cfg.fft_hidden_dim, cfg.fft_kernel_size, cfg.dropout,
+                     cfg.attention_dropout)
             for _ in range(cfg.encoder_layers))
         self.var_adaptor = VarianceAdaptor(cfg, cfg.encoder_embed_dim)
         self.dec_pos_emb_alpha = nn.Parameter(torch.ones(1))
         self.decoder_fft = nn.ModuleList(
             FFTLayer(cfg.decoder_embed_dim, cfg.decoder_heads,
-                     cfg.fft_hidden_dim, cfg.fft_kernel_size)
+                     cfg.fft_hidden_dim, cfg.fft_kernel_size, cfg.dropout,
+                     cfg.attention_dropout)
             for _ in range(cfg.decoder_layers))
         self.out_proj = nn.Linear(cfg.decoder_embed_dim,
                                   cfg.output_frame_dim * cfg.n_frames_per_step)
 
-    def forward(self, x: torch.Tensor, enc_pad_mask: torch.Tensor,
-                max_out_len: int, durations: Optional[torch.Tensor] = None,
-                d_factor: float = 1.0):
-        """Returns (mel [B, M, 80], out_lens [B], log_dur_out [B, T],
-        pitch_out [B, T], energy_out [B, T])."""
+    def forward(self, x: Optional[torch.Tensor] = None,
+                enc_pad_mask: Optional[torch.Tensor] = None,
+                max_out_len: int = 0,
+                durations: Optional[torch.Tensor] = None,
+                d_factor: float = 1.0, *,
+                src_tokens: Optional[torch.Tensor] = None,
+                pitches: Optional[torch.Tensor] = None,
+                energies: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None):
+        """``x`` and ``enc_pad_mask`` (NoEmb path), or ``src_tokens``
+        (padding where equal to ``pad``). Returns (mel [B, M, 80],
+        out_lens [B], log_dur_out [B, T], pitch_out [B, T],
+        energy_out [B, T])."""
         c = self.cfg
+        if src_tokens is not None:
+            x = self.embed_tokens(src_tokens)
+            enc_pad_mask = src_tokens == self.pad
         table = sinusoidal_embedding_table(
             x.shape[1] + self.pad + 1, c.encoder_embed_dim, self.pad,
             device=x.device)
         x = x + self.pos_emb_alpha * table[_positions(enc_pad_mask, self.pad)]
+        x = dropout(x, c.dropout, rng)
         for layer in self.encoder_fft:
-            x = layer(x, enc_pad_mask)
+            x = layer(x, enc_pad_mask, rng)
 
         x, out_lens, log_dur_out, pitch_out, energy_out = self.var_adaptor(
-            x, enc_pad_mask, max_out_len, durations, d_factor)
+            x, enc_pad_mask, max_out_len, durations, d_factor, pitches,
+            energies, rng=rng)
 
         dec_pad_mask = lengths_to_padding_mask(out_lens, x.shape[1])
         table_d = sinusoidal_embedding_table(
@@ -189,17 +243,21 @@ class FastSpeech2Encoder(nn.Module):
         x = x + self.dec_pos_emb_alpha * table_d[
             _positions(dec_pad_mask, self.pad)]
         for layer in self.decoder_fft:
-            x = layer(x, dec_pad_mask)
+            x = layer(x, dec_pad_mask, rng)
         return self.out_proj(x), out_lens, log_dur_out, pitch_out, energy_out
 
 
 class FFNAdapter(nn.Module):
-    """DAG hidden state -> TTS input adaptor (``fastspeech2.py:334-348``)."""
+    """DAG hidden state -> TTS input adaptor: Linear -> ReLU -> dropout ->
+    Linear (``fastspeech2.py:334-348``)."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.fc1 = nn.Linear(in_dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.fc2(dropout(F.relu(self.fc1(x)), self.dropout, rng))

@@ -1,9 +1,11 @@
 """Shared building blocks (PyTorch), batch-first ``[B, T, C]``.
 
 Counterpart of ``daspeech_tpu/models/layers.py``. Every LayerNorm uses
-eps 1e-6, flax's default (torch's is 1e-5). Attention always goes through
-``ops.fused_attention.fused_attention_packed``, which launches the CUDA
-kernels for CUDA tensors and takes the plain versions for CPU tensors.
+eps 1e-6, flax's default (torch's is 1e-5). Attention goes through
+``ops.fused_attention``: the packed kernel, or the head-major one for the
+long sequences the JAX layer sends there (``packed_route``); both launch
+the CUDA kernels for CUDA tensors and take the plain versions for CPU
+tensors.
 
 Training mode is an argument, as ``train=True`` is in the JAX modules: a
 forward given ``rng`` (a ``torch.Generator`` on the tensors' device) is a
@@ -127,7 +129,11 @@ def padding_bias(key_padding_mask: Optional[torch.Tensor], B: int, Tk: int,
 
 class MultiHeadAttention(nn.Module):
     """Non-causal MHA with an optional key-padding mask (True = pad) and
-    dropout on the attention probabilities; ``layers.py:128-237``."""
+    dropout on the attention probabilities; ``layers.py:128-237``.
+
+    The route of ``layers.py:164-176``: the packed kernel while
+    ``packed_route(Tq, Tk, C, H)`` holds, else the head-major kernel
+    through the [B, T, H, d] -> [B, H, T, d] transposes of ``:208-214``."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -142,16 +148,26 @@ class MultiHeadAttention(nn.Module):
                 value: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        d_head = query.shape[-1] // self.num_heads
+        B, Tq, C = query.shape
+        Tk = key.shape[1]
+        H = self.num_heads
+        d_head = C // H
         q = self.q_proj(query) * (d_head ** -0.5)
         k = self.k_proj(key)
         v = self.v_proj(value)
-        B, Tk = key.shape[0], key.shape[1]
         bias = padding_bias(key_padding_mask, B, Tk, key.device)
         seeds = row_seeds(rng, self.dropout, B, key.device)
-        out = _fa.fused_attention_packed(
-            q, k, v, bias, self.num_heads, 1.0,
-            0.0 if seeds is None else self.dropout, seeds)
+        p = 0.0 if seeds is None else self.dropout
+        if _fa.packed_route(Tq, Tk, C, H):
+            out = _fa.fused_attention_packed(q, k, v, bias, H, 1.0, p, seeds)
+        else:
+            def to_bhtd(x):
+                return x.reshape(B, x.shape[1], H, d_head).transpose(
+                    1, 2).contiguous()
+
+            out = _fa.fused_attention(to_bhtd(q), to_bhtd(k), to_bhtd(v),
+                                      bias, 1.0, p, seeds)
+            out = out.transpose(1, 2).reshape(B, Tq, C)
         return self.out_proj(out)
 
 

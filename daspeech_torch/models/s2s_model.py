@@ -1,7 +1,9 @@
 """Two-pass S2ST model (PyTorch): Conformer-DAG linguistic pass + FFN
 adaptor + FastSpeech 2 acoustic pass on the DAG decoder's hidden states.
 
-Counterpart of ``daspeech_tpu/models/s2s_model.py``.
+Counterpart of ``daspeech_tpu/models/s2s_model.py``. A call given ``rng``
+(a ``torch.Generator`` on the tensors' device) is a training pass
+(``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from daspeech_torch.models.fastspeech2 import FastSpeech2Encoder, FFNAdapter
 
 
 class S2SConformerDAGFastSpeech2(nn.Module):
-    """``s2s_model.py:24-102``, eval mode."""
+    """``s2s_model.py:24-102``."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -24,16 +26,19 @@ class S2SConformerDAGFastSpeech2(nn.Module):
         self.dag = S2TConformerDAG(cfg.dag)
         self.adaptor = FFNAdapter(cfg.dag.decoder.embed_dim,
                                   cfg.adaptor_ffn_dim,
-                                  cfg.tts.encoder_embed_dim)
+                                  cfg.tts.encoder_embed_dim,
+                                  cfg.adaptor_dropout)
         self.tts = FastSpeech2Encoder(cfg.tts, pad=cfg.dag.vocab.pad)
 
-    def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor):
-        return self.dag.encode(fbank, src_lengths)
+    def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor,
+               rng: Optional[torch.Generator] = None):
+        return self.dag.encode(fbank, src_lengths, rng)
 
     def decode(self, prev_output_tokens, enc, enc_pad,
-               require_links: bool = True):
+               require_links: bool = True,
+               rng: Optional[torch.Generator] = None):
         return self.dag.decode(prev_output_tokens, enc, enc_pad,
-                               require_links=require_links)
+                               require_links=require_links, rng=rng)
 
     def forward(self, fbank, src_lengths, prev_output_tokens):
         enc, enc_pad, _ = self.encode(fbank, src_lengths)
@@ -42,8 +47,12 @@ class S2SConformerDAGFastSpeech2(nn.Module):
     def synthesize(self, features: torch.Tensor,
                    features_pad_mask: torch.Tensor, max_mel_len: int,
                    durations: Optional[torch.Tensor] = None,
-                   d_factor: float = 1.0):
+                   d_factor: float = 1.0,
+                   pitches: Optional[torch.Tensor] = None,
+                   energies: Optional[torch.Tensor] = None,
+                   rng: Optional[torch.Generator] = None):
         """adaptor -> FastSpeech2 NoEmb: (mel [B, M, 80], mel_lens [B],
         log_dur_out, pitch_out, energy_out)."""
-        return self.tts(self.adaptor(features), features_pad_mask,
-                        max_mel_len, durations, d_factor)
+        return self.tts(self.adaptor(features, rng), features_pad_mask,
+                        max_mel_len, durations, d_factor, pitches=pitches,
+                        energies=energies, rng=rng)

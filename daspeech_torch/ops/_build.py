@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``.cu``/``.cuh`` under ``daspeech_torch/csrc/`` is compiled by ``nvcc``
-for ``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``. The library's file name carries a hash of the sources and flags,
-so an edited kernel rebuilds and an unchanged one is reused. The build runs
-at first use (never at import) into ``build/daspeech_torch/`` at the root of
-the checkout.
+Every ``.cu`` under ``daspeech_torch/csrc/`` (with the ``.cuh`` headers) is
+compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` process per source, all
+started together, and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The library's file name carries
+a hash of the sources and flags, so an edited kernel rebuilds and an
+unchanged one is reused. The build runs at first use (never at import) into
+``build/daspeech_torch/`` at the root of the checkout.
 
 Each C entry point returns a ``cudaError_t`` (0 on success): the caller
 raises on anything else, because a refused launch never runs and a later
@@ -29,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "daspeech_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,10 @@ SIGNATURES = {
                                _I, _I, _F, _P),
     "daspeech_attention_bwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _P,
                                _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "daspeech_attention_hm_fwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _I, _I,
+                                  _I, _I, _I, _F, _P),
+    "daspeech_attention_hm_bwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _P,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "daspeech_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _U, _F, _P, _P, _I,
                             _I, _I, _I, _I, _F, _P),
     "daspeech_relpos_bwd": (_P, _P, _P, _P, _P, _P, _P, _U, _F, _P, _P, _P,
@@ -56,7 +61,8 @@ SIGNATURES = {
 
 class Build(NamedTuple):
     path: Path
-    seconds: float      # nvcc wall time; 0.0 when the library existed
+    seconds: float      # nvcc wall time (compiles and link); 0.0 when the
+    #                     library existed
     ptxas: str          # nvcc's -Xptxas -v report (registers, spills, smem)
 
 
@@ -82,23 +88,44 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libdaspeech_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen) pair; after all have ended, raise with
+    the output of the first that failed. Returns their stderr, joined."""
+    outs = [(cmd, p, *p.communicate()) for cmd, p in procs]
+    for cmd, p, so, se in outs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{so}\n{se}")
+    return "".join(se for _, _, _, se in outs)
+
+
 def build() -> Build:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, in parallel, then one link."""
     out = _library_path()
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cu)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    compiles = []
+    for src, obj in zip(cu, objs):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    ptxas = _run(compiles)
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)            # atomic: a half-written .so never loads
-    return Build(out, time.perf_counter() - t0, proc.stderr)
+    return Build(out, time.perf_counter() - t0, ptxas)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,19 +1,25 @@
-"""Packed multi-head attention: plain PyTorch versions and the CUDA kernels.
+"""Multi-head attention, packed and head-major: plain PyTorch versions and
+the CUDA kernels.
 
 Counterpart of ``daspeech_tpu/ops/fused_attention.py``. The CUDA kernels
-(``csrc/fused_attention.cu``) replace the Pallas ``fused_attention_packed``
-(``fused_attention.py:522``: forward ``_attn_kernel_packed`` at :285,
-backward ``_attn_bwd_kernel_packed`` at :324), with in-kernel dropout on
-the probabilities; they stream keys, so they also cover the long-sequence
-shapes for which the JAX layer dispatches to the head-major
-``fused_attention`` (:189).
+(``csrc/fused_attention.cu``) replace two Pallas kernels, with in-kernel
+dropout on the probabilities:
 
-:func:`fused_attention_packed` is differentiable. Its forward and backward
-take the plain versions for CPU tensors and launch the kernels for CUDA
-tensors; there is no fallback between the two. Dropout multiplies the
-softmax probabilities by the Philox mask of ``ops/philox.py``, which the
-kernels draw from the same counters, so kernel and plain version agree
-element for element with dropout on.
+- :func:`fused_attention_packed` (``fused_attention.py:522``: forward
+  ``_attn_kernel_packed`` at :285, backward ``_attn_bwd_kernel_packed`` at
+  :324) on packed q [B, Tq, H·d], k/v [B, Tk, H·d];
+- :func:`fused_attention` (:189: forward ``_attn_kernel`` at :76, backward
+  ``_attn_bwd_kernel`` at :103) on head-major q [B, H, Tq, d],
+  k/v [B, H, Tk, d], which the JAX layer takes for the long sequences that
+  overflow the packed kernel's VMEM budget (:func:`packed_route`).
+
+Both are differentiable. Their forward and backward take the plain versions
+for CPU tensors and launch the kernels for CUDA tensors; there is no
+fallback between the two. Dropout multiplies the softmax probabilities by
+the Philox mask of ``ops/philox.py``, keyed by (row seed, key j / 4, query
+i, head h) in both layouts, which the kernels draw from the same counters:
+kernel and plain version agree element for element with dropout on, and so
+do the two layouts at a shape both take.
 """
 
 from __future__ import annotations
@@ -197,3 +203,166 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention_packed.launches = 0
 attention_bwd_kernel.launches = 0
+
+
+def packed_route(Tq: int, Tk: int, C: int, num_heads: int) -> bool:
+    """Whether the attention layer takes the packed kernel (else the
+    head-major one): the JAX layer's route, ``packed_fits_vmem``
+    (``fused_attention.py:409-414``), with the same arithmetic. It is the
+    TPU kernel's VMEM estimate (the backward's seven tiles and three
+    [Tq, Tk] temporaries under 10 MiB), kept so that the port runs the
+    kernel JAX runs at each shape; it is no limit of the H100, where both
+    kernels stream keys and take every length. ``num_heads`` is unused, as
+    in JAX."""
+    tiles = 7 * max(Tq, Tk) * C * 2
+    temps = 3 * Tq * Tk * 4
+    return tiles + temps < 10 * 1024 * 1024
+
+
+def attention_hm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: torch.Tensor, sm_scale: float = 1.0,
+                       dropout_p: float = 0.0,
+                       seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q kᵀ·sm_scale + bias[b]) v on head-major q [B, H, Tq, d],
+    k/v [B, H, Tk, d], bias [B, Tk] -> [B, H, Tq, d]; with ``dropout_p`` > 0
+    the probabilities take the Philox mask of the int32 per-row ``seeds``
+    [B] (the packed layout's mask)."""
+    B, H, Tq, _ = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    p = torch.softmax(s + bias[:, None, None, :], dim=-1)
+    if dropout_p > 0.0:
+        p = p * attention_keep(seeds, H, Tq, k.shape[2], dropout_p)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale: float = 1.0,
+                           dropout_p: float = 0.0,
+                           seeds: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of :func:`attention_hm_plain` for the cotangent
+    ``dout``, in the closed form of :func:`attention_bwd_plain`."""
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    p = torch.softmax(s + bias[:, None, None, :], dim=-1)
+    z = (attention_keep(seeds, H, Tq, Tk, dropout_p)
+         if dropout_p > 0.0 else torch.ones_like(p))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p * z, dout)
+    dp = z * torch.einsum("bhqd,bhkd->bhqk", dout, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
+    return dq, dk, dv
+
+
+def _check_hm(name, q, k, v, bias, seeds, dropout_p):
+    drop = () if dropout_p == 0.0 else (seeds,)
+    _build.check_inputs(name, q, k, v, bias, int32=drop)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: takes [B, H, T, d] q, k, v")
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if d != HEAD_DIM:
+        raise ValueError(f"{name}: head depth {d} unsupported "
+                         f"(kernel takes {HEAD_DIM})")
+    if (k.shape != (B, H, Tk, d) or v.shape != k.shape
+            or bias.shape != (B, Tk) or Tq < 1 or Tk < 1
+            or (drop and seeds.shape != (B,))):
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"bias{tuple(bias.shape)}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
+
+
+def attention_hm_fwd_kernel(q, k, v, bias, sm_scale: float,
+                            dropout_p: float = 0.0, seeds=None,
+                            with_stats: bool = False):
+    """Launch the head-major forward kernel: (out [B, H, Tq, d], stats) with
+    stats the [B, H, Tq, 2] row softmax (max, sum), or None."""
+    _check_hm("fused_attention", q, k, v, bias, seeds, dropout_p)
+    B, H, Tq, _ = q.shape
+    out = torch.empty_like(q)
+    stats = (torch.empty((B, H, Tq, 2), dtype=torch.float32,
+                         device=q.device) if with_stats else None)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_attention_hm_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *_drop_args(dropout_p, seeds), out.data_ptr(), _build.ptr(stats),
+            B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
+            _build.stream_of(q))
+    _build.check(rc, "daspeech_attention_hm_fwd")
+    fused_attention.launches += 1
+    return out, stats
+
+
+def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
+                            dropout_p: float = 0.0, seeds=None):
+    """Launch the head-major backward kernels: (dq, dk, dv)."""
+    _check_hm("fused_attention backward", q, k, v, bias, seeds, dropout_p)
+    _build.check_inputs("fused_attention backward", out, stats, dout)
+    B, H, Tq, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            stats.shape != (B, H, Tq, 2):
+        raise ValueError("fused_attention backward: bad shapes "
+                         f"out{tuple(out.shape)} stats{tuple(stats.shape)} "
+                         f"dout{tuple(dout.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
+                        device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_attention_hm_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *_drop_args(dropout_p, seeds), out.data_ptr(), stats.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), B, Tq, k.shape[2], H, HEAD_DIM,
+            float(sm_scale), _build.stream_of(q))
+    _build.check(rc, "daspeech_attention_hm_bwd")
+    attention_hm_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+class _HeadMajorAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, sm_scale, dropout_p, seeds):
+        ctx.cfg = (sm_scale, dropout_p)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias, seeds)
+            return attention_hm_plain(q, k, v, bias, sm_scale, dropout_p,
+                                      seeds)
+        out, stats = attention_hm_fwd_kernel(
+            q, k, v, bias, sm_scale, dropout_p, seeds,
+            with_stats=any(ctx.needs_input_grad))
+        ctx.save_for_backward(q, k, v, bias, seeds, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        sm_scale, dropout_p = ctx.cfg
+        q, k, v, bias, seeds, *saved = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            grads = attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale,
+                                           dropout_p, seeds)
+        else:
+            out, stats = saved
+            grads = attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout,
+                                            sm_scale, dropout_p, seeds)
+        return (*grads, None, None, None, None)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, sm_scale: float = 1.0,
+                    dropout_p: float = 0.0,
+                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Head-major attention (see :func:`attention_hm_plain`),
+    differentiable in q, k and v.
+
+    CPU tensors take the plain versions. CUDA tensors launch the kernels,
+    which take fp32, contiguous [B, H, T, 64] inputs (and int32 seeds with
+    dropout), and raise on anything else."""
+    return _HeadMajorAttention.apply(q, k, v, bias, sm_scale, dropout_p,
+                                     seeds)
+
+
+fused_attention.launches = 0
+attention_hm_bwd_kernel.launches = 0

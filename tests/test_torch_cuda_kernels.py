@@ -3,7 +3,8 @@ at edge shapes the serving and training paths can reach (ragged tiles, a
 single key, Tq != Tk, long mels, graphs of one vertex and of the 1024-vertex
 maximum, fully padded rows, the transition band, one target token, targets
 and graphs shorter than their padding, dropout on, Viterbi ties).
-``chip_smoke.py`` covers the serving and training shapes.
+``chip_smoke.py`` covers the serving and training shapes. The head-major
+attention kernel is also held to the packed one, dropout mask included.
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -296,3 +297,74 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fa.attention_bwd_kernel(x, x, x, bias, x, torch.zeros((1, 1, 3, 2),
                                                               device="cuda"),
                                 x, 1, 1.0)
+
+
+def _heads(x, H):
+    """[B, T, H*64] -> contiguous head-major [B, H, T, 64]."""
+    B, T, _ = x.shape
+    return x.reshape(B, T, H, 64).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,p", [(2, 1, 1, 1, 0.0),
+                                         (2, 37, 5, 2, 0.1),
+                                         (3, 70, 130, 4, 0.1),
+                                         (2, 800, 300, 4, 0.0),
+                                         (1, 1040, 1040, 4, 0.0),
+                                         (2, 700, 700, 8, 0.1)])
+def test_head_major_attention_forward_and_backward(gen, B, Tq, Tk, H, p):
+    """Tq != Tk, a fully padded row (B > 1), dropout on."""
+    q = _randn(gen, B, H, Tq, 64, scale=0.125)
+    k, v = _randn(gen, B, H, Tk, 64), _randn(gen, B, H, Tk, 64)
+    bias = _bias(gen, B, Tk, all_padded_row=B > 1)
+    seeds = _seeds(gen, B) if p else None
+    out, st = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
+                                         with_stats=True)
+    assert _max_err(out, fa.attention_hm_plain(q, k, v, bias, 1.0, p,
+                                               seeds)) <= TOL
+    do = _randn(gen, B, H, Tq, 64)
+    got = fa.attention_hm_bwd_kernel(q, k, v, bias, out, st, do, 1.0, p,
+                                     seeds)
+    torch.cuda.synchronize()
+    want = fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p, seeds)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_head_major_kernel_drops_what_the_packed_kernel_drops(gen, p):
+    """Both kernels key dropout by (row seed, j / 4, i, h): at a shape both
+    routes take they agree to rounding, forward and backward."""
+    B, Tq, Tk, H = 3, 70, 130, 4
+    q = _randn(gen, B, Tq, H * 64, scale=0.125)
+    k, v = _randn(gen, B, Tk, H * 64), _randn(gen, B, Tk, H * 64)
+    bias = _bias(gen, B, Tk, all_padded_row=True)
+    seeds = _seeds(gen, B) if p else None
+    out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                      with_stats=True)
+    out_h, st_h = fa.attention_hm_fwd_kernel(
+        _heads(q, H), _heads(k, H), _heads(v, H), bias, 1.0, p, seeds,
+        with_stats=True)
+    assert _max_err(_heads(out, H), out_h) <= 1e-6
+    do = _randn(gen, B, Tq, H * 64)
+    got = fa.attention_bwd_kernel(q, k, v, bias, out, st, do, H, 1.0, p,
+                                  seeds)
+    got_h = fa.attention_hm_bwd_kernel(
+        _heads(q, H), _heads(k, H), _heads(v, H), bias, out_h, st_h,
+        _heads(do, H), 1.0, p, seeds)
+    torch.cuda.synchronize()
+    for a, b in zip(got, got_h):
+        assert _max_err(_heads(a, H), b) <= 1e-6
+
+
+def test_head_major_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x = _randn(gen, 1, 2, 4, 32)                   # head depth 32
+    bias = torch.zeros((1, 4), device="cuda")
+    with pytest.raises(ValueError, match="head depth"):
+        fa.fused_attention(x, x, x, bias)
+    y = _randn(gen, 1, 4, 2, 64).transpose(1, 2)   # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_attention(y, y, y, bias)
+    z = _randn(gen, 1, 4, 64)                      # packed, not [B, H, T, d]
+    with pytest.raises(ValueError, match="B, H, T, d"):
+        fa.fused_attention(z, z, z, bias)

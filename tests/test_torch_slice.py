@@ -8,8 +8,9 @@ package and the frozen golden fixture, at the tiny configuration of
 * ``daspeech_torch.decode.generator.S2SNATGenerator.generate`` against the
   JAX ``S2SNATGenerator`` on one batch: same tokens, same mel lengths, mel
   and waveform within 1e-3;
-* an import guard: a fresh interpreter runs the port's CPU serving slice
-  and one training step, and never imports jax or the JAX package.
+* an import guard: a fresh interpreter runs the port's CPU serving slice,
+  one S2TT DAG training step, one joint S2ST step and one FastSpeech 2
+  pretraining step, and never imports jax or the JAX package.
 """
 
 import os
@@ -223,6 +224,31 @@ step = make_train_step(
 tgt = torch.tensor([[0, 5, 6, 7, 2], [0, 8, 9, 2, 1]])
 metrics = step(state, {"fbank": torch.randn(2, 40, 80), "src_lengths": lens,
                        "target": tgt, "prev_output_tokens": prev}, torch.Generator())
+assert torch.isfinite(metrics["loss"]) and metrics["skipped"].item() == 0
+
+# one joint S2ST step and one FastSpeech 2 pretraining step
+from daspeech_torch.losses import (fastspeech2_criterion,
+    s2s_dag_fastspeech2_loss)
+from daspeech_torch.models import FastSpeech2Encoder
+
+state = TrainState.create(model, opt)
+step = make_train_step(lambda m, b, g: s2s_dag_fastspeech2_loss(
+    m, b, g, 0.5, cfg.dag.vocab), opt)
+gold = {"durations": torch.full((2, 4), 3), "pitches": torch.rand(2, 4),
+        "energies": torch.rand(2, 4)}
+metrics = step(state, {"fbank": torch.randn(2, 40, 80), "src_lengths": lens,
+                       "target_text": tgt, "prev_output_tokens": prev,
+                       "target_audio": torch.randn(2, 12, 80),
+                       "target_audio_lengths": torch.tensor([12, 9]), **gold},
+               torch.Generator())
+assert torch.isfinite(metrics["loss"]) and metrics["skipped"].item() == 0
+fs2 = FastSpeech2Encoder(cfg.tts, vocab_size=32)
+state = TrainState.create(fs2, opt)
+step = make_train_step(lambda m, b, g: fastspeech2_criterion(
+    m, b, g, cfg.dag.vocab), opt)
+metrics = step(state, {"src_tokens": tgt[:, 1:], "target_audio":
+                       torch.randn(2, 12, 80), "target_audio_lengths":
+                       torch.tensor([12, 9]), **gold}, torch.Generator())
 assert torch.isfinite(metrics["loss"]) and metrics["skipped"].item() == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "daspeech_tpu"))
