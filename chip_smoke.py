@@ -44,7 +44,20 @@
    (every DAG and encoder gradient exactly 0), and 30 updates that must
    end at <= 0.9 of the first loss;
 7. FastSpeech 2 pretraining phase (``fastspeech2_criterion``): a
-   card-vs-CPU step at B=4 and 7 updates (5 timed) at B=14, 1040 frames.
+   card-vs-CPU step at B=4 and 7 updates (5 timed) at B=14, 1040 frames;
+8. vocoder-mode phase, HiFi-GAN config_v1 (random weights scaled by their
+   fan-in) on serving A's and B's mels: ``fused_mrf=True`` (the run whose launch
+   count of the MRF kernel is read: 3 per batch) against the default mode
+   (<= 1e-4), each mode's vocoder ms; exact chunked vocoding
+   (``serve_chunk=64``, B=1) against one-shot (<= 1e-5), its first-chunk
+   latency and whole time, once with ``fused_mrf=True``; ResBlock type 2
+   at hifi-gan's config_v3 widths, one-shot and chunked, against a B=1 CPU
+   run (<= 2.5e-4);
+9. TTS phase: ``NonAutoregressiveSpeechGenerator`` (FastSpeech 2 4+4Lx256d
+   on phonemes, vocab 128, then config_v1) on 8 utterances of 52 phonemes
+   (416 frames) and 2 of 130 (1040 frames: the decoder takes the
+   head-major attention), each mel against a CPU run (<= 1e-3), ms per
+   batch and audio seconds per wall second.
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -77,13 +90,13 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn) -> float:
-    """Median CUDA-event time of ``fn()`` in ms over 20 calls, after 3
-    warm-up calls."""
-    for _ in range(3):
+def cuda_ms(fn, reps=20, warm=3) -> float:
+    """Median CUDA-event time of ``fn()`` in ms over ``reps`` calls, after
+    ``warm`` warm-up calls."""
+    for _ in range(warm):
         fn()
     times = []
-    for _ in range(20):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -124,6 +137,8 @@ KERNELS = {
                         "daspeech_tpu/ops/fused_attention.py:189"),
     "fused_attention_bwd": ("daspeech_torch/csrc/fused_attention.cu",
                             "daspeech_tpu/ops/fused_attention.py:103"),
+    "mrf_level": ("daspeech_torch/csrc/fused_mrf.cu",
+                  "daspeech_tpu/ops/fused_mrf.py:156"),
 }
 # The DP is held against its plain loop run in float64 (dp_numerics). Each
 # step shifts by the previous row's maximum, so in fp32 (kernel, plain loop
@@ -158,6 +173,7 @@ def launch_counters():
     from daspeech_torch.ops import dag_kernels as dk
     from daspeech_torch.ops import fused_attention as fa
     from daspeech_torch.ops import fused_links as fl
+    from daspeech_torch.ops import fused_mrf as fm
     from daspeech_torch.ops import fused_relpos as fr
 
     return {"fused_attention_packed": fa.fused_attention_packed,
@@ -169,7 +185,8 @@ def launch_counters():
             "fused_attention_relpos_bwd": fr.relpos_bwd_kernel,
             "fused_extract_links_bwd": fl.links_bwd_kernel,
             "fused_attention": fa.fused_attention,
-            "fused_attention_bwd": fa.attention_hm_bwd_kernel}
+            "fused_attention_bwd": fa.attention_hm_bwd_kernel,
+            "mrf_level": fm.mrf_level}
 
 
 def reset_launches():
@@ -312,11 +329,30 @@ def dp_numerics():
     return worst
 
 
+MRF_KERNELS, MRF_DILATIONS = (3, 7, 11), ((1, 3, 5),) * 3
+# [B, C, T] of a config_v1 MRF level: serving A (8 x 416 mel frames) at
+# levels 1-3, serving B (2 x 1040) at level 1, a chunk window (1 x 94)
+MRF_SHAPES = ((8, 128, 26624), (8, 64, 53248), (8, 32, 106496),
+              (2, 128, 66560), (1, 128, 6016))
+
+
+def mrf_inputs(g, B, C, T):
+    """x ~ N(0, 1) [B, C, T] and a level's stacked weights: each conv's taps
+    N(0, 1 / (k C)) and biases N(0, 0.1), which keep the level's output of
+    order 1."""
+    n_dil = len(MRF_DILATIONS[0])
+    W = torch.cat([torch.randn(k, C, C, generator=g) / math.sqrt(k * C)
+                   for k in MRF_KERNELS for _ in range(2 * n_dil)])
+    bias = torch.randn(2 * n_dil * len(MRF_KERNELS), C, generator=g) * 0.1
+    return _randn(g, B, C, T), W.cuda(), bias.cuda()
+
+
 def kernel_phase():
     from daspeech_torch.ops import dag_kernels as dk
     from daspeech_torch.ops import dag_ref as dr
     from daspeech_torch.ops import fused_attention as fa
     from daspeech_torch.ops import fused_links as fl
+    from daspeech_torch.ops import fused_mrf as fm
     from daspeech_torch.ops import fused_relpos as fr
 
     g = torch.Generator().manual_seed(SEED)
@@ -580,6 +616,36 @@ def kernel_phase():
                lambda: dr.dag_best_alignment_plain(match, links, ol, tl),
                2 * int((n_links * steps).sum()),
                (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0)
+    # --- the HiFi-GAN MRF level (#7, three ResBlock1 of kernels 3/7/11,
+    # dilations 1/3/5): serving A's levels 1-3, batch B's level 1, and one
+    # chunk window of 64 + 2 * 15 mel frames at level 1, each with the tile
+    # the wrapper picks, then with the other; the work is the 126 taps of
+    # C x C products at every frame
+    dev = torch.device("cuda")
+    picked = [fm.pick_tile(B, T, dev) for B, _, T in MRF_SHAPES]
+    other = [next(u for u in fm.TILES if u != t) for t in picked]
+    for (B, C, T), tile in zip(MRF_SHAPES * 2, picked + other):
+        x, W, bias = mrf_inputs(g, B, C, T)
+        args = (x, W, bias, MRF_KERNELS, MRF_DILATIONS)
+        got = fm.mrf_level_kernel(*args, tile)
+        want = fm.mrf_level_ref(*args)
+        shape = (f"[{B},{C},{T}] tile {tile}"
+                 + (" (picked)" if tile == fm.pick_tile(B, T, dev) else ""))
+        log(f"  mrf_level {shape}: output std {want.std().item():.3f}")
+        if B == 1:
+            # the kernel and cuDNN's fp32 implicit GEMM can sum in the same
+            # order; both against float64 show each one's own rounding
+            exact = fm.mrf_level_ref(*(t.double() for t in args[:3]),
+                                     MRF_KERNELS, MRF_DILATIONS)
+            log(f"  mrf_level {shape} against float64: kernel "
+                f"{_max_err(got.double(), exact):.3g}, plain "
+                f"{_max_err(want.double(), exact):.3g}")
+        record("mrf_level", shape, _max_err(got, want),
+               lambda: fm.mrf_level_kernel(*args, tile),
+               lambda: fm.mrf_level_ref(*args),
+               2 * B * T * C * C * W.shape[0],
+               (2 * B * C * T + W.numel() + bias.numel()) * F32)
+        del x, args, got, want
     worst = dp_numerics()
     if not worst <= 1.0:
         raise AssertionError(f"alpha/beta kernel off float64 by {worst:.3g}"
@@ -715,11 +781,13 @@ def set_durations_(model, frames: int):
     """Random weights make predicted durations collapse to ~0 frames
     (bench.py:21-24). Zero the duration predictor's projection and set its
     output bias to log(1 + frames), so that every token lasts ``frames``
-    frames."""
-    proj = model.tts.var_adaptor.duration_predictor.proj
+    frames. ``model`` is the two-pass model or a FastSpeech 2."""
+    fs2 = getattr(model, "tts", model)
+    proj = fs2.var_adaptor.duration_predictor.proj
     with torch.no_grad():
         proj.weight.zero_()
         proj.bias.fill_(math.log(1.0 + frames))
+    return model
 
 
 def path_margin(logits, links, ol, b, upto_vertex, beta=1.0):
@@ -881,7 +949,16 @@ def e2e_phase():
             f"{audio_s:.2f} s of audio = "
             f"{audio_s / (med['generate'] / 1e3):.1f} audio-s per wall-s")
         device_busy(lambda: gen.generate(batch), f"generate batch{tag}")
-    return launches
+
+    # the mels the vocoder was served, for the vocoder-mode phase
+    mels = {}
+    with torch.inference_mode():
+        for tag, gen, batch, d in (("A", gen_a, batch_a, d_a),
+                                   ("B", gen_b, batch_b, d_b)):
+            set_durations_(model, d)
+            _, z, zmask = gen.decode(*gen.to_device(batch))
+            mels[tag] = gen.synthesize(z, zmask)[0]
+    return launches, mels
 
 
 def sub_stage_ms(gen, batch, reps=5):
@@ -1853,6 +1930,204 @@ def fs2_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# vocoder serving modes and the TTS generator
+# ---------------------------------------------------------------------------
+
+TOL_FUSED = 1e-4          # fused-MRF waveform against the default mode
+TOL_CHUNKED = 1e-5        # chunked waveform against one-shot
+TOL_WAV_CPU = 2.5e-4      # a waveform against its CPU run
+TOL_TTS_MEL = 1e-3        # the TTS mel against its CPU run
+SERVE_CHUNK = 64
+V3 = dict(resblock="2", upsample_rates=(8, 8, 4),       # hifi-gan config_v3
+          upsample_kernel_sizes=(16, 16, 8), upsample_initial_channel=256,
+          resblock_kernel_sizes=(3, 5, 7),
+          resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+
+
+def first_chunk_ms(voc, mel, chunk, reps=10):
+    """Median host-clock ms from a mel ready on the card to the first
+    chunk's samples (``vocode_chunks``), over ``reps`` after a warm-up."""
+    from daspeech_torch.models import vocode_chunks
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next(vocode_chunks(voc, mel, chunk))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def init_vocoder_(voc: torch.nn.Module, seed: int):
+    """Random vocoder weights from a seed that keep every level's
+    activations of order 1 and the waveform out of tanh's saturation: each
+    conv's weights N(0, 1 / fan_in) (a transposed conv's fan-in is
+    in * k / stride), biases N(0, 0.1). (``init_random_``'s N(0, 0.05) grows
+    config_v1's activations to ~1e3 and saturates 98% of the samples, where
+    a waveform comparison says little.)"""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in voc.modules():
+            if isinstance(m, torch.nn.ConvTranspose1d):
+                fan = m.in_channels * m.kernel_size[0] / m.stride[0]
+            elif isinstance(m, torch.nn.Conv1d):
+                fan = m.in_channels * m.kernel_size[0]
+            else:
+                continue
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           / math.sqrt(fan))
+            m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    return voc.eval().requires_grad_(False)
+
+
+def vocoder_phase(mels):
+    """The vocoder's serving modes at config_v1 on the serving phase's
+    mels, and ResBlock type 2 at config_v3, with weights from
+    ``init_vocoder_``. Returns the launches of the fused-mode run (each
+    batch once) and the config_v1 vocoder (on the CPU)."""
+    from daspeech_torch.config import HiFiGANConfig
+    from daspeech_torch.decode import make_vocode_fn
+    from daspeech_torch.models import HiFiGANGenerator
+    from daspeech_torch.ops import fused_mrf as fm
+
+    voc_cpu = init_vocoder_(HiFiGANGenerator(HiFiGANConfig()), SEED + 1)
+
+    def with_weights(src, **serving):
+        voc = HiFiGANGenerator(src.cfg, **serving)
+        voc.load_state_dict(src.state_dict())
+        return voc.eval().requires_grad_(False).cuda()
+
+    voc = with_weights(voc_cpu)
+    fused = with_weights(voc_cpu, fused_mrf=True)
+    fused_tiles = {t: with_weights(voc_cpu, fused_mrf=True, mrf_tile=t)
+                   for t in fm.TILES}
+    with torch.inference_mode():
+        # --- the fused mode's run: counters from 0, each batch once
+        reset_launches()
+        wav_fused = {tag: fused(mel) for tag, mel in mels.items()}
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"  launches in the fused-mode run: {launches}")
+        if launches["mrf_level"] != 3 * len(mels):
+            raise AssertionError(f"mrf_level launched {launches['mrf_level']}"
+                                 f" times for {len(mels)} batches, not 3 "
+                                 "per batch")
+        for tag, mel in mels.items():
+            want = voc(mel)
+            err = _max_err(wav_fused[tag], want)
+            if not (torch.isfinite(wav_fused[tag]).all() and err <= TOL_FUSED):
+                raise AssertionError(f"fused vocoder, batch {tag}: max abs "
+                                     f"diff {err} (<= {TOL_FUSED})")
+            ms_default = cuda_ms(lambda: voc(mel), reps=5, warm=1)
+            ms_fused = cuda_ms(lambda: fused(mel), reps=5, warm=1)
+            ms_tiles = ", ".join(
+                f"tile {t} {cuda_ms(lambda: v(mel), reps=5, warm=1):.3f} ms"
+                for t, v in fused_tiles.items())
+            audio_s = mel.shape[0] * mel.shape[1] * 256 / 22050.0
+            log(f"  vocoder batch {tag} mel{list(mel.shape)}: default "
+                f"{ms_default:.3f} ms, fused_mrf {ms_fused:.3f} ms "
+                f"({audio_s / (ms_fused / 1e3):.1f} audio-s per s; every "
+                f"level at {ms_tiles}); fused vs default max abs diff "
+                f"{err:.3g} (<= {TOL_FUSED})")
+
+        # --- exact chunked vocoding at B = 1 (one utterance of batch A)
+        mel1 = mels["A"][:1].contiguous()
+        one = voc(mel1)
+        for tag, chunked in (("default", with_weights(
+                voc_cpu, serve_chunk=SERVE_CHUNK)), ("fused_mrf", with_weights(
+                    voc_cpu, fused_mrf=True, serve_chunk=SERVE_CHUNK))):
+            fn = make_vocode_fn(chunked)
+            got = fn(mel1)
+            err = _max_err(got, one)
+            tol = TOL_CHUNKED if tag == "default" else TOL_FUSED
+            if not (got.shape == one.shape and err <= tol):
+                raise AssertionError(f"chunked ({tag}) vs one-shot: "
+                                     f"{tuple(got.shape)}, max abs diff {err}")
+            log(f"  chunked {tag} (chunk {SERVE_CHUNK}, B=1, "
+                f"{mel1.shape[1]} frames): first chunk "
+                f"{first_chunk_ms(chunked, mel1, SERVE_CHUNK):.3f} ms after "
+                f"the mel, whole {cuda_ms(lambda: fn(mel1), 5, 1):.3f} ms; "
+                f"one-shot {cuda_ms(lambda: voc(mel1), 5, 1):.3f} ms; max abs "
+                f"diff {err:.3g} (<= {tol})")
+
+        # --- ResBlock type 2 at config_v3 widths
+        v3_cpu = init_vocoder_(HiFiGANGenerator(HiFiGANConfig(**V3)),
+                               SEED + 30)
+        v3 = with_weights(v3_cpu)
+        v3_chunked = with_weights(v3_cpu, serve_chunk=SERVE_CHUNK)
+        one = v3(mel1)
+        err_cpu = _max_err(one.cpu(), v3_cpu(mel1.cpu()))
+        err_chunk = _max_err(make_vocode_fn(v3_chunked)(mel1), one)
+        log(f"  ResBlock2 (config_v3): batch A {cuda_ms(lambda: v3(mels['A']), 5, 1):.3f}"
+            f" ms, B=1 one-shot {cuda_ms(lambda: v3(mel1), 5, 1):.3f} ms; "
+            f"card vs CPU {err_cpu:.3g} (<= {TOL_WAV_CPU}), chunked vs "
+            f"one-shot {err_chunk:.3g} (<= {TOL_CHUNKED})")
+        if not (err_cpu <= TOL_WAV_CPU and err_chunk <= TOL_CHUNKED):
+            raise AssertionError("ResBlock2 vocoder disagrees")
+    return launches, voc_cpu
+
+
+def tts_phase(voc_cpu):
+    """``NonAutoregressiveSpeechGenerator`` at the recipe's widths (random
+    weights, every phoneme 8 frames) with the vocoder-mode phase's config_v1
+    vocoder, on batches of 8 x 52 and 2 x 130 phonemes."""
+    from daspeech_torch.config import FastSpeech2Config, VocabConfig
+    from daspeech_torch.decode import NonAutoregressiveSpeechGenerator
+    from daspeech_torch.models import FastSpeech2Encoder
+
+    vocab = VocabConfig(size=128)
+    model_cpu = set_durations_(init_random_(
+        FastSpeech2Encoder(FastSpeech2Config(), vocab.size), SEED + 40), 8)
+    model_cpu.eval().requires_grad_(False)
+    model = copy.deepcopy(model_cpu).cuda()
+    voc = copy.deepcopy(voc_cpu).cuda()
+    rng = np.random.default_rng(SEED + 41)
+    runs = {}
+    for tag, B, n in (("A", 8, 52), ("B", 2, 130)):
+        M = n * 8
+        batch = {"src_tokens": rng.integers(4, vocab.size, size=(B, n))}
+        gen = NonAutoregressiveSpeechGenerator(model, vocab, max_mel_len=M,
+                                               vocoder=voc)
+        reset_launches()
+        hyps = gen.generate(batch)
+        launches = read_launches()
+        runs[tag] = launches
+        for h in hyps:
+            if not (h["feature"].shape == (M, 80)
+                    and len(h["waveform"]) == M * 256
+                    and np.isfinite(h["feature"]).all()
+                    and np.isfinite(h["waveform"]).all()):
+                raise AssertionError(f"TTS batch {tag}: mel "
+                                     f"{h['feature'].shape}, "
+                                     f"{len(h['waveform'])} samples")
+        want = NonAutoregressiveSpeechGenerator(model_cpu, vocab,
+                                                max_mel_len=M).generate(
+            {"src_tokens": batch["src_tokens"][:2]})
+        err = max(float(np.abs(g["feature"] - w["feature"]).max())
+                  for g, w in zip(hyps, want))
+        if not err <= TOL_TTS_MEL:
+            raise AssertionError(f"TTS batch {tag}: mel differs from the CPU "
+                                 f"run by {err}")
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            gen.generate(batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times[1:]))
+        audio_s = B * M * 256 / 22050.0
+        log(f"  TTS batch {tag} ({B} x {n} phonemes, {M} frames): "
+            f"generate() {ms:.3f} ms (median of 5) for {audio_s:.2f} s of "
+            f"audio = {audio_s / (ms / 1e3):.1f} audio-s per s; mel vs CPU "
+            f"(first 2) {err:.3g} (<= {TOL_TTS_MEL}); launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    if runs["B"]["fused_attention"] <= 0:
+        raise AssertionError("the 1040-frame TTS decoder did not take the "
+                             "head-major attention")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -1885,27 +2160,34 @@ def main() -> int:
     log("kernel phase:")
     cases = kernel_phase()
     log("end-to-end phase (serving):")
-    serving = e2e_phase()
+    serving, mels = e2e_phase()
     log("training phase (S2TT):")
     training = train_phase()
     log("joint S2ST training phase:")
     joint = joint_phase()
     log("FastSpeech 2 pretraining phase:")
     pretrain = fs2_phase()
+    log("vocoder-mode phase:")
+    vocoder, voc_cpu = vocoder_phase(mels)
+    log("TTS phase:")
+    tts = tts_phase(voc_cpu)
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
     # second slice's: the S2TT training run; the head-major attention: the
-    # joint step at J-long); every path's count is kept
+    # joint step at J-long; the MRF level: the fused-mode vocoder run);
+    # every path's count is kept
     by_path = {"serving": serving, "training": training,
                "joint_J": joint["J"], "joint_J-long": joint["J-long"],
-               "fs2_pretraining": pretrain}
+               "fs2_pretraining": pretrain, "vocoder_fused": vocoder,
+               "tts_A": tts["A"], "tts_B": tts["B"]}
     kernels = []
     for name, shapes in cases.items():
         src, replaces = KERNELS[name]
         first = shapes[0]
         main_path = ("joint_J-long" if name in ("fused_attention",
                                                 "fused_attention_bwd")
+                     else "vocoder_fused" if name == "mrf_level"
                      else "serving" if name in SERVING_KERNELS
                      else "training")
         kernels.append({

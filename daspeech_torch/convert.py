@@ -134,8 +134,12 @@ def dag_from_flax(variables: Dict[str, Any], cfg,
     return load_flax_(S2TConformerDAG(cfg), variables).to(device).eval()
 
 
-def vocoder_from_flax(variables: Dict[str, Any], cfg,
-                      device="cuda") -> HiFiGANGenerator:
-    """HiFi-GAN with the JAX package's weights, on ``device``, in eval mode.
-    The flax tree is the same for ``fold_to=0`` and ``fold_to=128``."""
-    return load_flax_(HiFiGANGenerator(cfg), variables).to(device).eval()
+def vocoder_from_flax(variables: Dict[str, Any], cfg, device="cuda",
+                      **serving) -> HiFiGANGenerator:
+    """HiFi-GAN (ResBlock type 1 or 2) with the JAX package's weights, on
+    ``device``, in eval mode; ``serving`` holds the generator's serving
+    arguments (``fused_mrf``, ``mrf_tile``, ``serve_chunk``). The flax tree
+    is the same for ``fold_to=0`` and ``fold_to=128``, with ``fused_mrf`` on
+    or off."""
+    return load_flax_(HiFiGANGenerator(cfg, **serving),
+                      variables).to(device).eval()

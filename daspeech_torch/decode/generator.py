@@ -20,7 +20,7 @@ from daspeech_torch.decode.dag_decode import (
     gather_path_features,
     greedy_or_lookahead_decode,
 )
-from daspeech_torch.decode.speech_generator import gcmvn_stats, vocode
+from daspeech_torch.decode.speech_generator import make_vocode_fn
 
 HOP = 256        # samples per mel frame (generator.py:334)
 
@@ -73,7 +73,7 @@ class S2SNATGenerator:
         self.gcmvn = gcmvn
         self.d_factor = d_factor
         self.device = next(model.parameters()).device
-        self._stats = gcmvn_stats(gcmvn, self.device)
+        self._vocode = make_vocode_fn(vocoder, gcmvn)
 
     def to_device(self, batch: Dict[str, np.ndarray]):
         """(fbank, src_lengths, prev_output_tokens) as tensors on the
@@ -100,8 +100,10 @@ class S2SNATGenerator:
         return mel, mel_lens
 
     def vocode(self, mel):
-        """Stage 3: gcmvn denormalization + HiFi-GAN -> wav [B, M*256]."""
-        return vocode(self.vocoder, mel, self._stats)
+        """Stage 3: gcmvn denormalization + HiFi-GAN -> wav [B, M*256],
+        one-shot or, for a vocoder with ``serve_chunk > 0``, chunked
+        (``generator.py:324-328`` through ``make_vocode_fn``)."""
+        return self._vocode(mel)
 
     def generate(self, batch: Dict[str, np.ndarray],
                  generate_waveform: bool = True) -> List[Dict]:

@@ -10,7 +10,13 @@ from daspeech_torch.models.fastspeech2 import (
     FFNAdapter,
     length_regulate,
 )
-from daspeech_torch.models.hifigan import HiFiGANGenerator
+from daspeech_torch.models.hifigan import (
+    HiFiGANGenerator,
+    fused_mrf_route,
+    receptive_halo_mel,
+    vocode_chunked,
+    vocode_chunks,
+)
 from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
 
 __all__ = [
@@ -21,7 +27,11 @@ __all__ = [
     "HiFiGANGenerator",
     "S2SConformerDAGFastSpeech2",
     "S2TConformerDAG",
+    "fused_mrf_route",
     "graph_lengths",
     "initialize_output_tokens",
     "length_regulate",
+    "receptive_halo_mel",
+    "vocode_chunked",
+    "vocode_chunks",
 ]

@@ -56,6 +56,8 @@ SIGNATURES = {
                            _I, _I, _F, _I, _P),
     "daspeech_dag_fb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "daspeech_dag_viterbi": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "daspeech_mrf_level": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                           _I, _P),
 }
 
 

@@ -1,0 +1,150 @@
+"""One HiFi-GAN MRF level: plain PyTorch version and the CUDA kernel.
+
+Counterpart of ``daspeech_tpu/ops/fused_mrf.py``. A level of the vocoder is
+its ResBlock1 modules (config_v1: kernels 3/7/11, dilations 1/3/5 each) run
+on the same input and averaged: 18 chained 1-D convs with leaky-ReLU
+pre-activations and residual adds. The CUDA kernel (``csrc/fused_mrf.cu``)
+replaces the Pallas ``mrf_level`` (``fused_mrf.py:156``; ``_mrf_kernel`` at
+:87); it computes in the port's ``[B, C, T]`` layout, not the TPU's folded
+``[B, T/f, f*C]`` view, one launch per dilation iteration, and keeps each
+conv pair's intermediate in shared memory.
+
+Inference only, as in JAX: neither version has a gradient. CPU tensors take
+the plain version (:func:`mrf_level_ref`, the convs through ``F.conv1d``);
+CUDA tensors launch the kernel, which raises on what it does not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from daspeech_torch.ops import _build
+
+LRELU_SLOPE = 0.1
+TILES = (64, 128)           # output frames per block the kernel is built for
+MAX_KERNEL = 17             # largest conv kernel size the kernel takes
+MAX_CHANNELS = 128
+
+
+def prepare_level(resblocks) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stack a level's ResBlock1 conv weights and biases for :func:`mrf_level`:
+    ``W [n_taps, C, C]`` (each conv's taps in order, each tap ``[in, out]``)
+    and ``biases [n_convs, C]``, convs in the order block, dilation,
+    (``convs1``, ``convs2``) — the order of ``fused_mrf.prepare_level``."""
+    mats, biases = [], []
+    for blk in resblocks:
+        for c1, c2 in zip(blk.convs1, blk.convs2):
+            for conv in (c1, c2):
+                mats.append(conv.weight.permute(2, 1, 0))
+                biases.append(conv.bias)
+    return torch.cat(mats).contiguous(), torch.stack(biases).contiguous()
+
+
+def mrf_level_ref(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
+                  kernel_sizes: Sequence[int],
+                  dilations: Sequence[Sequence[int]]) -> torch.Tensor:
+    """The average over blocks of the ResBlock1 chains, x ``[B, C, T]`` ->
+    ``[B, C, T]``, with ``F.conv1d`` (SAME zero padding at every conv)."""
+    tap, conv, out = 0, 0, None
+    for k, ds in zip(kernel_sizes, dilations):
+        cur = x
+        for d in ds:
+            w1 = W[tap:tap + k].permute(2, 1, 0)
+            w2 = W[tap + k:tap + 2 * k].permute(2, 1, 0)
+            xt = F.conv1d(F.leaky_relu(cur, LRELU_SLOPE), w1, biases[conv],
+                          padding=(k - 1) // 2 * d, dilation=d)
+            xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), w2,
+                          biases[conv + 1], padding=(k - 1) // 2)
+            cur = cur + xt
+            tap, conv = tap + 2 * k, conv + 2
+        out = cur if out is None else out + cur
+    return out / len(kernel_sizes)
+
+
+def _check(x, W, biases, kernel_sizes, dilations, tile):
+    _build.check_inputs("mrf_level", x, W, biases)
+    if x.dim() != 3:
+        raise ValueError(f"mrf_level: x must be [B, C, T], got {tuple(x.shape)}")
+    B, C, T = x.shape
+    n_dil = len(dilations[0]) if dilations else 0
+    if C > MAX_CHANNELS or C & (C - 1) or B < 1 or T < 1:
+        raise ValueError(f"mrf_level: x {tuple(x.shape)} unsupported (the "
+                         f"kernel takes C a power of two <= {MAX_CHANNELS})")
+    if (not kernel_sizes or len(dilations) != len(kernel_sizes) or n_dil < 1
+            or any(len(ds) != n_dil for ds in dilations)
+            or any(k < 1 or k > MAX_KERNEL or k % 2 == 0
+                   for k in kernel_sizes)
+            or any(d < 1 for ds in dilations for d in ds)):
+        raise ValueError(f"mrf_level: kernel sizes {tuple(kernel_sizes)} / "
+                         f"dilations {tuple(map(tuple, dilations))} "
+                         f"unsupported (odd sizes <= {MAX_KERNEL}, the same "
+                         "number of dilations >= 1 in every block)")
+    n_taps = 2 * n_dil * sum(kernel_sizes)
+    n_convs = 2 * n_dil * len(kernel_sizes)
+    if W.shape != (n_taps, C, C) or biases.shape != (n_convs, C):
+        raise ValueError(f"mrf_level: bad shapes W{tuple(W.shape)} "
+                         f"biases{tuple(biases.shape)}, expected "
+                         f"({n_taps}, {C}, {C}) and ({n_convs}, {C})")
+    if tile is not None and tile not in TILES:
+        raise ValueError(f"mrf_level: tile {tile} not in {TILES}")
+
+
+def pick_tile(B: int, T: int, device) -> int:
+    """The kernel's tile for x ``[B, C, T]``: 128 output frames a block
+    (more FMAs per shared-memory load) when the batch's 128-frame tiles
+    fill the card's SMs, else 64 (twice the blocks; a chunk window of one
+    utterance)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 128 if B * -(-T // 128) >= sms else 64
+
+
+def mrf_level_kernel(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
+                     kernel_sizes: Sequence[int],
+                     dilations: Sequence[Sequence[int]],
+                     tile: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel: x ``[B, C, T]`` -> the level's output."""
+    _check(x, W, biases, kernel_sizes, dilations, tile)
+    B, C, T = x.shape
+    if tile is None:
+        tile = pick_tile(B, T, x.device)
+    n_dil = len(dilations[0])
+    out = torch.empty_like(x)
+    tmp = [torch.empty_like(x) if n_dil > i + 1 else None for i in range(2)]
+    ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
+    ds = (ctypes.c_int * (len(kernel_sizes) * n_dil))(
+        *(d for blk in dilations for d in blk))
+    with torch.cuda.device(x.device):
+        rc = _build.library().daspeech_mrf_level(
+            x.data_ptr(), W.data_ptr(), biases.data_ptr(), out.data_ptr(),
+            _build.ptr(tmp[0]), _build.ptr(tmp[1]), B, C, T,
+            len(kernel_sizes), ks, n_dil, ds, tile, _build.stream_of(x))
+    _build.check(rc, "daspeech_mrf_level")
+    mrf_level.launches += 1
+    return out
+
+
+def mrf_level(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
+              kernel_sizes: Sequence[int],
+              dilations: Sequence[Sequence[int]],
+              tile: Optional[int] = None) -> torch.Tensor:
+    """One MRF level (see :func:`mrf_level_ref`) from the stacked weights of
+    :func:`prepare_level`; ``tile`` is the kernel's output frames per block
+    (64 or 128; None: :func:`pick_tile`).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel,
+    which takes contiguous fp32 inputs with C a power of two <= 128 and odd
+    kernel sizes <= 17, and raises on anything else. Neither has a
+    gradient: under autograd with an input that requires one, this raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, W, biases)):
+        raise RuntimeError("mrf_level is inference only: run it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    if x.device.type == "cpu":
+        return mrf_level_ref(x, W, biases, kernel_sizes, dilations)
+    return mrf_level_kernel(x, W, biases, kernel_sizes, dilations, tile)
+
+
+mrf_level.launches = 0

@@ -2,7 +2,9 @@
 at edge shapes the serving and training paths can reach (ragged tiles, a
 single key, Tq != Tk, long mels, graphs of one vertex and of the 1024-vertex
 maximum, fully padded rows, the transition band, one target token, targets
-and graphs shorter than their padding, dropout on, Viterbi ties).
+and graphs shorter than their padding, dropout on, Viterbi ties, MRF
+levels whose length is not a multiple of the tile or just above the
+vocoder's route threshold, and each conv's halo at both sequence ends).
 ``chip_smoke.py`` covers the serving and training shapes. The head-major
 attention kernel is also held to the packed one, dropout mask included.
 
@@ -28,6 +30,7 @@ from daspeech_torch.ops import dag_kernels as dk
 from daspeech_torch.ops import dag_ref as dr
 from daspeech_torch.ops import fused_attention as fa
 from daspeech_torch.ops import fused_links as fl
+from daspeech_torch.ops import fused_mrf as fm
 from daspeech_torch.ops import fused_relpos as fr
 
 pytestmark = pytest.mark.cuda
@@ -368,3 +371,71 @@ def test_head_major_wrapper_refuses_what_the_kernel_does_not_take(gen):
     z = _randn(gen, 1, 4, 64)                      # packed, not [B, H, T, d]
     with pytest.raises(ValueError, match="B, H, T, d"):
         fa.fused_attention(z, z, z, bias)
+
+
+V1_KERNELS, V1_DILATIONS = (3, 7, 11), ((1, 3, 5),) * 3
+
+
+def _mrf_inputs(gen, B, C, T, kernel_sizes, dilations, bias_scale=0.1):
+    """x [B, C, T] ~ N(0, 1), each conv's taps N(0, 1 / (k C)) (the level's
+    output stays of order 1) and biases N(0, bias_scale)."""
+    n_dil = len(dilations[0])
+    W = torch.cat([torch.randn(k, C, C, generator=gen) / math.sqrt(k * C)
+                   for k in kernel_sizes for _ in range(2 * n_dil)])
+    biases = torch.randn(2 * n_dil * len(kernel_sizes), C,
+                         generator=gen) * bias_scale
+    return _randn(gen, B, C, T), W.cuda(), biases.cuda()
+
+
+@pytest.mark.parametrize("B,C,T,tile", [
+    (2, 128, 200, 64),      # T not a multiple of the tile
+    (1, 128, 128, 64),      # the route's threshold (128 // f frames)
+    (2, 64, 257, 64),       # just above it at f = 2
+    (1, 32, 513, 128),      # just above it at f = 4, the larger tile
+    (3, 32, 1000, 64),
+    (2, 128, 333, 128),
+    (1, 8, 2100, 64),       # a block of 128 threads
+    (1, 128, 6016, None)])  # a chunk window, the tile the wrapper picks
+def test_mrf_level(gen, B, C, T, tile):
+    x, W, biases = _mrf_inputs(gen, B, C, T, V1_KERNELS, V1_DILATIONS)
+    got = fm.mrf_level(x, W, biases, V1_KERNELS, V1_DILATIONS, tile)
+    torch.cuda.synchronize()
+    want = fm.mrf_level_ref(x, W, biases, V1_KERNELS, V1_DILATIONS)
+    assert torch.isfinite(got).all()
+    assert _max_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("T", [40, 150])
+def test_mrf_level_halo_at_both_ends(gen, k, T):
+    """One block of kernel k, large biases: a chained conv that leaves
+    bias-made values at frames outside [0, T) (the second conv's SAME
+    padding) is wrong within the halo of both ends."""
+    halo = sum((k - 1) // 2 * (d + 1) for d in (1, 3, 5))
+    x, W, biases = _mrf_inputs(gen, 2, 64, T, (k,), ((1, 3, 5),),
+                               bias_scale=1.0)
+    got = fm.mrf_level(x, W, biases, (k,), ((1, 3, 5),))
+    torch.cuda.synchronize()
+    want = fm.mrf_level_ref(x, W, biases, (k,), ((1, 3, 5),))
+    for ends in (slice(0, halo), slice(max(0, T - halo), T), slice(0, T)):
+        assert _max_err(got[..., ends], want[..., ends]) <= TOL
+
+
+def test_mrf_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x, W, biases = _mrf_inputs(gen, 1, 48, 256, V1_KERNELS, V1_DILATIONS)
+    with pytest.raises(ValueError, match="power of two"):
+        fm.mrf_level(x, W, biases, V1_KERNELS, V1_DILATIONS)
+    x, W, biases = _mrf_inputs(gen, 1, 32, 256, V1_KERNELS, V1_DILATIONS)
+    with pytest.raises(ValueError, match="tile"):
+        fm.mrf_level(x, W, biases, V1_KERNELS, V1_DILATIONS, 96)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.mrf_level(x.transpose(1, 2).contiguous().transpose(1, 2), W,
+                     biases, V1_KERNELS, V1_DILATIONS)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fm.mrf_level(x, W[:-1], biases, V1_KERNELS, V1_DILATIONS)
+    x4, W4, b4 = _mrf_inputs(gen, 1, 32, 256, (4,), ((1,),))
+    with pytest.raises(ValueError, match="odd sizes"):
+        fm.mrf_level(x4, W4, b4, (4,), ((1,),))
+    with pytest.raises(RuntimeError, match="inference only"):
+        fm.mrf_level(x, W.requires_grad_(), biases, V1_KERNELS,
+                     V1_DILATIONS)

@@ -9,8 +9,10 @@ package and the frozen golden fixture, at the tiny configuration of
   JAX ``S2SNATGenerator`` on one batch: same tokens, same mel lengths, mel
   and waveform within 1e-3;
 * an import guard: a fresh interpreter runs the port's CPU serving slice,
-  one S2TT DAG training step, one joint S2ST step and one FastSpeech 2
-  pretraining step, and never imports jax or the JAX package.
+  one S2TT DAG training step, one joint S2ST step, one FastSpeech 2
+  pretraining step and one batch each of the fused-MRF vocoder, the
+  chunked vocoder and the TTS generator, and never imports jax or the JAX
+  package.
 """
 
 import os
@@ -250,6 +252,27 @@ metrics = step(state, {"src_tokens": tgt[:, 1:], "target_audio":
                        torch.randn(2, 12, 80), "target_audio_lengths":
                        torch.tensor([12, 9]), **gold}, torch.Generator())
 assert torch.isfinite(metrics["loss"]) and metrics["skipped"].item() == 0
+
+# one fused-MRF vocoder batch (both levels routed), one chunked vocoder
+# batch through make_vocode_fn, one TTS batch
+from daspeech_torch.decode import (NonAutoregressiveSpeechGenerator,
+    make_vocode_fn)
+from daspeech_torch.models import fused_mrf_route
+
+voc_f = HiFiGANGenerator(voc_cfg, fused_mrf=True).eval()
+voc_c = HiFiGANGenerator(voc_cfg, serve_chunk=16).eval()
+voc_c.load_state_dict(voc_f.state_dict())
+assert fused_mrf_route("1", 16, 1040) and fused_mrf_route("1", 8, 2080)
+mel = torch.randn(1, 520, 80)
+with torch.no_grad():
+    wav = voc_f(mel)
+    assert wav.shape == (1, 2080) and torch.isfinite(wav).all()
+    assert (make_vocode_fn(voc_c)(mel) - wav).abs().max().item() <= 1e-5
+tts = NonAutoregressiveSpeechGenerator(fs2.eval(), cfg.dag.vocab,
+                                       max_mel_len=32, vocoder=voc_c, hop=4)
+for h in tts.generate({"src_tokens": tgt[:, 1:].numpy()}):
+    assert np.isfinite(h["feature"]).all() and np.isfinite(h["waveform"]).all()
+    assert len(h["waveform"]) == 4 * h["feature"].shape[0]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "daspeech_tpu"))
 assert not bad, bad
