@@ -11,7 +11,12 @@
    abs error <= 1e-4; the DP's log-probabilities against the plain loop in
    float64, within 2 sqrt(T) ulp of the largest magnitude, over three
    shapes and four seeds; Viterbi paths equal; the head-major attention
-   against the packed kernel at a shape both take, <= 1e-6), with median
+   against the packed kernel at a shape both take, <= 1e-6; the fused FFN
+   #6 at cell T's encoder and serving A's and B's, its weight gradients
+   bit-identical over two runs, its backward against autograd of the plain
+   forward (the same masks) and its drop fraction within 1% of p; the
+   full-bias attention #3 at three shapes with a fully masked row, and
+   against the head-major kernel on a column bias, <= 1e-6), with median
    CUDA-event times of the kernel, the plain version and, for attention,
    ``scaled_dot_product_attention`` with dropout at the same rate (timed
    here, used nowhere in the port), and the least time the card could
@@ -57,7 +62,16 @@
    on phonemes, vocab 128, then config_v1) on 8 utterances of 52 phonemes
    (416 frames) and 2 of 130 (1040 frames: the decoder takes the
    head-major attention), each mel against a CPU run (<= 1e-3), ms per
-   batch and audio seconds per wall second.
+   batch and audio seconds per wall second;
+10. alternates phase: the two verified alternate backends, as the JAX
+   package exposes them. ``FeedForwardModule(fused=True)`` set on every
+   encoder layer of the S2TT model of phase 5: its step against the
+   unfused one at dropout 0 and GLAT p=0 (loss 1e-4, gradients 1e-3 of their
+   norm), 24 forward and 24 backward fused-FFN launches per update
+   (asserted), and 13 updates (10 timed) each way at cell T;
+   ``fused_attention_full_bias`` on an ALiBi-style bias [8, 8, 240, 64],
+   forward and backward against the plain version. Both kernels launch 0
+   times on every other path (asserted).
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -139,6 +153,15 @@ KERNELS = {
                             "daspeech_tpu/ops/fused_attention.py:103"),
     "mrf_level": ("daspeech_torch/csrc/fused_mrf.cu",
                   "daspeech_tpu/ops/fused_mrf.py:156"),
+    "fused_ffn": ("daspeech_torch/csrc/fused_ffn.cu",
+                  "daspeech_tpu/ops/fused_ffn.py:175"),
+    "fused_ffn_bwd": ("daspeech_torch/csrc/fused_ffn.cu",
+                      "daspeech_tpu/ops/fused_ffn.py:84"),
+    "fused_attention_full_bias": ("daspeech_torch/csrc/fused_attention.cu",
+                                  "daspeech_tpu/ops/fused_attention.py:673"),
+    "fused_attention_full_bias_bwd": (
+        "daspeech_torch/csrc/fused_attention.cu",
+        "daspeech_tpu/ops/fused_attention.py:600"),
 }
 # The DP is held against its plain loop run in float64 (dp_numerics). Each
 # step shifts by the previous row's maximum, so in fp32 (kernel, plain loop
@@ -166,12 +189,16 @@ TRAIN_KERNELS = ("fused_attention_packed", "fused_extract_links",
                  "dag_best_alignment", "fused_attention_packed_bwd",
                  "fused_attention_relpos_bwd", "fused_extract_links_bwd")
 JOINT_KERNELS = TRAIN_KERNELS + ("fused_attention", "fused_attention_bwd")
+# the verified alternate backends (#6, #3): only the alternates phase runs them
+ALTERNATE_KERNELS = ("fused_ffn", "fused_ffn_bwd", "fused_attention_full_bias",
+                     "fused_attention_full_bias_bwd")
 
 
 def launch_counters():
     """name -> the wrapper whose ``launches`` counts that kernel."""
     from daspeech_torch.ops import dag_kernels as dk
     from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_ffn as ff
     from daspeech_torch.ops import fused_links as fl
     from daspeech_torch.ops import fused_mrf as fm
     from daspeech_torch.ops import fused_relpos as fr
@@ -186,7 +213,11 @@ def launch_counters():
             "fused_extract_links_bwd": fl.links_bwd_kernel,
             "fused_attention": fa.fused_attention,
             "fused_attention_bwd": fa.attention_hm_bwd_kernel,
-            "mrf_level": fm.mrf_level}
+            "mrf_level": fm.mrf_level,
+            "fused_ffn": ff.ffn_fwd_kernel,
+            "fused_ffn_bwd": ff.ffn_bwd_kernel,
+            "fused_attention_full_bias": fa.attention_fb_fwd_kernel,
+            "fused_attention_full_bias_bwd": fa.attention_fb_bwd_kernel}
 
 
 def reset_launches():
@@ -646,12 +677,163 @@ def kernel_phase():
                2 * B * T * C * C * W.shape[0],
                (2 * B * C * T + W.numel() + bias.numel()) * F32)
         del x, args, got, want
+    alternate_kernel_cases(g, record)
     worst = dp_numerics()
     if not worst <= 1.0:
         raise AssertionError(f"alpha/beta kernel off float64 by {worst:.3g}"
                              " times its bound")
     torch.cuda.synchronize()
     return cases
+
+
+# [B, T', dropout] of the fused FFN: the S2TT cell T's encoder, serving A's
+# and serving B's (T' = 300: JAX's gate sends this to XLA, the port's row
+# tiles take it)
+FFN_SHAPES = ((80, 120, 0.1), (8, 120, 0.0), (2, 300, 0.0))
+FFN_DIM = 2048
+# [B, H, T, p] of the full-bias attention: the Conformer rel-pos shape it
+# once served (a pad mask on the last keys and one fully masked row), a
+# long utterance, and the joint step's long DAG decoder (bias4 219 MB)
+FB_SHAPES = ((80, 4, 120, 0.1), (2, 4, 300, 0.0), (14, 8, 700, 0.1))
+
+
+def ffn_params(g, C, Fd):
+    """LayerNorm scale 1 + N(0, 0.1) and shift N(0, 0.1), w_1.weight
+    [F, C] and w_2.weight [C, F] N(0, 1 / fan_in), biases N(0, 0.1)."""
+    return (1.0 + _randn(g, C, scale=0.1), _randn(g, C, scale=0.1),
+            _randn(g, Fd, C, scale=C ** -0.5), _randn(g, Fd, scale=0.1),
+            _randn(g, C, Fd, scale=Fd ** -0.5), _randn(g, C, scale=0.1))
+
+
+def full_bias4(g, B, H, Tq, Tk, masked_row):
+    """Random scores N(0, 1) plus a [B, Tk] pad mask of -1e30 on each row's
+    last keys; with ``masked_row`` one query row of the last batch row is
+    masked everywhere."""
+    bias = _randn(g, B, H, Tq, Tk) + _key_bias(B, Tk, g)[:, None, None, :]
+    if masked_row:
+        bias[-1, 0, Tq // 2] = -1e30
+    return bias.contiguous()
+
+
+def alternate_kernel_cases(g, record):
+    """The fused FFN (#6) and the full-bias attention (#3) against their
+    plain versions, forward and backward with dropout on; the FFN's weight
+    gradients over two runs, its drop fractions; #3 against #2 on a column
+    bias."""
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_ffn as ff
+    from daspeech_torch.ops import philox
+
+    C, Fd = ff.WIDTH, FFN_DIM
+    for (B, T, p) in FFN_SHAPES:
+        N = B * T
+        x = _randn(g, B, T, C)
+        params = ffn_params(g, C, Fd)
+        seeds = _seeds(g, B) if p else None
+        args = (x, *params, seeds, p, p)
+        shape = f"x[{B},{T},{C}] F={Fd} p={p}"
+        out = ff.ffn_fwd_kernel(*args)
+        record("fused_ffn", shape, _max_err(out, ff.ffn_plain(*args)),
+               lambda: ff.ffn_fwd_kernel(*args), lambda: ff.ffn_plain(*args),
+               4 * N * C * Fd, (2 * N * C + 2 * C * Fd + Fd + 3 * C) * F32)
+        # a mean loss's cotangent: the weight gradients, sums over the N
+        # rows, stay of order 1
+        do = _randn(g, B, T, C, scale=N ** -0.5)
+        bargs = (x, *params, do, seeds, p, p)
+        got = ff.ffn_bwd_kernel(*bargs)
+        record("fused_ffn_bwd", shape,
+               _max_err(got, ff.ffn_bwd_plain(*bargs)),
+               lambda: ff.ffn_bwd_kernel(*bargs),
+               lambda: ff.ffn_bwd_plain(*bargs),
+               10 * N * C * Fd,
+               (3 * N * C + 4 * C * Fd + 2 * Fd + 6 * C) * F32)
+        if not p:
+            continue
+        again = ff.ffn_bwd_kernel(*bargs)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        # forward and backward masks: the kernel's backward against
+        # autograd through the plain forward, which draws the forward's masks
+        ins = [t.detach().requires_grad_(True) for t in (x, *params)]
+        auto = torch.autograd.grad(ff.ffn_plain(*ins, seeds, p, p), ins, do)
+        e_auto = _max_err(got, auto)
+        frac1 = float((philox.ffn_keep(seeds, T, Fd, 1, p) == 0).float()
+                      .mean())
+        frac2 = float((out == 0).float().mean())
+        log(f"  fused_ffn {shape}: two backward runs bit-identical: {same}; "
+            f"kernel backward vs autograd of the plain forward {e_auto:.3g}"
+            f" (<= {TOL_KERNEL}); drop fraction site 1 {frac1:.5f}, site 2 "
+            f"(zeros of the kernel's output) {frac2:.5f} (p = {p}, within "
+            f"1% of p)")
+        if not (same and e_auto <= TOL_KERNEL
+                and abs(frac1 - p) <= 0.01 * p and abs(frac2 - p) <= 0.01 * p):
+            raise AssertionError(f"fused_ffn {shape}: determinism, masks or "
+                                 "drop fraction wrong")
+        del got, again, auto, ins
+
+    def sdpa(q, k, v, bias4, sc, p):
+        """The one PyTorch call for the same function (timed here only),
+        with its own dropout draws at the same rate."""
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias4, dropout_p=p, scale=sc)
+
+    d = fa.HEAD_DIM
+    sc = d ** -0.5
+    for (B, H, T, p) in FB_SHAPES:
+        q, k, v = (_randn(g, B, H, T, d) for _ in range(3))
+        bias4 = full_bias4(g, B, H, T, T, masked_row=True)
+        seed = _seeds(g, 1) if p else None
+        shape = (f"[{B},{H},{T},{d}] bias4 [{B},{H},{T},{T}] p={p}, "
+                 "one row masked")
+        out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p, seed,
+                                             with_stats=True)
+        record("fused_attention_full_bias", shape,
+               _max_err(out, fa.attention_full_bias_plain(q, k, v, bias4, sc,
+                                                          p, seed)),
+               lambda: fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p,
+                                                  seed),
+               lambda: fa.attention_full_bias_plain(q, k, v, bias4, sc, p,
+                                                    seed),
+               4 * B * H * T * T * d,
+               (4 * B * H * T * d + B * H * T * T) * F32,
+               lambda: sdpa(q, k, v, bias4, sc, p))
+        do = _randn(g, B, H, T, d)
+        got = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, sc, p,
+                                         seed)
+        want = fa.attention_full_bias_bwd_plain(q, k, v, bias4, do, sc, p,
+                                                seed)
+        lib = [t.detach().requires_grad_(True) for t in (q, k, v, bias4)]
+        o_lib = sdpa(*lib, sc, p)
+        # five products; q, k, v, dout, bias4 read, dq, dk, dv, dS written
+        record("fused_attention_full_bias_bwd", shape, _max_err(got, want),
+               lambda: fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do,
+                                                  sc, p, seed),
+               lambda: fa.attention_full_bias_bwd_plain(q, k, v, bias4, do,
+                                                        sc, p, seed),
+               10 * B * H * T * T * d,
+               (7 * B * H * T * d + 2 * B * H * T * T) * F32,
+               lambda: torch.autograd.grad(o_lib, lib, do, retain_graph=True))
+        del q, k, v, bias4, out, st, got, want, lib, o_lib
+
+    # #3 on #2's column bias broadcast over heads and queries, p = 0: the
+    # same scores, so the same results
+    B, H, T = 80, 4, 120
+    q = _randn(g, B, H, T, d, scale=sc)
+    k, v, do = (_randn(g, B, H, T, d) for _ in range(3))
+    bias = _key_bias(B, T, g, all_padded_row=True)
+    bias4 = bias[:, None, None, :].expand(B, H, T, T).contiguous()
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0,
+                                         with_stats=True)
+    out_h, st_h = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0,
+                                             with_stats=True)
+    err = max(_max_err(out, out_h), _max_err(
+        fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0)[:3],
+        fa.attention_hm_bwd_kernel(q, k, v, bias, out_h, st_h, do, 1.0)))
+    log(f"  fused_attention_full_bias vs fused_attention on a column bias "
+        f"[{B},{H},{T},{d}] p=0: max abs diff {err:.3g} (<= {TOL_ROUTES}), "
+        "forward and backward")
+    if not err <= TOL_ROUTES:
+        raise AssertionError(f"full-bias and head-major kernels differ by "
+                             f"{err}")
 
 
 def train_dp_inputs(g, B, T, L):
@@ -2128,6 +2310,123 @@ def tts_phase(voc_cpu):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# alternates phase: the verified alternate backends #6 and #3
+# ---------------------------------------------------------------------------
+
+FFN_PER_UPDATE = 24      # 12 encoder layers x 2 FFNs, one encoder pass
+ALIBI_SHAPE = (8, 8, 240)
+
+
+def set_fused_ffn_(model, fused: bool):
+    """Set every encoder layer's ``ffn1.fused`` / ``ffn2.fused``: measurement
+    code, not a config field (no JAX config sets the field either)."""
+    for layer in model.encoder.layers:
+        layer.ffn1.fused = layer.ffn2.fused = fused
+    return model
+
+
+def alibi_bias(B, H, T):
+    """[B, H, T, T] ALiBi-style bias -m_h |i - j| with the slopes
+    m_h = 2^(-8 (h + 1) / H)."""
+    m = 2.0 ** (-8.0 * torch.arange(1, H + 1) / H)
+    i = torch.arange(T)
+    dist = (i[None, :] - i[:, None]).abs().float()
+    return (-m[:, None, None] * dist).expand(B, H, T, T).contiguous().cuda()
+
+
+def alternates_phase():
+    """``FeedForwardModule(fused=True)`` in the S2TT model of the training
+    phase (Conformer 12L x 256d, F = 2048): fused vs unfused step at dropout 0
+    and GLAT p = 0 (loss and every gradient), the fused run whose launches
+    are read (24 forward and 24 backward FFN kernels per update), and the
+    update ms both ways at cell T (dropout 0.1, GLAT 0.5); then
+    ``fused_attention_full_bias`` on an ALiBi-style bias, forward and
+    backward against the plain version. Returns each run's launches."""
+    from daspeech_torch.models import S2TConformerDAG
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    cfg, no_drop = train_configs()
+    model_cpu = init_random_(S2TConformerDAG(cfg), SEED)
+    ref = S2TConformerDAG(no_drop)
+    ref.load_state_dict(model_cpu.state_dict())
+    ref.to(DEVICE)
+    batch = make_train_batch(TRAIN_B, TRAIN_S, TRAIN_T, no_drop, SEED + 50,
+                             DEVICE)
+    loss_fn = loss_fn_for(no_drop, 0.0)
+    lu, gu, _ = loss_and_grads(ref, batch, SEED, loss_fn)
+    lf, gf, _ = loss_and_grads(set_fused_ffn_(ref, True), batch, SEED,
+                               loss_fn)
+    set_fused_ffn_(ref, False)
+    dloss = abs(lf.item() - lu.item()) / abs(lu.item())
+    gerr = grad_error([n for n, _ in ref.named_parameters()], gf, gu,
+                      "fused_ffn_vs_unfused")
+    log(f"  fused vs unfused FFN, S2TT B={TRAIN_B}, dropout 0, GLAT 0: loss "
+        f"{lf.item():.6f} vs {lu.item():.6f}, rel diff {dloss:.3g} (<= "
+        f"{TOL_LOSS}); worst per-parameter gradient rel diff {gerr:.3g} (<= "
+        f"{TOL_GRAD})")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD):
+        raise AssertionError("fused and unfused FFN steps disagree")
+    del ref, gu, gf
+
+    # --- cell T both ways, in turns (unfused, fused, fused, unfused), each
+    # run 3 warm-up and 10 timed updates from the same weights; the first
+    # fused run is the one whose launches are read
+    runs, ms = {}, {"unfused": [], "fused": []}
+    batch = make_train_batch(TRAIN_B, TRAIN_S, TRAIN_T, cfg, SEED + 4, DEVICE)
+    for fused in (False, True, True, False):
+        model = set_fused_ffn_(copy.deepcopy(model_cpu).to(DEVICE), fused)
+        opt = GuardedAdam()
+        state = TrainState.create(model, opt)
+        step = make_train_step(loss_fn_for(cfg, 0.5), opt)
+        tag = "fused" if fused else "unfused"
+        med, iqr, launches, peak, _ = timed_updates(
+            step, state, batch, 3, 10,
+            f"S2TT T, encoder FFN {tag} (B={TRAIN_B}, dropout 0.1, GLAT 0.5)")
+        ms[tag].append((med, iqr, peak))
+        runs.setdefault(tag, launches)
+        del model, state, step
+    per = {n: runs["fused"][n] / 13 for n in ("fused_ffn", "fused_ffn_bwd")}
+    log(f"  fused_ffn launches per update: forward {per['fused_ffn']:g}, "
+        f"backward {per['fused_ffn_bwd']:g} (expected {FFN_PER_UPDATE} each);"
+        " update ms (median, IQR, peak GiB) in turns: "
+        + "; ".join(f"{tag} " + ", ".join(
+            f"{m:.3f} ({q[0]:.3f}-{q[1]:.3f}, {pk:.2f})" for m, q, pk in v)
+            for tag, v in ms.items()))
+    if per != {"fused_ffn": FFN_PER_UPDATE, "fused_ffn_bwd": FFN_PER_UPDATE}:
+        raise AssertionError(f"fused_ffn launches per update {per}")
+    if any(runs["unfused"][n] for n in ALTERNATE_KERNELS):
+        raise AssertionError("the unfused run launched an alternate kernel")
+
+    # --- the full-bias attention on an ALiBi-style bias, through the op
+    B, H, T = ALIBI_SHAPE
+    g = torch.Generator().manual_seed(SEED + 51)
+    q = _randn(g, B, H, T, 64)
+    k, v, do = (_randn(g, B, H, T, 64) for _ in range(3))
+    bias4 = alibi_bias(B, H, T)
+    ins = [t.requires_grad_(True) for t in (q, k, v, bias4)]
+    reset_launches()
+    out = fa.fused_attention_full_bias(*ins, 1234, 0.125, 0.1, True)
+    got = torch.autograd.grad(out, ins, do)
+    torch.cuda.synchronize()
+    runs["full_bias"] = read_launches()
+    seed = torch.tensor([1234], dtype=torch.int32, device=DEVICE)
+    plain = [t.detach() for t in ins]
+    err = max(_max_err(out, fa.attention_full_bias_plain(*plain, 0.125, 0.1,
+                                                          seed)),
+              _max_err(got, fa.attention_full_bias_bwd_plain(
+                  *plain, do, 0.125, 0.1, seed)))
+    n_fb = (runs["full_bias"]["fused_attention_full_bias"],
+            runs["full_bias"]["fused_attention_full_bias_bwd"])
+    log(f"  fused_attention_full_bias, ALiBi bias [{B},{H},{T},64] p=0.1: "
+        f"forward and backward against the plain version {err:.3g} (<= "
+        f"{TOL_KERNEL}); launches forward {n_fb[0]}, backward {n_fb[1]}")
+    if not (err <= TOL_KERNEL and n_fb == (1, 1)):
+        raise AssertionError("full-bias attention through the op failed")
+    return runs, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -2171,16 +2470,27 @@ def main() -> int:
     vocoder, voc_cpu = vocoder_phase(mels)
     log("TTS phase:")
     tts = tts_phase(voc_cpu)
+    log("alternates phase (#6 fused FFN, #3 full-bias attention):")
+    alternates, _ = alternates_phase()
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
     # second slice's: the S2TT training run; the head-major attention: the
-    # joint step at J-long; the MRF level: the fused-mode vocoder run);
-    # every path's count is kept
+    # joint step at J-long; the MRF level: the fused-mode vocoder run; the
+    # fused FFN: the fused S2TT updates; the full-bias attention: the ALiBi
+    # run); every path's count is kept
     by_path = {"serving": serving, "training": training,
                "joint_J": joint["J"], "joint_J-long": joint["J-long"],
                "fs2_pretraining": pretrain, "vocoder_fused": vocoder,
                "tts_A": tts["A"], "tts_B": tts["B"]}
+    # the alternate backends launch on no other path
+    stray = {(p, n): v[n] for p, v in by_path.items()
+             for n in ALTERNATE_KERNELS if v[n]}
+    if stray:
+        raise AssertionError(f"alternate kernels launched elsewhere: {stray}")
+    log(f"  {', '.join(ALTERNATE_KERNELS)}: 0 launches on every other path")
+    by_path.update({"alternates_ffn": alternates["fused"],
+                    "alternates_full_bias": alternates["full_bias"]})
     kernels = []
     for name, shapes in cases.items():
         src, replaces = KERNELS[name]
@@ -2188,6 +2498,8 @@ def main() -> int:
         main_path = ("joint_J-long" if name in ("fused_attention",
                                                 "fused_attention_bwd")
                      else "vocoder_fused" if name == "mrf_level"
+                     else "alternates_ffn" if name.startswith("fused_ffn")
+                     else "alternates_full_bias" if "full_bias" in name
                      else "serving" if name in SERVING_KERNELS
                      else "training")
         kernels.append({

@@ -23,6 +23,15 @@
 // Dropout (philox.cuh) multiplies the softmax probabilities by keep/keep_p;
 // the normalizer is taken before dropout, as in the Pallas kernels.
 //
+// Bias modes (template argument FULL): the column bias bias[b, j] of a
+// padding mask, loaded one row per key tile, or a full additive bias
+// bias4[b, h, i, j] (FULL), loaded as a [query tile, key tile] block into
+// shared memory beside the keys. The full bias receives a gradient, dS; the
+// dq kernel writes it (each element once), the dk/dv kernel recomputes P
+// from its own tile of the bias. In FULL mode dropout is keyed by ONE seed
+// (seeds[0]) with the batch row in the fourth counter word, as the Pallas
+// kernel keys its stream by the program b·H + h.
+//
 // Backward, with P = softmax(s), Z the dropout multipliers, O the output:
 //   dV[j]   = sum_i P[i,j] Z[i,j] dO[i]
 //   dS[i,j] = P[i,j] (Z[i,j] dO[i].V[j] - delta[i]),  delta[i] = dO[i].O[i]
@@ -62,6 +71,7 @@ struct AttnArgs {
   Operand q, a, k, e, v;
   const float* bias;     // [B, Tk] additive column bias (0 or -1e30)
   long long bias_sb;
+  const float* bias4 = nullptr;  // FULL: contiguous [B, H, Tq, Tk] bias
   View<float> o;
   float* stats;          // [B, H, Tq, 2] row (max, sum) out, or nullptr
   int H, Tq, Tk;
@@ -75,6 +85,7 @@ struct AttnBwdArgs {
   View<float> dq, da;    // layouts of q and a (da unused when D2 == 0)
   View<float> dk, dv;    // layouts of k and v
   float* delta;          // [B, H, Tq] scratch: rowsum(dout * o)
+  float* dbias = nullptr;  // FULL: [B, H, Tq, Tk] dS out, written by dq
 };
 
 template <int TPR>
@@ -91,12 +102,33 @@ __device__ __forceinline__ float row_sum(float x) {
 template <int TPR>
 __device__ __forceinline__ uint4 keys_bits(const DropoutArgs& d, uint32_t seed,
                                            int j_first, int i, int h,
-                                           int sub) {
+                                           uint32_t c3, int sub) {
   if (d.seeds == nullptr) return make_uint4(0u, 0u, 0u, 0u);
-  return philox4x32_10(make_uint4((j_first >> 2) + sub, i, h, 0u), seed, 0u);
+  return philox4x32_10(make_uint4((j_first >> 2) + sub, i, h, c3), seed, 0u);
 }
 
-template <int D1, int D2, int DV, int TPR, int BM, int BN>
+// the block's bias tile: row 0 holds the column bias of keys j0.., or (FULL)
+// rows rr hold bias4[b, h, i0 + rr, j0..]; 0 outside [0, Tq) x [0, Tk)
+template <bool FULL, int R, int W, int NT>
+__device__ __forceinline__ void load_bias_tile(float (*tile)[FULL ? W + 1 : W],
+                                               const AttnArgs& f, int b, int h,
+                                               int i0, int j0) {
+  for (int idx = threadIdx.x; idx < (FULL ? R : 1) * W; idx += NT) {
+    const int rr = idx / W, jj = idx % W, j = j0 + jj;
+    float x = 0.f;
+    if (j < f.Tk) {
+      if (!FULL) {
+        x = f.bias[b * f.bias_sb + j];
+      } else if (i0 + rr < f.Tq) {
+        x = f.bias4[((static_cast<long long>(b) * f.H + h) * f.Tq + i0 + rr) *
+                        f.Tk + j];
+      }
+    }
+    tile[rr][jj] = x;
+  }
+}
+
+template <int D1, int D2, int DV, int TPR, int BM, int BN, bool FULL>
 __global__ void __launch_bounds__(BM * TPR)
 attn_fwd_kernel(const AttnArgs args) {
   constexpr int NT = BM * TPR;
@@ -111,17 +143,19 @@ attn_fwd_kernel(const AttnArgs args) {
 
   __shared__ float Ks[BN][DQ];
   __shared__ float Vs[BN][DV];
-  __shared__ float Bs[BN];
+  __shared__ float Bs[FULL ? BM : 1][FULL ? BN + 1 : BN];
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
   const int lane0 = (tid % 32) - sub;
+  const int r = FULL ? tid / TPR : 0;   // the row's line of the bias tile
   const int i = blockIdx.x * BM + tid / TPR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bool row_ok = i < args.Tq;
   const bool drop = args.drop.seeds != nullptr;
-  const uint32_t seed = drop ? args.drop.seeds[b] : 0u;
+  const uint32_t seed = drop ? args.drop.seeds[FULL ? 0 : b] : 0u;
+  const uint32_t c3 = FULL ? b : 0u;
 
   float qr[QPT];
 #pragma unroll
@@ -154,9 +188,7 @@ attn_fwd_kernel(const AttnArgs args) {
       const int jj = idx / DV, c = idx % DV;
       Vs[jj][c] = (jj < nvalid) ? args.v.at(b, j0 + jj, h)[c] : 0.f;
     }
-    for (int jj = tid; jj < BN; jj += NT) {
-      Bs[jj] = (jj < nvalid) ? args.bias[b * args.bias_sb + j0 + jj] : 0.f;
-    }
+    load_bias_tile<FULL, BM, BN, NT>(Bs, args, b, h, blockIdx.x * BM, j0);
     __syncthreads();
 
     float s[BN];
@@ -167,7 +199,7 @@ attn_fwd_kernel(const AttnArgs args) {
 #pragma unroll
       for (int t = 0; t < QPT; ++t) p = fmaf(qr[t], Ks[jj][sub + TPR * t], p);
       p = row_sum<TPR>(p);
-      const float sc = (jj < nvalid) ? p * args.scale + Bs[jj] : -INFINITY;
+      const float sc = (jj < nvalid) ? p * args.scale + Bs[r][jj] : -INFINITY;
       s[jj] = sc;
       tile_max = fmaxf(tile_max, sc);
     }
@@ -179,7 +211,8 @@ attn_fwd_kernel(const AttnArgs args) {
     for (int t = 0; t < VPT; ++t) acc[t] *= corr;
 #pragma unroll
     for (int g0 = 0; g0 < BN; g0 += G) {
-      const uint4 bits = keys_bits<TPR>(args.drop, seed, j0 + g0, i, h, sub);
+      const uint4 bits =
+          keys_bits<TPR>(args.drop, seed, j0 + g0, i, h, c3, sub);
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         const int jj = g0 + u;
@@ -215,7 +248,7 @@ attn_fwd_kernel(const AttnArgs args) {
   }
 }
 
-template <int D1, int D2, int DV, int TPR, int BM, int BN>
+template <int D1, int D2, int DV, int TPR, int BM, int BN, bool FULL>
 __global__ void __launch_bounds__(BM * TPR)
 attn_bwd_dq_kernel(const AttnBwdArgs args) {
   constexpr int NT = BM * TPR;
@@ -228,17 +261,21 @@ attn_bwd_dq_kernel(const AttnBwdArgs args) {
 
   __shared__ float Ks[BN][DQ];
   __shared__ float Vs[BN][DV];
-  __shared__ float Bs[BN];
+  // the bias tile; FULL: each entry is replaced by its dS once used
+  __shared__ float Bs[FULL ? BM : 1][FULL ? BN + 1 : BN];
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
   const int lane0 = (tid % 32) - sub;
-  const int i = blockIdx.x * BM + tid / TPR;
+  const int r = FULL ? tid / TPR : 0;
+  const int i0 = blockIdx.x * BM;
+  const int i = i0 + tid / TPR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bool row_ok = i < f.Tq;
   const bool drop = f.drop.seeds != nullptr;
-  const uint32_t seed = drop ? f.drop.seeds[b] : 0u;
+  const uint32_t seed = drop ? f.drop.seeds[FULL ? 0 : b] : 0u;
+  const uint32_t c3 = FULL ? b : 0u;
   const long long stat = (static_cast<long long>(b) * f.H + h) * f.Tq + i;
 
   float qr[QPT], dqa[QPT];
@@ -277,17 +314,16 @@ attn_bwd_dq_kernel(const AttnBwdArgs args) {
       const int jj = idx / DV, c = idx % DV;
       Vs[jj][c] = (jj < nvalid) ? f.v.at(b, j0 + jj, h)[c] : 0.f;
     }
-    for (int jj = tid; jj < BN; jj += NT) {
-      Bs[jj] = (jj < nvalid) ? f.bias[b * f.bias_sb + j0 + jj] : 0.f;
-    }
+    load_bias_tile<FULL, BM, BN, NT>(Bs, f, b, h, i0, j0);
     __syncthreads();
 
 #pragma unroll
     for (int g0 = 0; g0 < BN; g0 += G) {
-      const uint4 bits = keys_bits<TPR>(f.drop, seed, j0 + g0, i, h, sub);
+      const uint4 bits = keys_bits<TPR>(f.drop, seed, j0 + g0, i, h, c3, sub);
 #pragma unroll 4
       for (int u = 0; u < G; ++u) {
         const int jj = g0 + u;
+        const float bias = Bs[r][jj];
         float sdot = 0.f, pdot = 0.f;
 #pragma unroll
         for (int t = 0; t < QPT; ++t) {
@@ -300,7 +336,7 @@ attn_bwd_dq_kernel(const AttnBwdArgs args) {
         sdot = row_sum<TPR>(sdot);
         pdot = row_sum<TPR>(pdot);
         const float p =
-            (jj < nvalid) ? expf(sdot * f.scale + Bs[jj] - rmax) * rinv : 0.f;
+            (jj < nvalid) ? expf(sdot * f.scale + bias - rmax) * rinv : 0.f;
         float z = 1.f;
         if (drop) {
           const uint32_t w = __shfl_sync(0xffffffffu, philox_word(bits, u & 3),
@@ -312,9 +348,23 @@ attn_bwd_dq_kernel(const AttnBwdArgs args) {
         for (int t = 0; t < QPT; ++t) {
           dqa[t] = fmaf(ds, Ks[jj][sub + TPR * t], dqa[t]);
         }
+        if (FULL) {
+          __syncwarp();   // the row's threads have read Bs[r][jj]
+          if (sub == 0) Bs[r][jj] = ds;
+        }
       }
     }
     __syncthreads();
+    if (FULL) {         // the tile's dS, coalesced along the keys
+      for (int idx = tid; idx < BM * BN; idx += NT) {
+        const int rr = idx / BN, jj = idx % BN;
+        if (i0 + rr < f.Tq && jj < nvalid) {
+          args.dbias[((static_cast<long long>(b) * f.H + h) * f.Tq + i0 + rr) *
+                         f.Tk + j0 + jj] = Bs[rr][jj];
+        }
+      }
+      __syncthreads();
+    }
   }
 
   if (row_ok) {
@@ -331,7 +381,7 @@ attn_bwd_dq_kernel(const AttnBwdArgs args) {
   }
 }
 
-template <int D1, int D2, int DV, int TPR, int BMQ, int BNK>
+template <int D1, int D2, int DV, int TPR, int BMQ, int BNK, bool FULL>
 __global__ void __launch_bounds__(BNK * TPR)
 attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
   constexpr int NT = BNK * TPR;
@@ -347,16 +397,20 @@ attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
   __shared__ float Ms[BMQ];    // row max
   __shared__ float Is[BMQ];    // 1 / row sum
   __shared__ float Ds[BMQ];
+  // FULL: the bias of the query tile's rows at this block's keys
+  __shared__ float Bq[FULL ? BMQ : 1][FULL ? BNK + 1 : 1];
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
   const int lane0 = (tid % 32) - sub;
+  const int cj = FULL ? tid / TPR : 0;   // the column's line of Bq
   const int j = blockIdx.x * BNK + tid / TPR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bool col_ok = j < f.Tk;
   const bool drop = f.drop.seeds != nullptr;
-  const uint32_t seed = drop ? f.drop.seeds[b] : 0u;
+  const uint32_t seed = drop ? f.drop.seeds[FULL ? 0 : b] : 0u;
+  const uint32_t c3 = FULL ? b : 0u;
 
   float kr[QPT];
 #pragma unroll
@@ -374,7 +428,7 @@ attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
   }
 #pragma unroll
   for (int t = 0; t < KPT; ++t) dka[t] = 0.f;
-  const float bj = col_ok ? f.bias[b * f.bias_sb + j] : 0.f;
+  const float bj = (col_ok && !FULL) ? f.bias[b * f.bias_sb + j] : 0.f;
   const long long stat0 = (static_cast<long long>(b) * f.H + h) * f.Tq;
 
   for (int i0 = 0; i0 < f.Tq; i0 += BMQ) {
@@ -397,6 +451,16 @@ attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
       Is[ii] = (ii < nq) ? 1.f / f.stats[2 * st + 1] : 0.f;
       Ds[ii] = (ii < nq) ? args.delta[st] : 0.f;
     }
+    if (FULL) {
+      for (int idx = tid; idx < BMQ * BNK; idx += NT) {
+        const int ii = idx / BNK, cc = idx % BNK;
+        const int jc = blockIdx.x * BNK + cc;
+        Bq[FULL ? ii : 0][FULL ? cc : 0] =
+            (ii < nq && jc < f.Tk)
+                ? f.bias4[(stat0 + i0 + ii) * f.Tk + jc]
+                : 0.f;
+      }
+    }
     __syncthreads();
 
     for (int g0 = 0; g0 < BMQ; g0 += TPR) {
@@ -404,7 +468,7 @@ attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
       uint32_t wbits = 0u;
       if (drop) {
         const uint4 r = philox4x32_10(
-            make_uint4(j >> 2, i0 + g0 + sub, h, 0u), seed, 0u);
+            make_uint4(j >> 2, i0 + g0 + sub, h, c3), seed, 0u);
         wbits = philox_word(r, j & 3);
       }
 #pragma unroll
@@ -421,8 +485,9 @@ attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
         }
         sdot = row_sum<TPR>(sdot);
         pdot = row_sum<TPR>(pdot);
+        const float bias = FULL ? Bq[FULL ? ii : 0][cj] : bj;
         const float p =
-            (ii < nq) ? expf(sdot * f.scale + bj - Ms[ii]) * Is[ii] : 0.f;
+            (ii < nq) ? expf(sdot * f.scale + bias - Ms[ii]) * Is[ii] : 0.f;
         float z = 1.f;
         if (drop) {
           const uint32_t w = __shfl_sync(0xffffffffu, wbits, lane0 + u);
@@ -453,25 +518,27 @@ attn_bwd_dkdv_kernel(const AttnBwdArgs args) {
   }
 }
 
-template <int D1, int D2, int DV, int TPR, int BM, int BN>
+template <int D1, int D2, int DV, int TPR, int BM, int BN, bool FULL = false>
 cudaError_t launch_attn_fwd(const AttnArgs& args, int B,
                             cudaStream_t stream) {
   dim3 grid((args.Tq + BM - 1) / BM, args.H, B);
-  attn_fwd_kernel<D1, D2, DV, TPR, BM, BN><<<grid, BM * TPR, 0, stream>>>(args);
+  attn_fwd_kernel<D1, D2, DV, TPR, BM, BN, FULL>
+      <<<grid, BM * TPR, 0, stream>>>(args);
   return cudaGetLastError();
 }
 
-template <int D1, int D2, int DV, int TPR, int BM, int BN, int BMQ, int BNK>
+template <int D1, int D2, int DV, int TPR, int BM, int BN, int BMQ, int BNK,
+          bool FULL = false>
 cudaError_t launch_attn_bwd(const AttnBwdArgs& args, int B,
                             cudaStream_t stream) {
   // the dq kernel writes delta, which the dk/dv kernel reads: same stream
   dim3 grid_q((args.f.Tq + BM - 1) / BM, args.f.H, B);
-  attn_bwd_dq_kernel<D1, D2, DV, TPR, BM, BN>
+  attn_bwd_dq_kernel<D1, D2, DV, TPR, BM, BN, FULL>
       <<<grid_q, BM * TPR, 0, stream>>>(args);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid_k((args.f.Tk + BNK - 1) / BNK, args.f.H, B);
-  attn_bwd_dkdv_kernel<D1, D2, DV, TPR, BMQ, BNK>
+  attn_bwd_dkdv_kernel<D1, D2, DV, TPR, BMQ, BNK, FULL>
       <<<grid_k, BNK * TPR, 0, stream>>>(args);
   return cudaGetLastError();
 }

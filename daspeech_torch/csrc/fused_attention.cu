@@ -1,12 +1,16 @@
 // Multi-head attention, forward and backward, for Hopper (sm_90a), fp32, in
-// two layouts.
+// two layouts and two bias modes.
 //
-// Replaces two Pallas kernels of daspeech_tpu/ops/fused_attention.py:
+// Replaces three Pallas kernels of daspeech_tpu/ops/fused_attention.py:
 //   - packed, fused_attention_packed (:522; forward _attn_kernel_packed,
 //     :285; backward _attn_bwd_kernel_packed, :324): q [B, Tq, H*64],
 //     k/v [B, Tk, H*64];
 //   - head-major, fused_attention (:189; forward _attn_kernel, :76;
-//     backward _attn_bwd_kernel, :103): q [B, H, Tq, 64], k/v [B, H, Tk, 64].
+//     backward _attn_bwd_kernel, :103): q [B, H, Tq, 64], k/v [B, H, Tk, 64];
+//   - head-major with a full bias, fused_attention_full_bias (:673; forward
+//     _attn_kernel_fb, :573; backward _attn_bwd_kernel_fb, :600): a
+//     [B, H, Tq, Tk] additive bias in place of the column bias, which
+//     receives the gradient dS; one scalar dropout seed.
 // The JAX layer takes the packed kernel while packed_fits_vmem holds and the
 // head-major one for longer sequences; the port's layer mirrors that route
 // (ops/fused_attention.py packed_route). Both layouts run the same kernels
@@ -34,6 +38,14 @@
 // of device memory (online softmax over key tiles; the backward recomputes
 // P from the saved row statistics) and draws dropout bits in registers; a
 // tensor-core (TF32 or bf16 wgmma) version is where speed comes from.
+//
+// The full-bias entry points run the same kernels in attention.cuh's FULL
+// mode: each block stages its [query tile, key tile] block of the bias in
+// shared memory beside the keys. There bytes count as well as operations:
+// bias4 is read once forward and twice backward (dq and dk/dv kernels) and
+// dS is written once (by the dq kernel). At the Conformer shape it once
+// served, [80, 4, 120, 120], each is 18.4 MB against 1.2 GFLOP forward, and
+// the fp32 FMA rate still bounds it; at [14, 8, 700, 64] bias4 is 219 MB.
 #include "attention.cuh"
 
 namespace {
@@ -106,6 +118,17 @@ int attention_bwd(const float* q, const float* k, const float* v,
       args, B, static_cast<cudaStream_t>(stream)));
 }
 
+AttnArgs full_bias_args(const float* q, const float* k, const float* v,
+                        const float* bias4, const uint32_t* seed,
+                        uint32_t thresh, float keep_scale, float* out,
+                        float* stats, int Tq, int Tk, int H, float scale) {
+  AttnArgs args = attn_args(q, k, v, nullptr, seed, thresh, keep_scale, out,
+                            stats, Tq, Tk, H, scale, true);
+  args.bias_sb = 0;
+  args.bias4 = bias4;
+  return args;
+}
+
 }  // namespace
 
 extern "C" int daspeech_attention_fwd(const float* q, const float* k,
@@ -150,4 +173,42 @@ extern "C" int daspeech_attention_hm_bwd(
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
                        stream, true);
+}
+
+// full bias: bias4 [B, H, Tq, Tk] contiguous, seed a pointer to ONE int32
+extern "C" int daspeech_attention_fb_fwd(const float* q, const float* k,
+                                         const float* v, const float* bias4,
+                                         const uint32_t* seed,
+                                         uint32_t thresh, float keep_scale,
+                                         float* out, float* stats, int B,
+                                         int Tq, int Tk, int H, int D,
+                                         float scale, void* stream) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  const AttnArgs args = full_bias_args(q, k, v, bias4, seed, thresh,
+                                       keep_scale, out, stats, Tq, Tk, H,
+                                       scale);
+  return static_cast<int>(launch_attn_fwd<64, 0, 64, 4, 32, 64, true>(
+      args, B, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int daspeech_attention_fb_bwd(
+    const float* q, const float* k, const float* v, const float* bias4,
+    const uint32_t* seed, uint32_t thresh, float keep_scale,
+    const float* out, const float* stats, const float* dout, float* dq,
+    float* dk, float* dv, float* dbias, float* delta, int B, int Tq, int Tk,
+    int H, int D, float scale, void* stream) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  AttnBwdArgs args;
+  args.f = full_bias_args(q, k, v, bias4, seed, thresh, keep_scale,
+                          const_cast<float*>(out), const_cast<float*>(stats),
+                          Tq, Tk, H, scale);
+  args.dout = view(dout, Tq, H, true);
+  args.dq = view(dq, Tq, H, true);
+  args.da = {nullptr, 0, 0, 0};
+  args.dk = view(dk, Tk, H, true);
+  args.dv = view(dv, Tk, H, true);
+  args.delta = delta;
+  args.dbias = dbias;
+  return static_cast<int>(launch_attn_bwd<64, 0, 64, 4, 32, 64, 64, 32, true>(
+      args, B, static_cast<cudaStream_t>(stream)));
 }

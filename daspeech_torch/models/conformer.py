@@ -24,6 +24,7 @@ from daspeech_torch.models.layers import (
     padding_bias,
     row_seeds,
 )
+from daspeech_torch.ops import fused_ffn as _ff
 from daspeech_torch.ops import fused_relpos as _fr
 
 
@@ -168,18 +169,36 @@ class ConvolutionModule(nn.Module):
 
 
 class FeedForwardModule(nn.Module):
-    """Macaron FFN with swish, unfused (``conformer.py:321-370``): LN ->
-    W1 -> swish -> dropout -> W2 -> dropout."""
+    """Macaron FFN with swish (``conformer.py:321-370``): LN -> W1 -> swish
+    -> dropout -> W2 -> dropout.
 
-    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0):
+    ``fused=True`` (JAX's field, ``conformer.py:337``; default off, and no
+    ``ConformerEncoderLayer`` sets it) routes a 3-D input through
+    ``ops.fused_ffn.fused_ffn`` with the same parameters, handing it the
+    ``nn.Linear`` weights as they are; a training pass draws its B per-row
+    dropout seeds from ``rng``. JAX takes its Pallas kernel only while
+    ``ffn_fits_vmem`` holds (about 200 rows at C=256, F=2048) and on one
+    TPU, and XLA's unfused path otherwise; the port's kernel tiles rows and
+    takes any T. Both routes compute the same function."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0,
+                 fused: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.fused = fused
         self.layer_norm = layer_norm(embed_dim)
         self.w_1 = nn.Linear(embed_dim, ffn_dim)
         self.w_2 = nn.Linear(ffn_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.fused and x.dim() == 3:
+            seeds = row_seeds(rng, self.dropout, x.shape[0], x.device)
+            p = 0.0 if seeds is None else self.dropout
+            return _ff.fused_ffn(
+                x, self.layer_norm.weight, self.layer_norm.bias,
+                self.w_1.weight, self.w_1.bias, self.w_2.weight,
+                self.w_2.bias, seeds, p, p, seeds is not None)
         x = dropout(F.silu(self.w_1(self.layer_norm(x))), self.dropout, rng)
         return dropout(self.w_2(x), self.dropout, rng)
 

@@ -58,6 +58,15 @@ SIGNATURES = {
     "daspeech_dag_viterbi": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "daspeech_mrf_level": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                            _I, _P),
+    "daspeech_attention_fb_fwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _I, _I,
+                                  _I, _I, _I, _F, _P),
+    "daspeech_attention_fb_bwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "daspeech_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _U, _F, _I, _U,
+                         _F, _P, _I, _I, _I, _I, _P),
+    "daspeech_ffn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _U, _F, _I,
+                         _U, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

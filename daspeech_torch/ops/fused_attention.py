@@ -2,7 +2,7 @@
 the CUDA kernels.
 
 Counterpart of ``daspeech_tpu/ops/fused_attention.py``. The CUDA kernels
-(``csrc/fused_attention.cu``) replace two Pallas kernels, with in-kernel
+(``csrc/fused_attention.cu``) replace three Pallas kernels, with in-kernel
 dropout on the probabilities:
 
 - :func:`fused_attention_packed` (``fused_attention.py:522``: forward
@@ -11,15 +11,21 @@ dropout on the probabilities:
 - :func:`fused_attention` (:189: forward ``_attn_kernel`` at :76, backward
   ``_attn_bwd_kernel`` at :103) on head-major q [B, H, Tq, d],
   k/v [B, H, Tk, d], which the JAX layer takes for the long sequences that
-  overflow the packed kernel's VMEM budget (:func:`packed_route`).
+  overflow the packed kernel's VMEM budget (:func:`packed_route`);
+- :func:`fused_attention_full_bias` (:673: forward ``_attn_kernel_fb`` at
+  :573, backward ``_attn_bwd_kernel_fb`` at :600) on head-major q, k, v
+  with a full [B, H, Tq, Tk] additive bias that receives a gradient. It has
+  no caller in either package: it is the verified alternate backend JAX
+  keeps for an arbitrary learned or ALiBi-style bias.
 
-Both are differentiable. Their forward and backward take the plain versions
+All are differentiable. Their forward and backward take the plain versions
 for CPU tensors and launch the kernels for CUDA tensors; there is no
 fallback between the two. Dropout multiplies the softmax probabilities by
 the Philox mask of ``ops/philox.py``, keyed by (row seed, key j / 4, query
 i, head h) in both layouts, which the kernels draw from the same counters:
 kernel and plain version agree element for element with dropout on, and so
-do the two layouts at a shape both take.
+do the two layouts at a shape both take. The full-bias op takes one scalar
+seed and keys by (seed, j / 4, i, h, b) (``philox.full_bias_keep``).
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from typing import Optional
 import torch
 
 from daspeech_torch.ops import _build
-from daspeech_torch.ops.philox import attention_keep, keep_threshold
+from daspeech_torch.ops.philox import (attention_keep, full_bias_keep,
+                                       keep_threshold)
 
 NEG = -1e30          # additive bias of a padded key (fused_attention.py:33)
 HEAD_DIM = 64        # the one head depth the kernels are built for
@@ -366,3 +373,170 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention.launches = 0
 attention_hm_bwd_kernel.launches = 0
+
+
+def attention_full_bias_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias4: torch.Tensor,
+                              sm_scale: float = 1.0, dropout_p: float = 0.0,
+                              seed: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """dropout(softmax(q kᵀ·sm_scale + bias4)) v on head-major q
+    [B, H, Tq, d], k/v [B, H, Tk, d] with a full additive bias4
+    [B, H, Tq, Tk]; with ``dropout_p`` > 0 the probabilities take the
+    Philox mask of the one int32 ``seed``."""
+    B, H, Tq, _ = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    p = torch.softmax(s + bias4, dim=-1)
+    if dropout_p > 0.0:
+        p = p * full_bias_keep(seed, B, H, Tq, k.shape[2], dropout_p)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def mha_reference_full_bias(q, k, v, bias4, sm_scale: float):
+    """The no-dropout oracle of the full-bias path (the JAX oracle's
+    name, ``fused_attention.py:726``)."""
+    return attention_full_bias_plain(q, k, v, bias4, sm_scale)
+
+
+def attention_full_bias_bwd_plain(q, k, v, bias4, dout, sm_scale: float = 1.0,
+                                  dropout_p: float = 0.0,
+                                  seed: Optional[torch.Tensor] = None):
+    """(dq, dk, dv, dbias) of :func:`attention_full_bias_plain` for the
+    cotangent ``dout``; dbias = dS = P∘(Z∘(dO Vᵀ) − rowsum(P∘Z∘(dO Vᵀ))),
+    the pre-dropout P as in ``fused_attention.py:633``."""
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    p = torch.softmax(s + bias4, dim=-1)
+    z = (full_bias_keep(seed, B, H, Tq, Tk, dropout_p)
+         if dropout_p > 0.0 else torch.ones_like(p))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p * z, dout)
+    dp = z * torch.einsum("bhqd,bhkd->bhqk", dout, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * sm_scale
+    return dq, dk, dv, ds
+
+
+def _check_fb(name, q, k, v, bias4, seed, dropout_p):
+    drop = () if dropout_p == 0.0 else (seed,)
+    _build.check_inputs(name, q, k, v, bias4, int32=drop)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: takes [B, H, T, d] q, k, v")
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if d != HEAD_DIM:
+        raise ValueError(f"{name}: head depth {d} unsupported "
+                         f"(kernel takes {HEAD_DIM})")
+    if (k.shape != (B, H, Tk, d) or v.shape != k.shape
+            or bias4.shape != (B, H, Tq, Tk) or Tq < 1 or Tk < 1
+            or (drop and seed.numel() != 1)):
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"bias4{tuple(bias4.shape)}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
+
+
+def attention_fb_fwd_kernel(q, k, v, bias4, sm_scale: float,
+                            dropout_p: float = 0.0, seed=None,
+                            with_stats: bool = False):
+    """Launch the full-bias forward kernel: (out [B, H, Tq, d], stats) with
+    stats the [B, H, Tq, 2] row softmax (max, sum), or None."""
+    _check_fb("fused_attention_full_bias", q, k, v, bias4, seed, dropout_p)
+    B, H, Tq, _ = q.shape
+    out = torch.empty_like(q)
+    stats = (torch.empty((B, H, Tq, 2), dtype=torch.float32,
+                         device=q.device) if with_stats else None)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_attention_fb_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
+            *_drop_args(dropout_p, seed), out.data_ptr(), _build.ptr(stats),
+            B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
+            _build.stream_of(q))
+    _build.check(rc, "daspeech_attention_fb_fwd")
+    attention_fb_fwd_kernel.launches += 1
+    return out, stats
+
+
+def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
+                            dropout_p: float = 0.0, seed=None):
+    """Launch the full-bias backward kernels: (dq, dk, dv, dbias)."""
+    _check_fb("fused_attention_full_bias backward", q, k, v, bias4, seed,
+              dropout_p)
+    _build.check_inputs("fused_attention_full_bias backward", out, stats,
+                        dout)
+    B, H, Tq, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            stats.shape != (B, H, Tq, 2):
+        raise ValueError("fused_attention_full_bias backward: bad shapes "
+                         f"out{tuple(out.shape)} stats{tuple(stats.shape)} "
+                         f"dout{tuple(dout.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias4)
+    delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
+                        device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library().daspeech_attention_fb_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
+            *_drop_args(dropout_p, seed), out.data_ptr(), stats.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), delta.data_ptr(), B, Tq, k.shape[2], H,
+            HEAD_DIM, float(sm_scale), _build.stream_of(q))
+    _build.check(rc, "daspeech_attention_fb_bwd")
+    attention_fb_bwd_kernel.launches += 1
+    return dq, dk, dv, dbias
+
+
+class _FullBiasAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias4, seed, sm_scale, dropout_p):
+        ctx.cfg = (sm_scale, dropout_p)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias4, seed)
+            return attention_full_bias_plain(q, k, v, bias4, sm_scale,
+                                             dropout_p, seed)
+        out, stats = attention_fb_fwd_kernel(
+            q, k, v, bias4, sm_scale, dropout_p, seed,
+            with_stats=any(ctx.needs_input_grad))
+        ctx.save_for_backward(q, k, v, bias4, seed, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        sm_scale, dropout_p = ctx.cfg
+        q, k, v, bias4, seed, *saved = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            grads = attention_full_bias_bwd_plain(q, k, v, bias4, dout,
+                                                  sm_scale, dropout_p, seed)
+        else:
+            out, stats = saved
+            grads = attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout,
+                                            sm_scale, dropout_p, seed)
+        return (*grads, None, None, None)
+
+
+def fused_attention_full_bias(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias4: torch.Tensor, seed,
+                              sm_scale: float, dropout_p: float,
+                              train: bool) -> torch.Tensor:
+    """Head-major attention with a full additive bias4 [B, H, Tq, Tk] (see
+    :func:`attention_full_bias_plain`), differentiable in q, k, v and bias4;
+    JAX's argument order. ``seed`` is an int or a one-element int32 tensor,
+    used only when ``train`` and ``dropout_p`` > 0.
+
+    CPU tensors take the plain versions. CUDA tensors launch the kernels,
+    which take fp32, contiguous [B, H, T, 64] q, k, v (head depth 64 only,
+    as the other attention kernels) and a contiguous fp32 bias4, and raise
+    on anything else."""
+    p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
+    seed_t = None
+    if p > 0.0:
+        seed_t = torch.as_tensor(seed, dtype=torch.int32,
+                                 device=q.device).reshape(1)
+    return _FullBiasAttention.apply(q, k, v, bias4, seed_t, sm_scale, p)
+
+
+attention_fb_fwd_kernel.launches = 0
+attention_fb_bwd_kernel.launches = 0

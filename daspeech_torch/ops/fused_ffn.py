@@ -1,0 +1,216 @@
+"""The Conformer macaron FFN in one op: LayerNorm -> W1 -> swish -> dropout
+-> W2 -> dropout, plain PyTorch version and CUDA kernels.
+
+Counterpart of ``daspeech_tpu/ops/fused_ffn.py``. The CUDA kernels
+(``csrc/fused_ffn.cu``) replace its Pallas kernels (:175 ``fused_ffn``:
+forward ``_ffn_fwd_kernel`` at :59, backward ``_ffn_bwd_kernel`` at :84).
+The forward keeps the [T, F] intermediate on the chip; the backward
+recomputes LayerNorm, the first product and the masks and sums the weight
+gradients over all B·T rows in a fixed order (no atomics: two runs give the
+same bits).
+
+Weight layout: ``w1`` is ``w_1.weight`` [F, C] and ``w2`` is ``w_2.weight``
+[C, F], ``nn.Linear``'s layout (the transposes of JAX's kernels [C, F] and
+[F, C]); the kernels read the module's tensors in place, with no copy.
+
+Dropout: site 1 after the swish ([T, F]) and site 2 after the second
+product ([T, C]) take the Philox masks of ``philox.ffn_keep``, keyed by
+per-row int32 seeds [B]; the kernels draw the same bits, so kernel and
+plain version agree element for element with dropout on, and the backward
+replays the forward's masks.
+
+CPU tensors take the plain versions; CUDA tensors launch the kernels, which
+take fp32, contiguous tensors of width C = 256 (the recipe's), any T and
+any F, and raise on anything else. Like the JAX op it is a verified
+alternate backend: ``FeedForwardModule(fused=True)`` reaches it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from daspeech_torch.ops import _build
+from daspeech_torch.ops.philox import ffn_keep, keep_threshold
+
+LN_EPS = 1e-6        # flax nn.LayerNorm's default, as the module
+WIDTH = 256          # the one model width C the kernels are built for
+ROW_TILE = 64        # rows per block of the kernels (csrc/fused_ffn.cu BM)
+SLICE_ROWS = 1024    # about this many rows per slice of the dW sums
+
+
+def _masks(seeds, T, C, Fd, p1, p2):
+    m1 = ffn_keep(seeds, T, Fd, 1, p1) if p1 > 0.0 else None
+    m2 = ffn_keep(seeds, T, C, 2, p2) if p2 > 0.0 else None
+    return m1, m2
+
+
+def ffn_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor, seeds: Optional[torch.Tensor] = None,
+              p1: float = 0.0, p2: float = 0.0) -> torch.Tensor:
+    """x [B, T, C] -> LN(gamma, beta; eps 1e-6) -> ·w1ᵀ + b1 -> swish ->
+    mask 1 -> ·w2ᵀ + b2 -> mask 2, with w1 [F, C] and w2 [C, F]; a site with
+    p > 0 takes the Philox mask of the int32 per-row ``seeds`` [B]."""
+    _, T, C = x.shape
+    m1, m2 = _masks(seeds, T, C, w1.shape[0], p1, p2)
+    h = F.silu(F.linear(F.layer_norm(x, (C,), gamma, beta, LN_EPS), w1, b1))
+    if m1 is not None:
+        h = h * m1
+    out = F.linear(h, w2, b2)
+    return out if m2 is None else out * m2
+
+
+def ffn_bwd_plain(x, gamma, beta, w1, b1, w2, b2, dout,
+                  seeds: Optional[torch.Tensor] = None, p1: float = 0.0,
+                  p2: float = 0.0):
+    """(dx, dgamma, dbeta, dw1, db1, dw2, db2) of :func:`ffn_plain` for the
+    cotangent ``dout``, in closed form (``fused_ffn.py:93-149``): g = dout·m2,
+    dW2 = gᵀ(h·m1), gpre = (g w2)·m1·swish'(pre), dW1 = gpreᵀ y,
+    gy = gpre w1, and LayerNorm's backward."""
+    B, T, C = x.shape
+    Fd = w1.shape[0]
+    m1, m2 = _masks(seeds, T, C, Fd, p1, p2)
+    mu = x.mean(-1, keepdim=True)
+    r = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    xhat = (x - mu) * r
+    y = xhat * gamma + beta
+    pre = F.linear(y, w1, b1)
+    s = torch.sigmoid(pre)
+    hd = pre * s if m1 is None else pre * s * m1
+    g = dout if m2 is None else dout * m2
+    gh = g @ w2
+    if m1 is not None:
+        gh = gh * m1
+    gpre = gh * (s * (1.0 + pre * (1.0 - s)))
+    dw2 = g.reshape(-1, C).t() @ hd.reshape(-1, Fd)
+    dw1 = gpre.reshape(-1, Fd).t() @ y.reshape(-1, C)
+    gy = gpre @ w1
+    dxhat = gy * gamma
+    dx = r * (dxhat - dxhat.mean(-1, keepdim=True)
+              - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (dx, (gy * xhat).sum((0, 1)), gy.sum((0, 1)), dw1,
+            gpre.sum((0, 1)), dw2, g.sum((0, 1)))
+
+
+def _check(name, x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2, extra=()):
+    drop = (seeds,) if (p1 > 0.0 or p2 > 0.0) else ()
+    _build.check_inputs(name, x, gamma, beta, w1, b1, w2, b2, *extra,
+                        int32=drop)
+    if x.dim() != 3:
+        raise ValueError(f"{name}: takes [B, T, C] x, got {tuple(x.shape)}")
+    B, T, C = x.shape
+    Fd = w1.shape[0]
+    if C != WIDTH:
+        raise ValueError(f"{name}: width {C} unsupported (kernel takes "
+                         f"{WIDTH})")
+    if (gamma.shape != (C,) or beta.shape != (C,) or w1.shape != (Fd, C)
+            or b1.shape != (Fd,) or w2.shape != (C, Fd) or b2.shape != (C,)
+            or T < 1 or Fd < 1 or any(t.shape != x.shape for t in extra)
+            or (drop and seeds.shape != (B,))):
+        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)} "
+                         f"w1{tuple(w1.shape)} w2{tuple(w2.shape)}")
+    for p in (p1, p2):
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"{name}: dropout p {p} not in [0, 1)")
+
+
+def _drop_args(seeds, p1, p2):
+    """(seeds, on1, thresh1, scale1, on2, thresh2, scale2) of the C entry
+    points."""
+    def site(p):
+        return (1, keep_threshold(p), 1.0 / (1.0 - p)) if p > 0.0 \
+            else (0, 0, 1.0)
+
+    on = p1 > 0.0 or p2 > 0.0
+    return (seeds.data_ptr() if on else 0, *site(p1), *site(p2))
+
+
+def ffn_fwd_kernel(x, gamma, beta, w1, b1, w2, b2, seeds=None,
+                   p1: float = 0.0, p2: float = 0.0) -> torch.Tensor:
+    """Launch the forward kernel: out [B, T, C]."""
+    _check("fused_ffn", x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2)
+    B, T, C = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _build.library().daspeech_ffn_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            *_drop_args(seeds, p1, p2), out.data_ptr(), B, T, C,
+            w1.shape[0], _build.stream_of(x))
+    _build.check(rc, "daspeech_ffn_fwd")
+    ffn_fwd_kernel.launches += 1
+    return out
+
+
+def ffn_bwd_kernel(x, gamma, beta, w1, b1, w2, b2, dout, seeds=None,
+                   p1: float = 0.0, p2: float = 0.0):
+    """Launch the backward kernels: (dx, dgamma, dbeta, dw1, db1, dw2,
+    db2). Scratch: y and g [N, C], h·m1 and gpre [N, F] (N = B·T), the row
+    tiles' column sums and the dW slices' partial sums."""
+    _check("fused_ffn backward", x, gamma, beta, w1, b1, w2, b2, seeds, p1,
+           p2, extra=(dout,))
+    B, T, C = x.shape
+    Fd = w1.shape[0]
+    N = B * T
+    S = math.ceil(N / SLICE_ROWS)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=x.device)
+    dx = torch.empty_like(x)
+    grads = (new(C), new(C), new(Fd, C), new(Fd), new(C, Fd), new(C))
+    scratch = (new(N, C), new(N, C), new(N, Fd), new(N, Fd),
+               new(math.ceil(N / ROW_TILE), Fd + 3 * C), new(2, S, Fd * C))
+    with torch.cuda.device(x.device):
+        rc = _build.library().daspeech_ffn_bwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), dout.data_ptr(),
+            *_drop_args(seeds, p1, p2), dx.data_ptr(),
+            *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+            B, T, C, Fd, S, _build.stream_of(x))
+    _build.check(rc, "daspeech_ffn_bwd")
+    ffn_bwd_kernel.launches += 1
+    return (dx, *grads)
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2):
+        ctx.cfg = (p1, p2)
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2, seeds)
+        if x.device.type == "cpu":
+            return ffn_plain(x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2)
+        return ffn_fwd_kernel(x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        p1, p2 = ctx.cfg
+        *params, seeds = ctx.saved_tensors
+        dout = dout.contiguous()
+        bwd = ffn_bwd_plain if dout.device.type == "cpu" else ffn_bwd_kernel
+        return (*bwd(*params, dout, seeds, p1, p2), None, None, None)
+
+
+def fused_ffn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor, seed, p1: float, p2: float,
+              train: bool) -> torch.Tensor:
+    """The FFN of :func:`ffn_plain`, differentiable in x and every
+    parameter; JAX's argument order. ``seed`` is an int, or int32 per-row
+    seeds [B] (a scalar s gives row b the seed s + b, as JAX's
+    ``_norm_seeds``), used only when ``train`` and p > 0."""
+    p1 = float(p1) if train else 0.0
+    p2 = float(p2) if train else 0.0
+    seeds = None
+    if p1 > 0.0 or p2 > 0.0:
+        seeds = torch.as_tensor(seed, dtype=torch.int32, device=x.device)
+        if seeds.dim() == 0:
+            seeds = seeds + torch.arange(x.shape[0], dtype=torch.int32,
+                                         device=x.device)
+    return _FusedFFN.apply(x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2)
+
+
+ffn_fwd_kernel.launches = 0
+ffn_bwd_kernel.launches = 0

@@ -5,10 +5,18 @@ versions of the attention kernels drop exactly the elements the CUDA
 kernels drop. Words are uint32 values held in int64 tensors; the 32x32-bit
 products are split into 16-bit halves so that no intermediate leaves int64.
 
-Attention probability (i, j) of head h in batch row b is kept when word
-``j % 4`` of ``philox((j // 4, i, h, 0), (seed[b], 0))`` is at most
+An element in column j is kept when word ``j % 4`` of
+``philox((j // 4, c1, c2, c3), (key, 0))`` is at most
 ``int(keep_p * (2**32 - 1))`` (the Pallas kernels' threshold), and then
-scaled by ``1 / keep_p``.
+scaled by ``1 / keep_p``. The counters and key of each kernel's streams:
+
+- attention probability (i, j) of head h in batch row b (packed, head-major
+  and rel-pos kernels): counters (j // 4, i, h, 0), key seed[b];
+- the full-bias attention (one scalar seed, as ``fused_attention.py:589``
+  keys by the program b·H + h): counters (j // 4, i, h, b), key seed;
+- the Conformer FFN's two sites, element (t, j) of batch row b: counters
+  (j // 4, t, 0, site), key seed[b], site 1 after the swish ([T, F]) and
+  site 2 after the second product ([T, C]).
 """
 
 from __future__ import annotations
@@ -48,18 +56,55 @@ def keep_threshold(dropout_p: float) -> int:
     return int((1.0 - dropout_p) * (2 ** 32 - 1))
 
 
+def _keep(k0, c1, c2, c3, n: int, dropout_p: float) -> torch.Tensor:
+    """Float multipliers ``keep / keep_p`` of ``n`` columns: column j takes
+    word j % 4 of ``philox((j // 4, c1, c2, c3), (k0, 0))``. ``k0`` and the
+    counters are int64 tensors (or ints) that broadcast together over the
+    leading dimensions, each with a trailing dimension of 1."""
+    dev = k0.device
+    c0 = torch.arange((n + 3) // 4, dtype=torch.int64, device=dev)
+    words = philox4x32_10(c0, c1, c2, c3, k0, 0)
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = bits.reshape(*bits.shape[:-2], -1)[..., :n]
+    # the kernels' f32 scale: 1 / keep_p rounded once, as a python float
+    return ((bits <= keep_threshold(dropout_p)).to(torch.float32)
+            * (1.0 / (1.0 - dropout_p)))
+
+
+def _ar(n: int, dev) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int64, device=dev)
+
+
+def _key(seeds: torch.Tensor) -> torch.Tensor:
+    return seeds.to(torch.int64) & MASK32
+
+
 def attention_keep(seeds: torch.Tensor, num_heads: int, Tq: int, Tk: int,
                    dropout_p: float) -> torch.Tensor:
     """[B, H, Tq, Tk] float multipliers ``keep / keep_p`` (0 where dropped)
     of the attention probabilities, from per-row int32 ``seeds`` [B]."""
     dev = seeds.device
-    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa: E731
-    k0 = (seeds.to(torch.int64) & MASK32)[:, None, None, None]
-    words = philox4x32_10(ar((Tk + 3) // 4)[None, None, None, :],
-                          ar(Tq)[None, None, :, None],
-                          ar(num_heads)[None, :, None, None], 0, k0, 0)
-    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
-    bits = bits.reshape(*bits.shape[:3], -1)[..., :Tk]
-    # the kernels' f32 scale: 1 / keep_p rounded once, as a python float
-    return ((bits <= keep_threshold(dropout_p)).to(torch.float32)
-            * (1.0 / (1.0 - dropout_p)))
+    return _keep(_key(seeds)[:, None, None, None],
+                 _ar(Tq, dev)[None, None, :, None],
+                 _ar(num_heads, dev)[None, :, None, None], 0, Tk, dropout_p)
+
+
+def full_bias_keep(seed: torch.Tensor, B: int, num_heads: int, Tq: int,
+                   Tk: int, dropout_p: float) -> torch.Tensor:
+    """[B, H, Tq, Tk] multipliers of the full-bias attention's
+    probabilities, from one int32 ``seed`` (a tensor of one element)."""
+    dev = seed.device
+    return _keep(_key(seed.reshape(())),
+                 _ar(Tq, dev)[None, None, :, None],
+                 _ar(num_heads, dev)[None, :, None, None],
+                 _ar(B, dev)[:, None, None, None], Tk, dropout_p)
+
+
+def ffn_keep(seeds: torch.Tensor, T: int, width: int, site: int,
+             dropout_p: float) -> torch.Tensor:
+    """[B, T, width] multipliers of the Conformer FFN's dropout ``site``
+    (1: after the swish, width F; 2: after the second product, width C),
+    from per-row int32 ``seeds`` [B]."""
+    dev = seeds.device
+    return _keep(_key(seeds)[:, None, None], _ar(T, dev)[None, :, None], 0,
+                 site, width, dropout_p)

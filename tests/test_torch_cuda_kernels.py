@@ -6,7 +6,10 @@ and graphs shorter than their padding, dropout on, Viterbi ties, MRF
 levels whose length is not a multiple of the tile or just above the
 vocoder's route threshold, and each conv's halo at both sequence ends).
 ``chip_smoke.py`` covers the serving and training shapes. The head-major
-attention kernel is also held to the packed one, dropout mask included.
+attention kernel is also held to the packed one, dropout mask included,
+and the full-bias kernel to the head-major one on a column bias; the fused
+FFN at one row, ragged row tiles and F chunks, with its weight gradients
+bit-identical over two runs.
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -439,3 +442,136 @@ def test_mrf_wrapper_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(RuntimeError, match="inference only"):
         fm.mrf_level(x, W.requires_grad_(), biases, V1_KERNELS,
                      V1_DILATIONS)
+
+
+def _ffn_params(gen, C, Fd):
+    """LayerNorm's scale 1 + N(0, 0.1) and shift, w1 [F, C] and w2 [C, F]
+    N(0, 1 / fan_in), biases N(0, 0.1): the output stays of order 1."""
+    return (1.0 + _randn(gen, C, scale=0.1), _randn(gen, C, scale=0.1),
+            _randn(gen, Fd, C, scale=C ** -0.5), _randn(gen, Fd, scale=0.1),
+            _randn(gen, C, Fd, scale=Fd ** -0.5), _randn(gen, C, scale=0.1))
+
+
+@pytest.mark.parametrize("B,T,Fd,p", [(1, 1, 2048, 0.0),      # one row
+                                      (2, 37, 2048, 0.1),     # 74 % 64 != 0
+                                      (3, 50, 100, 0.1),      # F % 64 != 0
+                                      (2, 120, 2048, 0.3),
+                                      (1, 5, 1, 0.1)])
+def test_fused_ffn_forward_and_backward(gen, B, T, Fd, p):
+    """dout scaled by 1 / sqrt(B T): the weight gradients, sums over the
+    B·T rows, stay of order 1 as a mean loss's would."""
+    from daspeech_torch.ops import fused_ffn as ff
+
+    x = _randn(gen, B, T, 256)
+    params = _ffn_params(gen, 256, Fd)
+    seeds = _seeds(gen, B) if p else None
+    got = ff.ffn_fwd_kernel(x, *params, seeds, p, p)
+    assert _max_err(got, ff.ffn_plain(x, *params, seeds, p, p)) <= TOL
+    do = _randn(gen, B, T, 256, scale=(B * T) ** -0.5)
+    got = ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)
+    torch.cuda.synchronize()
+    want = ff.ffn_bwd_plain(x, *params, do, seeds, p, p)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+def test_fused_ffn_weight_gradients_are_bit_identical(gen):
+    from daspeech_torch.ops import fused_ffn as ff
+
+    B, T = 4, 300
+    x, do = _randn(gen, B, T, 256), _randn(gen, B, T, 256, scale=0.03)
+    params = _ffn_params(gen, 256, 2048)
+    seeds = _seeds(gen, B)
+    a = ff.ffn_bwd_kernel(x, *params, do, seeds, 0.1, 0.1)
+    b = ff.ffn_bwd_kernel(x, *params, do, seeds, 0.1, 0.1)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _full_bias(gen, B, H, Tq, Tk, masked_row):
+    """Random scores with -1e30 on each batch row's last keys and, with
+    ``masked_row``, one fully masked query row."""
+    bias = _randn(gen, B, H, Tq, Tk)
+    pad = _bias(gen, B, Tk)[:, None, None, :]
+    bias = torch.where(pad < 0, fa.NEG, bias)
+    if masked_row:
+        bias[-1, 0, Tq // 2] = fa.NEG
+    return bias.contiguous()
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,p", [(2, 1, 1, 1, 0.0),
+                                         (2, 2, 37, 5, 0.1),
+                                         (3, 4, 70, 130, 0.1),
+                                         (2, 4, 120, 120, 0.1),
+                                         (1, 8, 300, 240, 0.0)])
+def test_full_bias_attention_forward_and_backward(gen, B, H, Tq, Tk, p):
+    """Tq != Tk, ragged tiles, a fully masked row (B > 1), dropout on."""
+    q = _randn(gen, B, H, Tq, 64, scale=0.125)
+    k, v = _randn(gen, B, H, Tk, 64), _randn(gen, B, H, Tk, 64)
+    bias = _full_bias(gen, B, H, Tq, Tk, masked_row=B > 1)
+    seed = _seeds(gen, 1) if p else None
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias, 0.7, p, seed,
+                                         with_stats=True)
+    assert _max_err(out, fa.attention_full_bias_plain(q, k, v, bias, 0.7, p,
+                                                      seed)) <= TOL
+    do = _randn(gen, B, H, Tq, 64)
+    got = fa.attention_fb_bwd_kernel(q, k, v, bias, out, st, do, 0.7, p,
+                                     seed)
+    torch.cuda.synchronize()
+    want = fa.attention_full_bias_bwd_plain(q, k, v, bias, do, 0.7, p, seed)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+def test_full_bias_kernel_equals_head_major_on_a_column_bias(gen):
+    """bias4 = #2's column bias broadcast over heads and queries, p = 0:
+    the same scores, so the same results to rounding."""
+    B, H, Tq, Tk = 3, 4, 70, 130
+    q = _randn(gen, B, H, Tq, 64, scale=0.125)
+    k, v, do = (_randn(gen, B, H, T, 64) for T in (Tk, Tk, Tq))
+    bias = _bias(gen, B, Tk, all_padded_row=True)
+    bias4 = bias[:, None, None, :].expand(B, H, Tq, Tk).contiguous()
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0,
+                                         with_stats=True)
+    out_h, st_h = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0,
+                                             with_stats=True)
+    assert _max_err(out, out_h) <= 1e-6
+    got = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0)
+    want = fa.attention_hm_bwd_kernel(q, k, v, bias, out_h, st_h, do, 1.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want):
+        assert _max_err(g, w) <= 1e-6
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    from daspeech_torch.ops import fused_ffn as ff
+
+    x = _randn(gen, 1, 2, 4, 32)                   # head depth 32
+    b4 = torch.zeros((1, 2, 4, 4), device="cuda")
+    with pytest.raises(ValueError, match="head depth"):
+        fa.fused_attention_full_bias(x, x, x, b4, 0, 1.0, 0.0, False)
+    y = _randn(gen, 1, 4, 2, 64).transpose(1, 2)   # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_attention_full_bias(y, y, y, b4, 0, 1.0, 0.0, False)
+    z = _randn(gen, 1, 2, 4, 64)
+    with pytest.raises(TypeError, match="float32"):
+        fa.fused_attention_full_bias(z, z, z, b4.double(), 0, 1.0, 0.0,
+                                     False)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.fused_attention_full_bias(z, z, z, b4[:, :, :3].contiguous(), 0,
+                                     1.0, 0.0, False)
+    params = _ffn_params(gen, 256, 64)
+    with pytest.raises(ValueError, match="width"):
+        ff.fused_ffn(_randn(gen, 1, 3, 128), *_ffn_params(gen, 128, 64), 0,
+                     0.0, 0.0, False)
+    xt = _randn(gen, 1, 256, 3).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ff.fused_ffn(xt, *params, 0, 0.0, 0.0, False)
+    with pytest.raises(TypeError, match="float32"):
+        ff.fused_ffn(_randn(gen, 1, 3, 256).double(), *params, 0, 0.0, 0.0,
+                     False)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ff.ffn_fwd_kernel(_randn(gen, 1, 3, 256), *params[:2],
+                          params[2][:, :128].contiguous(), *params[3:])

@@ -273,6 +273,18 @@ tts = NonAutoregressiveSpeechGenerator(fs2.eval(), cfg.dag.vocab,
 for h in tts.generate({"src_tokens": tgt[:, 1:].numpy()}):
     assert np.isfinite(h["feature"]).all() and np.isfinite(h["waveform"]).all()
     assert len(h["waveform"]) == 4 * h["feature"].shape[0]
+# the alternate backends: a fused-FFN training pass and the full-bias op
+from daspeech_torch.models.conformer import FeedForwardModule
+from daspeech_torch.ops.fused_attention import fused_attention_full_bias
+
+ffn = FeedForwardModule(16, 32, 0.1, fused=True)
+xf = torch.randn(2, 5, 16, requires_grad=True)
+ffn(xf, torch.Generator().manual_seed(0)).sum().backward()
+assert torch.isfinite(xf.grad).all()
+qf = torch.randn(2, 2, 5, 8, requires_grad=True)
+fused_attention_full_bias(qf, qf, qf, torch.zeros(2, 2, 5, 5), 3, 0.35, 0.1,
+                          True).sum().backward()
+assert torch.isfinite(qf.grad).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "daspeech_tpu"))
 assert not bad, bad
