@@ -10,17 +10,26 @@
    the training paths, backward with dropout on the same Philox bits; max
    abs error <= 1e-4; the DP's log-probabilities against the plain loop in
    float64, within 2 sqrt(T) ulp of the largest magnitude, over three
-   shapes and four seeds; Viterbi paths equal; the head-major attention
-   against the packed kernel at a shape both take, <= 1e-6; the fused FFN
+   shapes and four seeds; Viterbi paths equal; attention #1 and #2 (the
+   backward and the inference forward on the tensor cores, the training
+   forward, which saves the softmax statistics, in fp32 SIMT; at each
+   training shape both forwards are timed): the head-major kernel against
+   the packed one at a shape both take, <= 1e-6, each backward
+   bit-identical over two runs, HMMA instructions in the tensor-core
+   kernels' SASS (cuobjdump) and only their own kernels in a profile of
+   their forward and backward; the fused FFN
    #6 at cell T's encoder and serving A's and B's, its weight gradients
    bit-identical over two runs, its backward against autograd of the plain
    forward (the same masks) and its drop fraction within 1% of p; the
    full-bias attention #3 at three shapes with a fully masked row, and
-   against the head-major kernel on a column bias, <= 1e-6), with median
+   against the head-major kernel on a column bias, <= 1e-4), with median
    CUDA-event times of the kernel, the plain version and, for attention,
    ``scaled_dot_product_attention`` with dropout at the same rate (timed
    here, used nowhere in the port), and the least time the card could
-   take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+   take (bytes over 3.35 TB/s, or operations over the rate of their kind:
+   matrix products at fp32 accuracy over 165 TFLOP/s, the 3xTF32 rate of
+   the tensor cores, and the DP's and Viterbi's over 67 TFLOP/s of fp32
+   FMA);
 4. serving phase: the two-pass S2ST serving path
    (``daspeech_torch.decode.generator.S2SNATGenerator``) at the recipe's
    full width (Conformer 12Lx256d, DAG decoder 4Lx512d, FastSpeech 2
@@ -125,8 +134,13 @@ def cuda_ms(fn, reps=20, warm=3) -> float:
 # kernel phase
 # ---------------------------------------------------------------------------
 
-PEAK_FLOPS = 67e12        # fp32 outside the tensor cores, H100 SXM
-PEAK_BYTES = 3.35e12      # HBM3, H100 SXM
+# H100 SXM peaks: the bound of a kernel takes its operations at the rate of
+# their kind. Matrix products at fp32 accuracy run on the tensor cores as
+# 3xTF32 (three TF32 products each, 495 TFLOP/s dense), so 165 TFLOP/s;
+# the DP's and Viterbi's additions and maxima run on the fp32 pipes.
+PEAK_FLOPS_FP32 = 67e12   # fp32 outside the tensor cores
+PEAK_FLOPS_MMA = 495e12 / 3
+PEAK_BYTES = 3.35e12      # HBM3
 F32 = 4
 
 # name -> (source, the TPU kernel it replaces)
@@ -229,9 +243,10 @@ def read_launches():
     return {n: w.launches for n, w in launch_counters().items()}
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the least time for this work on the card."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, rate=PEAK_FLOPS_MMA):
+    """(bound_ms, bound_by): the least time for this work on the card, its
+    operations at ``rate`` (matrix products by default)."""
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -378,6 +393,104 @@ def mrf_inputs(g, B, C, T):
     return _randn(g, B, C, T), W.cuda(), bias.cuda()
 
 
+def bit_identical(name, shape, got, again):
+    """Two runs of a backward must give the same bits (no atomics)."""
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  {name} {shape}: two runs bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{name} {shape}: two runs differ")
+
+
+def profiled_kernels(fn, tag):
+    """The device kernels (chrome-trace events) of one ``fn()`` under
+    ``torch.profiler``, and its wall time in ms; the trace goes to
+    ``build/profile/trace_<tag>.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(profile_dir(), f"trace_{tag.replace(' ', '_')}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    return events, wall
+
+
+# the kernels of attention_tc.cuh (#1 and #2: the inference forward and
+# the backward)
+TC_KERNELS = ("attn_tc_fwd_kernel", "attn_tc_bwd_dq_kernel",
+              "attn_tc_bwd_dkdv_kernel")
+# #1's and #2's training forward (attention.cuh's fp32 template)
+SIMT_FORWARD = "attn_fwd_kernel"
+
+
+def attention_launch_path(q, k, v, do, bias, seeds, H, p, heads):
+    """#1's and #2's forward (inference and training) and backward launch
+    their own kernels and no library's (no SDPA, cuBLAS or cuDNN): a
+    profile of the six wrapper calls holds eight kernels, each one of
+    attention_tc.cuh's or the fp32 training forward."""
+    from daspeech_torch.ops import fused_attention as fa
+
+    qh, kh, vh, dh = (heads(x) for x in (q, k, v, do))
+
+    def run():
+        fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds)
+        out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                          with_stats=True)
+        fa.attention_bwd_kernel(q, k, v, bias, out, st, do, H, 1.0, p, seeds)
+        fa.attention_hm_fwd_kernel(qh, kh, vh, bias, 1.0, p, seeds)
+        out, st = fa.attention_hm_fwd_kernel(qh, kh, vh, bias, 1.0, p, seeds,
+                                             with_stats=True)
+        fa.attention_hm_bwd_kernel(qh, kh, vh, bias, out, st, dh, 1.0, p,
+                                   seeds)
+
+    run()
+    events, _ = profiled_kernels(run, "attention_launch_path")
+    names = sorted({e["name"] for e in events})
+    log(f"  #1 and #2 forward and backward, profiled: {len(events)} kernels: "
+        f"{names}")
+    if not events:
+        log("  the profiler saw no kernels: launch path not checked")
+        return
+    foreign = [n for n in names
+               if not any(t in n for t in (*TC_KERNELS, SIMT_FORWARD))]
+    if foreign or len(events) != 8:
+        raise AssertionError(f"#1/#2 launch path ran {names} "
+                             f"({len(events)} kernels)")
+
+
+def sass_tensor_cores(lib_path):
+    """HMMA (tensor-core) instructions per kernel of attention_tc.cuh in the
+    built library's SASS (``cuobjdump -sass``); None without cuobjdump."""
+    import re
+    import shutil
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = next((c for c in (os.path.join(cuda_home, "bin", "cuobjdump"),
+                             shutil.which("cuobjdump"))
+                 if c and os.path.exists(c)), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((t for t in TC_KERNELS if t in m.group(1)), None)
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
+
+
 def kernel_phase():
     from daspeech_torch.ops import dag_kernels as dk
     from daspeech_torch.ops import dag_ref as dr
@@ -390,10 +503,10 @@ def kernel_phase():
     cases = {name: [] for name in KERNELS}
 
     def record(name, shape, err, run_kernel, run_plain, flops, nbytes,
-               run_library=None, tol=TOL_KERNEL):
+               run_library=None, tol=TOL_KERNEL, rate=PEAK_FLOPS_MMA):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, rate)
         cases[name].append({"shape": shape, "max_abs_err": err, "tol": tol,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": lib_ms})
@@ -418,38 +531,48 @@ def kernel_phase():
 
     # --- attention: the serving shapes of batches A and B (forward), then
     # the training shapes (decoder self- and cross-attention at B = 80),
-    # forward and backward with dropout 0.1
-    for (B, Tq, Tk, C, H, p) in ((8, 240, 240, 512, 8, 0.0),
-                                 (8, 240, 120, 512, 8, 0.0),
-                                 (8, 416, 416, 256, 4, 0.0),
-                                 (2, 600, 600, 512, 8, 0.0),
-                                 (2, 600, 300, 512, 8, 0.0),
-                                 (2, 1040, 1040, 256, 4, 0.0),
-                                 (80, 240, 240, 512, 8, 0.1),
-                                 (80, 240, 120, 512, 8, 0.1)):
+    # forward and backward with dropout 0.1, and the self-attention shape
+    # again at p = 0 (what the Philox draws cost)
+    for (B, Tq, Tk, C, H, p, train) in ((8, 240, 240, 512, 8, 0.0, False),
+                                        (8, 240, 120, 512, 8, 0.0, False),
+                                        (8, 416, 416, 256, 4, 0.0, False),
+                                        (2, 600, 600, 512, 8, 0.0, False),
+                                        (2, 600, 300, 512, 8, 0.0, False),
+                                        (2, 1040, 1040, 256, 4, 0.0, False),
+                                        (80, 240, 240, 512, 8, 0.1, True),
+                                        (80, 240, 120, 512, 8, 0.1, True),
+                                        (80, 240, 240, 512, 8, 0.0, True)):
         d = C // H
         q = _randn(g, B, Tq, C, scale=d ** -0.5)
         k, v = _randn(g, B, Tk, C), _randn(g, B, Tk, C)
         bias = _key_bias(B, Tk, g)
         seeds = _seeds(g, B) if p else None
         shape = f"q[{B},{Tq},{C}] kv_T={Tk} H={H} p={p}"
-        out, stats = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
-                                             with_stats=bool(p))
-        record("fused_attention_packed", shape,
-               _max_err(out, fa.attention_plain(q, k, v, bias, H, 1.0, p,
-                                                seeds)),
-               lambda: fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p,
-                                               seeds),
-               lambda: fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds),
-               4 * B * H * Tq * Tk * d,
-               (2 * B * Tq * C + 2 * B * Tk * C + B * Tk) * F32,
-               lambda: sdpa(q, k, v, bias, H, p))
-        if not p:
+        # training asks for the statistics (the fp32 forward), inference
+        # does not (the tensor-core forward); at a training shape both run
+        for stats_on in ((False, True) if train else (False,)):
+            out, stats = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p,
+                                                 seeds, with_stats=stats_on)
+            record("fused_attention_packed",
+                   shape + (" training" if stats_on else ""),
+                   _max_err(out, fa.attention_plain(q, k, v, bias, H, 1.0, p,
+                                                    seeds)),
+                   lambda: fa.attention_fwd_kernel(
+                       q, k, v, bias, H, 1.0, p, seeds, with_stats=stats_on),
+                   lambda: fa.attention_plain(q, k, v, bias, H, 1.0, p,
+                                              seeds),
+                   4 * B * H * Tq * Tk * d,
+                   (2 * B * Tq * C + 2 * B * Tk * C + B * Tk) * F32,
+                   lambda: sdpa(q, k, v, bias, H, p))
+        if not train:
             continue
         do = _randn(g, B, Tq, C)
         got = fa.attention_bwd_kernel(q, k, v, bias, out, stats, do, H, 1.0,
                                       p, seeds)
         want = fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p, seeds)
+        bit_identical("fused_attention_packed_bwd", shape, got,
+                      fa.attention_bwd_kernel(q, k, v, bias, out, stats, do,
+                                              H, 1.0, p, seeds))
         qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
         o_lib = sdpa(qr, kr, vr, bias, H, p)
         do4 = do.reshape(B, Tq, H, d).transpose(1, 2)
@@ -486,23 +609,29 @@ def kernel_phase():
         seeds = _seeds(g, B) if p else None
         shape = (f"[{B},{H},{Tq},{d}] kv_T={Tk} p={p}"
                  + (" last row padded" if padded else ""))
-        out, stats = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
-                                                with_stats=train)
-        record("fused_attention", shape,
-               _max_err(out, fa.attention_hm_plain(q, k, v, bias, 1.0, p,
-                                                   seeds)),
-               lambda: fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p,
-                                                  seeds),
-               lambda: fa.attention_hm_plain(q, k, v, bias, 1.0, p, seeds),
-               4 * B * H * Tq * Tk * d,
-               (2 * B * H * Tq * d + 2 * B * H * Tk * d + B * Tk) * F32,
-               lambda: sdpa_hm(q, k, v, bias, p))
+        for stats_on in ((False, True) if train else (False,)):
+            out, stats = fa.attention_hm_fwd_kernel(
+                q, k, v, bias, 1.0, p, seeds, with_stats=stats_on)
+            record("fused_attention",
+                   shape + (" training" if stats_on else ""),
+                   _max_err(out, fa.attention_hm_plain(q, k, v, bias, 1.0, p,
+                                                       seeds)),
+                   lambda: fa.attention_hm_fwd_kernel(
+                       q, k, v, bias, 1.0, p, seeds, with_stats=stats_on),
+                   lambda: fa.attention_hm_plain(q, k, v, bias, 1.0, p,
+                                                 seeds),
+                   4 * B * H * Tq * Tk * d,
+                   (2 * B * H * Tq * d + 2 * B * H * Tk * d + B * Tk) * F32,
+                   lambda: sdpa_hm(q, k, v, bias, p))
         if not train:
             continue
         do = _randn(g, B, H, Tq, d)
         got = fa.attention_hm_bwd_kernel(q, k, v, bias, out, stats, do, 1.0,
                                          p, seeds)
         want = fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p, seeds)
+        bit_identical("fused_attention_bwd", shape, got,
+                      fa.attention_hm_bwd_kernel(q, k, v, bias, out, stats,
+                                                 do, 1.0, p, seeds))
         qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
         o_lib = sdpa_hm(qr, kr, vr, bias, p)
         record("fused_attention_bwd", shape, _max_err(got, want),
@@ -536,6 +665,7 @@ def kernel_phase():
         "backward")
     if not err <= TOL_ROUTES:
         raise AssertionError(f"head-major and packed kernels differ by {err}")
+    attention_launch_path(q, k, v, do, bias, seeds, H, p, heads)
 
     # --- link extraction: serving batches A and B (forward), then the
     # training shape, forward and backward; the work is the valid
@@ -637,7 +767,7 @@ def kernel_phase():
                lambda: dr.dag_loss_forward_plain(match, links, ol, tl),
                2 * int((n_links * (T - 1 + steps)).sum()),
                (3 * B * T * L + B * L * L + 2 * B) * F32,
-               tol=dp_tol(T, big))
+               tol=dp_tol(T, big), rate=PEAK_FLOPS_FP32)
         got = dk.dag_best_alignment_kernel(match, links, ol, tl)
         want = dr.dag_best_alignment_plain(match, links, ol, tl)
         n_diff = int((got != want).sum())
@@ -646,7 +776,8 @@ def kernel_phase():
                lambda: dk.dag_best_alignment_kernel(match, links, ol, tl),
                lambda: dr.dag_best_alignment_plain(match, links, ol, tl),
                2 * int((n_links * steps).sum()),
-               (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0)
+               (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0,
+               rate=PEAK_FLOPS_FP32)
     # --- the HiFi-GAN MRF level (#7, three ResBlock1 of kernels 3/7/11,
     # dilations 1/3/5): serving A's levels 1-3, batch B's level 1, and one
     # chunk window of 64 + 2 * 15 mel frames at level 1, each with the tile
@@ -815,7 +946,10 @@ def alternate_kernel_cases(g, record):
         del q, k, v, bias4, out, st, got, want, lib, o_lib
 
     # #3 on #2's column bias broadcast over heads and queries, p = 0: the
-    # same scores, so the same results
+    # same function, so the same results to the kernels' rounding. #3 keeps
+    # the SIMT template of attention.cuh (fp32 FMA) while #2 runs 3xTF32 on
+    # the tensor cores, so they no longer sum in the same order: each is
+    # held to TOL_KERNEL, as against its plain version
     B, H, T = 80, 4, 120
     q = _randn(g, B, H, T, d, scale=sc)
     k, v, do = (_randn(g, B, H, T, d) for _ in range(3))
@@ -829,9 +963,9 @@ def alternate_kernel_cases(g, record):
         fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0)[:3],
         fa.attention_hm_bwd_kernel(q, k, v, bias, out_h, st_h, do, 1.0)))
     log(f"  fused_attention_full_bias vs fused_attention on a column bias "
-        f"[{B},{H},{T},{d}] p=0: max abs diff {err:.3g} (<= {TOL_ROUTES}), "
+        f"[{B},{H},{T},{d}] p=0: max abs diff {err:.3g} (<= {TOL_KERNEL}), "
         "forward and backward")
-    if not err <= TOL_ROUTES:
+    if not err <= TOL_KERNEL:
         raise AssertionError(f"full-bias and head-major kernels differ by "
                              f"{err}")
 
@@ -1200,21 +1334,7 @@ def device_busy(fn, tag):
     """``fn()`` once under ``torch.profiler``: the device's busy time
     (union of kernel intervals) against the wall time, and the kernels that
     took the most device time. The trace goes to ``build/profile/``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    out_dir = profile_dir()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(out_dir, f"trace_{tag.replace(' ', '_')}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") == "kernel"]
+    events, wall = profiled_kernels(fn, tag)
     if not events:
         log(f"  {tag} profiled: wall {wall:.2f} ms; the profiler saw no "
             "kernels, device busy not measured")
@@ -2455,6 +2575,12 @@ def main() -> int:
     if built.ptxas:
         log(built.ptxas.strip())
     _build.library()
+    hmma = sass_tensor_cores(built.path)
+    log(f"HMMA instructions in the SASS of attention_tc.cuh's kernels: "
+        + ("cuobjdump not found, not checked" if hmma is None else str(hmma)))
+    if hmma is not None and (set(hmma) != set(TC_KERNELS)
+                             or not all(hmma.values())):
+        raise AssertionError(f"tensor-core kernels without HMMA: {hmma}")
 
     log("kernel phase:")
     cases = kernel_phase()

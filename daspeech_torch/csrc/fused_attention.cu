@@ -13,11 +13,16 @@
 //     receives the gradient dS; one scalar dropout seed.
 // The JAX layer takes the packed kernel while packed_fits_vmem holds and the
 // head-major one for longer sequences; the port's layer mirrors that route
-// (ops/fused_attention.py packed_route). Both layouts run the same kernels
-// of attention.cuh, which address every operand by (batch, row, head)
-// strides: only the strides differ between the entry points below. Dropout
-// is keyed by (seed of the batch row, j/4, i, h) in both, so at a shape that
-// both routes take they drop the same elements and agree.
+// (ops/fused_attention.py packed_route). Both layouts run the same kernels,
+// which address every operand by (batch, row, head) strides: only the
+// strides differ between the entry points below, so at a shape both routes
+// take they compute the same sums in the same order. The backward and the
+// inference forward (no statistics) are the tensor-core kernels of
+// attention_tc.cuh; the training forward, which saves the statistics the
+// backward reads, is the fp32 SIMT kernel of attention.cuh, because the
+// tensor cores' accumulation bias in a training forward moves batch-wide
+// gradient sums past fp32's noise (attention_tc.cuh, "Accumulation"). Dropout is keyed by (seed of the batch row, j/4, i, h)
+// in both, so they also drop the same elements.
 //
 // Computes, per batch row b and head h,
 //   out[b, h] = dropout(softmax(q[b, h] k[b, h]^T * scale + bias[b])) v[b, h]
@@ -26,27 +31,31 @@
 // output and its row softmax statistics and returns dq, dk, dv; the dropout
 // mask is regenerated from the same Philox counters.
 //
-// What bounds it on this card: the port trains and serves in fp32 for
-// parity with the JAX reference, so the products run on the fp32 FMA pipes
-// (67 TFLOP/s peak on an H100 SXM), not the tensor cores; every FMA also
-// reads one shared-memory operand, which makes shared-memory bandwidth the
-// practical limit. At the training decoder shape (B=80, H=8, T=240, d=64)
-// the forward is 9.4 GFLOP against 157 MB of q/k/v/out traffic, the
-// backward (five products) 23.6 GFLOP against 315 MB; at the long-utterance
-// FastSpeech 2 decoder shape (B=14, H=4, T=1040) the forward is 15.5 GFLOP
-// against 60 MB: all compute-bound. The design keeps the score matrix out
-// of device memory (online softmax over key tiles; the backward recomputes
-// P from the saved row statistics) and draws dropout bits in registers; a
-// tensor-core (TF32 or bf16 wgmma) version is where speed comes from.
+// What bounds it on this card: the products. At the training decoder shape
+// (B=80, H=8, T=240, d=64) the forward is 9.4 GFLOP against 157 MB of
+// q/k/v/out traffic, the backward (five products) 23.6 GFLOP against
+// 315 MB; at the long-utterance FastSpeech 2 decoder shape (B=14, H=4,
+// T=1040) the forward is 15.5 GFLOP against 60 MB. The port keeps fp32
+// accuracy, so the least time for these products is at the 3xTF32 rate of
+// the tensor cores, 495 / 3 = 165 TFLOP/s on an H100 SXM (0.057 ms for the
+// training forward), not the 67 TFLOP/s of the fp32 FMA pipes. The
+// tensor-core design (attention_tc.cuh) runs every product as 3xTF32
+// mma.sync, streams K/V (forward, dq) or Q/dO (dk/dv) tiles by cp.async,
+// double-buffered, keeps the score matrix out of device memory (online
+// softmax; the backward recomputes P from the saved row statistics) and
+// draws dropout bits in registers, one Philox draw per 8-key block and
+// thread. The SIMT training forward holds one query row in four threads
+// and reads every key from shared memory once per FMA (attention.cuh).
 //
-// The full-bias entry points run the same kernels in attention.cuh's FULL
-// mode: each block stages its [query tile, key tile] block of the bias in
+// The full-bias entry points run the SIMT kernels of attention.cuh in its
+// FULL mode: each block stages its [query tile, key tile] block of the bias in
 // shared memory beside the keys. There bytes count as well as operations:
 // bias4 is read once forward and twice backward (dq and dk/dv kernels) and
 // dS is written once (by the dq kernel). At the Conformer shape it once
 // served, [80, 4, 120, 120], each is 18.4 MB against 1.2 GFLOP forward, and
 // the fp32 FMA rate still bounds it; at [14, 8, 700, 64] bias4 is 219 MB.
 #include "attention.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -93,8 +102,13 @@ int attention_fwd(const float* q, const float* k, const float* v,
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   const AttnArgs args = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
                                   out, stats, Tq, Tk, H, scale, head_major);
-  return static_cast<int>(launch_attn_fwd<64, 0, 64, 4, 32, 64>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // training (statistics asked for): the fp32 SIMT forward of
+  // attention.cuh; inference: the tensor-core forward (attention_tc.cuh,
+  // "Accumulation")
+  return static_cast<int>(stats != nullptr
+                              ? launch_attn_fwd<64, 0, 64, 4, 32, 64>(args, B, s)
+                              : tc::launch_attn_tc_fwd(args, B, s));
 }
 
 int attention_bwd(const float* q, const float* k, const float* v,
@@ -114,8 +128,8 @@ int attention_bwd(const float* q, const float* k, const float* v,
   args.dk = view(dk, Tk, H, head_major);
   args.dv = view(dv, Tk, H, head_major);
   args.delta = delta;
-  return static_cast<int>(launch_attn_bwd<64, 0, 64, 4, 32, 64, 64, 32>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      tc::launch_attn_tc_bwd(args, B, static_cast<cudaStream_t>(stream)));
 }
 
 AttnArgs full_bias_args(const float* q, const float* k, const float* v,

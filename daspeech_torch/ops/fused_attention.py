@@ -18,6 +18,13 @@ dropout on the probabilities:
   no caller in either package: it is the verified alternate backend JAX
   keeps for an arbitrary learned or ALiBi-style bias.
 
+The packed and head-major backward, and their forward where no softmax
+statistics are asked for (inference), run every product on the tensor
+cores in 3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``);
+their training forward (``with_stats``) and the full-bias kernels sum on
+the fp32 FMA pipes (``csrc/attention.cuh``), which the training forward
+needs: the tensor cores' accumulation bias there moves batch-wide gradient
+sums past fp32's noise.
 All are differentiable. Their forward and backward take the plain versions
 for CPU tensors and launch the kernels for CUDA tensors; there is no
 fallback between the two. Dropout multiplies the softmax probabilities by
@@ -89,11 +96,21 @@ def attention_bwd_plain(q, k, v, bias, dout, num_heads: int,
     return dq.reshape(B, Tq, C), dk.reshape(B, Tk, C), dv.reshape(B, Tk, C)
 
 
+def _check_aligned(name, *tensors):
+    """Raise unless every tensor starts on a 16-byte boundary: the
+    tensor-core kernels copy q, k, v and dout rows by 16-byte cp.async and
+    read out rows as float4 (a row's offset is a multiple of 64 floats, so
+    the base address decides)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: kernel takes 16-byte-aligned tensors")
+
+
 def _check(name, q, k, v, bias, num_heads, seeds, dropout_p):
     B, Tq, C = q.shape
     Tk = k.shape[1]
     drop = () if dropout_p == 0.0 else (seeds,)
     _build.check_inputs(name, q, k, v, bias, int32=drop)
+    _check_aligned(name, q, k, v)
     if C % num_heads or C // num_heads != HEAD_DIM:
         raise ValueError(f"{name}: head depth {C / num_heads} unsupported "
                          f"(kernel takes {HEAD_DIM})")
@@ -142,6 +159,7 @@ def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
     _check("fused_attention_packed backward", q, k, v, bias, num_heads, seeds,
            dropout_p)
     _build.check_inputs("fused_attention_packed backward", out, stats, dout)
+    _check_aligned("fused_attention_packed backward", out, dout)
     B, Tq, C = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
             stats.shape != (B, num_heads, Tq, 2):
@@ -264,6 +282,7 @@ def attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale: float = 1.0,
 def _check_hm(name, q, k, v, bias, seeds, dropout_p):
     drop = () if dropout_p == 0.0 else (seeds,)
     _build.check_inputs(name, q, k, v, bias, int32=drop)
+    _check_aligned(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: takes [B, H, T, d] q, k, v")
     B, H, Tq, d = q.shape
@@ -307,6 +326,7 @@ def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
     """Launch the head-major backward kernels: (dq, dk, dv)."""
     _check_hm("fused_attention backward", q, k, v, bias, seeds, dropout_p)
     _build.check_inputs("fused_attention backward", out, stats, dout)
+    _check_aligned("fused_attention backward", out, dout)
     B, H, Tq, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
             stats.shape != (B, H, Tq, 2):

@@ -5,11 +5,13 @@ maximum, fully padded rows, the transition band, one target token, targets
 and graphs shorter than their padding, dropout on, Viterbi ties, MRF
 levels whose length is not a multiple of the tile or just above the
 vocoder's route threshold, and each conv's halo at both sequence ends).
-``chip_smoke.py`` covers the serving and training shapes. The head-major
-attention kernel is also held to the packed one, dropout mask included,
-and the full-bias kernel to the head-major one on a column bias; the fused
-FFN at one row, ragged row tiles and F chunks, with its weight gradients
-bit-identical over two runs.
+``chip_smoke.py`` covers the serving and training shapes. The tensor-core
+attention kernels (packed and head-major) are also held at one query, one
+key and a query tile one row over 64 against 130 keys, their backward
+gradients to the bit over two runs, and the head-major kernel to the packed
+one, dropout mask included; the full-bias kernel to the head-major one on
+a column bias; the fused FFN at one row, ragged row tiles and F chunks,
+with its weight gradients bit-identical over two runs.
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -129,10 +131,16 @@ def _seeds(gen, B):
                          dtype=torch.int32).cuda()
 
 
+# edge shapes of the tensor-core tiles: one query, one key, and a query
+# tile one row over 64 against two key tiles, the second ragged
+EDGE_SHAPES = [(2, 1, 130, 2, 0.1), (2, 65, 1, 2, 0.1), (2, 65, 130, 4, 0.1)]
+
+
 @pytest.mark.parametrize("B,Tq,Tk,H,p", [(2, 1, 1, 1, 0.0), (2, 37, 5, 2, 0.1),
                                          (3, 70, 130, 8, 0.1),
                                          (2, 240, 120, 8, 0.0),
-                                         (1, 240, 240, 8, 0.3)])
+                                         (1, 240, 240, 8, 0.3),
+                                         *EDGE_SHAPES])
 def test_attention_dropout_and_backward(gen, B, Tq, Tk, H, p):
     q = _randn(gen, B, Tq, H * 64, scale=0.125)
     k, v = _randn(gen, B, Tk, H * 64), _randn(gen, B, Tk, H * 64)
@@ -316,7 +324,8 @@ def _heads(x, H):
                                          (3, 70, 130, 4, 0.1),
                                          (2, 800, 300, 4, 0.0),
                                          (1, 1040, 1040, 4, 0.0),
-                                         (2, 700, 700, 8, 0.1)])
+                                         (2, 700, 700, 8, 0.1),
+                                         *EDGE_SHAPES])
 def test_head_major_attention_forward_and_backward(gen, B, Tq, Tk, H, p):
     """Tq != Tk, a fully padded row (B > 1), dropout on."""
     q = _randn(gen, B, H, Tq, 64, scale=0.125)
@@ -361,6 +370,49 @@ def test_head_major_kernel_drops_what_the_packed_kernel_drops(gen, p):
     torch.cuda.synchronize()
     for a, b in zip(got, got_h):
         assert _max_err(_heads(a, H), b) <= 1e-6
+
+
+@pytest.mark.parametrize("head_major", [False, True])
+def test_attention_backward_is_bit_identical_over_two_runs(gen, head_major):
+    """Two kernels and no atomics: the same inputs give the same bits."""
+    B, Tq, Tk, H, p = 3, 130, 200, 4, 0.1
+    q = _randn(gen, B, Tq, H * 64, scale=0.125)
+    k, v = _randn(gen, B, Tk, H * 64), _randn(gen, B, Tk, H * 64)
+    do = _randn(gen, B, Tq, H * 64)
+    bias = _bias(gen, B, Tk, all_padded_row=True)
+    seeds = _seeds(gen, B)
+    if head_major:
+        q, k, v, do = (_heads(x, H) for x in (q, k, v, do))
+        out, st = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
+                                             with_stats=True)
+        runs = [fa.attention_hm_bwd_kernel(q, k, v, bias, out, st, do, 1.0, p,
+                                           seeds) for _ in range(2)]
+    else:
+        out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                          with_stats=True)
+        runs = [fa.attention_bwd_kernel(q, k, v, bias, out, st, do, H, 1.0, p,
+                                        seeds) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_attention_wrappers_refuse_misaligned_tensors(gen):
+    """cp.async copies 16-byte chunks: a tensor that starts 4 bytes off a
+    16-byte boundary is refused, not launched."""
+    B, T, H = 1, 8, 2
+    flat = torch.zeros(B * T * H * 64 + 1, device="cuda")
+    off = flat[1:].view(B, T, H * 64)
+    x = _randn(gen, B, T, H * 64)
+    bias = torch.zeros((B, T), device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.fused_attention_packed(off, x, x, bias, H)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.fused_attention(off.view(B, H, T, 64), _heads(x, H), _heads(x, H),
+                           bias)
+    out, st = fa.attention_fwd_kernel(x, x, x, bias, H, 1.0, with_stats=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.attention_bwd_kernel(x, x, x, bias, out, st, off, H, 1.0)
 
 
 def test_head_major_wrapper_refuses_what_the_kernel_does_not_take(gen):
@@ -527,7 +579,10 @@ def test_full_bias_attention_forward_and_backward(gen, B, H, Tq, Tk, p):
 
 def test_full_bias_kernel_equals_head_major_on_a_column_bias(gen):
     """bias4 = #2's column bias broadcast over heads and queries, p = 0:
-    the same scores, so the same results to rounding."""
+    the same scores, so the same results to rounding. #3 sums on the fp32
+    FMA pipes (attention.cuh) and #2 in 3xTF32 on the tensor cores
+    (attention_tc.cuh), in another order: each is held to TOL, as against
+    its plain version."""
     B, H, Tq, Tk = 3, 4, 70, 130
     q = _randn(gen, B, H, Tq, 64, scale=0.125)
     k, v, do = (_randn(gen, B, H, T, 64) for T in (Tk, Tk, Tq))
@@ -537,12 +592,12 @@ def test_full_bias_kernel_equals_head_major_on_a_column_bias(gen):
                                          with_stats=True)
     out_h, st_h = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0,
                                              with_stats=True)
-    assert _max_err(out, out_h) <= 1e-6
+    assert _max_err(out, out_h) <= TOL
     got = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0)
     want = fa.attention_hm_bwd_kernel(q, k, v, bias, out_h, st_h, do, 1.0)
     torch.cuda.synchronize()
     for g, w in zip(got[:3], want):
-        assert _max_err(g, w) <= 1e-6
+        assert _max_err(g, w) <= TOL
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
