@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(``--parent DIR``: another checkout of the repository, typically the parent
+commit unpacked with ``git archive``; its kernels are built too, and the
+kernel phase times the rows of the kernels redesigned since (#3, #5) with
+its library as well, on the same inputs in the same process.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -10,14 +15,15 @@
    the training paths, backward with dropout on the same Philox bits; max
    abs error <= 1e-4; the DP's log-probabilities against the plain loop in
    float64, within 2 sqrt(T) ulp of the largest magnitude, over three
-   shapes and four seeds; Viterbi paths equal; attention #1 and #2 (the
-   backward and the inference forward on the tensor cores, the training
-   forward, which saves the softmax statistics, in fp32 SIMT; at each
-   training shape both forwards are timed): the head-major kernel against
-   the packed one at a shape both take, <= 1e-6, each backward
+   shapes and four seeds; Viterbi paths equal; attention #1, #2, #3 and #5
+   (the backward and the inference forward on the tensor cores, the
+   training forward, which saves the softmax statistics, in fp32 SIMT; at
+   each training shape both forwards are timed): the head-major kernel
+   against the packed one at a shape both take, <= 1e-6, each backward
    bit-identical over two runs, HMMA instructions in the tensor-core
    kernels' SASS (cuobjdump) and only their own kernels in a profile of
-   their forward and backward; the fused FFN
+   their forward and backward (16 kernels for #1, #2, #5 and #3); the
+   fused FFN
    #6 at cell T's encoder and serving A's and B's, its weight gradients
    bit-identical over two runs, its backward against autograd of the plain
    forward (the same masks) and its drop fraction within 1% of p; the
@@ -25,11 +31,13 @@
    against the head-major kernel on a column bias, <= 1e-4), with median
    CUDA-event times of the kernel, the plain version and, for attention,
    ``scaled_dot_product_attention`` with dropout at the same rate (timed
-   here, used nowhere in the port), and the least time the card could
-   take (bytes over 3.35 TB/s, or operations over the rate of their kind:
-   matrix products at fp32 accuracy over 165 TFLOP/s, the 3xTF32 rate of
-   the tensor cores, and the DP's and Viterbi's over 67 TFLOP/s of fp32
-   FMA);
+   here, used nowhere in the port; for the rel-pos #5 on the extended
+   operands [q_u | a] and [k | e], whose concatenation is timed apart),
+   the parent tree's kernel with ``--parent``, and the least time the
+   card could take (bytes over 3.35 TB/s, or operations over the rate of
+   their kind: matrix products at fp32 accuracy over 165 TFLOP/s, the
+   3xTF32 rate of the tensor cores, and the DP's and Viterbi's over 67
+   TFLOP/s of fp32 FMA);
 4. serving phase: the two-pass S2ST serving path
    (``daspeech_torch.decode.generator.S2SNATGenerator``) at the recipe's
    full width (Conformer 12Lx256d, DAG decoder 4Lx512d, FastSpeech 2
@@ -97,7 +105,9 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -422,19 +432,59 @@ def profiled_kernels(fn, tag):
     return events, wall
 
 
-# the kernels of attention_tc.cuh (#1 and #2: the inference forward and
-# the backward)
+def relpos_sdpa_operands(q, k, v, a, e, bias, H):
+    """The rel-pos attention's operands for one
+    ``scaled_dot_product_attention`` call (#5's library yardstick): per
+    head, the extended query [q_u | a] (depth 64 + 256) and key [k | e]
+    (``e`` broadcast over batch rows and heads), v, and the column bias as
+    an additive mask."""
+    B, T, _ = q.shape
+
+    def heads(x):
+        return x.reshape(B, T, H, -1).transpose(1, 2)
+
+    q_ext = torch.cat([heads(q), heads(a)], dim=-1)
+    k_ext = torch.cat([heads(k), e.expand(B, H, T, e.shape[-1])], dim=-1)
+    return q_ext, k_ext, heads(v), bias[:, None, None, :]
+
+
+def relpos_sdpa(q_ext, k_ext, v, mask, sm_scale, p=0.0):
+    """softmax(q_ext k_extᵀ·sm_scale + mask) v: [B, H, T, 64]."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q_ext, k_ext, v, attn_mask=mask, dropout_p=p, scale=sm_scale)
+
+
+# the kernels of attention_tc.cuh: #1's and #2's inference forward and
+# backward; #3's and #5's inference forward, and the dS and gradient
+# kernels of their backward (the chunked-score kernels)
 TC_KERNELS = ("attn_tc_fwd_kernel", "attn_tc_bwd_dq_kernel",
-              "attn_tc_bwd_dkdv_kernel")
-# #1's and #2's training forward (attention.cuh's fp32 template)
+              "attn_tc_bwd_dkdv_kernel", "attn_tc_chunk_fwd_kernel",
+              "attn_tc_chunk_ds_kernel", "attn_tc_grad_kernel")
+# every attention kernel's training forward (attention.cuh's fp32 template)
 SIMT_FORWARD = "attn_fwd_kernel"
+# the rows of the chunked-score kernels (#3, #5), also timed with the
+# parent tree's library when one is given (--parent)
+REDESIGNED = ("fused_attention_relpos", "fused_attention_relpos_bwd",
+              "fused_attention_full_bias", "fused_attention_full_bias_bwd")
+PARENT = {}               # "lib": the parent tree's kernel library
 
 
-def attention_launch_path(q, k, v, do, bias, seeds, H, p, heads):
-    """#1's and #2's forward (inference and training) and backward launch
-    their own kernels and no library's (no SDPA, cuBLAS or cuDNN): a
-    profile of the six wrapper calls holds eight kernels, each one of
-    attention_tc.cuh's or the fp32 training forward."""
+def parent_ms(fn):
+    """``cuda_ms(fn)`` with the parent tree's kernel library in place of
+    this tree's: the same wrappers call the same C entry points there."""
+    from daspeech_torch.ops import _build
+
+    own = _build.library
+    _build.library = lambda: PARENT["lib"]
+    try:
+        return cuda_ms(fn)
+    finally:
+        _build.library = own
+
+
+def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
+    """A function that calls #1's and #2's inference forward, training
+    forward and backward wrappers (1 + 1 + 2 kernels each)."""
     from daspeech_torch.ops import fused_attention as fa
 
     qh, kh, vh, dh = (heads(x) for x in (q, k, v, do))
@@ -450,24 +500,34 @@ def attention_launch_path(q, k, v, do, bias, seeds, H, p, heads):
         fa.attention_hm_bwd_kernel(qh, kh, vh, bias, out, st, dh, 1.0, p,
                                    seeds)
 
+    return run
+
+
+def attention_launch_path(run, n_kernels, what):
+    """The attention wrappers called by ``run()`` launch their own kernels
+    and no library's (no SDPA, cuBLAS or cuDNN): a profile of one
+    ``run()`` holds exactly ``n_kernels`` kernels, each one of
+    attention_tc.cuh's or the fp32 training forward."""
     run()
-    events, _ = profiled_kernels(run, "attention_launch_path")
+    events, _ = profiled_kernels(run, f"attention_launch_path {what}")
     names = sorted({e["name"] for e in events})
-    log(f"  #1 and #2 forward and backward, profiled: {len(events)} kernels: "
+    log(f"  {what} forward and backward, profiled: {len(events)} kernels: "
         f"{names}")
     if not events:
         log("  the profiler saw no kernels: launch path not checked")
         return
     foreign = [n for n in names
                if not any(t in n for t in (*TC_KERNELS, SIMT_FORWARD))]
-    if foreign or len(events) != 8:
-        raise AssertionError(f"#1/#2 launch path ran {names} "
-                             f"({len(events)} kernels)")
+    if foreign or len(events) != n_kernels:
+        raise AssertionError(f"{what} launch path ran {names} "
+                             f"({len(events)} kernels, not {n_kernels})")
 
 
 def sass_tensor_cores(lib_path):
     """HMMA (tensor-core) instructions per kernel of attention_tc.cuh in the
-    built library's SASS (``cuobjdump -sass``); None without cuobjdump."""
+    built library's SASS (``cuobjdump -sass``), a template kernel's
+    instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
+    #3's); None without cuobjdump."""
     import re
     import shutil
 
@@ -484,6 +544,10 @@ def sass_tensor_cores(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = next((t for t in TC_KERNELS if t in m.group(1)), None)
+            inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
+            if name and inst:
+                name += "<" + ",".join(re.findall(r"L[a-z](\d+)E",
+                                                  inst.group(1))) + ">"
             if name:
                 counts[name] = 0
         elif name and re.search(r"\bHMMA\b", line):
@@ -503,17 +567,24 @@ def kernel_phase():
     cases = {name: [] for name in KERNELS}
 
     def record(name, shape, err, run_kernel, run_plain, flops, nbytes,
-               run_library=None, tol=TOL_KERNEL, rate=PEAK_FLOPS_MMA):
+               run_library=None, tol=TOL_KERNEL, rate=PEAK_FLOPS_MMA,
+               **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
+        was = (parent_ms(run_kernel) if name in REDESIGNED and PARENT
+               else None)
         b_ms, b_by = bound(flops, nbytes, rate)
         cases[name].append({"shape": shape, "max_abs_err": err, "tol": tol,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": lib_ms})
+                            "bound_by": b_by, "library_ms": lib_ms,
+                            "was_ms": was, **extra})
+        tf = lambda t: f" ({flops / t / 1e9:.1f} TFLOP/s)"  # noqa: E731
         log(f"  {name} {shape}: max_abs_err {err:.3g} (<= {tol})  kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"{ms:.4f} ms{tf(ms)}"
+            + ("" if was is None else f"  parent tree {was:.4f} ms")
+            + f"  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
             f"({b_by})  library "
-            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms{tf(lib_ms)}"))
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max abs err {err} > {tol}")
 
@@ -665,7 +736,7 @@ def kernel_phase():
         "backward")
     if not err <= TOL_ROUTES:
         raise AssertionError(f"head-major and packed kernels differ by {err}")
-    attention_launch_path(q, k, v, do, bias, seeds, H, p, heads)
+    run_1_2 = attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads)
 
     # --- link extraction: serving batches A and B (forward), then the
     # training shape, forward and backward; the work is the valid
@@ -707,11 +778,16 @@ def kernel_phase():
                6 * n_valid * H * dkh,
                (4 * B * L * C + 2 * B * L * H + B * L * L) * F32)
 
-    # --- rel-pos attention: serving batches A and B (forward), then the
-    # training shape and the T' >= 256 regime, forward and backward with
-    # dropout 0.1
+    # --- rel-pos attention (#5): serving batches A and B (forward), then
+    # the training shape, the T' >= 256 regime and J-long's encoder (14
+    # utterances of 14 s), forward and backward with dropout 0.1; the
+    # inference forward on the tensor cores, the training forward
+    # (statistics) on the fp32 SIMT kernel. The library yardstick is SDPA
+    # on the extended operands [q_u | a], [k | e] (relpos_sdpa), built
+    # outside the timed call
     for (B, T, C, H, p) in ((8, 120, 256, 4, 0.0), (8, 300, 256, 4, 0.0),
-                            (80, 120, 256, 4, 0.1), (8, 300, 256, 4, 0.1)):
+                            (80, 120, 256, 4, 0.1), (8, 300, 256, 4, 0.1),
+                            (14, 350, 256, 4, 0.1)):
         P = fr.POS_DIM
         d = C // H
         q, k, v = (_randn(g, B, T, C, scale=0.5) for _ in range(3))
@@ -721,22 +797,39 @@ def kernel_phase():
         seeds = _seeds(g, B) if p else None
         sc = 1.0 / math.sqrt(d)
         shape = f"[{B},{T},{C}] H={H} p={p}"
-        out, stats = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p,
-                                          seeds, with_stats=bool(p))
-        record("fused_attention_relpos", shape,
-               _max_err(out, fr.relpos_plain(q, k, v, a, e, bias, H, sc, p,
-                                             seeds)),
-               lambda: fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p,
-                                            seeds),
-               lambda: fr.relpos_plain(q, k, v, a, e, bias, H, sc, p, seeds),
-               2 * B * H * T * T * (2 * d + P),
-               (4 * B * T * C + B * T * H * P + T * P + B * T) * F32)
+        ops = relpos_sdpa_operands(q, k, v, a, e, bias, H)
+        prep_ms = cuda_ms(lambda: relpos_sdpa_operands(q, k, v, a, e, bias,
+                                                       H))
+        log(f"  fused_attention_relpos {shape}: SDPA's operands [q_u | a], "
+            f"[k | e] concatenated in {prep_ms:.4f} ms (outside its time)")
+        want = fr.relpos_plain(q, k, v, a, e, bias, H, sc, p, seeds)
+        for stats_on in ((False, True) if p else (False,)):
+            out, stats = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p,
+                                              seeds, with_stats=stats_on)
+            record("fused_attention_relpos",
+                   shape + (" training" if stats_on else ""),
+                   _max_err(out, want),
+                   lambda: fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc,
+                                                p, seeds,
+                                                with_stats=stats_on),
+                   lambda: fr.relpos_plain(q, k, v, a, e, bias, H, sc, p,
+                                           seeds),
+                   2 * B * H * T * T * (2 * d + P),
+                   (4 * B * T * C + B * T * H * P + T * P + B * T) * F32,
+                   lambda: relpos_sdpa(*ops, sc, p),
+                   library_prep_ms=prep_ms)
         if not p:
             continue
         do = _randn(g, B, T, C)
         got = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, do, H,
                                    sc, p, seeds)
         want = fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc, p, seeds)
+        bit_identical("fused_attention_relpos_bwd", shape, got,
+                      fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, stats,
+                                           do, H, sc, p, seeds))
+        leaves = [x.detach().requires_grad_(True) for x in ops[:3]]
+        o_lib = relpos_sdpa(*leaves, ops[3], sc, p)
+        do4 = do.reshape(B, T, H, d).transpose(1, 2)
         # products: s (depth d + P), dO·Vᵀ, dV, dQ, dK (depth d), dA (P)
         record("fused_attention_relpos_bwd", shape, _max_err(got, want),
                lambda: fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, stats,
@@ -744,7 +837,11 @@ def kernel_phase():
                lambda: fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc, p,
                                            seeds),
                2 * B * H * T * T * (5 * d + 2 * P),
-               (7 * B * T * C + 2 * B * T * H * P + T * P + B * T) * F32)
+               (7 * B * T * C + 2 * B * T * H * P + T * P + B * T) * F32,
+               lambda: torch.autograd.grad(o_lib, leaves, do4,
+                                           retain_graph=True),
+               library_prep_ms=prep_ms)
+        del ops, leaves, o_lib
 
     # --- the DAG DP and Viterbi at the training shape and at the recipe's
     # L cap; the work is the finite transitions, for the steps each sweep
@@ -809,6 +906,13 @@ def kernel_phase():
                (2 * B * C * T + W.numel() + bias.numel()) * F32)
         del x, args, got, want
     alternate_kernel_cases(g, record)
+    run_5_3 = chunked_wrapper_calls(g)
+    # twelve wrapper calls: the inference forward, the training forward
+    # and the backward of #1, #2, #5 and #3, 1 + 1 + 2 kernels each. One
+    # profile of all of them: the first profiler session of the run (a
+    # later session lost the first kernels it should have seen)
+    attention_launch_path(lambda: (run_1_2(), run_5_3()), 16,
+                          "#1, #2, #5 and #3")
     worst = dp_numerics()
     if not worst <= 1.0:
         raise AssertionError(f"alpha/beta kernel off float64 by {worst:.3g}"
@@ -915,23 +1019,31 @@ def alternate_kernel_cases(g, record):
         seed = _seeds(g, 1) if p else None
         shape = (f"[{B},{H},{T},{d}] bias4 [{B},{H},{T},{T}] p={p}, "
                  "one row masked")
-        out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p, seed,
-                                             with_stats=True)
-        record("fused_attention_full_bias", shape,
-               _max_err(out, fa.attention_full_bias_plain(q, k, v, bias4, sc,
-                                                          p, seed)),
-               lambda: fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p,
-                                                  seed),
-               lambda: fa.attention_full_bias_plain(q, k, v, bias4, sc, p,
-                                                    seed),
-               4 * B * H * T * T * d,
-               (4 * B * H * T * d + B * H * T * T) * F32,
-               lambda: sdpa(q, k, v, bias4, sc, p))
+        # the inference forward on the tensor cores, the training forward
+        # (statistics) on the fp32 SIMT kernel
+        want = fa.attention_full_bias_plain(q, k, v, bias4, sc, p, seed)
+        for stats_on in (False, True):
+            out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p, seed,
+                                                 with_stats=stats_on)
+            record("fused_attention_full_bias",
+                   shape + (" training" if stats_on else ""),
+                   _max_err(out, want),
+                   lambda: fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p,
+                                                      seed,
+                                                      with_stats=stats_on),
+                   lambda: fa.attention_full_bias_plain(q, k, v, bias4, sc, p,
+                                                        seed),
+                   4 * B * H * T * T * d,
+                   (4 * B * H * T * d + B * H * T * T) * F32,
+                   lambda: sdpa(q, k, v, bias4, sc, p))
         do = _randn(g, B, H, T, d)
         got = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, sc, p,
                                          seed)
         want = fa.attention_full_bias_bwd_plain(q, k, v, bias4, do, sc, p,
                                                 seed)
+        bit_identical("fused_attention_full_bias_bwd", shape, got,
+                      fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do,
+                                                 sc, p, seed))
         lib = [t.detach().requires_grad_(True) for t in (q, k, v, bias4)]
         o_lib = sdpa(*lib, sc, p)
         # five products; q, k, v, dout, bias4 read, dq, dk, dv, dS written
@@ -946,10 +1058,11 @@ def alternate_kernel_cases(g, record):
         del q, k, v, bias4, out, st, got, want, lib, o_lib
 
     # #3 on #2's column bias broadcast over heads and queries, p = 0: the
-    # same function, so the same results to the kernels' rounding. #3 keeps
-    # the SIMT template of attention.cuh (fp32 FMA) while #2 runs 3xTF32 on
-    # the tensor cores, so they no longer sum in the same order: each is
-    # held to TOL_KERNEL, as against its plain version
+    # same function, so the same results to the kernels' rounding. Both
+    # backward passes run 3xTF32 on the tensor cores, but #3 takes dk and dv
+    # from the stored dS and P∘Z where #2 recomputes Sᵀ: they do not sum in
+    # the same order, and each is held to TOL_KERNEL, as against its plain
+    # version
     B, H, T = 80, 4, 120
     q = _randn(g, B, H, T, d, scale=sc)
     k, v, do = (_randn(g, B, H, T, d) for _ in range(3))
@@ -968,6 +1081,37 @@ def alternate_kernel_cases(g, record):
     if not err <= TOL_KERNEL:
         raise AssertionError(f"full-bias and head-major kernels differ by "
                              f"{err}")
+
+
+def chunked_wrapper_calls(g):
+    """A function that calls #5's and #3's inference forward, training
+    forward and backward wrappers (1 + 1 + 2 kernels each)."""
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_relpos as fr
+
+    B, T, H, p = 8, 120, 4, 0.1
+    q, k, v, do = (_randn(g, B, T, H * 64, scale=0.5) for _ in range(4))
+    a = _randn(g, B, T, H * fr.POS_DIM, scale=0.1)
+    e = fr.relpos_basis(T, fr.POS_DIM, device="cuda")[2].contiguous()
+    bias = _key_bias(B, T, g, all_padded_row=True)
+    seeds = _seeds(g, B)
+    qh, kh, vh, dh = (x.reshape(B, T, H, 64).transpose(1, 2).contiguous()
+                      for x in (q, k, v, do))
+    bias4 = full_bias4(g, B, H, T, T, masked_row=True)
+
+    def run():
+        fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, 0.125, p, seeds)
+        out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, 0.125, p,
+                                       seeds, with_stats=True)
+        fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, 0.125, p,
+                             seeds)
+        fa.attention_fb_fwd_kernel(qh, kh, vh, bias4, 0.125, p, seeds[:1])
+        out, st = fa.attention_fb_fwd_kernel(qh, kh, vh, bias4, 0.125, p,
+                                             seeds[:1], with_stats=True)
+        fa.attention_fb_bwd_kernel(qh, kh, vh, bias4, out, st, dh, 0.125, p,
+                                   seeds[:1])
+
+    return run
 
 
 def train_dp_inputs(g, B, T, L):
@@ -2570,15 +2714,29 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    parent = None
+    if "--parent" in sys.argv:
+        # another checkout (the parent commit), whose kernels are built
+        # beside this tree's and timed beside the redesigned rows
+        root = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
+        parent = threading.Thread(target=lambda: PARENT.update(
+            build=_build.build(root / "daspeech_torch" / "csrc",
+                               root / "build" / "daspeech_torch")))
+        parent.start()
     built = _build.build()
     log(f"kernels built in {built.seconds:.1f} s -> {built.path}")
     if built.ptxas:
         log(built.ptxas.strip())
     _build.library()
+    if parent is not None:
+        parent.join()
+        PARENT["lib"] = _build.load(PARENT["build"].path)
+        log(f"parent tree's kernels built in {PARENT['build'].seconds:.1f} s "
+            f"-> {PARENT['build'].path}")
     hmma = sass_tensor_cores(built.path)
     log(f"HMMA instructions in the SASS of attention_tc.cuh's kernels: "
         + ("cuobjdump not found, not checked" if hmma is None else str(hmma)))
-    if hmma is not None and (set(hmma) != set(TC_KERNELS)
+    if hmma is not None and ({n.split("<")[0] for n in hmma} != set(TC_KERNELS)
                              or not all(hmma.values())):
         raise AssertionError(f"tensor-core kernels without HMMA: {hmma}")
 

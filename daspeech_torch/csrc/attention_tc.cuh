@@ -1,10 +1,13 @@
-// Tensor-core fp32 attention for Hopper (sm_90a) for the packed and
-// head-major multi-head attention entry points of fused_attention.cu (head
-// depth 64, a [B, Tk] column bias, Philox dropout): the backward, and the
-// forward where no softmax statistics are asked for (inference). The
-// training forward, the full-bias and the rel-pos kernels keep the SIMT
-// template of attention.cuh, whose argument structs (AttnArgs,
-// AttnBwdArgs) this header shares; see "Accumulation" for why.
+// Tensor-core fp32 attention for Hopper (sm_90a), head depth 64, Philox
+// dropout: the backward, and the forward where no softmax statistics are
+// asked for (inference), of every attention entry point. The packed and
+// head-major attention (fused_attention.cu; a [B, Tk] column bias) run the
+// kernels described first; the full-bias attention (fused_attention.cu; a
+// [B, H, Tq, Tk] bias that receives a gradient) and the Conformer rel-pos
+// attention (fused_relpos.cu; a 64 + 256-deep score) the chunked-score
+// kernels at the end ("Chunked score depth"). The training forward of all
+// four keeps the SIMT template of attention.cuh, whose argument structs
+// (AttnArgs, AttnBwdArgs) this header shares; see "Accumulation" for why.
 //
 // Precision: fp32 in and out; every matrix product runs on the tensor cores
 // as 3xTF32. Each operand x is split into hi = cvt.rna.tf32(x) and
@@ -98,6 +101,9 @@
 
 namespace daspeech {
 namespace tc {
+// internal linkage: fused_attention.cu and fused_relpos.cu each include
+// this header, and a kernel with external linkage would be defined twice
+namespace {
 
 constexpr int kDepth = 64;            // head depth
 constexpr int kRows = 64;             // rows of a tile (queries or keys)
@@ -283,17 +289,19 @@ __device__ __forceinline__ uint32_t keep4(const uint4& r, uint32_t thresh) {
          (static_cast<uint32_t>(r.w <= thresh) << 3);
 }
 
-// Forward and dq kernels: keep bits of 8-key block j8 (keys j8 .. j8 + 7)
-// for this thread's rows ia (half 0) and ia + 8 (half 1). Thread t draws
-// (row half t & 1, group j8 / 4 + t / 2); the pair t, t ^ 1 swaps draws.
-// Returns (own, other): the draw of half t & 1 and of the other half; key
-// j8 + 2t + c of either half is bit 2 (t & 1) + c.
+// Forward, dq and dS kernels: keep bits of 8-key block j8 (keys j8 ..
+// j8 + 7) for this thread's rows ia (half 0) and ia + 8 (half 1). Thread t
+// draws (row half t & 1, group j8 / 4 + t / 2); the pair t, t ^ 1 swaps
+// draws. Returns (own, other): the draw of half t & 1 and of the other
+// half; key j8 + 2t + c of either half is bit 2 (t & 1) + c. c3 is the
+// fourth counter word: the batch row in the full-bias mode, else 0.
 __device__ __forceinline__ uint2 row_keep_bits(const DropoutArgs& d,
                                                uint32_t seed, int ia, int j8,
-                                               int h, int t) {
+                                               int h, int t,
+                                               uint32_t c3 = 0u) {
   const int row = ia + 8 * (t & 1);
   const uint32_t own = keep4(
-      philox4x32_10(make_uint4((j8 >> 2) + (t >> 1), row, h, 0u), seed, 0u),
+      philox4x32_10(make_uint4((j8 >> 2) + (t >> 1), row, h, c3), seed, 0u),
       d.thresh);
   return make_uint2(own, __shfl_xor_sync(0xffffffffu, own, 1));
 }
@@ -723,5 +731,520 @@ inline cudaError_t launch_attn_tc_bwd(const AttnBwdArgs& args, int B,
   return cudaGetLastError();
 }
 
+// ====================================================== chunked score depth
+//
+// The rel-pos (#5) and full-bias (#3) kernels. The score is a sum over NC
+// chunk pairs of depth 64: s = (sum_c X_c · Y_cᵀ) · scale + bias, with
+// (X_0, Y_0) = (q, k) and, for the rel-pos attention, (X_c, Y_c) = columns
+// 64 (c - 1) .. of (a, e), c = 1 .. 4. Per key tile the block takes NC + 1
+// steps, each one pair of 64 x 64 tiles streamed by cp.async into one of two
+// stages: the NC score chunks, then the value step (the forward: V alone,
+// for O += P·V; the backward: dO and V, for dP = dO·Vᵀ). The bias comes
+// with the step at whose end the softmax is taken. The query side's tiles
+// are re-read for every key tile (from L2), which keeps a stage at two
+// tiles: a resident 64 x 320 query side and a 64 x 320 key side would not
+// fit twice in one SM's shared memory.
+//
+// Backward, two launches and no atomics: the score kernel recomputes S and
+// dP per key tile and writes dS = P∘(Z∘dP − delta) (the full bias's
+// gradient) and P∘Z to [B, H, Tq, Tk] buffers, each element once; the
+// gradient kernel then takes every gradient as a product with one of them,
+// 64 output channels per block: dq = scale dS·k, da = scale dS·e,
+// dk = scale dSᵀ·q, dv = (P∘Z)ᵀ·dO. This keeps the 320-deep score off the
+// key side (no recomputed Sᵀ) and the 320 columns of [dq | da] out of one
+// thread's registers.
+
+// an operand's (or gradient's) channels from c0 on
+__host__ __device__ __forceinline__ Operand channels(const Operand& x,
+                                                     int c0) {
+  return Operand{x.ptr + c0, x.sb, x.sr, x.sh};
+}
+
+__host__ __device__ __forceinline__ View<float> channels(
+    const View<float>& x, int c0) {
+  return View<float>{x.ptr + c0, x.sb, x.sr, x.sh};
+}
+
+// the [Tq, Tk] matrix of (b, h) in a contiguous [B, H, Tq, Tk] tensor
+__device__ __forceinline__ long long matrix_at(const AttnArgs& f, int b,
+                                               int h) {
+  return (static_cast<long long>(b) * f.H + h) * f.Tq * f.Tk;
+}
+
+// rows r0 .. r0 + 63, columns c0 .. c0 + 63 of a row-major [rows, cols]
+// matrix into a tile, zero outside; 16-byte copies when rows stay aligned
+__device__ __forceinline__ void load_matrix_tile(float* tile, const float* m,
+                                                 int rows, int cols, int r0,
+                                                 int c0) {
+  if ((cols & 3) == 0) {
+    for (int c = threadIdx.x; c < kRows * 16; c += kThreads) {
+      const int rr = c >> 4, cc = (c & 15) * 4, r = r0 + rr, j = c0 + cc;
+      const bool ok = r < rows && j < cols;
+      cp_async<16>(tile + rr * kPitch + cc,
+                   m + (ok ? static_cast<long long>(r) * cols + j : 0), ok);
+    }
+  } else {
+    for (int c = threadIdx.x; c < kRows * kRows; c += kThreads) {
+      const int rr = c >> 6, cc = c & 63, r = r0 + rr, j = c0 + cc;
+      const bool ok = r < rows && j < cols;
+      cp_async<4>(tile + rr * kPitch + cc,
+                  m + (ok ? static_cast<long long>(r) * cols + j : 0), ok);
+    }
+  }
+}
+
+// a stage: the step's two tiles, then the bias (FULL: the [query tile, key
+// tile] block of bias4; else the key tile's 64 column biases)
+template <bool FULL>
+constexpr int kChunkStage = 2 * kTile + (FULL ? kTile : kRows);
+
+// step c of the key tile at j0 for the query tile at i0: c < NC loads
+// score chunk c; c == NC the value step (the forward: V alone; BWD: dO and
+// V). The bias comes with the forward's last score chunk and with the
+// backward's value step.
+template <int NC, bool FULL, bool BWD>
+__device__ __forceinline__ void load_chunk_step(float* st, const AttnArgs& f,
+                                                const Operand& dout, int b,
+                                                int h, int i0, int j0,
+                                                int c) {
+  if (c < NC) {
+    load_tile(st, c == 0 ? f.q : channels(f.a, 64 * (c - 1)), b, h, i0,
+              f.Tq);
+    load_tile(st + kTile, c == 0 ? f.k : channels(f.e, 64 * (c - 1)), b, h,
+              j0, f.Tk);
+  } else if (!BWD) {
+    load_tile(st, f.v, b, h, j0, f.Tk);
+  } else {
+    load_tile(st, dout, b, h, i0, f.Tq);
+    load_tile(st + kTile, f.v, b, h, j0, f.Tk);
+  }
+  if (c != (BWD ? NC : NC - 1)) return;
+  float* bs = st + 2 * kTile;
+  if constexpr (FULL) {
+    load_matrix_tile(bs, f.bias4 + matrix_at(f, b, h), f.Tq, f.Tk, i0, j0);
+  } else if (threadIdx.x < kRows) {
+    const int j = j0 + threadIdx.x;
+    const bool ok = j < f.Tk;
+    cp_async<4>(bs + threadIdx.x, f.bias + b * f.bias_sb + (ok ? j : 0), ok);
+  }
+}
+
+// the biases of keys jj, jj + 1 (of the tile) for the thread's row half r
+template <bool FULL>
+__device__ __forceinline__ float2 stage_bias(const float* bs, int wrow,
+                                             int r, int jj) {
+  return *reinterpret_cast<const float2*>(
+      bs + (FULL ? (wrow + 8 * r) * kPitch : 0) + jj);
+}
+
+// ---------------------------------------------------------------- forward
+
+template <int NC, bool FULL>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_tc_chunk_fwd_kernel(const AttnArgs args) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = kChunkStage<FULL>;
+  constexpr int S = NC + 1;                 // steps per key tile
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int i0 = blockIdx.x * kRows;
+  const int wrow = warp * 16 + gid;         // the thread's rows in a tile
+  const int ia = i0 + wrow;                 // rows ia, ia + 8
+  const bool drop = args.drop.seeds != nullptr;
+  const uint32_t seed = drop ? args.drop.seeds[FULL ? 0 : b] : 0u;
+  const uint32_t c3 = FULL ? static_cast<uint32_t>(b) : 0u;
+  const int nsteps = (args.Tk + kRows - 1) / kRows * S;
+
+  load_chunk_step<NC, FULL, false>(smem, args, args.v, b, h, i0, 0, 0);
+  cp_async_commit();
+
+  float s[8][4], o[8][4];
+  zero(s);
+  zero(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int st = 0; st < nsteps; ++st) {
+    const int c = st % S, j0 = st / S * kRows;
+    cp_async_wait_all();
+    __syncthreads();
+    if (st + 1 < nsteps) {
+      const int nx = st + 1;
+      load_chunk_step<NC, FULL, false>(smem + (nx & 1) * kStage, args,
+                                       args.v, b, h, i0, nx / S * kRows,
+                                       nx % S);
+      cp_async_commit();
+    }
+    const float* X = smem + (st & 1) * kStage;
+    if (c == NC) {                          // O += P·V
+      mma_cols<kGroup>(o, s, X, gid, t);
+      continue;
+    }
+    if (c == 0) zero(s);
+    const float* A = X + warp * 16 * kPitch;
+    mma_rows<kGroup>(
+        s, [&](int kk, float a[4]) { a_from_rows(A, kk, gid, t, a); },
+        X + kTile, gid, t);
+    if (c != NC - 1) continue;
+
+    const float* Bs = X + 2 * kTile;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int jj = n * 8 + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 bias = stage_bias<FULL>(Bs, wrow, r, jj);
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int e = 2 * r + cc;
+          const float sc = (j0 + jj + cc < args.Tk)
+                               ? s[n][e] * args.scale + (cc ? bias.y : bias.x)
+                               : -INFINITY;
+          s[n][e] = sc;
+          mx[r] = fmaxf(mx[r], sc);
+        }
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile holds a valid key, so the new max is finite
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      l[r] *= corr[r];
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+      uint2 bits = make_uint2(0u, 0u);
+      if (drop) {
+        bits = row_keep_bits(args.drop, seed, ia, j0 + n * 8, h, t, c3);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[n][e] = !drop ? p
+                  : row_keep(bits, e >> 1, e & 1, t) ? p * args.drop.scale
+                                                     : 0.f;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int i = ia + 8 * r;
+    if (i >= args.Tq) continue;
+    const float inv = 1.f / l[r];
+    float* out = args.o.at(b, i, h);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
+          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dS
+
+template <int NC, bool FULL>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_tc_chunk_ds_kernel(const AttnBwdArgs args) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = kChunkStage<FULL>;
+  constexpr int S = NC + 1;
+  const AttnArgs& f = args.f;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int i0 = blockIdx.x * kRows;
+  const int wrow = warp * 16 + gid;
+  const int ia = i0 + wrow;
+  const bool drop = f.drop.seeds != nullptr;
+  const uint32_t seed = drop ? f.drop.seeds[FULL ? 0 : b] : 0u;
+  const uint32_t c3 = FULL ? static_cast<uint32_t>(b) : 0u;
+  const long long stat0 = (static_cast<long long>(b) * f.H + h) * f.Tq;
+  const long long mat0 = matrix_at(f, b, h);
+  const int nsteps = (f.Tk + kRows - 1) / kRows * S;
+
+  load_chunk_step<NC, FULL, true>(smem, f, args.dout, b, h, i0, 0, 0);
+  cp_async_commit();
+
+  // delta = rowsum(dO∘O) while the copies fly: lanes 2r, 2r + 1 take row r
+  // of the warp's 16, 32 channels each
+  float delta[2], rmax[2], rinv[2];
+  {
+    const int i = i0 + warp * 16 + (lane >> 1);
+    const int c0 = (lane & 1) * 32;
+    float acc = 0.f;
+    if (i < f.Tq) {
+      const float4* pd =
+          reinterpret_cast<const float4*>(args.dout.at(b, i, h) + c0);
+      const float4* po = reinterpret_cast<const float4*>(f.o.at(b, i, h) + c0);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float4 x = pd[u], y = po[u];
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (i < f.Tq && (lane & 1) == 0) args.delta[stat0 + i] = acc;
+    delta[0] = __shfl_sync(0xffffffffu, acc, 2 * gid);
+    delta[1] = __shfl_sync(0xffffffffu, acc, 2 * gid + 16);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ir = ia + 8 * r;
+      rmax[r] = ir < f.Tq ? f.stats[2 * (stat0 + ir)] : 0.f;
+      rinv[r] = ir < f.Tq ? 1.f / f.stats[2 * (stat0 + ir) + 1] : 0.f;
+    }
+  }
+
+  float s[8][4], dp[8][4];
+  zero(s);
+  for (int st = 0; st < nsteps; ++st) {
+    const int c = st % S, j0 = st / S * kRows;
+    cp_async_wait_all();
+    __syncthreads();
+    if (st + 1 < nsteps) {
+      const int nx = st + 1;
+      load_chunk_step<NC, FULL, true>(smem + (nx & 1) * kStage, f,
+                                      args.dout, b, h, i0, nx / S * kRows,
+                                      nx % S);
+      cp_async_commit();
+    }
+    const float* X = smem + (st & 1) * kStage;
+    const float* A = X + warp * 16 * kPitch;
+    if (c < NC) {
+      if (c == 0) zero(s);
+      mma_rows<kGroup>(
+          s, [&](int kk, float a[4]) { a_from_rows(A, kk, gid, t, a); },
+          X + kTile, gid, t);
+      continue;
+    }
+    zero(dp);
+    mma_rows<kGroup>(
+        dp, [&](int kk, float a[4]) { a_from_rows(A, kk, gid, t, a); },
+        X + kTile, gid, t);
+    const float* Bs = X + 2 * kTile;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int jj = n * 8 + 2 * t;
+      uint2 bits = make_uint2(0u, 0u);
+      if (drop) bits = row_keep_bits(f.drop, seed, ia, j0 + n * 8, h, t, c3);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 bias = stage_bias<FULL>(Bs, wrow, r, jj);
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int e = 2 * r + cc;
+          const float p =
+              (j0 + jj + cc < f.Tk)
+                  ? expf(s[n][e] * f.scale + (cc ? bias.y : bias.x) -
+                         rmax[r]) * rinv[r]
+                  : 0.f;
+          const float z = !drop ? 1.f
+                          : row_keep(bits, r, cc, t) ? f.drop.scale
+                                                     : 0.f;
+          s[n][e] = p * (z * dp[n][e] - delta[r]);   // dS
+          dp[n][e] = p * z;                          // P∘Z
+        }
+      }
+    }
+    // each element once, 32 contiguous bytes per row and quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = ia + 8 * r;
+      if (i >= f.Tq) continue;
+      float* ds_row = args.dbias + mat0 + static_cast<long long>(i) * f.Tk;
+      float* pz_row = args.pz + mat0 + static_cast<long long>(i) * f.Tk;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int j = j0 + n * 8 + 2 * t;
+        if (j >= f.Tk) continue;
+        if ((f.Tk & 1) == 0) {              // j even: j + 1 < Tk, aligned
+          *reinterpret_cast<float2*>(ds_row + j) =
+              make_float2(s[n][2 * r], s[n][2 * r + 1]);
+          *reinterpret_cast<float2*>(pz_row + j) =
+              make_float2(dp[n][2 * r], dp[n][2 * r + 1]);
+        } else {
+          ds_row[j] = s[n][2 * r];
+          pz_row[j] = dp[n][2 * r];
+          if (j + 1 < f.Tk) {
+            ds_row[j + 1] = s[n][2 * r + 1];
+            pz_row[j + 1] = dp[n][2 * r + 1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- gradients
+
+// one gradient of the chunked backward: out = scale · M·Y (rows: queries,
+// contraction over keys) or, trans, scale · Mᵀ·Y (rows: keys, contraction
+// over queries), 64 channels of Y and out
+struct TcGradJob {
+  const float* m;        // [B, H, Tq, Tk]: dS or P∘Z
+  Operand y;
+  View<float> out;
+  float scale;
+  int trans;
+};
+
+constexpr int kMaxGradJobs = 7;   // rel-pos: dq, da (4 x 64), dk, dv
+
+struct TcGradArgs {
+  TcGradJob job[kMaxGradJobs];
+  int njobs, H, Tq, Tk;
+};
+
+// dynamic shared memory: two stages of [M tile, Y tile]
+constexpr int kGradStage = 2 * kTile;
+constexpr int kGradSmem = 2 * kGradStage * 4;
+
+__device__ __forceinline__ void load_grad_stage(float* st,
+                                                const TcGradJob& job,
+                                                const float* m, int Tq,
+                                                int Tk, int b, int h, int r0,
+                                                int k0) {
+  if (job.trans) {
+    load_matrix_tile(st, m, Tq, Tk, k0, r0);
+    load_tile(st + kTile, job.y, b, h, k0, Tq);
+  } else {
+    load_matrix_tile(st, m, Tq, Tk, r0, k0);
+    load_tile(st + kTile, job.y, b, h, k0, Tk);
+  }
+}
+
+// grid: (64-row tiles of max(Tq, Tk), H x jobs, B)
+__global__ void __launch_bounds__(kThreads, 2)
+attn_tc_grad_kernel(const TcGradArgs args) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y % args.H, b = blockIdx.z;
+  const int which = blockIdx.y / args.H;
+  TcGradJob job = args.job[0];
+#pragma unroll
+  for (int u = 1; u < kMaxGradJobs; ++u) {   // constant indices: no local copy
+    if (u == which) job = args.job[u];
+  }
+  const int rows = job.trans ? args.Tk : args.Tq;
+  const int depth = job.trans ? args.Tq : args.Tk;
+  const int r0 = blockIdx.x * kRows;
+  if (r0 >= rows) return;
+  const float* m =
+      job.m + (static_cast<long long>(b) * args.H + h) * args.Tq * args.Tk;
+  const int wrow = warp * 16 + gid;
+
+  load_grad_stage(smem, job, m, args.Tq, args.Tk, b, h, r0, 0);
+  cp_async_commit();
+  float acc[8][4];
+  zero(acc);
+  const int ntiles = (depth + kRows - 1) / kRows;
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < ntiles) {
+      load_grad_stage(smem + ((it + 1) & 1) * kGradStage, job, m, args.Tq,
+                      args.Tk, b, h, r0, (it + 1) * kRows);
+      cp_async_commit();
+    }
+    const float* Ms = smem + (it & 1) * kGradStage;
+    // the warp's 16 x 64 block of M (or Mᵀ) in accumulator layout: row
+    // wrow + 8 (e / 2), column kk·8 + 2t + e % 2
+    float x[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = wrow + 8 * (e >> 1), col = kk * 8 + 2 * t + (e & 1);
+        x[kk][e] = job.trans ? Ms[col * kPitch + row] : Ms[row * kPitch + col];
+      }
+    }
+    mma_cols<kGroup>(acc, x, Ms + kTile, gid, t);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + wrow + 8 * r;
+    if (i >= rows) continue;
+    float* out = job.out.at(b, i, h);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) = make_float2(
+          acc[n][2 * r] * job.scale, acc[n][2 * r + 1] * job.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+template <int NC, bool FULL>
+inline cudaError_t launch_attn_tc_chunk_fwd(const AttnArgs& args, int B,
+                                            cudaStream_t stream) {
+  constexpr int smem = 2 * kChunkStage<FULL> * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_tc_chunk_fwd_kernel<NC, FULL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((args.Tq + kRows - 1) / kRows, args.H, B);
+  attn_tc_chunk_fwd_kernel<NC, FULL><<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// args.delta [B, H, Tq], args.dbias and args.pz [B, H, Tq, Tk]: written
+template <int NC, bool FULL>
+inline cudaError_t launch_attn_tc_chunk_bwd(const AttnBwdArgs& args, int B,
+                                            cudaStream_t stream) {
+  static_assert(NC + 2 <= kMaxGradJobs, "too many gradient jobs");
+  constexpr int smem = 2 * kChunkStage<FULL> * 4;
+  const AttnArgs& f = args.f;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_tc_chunk_ds_kernel<NC, FULL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(attn_tc_grad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGradSmem);
+  }
+  if (err != cudaSuccess) return err;
+  dim3 grid_s((f.Tq + kRows - 1) / kRows, f.H, B);
+  attn_tc_chunk_ds_kernel<NC, FULL><<<grid_s, kThreads, smem, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // the gradient kernel reads dS and P∘Z: same stream
+  TcGradArgs g{};
+  g.H = f.H;
+  g.Tq = f.Tq;
+  g.Tk = f.Tk;
+  g.job[0] = {args.dbias, f.k, args.dq, f.scale, 0};
+  for (int c = 1; c < NC; ++c) {
+    g.job[c] = {args.dbias, channels(f.e, 64 * (c - 1)),
+                channels(args.da, 64 * (c - 1)), f.scale, 0};
+  }
+  g.job[NC] = {args.dbias, f.q, args.dk, f.scale, 1};
+  g.job[NC + 1] = {args.pz, args.dout, args.dv, 1.f, 1};
+  g.njobs = NC + 2;
+  dim3 grid_g(((f.Tq > f.Tk ? f.Tq : f.Tk) + kRows - 1) / kRows,
+              f.H * g.njobs, B);
+  attn_tc_grad_kernel<<<grid_g, kThreads, kGradSmem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace tc
 }  // namespace daspeech

@@ -47,13 +47,17 @@
 // thread. The SIMT training forward holds one query row in four threads
 // and reads every key from shared memory once per FMA (attention.cuh).
 //
-// The full-bias entry points run the SIMT kernels of attention.cuh in its
-// FULL mode: each block stages its [query tile, key tile] block of the bias in
-// shared memory beside the keys. There bytes count as well as operations:
-// bias4 is read once forward and twice backward (dq and dk/dv kernels) and
-// dS is written once (by the dq kernel). At the Conformer shape it once
-// served, [80, 4, 120, 120], each is 18.4 MB against 1.2 GFLOP forward, and
-// the fp32 FMA rate still bounds it; at [14, 8, 700, 64] bias4 is 219 MB.
+// The full-bias entry points run the chunked-score tensor-core kernels of
+// attention_tc.cuh with one chunk (NC = 1) and the bias as a
+// [query tile, key tile] block per stage, streamed beside K by cp.async;
+// their training forward is attention.cuh's SIMT kernel in its FULL mode.
+// The backward's score kernel writes dS (the bias's gradient, each element
+// once) and P∘Z; dq, dk and dv are products with them in a second launch.
+// There bytes count as well as operations: bias4 is read once forward and
+// once backward, dS and P∘Z written once and read back. At the Conformer
+// shape the kernel once served, [80, 4, 120, 120], each is 18.4 MB against
+// 1.2 GFLOP forward (the bytes bound it); at [14, 8, 700, 64] bias4 is
+// 219 MB.
 #include "attention.cuh"
 #include "attention_tc.cuh"
 
@@ -201,16 +205,19 @@ extern "C" int daspeech_attention_fb_fwd(const float* q, const float* k,
   const AttnArgs args = full_bias_args(q, k, v, bias4, seed, thresh,
                                        keep_scale, out, stats, Tq, Tk, H,
                                        scale);
-  return static_cast<int>(launch_attn_fwd<64, 0, 64, 4, 32, 64, true>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      stats != nullptr
+          ? launch_attn_fwd<64, 0, 64, 4, 32, 64, true>(args, B, s)
+          : tc::launch_attn_tc_chunk_fwd<1, true>(args, B, s));
 }
 
 extern "C" int daspeech_attention_fb_bwd(
     const float* q, const float* k, const float* v, const float* bias4,
     const uint32_t* seed, uint32_t thresh, float keep_scale,
     const float* out, const float* stats, const float* dout, float* dq,
-    float* dk, float* dv, float* dbias, float* delta, int B, int Tq, int Tk,
-    int H, int D, float scale, void* stream) {
+    float* dk, float* dv, float* dbias, float* scratch, int B, int Tq,
+    int Tk, int H, int D, float scale, void* stream) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   AttnBwdArgs args;
   args.f = full_bias_args(q, k, v, bias4, seed, thresh, keep_scale,
@@ -221,8 +228,12 @@ extern "C" int daspeech_attention_fb_bwd(
   args.da = {nullptr, 0, 0, 0};
   args.dk = view(dk, Tk, H, true);
   args.dv = view(dv, Tk, H, true);
-  args.delta = delta;
+  // scratch: delta [B, H, Tq] (padded to 4 floats), then P∘Z
+  // [B, H, Tq, Tk]
+  const long long rows = static_cast<long long>(B) * H * Tq;
+  args.delta = scratch;
   args.dbias = dbias;
-  return static_cast<int>(launch_attn_bwd<64, 0, 64, 4, 32, 64, 64, 32, true>(
+  args.pz = scratch + (rows + 3) / 4 * 4;
+  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<1, true>(
       args, B, static_cast<cudaStream_t>(stream)));
 }

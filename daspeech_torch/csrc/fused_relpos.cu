@@ -16,24 +16,32 @@
 // da = scale * dS e per head; e is a constant and gets no gradient.
 //
 // Design: the two score products are one dot product of depth 64 + 256 =
-// 320 between the extended query [q_u | a] and the extended key [k | e], so
-// the shared attention template (attention.cuh) runs with D1 = 64, D2 = 256
-// for the forward and both backward kernels; the dq kernel's extended
-// gradient is [dq | da], and the dk/dv kernel keeps only the first 64
-// channels of the extended key's gradient. Neither the [T, T] position
-// scores nor the [T, 2T-1] shift tensor of the reference form ever reach
-// device memory.
+// 320 between the extended query [q_u | a] and the extended key [k | e].
+// The inference forward and the backward run on the tensor cores in 3xTF32
+// (attention_tc.cuh, "Chunked score depth", NC = 5): the score is summed
+// over five 64-deep chunk pairs, (q, k) and four of (a, e), streamed two
+// 64 x 64 tiles at a time, so neither side's 64 x 320 operand has to sit in
+// shared memory or registers. The backward's score kernel writes dS and P∘Z
+// to [B, H, T, T] scratch; one more launch takes dq = scale dS·k, the four
+// 64-column parts of da = scale dS·e, dk = scale dSᵀ·q and dv = (P∘Z)ᵀ·dO
+// as products with them, so the 320-deep score is recomputed once, not
+// also transposed for dk, and [dq | da] (320 columns) never sits in one
+// thread's registers. The training forward, which writes the softmax
+// statistics, is attention.cuh's fp32 SIMT template with D1 = 64,
+// D2 = 256 (attention_tc.cuh, "Accumulation"). Neither the [T, T]
+// position scores nor the [T, 2T-1] shift tensor of the reference form
+// reach device memory in the forward.
 //
 // What bounds it on this card: five-sixths of the score FLOPs are the
 // position product. At the training shape (B=80, H=4, T'=120) the forward
-// is 3.5 GFLOP and the backward 7.7 GFLOP of fp32 FMA, each FMA reading one
-// shared-memory operand, against 68 MB (forward) of device traffic:
-// compute-bound on the fp32 pipes and on shared-memory bandwidth. Key tiles
-// are 16 rows so the extended key tile (20 KB) and value tile fit static
-// shared memory. The dq kernel holds the extended query and its gradient
-// (2 x 80 floats a thread) and spills; splitting the 320 channels over
-// more threads per row is later work.
+// is 3.5 GFLOP and the backward 7.7 GFLOP of matrix products, against
+// 68 MB (forward) of device traffic: the operations bound it, at the
+// tensor cores' 3xTF32 rate. The backward adds 2 x 18 MB of dS and P∘Z
+// written and read back (about 30 us at 3.35 TB/s), e (T x 1 KB) is the
+// same for every (b, h) and stays in L2, and the query side's tiles are
+// re-read from L2 for every key tile.
 #include "attention.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -76,15 +84,19 @@ extern "C" int daspeech_relpos_fwd(const float* q, const float* k,
   if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
   const AttnArgs args = relpos_args(q, k, v, a, e, bias, seeds, thresh,
                                     keep_scale, out, stats, T, H, scale);
-  return static_cast<int>(launch_attn_fwd<64, 256, 64, 4, 32, 16>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // training (statistics asked for): the fp32 SIMT forward of
+  // attention.cuh; inference: the tensor cores (attention_tc.cuh)
+  return static_cast<int>(
+      stats != nullptr ? launch_attn_fwd<64, 256, 64, 4, 32, 16>(args, B, s)
+                       : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
 }
 
 extern "C" int daspeech_relpos_bwd(
     const float* q, const float* k, const float* v, const float* a,
     const float* e, const float* bias, const uint32_t* seeds, uint32_t thresh,
     float keep_scale, const float* out, const float* stats, const float* dout,
-    float* dq, float* dk, float* dv, float* da, float* delta, int B, int T,
+    float* dq, float* dk, float* dv, float* da, float* scratch, int B, int T,
     int H, int D, int C, float scale, void* stream) {
   using namespace daspeech;
   if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
@@ -99,7 +111,12 @@ extern "C" int daspeech_relpos_bwd(
   args.da = {da, T * HC, HC, 256};
   args.dk = {dk, T * HD, HD, 64};
   args.dv = {dv, T * HD, HD, 64};
-  args.delta = delta;
-  return static_cast<int>(launch_attn_bwd<64, 256, 64, 4, 32, 16, 16, 32>(
+  // scratch: delta [B, H, T] (padded to 4 floats), then dS and P∘Z
+  // [B, H, T, T] each
+  const long long rows = static_cast<long long>(B) * H * T;
+  args.delta = scratch;
+  args.dbias = scratch + (rows + 3) / 4 * 4;
+  args.pz = args.dbias + rows * T;
+  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<5, false>(
       args, B, static_cast<cudaStream_t>(stream)));
 }

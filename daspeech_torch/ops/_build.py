@@ -77,8 +77,8 @@ class Build(NamedTuple):
     ptxas: str          # nvcc's -Xptxas -v report (registers, spills, smem)
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -90,13 +90,13 @@ def _nvcc() -> str:
                        "daspeech_torch cannot be built")
 
 
-def _library_path() -> Path:
-    cu, cuh = _sources()
+def _library_path(csrc: Path, build_dir: Path) -> Path:
+    cu, cuh = _sources(csrc)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libdaspeech_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libdaspeech_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run(procs) -> str:
@@ -110,20 +110,21 @@ def _run(procs) -> str:
     return "".join(se for _, _, _, se in outs)
 
 
-def build() -> Build:
-    """Compile the kernels unless a library for these sources exists: one
-    ``nvcc -c`` per source, in parallel, then one link."""
-    out = _library_path()
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Build:
+    """Compile the kernels of ``csrc`` into ``build_dir`` unless a library
+    for these sources exists: one ``nvcc -c`` per source, in parallel, then
+    one link."""
+    out = _library_path(csrc, build_dir)
     if out.exists():
         return Build(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, _ = _sources()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources(csrc)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    objs = [build_dir / f"{tag}.{src.stem}.o" for src in cu]
     t0 = time.perf_counter()
     compiles = []
     for src, obj in zip(cu, objs):
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
                str(src)]
         compiles.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -142,7 +143,12 @@ def build() -> Build:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build().path))
+    return load(build().path)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -18,13 +18,12 @@ dropout on the probabilities:
   no caller in either package: it is the verified alternate backend JAX
   keeps for an arbitrary learned or ALiBi-style bias.
 
-The packed and head-major backward, and their forward where no softmax
-statistics are asked for (inference), run every product on the tensor
-cores in 3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``);
-their training forward (``with_stats``) and the full-bias kernels sum on
-the fp32 FMA pipes (``csrc/attention.cuh``), which the training forward
-needs: the tensor cores' accumulation bias there moves batch-wide gradient
-sums past fp32's noise.
+The backward of all three, and their forward where no softmax statistics
+are asked for (inference), run every product on the tensor cores in
+3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``); their
+training forward (``with_stats``) sums on the fp32 FMA pipes
+(``csrc/attention.cuh``), which it needs: the tensor cores' accumulation
+bias there moves batch-wide gradient sums past fp32's noise.
 All are differentiable. Their forward and backward take the plain versions
 for CPU tensors and launch the kernels for CUDA tensors; there is no
 fallback between the two. Dropout multiplies the softmax probabilities by
@@ -98,9 +97,10 @@ def attention_bwd_plain(q, k, v, bias, dout, num_heads: int,
 
 def _check_aligned(name, *tensors):
     """Raise unless every tensor starts on a 16-byte boundary: the
-    tensor-core kernels copy q, k, v and dout rows by 16-byte cp.async and
-    read out rows as float4 (a row's offset is a multiple of 64 floats, so
-    the base address decides)."""
+    tensor-core kernels copy q, k, v and dout rows (and bias rows of a
+    multiple of 4 keys) by 16-byte cp.async and read out rows as float4 (a
+    row's offset is a multiple of 64 floats, so the base address
+    decides)."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: kernel takes 16-byte-aligned tensors")
 
@@ -122,6 +122,14 @@ def _check(name, q, k, v, bias, num_heads, seeds, dropout_p):
                          f"bias{tuple(bias.shape)}")
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
+
+
+def _bwd_scratch(rows: int, n: int, device) -> torch.Tensor:
+    """A backward's scratch buffer: delta [rows], padded to 4 floats so that
+    what follows stays 16-byte aligned for cp.async, then ``n`` floats (the
+    [B, H, Tq, Tk] dS and P∘Z buffers of the chunked-score kernels)."""
+    return torch.empty((rows + 3) // 4 * 4 + n, dtype=torch.float32,
+                       device=device)
 
 
 def _drop_args(dropout_p, seeds):
@@ -441,6 +449,7 @@ def attention_full_bias_bwd_plain(q, k, v, bias4, dout, sm_scale: float = 1.0,
 def _check_fb(name, q, k, v, bias4, seed, dropout_p):
     drop = () if dropout_p == 0.0 else (seed,)
     _build.check_inputs(name, q, k, v, bias4, int32=drop)
+    _check_aligned(name, q, k, v, bias4)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: takes [B, H, T, d] q, k, v")
     B, H, Tq, d = q.shape
@@ -486,6 +495,7 @@ def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
               dropout_p)
     _build.check_inputs("fused_attention_full_bias backward", out, stats,
                         dout)
+    _check_aligned("fused_attention_full_bias backward", out, dout)
     B, H, Tq, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
             stats.shape != (B, H, Tq, 2):
@@ -494,14 +504,14 @@ def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
                          f"dout{tuple(dout.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias4)
-    delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
-                        device=q.device)
+    # delta [B, H, Tq], then P∘Z [B, H, Tq, Tk]
+    scratch = _bwd_scratch(B * H * Tq, B * H * Tq * k.shape[2], q.device)
     with torch.cuda.device(q.device):
         rc = _build.library().daspeech_attention_fb_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
             *_drop_args(dropout_p, seed), out.data_ptr(), stats.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), delta.data_ptr(), B, Tq, k.shape[2], H,
+            dbias.data_ptr(), scratch.data_ptr(), B, Tq, k.shape[2], H,
             HEAD_DIM, float(sm_scale), _build.stream_of(q))
     _build.check(rc, "daspeech_attention_fb_bwd")
     attention_fb_bwd_kernel.launches += 1

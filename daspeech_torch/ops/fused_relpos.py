@@ -5,13 +5,16 @@ Counterpart of ``daspeech_tpu/ops/fused_relpos.py``. The position score
 ``bd[i, j] = q_v[i] · (W_p pe(i-j))`` is computed without the [T, 2T-1]
 table by the angle-addition identity: ``bd = a @ eᵀ`` with ``a`` the rotated
 position queries (:func:`relpos_rotate`) and ``e`` a constant basis
-(:func:`relpos_basis`). The CUDA kernel (``csrc/fused_relpos.cu``) replace
+(:func:`relpos_basis`). The CUDA kernels (``csrc/fused_relpos.cu``) replace
 the Pallas ``fused_attention_relpos`` (``fused_relpos.py:373``: forward
 ``_relpos_fwd_kernel`` at :90, backward ``_relpos_bwd_kernel`` at :125),
 with dropout on the probabilities drawn from the Philox mask of
-``ops/philox.py``. Unlike the JAX layer, which takes its kernel only at
-T' >= 256 (a TPU measurement), the port launches the kernels at every
-length on the card.
+``ops/philox.py``: the backward and the inference forward on the tensor
+cores in 3xTF32 (``csrc/attention_tc.cuh``), the training forward, which
+saves the softmax statistics, on the fp32 FMA pipes
+(``csrc/attention.cuh``). Unlike the JAX layer, which takes its kernel
+only at T' >= 256 (a TPU measurement), the port launches the kernels at
+every length on the card.
 
 :func:`fused_attention_relpos` is differentiable in q, k, v and a (``e`` is
 a constant basis). CPU tensors take the plain versions, CUDA tensors the
@@ -26,7 +29,8 @@ from typing import Optional
 import torch
 
 from daspeech_torch.ops import _build
-from daspeech_torch.ops.fused_attention import _drop_args
+from daspeech_torch.ops.fused_attention import (_bwd_scratch, _check_aligned,
+                                                _drop_args)
 from daspeech_torch.ops.philox import attention_keep
 
 NEG = -1e30
@@ -105,6 +109,7 @@ def _check(name, q, k, v, a, e, bias, num_heads, seeds, dropout_p):
     B, T, Cq = q.shape
     drop = () if dropout_p == 0.0 else (seeds,)
     _build.check_inputs(name, q, k, v, a, e, bias, int32=drop)
+    _check_aligned(name, q, k, v, a, e)
     d = Cq // num_heads
     C = e.shape[1]
     if Cq % num_heads or d != HEAD_DIM or C != POS_DIM:
@@ -149,6 +154,7 @@ def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
     _check("fused_attention_relpos backward", q, k, v, a, e, bias, num_heads,
            seeds, dropout_p)
     _build.check_inputs("fused_attention_relpos backward", out, stats, dout)
+    _check_aligned("fused_attention_relpos backward", out, dout)
     B, T, Cq = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
             stats.shape != (B, num_heads, T, 2):
@@ -157,14 +163,15 @@ def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
                          f"dout{tuple(dout.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     da = torch.empty_like(a)
-    delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
-                        device=q.device)
+    # delta [B, H, T], then dS and P∘Z [B, H, T, T]
+    rows = B * num_heads * T
+    scratch = _bwd_scratch(rows, 2 * rows * T, q.device)
     with torch.cuda.device(q.device):
         rc = _build.library().daspeech_relpos_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
             e.data_ptr(), bias.data_ptr(), *_drop_args(dropout_p, seeds),
             out.data_ptr(), stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), da.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), da.data_ptr(), scratch.data_ptr(),
             B, T, num_heads, HEAD_DIM, POS_DIM, float(sm_scale),
             _build.stream_of(q))
     _build.check(rc, "daspeech_relpos_bwd")

@@ -10,8 +10,12 @@ attention kernels (packed and head-major) are also held at one query, one
 key and a query tile one row over 64 against 130 keys, their backward
 gradients to the bit over two runs, and the head-major kernel to the packed
 one, dropout mask included; the full-bias kernel to the head-major one on
-a column bias; the fused FFN at one row, ragged row tiles and F chunks,
-with its weight gradients bit-identical over two runs.
+a column bias; the chunked-score tensor-core kernels of the rel-pos (#5)
+and full-bias (#3) attention at T' = 1, 63, 65, 120 and 300, with a fully
+padded row and dropout, their backward to the bit over two runs, and #5
+with a = 0 to the head-major kernel within 1e-6; the fused FFN at one row,
+ragged row tiles and F chunks, with its weight gradients bit-identical over
+two runs.
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -579,10 +583,9 @@ def test_full_bias_attention_forward_and_backward(gen, B, H, Tq, Tk, p):
 
 def test_full_bias_kernel_equals_head_major_on_a_column_bias(gen):
     """bias4 = #2's column bias broadcast over heads and queries, p = 0:
-    the same scores, so the same results to rounding. #3 sums on the fp32
-    FMA pipes (attention.cuh) and #2 in 3xTF32 on the tensor cores
-    (attention_tc.cuh), in another order: each is held to TOL, as against
-    its plain version."""
+    the same scores, so the same results to rounding. #3's backward takes
+    dk and dv from the stored dS and P∘Z where #2 recomputes Sᵀ, so they sum
+    in another order: each is held to TOL, as against its plain version."""
     B, H, Tq, Tk = 3, 4, 70, 130
     q = _randn(gen, B, H, Tq, 64, scale=0.125)
     k, v, do = (_randn(gen, B, H, T, 64) for T in (Tk, Tk, Tq))
@@ -630,3 +633,121 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="bad shapes"):
         ff.ffn_fwd_kernel(_randn(gen, 1, 3, 256), *params[:2],
                           params[2][:, :128].contiguous(), *params[3:])
+
+
+# ragged lengths of the chunked-score tensor-core kernels (#5, #3): one
+# row, a tile one short of and one over 64, and serving's T' = 120 and 300
+RAGGED_T = (1, 63, 65, 120, 300)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_relpos_tensor_core_forward_and_backward(gen, T, p):
+    """#5's inference forward and backward (tensor cores) and its training
+    forward (SIMT) against the plain versions, a fully padded batch row
+    included, dropout on the same bits; the backward bit-identical over two
+    runs."""
+    B, H, C, sc = 3, 4, fr.POS_DIM, 0.125
+    q, k, v, do = (_randn(gen, B, T, H * 64, scale=0.5) for _ in range(4))
+    a = _randn(gen, B, T, H * C, scale=0.1)
+    e = fr.relpos_basis(T, C, device="cuda")[2].contiguous()
+    bias = _bias(gen, B, T, all_padded_row=True)
+    seeds = _seeds(gen, B) if p else None
+    want = fr.relpos_plain(q, k, v, a, e, bias, H, sc, p, seeds)
+    out, _ = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p, seeds)
+    assert _max_err(out, want) <= TOL
+    out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p, seeds,
+                                   with_stats=True)
+    assert _max_err(out, want) <= TOL
+    runs = [fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, sc, p,
+                                 seeds) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc, p, seeds)
+    for g, again, w in zip(*runs, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+        assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk", [(T, T) for T in RAGGED_T] + [(65, 130)])
+def test_full_bias_tensor_core_forward_and_backward(gen, Tq, Tk, p):
+    """#3's inference forward and backward (tensor cores) and its training
+    forward (SIMT) against the plain versions, one fully masked row, dropout
+    on; dbias and the other gradients bit-identical over two runs."""
+    B, H, sc = 2, 4, 0.125
+    q = _randn(gen, B, H, Tq, 64)
+    k, v, do = (_randn(gen, B, H, T, 64) for T in (Tk, Tk, Tq))
+    bias = _full_bias(gen, B, H, Tq, Tk, masked_row=True)
+    seed = _seeds(gen, 1) if p else None
+    want = fa.attention_full_bias_plain(q, k, v, bias, sc, p, seed)
+    out, _ = fa.attention_fb_fwd_kernel(q, k, v, bias, sc, p, seed)
+    assert _max_err(out, want) <= TOL
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias, sc, p, seed,
+                                         with_stats=True)
+    assert _max_err(out, want) <= TOL
+    runs = [fa.attention_fb_bwd_kernel(q, k, v, bias, out, st, do, sc, p,
+                                       seed) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fa.attention_full_bias_bwd_plain(q, k, v, bias, do, sc, p, seed)
+    for g, again, w in zip(*runs, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+        assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_relpos_kernel_with_a_zero_equals_head_major(gen, p):
+    """With a = 0 the rel-pos score is q·kᵀ: #5 computes #2's function, and
+    drops what #2 drops (both key by the row seed, j / 4, i, h). Held
+    within 1e-6, forward (inference and training) and backward."""
+    B, T, H, sc = 3, 130, 4, 0.125
+    q, k, v, do = (_randn(gen, B, T, H * 64, scale=0.5) for _ in range(4))
+    a = torch.zeros((B, T, H * fr.POS_DIM), device="cuda")
+    e = fr.relpos_basis(T, fr.POS_DIM, device="cuda")[2].contiguous()
+    bias = _bias(gen, B, T, all_padded_row=True)
+    seeds = _seeds(gen, B) if p else None
+    qh, kh, vh, dh = (_heads(x, H) for x in (q, k, v, do))
+    for stats_on in (False, True):
+        out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p, seeds,
+                                       with_stats=stats_on)
+        out_h, st_h = fa.attention_hm_fwd_kernel(qh, kh, vh, bias, sc, p,
+                                                 seeds, with_stats=stats_on)
+        assert _max_err(_heads(out, H), out_h) <= 1e-6
+    got = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, sc, p,
+                               seeds)
+    got_h = fa.attention_hm_bwd_kernel(qh, kh, vh, bias, out_h, st_h, dh, sc,
+                                       p, seeds)
+    torch.cuda.synchronize()
+    for x, y in zip(got[:3], got_h):
+        assert _max_err(_heads(x, H), y) <= 1e-6
+
+
+def test_chunked_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    """#5 and #3 copy operand rows by 16-byte cp.async: a tensor 4 bytes
+    off a 16-byte boundary is refused, as are a position depth other than
+    256 and a bias of the wrong shape."""
+    B, T, H = 1, 8, 2
+    x = _randn(gen, B, T, H * 64)
+    a = _randn(gen, B, T, H * fr.POS_DIM)
+    e = fr.relpos_basis(T, fr.POS_DIM, device="cuda")[2].contiguous()
+    bias = torch.zeros((B, T), device="cuda")
+    flat = torch.zeros(a.numel() + 1, device="cuda")
+    a_off = flat[1:].view(a.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fr.fused_attention_relpos(x, x, x, a_off, e, bias, H, 0.125)
+    with pytest.raises(ValueError, match="unsupported"):
+        fr.fused_attention_relpos(x, x, x, a[..., :H * 128].contiguous(),
+                                  e[:, :128].contiguous(), bias, H, 0.125)
+    out, st = fr.relpos_fwd_kernel(x, x, x, a, e, bias, H, 0.125,
+                                   with_stats=True)
+    x_off = torch.zeros(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fr.relpos_bwd_kernel(x, x, x, a, e, bias, out, st, x_off, H, 0.125)
+    qh = _heads(x, H)
+    b4 = torch.zeros(B * H * T * T + 1, device="cuda")[1:].view(B, H, T, T)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.fused_attention_full_bias(qh, qh, qh, b4, 0, 0.125, 0.0, False)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.fused_attention_full_bias(qh, qh, qh, b4[..., :4].contiguous(), 0,
+                                     0.125, 0.0, False)

@@ -1,8 +1,8 @@
 """The precision choice of the tensor-core attention kernels, on the CPU.
 
-``csrc/attention_tc.cuh`` runs every product of the packed and head-major
-attention's backward and inference forward on the tensor cores in 3xTF32:
-each fp32 operand x is split into
+``csrc/attention_tc.cuh`` runs every product of the attention kernels'
+backward and inference forward (packed and head-major #1/#2, full-bias #3,
+rel-pos #5) on the tensor cores in 3xTF32: each fp32 operand x is split into
 hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a·b is taken as
 lo·hi + hi·lo + hi·hi with fp32 accumulation. Here ``cvt.rna.tf32`` is
 emulated with numpy bit operations (round to a 10-bit mantissa, ties away
@@ -14,7 +14,10 @@ operand rounding; the sums are rounded to fp32 as the kernels store them.
 The 3xTF32 results are held within 1e-5 of the float64 versions (a tenth of
 the kernels' 1e-4 bar against their plain versions); plain 1xTF32 (hi·hi
 only) must be at least ten times further off, which is why the kernels do
-not take it.
+not take it. The same holds for the rel-pos attention's products (the
+320-deep score [q_u | a]·[k | e]ᵀ, and dq, dk, dv and da) at [2, 120, 4·64]
+and for the full-bias attention's (its gradient dbias = dS included) at
+[2, 4, 120, 64].
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from daspeech_torch.ops import fused_attention as fa
+from daspeech_torch.ops import fused_relpos as fr
 
 B, T, H, D = 2, 240, 4, 64
 TOL_3X = 1e-5
@@ -147,5 +151,106 @@ def test_3xtf32_backward_within_1e5_of_float64(seed):
     e1 = _err(attention_bwd_split(q, k, v, bias, do, make_einsum(1)), exact)
     print(f"backward seed {seed}: max abs error vs float64: 3xTF32 "
           f"{e3:.3g}, 1xTF32 {e1:.3g}")
+    assert e3 <= TOL_3X
+    assert e1 >= 10 * e3
+
+
+# the rel-pos (#5) and full-bias (#3) kernels' products
+RB, RT, RH, SCALE = 2, 120, 4, 0.125
+
+
+def _relpos_inputs(seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(RB, RT, RH * D)).astype(np.float32) * 0.5
+               for _ in range(3))
+    a = rng.normal(size=(RB, RT, RH * fr.POS_DIM)).astype(np.float32) * 0.1
+    do = rng.normal(size=(RB, RT, RH * D)).astype(np.float32)
+    keep = rng.integers(RT // 2, RT + 1, size=RB)
+    keep[0] = RT
+    bias = np.where(np.arange(RT)[None, :] >= keep[:, None], fa.NEG,
+                    0.0).astype(np.float32)
+    return ([torch.from_numpy(x) for x in (q, k, v, a, bias, do)]
+            + [fr.relpos_basis(RT, fr.POS_DIM)[2]])
+
+
+def relpos_split(q, k, v, a, bias, do, e, einsum, backward):
+    """:func:`fr.relpos_plain` (or, ``backward``, :func:`fr.relpos_bwd_plain`:
+    dq, dk, dv, da) at dropout 0 with every product taken by ``einsum``; the
+    score is one 320-deep product [q_u | a]·[k | e]ᵀ, as the kernels take
+    it."""
+    B, T = q.shape[:2]
+    q4, k4, v4 = (x.reshape(B, T, RH, D) for x in (q, k, v))
+    qx = torch.cat([q4, a.reshape(B, T, RH, -1)], dim=-1)
+    kx = torch.cat([k4, e[None, :, None, :].expand(B, T, RH, -1)], dim=-1)
+    s = einsum("bqhc,bkhc->bhqk", qx, kx)
+    p = torch.softmax(s * SCALE + bias[:, None, None, :], dim=-1)
+    if not backward:
+        return einsum("bhqk,bkhd->bqhd", p, v4).reshape(B, T, RH * D)
+    do4 = do.reshape(B, T, RH, D)
+    dv = einsum("bhqk,bqhd->bkhd", p, do4)
+    dp = einsum("bqhd,bkhd->bhqk", do4, v4)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = einsum("bhqk,bkhd->bqhd", ds, k4) * SCALE
+    dk = einsum("bhqk,bqhd->bkhd", ds, q4) * SCALE
+    da = einsum("bhqk,kc->bqhc", ds, e) * SCALE
+    return tuple(x.reshape(B, T, -1) for x in (dq, dk, dv, da))
+
+
+def _full_bias_inputs(seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=(RB, RH, RT, D)).astype(np.float32)
+                   for _ in range(4))
+    keep = rng.integers(RT // 2, RT + 1, size=RB)
+    keep[0] = RT
+    pad = np.arange(RT)[None, :] >= keep[:, None]
+    bias4 = np.where(pad[:, None, None, :], np.float32(fa.NEG),
+                     rng.normal(size=(RB, RH, RT, RT)).astype(np.float32))
+    return [torch.from_numpy(x) for x in (q, k, v, bias4, do)]
+
+
+def full_bias_split(q, k, v, bias4, do, einsum, backward):
+    """:func:`fa.attention_full_bias_plain` (or, ``backward``,
+    :func:`fa.attention_full_bias_bwd_plain`: dq, dk, dv, dbias) at dropout
+    0 with every product taken by ``einsum``."""
+    s = einsum("bhqd,bhkd->bhqk", q, k)
+    p = torch.softmax(s * SCALE + bias4, dim=-1)
+    if not backward:
+        return einsum("bhqk,bhkd->bhqd", p, v)
+    dv = einsum("bhqk,bhqd->bhkd", p, do)
+    dp = einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return (einsum("bhqk,bhkd->bhqd", ds, k) * SCALE,
+            einsum("bhqk,bhqd->bhkd", ds, q) * SCALE, dv, ds)
+
+
+def _relpos_case(seed, backward):
+    q, k, v, a, bias, do, e = _relpos_inputs(seed)
+    d = [x.double() for x in (q, k, v, a, e, bias, do)]
+    exact = (fr.relpos_bwd_plain(*d, RH, SCALE) if backward
+             else fr.relpos_plain(*d[:6], RH, SCALE))
+    return exact, lambda einsum: relpos_split(q, k, v, a, bias, do, e,
+                                              einsum, backward)
+
+
+def _full_bias_case(seed, backward):
+    q, k, v, bias4, do = _full_bias_inputs(seed)
+    d = [x.double() for x in (q, k, v, bias4, do)]
+    exact = (fa.attention_full_bias_bwd_plain(*d, SCALE) if backward
+             else fa.attention_full_bias_plain(*d[:4], SCALE))
+    return exact, lambda einsum: full_bias_split(q, k, v, bias4, do, einsum,
+                                                 backward)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["relpos_forward", "relpos_backward",
+                                  "full_bias_forward", "full_bias_backward"])
+def test_3xtf32_relpos_and_full_bias_within_1e5_of_float64(kind, seed):
+    op, direction = kind.rsplit("_", 1)
+    case = _relpos_case if op == "relpos" else _full_bias_case
+    exact, run = case(seed, direction == "backward")
+    e3 = _err(run(make_einsum(3)), exact)
+    e1 = _err(run(make_einsum(1)), exact)
+    print(f"{kind} seed {seed}: max abs error vs float64: 3xTF32 {e3:.3g}, "
+          f"1xTF32 {e1:.3g}")
     assert e3 <= TOL_3X
     assert e1 >= 10 * e3
