@@ -4,8 +4,9 @@
 
 (``--parent DIR``: another checkout of the repository, typically the parent
 commit unpacked with ``git archive``; its kernels are built too, and the
-kernel phase times the rows of the kernels redesigned since (#3, #5) with
-its library as well, on the same inputs in the same process.)
+kernel phase times the rows of the kernels redesigned since (the training
+forward of #1, #2 and #5) with its library as well, on the same inputs in
+the same process.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -16,12 +17,14 @@ its library as well, on the same inputs in the same process.)
    abs error <= 1e-4; the DP's log-probabilities against the plain loop in
    float64, within 2 sqrt(T) ulp of the largest magnitude, over three
    shapes and four seeds; Viterbi paths equal; attention #1, #2, #3 and #5
-   (the backward and the inference forward on the tensor cores, the
-   training forward, which saves the softmax statistics, in fp32 SIMT; at
-   each training shape both forwards are timed): the head-major kernel
+   (the backward and the inference forward on the tensor cores; the
+   training forward, which saves the softmax statistics, on the fp32 FMA
+   pipes: #1, #2 and #5 in the register-tiled kernel, #3 in the SIMT one;
+   at each training shape both forwards are timed): the head-major kernel
    against the packed one at a shape both take, <= 1e-6, each backward
    bit-identical over two runs, HMMA instructions in the tensor-core
-   kernels' SASS (cuobjdump) and only their own kernels in a profile of
+   kernels' SASS (cuobjdump), FFMA and no HMMA in the FMA kernel's, no
+   spills in its ptxas report, and only their own kernels in a profile of
    their forward and backward (16 kernels for #1, #2, #5 and #3); the
    fused FFN
    #6 at cell T's encoder and serving A's and B's, its weight gradients
@@ -54,9 +57,10 @@ its library as well, on the same inputs in the same process.)
    the card against one on the CPU (dropout 0, GLAT p=0, 8 utterances),
    the kernel path against the plain path on the card (dropout 0.1, GLAT
    p=0.5), 13 timed updates (the run whose launch counts are read: every
-   kernel must have run), sub-stages, the device busy share of one
-   profiled update, peak memory, and 30 updates on one batch that must
-   bring the loss down;
+   kernel must have run; the attention forwards' training launches counted
+   apart), sub-stages, the device busy share of one profiled update (whose
+   kernels must include the FMA training forward and no SIMT forward),
+   peak memory, and 30 updates on one batch that must bring the loss down;
 6. joint S2ST training phase (``s2s_dag_fastspeech2_loss``): card-vs-CPU
    steps at B=4 (``expect`` and ``argmax``), the kernel path against the
    plain path at J-long with dropout on, 13 timed updates with sub-stages,
@@ -66,7 +70,9 @@ its library as well, on the same inputs in the same process.)
    (every DAG and encoder gradient exactly 0), and 30 updates that must
    end at <= 0.9 of the first loss;
 7. FastSpeech 2 pretraining phase (``fastspeech2_criterion``): a
-   card-vs-CPU step at B=4 and 7 updates (5 timed) at B=14, 1040 frames;
+   card-vs-CPU step at B=4, 7 updates (5 timed) at B=14, 1040 frames, and
+   the device busy share of one profiled update (with --parent also with
+   the parent tree's kernels, in turns);
 8. vocoder-mode phase, HiFi-GAN config_v1 (random weights scaled by their
    fan-in) on serving A's and B's mels: ``fused_mrf=True`` (the run whose launch
    count of the MRF kernel is read: 3 per batch) against the default mode
@@ -79,7 +85,9 @@ its library as well, on the same inputs in the same process.)
    on phonemes, vocab 128, then config_v1) on 8 utterances of 52 phonemes
    (416 frames) and 2 of 130 (1040 frames: the decoder takes the
    head-major attention), each mel against a CPU run (<= 1e-3), ms per
-   batch and audio seconds per wall second;
+   batch, audio seconds per wall second and the device busy share of one
+   profiled batch (with --parent also with the parent tree's kernels, as
+   the pretraining phase's);
 10. alternates phase: the two verified alternate backends, as the JAX
    package exposes them. ``FeedForwardModule(fused=True)`` set on every
    encoder layer of the S2TT model of phase 5: its step against the
@@ -93,8 +101,9 @@ its library as well, on the same inputs in the same process.)
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
 JSON summary, and the nvidia-smi line comes before that. Any failed check
-raises. Without a CUDA device the script exits non-zero and prints no
-result.
+raises, a card-vs-CPU step's after the last phase (the phases after it
+still run and report), and the script then exits non-zero and prints no
+result, as it does without a CUDA device.
 """
 
 from __future__ import annotations
@@ -244,13 +253,36 @@ def launch_counters():
             "fused_attention_full_bias_bwd": fa.attention_fb_bwd_kernel}
 
 
+# the forward wrappers that count their training launches (the FMA
+# training forward, which writes the softmax statistics) apart, in
+# ``train_launches``; read as "<name> training"
+TRAIN_FORWARDS = ("fused_attention_packed", "fused_attention",
+                  "fused_attention_relpos")
+
+
 def reset_launches():
     for w in launch_counters().values():
         w.launches = 0
+        if hasattr(w, "train_launches"):
+            w.train_launches = 0
 
 
 def read_launches():
-    return {n: w.launches for n, w in launch_counters().items()}
+    counters = launch_counters()
+    launches = {n: w.launches for n, w in counters.items()}
+    launches.update({f"{n} training": counters[n].train_launches
+                     for n in TRAIN_FORWARDS})
+    return launches
+
+
+def training_forwards_per_update(launches, n_updates, tag):
+    """Log the attention forwards' launches per update, training (the FMA
+    forward) and inference apart."""
+    log(f"  {tag}: attention forward launches per update, training / "
+        "inference: " + ", ".join(
+            f"{n} {launches[f'{n} training'] / n_updates:g} / "
+            f"{(launches[n] - launches[f'{n} training']) / n_updates:g}"
+            for n in TRAIN_FORWARDS))
 
 
 def bound(flops, nbytes, rate=PEAK_FLOPS_MMA):
@@ -460,26 +492,37 @@ def relpos_sdpa(q_ext, k_ext, v, mask, sm_scale, p=0.0):
 TC_KERNELS = ("attn_tc_fwd_kernel", "attn_tc_bwd_dq_kernel",
               "attn_tc_bwd_dkdv_kernel", "attn_tc_chunk_fwd_kernel",
               "attn_tc_chunk_ds_kernel", "attn_tc_grad_kernel")
-# every attention kernel's training forward (attention.cuh's fp32 template)
+# the training forward of #1, #2 (instance <1>) and #5 (<5>):
+# attention_fma.cuh's register-tiled kernel on the fp32 FMA pipes
+FMA_FORWARD = "attn_fma_fwd_kernel"
+# the full-bias attention's (#3) training forward, attention.cuh's SIMT
+# kernel: no training path but the alternates phase may run it
 SIMT_FORWARD = "attn_fwd_kernel"
-# the rows of the chunked-score kernels (#3, #5), also timed with the
-# parent tree's library when one is given (--parent)
-REDESIGNED = ("fused_attention_relpos", "fused_attention_relpos_bwd",
-              "fused_attention_full_bias", "fused_attention_full_bias_bwd")
+# the kernels whose training-forward rows (" training") are also timed with
+# the parent tree's library when one is given (--parent)
+REDESIGNED = ("fused_attention_packed", "fused_attention",
+              "fused_attention_relpos")
 PARENT = {}               # "lib": the parent tree's kernel library
 
 
-def parent_ms(fn):
-    """``cuda_ms(fn)`` with the parent tree's kernel library in place of
-    this tree's: the same wrappers call the same C entry points there."""
-    from daspeech_torch.ops import _build
+class parent_library:
+    """Within the block the wrappers launch the parent tree's kernels: the
+    same wrappers call the same C entry points in its library."""
 
-    own = _build.library
-    _build.library = lambda: PARENT["lib"]
-    try:
+    def __enter__(self):
+        from daspeech_torch.ops import _build
+
+        self.build, self.own = _build, _build.library
+        _build.library = lambda: PARENT["lib"]
+
+    def __exit__(self, *exc):
+        self.build.library = self.own
+
+
+def parent_ms(fn):
+    """``cuda_ms(fn)`` with the parent tree's kernel library."""
+    with parent_library():
         return cuda_ms(fn)
-    finally:
-        _build.library = own
 
 
 def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
@@ -503,11 +546,12 @@ def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
     return run
 
 
-def attention_launch_path(run, n_kernels, what):
+def attention_launch_path(run, n_kernels, n_fma, what):
     """The attention wrappers called by ``run()`` launch their own kernels
     and no library's (no SDPA, cuBLAS or cuDNN): a profile of one
     ``run()`` holds exactly ``n_kernels`` kernels, each one of
-    attention_tc.cuh's or the fp32 training forward."""
+    attention_tc.cuh's or an fp32 training forward, ``n_fma`` of them the
+    FMA forward and the rest of the training forwards the SIMT one."""
     run()
     events, _ = profiled_kernels(run, f"attention_launch_path {what}")
     names = sorted({e["name"] for e in events})
@@ -516,18 +560,22 @@ def attention_launch_path(run, n_kernels, what):
     if not events:
         log("  the profiler saw no kernels: launch path not checked")
         return
-    foreign = [n for n in names
-               if not any(t in n for t in (*TC_KERNELS, SIMT_FORWARD))]
-    if foreign or len(events) != n_kernels:
+    foreign = [n for n in names if not any(
+        t in n for t in (*TC_KERNELS, FMA_FORWARD, SIMT_FORWARD))]
+    fma = sum(FMA_FORWARD in e["name"] for e in events)
+    if foreign or len(events) != n_kernels or fma != n_fma:
         raise AssertionError(f"{what} launch path ran {names} "
-                             f"({len(events)} kernels, not {n_kernels})")
+                             f"({len(events)} kernels, not {n_kernels}; "
+                             f"{fma} FMA forwards, not {n_fma})")
 
 
-def sass_tensor_cores(lib_path):
-    """HMMA (tensor-core) instructions per kernel of attention_tc.cuh in the
-    built library's SASS (``cuobjdump -sass``), a template kernel's
-    instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
-    #3's); None without cuobjdump."""
+def sass_counts(lib_path):
+    """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
+    attention_tc.cuh and of the FMA forward in the built library's SASS
+    (``cuobjdump -sass``), a template kernel's instances apart
+    (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``: #3's;
+    ``attn_fma_fwd_kernel<1>``: #1's and #2's, ``<5>``: #5's); None
+    without cuobjdump."""
     import re
     import shutil
 
@@ -543,16 +591,43 @@ def sass_tensor_cores(lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((t for t in TC_KERNELS if t in m.group(1)), None)
+            name = next((t for t in (*TC_KERNELS, FMA_FORWARD)
+                         if t in m.group(1)), None)
             inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
             if name and inst:
                 name += "<" + ",".join(re.findall(r"L[a-z](\d+)E",
                                                   inst.group(1))) + ">"
             if name:
-                counts[name] = 0
-        elif name and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
+                counts[name] = {"HMMA": 0, "FFMA": 0}
+        elif name:
+            for op in re.findall(r"\b(HMMA|FFMA)\b", line):
+                counts[name][op] += 1
     return counts
+
+
+def fma_spills(ptxas):
+    """The FMA forward's instances in nvcc's -Xptxas -v report: each must
+    use no more than 255 registers and spill nothing."""
+    import re
+
+    lines = ptxas.splitlines()
+    found = 0
+    for i, line in enumerate(lines):
+        if "entry function" not in line or FMA_FORWARD not in line:
+            continue
+        found += 1
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", info)
+        log(f"  {FMA_FORWARD} instance {found}: {regs.group(1)} registers, "
+            f"spill stores/loads {spill.group(1)}/{spill.group(2)} bytes")
+        if int(regs.group(1)) > 255 or spill.group(1) != "0" \
+                or spill.group(2) != "0":
+            raise AssertionError(f"{FMA_FORWARD} spills: {info}")
+    if found != 2:
+        raise AssertionError(f"{found} instances of {FMA_FORWARD} in the "
+                             "ptxas report, not 2")
 
 
 def kernel_phase():
@@ -571,9 +646,13 @@ def kernel_phase():
                **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
-        was = (parent_ms(run_kernel) if name in REDESIGNED and PARENT
-               else None)
+        fma_row = name in REDESIGNED and shape.endswith(" training")
+        was = parent_ms(run_kernel) if PARENT and fma_row else None
         b_ms, b_by = bound(flops, nbytes, rate)
+        if fma_row:
+            # the FMA forward's own ceiling: its products at the fp32 FMA
+            # pipes' rate
+            extra["fma_bound_ms"] = bound(flops, nbytes, PEAK_FLOPS_FP32)[0]
         cases[name].append({"shape": shape, "max_abs_err": err, "tol": tol,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": lib_ms,
@@ -583,7 +662,10 @@ def kernel_phase():
             f"{ms:.4f} ms{tf(ms)}"
             + ("" if was is None else f"  parent tree {was:.4f} ms")
             + f"  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})  library "
+            f"({b_by})"
+            + ("" if not fma_row
+               else f"  FMA-pipe bound {extra['fma_bound_ms']:.4f} ms")
+            + "  library "
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms{tf(lib_ms)}"))
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max abs err {err} > {tol}")
@@ -619,7 +701,7 @@ def kernel_phase():
         bias = _key_bias(B, Tk, g)
         seeds = _seeds(g, B) if p else None
         shape = f"q[{B},{Tq},{C}] kv_T={Tk} H={H} p={p}"
-        # training asks for the statistics (the fp32 forward), inference
+        # training asks for the statistics (the FMA forward), inference
         # does not (the tensor-core forward); at a training shape both run
         for stats_on in ((False, True) if train else (False,)):
             out, stats = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p,
@@ -782,7 +864,7 @@ def kernel_phase():
     # the training shape, the T' >= 256 regime and J-long's encoder (14
     # utterances of 14 s), forward and backward with dropout 0.1; the
     # inference forward on the tensor cores, the training forward
-    # (statistics) on the fp32 SIMT kernel. The library yardstick is SDPA
+    # (statistics) on the FMA kernel. The library yardstick is SDPA
     # on the extended operands [q_u | a], [k | e] (relpos_sdpa), built
     # outside the timed call
     for (B, T, C, H, p) in ((8, 120, 256, 4, 0.0), (8, 300, 256, 4, 0.0),
@@ -911,7 +993,7 @@ def kernel_phase():
     # and the backward of #1, #2, #5 and #3, 1 + 1 + 2 kernels each. One
     # profile of all of them: the first profiler session of the run (a
     # later session lost the first kernels it should have seen)
-    attention_launch_path(lambda: (run_1_2(), run_5_3()), 16,
+    attention_launch_path(lambda: (run_1_2(), run_5_3()), 16, 3,
                           "#1, #2, #5 and #3")
     worst = dp_numerics()
     if not worst <= 1.0:
@@ -1477,12 +1559,14 @@ def profile_dir():
 def device_busy(fn, tag):
     """``fn()`` once under ``torch.profiler``: the device's busy time
     (union of kernel intervals) against the wall time, and the kernels that
-    took the most device time. The trace goes to ``build/profile/``."""
+    took the most device time. The trace goes to ``build/profile/``.
+    Returns the names of the kernels it ran (None if the profiler saw
+    none)."""
     events, wall = profiled_kernels(fn, tag)
     if not events:
         log(f"  {tag} profiled: wall {wall:.2f} ms; the profiler saw no "
             "kernels, device busy not measured")
-        return
+        return None
     busy, end = 0.0, -1.0
     for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         busy += max(0.0, e - max(s, end))
@@ -1498,6 +1582,36 @@ def device_busy(fn, tag):
     for name, (count, ms) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:12]:
         log(f"    {ms:9.3f} ms {count:6d}x  {name}")
+    for name in (FMA_FORWARD, SIMT_FORWARD):
+        hits = [(c, ms) for n, (c, ms) in by_name.items() if name in n]
+        log(f"    {name}: {sum(c for c, _ in hits)} launches, "
+            f"{sum(ms for _, ms in hits):.3f} ms")
+    return {e["name"] for e in events}
+
+
+def device_busy_in_turns(fn, tag):
+    """:func:`device_busy` of ``fn()``; with a parent tree (--parent) also
+    with its kernels, in turns (this tree, parent, this tree). Returns the
+    kernel names of this tree's first profile."""
+    names = device_busy(fn, tag)
+    if PARENT:
+        with parent_library():
+            device_busy(fn, f"{tag}, parent tree's kernels")
+        device_busy(fn, f"{tag}, again")
+    return names
+
+
+def fma_forward_only(names, tag):
+    """A training path's profiled update ran the FMA training forward and
+    no SIMT one (only the full-bias attention, which no training path
+    calls, keeps that)."""
+    if names is None:
+        log(f"  {tag}: no profile, training forward kernels not checked")
+        return
+    simt = sorted(n for n in names if SIMT_FORWARD in n)
+    if simt or not any(FMA_FORWARD in n for n in names):
+        raise AssertionError(f"{tag}: training forward kernels: SIMT {simt}, "
+                             f"FMA {any(FMA_FORWARD in n for n in names)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1510,6 +1624,7 @@ PARITY_B = 8
 TOL_LOSS = 1e-4          # relative, loss of one step
 TOL_GRAD = 1e-3          # relative, per parameter (floor: see grad_error)
 NEAR_TIE = 1e-3          # a glance that differs must be this close to a tie
+NEAR_TIE_RELU = 1e-4     # a ReLU unit that changes side: |pre-activation|
 LEARN_STEPS, LEARN_FRACTION = 30, 0.9
 
 
@@ -1566,16 +1681,25 @@ def grad_errors(got, want):
             / max(float(b.norm()), floor) for a, b in zip(got, want)]
 
 
+# parameters whose card-vs-CPU gradient difference is always logged: a
+# training forward with a biased accumulation (the tensor cores') moved
+# FastSpeech 2's positional-embedding scale, a sum over the whole batch,
+# past the bar in the joint step
+WATCHED_GRADS = ("tts.pos_emb_alpha",)
+
+
 def grad_error(names, got, want, tag):
     """Worst of :func:`grad_errors`. Every parameter's value goes to
-    ``build/profile/grads_<tag>.tsv``, the five worst to the log."""
+    ``build/profile/grads_<tag>.tsv``, the five worst and the watched ones
+    to the log."""
     rel = list(zip(grad_errors(got, want), names))
     with open(os.path.join(profile_dir(), f"grads_{tag}.tsv"), "w") as f:
         f.writelines(f"{n}\t{r:.6g}\n" for r, n in rel)
     worst = sorted(rel, reverse=True)
     log(f"  {tag}: gradient difference relative to its norm, {len(rel)} "
         "parameters, worst five: "
-        + ", ".join(f"{n} {r:.3g}" for r, n in worst[:5]))
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst[:5])
+        + "".join(f"; {n} {r:.3g}" for r, n in rel if n in WATCHED_GRADS))
     return worst[0][0]
 
 
@@ -1631,6 +1755,52 @@ class glance_spy:
     def __exit__(self, *exc):
         for m in self.modules:
             m.glat_glance = self.orig
+
+
+class relu_sides:
+    """Within the block ``F.relu`` (FastSpeech 2's activation) records, call
+    by call, which units are positive and which lie within NEAR_TIE_RELU of
+    zero. Given ``follow``, another run's record, a unit on the other side
+    of the kink from that run is a tie when its pre-activation lies that
+    close to zero in both runs: it takes the other run's side, value and
+    derivative (the derivative is undefined at the kink). ``ties`` and
+    ``far`` count the units that changed side at a tie and farther out."""
+
+    def __init__(self, follow=None):
+        self.follow, self.sides = follow, []
+        self.units = self.ties = self.far = 0
+        self.worst = 0.0
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self.module, self.orig = F, F.relu
+        recorded = iter(self.follow or ())
+
+        def relu(x, inplace=False):
+            pos = x > 0
+            self.units += pos.numel()
+            if self.follow is None:
+                self.sides.append((pos.cpu(),
+                                   (x.abs() <= NEAR_TIE_RELU).cpu()))
+                return self.orig(x, inplace)
+            ref, near = (t.to(x.device) for t in next(recorded))
+            differ = pos != ref
+            if not bool(differ.any()):
+                return self.orig(x, inplace)
+            tie = differ & near & (x.abs() <= NEAR_TIE_RELU)
+            self.ties += int(tie.sum())
+            self.far += int((differ & ~tie).sum())
+            self.worst = max(self.worst,
+                             float(x.detach()[differ].abs().max()))
+            return torch.where(tie, torch.where(ref, x, torch.zeros_like(x)),
+                               self.orig(x))
+
+        F.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        self.module.relu = self.orig
 
 
 class argmax_spy:
@@ -1956,6 +2126,7 @@ def train_phase():
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  launches in the training run (13 updates): {launches}")
+    training_forwards_per_update(launches, 13, "S2TT")
     for name in TRAIN_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the training "
@@ -1974,7 +2145,8 @@ def train_phase():
     log("  training sub-stages (median of 5, ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in med_st.items())
         + f"; sum {sum(med_st.values()):.3f}")
-    device_busy(lambda: step(state, batch, gen), "train step")
+    fma_forward_only(device_busy(lambda: step(state, batch, gen),
+                                 "train step"), "train step")
 
     # --- learning: LEARN_STEPS updates on one fixed batch, warm-up 10
     learn_model = copy.deepcopy(model_cpu).to(DEVICE)
@@ -2089,28 +2261,38 @@ def fs2_loss_fn(vocab):
     return lambda m, b, g: fastspeech2_criterion(m, b, g, vocab)
 
 
+# the card-vs-CPU steps of step_parity that failed their bars
+DISAGREEMENTS = []
+
+
 def step_parity(tag, model_cpu, loss_fn, batch):
     """One ``make_train_step`` on the card and one on the CPU (plain
     versions), same weights and batch: loss within TOL_LOSS relative, each
     gradient within TOL_GRAD of its norm, BatchNorm statistics within
     TOL_KERNEL. The ``argmax`` strategy's Viterbi paths must agree; a
     sample whose path differs must be a near tie, and is masked out of a
-    second try."""
+    second try. A ReLU unit on the other side of the kink on the CPU than
+    on the card must be a tie (:class:`relu_sides`), and the CPU's step
+    takes the card's side there. A step past these bars goes to
+    DISAGREEMENTS: the phases
+    after it still run and report, and :func:`main` fails before it
+    prints any result."""
     from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
 
     opt = GuardedAdam(lr=5e-4, warmup_updates=1)
     B = next(iter(batch.values())).shape[0]
     for attempt in range(2):
-        out = {}
+        out, card = {}, None
         for dev in (DEVICE, "cpu"):
             model = copy.deepcopy(model_cpu).to(dev)
             state = TrainState.create(model, opt)
             b = {k: v.to(dev) for k, v in batch.items()}
             t0 = time.perf_counter()
-            with argmax_spy() as spy:
+            with argmax_spy() as spy, relu_sides(card) as relus:
                 metrics = make_train_step(loss_fn, opt)(
                     state, b, torch.Generator().manual_seed(SEED))
             sync()
+            card = relus.sides
             out[dev] = (metrics["loss"].item(),
                         [torch.zeros(p.shape) if p.grad is None
                          else p.grad.detach().cpu() for p in state.params],
@@ -2141,11 +2323,18 @@ def step_parity(tag, model_cpu, loss_fn, batch):
                        if p.requires_grad], gg, gc, tag.replace(" ", "_"))
     berr = max((float((a - b).abs().max()) for a, b in zip(bg, bc)
                 if a.is_floating_point()), default=0.0)
+    log(f"  {tag}: ReLU units on the CPU's side of the kink other than the "
+        f"card's: {relus.ties} at a tie (|pre-activation| <= {NEAR_TIE_RELU} "
+        f"in both, the card's side taken), {relus.far} farther out, of "
+        f"{relus.units}; largest |pre-activation| among them "
+        f"{relus.worst:.3g}")
     log(f"  {tag}, card vs CPU: loss rel diff {dloss:.3g} (<= {TOL_LOSS}); "
         f"worst per-parameter gradient rel diff {gerr:.3g} (<= {TOL_GRAD});"
         f" buffers max abs diff {berr:.3g}")
-    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD and berr <= TOL_KERNEL):
-        raise AssertionError(f"{tag}: card and CPU steps disagree")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD and berr <= TOL_KERNEL
+            and relus.far == 0):
+        log(f"  FAILED: {tag}: card and CPU steps disagree")
+        DISAGREEMENTS.append(tag)
     return {"loss_rel": dloss, "grad_rel": gerr}
 
 
@@ -2291,6 +2480,7 @@ def joint_phase():
         per = {n: launches[n] / 13 for n in JOINT_KERNELS}
         log(f"  {tag} launches per update: "
             + ", ".join(f"{n} {v:g}" for n, v in per.items()))
+        training_forwards_per_update(launches, 13, f"joint {tag}")
         for name in (JOINT_KERNELS if HM_PER_UPDATE[tag][0]
                      else TRAIN_KERNELS):
             if launches[name] <= 0:
@@ -2306,8 +2496,9 @@ def joint_phase():
         log(f"  {tag} sub-stages (median of 5, ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
             + f"; sum {sum(med.values()):.3f}")
-        device_busy(lambda: step(state, batch, torch.Generator()),
-                    f"joint step {tag}")
+        fma_forward_only(device_busy(
+            lambda: step(state, batch, torch.Generator()),
+            f"joint step {tag}"), f"joint step {tag}")
 
     # --- a frozen-DAG step: no gradient reaches the encoder or the DAG
     # decoder; the adaptor and FastSpeech 2 train
@@ -2369,10 +2560,14 @@ def fs2_phase():
         f"FastSpeech 2 pretraining P (B={B}, T={T}, M={M})")
     log(f"  P launches over 7 updates: "
         + ", ".join(f"{n} {launches[n]}" for n in JOINT_KERNELS))
+    training_forwards_per_update(launches, 7, "P")
     for name in ("fused_attention_packed", "fused_attention",
                  "fused_attention_packed_bwd", "fused_attention_bwd"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by pretraining")
+    fma_forward_only(device_busy_in_turns(
+        lambda: step(state, batch, torch.Generator()), "pretraining step P"),
+        "pretraining step P")
     return launches
 
 
@@ -2568,6 +2763,8 @@ def tts_phase(voc_cpu):
             f"audio = {audio_s / (ms / 1e3):.1f} audio-s per s; mel vs CPU "
             f"(first 2) {err:.3g} (<= {TOL_TTS_MEL}); launches "
             + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        device_busy_in_turns(lambda: gen.generate(batch),
+                             f"TTS generate batch {tag}")
     if runs["B"]["fused_attention"] <= 0:
         raise AssertionError("the 1040-frame TTS decoder did not take the "
                              "head-major attention")
@@ -2727,18 +2924,26 @@ def main() -> int:
     log(f"kernels built in {built.seconds:.1f} s -> {built.path}")
     if built.ptxas:
         log(built.ptxas.strip())
+        fma_spills(built.ptxas)
     _build.library()
     if parent is not None:
         parent.join()
         PARENT["lib"] = _build.load(PARENT["build"].path)
         log(f"parent tree's kernels built in {PARENT['build'].seconds:.1f} s "
             f"-> {PARENT['build'].path}")
-    hmma = sass_tensor_cores(built.path)
-    log(f"HMMA instructions in the SASS of attention_tc.cuh's kernels: "
-        + ("cuobjdump not found, not checked" if hmma is None else str(hmma)))
-    if hmma is not None and ({n.split("<")[0] for n in hmma} != set(TC_KERNELS)
-                             or not all(hmma.values())):
-        raise AssertionError(f"tensor-core kernels without HMMA: {hmma}")
+    sass = sass_counts(built.path)
+    log(f"HMMA and FFMA instructions in the SASS of attention_tc.cuh's "
+        "kernels and of the FMA forward: "
+        + ("cuobjdump not found, not checked" if sass is None else str(sass)))
+    if sass is not None:
+        tc = {n: c for n, c in sass.items() if not n.startswith(FMA_FORWARD)}
+        fma = {n: c for n, c in sass.items() if n.startswith(FMA_FORWARD)}
+        if ({n.split("<")[0] for n in tc} != set(TC_KERNELS)
+                or not all(c["HMMA"] for c in tc.values())):
+            raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
+        if (set(fma) != {f"{FMA_FORWARD}<1>", f"{FMA_FORWARD}<5>"}
+                or any(c["HMMA"] or not c["FFMA"] for c in fma.values())):
+            raise AssertionError(f"FMA forward not on the FMA pipes: {fma}")
 
     log("kernel phase:")
     cases = kernel_phase()
@@ -2773,6 +2978,13 @@ def main() -> int:
     if stray:
         raise AssertionError(f"alternate kernels launched elsewhere: {stray}")
     log(f"  {', '.join(ALTERNATE_KERNELS)}: 0 launches on every other path")
+    # serving runs inference forwards only: no launch writes statistics
+    trained = {(p, n): by_path[p][f"{n} training"] for n in TRAIN_FORWARDS
+               for p in ("serving", "vocoder_fused", "tts_A", "tts_B")
+               if by_path[p][f"{n} training"]}
+    if trained:
+        raise AssertionError(f"training forwards on serving paths: {trained}")
+    log("  training forwards on the serving, vocoder and TTS paths: 0")
     by_path.update({"alternates_ffn": alternates["fused"],
                     "alternates_full_bias": alternates["full_bias"]})
     kernels = []
@@ -2786,15 +2998,22 @@ def main() -> int:
                      else "alternates_full_bias" if "full_bias" in name
                      else "serving" if name in SERVING_KERNELS
                      else "training")
+        train = ({"training_launches": by_path[main_path][f"{name} training"],
+                  "training_launches_by_path": {
+                      k: v[f"{name} training"] for k, v in by_path.items()}}
+                 if name in TRAIN_FORWARDS else {})
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": by_path[main_path][name],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            **train,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "shapes": shapes})
+    if DISAGREEMENTS:
+        raise AssertionError(f"card and CPU steps disagree: {DISAGREEMENTS}")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "daspeech_tpu"))
     if foreign:

@@ -6,8 +6,10 @@
 // [B, H, Tq, Tk] bias that receives a gradient) and the Conformer rel-pos
 // attention (fused_relpos.cu; a 64 + 256-deep score) the chunked-score
 // kernels at the end ("Chunked score depth"). The training forward of all
-// four keeps the SIMT template of attention.cuh, whose argument structs
-// (AttnArgs, AttnBwdArgs) this header shares; see "Accumulation" for why.
+// four stays on the fp32 FMA pipes (attention_fma.cuh for the packed,
+// head-major and rel-pos attention, attention.cuh's SIMT kernel for the full
+// bias); see "Accumulation" for why. The argument structs (AttnArgs,
+// AttnBwdArgs) and the cp.async helpers are attention.cuh's.
 //
 // Precision: fp32 in and out; every matrix product runs on the tensor cores
 // as 3xTF32. Each operand x is split into hi = cvt.rna.tf32(x) and
@@ -49,9 +51,9 @@
 // its output's coherent error moves gradients that are sums over the
 // whole batch (FastSpeech 2's positional-embedding scale in the joint
 // step's card-vs-CPU check) ten times past the fp32 noise, where the SIMT
-// forward stays at it. So training runs attention.cuh's fp32 forward,
-// which writes the statistics this backward reads, and inference, where
-// each output only has to match to 1e-4, runs this one.
+// forward stays at it. So training runs an fp32 FMA forward, which writes
+// the statistics this backward reads, and inference, where each output
+// only has to match to 1e-4, runs this one.
 //
 // Shared-memory tiles are [64 rows][68 floats]. The pitch of 68 makes both
 // reads conflict-free: mma_rows reads T[n = gid][k = t] (bank 4 gid + t),
@@ -76,7 +78,7 @@
 // dPᵀ = V·dOᵀ, then dV += (P∘Z)ᵀ·dO and dK += dSᵀ·Q. P is recomputed from
 // the statistics the training forward saved.
 //
-// Dropout draws the bits attention.cuh draws: word (j % 4) of
+// Dropout draws the bits the training forwards draw: word (j % 4) of
 // philox4x32_10((j / 4, i, h, 0), (seed[b], 0)) for query i, key j. In the
 // forward and dq kernels a quad's threads t = 0, 1 share one 4-key group of
 // a row and t = 2, 3 the next: each thread draws one (row, group) per 8-key
@@ -245,40 +247,11 @@ __device__ __forceinline__ void zero(float x[8][4]) {
   }
 }
 
-// cp.async of 16, 8 or 4 bytes; zero-fills the destination when !valid
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
-                                         bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? N : 0;
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-                 "l"(gmem), "n"(N), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // rows r0 .. r0 + 63 of a [rows, 64] operand view into a tile; rows past
 // `rows` are zero-filled
 __device__ __forceinline__ void load_tile(float* tile, const Operand& x,
                                           int b, int h, int r0, int rows) {
-  for (int c = threadIdx.x; c < kRows * 16; c += kThreads) {
-    const int rr = c >> 4, col = (c & 15) * 4, r = r0 + rr;
-    const bool ok = r < rows;
-    cp_async<16>(tile + rr * kPitch + col, x.at(b, ok ? r : 0, h) + col, ok);
-  }
+  load_rows64<kThreads, kPitch>(tile, x, b, h, r0, rows);
 }
 
 // keep bits of one Philox draw: bit w = word w <= thresh
@@ -753,17 +726,6 @@ inline cudaError_t launch_attn_tc_bwd(const AttnBwdArgs& args, int B,
 // dk = scale dSᵀ·q, dv = (P∘Z)ᵀ·dO. This keeps the 320-deep score off the
 // key side (no recomputed Sᵀ) and the 320 columns of [dq | da] out of one
 // thread's registers.
-
-// an operand's (or gradient's) channels from c0 on
-__host__ __device__ __forceinline__ Operand channels(const Operand& x,
-                                                     int c0) {
-  return Operand{x.ptr + c0, x.sb, x.sr, x.sh};
-}
-
-__host__ __device__ __forceinline__ View<float> channels(
-    const View<float>& x, int c0) {
-  return View<float>{x.ptr + c0, x.sb, x.sr, x.sh};
-}
 
 // the [Tq, Tk] matrix of (b, h) in a contiguous [B, H, Tq, Tk] tensor
 __device__ __forceinline__ long long matrix_at(const AttnArgs& f, int b,

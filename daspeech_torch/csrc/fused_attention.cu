@@ -19,10 +19,11 @@
 // take they compute the same sums in the same order. The backward and the
 // inference forward (no statistics) are the tensor-core kernels of
 // attention_tc.cuh; the training forward, which saves the statistics the
-// backward reads, is the fp32 SIMT kernel of attention.cuh, because the
-// tensor cores' accumulation bias in a training forward moves batch-wide
-// gradient sums past fp32's noise (attention_tc.cuh, "Accumulation"). Dropout is keyed by (seed of the batch row, j/4, i, h)
-// in both, so they also drop the same elements.
+// backward reads, is the register-tiled fp32 FMA kernel of
+// attention_fma.cuh, because the tensor cores' accumulation bias in a
+// training forward moves batch-wide gradient sums past fp32's noise
+// (attention_tc.cuh, "Accumulation"). Dropout is keyed by (seed of the
+// batch row, j/4, i, h) in both, so they also drop the same elements.
 //
 // Computes, per batch row b and head h,
 //   out[b, h] = dropout(softmax(q[b, h] k[b, h]^T * scale + bias[b])) v[b, h]
@@ -38,19 +39,21 @@
 // T=1040) the forward is 15.5 GFLOP against 60 MB. The port keeps fp32
 // accuracy, so the least time for these products is at the 3xTF32 rate of
 // the tensor cores, 495 / 3 = 165 TFLOP/s on an H100 SXM (0.057 ms for the
-// training forward), not the 67 TFLOP/s of the fp32 FMA pipes. The
+// training forward), not the 67 TFLOP/s of the fp32 FMA pipes, which bound
+// the training forward (0.14 ms at the decoder shape). The
 // tensor-core design (attention_tc.cuh) runs every product as 3xTF32
 // mma.sync, streams K/V (forward, dq) or Q/dO (dk/dv) tiles by cp.async,
 // double-buffered, keeps the score matrix out of device memory (online
 // softmax; the backward recomputes P from the saved row statistics) and
 // draws dropout bits in registers, one Philox draw per 8-key block and
-// thread. The SIMT training forward holds one query row in four threads
-// and reads every key from shared memory once per FMA (attention.cuh).
+// thread. The FMA training forward (attention_fma.cuh) gives each thread a
+// 4-query x 4-key micro-tile of the score and a 4-query x 4-channel one of
+// the output, fed by 16-byte shared-memory reads.
 //
 // The full-bias entry points run the chunked-score tensor-core kernels of
 // attention_tc.cuh with one chunk (NC = 1) and the bias as a
 // [query tile, key tile] block per stage, streamed beside K by cp.async;
-// their training forward is attention.cuh's SIMT kernel in its FULL mode.
+// their training forward is attention.cuh's SIMT kernel.
 // The backward's score kernel writes dS (the bias's gradient, each element
 // once) and P∘Z; dq, dk and dv are products with them in a second launch.
 // There bytes count as well as operations: bias4 is read once forward and
@@ -59,6 +62,7 @@
 // 1.2 GFLOP forward (the bytes bound it); at [14, 8, 700, 64] bias4 is
 // 219 MB.
 #include "attention.cuh"
+#include "attention_fma.cuh"
 #include "attention_tc.cuh"
 
 namespace {
@@ -107,11 +111,11 @@ int attention_fwd(const float* q, const float* k, const float* v,
   const AttnArgs args = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
                                   out, stats, Tq, Tk, H, scale, head_major);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // training (statistics asked for): the fp32 SIMT forward of
-  // attention.cuh; inference: the tensor-core forward (attention_tc.cuh,
-  // "Accumulation")
+  // training (statistics asked for): the fp32 FMA forward of
+  // attention_fma.cuh; inference: the tensor-core forward
+  // (attention_tc.cuh, "Accumulation")
   return static_cast<int>(stats != nullptr
-                              ? launch_attn_fwd<64, 0, 64, 4, 32, 64>(args, B, s)
+                              ? fma::launch_attn_fma_fwd<1>(args, B, s)
                               : tc::launch_attn_tc_fwd(args, B, s));
 }
 
@@ -208,7 +212,7 @@ extern "C" int daspeech_attention_fb_fwd(const float* q, const float* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       stats != nullptr
-          ? launch_attn_fwd<64, 0, 64, 4, 32, 64, true>(args, B, s)
+          ? launch_attn_fwd<64, 4, 32, 64>(args, B, s)
           : tc::launch_attn_tc_chunk_fwd<1, true>(args, B, s));
 }
 

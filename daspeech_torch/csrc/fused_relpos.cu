@@ -27,20 +27,23 @@
 // as products with them, so the 320-deep score is recomputed once, not
 // also transposed for dk, and [dq | da] (320 columns) never sits in one
 // thread's registers. The training forward, which writes the softmax
-// statistics, is attention.cuh's fp32 SIMT template with D1 = 64,
-// D2 = 256 (attention_tc.cuh, "Accumulation"). Neither the [T, T]
-// position scores nor the [T, 2T-1] shift tensor of the reference form
-// reach device memory in the forward.
+// statistics, stays on the fp32 FMA pipes (attention_tc.cuh,
+// "Accumulation"): attention_fma.cuh's register-tiled kernel, which sums
+// the same five chunk pairs, streamed two 64 x 64 tiles a stage by
+// cp.async. Neither the [T, T] position scores nor the [T, 2T-1] shift
+// tensor of the reference form reach device memory in the forward.
 //
 // What bounds it on this card: five-sixths of the score FLOPs are the
 // position product. At the training shape (B=80, H=4, T'=120) the forward
 // is 3.5 GFLOP and the backward 7.7 GFLOP of matrix products, against
 // 68 MB (forward) of device traffic: the operations bound it, at the
-// tensor cores' 3xTF32 rate. The backward adds 2 x 18 MB of dS and P∘Z
+// tensor cores' 3xTF32 rate (the training forward at the FMA pipes' 67
+// TFLOP/s: 0.052 ms). The backward adds 2 x 18 MB of dS and P∘Z
 // written and read back (about 30 us at 3.35 TB/s), e (T x 1 KB) is the
 // same for every (b, h) and stays in L2, and the query side's tiles are
 // re-read from L2 for every key tile.
 #include "attention.cuh"
+#include "attention_fma.cuh"
 #include "attention_tc.cuh"
 
 namespace {
@@ -85,11 +88,12 @@ extern "C" int daspeech_relpos_fwd(const float* q, const float* k,
   const AttnArgs args = relpos_args(q, k, v, a, e, bias, seeds, thresh,
                                     keep_scale, out, stats, T, H, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // training (statistics asked for): the fp32 SIMT forward of
-  // attention.cuh; inference: the tensor cores (attention_tc.cuh)
+  // training (statistics asked for): the fp32 FMA forward of
+  // attention_fma.cuh; inference: the tensor cores (attention_tc.cuh)
   return static_cast<int>(
-      stats != nullptr ? launch_attn_fwd<64, 256, 64, 4, 32, 16>(args, B, s)
-                       : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
+      stats != nullptr
+          ? fma::launch_attn_fma_fwd<5>(args, B, s)
+          : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
 }
 
 extern "C" int daspeech_relpos_bwd(

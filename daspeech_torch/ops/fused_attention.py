@@ -21,9 +21,13 @@ dropout on the probabilities:
 The backward of all three, and their forward where no softmax statistics
 are asked for (inference), run every product on the tensor cores in
 3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``); their
-training forward (``with_stats``) sums on the fp32 FMA pipes
-(``csrc/attention.cuh``), which it needs: the tensor cores' accumulation
-bias there moves batch-wide gradient sums past fp32's noise.
+training forward (``with_stats``) sums on the fp32 FMA pipes, which it
+needs: the tensor cores' accumulation bias there moves batch-wide gradient
+sums past fp32's noise. That is a register-tiled kernel for the packed and
+head-major layouts (``csrc/attention_fma.cuh``) and a SIMT kernel for the
+full bias (``csrc/attention.cuh``). Each forward wrapper counts its
+launches in ``launches`` and, of those, the training forwards in
+``train_launches``.
 All are differentiable. Their forward and backward take the plain versions
 for CPU tensors and launch the kernels for CUDA tensors; there is no
 fallback between the two. Dropout multiplies the softmax probabilities by
@@ -157,6 +161,7 @@ def attention_fwd_kernel(q, k, v, bias, num_heads: int, sm_scale: float,
             _build.stream_of(q))
     _build.check(rc, "daspeech_attention_fwd")
     fused_attention_packed.launches += 1
+    fused_attention_packed.train_launches += with_stats
     return out, stats
 
 
@@ -235,6 +240,7 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention_packed.launches = 0
+fused_attention_packed.train_launches = 0
 attention_bwd_kernel.launches = 0
 
 
@@ -326,6 +332,7 @@ def attention_hm_fwd_kernel(q, k, v, bias, sm_scale: float,
             _build.stream_of(q))
     _build.check(rc, "daspeech_attention_hm_fwd")
     fused_attention.launches += 1
+    fused_attention.train_launches += with_stats
     return out, stats
 
 
@@ -400,6 +407,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0
+fused_attention.train_launches = 0
 attention_hm_bwd_kernel.launches = 0
 
 

@@ -12,7 +12,8 @@ with dropout on the probabilities drawn from the Philox mask of
 ``ops/philox.py``: the backward and the inference forward on the tensor
 cores in 3xTF32 (``csrc/attention_tc.cuh``), the training forward, which
 saves the softmax statistics, on the fp32 FMA pipes
-(``csrc/attention.cuh``). Unlike the JAX layer, which takes its kernel
+(``csrc/attention_fma.cuh``; the wrapper counts it in ``train_launches``
+beside ``launches``). Unlike the JAX layer, which takes its kernel
 only at T' >= 256 (a TPU measurement), the port launches the kernels at
 every length on the card.
 
@@ -145,6 +146,7 @@ def relpos_fwd_kernel(q, k, v, a, e, bias, num_heads: int, sm_scale: float,
             POS_DIM, float(sm_scale), _build.stream_of(q))
     _build.check(rc, "daspeech_relpos_fwd")
     fused_attention_relpos.launches += 1
+    fused_attention_relpos.train_launches += with_stats
     return out, stats
 
 
@@ -226,4 +228,5 @@ def fused_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention_relpos.launches = 0
+fused_attention_relpos.train_launches = 0
 relpos_bwd_kernel.launches = 0

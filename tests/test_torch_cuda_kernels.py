@@ -13,9 +13,13 @@ one, dropout mask included; the full-bias kernel to the head-major one on
 a column bias; the chunked-score tensor-core kernels of the rel-pos (#5)
 and full-bias (#3) attention at T' = 1, 63, 65, 120 and 300, with a fully
 padded row and dropout, their backward to the bit over two runs, and #5
-with a = 0 to the head-major kernel within 1e-6; the fused FFN at one row,
-ragged row tiles and F chunks, with its weight gradients bit-identical over
-two runs.
+with a = 0 to the head-major kernel within 1e-6; the FMA training forward
+of #1, #2 and #5 at T' = 1 .. 1040 with a fully padded row and dropout,
+also where its launcher splits the keys over several blocks and merges
+them, bit-identical over two runs, its statistics through the tensor-core
+backward, packed equal to head-major and #5 with a = 0 equal to #2 within
+1e-6; the fused FFN at one row, ragged row tiles and F chunks, with its
+weight gradients bit-identical over two runs.
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -751,3 +755,146 @@ def test_chunked_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="bad shapes"):
         fa.fused_attention_full_bias(qh, qh, qh, b4[..., :4].contiguous(), 0,
                                      0.125, 0.0, False)
+
+
+# lengths of the register-tiled FMA training forward (#1, #2, #5): one row,
+# a tile one short of and one over 64, the Conformer's T' = 120 and 300,
+# the decoder's 240, J-long's encoder (350) and FastSpeech 2's 1040 frames
+FMA_T = (1, 63, 65, 120, 240, 300, 350, 1040)
+
+
+def _fma_case(gen, kind, T, p, B=2):
+    """Inputs of one training forward of ``kind`` ("packed", "head_major"
+    or "relpos") at T' = T over B rows, a fully padded last row, and its
+    three calls: (forward, plain forward, backward kernel, plain
+    backward)."""
+    H, sc = 4, 0.125
+    q, k, v, do = (_randn(gen, B, T, H * 64, scale=0.5) for _ in range(4))
+    bias = _bias(gen, B, T, all_padded_row=True)
+    seeds = _seeds(gen, B) if p else None
+    if kind == "relpos":
+        a = _randn(gen, B, T, H * fr.POS_DIM, scale=0.1)
+        e = fr.relpos_basis(T, fr.POS_DIM, device="cuda")[2].contiguous()
+        x = (q, k, v, a, e, bias)
+        return (lambda: fr.relpos_fwd_kernel(*x, H, sc, p, seeds,
+                                             with_stats=True),
+                lambda: fr.relpos_plain(*x, H, sc, p, seeds),
+                lambda o, st: fr.relpos_bwd_kernel(*x, o, st, do, H, sc, p,
+                                                   seeds),
+                lambda: fr.relpos_bwd_plain(*x, do, H, sc, p, seeds))
+    if kind == "head_major":
+        q, k, v, do = (_heads(t, H) for t in (q, k, v, do))
+        return (lambda: fa.attention_hm_fwd_kernel(q, k, v, bias, sc, p,
+                                                   seeds, with_stats=True),
+                lambda: fa.attention_hm_plain(q, k, v, bias, sc, p, seeds),
+                lambda o, st: fa.attention_hm_bwd_kernel(
+                    q, k, v, bias, o, st, do, sc, p, seeds),
+                lambda: fa.attention_hm_bwd_plain(q, k, v, bias, do, sc, p,
+                                                  seeds))
+    return (lambda: fa.attention_fwd_kernel(q, k, v, bias, H, sc, p, seeds,
+                                            with_stats=True),
+            lambda: fa.attention_plain(q, k, v, bias, H, sc, p, seeds),
+            lambda o, st: fa.attention_bwd_kernel(q, k, v, bias, o, st, do, H,
+                                                  sc, p, seeds),
+            lambda: fa.attention_bwd_plain(q, k, v, bias, do, H, sc, p,
+                                           seeds))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("T", FMA_T)
+@pytest.mark.parametrize("kind", ["packed", "head_major", "relpos"])
+def test_fma_training_forward(gen, kind, T, p):
+    """The FMA training forward against the plain version (a fully padded
+    row, dropout on the same bits), bit-identical over two runs, and its
+    statistics fed into the tensor-core backward, whose gradients must
+    match the plain backward."""
+    _check_fma_case(*_fma_case(gen, kind, T, p))
+
+
+# grids a little over one wave of blocks, whose keys the launcher splits:
+# 17 query tiles x 4 heads x 4 rows (272 blocks), 6 x 4 x 14 (336)
+FMA_SPLIT = ((4, 1040), (14, 350))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T", FMA_SPLIT)
+@pytest.mark.parametrize("kind", ["packed", "head_major", "relpos"])
+def test_fma_training_forward_key_split(gen, kind, B, T, p):
+    """As :func:`test_fma_training_forward` where the keys of a query tile
+    are split over several blocks and merged."""
+    _check_fma_case(*_fma_case(gen, kind, T, p, B))
+
+
+@pytest.mark.parametrize("B,split", [(2, False), (4, True)])
+def test_fma_key_split_merges_in_a_second_kernel(gen, B, split):
+    """At 1040 keys over B = 4 rows (272 blocks) the training forward runs
+    the merge kernel after its own; over B = 2 (136 blocks, one wave) it
+    does not."""
+    fwd = _fma_case(gen, "head_major", 1040, 0.1, B)[0]
+    fwd()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("attn_fma_fwd_kernel" in n for n in names)
+    assert any("attn_fma_combine_kernel" in n for n in names) == split
+
+
+def _check_fma_case(fwd, plain, bwd, bwd_plain):
+    """The calls of :func:`_fma_case`: the forward bit-identical over two
+    runs and within TOL of plain, its statistics through the backward."""
+    out, st = fwd()
+    again = fwd()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(st, again[1])
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    assert _max_err(out, plain()) <= TOL
+    got = bwd(out, st)
+    torch.cuda.synchronize()
+    for g, w in zip(got, bwd_plain()):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T", [(2, 63), (2, 240), (2, 1040), (4, 1040)])
+def test_fma_training_forward_packed_equals_head_major(gen, B, T, p):
+    """One kernel serves both layouts by strides: their training forwards
+    agree within 1e-6, output and statistics (B = 4: the keys split)."""
+    H = 4
+    q, k, v = (_randn(gen, B, T, H * 64, scale=0.5) for _ in range(3))
+    bias = _bias(gen, B, T, all_padded_row=True)
+    seeds = _seeds(gen, B) if p else None
+    out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 0.125, p, seeds,
+                                      with_stats=True)
+    out_h, st_h = fa.attention_hm_fwd_kernel(
+        _heads(q, H), _heads(k, H), _heads(v, H), bias, 0.125, p, seeds,
+        with_stats=True)
+    torch.cuda.synchronize()
+    assert _max_err(_heads(out, H), out_h) <= 1e-6
+    assert _max_err(st, st_h) <= 1e-6
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T", [(2, 1), (2, 65), (2, 350), (14, 350)])
+def test_fma_relpos_with_a_zero_equals_head_major(gen, B, T, p):
+    """With a = 0 the rel-pos training forward sums the (q, k) chunk first
+    and then zeros: #2's training forward within 1e-6, statistics too
+    (B = 14: the keys split alike)."""
+    H, sc = 4, 0.125
+    q, k, v = (_randn(gen, B, T, H * 64, scale=0.5) for _ in range(3))
+    a = torch.zeros((B, T, H * fr.POS_DIM), device="cuda")
+    e = fr.relpos_basis(T, fr.POS_DIM, device="cuda")[2].contiguous()
+    bias = _bias(gen, B, T, all_padded_row=True)
+    seeds = _seeds(gen, B) if p else None
+    out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p, seeds,
+                                   with_stats=True)
+    out_h, st_h = fa.attention_hm_fwd_kernel(
+        _heads(q, H), _heads(k, H), _heads(v, H), bias, sc, p, seeds,
+        with_stats=True)
+    torch.cuda.synchronize()
+    assert _max_err(_heads(out, H), out_h) <= 1e-6
+    assert _max_err(st, st_h) <= 1e-6
