@@ -5,8 +5,8 @@
 (``--parent DIR``: another checkout of the repository, typically the parent
 commit unpacked with ``git archive``; its kernels are built too, and the
 kernel phase times the rows of the kernels redesigned since (the training
-forward of #1, #2 and #5) with its library as well, on the same inputs in
-the same process.)
+forward of #1, #2 and #5, the DP #8 and the Viterbi #9) with its library
+as well, on the same inputs in the same process.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -15,8 +15,11 @@ the same process.)
    at the shapes the serving and training paths give it (forward and, for
    the training paths, backward with dropout on the same Philox bits; max
    abs error <= 1e-4; the DP's log-probabilities against the plain loop in
-   float64, within 2 sqrt(T) ulp of the largest magnitude, over three
-   shapes and four seeds; Viterbi paths equal; attention #1, #2, #3 and #5
+   float64, within 2 sqrt(T) ulp of the largest magnitude, over four
+   shapes and four seeds; Viterbi paths equal; the DP and the Viterbi at
+   the shapes of S2TT, J, J-long and the L cap, each row with its launch's
+   cluster size, threads, shared memory, the clusters the card holds at
+   once and the µs a step; attention #1, #2, #3 and #5
    (the backward and the inference forward on the tensor cores; the
    training forward, which saves the softmax statistics, on the fp32 FMA
    pipes: #1, #2 and #5 in the register-tiled kernel, #3 in the SIMT one;
@@ -66,7 +69,9 @@ the same process.)
    plain path at J-long with dropout on, 13 timed updates with sub-stages,
    busy share and peak memory at J (bench.py's joint batch) and J-long (14
    utterances of 14 s), checking the head-major kernel's launches per
-   update (0 at J, 12 forward and 8 backward at J-long), a frozen-DAG step
+   update (0 at J, 12 forward and 8 backward at J-long) and that every DP
+   and Viterbi launch at J-long ran on a cluster of more than one block, a
+   frozen-DAG step
    (every DAG and encoder gradient exactly 0), and 30 updates that must
    end at <= 0.9 of the first loss;
 7. FastSpeech 2 pretraining phase (``fastspeech2_criterion``): a
@@ -196,14 +201,18 @@ KERNELS = {
         "daspeech_torch/csrc/fused_attention.cu",
         "daspeech_tpu/ops/fused_attention.py:600"),
 }
-# The DP is held against its plain loop run in float64 (dp_numerics). Each
-# step shifts by the previous row's maximum, so in fp32 (kernel, plain loop
-# and the JAX scan alike) a term more than ~87 nats below that shift
+# The DP is held against its plain loop run in float64 (dp_numerics). The
+# plain loop (and the JAX scan) shifts each step by the previous row's
+# maximum, so in fp32 a term more than ~87 nats below that shift
 # underflows, and an entry whose mass comes through such terms comes out
 # too small; the loss spreads to later steps, and the wider the links'
 # spread, the closer to the row's maximum. On H100 readings over 24 cases
-# both fp32 versions sit up to 9 nats off float64 at 40-80 nats below the
-# row's maximum, and within 4.6 ulp of the largest magnitude closer to it.
+# (T = 64) both fp32 versions sat up to 9 nats off float64 at 40-80 nats
+# below the row's maximum, and within 4.6 ulp of the largest magnitude
+# closer to it; at J-long's T = 128 the fp32 loop is off by nats within 20
+# of it, where the row's maximum sits on the graph's last vertex, which
+# links nowhere. The kernel takes each log-sum-exp online, shifted by its
+# own running maximum (csrc/dag_common.cuh), and loses no such term.
 # So the kernel is held (a) within DP_NEGLIGIBLE nats of the row's maximum
 # (e^-20 of the row's mass, under fp32's rounding of its sum) to 2 sqrt(T)
 # ulp of the largest magnitude (each step rounds by ~1 ulp, a random walk
@@ -211,7 +220,7 @@ KERNELS = {
 # DP_BANDS to no more than the fp32 loop's error there plus that limit.
 DP_NEGLIGIBLE = 20.0
 DP_BANDS = (0, 20, 40, 60, 70, 80)
-DP_SHAPES = ((80, 64, 240), (16, 64, 600), (4, 64, 1024))
+DP_SHAPES = ((80, 64, 240), (16, 64, 600), (4, 64, 1024), (14, 128, 700))
 DP_SEEDS = (0, 1, 2, 3)
 # the kernels each path must launch (the serving run's batch B takes the
 # head-major attention in FastSpeech 2's decoder, at 1040 mel frames)
@@ -265,6 +274,8 @@ def reset_launches():
         w.launches = 0
         if hasattr(w, "train_launches"):
             w.train_launches = 0
+        if hasattr(w, "cluster_launches"):
+            w.cluster_launches.clear()
 
 
 def read_launches():
@@ -417,6 +428,34 @@ def dp_numerics():
     return worst
 
 
+# the DP's and Viterbi's rows of the kernel phase: [B, T, L] of S2TT (T), J,
+# J-long and the recipe's L cap
+DP_KERNEL_SHAPES = ((80, 64, 240), (40, 64, 240), (14, 128, 700),
+                    (4, 64, 1024))
+
+
+def dp_cluster_row(row, name, match, steps):
+    """Add the launch's cluster plan, the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) and the µs a step (the kernel's
+    time over the longest chain of steps) to a kernel-phase row, and log
+    them."""
+    from daspeech_torch.ops import dag_kernels as dk
+
+    cs = dk.plan_for(name, match)
+    threads, smem = dk.block_shape(match.shape[-1], cs)
+    row.update(cluster_size=cs, threads=threads, smem_bytes=smem,
+               max_active_clusters=dk.max_active_clusters(name, match),
+               us_per_step=row["ms"] * 1e3 / max(steps, 1),
+               was_us_per_step=(None if row["was_ms"] is None
+                                else row["was_ms"] * 1e3 / max(steps, 1)))
+    log(f"  {name} {row['shape']}: cluster of {cs} blocks x {threads} "
+        f"threads, {smem} B shared memory, {row['max_active_clusters']} "
+        f"clusters resident at most, {match.shape[0]} launched; "
+        f"{row['us_per_step']:.2f} us a step over {steps} steps"
+        + ("" if row["was_us_per_step"] is None
+           else f" (parent tree {row['was_us_per_step']:.2f})"))
+
+
 MRF_KERNELS, MRF_DILATIONS = (3, 7, 11), ((1, 3, 5),) * 3
 # [B, C, T] of a config_v1 MRF level: serving A (8 x 416 mel frames) at
 # levels 1-3, serving B (2 x 1040) at level 1, a chunk window (1 x 94)
@@ -499,10 +538,15 @@ FMA_FORWARD = "attn_fma_fwd_kernel"
 # kernel: no training path but the alternates phase may run it
 SIMT_FORWARD = "attn_fwd_kernel"
 # the kernels whose training-forward rows (" training") are also timed with
-# the parent tree's library when one is given (--parent)
+# the parent tree's library when one is given (--parent); the DP rows are
+# too (parent_dp)
 REDESIGNED = ("fused_attention_packed", "fused_attention",
               "fused_attention_relpos")
 PARENT = {}               # "lib": the parent tree's kernel library
+# the DP kernels' entry points before they ran on clusters: (match, links,
+# out_len, target_len, alpha | traces, beta | path, B, T, L, stream)
+DP_ONE_BLOCK = {"dag_loss_forward": "daspeech_dag_fb",
+                "dag_best_alignment": "daspeech_dag_viterbi"}
 
 
 class parent_library:
@@ -523,6 +567,44 @@ def parent_ms(fn):
     """``cuda_ms(fn)`` with the parent tree's kernel library."""
     with parent_library():
         return cuda_ms(fn)
+
+
+def parent_dp(name, match, links, ol, tl):
+    """A function that runs the parent tree's kernel ``name``
+    (``dag_loss_forward`` or ``dag_best_alignment``) on these inputs: this
+    tree's wrapper on the parent's library when that has the same entry
+    points, else the parent's one-block entry point (``DP_ONE_BLOCK``),
+    which takes no cluster plan."""
+    import ctypes
+
+    from daspeech_torch.ops import _build
+    from daspeech_torch.ops import dag_kernels as dk
+
+    wrapper = {"dag_loss_forward": dk.dag_loss_forward_kernel,
+               "dag_best_alignment": dk.dag_best_alignment_kernel}[name]
+    lib = PARENT["lib"]
+    if hasattr(lib, "daspeech_dag_fb_cluster"):
+        def run():
+            with parent_library():
+                wrapper(match, links, ol, tl)
+        return run
+    fn = getattr(lib, DP_ONE_BLOCK[name])
+    fn.argtypes = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (
+        ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+    B, T, L = match.shape
+    ol32, tl32 = ol.int().contiguous(), tl.int().contiguous()
+    if name == "dag_loss_forward":
+        out = (torch.empty_like(match), torch.empty_like(match))
+    else:
+        out = (torch.empty((B, T, L), dtype=torch.int32, device=match.device),
+               torch.empty((B, L), dtype=torch.int32, device=match.device))
+
+    def run():
+        _build.check(fn(match.data_ptr(), links.data_ptr(), ol32.data_ptr(),
+                        tl32.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                        B, T, L, _build.stream_of(match)), DP_ONE_BLOCK[name])
+    return run
 
 
 def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
@@ -643,11 +725,12 @@ def kernel_phase():
 
     def record(name, shape, err, run_kernel, run_plain, flops, nbytes,
                run_library=None, tol=TOL_KERNEL, rate=PEAK_FLOPS_MMA,
-               **extra):
+               run_parent=None, **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
         fma_row = name in REDESIGNED and shape.endswith(" training")
-        was = parent_ms(run_kernel) if PARENT and fma_row else None
+        was = (parent_ms(run_kernel) if PARENT and fma_row
+               else cuda_ms(run_parent) if PARENT and run_parent else None)
         b_ms, b_by = bound(flops, nbytes, rate)
         if fma_row:
             # the FMA forward's own ceiling: its products at the fp32 FMA
@@ -669,6 +752,7 @@ def kernel_phase():
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms{tf(lib_ms)}"))
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max abs err {err} > {tol}")
+        return cases[name][-1]
 
     def sdpa(q, k, v, bias, H, p):
         """The one PyTorch call for the same function (timed here only),
@@ -925,10 +1009,11 @@ def kernel_phase():
                library_prep_ms=prep_ms)
         del ops, leaves, o_lib
 
-    # --- the DAG DP and Viterbi at the training shape and at the recipe's
-    # L cap; the work is the finite transitions, for the steps each sweep
-    # computes (alpha all T - 1, beta and Viterbi up to target_len - 1)
-    for (B, T, L) in ((80, 64, 240), (4, 64, 1024)):
+    # --- the DAG DP and Viterbi at the shapes of S2TT (T), J, J-long and
+    # the recipe's L cap, each on its cluster plan; the work is the finite
+    # transitions, for the steps each sweep computes (alpha all T - 1, beta
+    # and Viterbi up to target_len - 1)
+    for (B, T, L) in DP_KERNEL_SHAPES:
         match, links, ol, tl = train_dp_inputs(g, B, T, L)
         n_links = torch.isfinite(links).sum(dim=(1, 2)).cpu()
         steps = (tl.cpu() - 1).clamp(min=0)
@@ -941,22 +1026,30 @@ def kernel_phase():
         err = dp_err(got, want, f"dag {shape}")
         big = max(float(torch.where(torch.isfinite(y), y, 0.0).abs().max())
                   for y in want)
-        record("dag_loss_forward", shape, err,
-               lambda: dk.dag_loss_forward_kernel(match, links, ol, tl),
-               lambda: dr.dag_loss_forward_plain(match, links, ol, tl),
-               2 * int((n_links * (T - 1 + steps)).sum()),
-               (3 * B * T * L + B * L * L + 2 * B) * F32,
-               tol=dp_tol(T, big), rate=PEAK_FLOPS_FP32)
+        row = record("dag_loss_forward", shape, err,
+                     lambda: dk.dag_loss_forward_kernel(match, links, ol, tl),
+                     lambda: dr.dag_loss_forward_plain(match, links, ol, tl),
+                     2 * int((n_links * (T - 1 + steps)).sum()),
+                     (3 * B * T * L + B * L * L + 2 * B) * F32,
+                     tol=dp_tol(T, big), rate=PEAK_FLOPS_FP32,
+                     run_parent=(parent_dp("dag_loss_forward", match, links,
+                                           ol, tl) if PARENT else None))
+        dp_cluster_row(row, "dag_loss_forward", match, T - 1)
         got = dk.dag_best_alignment_kernel(match, links, ol, tl)
         want = dr.dag_best_alignment_plain(match, links, ol, tl)
         n_diff = int((got != want).sum())
         log(f"  dag_best_alignment {shape}: {n_diff} path entries differ")
-        record("dag_best_alignment", shape, float(n_diff),
-               lambda: dk.dag_best_alignment_kernel(match, links, ol, tl),
-               lambda: dr.dag_best_alignment_plain(match, links, ol, tl),
-               2 * int((n_links * steps).sum()),
-               (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0,
-               rate=PEAK_FLOPS_FP32)
+        row = record("dag_best_alignment", shape, float(n_diff),
+                     lambda: dk.dag_best_alignment_kernel(match, links, ol,
+                                                          tl),
+                     lambda: dr.dag_best_alignment_plain(match, links, ol, tl),
+                     2 * int((n_links * steps).sum()),
+                     (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0,
+                     rate=PEAK_FLOPS_FP32,
+                     run_parent=(parent_dp("dag_best_alignment", match, links,
+                                           ol, tl) if PARENT else None))
+        dp_cluster_row(row, "dag_best_alignment", match, int(steps.max()))
+        del match, links, got, want
     # --- the HiFi-GAN MRF level (#7, three ResBlock1 of kernels 3/7/11,
     # dilations 1/3/5): serving A's levels 1-3, batch B's level 1, and one
     # chunk window of 64 + 2 * 15 mel frames at level 1, each with the tile
@@ -2126,6 +2219,7 @@ def train_phase():
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  launches in the training run (13 updates): {launches}")
+    dp_clusters("S2TT")
     training_forwards_per_update(launches, 13, "S2TT")
     for name in TRAIN_KERNELS:
         if launches[name] <= 0:
@@ -2439,6 +2533,21 @@ def timed_updates(step, state, batch, n_warm, n_timed, tag):
     return med, (q25, q75), launches, peak, metrics
 
 
+def dp_clusters(tag):
+    """Log the cluster sizes the DP kernels' launches of the last timed
+    run took; at J-long every launch of both must split its samples over
+    more than one block."""
+    from daspeech_torch.ops import dag_kernels as dk
+
+    by_cs = {n: dict(w.cluster_launches) for n, w in
+             (("dag_loss_forward", dk.dag_loss_forward_kernel),
+              ("dag_best_alignment", dk.dag_best_alignment_kernel))}
+    log(f"  {tag} DP launches by cluster size: {by_cs}")
+    if tag == "J-long" and any(not c or min(c) <= 1 for c in by_cs.values()):
+        raise AssertionError(f"J-long DP launches not split over clusters: "
+                             f"{by_cs}")
+
+
 def joint_phase():
     """The joint S2ST step (``make_train_step`` over
     ``s2s_dag_fastspeech2_loss``) at the recipe's widths, random weights
@@ -2492,6 +2601,7 @@ def joint_phase():
                                  f"{per['fused_attention_bwd']}, expected "
                                  f"{HM_PER_UPDATE[tag]}")
         runs[tag] = launches
+        dp_clusters(tag)
         med = joint_sub_stages(state, batch, opt, cfg)
         log(f"  {tag} sub-stages (median of 5, ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
@@ -2928,7 +3038,7 @@ def main() -> int:
     _build.library()
     if parent is not None:
         parent.join()
-        PARENT["lib"] = _build.load(PARENT["build"].path)
+        PARENT["lib"] = _build.load(PARENT["build"].path, strict=False)
         log(f"parent tree's kernels built in {PARENT['build'].seconds:.1f} s "
             f"-> {PARENT['build'].path}")
     sass = sass_counts(built.path)

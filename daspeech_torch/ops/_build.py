@@ -54,8 +54,12 @@ SIGNATURES = {
                            _P),
     "daspeech_links_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _F, _I, _P),
-    "daspeech_dag_fb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "daspeech_dag_viterbi": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "daspeech_dag_fb_cluster": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "daspeech_dag_fb_max_clusters": (_I, _I, _I, _P),
+    "daspeech_dag_viterbi_cluster": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _P),
+    "daspeech_dag_viterbi_max_clusters": (_I, _I, _I, _P),
+    "daspeech_dag_block": (_I, _I, _P, _P),
     "daspeech_mrf_level": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                            _I, _P),
     "daspeech_attention_fb_fwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _I, _I,
@@ -146,10 +150,14 @@ def library() -> ctypes.CDLL:
     return load(build().path)
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its entry points."""
+def load(path: Path, strict: bool = True) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points; with
+    ``strict=False`` (another tree's library, built before some of them)
+    those it lacks are left out."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
+        if not strict and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

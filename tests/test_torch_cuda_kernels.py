@@ -26,7 +26,13 @@ another order); the DP's log-probabilities grow with T: they are held
 against the plain loop run in float64, to 2 sqrt(T) ulp of the largest
 magnitude near each row's maximum (about one ulp of rounding per step,
 adding up as a random walk) and to the fp32 plain loop's own error farther
-below it (see ``_dp_close``); Viterbi paths must be equal.
+below it (see ``_dp_close``); Viterbi paths must be equal. The DP and the
+Viterbi also run at shapes that split each sample over a thread-block
+cluster (of 2, 4 and 8 blocks, ragged column groups, ties across the
+groups), at the main path's shapes with the cluster sizes asserted, with a
+plan the kernel cannot take (it must raise), and on a graph whose row
+maximum sits on a dead end, where the plain loop's fp32 shift loses mass
+that the kernel's online log-sum-exp keeps.
 
 Marked ``cuda``: every test skips without a CUDA device. On a machine with
 one (the JAX package need not be installed there):
@@ -45,6 +51,7 @@ from daspeech_torch.ops import fused_attention as fa
 from daspeech_torch.ops import fused_links as fl
 from daspeech_torch.ops import fused_mrf as fm
 from daspeech_torch.ops import fused_relpos as fr
+from test_torch_dag_cluster import dead_end_inputs, j_long_inputs
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -263,12 +270,12 @@ def _band_errs(got, exact):
 
 def _dp_close(got, plain, exact, T):
     """The kernel (``got``) and the fp32 plain loop against the loop in
-    float64. Each step shifts by the previous row's maximum, so in fp32 a
-    term more than ~87 nats below the shift underflows and the entries fed
-    by it come out too small, in the plain loop as in the kernel; within 20
-    nats of the row's maximum the kernel is held to 2 sqrt(T) ulp of the
-    largest magnitude, and in every band to the fp32 loop's error plus
-    that."""
+    float64. The plain loop shifts each step by the previous row's maximum,
+    so in fp32 a term more than ~87 nats below the shift underflows and the
+    entries fed by it come out too small; the kernel takes each log-sum-exp
+    online and loses less. Within 20 nats of the row's maximum the kernel
+    is held to 2 sqrt(T) ulp of the largest magnitude, and in every band to
+    the fp32 loop's error plus that."""
     big = max(float(torch.where(torch.isfinite(exact), exact,
                                 0.0).abs().max()), 1.0)
     tol = 2.0 * math.sqrt(T) * 2.0 ** (math.floor(math.log2(big)) - 23)
@@ -277,8 +284,10 @@ def _dp_close(got, plain, exact, T):
     assert all(a <= b + tol for a, b in zip(k, p)), (k, p, tol)
 
 
+# the last four split each sample over a cluster of 8, 2, 4 and 8 blocks
 @pytest.mark.parametrize("B,T,L", [(2, 1, 5), (3, 7, 33), (3, 64, 240),
-                                   (2, 16, 1024)])
+                                   (2, 16, 1024), (1, 16, 700), (2, 9, 33),
+                                   (14, 32, 700), (4, 16, 1024)])
 def test_dag_alpha_beta(gen, B, T, L):
     match, links, ol, tl = _dag_inputs(gen, B, T, L)
     got = dk.dag_loss_forward_kernel(match, links, ol, tl)
@@ -291,15 +300,96 @@ def test_dag_alpha_beta(gen, B, T, L):
         assert got[0][-1].item() == -math.inf      # infeasible: -inf, no NaN
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_dag_alpha_beta_at_j_long(gen, seed):
+    """J-long's [14, 128, 700] on the inputs of
+    ``test_torch_dag_cluster.py::test_plain_loop_against_float64_at_j_long``,
+    where the fp32 plain loop is nats off float64 near a row's maximum: the
+    kernel (clusters of 4) stays within its bound there."""
+    match, links, ol, tl = (x.cuda().contiguous()
+                            for x in j_long_inputs(seed))
+    got = dk.dag_loss_forward_kernel(match, links, ol, tl)
+    torch.cuda.synchronize()
+    plain = dr.dag_loss_forward_plain(match, links, ol, tl)
+    exact = dr.dag_loss_forward_plain(match.double(), links.double(), ol, tl)
+    for g, p, x in zip(got, plain, exact):
+        _dp_close(g, p, x, 128)
+    assert dk.plan_for("dag_loss_forward", match) > 1
+
+
+def test_dag_alpha_beta_behind_a_dead_end(gen):
+    """alpha's row 1 peaks on the last vertex (no links out), beta's on
+    vertex 0 (no links in), each with one other entry 120 nats below: the
+    kernel's online log-sum-exp keeps the mass that the plain loop's shift
+    by the previous row's maximum loses in fp32 (exp(-120) underflows)."""
+    match, links, ol, tl = dead_end_inputs()
+    got = dk.dag_loss_forward_kernel(match.cuda(), links.cuda(), ol.cuda(),
+                                     tl.cuda())
+    torch.cuda.synchronize()
+    exact = dr.dag_loss_forward_plain(match.double(), links.double(), ol, tl)
+    plain = dr.dag_loss_forward_plain(match, links, ol, tl)
+    assert plain[1][0, 2, 2] == -math.inf and plain[0][1] == -math.inf
+    for g, x in zip(got, exact):
+        g = g.cpu().double()
+        assert torch.equal(torch.isfinite(g), torch.isfinite(x))
+        fin = torch.isfinite(x)
+        assert (g[fin] - x[fin]).abs().max() <= 1e-5
+    assert got[1][0, 2, 2].item() == -120.0 and got[0][1].item() == -120.0
+
+
+# ties="all": every valid transition and match 0, so that every column's
+# maximum ties over all its rows, across the 32-column groups that the
+# blocks of a cluster own; the first argmax must win everywhere
 @pytest.mark.parametrize("B,T,L,ties", [(2, 1, 5, False), (3, 7, 33, False),
                                         (3, 9, 33, True), (3, 64, 240, True),
-                                        (2, 16, 1024, False)])
+                                        (2, 16, 1024, False),
+                                        (1, 16, 700, False), (2, 9, 33, True),
+                                        (14, 32, 700, False),
+                                        (4, 16, 1024, True), (2, 8, 64, "all"),
+                                        (1, 16, 700, "all")])
 def test_dag_viterbi(gen, B, T, L, ties):
     match, links, ol, tl = _dag_inputs(gen, B, T, L, ties)
+    if ties == "all":
+        match = torch.where(torch.isfinite(match), 0.0, match)
+        links = torch.where(torch.isfinite(links), 0.0, links)
     got = dk.dag_best_alignment_kernel(match, links, ol, tl)
     torch.cuda.synchronize()
     want = dr.dag_best_alignment_plain(match, links, ol, tl)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,T,L,cs_fb,cs_vit", [(80, 64, 240, 1, 1),
+                                                (40, 64, 240, 1, 2),
+                                                (14, 128, 700, 4, 8),
+                                                (4, 64, 1024, 8, 8)])
+def test_dag_cluster_sizes(gen, B, T, L, cs_fb, cs_vit):
+    """The main path's shapes launch on the cluster sizes that the plan
+    gives on a card of 132 SMs (the H100 SXM), counted by the wrappers."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the cluster sizes are those of a card of 132 SMs")
+    match, links, ol, tl = _dag_inputs(gen, B, T, L)
+    dk.dag_loss_forward_kernel.cluster_launches.clear()
+    dk.dag_best_alignment_kernel.cluster_launches.clear()
+    dk.dag_loss_forward_kernel(match, links, ol, tl)
+    dk.dag_best_alignment_kernel(match, links, ol, tl)
+    torch.cuda.synchronize()
+    assert dk.dag_loss_forward_kernel.cluster_launches == {cs_fb: 1}
+    assert dk.dag_best_alignment_kernel.cluster_launches == {cs_vit: 1}
+    for name in ("dag_loss_forward", "dag_best_alignment"):
+        assert dk.max_active_clusters(name, match) >= 1
+
+
+def test_dag_refuses_a_plan_it_cannot_take(gen, monkeypatch):
+    """A cluster size the kernel's layout does not take (not a power of
+    two, more blocks than the 2 column groups of L = 64, over the portable
+    8) is refused and raises; nothing falls back to the plain loop."""
+    match, links, ol, tl = _dag_inputs(gen, 2, 4, 64)
+    for fn in (dk.dag_loss_forward_kernel, dk.dag_best_alignment_kernel):
+        for cs in (3, 4, 16):
+            monkeypatch.setattr(dk, "plan_for", lambda *a: cs)
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                fn(match, links, ol, tl)
+            monkeypatch.undo()
 
 
 def test_training_wrappers_refuse_what_the_kernels_do_not_take(gen):
