@@ -5,8 +5,9 @@
 (``--parent DIR``: another checkout of the repository, typically the parent
 commit unpacked with ``git archive``; its kernels are built too, and the
 kernel phase times the rows of the kernels redesigned since (the training
-forward of #1, #2 and #5, the DP #8 and the Viterbi #9) with its library
-as well, on the same inputs in the same process.)
+forward of #1, #2, #3 and #5, the link extraction #4 forward and backward,
+the DP #8 and the Viterbi #9) with its library as well, on the same inputs
+in the same process.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -22,13 +23,18 @@ as well, on the same inputs in the same process.)
    once and the µs a step; attention #1, #2, #3 and #5
    (the backward and the inference forward on the tensor cores; the
    training forward, which saves the softmax statistics, on the fp32 FMA
-   pipes: #1, #2 and #5 in the register-tiled kernel, #3 in the SIMT one;
-   at each training shape both forwards are timed): the head-major kernel
+   pipes, attention_fma.cuh's register-tiled kernel, #3 in its full-bias
+   mode; at each training shape both forwards are timed): the head-major
+   kernel
    against the packed one at a shape both take, <= 1e-6, each backward
    bit-identical over two runs, HMMA instructions in the tensor-core
    kernels' SASS (cuobjdump), FFMA and no HMMA in the FMA kernel's, no
    spills in its ptxas report, and only their own kernels in a profile of
-   their forward and backward (16 kernels for #1, #2, #5 and #3); the
+   their forward and backward (16 kernels for #1, #2, #5 and #3; no SIMT
+   attention forward in the library); the link extraction #4 at serving
+   A's and B's graphs (forward) and at cell T's and J-long's (forward and
+   backward; its forward on the FMA pipes, its backward on the tensor
+   cores, HMMA in its SASS), the same -inf pattern as plain; the
    fused FFN
    #6 at cell T's encoder and serving A's and B's, its weight gradients
    bit-identical over two runs, its backward against autograd of the plain
@@ -62,7 +68,8 @@ as well, on the same inputs in the same process.)
    p=0.5), 13 timed updates (the run whose launch counts are read: every
    kernel must have run; the attention forwards' training launches counted
    apart), sub-stages, the device busy share of one profiled update (whose
-   kernels must include the FMA training forward and no SIMT forward),
+   attention forwards must all be the FMA training forward or the
+   tensor-core kernels),
    peak memory, and 30 updates on one batch that must bring the loss down;
 6. joint S2ST training phase (``s2s_dag_fastspeech2_loss``): card-vs-CPU
    steps at B=4 (``expect`` and ``argmax``), the kernel path against the
@@ -100,8 +107,9 @@ as well, on the same inputs in the same process.)
    norm), 24 forward and 24 backward fused-FFN launches per update
    (asserted), and 13 updates (10 timed) each way at cell T;
    ``fused_attention_full_bias`` on an ALiBi-style bias [8, 8, 240, 64],
-   forward and backward against the plain version. Both kernels launch 0
-   times on every other path (asserted).
+   forward and backward against the plain version, and its profile (the
+   training forward the FMA kernel's). Both kernels launch 0 times on every
+   other path (asserted).
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -114,6 +122,7 @@ result, as it does without a CUDA device.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -531,22 +540,28 @@ def relpos_sdpa(q_ext, k_ext, v, mask, sm_scale, p=0.0):
 TC_KERNELS = ("attn_tc_fwd_kernel", "attn_tc_bwd_dq_kernel",
               "attn_tc_bwd_dkdv_kernel", "attn_tc_chunk_fwd_kernel",
               "attn_tc_chunk_ds_kernel", "attn_tc_grad_kernel")
-# the training forward of #1, #2 (instance <1>) and #5 (<5>):
-# attention_fma.cuh's register-tiled kernel on the fp32 FMA pipes
+# every attention training forward: attention_fma.cuh's register-tiled
+# kernel on the fp32 FMA pipes (instance <1,0>: #1 and #2, <5,0>: #5,
+# <1,1>: #3's full-bias mode), and the merge of its key split
 FMA_FORWARD = "attn_fma_fwd_kernel"
-# the full-bias attention's (#3) training forward, attention.cuh's SIMT
-# kernel: no training path but the alternates phase may run it
-SIMT_FORWARD = "attn_fwd_kernel"
-# the kernels whose training-forward rows (" training") are also timed with
-# the parent tree's library when one is given (--parent); the DP rows are
-# too (parent_dp)
-REDESIGNED = ("fused_attention_packed", "fused_attention",
-              "fused_attention_relpos")
+FMA_KERNELS = (FMA_FORWARD, "attn_fma_combine_kernel")
+FMA_INSTANCES = ("<1,0>", "<5,0>", "<1,1>")
+# the link extraction's kernels (#4): forward on the FMA pipes, backward on
+# the tensor cores
+LINKS_FMA = ("links_lse_kernel", "links_fold_kernel")
+LINKS_TC = ("links_bwd_dq_kernel", "links_bwd_dk_kernel")
+# rows also timed with the parent tree's library when one is given
+# (--parent): every row of a name, or " training": its training-forward
+# rows
+REDESIGNED = ("fused_attention_packed training", "fused_attention training",
+              "fused_attention_relpos training",
+              "fused_attention_full_bias training", "fused_extract_links",
+              "fused_extract_links_bwd", "dag_loss_forward",
+              "dag_best_alignment")
 PARENT = {}               # "lib": the parent tree's kernel library
-# the DP kernels' entry points before they ran on clusters: (match, links,
-# out_len, target_len, alpha | traces, beta | path, B, T, L, stream)
-DP_ONE_BLOCK = {"dag_loss_forward": "daspeech_dag_fb",
-                "dag_best_alignment": "daspeech_dag_viterbi"}
+# (tag, fn): calls whose device time the kernel phase splits by kernel at
+# its end (kernel_split), after the profile of attention_launch_path
+SPLITS = []
 
 
 class parent_library:
@@ -567,44 +582,6 @@ def parent_ms(fn):
     """``cuda_ms(fn)`` with the parent tree's kernel library."""
     with parent_library():
         return cuda_ms(fn)
-
-
-def parent_dp(name, match, links, ol, tl):
-    """A function that runs the parent tree's kernel ``name``
-    (``dag_loss_forward`` or ``dag_best_alignment``) on these inputs: this
-    tree's wrapper on the parent's library when that has the same entry
-    points, else the parent's one-block entry point (``DP_ONE_BLOCK``),
-    which takes no cluster plan."""
-    import ctypes
-
-    from daspeech_torch.ops import _build
-    from daspeech_torch.ops import dag_kernels as dk
-
-    wrapper = {"dag_loss_forward": dk.dag_loss_forward_kernel,
-               "dag_best_alignment": dk.dag_best_alignment_kernel}[name]
-    lib = PARENT["lib"]
-    if hasattr(lib, "daspeech_dag_fb_cluster"):
-        def run():
-            with parent_library():
-                wrapper(match, links, ol, tl)
-        return run
-    fn = getattr(lib, DP_ONE_BLOCK[name])
-    fn.argtypes = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (
-        ctypes.c_void_p,)
-    fn.restype = ctypes.c_int
-    B, T, L = match.shape
-    ol32, tl32 = ol.int().contiguous(), tl.int().contiguous()
-    if name == "dag_loss_forward":
-        out = (torch.empty_like(match), torch.empty_like(match))
-    else:
-        out = (torch.empty((B, T, L), dtype=torch.int32, device=match.device),
-               torch.empty((B, L), dtype=torch.int32, device=match.device))
-
-    def run():
-        _build.check(fn(match.data_ptr(), links.data_ptr(), ol32.data_ptr(),
-                        tl32.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                        B, T, L, _build.stream_of(match)), DP_ONE_BLOCK[name])
-    return run
 
 
 def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
@@ -632,8 +609,8 @@ def attention_launch_path(run, n_kernels, n_fma, what):
     """The attention wrappers called by ``run()`` launch their own kernels
     and no library's (no SDPA, cuBLAS or cuDNN): a profile of one
     ``run()`` holds exactly ``n_kernels`` kernels, each one of
-    attention_tc.cuh's or an fp32 training forward, ``n_fma`` of them the
-    FMA forward and the rest of the training forwards the SIMT one."""
+    attention_tc.cuh's or the FMA training forward, ``n_fma`` of them the
+    FMA forward."""
     run()
     events, _ = profiled_kernels(run, f"attention_launch_path {what}")
     names = sorted({e["name"] for e in events})
@@ -643,7 +620,7 @@ def attention_launch_path(run, n_kernels, n_fma, what):
         log("  the profiler saw no kernels: launch path not checked")
         return
     foreign = [n for n in names if not any(
-        t in n for t in (*TC_KERNELS, FMA_FORWARD, SIMT_FORWARD))]
+        t in n for t in (*TC_KERNELS, FMA_FORWARD))]
     fma = sum(FMA_FORWARD in e["name"] for e in events)
     if foreign or len(events) != n_kernels or fma != n_fma:
         raise AssertionError(f"{what} launch path ran {names} "
@@ -651,13 +628,34 @@ def attention_launch_path(run, n_kernels, n_fma, what):
                              f"{fma} FMA forwards, not {n_fma})")
 
 
+def kernel_split(fn, tag, reps=3):
+    """The device ms of each kernel of one ``fn()``: ``reps`` calls under
+    the profiler after a warm one, the mean per call by kernel name (the
+    card's own time, without the host's launch overhead that ``cuda_ms``
+    includes)."""
+    import re
+
+    fn()
+    events, _ = profiled_kernels(lambda: [fn() for _ in range(reps)],
+                                 f"split {tag}")
+    by = {}
+    for e in events:
+        m = re.search(r"(\w+_kernel)\b", e["name"])
+        name = m.group(1) if m else e["name"][:60]
+        by[name] = by.get(name, 0.0) + e["dur"] / 1e3 / reps
+    log(f"  {tag}: device ms by kernel "
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in by.items())
+        + f"; sum {sum(by.values()):.4f}" if by else
+        f"  {tag}: the profiler saw no kernels")
+
+
 def sass_counts(lib_path):
     """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
-    attention_tc.cuh and of the FMA forward in the built library's SASS
-    (``cuobjdump -sass``), a template kernel's instances apart
-    (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``: #3's;
-    ``attn_fma_fwd_kernel<1>``: #1's and #2's, ``<5>``: #5's); None
-    without cuobjdump."""
+    attention_tc.cuh, of the FMA forward and of the link extraction in the
+    built library's SASS (``cuobjdump -sass``), a template kernel's
+    instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
+    #3's; ``attn_fma_fwd_kernel<1,0>``: #1's and #2's, ``<5,0>``: #5's,
+    ``<1,1>``: #3's); None without cuobjdump."""
     import re
     import shutil
 
@@ -673,7 +671,8 @@ def sass_counts(lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((t for t in (*TC_KERNELS, FMA_FORWARD)
+            name = next((t for t in (*TC_KERNELS, FMA_FORWARD, *LINKS_FMA,
+                                     *LINKS_TC)
                          if t in m.group(1)), None)
             inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
             if name and inst:
@@ -707,9 +706,9 @@ def fma_spills(ptxas):
         if int(regs.group(1)) > 255 or spill.group(1) != "0" \
                 or spill.group(2) != "0":
             raise AssertionError(f"{FMA_FORWARD} spills: {info}")
-    if found != 2:
+    if found != len(FMA_INSTANCES):
         raise AssertionError(f"{found} instances of {FMA_FORWARD} in the "
-                             "ptxas report, not 2")
+                             f"ptxas report, not {len(FMA_INSTANCES)}")
 
 
 def kernel_phase():
@@ -725,12 +724,13 @@ def kernel_phase():
 
     def record(name, shape, err, run_kernel, run_plain, flops, nbytes,
                run_library=None, tol=TOL_KERNEL, rate=PEAK_FLOPS_MMA,
-               run_parent=None, **extra):
+               **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
-        fma_row = name in REDESIGNED and shape.endswith(" training")
-        was = (parent_ms(run_kernel) if PARENT and fma_row
-               else cuda_ms(run_parent) if PARENT and run_parent else None)
+        training = shape.endswith(" training")
+        fma_row = f"{name} training" in REDESIGNED and training
+        redesigned = fma_row or name in REDESIGNED
+        was = parent_ms(run_kernel) if PARENT and redesigned else None
         b_ms, b_by = bound(flops, nbytes, rate)
         if fma_row:
             # the FMA forward's own ceiling: its products at the fp32 FMA
@@ -905,11 +905,12 @@ def kernel_phase():
     run_1_2 = attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads)
 
     # --- link extraction: serving batches A and B (forward), then the
-    # training shape, forward and backward; the work is the valid
-    # transitions (j > i, j < out_len) of these graphs
+    # training shapes of cell T and J-long, forward and backward; the work
+    # is the valid transitions (j > i, j < out_len) of these graphs
     for (B, L, C, H, train) in ((8, 240, 512, 8, False),
                                 (8, 600, 512, 8, False),
-                                (80, 240, 512, 8, True)):
+                                (80, 240, 512, 8, True),
+                                (14, 700, 512, 8, True)):
         dkh = C // H
         q, k = _randn(g, B, L, C, scale=0.5), _randn(g, B, L, C)
         gates = torch.log_softmax(_randn(g, B, L, H), dim=-1)
@@ -931,6 +932,12 @@ def kernel_phase():
         if not train:
             continue
         dlinks = _randn(g, B, L, L)
+        SPLITS.extend([
+            (f"fused_extract_links {shape}", functools.partial(
+                fl.links_fwd_kernel, q, k, gates, ol, H, sc, None)),
+            (f"fused_extract_links_bwd {shape}", functools.partial(
+                fl.links_bwd_kernel, q, k, gates, ol, links, lse, dlinks, H,
+                sc, None))])
         got = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H, sc,
                                   None)
         want = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, None)
@@ -1031,9 +1038,7 @@ def kernel_phase():
                      lambda: dr.dag_loss_forward_plain(match, links, ol, tl),
                      2 * int((n_links * (T - 1 + steps)).sum()),
                      (3 * B * T * L + B * L * L + 2 * B) * F32,
-                     tol=dp_tol(T, big), rate=PEAK_FLOPS_FP32,
-                     run_parent=(parent_dp("dag_loss_forward", match, links,
-                                           ol, tl) if PARENT else None))
+                     tol=dp_tol(T, big), rate=PEAK_FLOPS_FP32)
         dp_cluster_row(row, "dag_loss_forward", match, T - 1)
         got = dk.dag_best_alignment_kernel(match, links, ol, tl)
         want = dr.dag_best_alignment_plain(match, links, ol, tl)
@@ -1045,9 +1050,7 @@ def kernel_phase():
                      lambda: dr.dag_best_alignment_plain(match, links, ol, tl),
                      2 * int((n_links * steps).sum()),
                      (B * T * L + B * L * L + B * L + 2 * B) * F32, tol=0.0,
-                     rate=PEAK_FLOPS_FP32,
-                     run_parent=(parent_dp("dag_best_alignment", match, links,
-                                           ol, tl) if PARENT else None))
+                     rate=PEAK_FLOPS_FP32)
         dp_cluster_row(row, "dag_best_alignment", match, int(steps.max()))
         del match, links, got, want
     # --- the HiFi-GAN MRF level (#7, three ResBlock1 of kernels 3/7/11,
@@ -1086,8 +1089,11 @@ def kernel_phase():
     # and the backward of #1, #2, #5 and #3, 1 + 1 + 2 kernels each. One
     # profile of all of them: the first profiler session of the run (a
     # later session lost the first kernels it should have seen)
-    attention_launch_path(lambda: (run_1_2(), run_5_3()), 16, 3,
+    attention_launch_path(lambda: (run_1_2(), run_5_3()), 16, 4,
                           "#1, #2, #5 and #3")
+    for tag, fn in SPLITS:
+        kernel_split(fn, tag)
+    SPLITS.clear()
     worst = dp_numerics()
     if not worst <= 1.0:
         raise AssertionError(f"alpha/beta kernel off float64 by {worst:.3g}"
@@ -1195,8 +1201,15 @@ def alternate_kernel_cases(g, record):
         shape = (f"[{B},{H},{T},{d}] bias4 [{B},{H},{T},{T}] p={p}, "
                  "one row masked")
         # the inference forward on the tensor cores, the training forward
-        # (statistics) on the fp32 SIMT kernel
+        # (statistics) on the FMA kernel's full-bias mode
         want = fa.attention_full_bias_plain(q, k, v, bias4, sc, p, seed)
+        if (B, H, T) == (80, 4, 120):
+            SPLITS.extend([
+                (f"fused_attention_full_bias {shape} training",
+                 functools.partial(fa.attention_fb_fwd_kernel, q, k, v, bias4,
+                                   sc, p, seed, with_stats=True)),
+                (f"SDPA {shape}", functools.partial(sdpa, q, k, v, bias4, sc,
+                                                    p))])
         for stats_on in (False, True):
             out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, sc, p, seed,
                                                  with_stats=stats_on)
@@ -1675,7 +1688,9 @@ def device_busy(fn, tag):
     for name, (count, ms) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:12]:
         log(f"    {ms:9.3f} ms {count:6d}x  {name}")
-    for name in (FMA_FORWARD, SIMT_FORWARD):
+    # the FMA training forward; the link extraction's kernels (this tree's
+    # or the parent's, all named links_*)
+    for name in (FMA_FORWARD, "links_"):
         hits = [(c, ms) for n, (c, ms) in by_name.items() if name in n]
         log(f"    {name}: {sum(c for c, _ in hits)} launches, "
             f"{sum(ms for _, ms in hits):.3f} ms")
@@ -1695,16 +1710,18 @@ def device_busy_in_turns(fn, tag):
 
 
 def fma_forward_only(names, tag):
-    """A training path's profiled update ran the FMA training forward and
-    no SIMT one (only the full-bias attention, which no training path
-    calls, keeps that)."""
+    """A training path's profiled update ran the FMA training forward, and
+    every attention kernel it ran is the FMA forward's or attention_tc.cuh's:
+    no other (SIMT) attention forward."""
     if names is None:
         log(f"  {tag}: no profile, training forward kernels not checked")
         return
-    simt = sorted(n for n in names if SIMT_FORWARD in n)
-    if simt or not any(FMA_FORWARD in n for n in names):
-        raise AssertionError(f"{tag}: training forward kernels: SIMT {simt}, "
-                             f"FMA {any(FMA_FORWARD in n for n in names)}")
+    other = sorted(n for n in names if "attn_" in n and not any(
+        t in n for t in (*TC_KERNELS, *FMA_KERNELS)))
+    if other or not any(FMA_FORWARD in n for n in names):
+        raise AssertionError(f"{tag}: attention kernels other than the FMA "
+                             f"forward's and the tensor cores' {other}, FMA "
+                             f"{any(FMA_FORWARD in n for n in names)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2995,6 +3012,27 @@ def alternates_phase():
         f"{TOL_KERNEL}); launches forward {n_fb[0]}, backward {n_fb[1]}")
     if not (err <= TOL_KERNEL and n_fb == (1, 1)):
         raise AssertionError("full-bias attention through the op failed")
+    # its training forward beside SDPA's on the same bias (timed only)
+    fwd = functools.partial(fa.attention_fb_fwd_kernel, *plain, 0.125, 0.1,
+                            seed, with_stats=True)
+    lib = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                            *plain[:3], attn_mask=plain[3], dropout_p=0.1,
+                            scale=0.125)
+    log(f"  fused_attention_full_bias, ALiBi bias [{B},{H},{T},64] p=0.1, "
+        f"training forward: kernel {cuda_ms(fwd):.4f} ms"
+        + ("" if not PARENT else f"  parent tree {parent_ms(fwd):.4f} ms")
+        + f"  SDPA {cuda_ms(lib):.4f} ms")
+    # its training forward is the FMA kernel's: no SIMT attention forward
+    # on this path either (three steps in the profile: a session this short
+    # and this late in the run can lose its only kernels)
+    def steps():
+        for _ in range(3):
+            torch.autograd.grad(fa.fused_attention_full_bias(
+                *ins, 1234, 0.125, 0.1, True), ins, do)
+
+    steps()
+    fma_forward_only(device_busy(steps, "three full-bias attention steps "
+                                 "(ALiBi)"), "full-bias attention steps")
     return runs, ms
 
 
@@ -3038,22 +3076,27 @@ def main() -> int:
     _build.library()
     if parent is not None:
         parent.join()
-        PARENT["lib"] = _build.load(PARENT["build"].path, strict=False)
+        PARENT["lib"] = _build.load(PARENT["build"].path)
         log(f"parent tree's kernels built in {PARENT['build'].seconds:.1f} s "
             f"-> {PARENT['build'].path}")
+    if b"15attn_fwd_kernel" in built.path.read_bytes():
+        raise AssertionError("a SIMT attention forward (attn_fwd_kernel) is "
+                             "in the kernel library")
     sass = sass_counts(built.path)
     log(f"HMMA and FFMA instructions in the SASS of attention_tc.cuh's "
-        "kernels and of the FMA forward: "
+        "kernels, of the FMA forward and of the link extraction: "
         + ("cuobjdump not found, not checked" if sass is None else str(sass)))
     if sass is not None:
-        tc = {n: c for n, c in sass.items() if not n.startswith(FMA_FORWARD)}
-        fma = {n: c for n, c in sass.items() if n.startswith(FMA_FORWARD)}
-        if ({n.split("<")[0] for n in tc} != set(TC_KERNELS)
+        fma_names = {f"{FMA_FORWARD}{i}" for i in FMA_INSTANCES} | set(
+            LINKS_FMA)
+        tc = {n: c for n, c in sass.items() if n not in fma_names}
+        fma = {n: c for n, c in sass.items() if n in fma_names}
+        if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC}
                 or not all(c["HMMA"] for c in tc.values())):
             raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
-        if (set(fma) != {f"{FMA_FORWARD}<1>", f"{FMA_FORWARD}<5>"}
+        if (set(fma) != fma_names
                 or any(c["HMMA"] or not c["FFMA"] for c in fma.values())):
-            raise AssertionError(f"FMA forward not on the FMA pipes: {fma}")
+            raise AssertionError(f"FMA kernels not on the FMA pipes: {fma}")
 
     log("kernel phase:")
     cases = kernel_phase()

@@ -1,15 +1,16 @@
 // Register-tiled fp32 flash attention forward for Hopper (sm_90a) on the
 // FMA pipes: the training forward (the call that writes the softmax
 // statistics the backward reads) of the packed and head-major attention
-// (fused_attention.cu, NC = 1) and of the Conformer rel-pos attention
-// (fused_relpos.cu, NC = 5), head depth 64.
+// (fused_attention.cu, NC = 1), of the full-bias attention (the same file,
+// NC = 1, FULL) and of the Conformer rel-pos attention (fused_relpos.cu,
+// NC = 5), head depth 64.
 //
 // Why the FMA pipes and not the tensor cores: the tensor cores' fp32
 // accumulation truncates (attention_tc.cuh, "Accumulation"), and a training
 // forward's coherent error moves gradients that are sums over the whole
 // batch past fp32's noise. fmaf rounds every step to nearest, as the plain
 // version's products do, so this kernel is the same kind of arithmetic as
-// the SIMT kernel it replaces; what changes is how the FMAs are fed.
+// the SIMT kernels it replaced; what changes is how the FMAs are fed.
 //
 // What bounds it on this card: the operations, at the FMA pipes' 67
 // TFLOP/s. The SIMT kernel fed every FMA from one 4-byte shared-memory
@@ -62,8 +63,16 @@
 // the row at the end) and the output by exp(m - m_new) once per tile; P∘Z
 // goes to shared memory and O += P∘Z · V.
 //
+// Full bias (FULL): the bias is bias4[b, h, i, j], a [query tile, key tile]
+// block per tile. Two more 64 x 68 stages would take the block to ~122 KB
+// and one block an SM, so each thread reads its 4 x 4 biases from device
+// memory into registers at the top of the tile (keys tx + 16 u of a row:
+// 16 consecutive floats across a half-warp), and they arrive under the
+// score's FMAs; the stages stay as for NC = 1 and two blocks fit an SM.
+//
 // Dropout: the bits attention_tc.cuh's backward regenerates, word (j % 4)
-// of philox4x32_10((j / 4, i, h, 0), (seed[b], 0)). The keys tx + 16 u of a
+// of philox4x32_10((j / 4, i, h, c3), (seed, 0)), seed = seeds[b] and
+// c3 = 0, or for the full bias seeds[0] and c3 = b. The keys tx + 16 u of a
 // thread lie in four different 4-key groups, and the four threads
 // tx = 4 a .. 4 a + 3 need words 0..3 of the same four groups a + 4 u: thread
 // 4 a + w draws group a + 4 w for its 4 rows (4 draws a tile, the least
@@ -83,17 +92,13 @@
 
 #include "attention.cuh"
 #include "philox.cuh"
+#include "tiles.cuh"
 
 namespace daspeech {
 namespace fma {
 // internal linkage: fused_attention.cu and fused_relpos.cu each include
 // this header
 namespace {
-
-constexpr int kRows = 64;             // query rows of a block, keys of a tile
-constexpr int kThreads = 256;         // 16 x 16 threads of 4 x 4 each
-constexpr int kPitch = 64 + 4;        // floats per shared-memory tile row
-constexpr int kTile = kRows * kPitch; // floats in one tile
 
 // the query side stays resident for one chunk (NC = 1), loaded once, and a
 // stage holds the key side's tile alone; NC = 5 streams the query side's
@@ -107,11 +112,6 @@ template <int NC>
 constexpr int kSmemBytes =
     ((kQueryResident<NC> ? kTile : 0) + 2 * kStage<NC> + 2 * kTile) * 4;
 
-__device__ __forceinline__ void load_tile(float* tile, const Operand& x,
-                                          int b, int h, int r0, int rows) {
-  load_rows64<kThreads, kPitch>(tile, x, b, h, r0, rows);
-}
-
 // score chunk c's operands: X_c = q or columns 64 (c - 1) .. of a, and
 // Y_c = k or the same columns of e
 __device__ __forceinline__ Operand query_chunk(const AttnArgs& f, int c) {
@@ -124,8 +124,9 @@ __device__ __forceinline__ Operand key_chunk(const AttnArgs& f, int c) {
 
 // step c of the key tile at j0 into stage st: score chunk c, that is the
 // query side's X_c (unless it is resident) and the key side's Y_c; the
-// column biases come with the last chunk
-template <int NC>
+// column biases come with the last chunk (FULL: none, the kernel reads its
+// bias block from device memory)
+template <int NC, bool FULL>
 __device__ __forceinline__ void load_step(float* st, const AttnArgs& f,
                                           int b, int h, int i0, int j0,
                                           int c) {
@@ -133,7 +134,7 @@ __device__ __forceinline__ void load_step(float* st, const AttnArgs& f,
   float* y = st + (res ? 0 : kTile);
   if (!res) load_tile(st, query_chunk(f, c), b, h, i0, f.Tq);
   load_tile(y, key_chunk(f, c), b, h, j0, f.Tk);
-  if (c == NC - 1 && threadIdx.x < kRows) {
+  if (!FULL && c == NC - 1 && threadIdx.x < kRows) {
     const int j = j0 + threadIdx.x;
     const bool ok = j < f.Tk;
     cp_async<4>(y + kTile + threadIdx.x,
@@ -141,42 +142,16 @@ __device__ __forceinline__ void load_step(float* st, const AttnArgs& f,
   }
 }
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// s[r][u] += X[4 ty + r] . Y[tx + 16 u] over one 64-deep chunk, channel by
-// channel in order; X and Y point at the thread's first row and key
-__device__ __forceinline__ void score_chunk(float s[4][4], const float* X,
-                                            const float* Y) {
-#pragma unroll
-  for (int c = 0; c < 64; c += 4) {
-    float4 q[4], k[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) q[r] = lds4(X + r * kPitch + c);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) k[u] = lds4(Y + 16 * u * kPitch + c);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float acc = s[r][u];
-        acc = fmaf(q[r].x, k[u].x, acc);
-        acc = fmaf(q[r].y, k[u].y, acc);
-        acc = fmaf(q[r].z, k[u].z, acc);
-        acc = fmaf(q[r].w, k[u].w, acc);
-        s[r][u] = acc;
-      }
-    }
-  }
-}
-
 // nsplit = 1: o and the statistics to args.o and args.stats; else block x
 // of the grid is (query tile x / nsplit, key range x % nsplit) and the
-// unnormalized output and (m, l) go to part (see attn_fma_combine_kernel)
-template <int NC>
+// unnormalized output and (m, l) go to part (see attn_fma_combine_kernel).
+// FULL: the full-bias attention (NC = 1), its bias the [query tile, key
+// tile] block of bias4 and its dropout keyed by seeds[0] with the batch row
+// in the fourth counter word
+template <int NC, bool FULL>
 __global__ void __launch_bounds__(kThreads, 2)
 attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
+  static_assert(!FULL || NC == 1, "a full bias takes one score chunk");
   static_assert(kSmemBytes<NC> <= 113 * 1024, "two blocks an SM");
   extern __shared__ __align__(16) float smem[];
   constexpr bool res = kQueryResident<NC>;
@@ -189,7 +164,14 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int i0 = blockIdx.x / nsplit * kRows, split = blockIdx.x % nsplit;
   const bool drop = args.drop.seeds != nullptr;
-  const uint32_t seed = drop ? args.drop.seeds[b] : 0u;
+  const uint32_t seed = drop ? args.drop.seeds[FULL ? 0 : b] : 0u;
+  const uint32_t c3 = FULL ? static_cast<uint32_t>(b) : 0u;
+  // FULL: this thread's rows of bias4[b, h] (rows past Tq read row 0)
+  const float* bias_rows = nullptr;
+  if constexpr (FULL) {
+    bias_rows = args.bias4 + (static_cast<long long>(b) * args.H + h) *
+                                 args.Tq * args.Tk;
+  }
   // this block's key tiles t0 .. t1 - 1 (nsplit <= the tile count, so none
   // is empty)
   const int ntiles = (args.Tk + kRows - 1) / kRows;
@@ -197,7 +179,7 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
   const int nsteps = ((split + 1) * ntiles / nsplit - t0) * NC;
 
   if (res) load_tile(smem, args.q, b, h, i0, args.Tq);
-  load_step<NC>(stages, args, b, h, i0, t0 * kRows, 0);
+  load_step<NC, FULL>(stages, args, b, h, i0, t0 * kRows, 0);
   cp_async_commit();
 
   float s[4][4], o[4][4];
@@ -220,8 +202,8 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
     cp_async_commit();
     if (st + 1 < nsteps) {
       const int nx = st + 1;
-      load_step<NC>(stages + (nx & 1) * kStageF, args, b, h, i0,
-                    (t0 + nx / NC) * kRows, nx % NC);
+      load_step<NC, FULL>(stages + (nx & 1) * kStageF, args, b, h, i0,
+                          (t0 + nx / NC) * kRows, nx % NC);
     }
     cp_async_commit();
 
@@ -235,6 +217,23 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
         for (int u = 0; u < 4; ++u) s[r][u] = 0.f;
       }
     }
+    // FULL: the thread's 4 x 4 biases straight into registers, issued
+    // before the score so that the loads fly under its FMAs; keys
+    // tx + 16 u of a row are 16 consecutive floats across a half-warp
+    float fb[4][4] = {};
+    if constexpr (FULL) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + 4 * ty + r;
+        const float* row =
+            bias_rows + static_cast<long long>(i < args.Tq ? i : 0) * args.Tk;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + tx + 16 * u;
+          fb[r][u] = j < args.Tk ? __ldg(row + j) : 0.f;
+        }
+      }
+    }
     score_chunk(s, X + 4 * ty * kPitch, Y + tx * kPitch);
     if (c != NC - 1) continue;
 
@@ -245,9 +244,10 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
     for (int u = 0; u < 4; ++u) {
       const int jj = tx + 16 * u;
       const bool ok = j0 + jj < args.Tk;
-      const float bias = Bs[jj];
+      const float col_bias = FULL ? 0.f : Bs[jj];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
+        const float bias = FULL ? fb[r][u] : col_bias;
         const float sc = ok ? s[r][u] * args.scale + bias : -INFINITY;
         s[r][u] = sc;
         mx[r] = fmaxf(mx[r], sc);
@@ -275,7 +275,8 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const uint4 x = philox4x32_10(
-            make_uint4((j0 >> 2) + (tx >> 2) + 4 * w, i0 + 4 * ty + r, h, 0u),
+            make_uint4((j0 >> 2) + (tx >> 2) + 4 * w, i0 + 4 * ty + r, h,
+                       c3),
             seed, 0u);
         const uint32_t t = args.drop.thresh;
         own |= (static_cast<uint32_t>(x.x <= t) |
@@ -448,12 +449,12 @@ inline int pick_split(long long blocks, int ntiles) {
   return best;
 }
 
-template <int NC>
+template <int NC, bool FULL = false>
 inline cudaError_t launch_attn_fma_fwd(const AttnArgs& args, int B,
                                        cudaStream_t stream) {
   constexpr int smem = kSmemBytes<NC>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fma_fwd_kernel<NC>,
+      attn_fma_fwd_kernel<NC, FULL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int qtiles = (args.Tq + kRows - 1) / kRows;
@@ -470,8 +471,8 @@ inline cudaError_t launch_attn_fma_fwd(const AttnArgs& args, int B,
     if (err != cudaSuccess) return err;
   }
   dim3 grid(qtiles * nsplit, args.H, B);
-  attn_fma_fwd_kernel<NC><<<grid, kThreads, smem, stream>>>(args, part,
-                                                           nsplit);
+  attn_fma_fwd_kernel<NC, FULL><<<grid, kThreads, smem, stream>>>(
+      args, part, nsplit);
   err = cudaGetLastError();
   if (nsplit > 1) {
     if (err == cudaSuccess) {

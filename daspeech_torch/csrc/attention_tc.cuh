@@ -6,10 +6,10 @@
 // [B, H, Tq, Tk] bias that receives a gradient) and the Conformer rel-pos
 // attention (fused_relpos.cu; a 64 + 256-deep score) the chunked-score
 // kernels at the end ("Chunked score depth"). The training forward of all
-// four stays on the fp32 FMA pipes (attention_fma.cuh for the packed,
-// head-major and rel-pos attention, attention.cuh's SIMT kernel for the full
-// bias); see "Accumulation" for why. The argument structs (AttnArgs,
-// AttnBwdArgs) and the cp.async helpers are attention.cuh's.
+// four stays on the fp32 FMA pipes (attention_fma.cuh); see "Accumulation"
+// for why. The argument structs (AttnArgs, AttnBwdArgs) and the cp.async
+// helpers are attention.cuh's; the fragment and tile-product helpers this
+// comment describes are tiles.cuh's.
 //
 // Precision: fp32 in and out; every matrix product runs on the tensor cores
 // as 3xTF32. Each operand x is split into hi = cvt.rna.tf32(x) and
@@ -100,159 +100,13 @@
 
 #include "attention.cuh"
 #include "philox.cuh"
+#include "tiles.cuh"
 
 namespace daspeech {
 namespace tc {
 // internal linkage: fused_attention.cu and fused_relpos.cu each include
 // this header, and a kernel with external linkage would be defined twice
 namespace {
-
-constexpr int kDepth = 64;            // head depth
-constexpr int kRows = 64;             // rows of a tile (queries or keys)
-constexpr int kWarps = 4;             // 16 rows each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPitch = kDepth + 4;    // floats per shared-memory tile row
-constexpr int kTile = kRows * kPitch; // floats in one tile
-
-// ---------------------------------------------------------------- helpers
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b in 3xTF32, a given split, b = (b0, b1) split here
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
-                                     const uint32_t al[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void split4(const float a[4], uint32_t hi[4],
-                                       uint32_t lo[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(a[e], hi[e], lo[e]);
-}
-
-// A fragment of k-step kk from 16 rows of a shared-memory tile (row pitch
-// kPitch), k along the row
-__device__ __forceinline__ void a_from_rows(const float* A, int kk, int gid,
-                                            int t, float a[4]) {
-  const float* r0 = A + gid * kPitch + kk * 8 + t;
-  const float* r1 = r0 + 8 * kPitch;
-  a[0] = r0[0];
-  a[1] = r1[0];
-  a[2] = r0[4];
-  a[3] = r1[4];
-}
-
-// k-steps of a product summed in one fresh accumulator before an fp32 add
-// folds them into the result; 0 would accumulate every k-step in place
-// (see "Accumulation" at the top; tools/torch_attention_accumulation.py
-// builds copies with other values)
-constexpr int kGroup = 4;
-static_assert(kGroup == 0 || 8 % kGroup == 0, "k-step groups must tile 8");
-
-// c += a·b for the kGroup (or, G == 0, one) k-steps of a group: in place
-// (G == 0) or in a fresh accumulator added to c afterwards
-template <int G, class MmaStep>
-__device__ __forceinline__ void mma_group(float c[4], MmaStep step) {
-  if constexpr (G == 0) {
-    step(c, 0);
-  } else {
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int u = 0; u < G; ++u) step(f, u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += f[e];
-  }
-}
-
-// acc[n] (16 x 8 block n of a 16 x 64 result) += A · Tᵀ over the 64 columns:
-// result[m][n*8 + c] = sum_k A[m][k] T[n*8 + c][k]. load_a(kk, a) gives A's
-// fragment of k-step kk. G: k-steps per fresh accumulator, 0 = in place.
-template <int G, class LoadA>
-__device__ __forceinline__ void mma_rows(float acc[8][4], LoadA load_a,
-                                         const float* T, int gid, int t) {
-  constexpr int S = G == 0 ? 1 : G;
-#pragma unroll
-  for (int k0 = 0; k0 < 8; k0 += S) {
-    uint32_t ah[S][4], al[S][4];
-#pragma unroll
-    for (int u = 0; u < S; ++u) {
-      float a[4];
-      load_a(k0 + u, a);
-      split4(a, ah[u], al[u]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mma_group<G>(acc[n], [&](float c[4], int u) {
-        const float* r = T + (n * 8 + gid) * kPitch + (k0 + u) * 8 + t;
-        mma3(c, ah[u], al[u], r[0], r[4]);
-      });
-    }
-  }
-}
-
-// acc[n] += X · T[:, n*8 ..]: result[m][n*8 + c] = sum_k X[m][k] T[k][n*8 + c]
-// with X (16 x 64) held in accumulator layout x[kk][.] (columns kk*8 + 2t,
-// 2t + 1), fed as A with relabelled k slots (see the note at the top)
-template <int G>
-__device__ __forceinline__ void mma_cols(float acc[8][4], const float x[8][4],
-                                         const float* T, int gid, int t) {
-  constexpr int S = G == 0 ? 1 : G;
-#pragma unroll
-  for (int k0 = 0; k0 < 8; k0 += S) {
-    uint32_t ah[S][4], al[S][4];
-#pragma unroll
-    for (int u = 0; u < S; ++u) {
-      const int kk = k0 + u;
-      const float a[4] = {x[kk][0], x[kk][2], x[kk][1], x[kk][3]};
-      split4(a, ah[u], al[u]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mma_group<G>(acc[n], [&](float c[4], int u) {
-        const float* r = T + ((k0 + u) * 8 + 2 * t) * kPitch + gid + n * 8;
-        mma3(c, ah[u], al[u], r[0], r[kPitch]);
-      });
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float x[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-  }
-}
-
-// rows r0 .. r0 + 63 of a [rows, 64] operand view into a tile; rows past
-// `rows` are zero-filled
-__device__ __forceinline__ void load_tile(float* tile, const Operand& x,
-                                          int b, int h, int r0, int rows) {
-  load_rows64<kThreads, kPitch>(tile, x, b, h, r0, rows);
-}
 
 // keep bits of one Philox draw: bit w = word w <= thresh
 __device__ __forceinline__ uint32_t keep4(const uint4& r, uint32_t thresh) {
@@ -731,28 +585,6 @@ inline cudaError_t launch_attn_tc_bwd(const AttnBwdArgs& args, int B,
 __device__ __forceinline__ long long matrix_at(const AttnArgs& f, int b,
                                                int h) {
   return (static_cast<long long>(b) * f.H + h) * f.Tq * f.Tk;
-}
-
-// rows r0 .. r0 + 63, columns c0 .. c0 + 63 of a row-major [rows, cols]
-// matrix into a tile, zero outside; 16-byte copies when rows stay aligned
-__device__ __forceinline__ void load_matrix_tile(float* tile, const float* m,
-                                                 int rows, int cols, int r0,
-                                                 int c0) {
-  if ((cols & 3) == 0) {
-    for (int c = threadIdx.x; c < kRows * 16; c += kThreads) {
-      const int rr = c >> 4, cc = (c & 15) * 4, r = r0 + rr, j = c0 + cc;
-      const bool ok = r < rows && j < cols;
-      cp_async<16>(tile + rr * kPitch + cc,
-                   m + (ok ? static_cast<long long>(r) * cols + j : 0), ok);
-    }
-  } else {
-    for (int c = threadIdx.x; c < kRows * kRows; c += kThreads) {
-      const int rr = c >> 6, cc = c & 63, r = r0 + rr, j = c0 + cc;
-      const bool ok = r < rows && j < cols;
-      cp_async<4>(tile + rr * kPitch + cc,
-                  m + (ok ? static_cast<long long>(r) * cols + j : 0), ok);
-    }
-  }
 }
 
 // a stage: the step's two tiles, then the bias (FULL: the [query tile, key

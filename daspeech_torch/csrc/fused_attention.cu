@@ -53,7 +53,8 @@
 // The full-bias entry points run the chunked-score tensor-core kernels of
 // attention_tc.cuh with one chunk (NC = 1) and the bias as a
 // [query tile, key tile] block per stage, streamed beside K by cp.async;
-// their training forward is attention.cuh's SIMT kernel.
+// their training forward is attention_fma.cuh's kernel in its full-bias
+// mode (FULL), each thread reading its 4 x 4 biases from device memory.
 // The backward's score kernel writes dS (the bias's gradient, each element
 // once) and P∘Z; dq, dk and dv are products with them in a second launch.
 // There bytes count as well as operations: bias4 is read once forward and
@@ -212,7 +213,7 @@ extern "C" int daspeech_attention_fb_fwd(const float* q, const float* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       stats != nullptr
-          ? launch_attn_fwd<64, 4, 32, 64>(args, B, s)
+          ? fma::launch_attn_fma_fwd<1, true>(args, B, s)
           : tc::launch_attn_tc_chunk_fwd<1, true>(args, B, s));
 }
 

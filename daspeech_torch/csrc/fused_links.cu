@@ -12,274 +12,100 @@
 //   links(i, j) = valid ? logsumexp_h(s_h(i, j) - lse_h(i) + log_gates[i, h])
 //                       : -inf
 // Rows with no valid successor (i >= out_len - 1) come out all -inf, never
-// NaN: the -1e9 floor keeps every intermediate finite and the mask is
-// applied on the final write only. For training the forward also writes
-// lse_h [B, L, H].
+// NaN: the mask is applied on the final write only, and every intermediate
+// stays finite. For training the forward also writes lse_h [B, L, H].
 //
-// Forward design: one block per (tile of 4 rows i, batch row b), 256
-// threads. A thread owns one column j of every 128-wide column chunk for two
-// of the four rows, and keeps that entry's running (max, sum) over heads in
-// registers while the head loop runs; each head's scores exist only in
-// registers and its row log-sum-exp is one block reduction. The
-// [B, L, L, H] score tensor the plain version builds never reaches device
-// memory: the only [L, L] traffic is the single write of the result.
+// Live tiles. Split [L, L] into 64 x 64 tiles. The valid entries of the
+// row tile at i0 lie in the columns [i0 + 1, min(out_len, L, i_last + mtl
+// + 1)), and every column tile that meets that range holds one; the other
+// tiles (the lower triangle, the columns past out_len or past the band)
+// are dead. Skipping them is exact: in a row with a valid entry every
+// skipped entry is the -1e9 floor, whose exp underflows to 0.0f beside the
+// row's maximum (a real score), so the row's maximum and sum, and with them
+// lse_h and every finite link, come out bit for bit as over the whole row.
+// A row with no valid entry needs only a finite lse_h, which the backward
+// never reads at a valid entry. At cell T (out_len in [120, 240], L = 240)
+// and at J-long (out_len in [350, 700], L = 700) over half of the tiles
+// are dead.
+//
+// Forward, on the fp32 FMA pipes (tiles.cuh's fma side: 256 threads, each
+// a 4-row x 4-column micro-tile of the 64 x 64 score tile, fed by 16-byte
+// shared-memory reads). It feeds the DAG loss, so it stays off the
+// truncating tensor-core accumulation (attention_fma.cuh, "Why the FMA
+// pipes"). Two kernels, so that a small batch still fills the card:
+//   1. links_lse_kernel, one block per (64-row tile, head, batch row): the
+//      row tile's Q_h stays in shared memory and the live K_h tiles stream
+//      through two cp.async stages; each thread keeps an online (max, sum)
+//      of its own columns of its 4 rows, merged over the row's 16 threads
+//      (a half-warp) by xor-shuffles at the end: lse_h to [B, L, H];
+//   2. links_fold_kernel, one block per (column tile, row tile, batch
+//      row): a dead pair writes -inf and returns; a live one streams
+//      (Q_h, K_h, lse_h, log_gates_h) per head through two stages,
+//      recomputes the head's score tile and folds s - lse_h + g_h into a
+//      per-entry running (max, sum) over heads in registers (one exp an
+//      entry and head: the larger of the two terms is 1), then writes the
+//      links tile once.
+// The [B, L, L, H] score tensor never reaches device memory; the [L, L]
+// traffic is the single write of links.
 //
 // Backward, with G = dlinks masked to the valid entries and the head
 // posterior p_h(i, j) = exp(s_h - lse_h(i) + log_gates[i, h] - links(i, j)):
 //   dgates[i, h] = r_h(i) = sum_j p_h(i, j) G(i, j)
 //   dS_h(i, j)   = valid ? (p_h G - exp(s_h - lse_h(i)) r_h(i)) * scale : 0
 //   dq_h[i] = sum_j dS_h(i, j) k_h[j],  dk_h[j] = sum_i dS_h(i, j) q_h[i]
-// The floor is a constant, so invalid entries carry no gradient. Two kernels
-// in the attention backward's layout (attention.cuh): a row-parallel one
-// (one block per 32 rows and head; four threads per row) that makes r in a
-// first sweep over the row's key tiles and dq in a second, writing r as
-// dgates; and a column-parallel one for dk that reads r back. Tiles of
-// links and G are staged through shared memory, and tiles that hold no
-// valid entry (the lower triangle, columns past out_len) are skipped.
+// The floor is a constant, so invalid entries carry no gradient. On the
+// tensor cores in 3xTF32 (tiles.cuh's tc side, attention_tc.cuh's backward
+// layout: four warps of 16 rows, the warp's A fragments in registers,
+// 64 x 64 tiles by cp.async, double-buffered), over the live tiles only:
+//   1. links_bwd_dq_kernel, one block per (64-row tile, head, batch row):
+//      a first sweep over the live column tiles makes r = dgates (written),
+//      a second recomputes S, forms dS and takes dq += dS·K;
+//   2. links_bwd_dk_kernel, one block per (64-column tile, head, batch
+//      row): per live row tile, Sᵀ = K·Qᵀ, dSᵀ from the stored r, and
+//      dk += dSᵀ·Q.
+// The backward's exps are __expf (ex2.approx of x·log2 e, a few ulp),
+// faster than expf on the card; its gradients stay within 2e-5 of the
+// plain version.
+// Recomputing S in the column kernel (five 64-deep tile products a live
+// tile, where writing dS once would take four) keeps a [B, H, L, L] dS
+// buffer (147 MB at cell T, 219 MB at J-long; the C entry point takes no
+// scratch) out of device memory, at the cost of one more tile product. No
+// atomics: the gradients are bit-identical from run to run.
 //
-// What bounds it on this card: B*H*L*L*64 fp32 FMAs per product (2.9 GFLOP
-// at B=8, L=600 forward; the backward does five such products over the
-// upper triangle), each reading one shared-memory operand, plus the K
-// chunks, which every forward block re-reads from L2 once per head
-// (H*L*256 bytes per block). It is compute- and shared-memory-bound on the
-// fp32 pipes; the [L, L] traffic (links out; links and dlinks in for the
-// backward) is small beside that. Larger row tiles (fewer K re-reads) and
-// tensor cores are later work. L is capped at 1024 (max_target_positions)
-// by the forward's register arrays: eight chunks.
+// What bounds it on this card: at cell T [80, 240] H = 8 the forward moves
+// ~97 MB (q, k in, links out: 0.029 ms at 3.35 TB/s) against ~5 GFLOP of
+// live-tile FMAs (two sweeps; 0.08 ms at 67 TFLOP/s); the backward ~194 MB
+// (0.058 ms) against ~13 GFLOP of live-tile products (0.08 ms at 165
+// TFLOP/s, the 3xTF32 rate). Both are bound by the work per live tile, not
+// by the [L, L] traffic. The card's times are in PERF.md.
+// L is capped at 1024 (max_target_positions) by the wrapper; the kernels
+// have no limit of their own.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attention.cuh"   // row_sum
+#include "attention.cuh"   // Operand, cp.async
+#include "tiles.cuh"
 
 namespace daspeech {
+namespace {
 
-constexpr int kLinksDK = 64;    // head depth
-constexpr int kLinksBI = 4;     // rows per block
-constexpr int kLinksCW = 128;   // columns per chunk (one per thread pair)
-constexpr int kLinksNT = 256;   // threads per block
+constexpr int kLinksDK = 64;      // head depth
+constexpr int kTileW = 64;        // rows and columns of a tile
 constexpr float kLinksFloor = -1e9f;
+// a thread's running maximum before it has seen a column < L: below the
+// floor, so that a column of the row always replaces it
+constexpr float kLinksNone = -2e9f;
 
-template <int NC>
-__global__ void __launch_bounds__(kLinksNT)
-links_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ g, const int* __restrict__ out_len,
-                 float* __restrict__ links, float* __restrict__ lse_out,
-                 int L, int H, float scale, int mtl) {
-  constexpr int DK = kLinksDK, BI = kLinksBI, CW = kLinksCW;
-  constexpr int NW = kLinksNT / 32;  // warps; warps 0-3 hold rows 0 and 2,
-                                     // warps 4-7 rows 1 and 3
-  __shared__ float Ks[CW][DK + 1];   // +1: conflict-free column reads
-  __shared__ float Qs[BI][DK];
-  __shared__ float Gs[BI];
-  __shared__ float red[NW][2];
-  __shared__ float row_stat[BI];
-
-  const int tid = threadIdx.x;
-  const int c = tid % CW;
-  const int rg = tid / CW;           // rows rg and rg + 2 of the tile
-  const int warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * BI;
-  const int ol = out_len[b];
-  const long long HD = static_cast<long long>(H) * DK;
-
-  float rmax[NC][2], rsum[NC][2];
-#pragma unroll
-  for (int ch = 0; ch < NC; ++ch) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rmax[ch][r] = -INFINITY;
-      rsum[ch][r] = 0.f;
-    }
-  }
-
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the previous head is done with Qs, Gs, row_stat
-    for (int idx = tid; idx < BI * DK; idx += kLinksNT) {
-      const int r = idx / DK, d = idx % DK, i = i0 + r;
-      Qs[r][d] = (i < L) ? q[(b * static_cast<long long>(L) + i) * HD +
-                             h * DK + d]
-                         : 0.f;
-    }
-    if (tid < BI) {
-      const int i = i0 + tid;
-      Gs[tid] = (i < L) ? g[(b * static_cast<long long>(L) + i) * H + h]
-                        : 0.f;
-    }
-
-    float s[NC][2];
-#pragma unroll
-    for (int ch = 0; ch < NC; ++ch) {
-      __syncthreads();  // Ks is free (and Qs, Gs are written)
-      for (int idx = tid; idx < CW * DK; idx += kLinksNT) {
-        const int jj = idx / DK, d = idx % DK, j = ch * CW + jj;
-        Ks[jj][d] = (j < L) ? k[(b * static_cast<long long>(L) + j) * HD +
-                                h * DK + d]
-                            : 0.f;
-      }
-      __syncthreads();
-      float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DK; ++d) {
-        const float kd = Ks[c][d];
-        acc0 = fmaf(Qs[rg][d], kd, acc0);
-        acc1 = fmaf(Qs[rg + 2][d], kd, acc1);
-      }
-      const int j = ch * CW + c;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = i0 + rg + 2 * r;
-        const bool valid = j > i && j < ol && (mtl < 0 || j - i <= mtl);
-        const float dot = r == 0 ? acc0 : acc1;
-        // columns past L take no part in the row normalizer
-        s[ch][r] = (j >= L) ? -INFINITY : (valid ? dot * scale : kLinksFloor);
-      }
-    }
-
-    // row max over j: thread-local, warp, then the four warps of a row
-    float pm[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = -INFINITY;
-#pragma unroll
-      for (int ch = 0; ch < NC; ++ch) x = fmaxf(x, s[ch][r]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-      }
-      pm[r] = x;
-    }
-    if (lane == 0) {
-      red[warp][0] = pm[0];
-      red[warp][1] = pm[1];
-    }
-    __syncthreads();
-    if (tid < BI) {  // row tid = rg' + 2 r'
-      const int rg_ = tid % 2, r_ = tid / 2;
-      float x = -INFINITY;
-      for (int w = rg_ * 4; w < rg_ * 4 + 4; ++w) x = fmaxf(x, red[w][r_]);
-      row_stat[tid] = x;
-    }
-    __syncthreads();
-    float rowmax[2] = {row_stat[rg], row_stat[rg + 2]};
-    __syncthreads();  // row_stat and red are reused below
-
-    // row sum of exp(s - max), then lse = log(sum) + max
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < NC; ++ch) x += expf(s[ch][r] - rowmax[r]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-      }
-      pm[r] = x;
-    }
-    if (lane == 0) {
-      red[warp][0] = pm[0];
-      red[warp][1] = pm[1];
-    }
-    __syncthreads();
-    if (tid < BI) {
-      const int rg_ = tid % 2, r_ = tid / 2;
-      float x = 0.f;
-      for (int w = rg_ * 4; w < rg_ * 4 + 4; ++w) x += red[w][r_];
-      row_stat[tid] = x;
-    }
-    __syncthreads();
-    const float lse[2] = {logf(row_stat[rg]) + rowmax[0],
-                          logf(row_stat[rg + 2]) + rowmax[1]};
-    const float gate[2] = {Gs[rg], Gs[rg + 2]};
-    if (lse_out != nullptr && c == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = i0 + rg + 2 * r;
-        if (i < L) lse_out[(b * static_cast<long long>(L) + i) * H + h] = lse[r];
-      }
-    }
-
-    // fold this head into the running log-sum-exp over heads
-#pragma unroll
-    for (int ch = 0; ch < NC; ++ch) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (ch * CW + c < L) {
-          const float v = s[ch][r] - lse[r] + gate[r];
-          const float nm = fmaxf(rmax[ch][r], v);
-          rsum[ch][r] = rsum[ch][r] * expf(rmax[ch][r] - nm) + expf(v - nm);
-          rmax[ch][r] = nm;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int ch = 0; ch < NC; ++ch) {
-    const int j = ch * CW + c;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = i0 + rg + 2 * r;
-      if (i < L && j < L) {
-        const bool valid = j > i && j < ol && (mtl < 0 || j - i <= mtl);
-        links[(b * static_cast<long long>(L) + i) * L + j] =
-            valid ? logf(rsum[ch][r]) + rmax[ch][r] : -INFINITY;
-      }
-    }
-  }
-}
-
-template <int NC>
-cudaError_t launch_links(const float* q, const float* k, const float* g,
-                         const int* ol, float* links, float* lse, int B,
-                         int L, int H, float scale, int mtl,
-                         cudaStream_t stream) {
-  dim3 grid((L + kLinksBI - 1) / kLinksBI, B);
-  links_fwd_kernel<NC><<<grid, kLinksNT, 0, stream>>>(q, k, g, ol, links, lse,
-                                                      L, H, scale, mtl);
-  return cudaGetLastError();
-}
-
-}  // namespace daspeech
-
-extern "C" int daspeech_links_fwd(const float* q, const float* k,
-                                  const float* log_gates, const int* out_len,
-                                  float* links, float* lse, int B, int L,
-                                  int H, int DK, float scale, int mtl,
-                                  void* stream) {
-  using namespace daspeech;
-  if (DK != kLinksDK || L < 1 || L > 8 * kLinksCW) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch ((L + kLinksCW - 1) / kLinksCW) {
-    case 1: err = launch_links<1>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    case 2: err = launch_links<2>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    case 3: err = launch_links<3>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    case 4: err = launch_links<4>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    case 5: err = launch_links<5>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    case 6: err = launch_links<6>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    case 7: err = launch_links<7>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-    default: err = launch_links<8>(q, k, log_gates, out_len, links, lse, B, L, H, scale, mtl, st); break;
-  }
-  return static_cast<int>(err);
-}
-
-namespace daspeech {
-
-constexpr int kLbTPR = 4;     // threads per row (16 channels each)
-constexpr int kLbOwn = 32;    // rows (dq) or columns (dk) a block owns
-constexpr int kLbTile = 64;   // columns (dq) or rows (dk) per staged tile
-
-struct LinksBwdArgs {
-  const float* q;
+struct LinksArgs {
+  const float* q;        // [B, L, H*64]
   const float* k;
   const float* g;        // log_gates [B, L, H]
-  const int* out_len;
-  const float* links;    // forward output [B, L, L]
-  const float* lse;      // forward per-head row lse [B, L, H]
-  const float* dlinks;   // [B, L, L]
+  const int* out_len;    // [B]
+  const float* links;    // backward: the forward's output [B, L, L]
+  const float* lse;      // [B, L, H]: the fold's and the backward's input
+  const float* dlinks;   // backward: [B, L, L]
+  float* links_out;      // forward: [B, L, L]
+  float* lse_out;        // forward: [B, L, H]
   float* dq;
   float* dk;
   float* dg;             // dgates [B, L, H]; the dk kernel reads it as r
@@ -292,170 +118,492 @@ __device__ __forceinline__ bool link_valid(int i, int j, int ol, int mtl) {
   return j > i && j < ol && (mtl < 0 || j - i <= mtl);
 }
 
-__global__ void __launch_bounds__(kLbOwn * kLbTPR)
-links_bwd_dq_kernel(const LinksBwdArgs a) {
-  constexpr int TPR = kLbTPR, BM = kLbOwn, BN = kLbTile;
-  constexpr int NT = BM * TPR, DK = kLinksDK, KPT = DK / TPR;
-  __shared__ float Ks[BN][DK];
-  __shared__ float Ps[BM][BN + 1];   // links
-  __shared__ float Gs[BM][BN + 1];   // dlinks
+// out_len of batch row b, at most L
+__device__ __forceinline__ int graph_len(const LinksArgs& a, int b) {
+  return min(a.out_len[b], a.L);
+}
 
-  const int tid = threadIdx.x;
-  const int sub = tid % TPR;
-  const int rl = tid / TPR;
-  const int i0 = blockIdx.x * BM;
-  const int i = i0 + rl;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int L = a.L;
-  const int ol = a.out_len[b];
-  const bool row_ok = i < L;
-  const long long HD = static_cast<long long>(a.H) * DK;
-  const long long rowL = b * static_cast<long long>(L);
+// head h of a packed [B, L, H*64] tensor
+__device__ __forceinline__ Operand packed(const float* p, const LinksArgs& a) {
+  const long long row = static_cast<long long>(a.H) * kLinksDK;
+  return Operand{p, a.L * row, row, kLinksDK};
+}
 
-  float qr[KPT], dqa[KPT];
-#pragma unroll
-  for (int t = 0; t < KPT; ++t) {
-    qr[t] = row_ok ? a.q[(rowL + i) * HD + h * DK + sub + TPR * t] : 0.f;
-    dqa[t] = 0.f;
+// the live column tiles of the row tile at i0: the first tile's index and
+// their count (see "Live tiles")
+__device__ __forceinline__ int2 live_col_tiles(int i0, int L, int ol,
+                                               int mtl) {
+  const int lo = i0 + 1;
+  int hi = ol;
+  if (mtl >= 0) hi = min(hi, min(i0 + kTileW, L) - 1 + mtl + 1);
+  return lo < hi ? make_int2(lo / kTileW, (hi - 1) / kTileW - lo / kTileW + 1)
+                 : make_int2(0, 0);
+}
+
+// the live row tiles of the column tile at j0: rows i with a valid (i, j)
+// for some j in [j0, min(j0 + 64, ol)), that is max(0, j0 - mtl) <= i <
+// min(j0 + 64, ol) - 1
+__device__ __forceinline__ int2 live_row_tiles(int j0, int ol, int mtl) {
+  const int lo = mtl >= 0 ? max(0, j0 - mtl) : 0;
+  const int hi = j0 < ol ? min(j0 + kTileW, ol) - 1 : 0;
+  return lo < hi ? make_int2(lo / kTileW, (hi - 1) / kTileW - lo / kTileW + 1)
+                 : make_int2(0, 0);
+}
+
+// ----------------------------------------------------------- forward: lse
+
+// dynamic shared memory: the row tile's Q_h, then two stages of K_h tiles
+constexpr int kLseSmem = 3 * fma::kTile * 4;
+
+__global__ void __launch_bounds__(fma::kThreads, 2)
+links_lse_kernel(const LinksArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* const Qs = smem;
+  float* const stages = smem + fma::kTile;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int i0 = blockIdx.x * kTileW, h = blockIdx.y, b = blockIdx.z;
+  const int L = a.L, ol = graph_len(a, b);
+  const Operand q = packed(a.q, a), k = packed(a.k, a);
+  const int2 tiles = live_col_tiles(i0, L, ol, a.mtl);
+
+  if (tiles.y > 0) {
+    fma::load_tile(Qs, q, b, h, i0, L);
+    fma::load_tile(stages, k, b, h, tiles.x * kTileW, L);
+    cp_async_commit();
   }
-  const float gh = row_ok ? a.g[(rowL + i) * a.H + h] : 0.f;
-  const float lh = row_ok ? a.lse[(rowL + i) * a.H + h] : 0.f;
-
-  // columns that can be valid for some row of this tile
-  const int i_last = min(L, i0 + BM) - 1;
-  int j_hi = min(ol, L);
-  if (a.mtl >= 0) j_hi = min(j_hi, i_last + a.mtl + 1);
-  const int jt0 = ((i0 + 1) / BN) * BN;
-
-  float r = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int j0 = jt0; j0 < j_hi; j0 += BN) {
-      __syncthreads();  // the previous tile is consumed
-      for (int idx = tid; idx < BN * DK; idx += NT) {
-        const int jj = idx / DK, d = idx % DK, j = j0 + jj;
-        Ks[jj][d] = (j < L) ? a.k[(rowL + j) * HD + h * DK + d] : 0.f;
-      }
-      for (int idx = tid; idx < BM * BN; idx += NT) {
-        const int rr = idx / BN, cc = idx % BN;
-        const int ii = i0 + rr, j = j0 + cc;
-        const bool in = ii < L && j < L;
-        Ps[rr][cc] = in ? a.links[(rowL + ii) * L + j] : 0.f;
-        Gs[rr][cc] = in ? a.dlinks[(rowL + ii) * L + j] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < BN; ++jj) {
-        const int j = j0 + jj;
-        float s = 0.f;
+  float m[4], l[4];
 #pragma unroll
-        for (int t = 0; t < KPT; ++t) s = fmaf(qr[t], Ks[jj][sub + TPR * t], s);
-        s = row_sum<TPR>(s) * a.scale;
-        const bool valid = row_ok && j < L && link_valid(i, j, ol, a.mtl);
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kLinksNone;
+    l[r] = 0.f;
+  }
+  for (int st = 0; st < tiles.y; ++st) {
+    const int j0 = (tiles.x + st) * kTileW;
+    cp_async_wait_all();
+    __syncthreads();
+    if (st + 1 < tiles.y) {
+      fma::load_tile(stages + ((st + 1) & 1) * fma::kTile, k, b, h,
+                     j0 + kTileW, L);
+      cp_async_commit();
+    }
+    float s[4][4] = {};
+    fma::score_chunk(s, Qs + 4 * ty * fma::kPitch,
+                     stages + (st & 1) * fma::kTile + tx * fma::kPitch);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + 4 * ty + r;
+      float x[4], mx = m[r];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + tx + 16 * u;
+        // columns past L take no part in the row's normalizer
+        x[u] = j >= L                         ? -INFINITY
+               : link_valid(i, j, ol, a.mtl) ? s[r][u] * a.scale
+                                             : kLinksFloor;
+        mx = fmaxf(mx, x[u]);
+      }
+      float sum = l[r] * expf(m[r] - mx);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sum += expf(x[u] - mx);
+      m[r] = mx;
+      l[r] = sum;
+    }
+  }
+
+  // merge the row's 16 threads: (max, sum) of (m, l)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float mr = m[r];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, off));
+    }
+    float sum = l[r] * expf(m[r] - mr);
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    }
+    const int i = i0 + 4 * ty + r;
+    if (tx == 0 && i < L) {
+      // a row of a live tile has a column < L, so mr >= the floor
+      a.lse_out[(static_cast<long long>(b) * L + i) * a.H + h] =
+          tiles.y > 0 ? logf(sum) + mr : kLinksFloor;
+    }
+  }
+}
+
+// ---------------------------------------------------------- forward: fold
+
+// dynamic shared memory: two stages of [Q_h tile, K_h tile, lse_h and
+// log_gates_h of the 64 rows]
+constexpr int kFoldStage = 2 * fma::kTile + 2 * kTileW;
+constexpr int kFoldSmem = 2 * kFoldStage * 4;
+
+__device__ __forceinline__ void load_fold_stage(float* st, const LinksArgs& a,
+                                                int b, int h, int i0,
+                                                int j0) {
+  fma::load_tile(st, packed(a.q, a), b, h, i0, a.L);
+  fma::load_tile(st + fma::kTile, packed(a.k, a), b, h, j0, a.L);
+  const int x = threadIdx.x;
+  if (x < 2 * kTileW) {
+    const int i = i0 + (x & (kTileW - 1));
+    const bool ok = i < a.L;
+    const long long at = (static_cast<long long>(b) * a.L + (ok ? i : 0)) *
+                             a.H + h;
+    cp_async<4>(st + 2 * fma::kTile + x, (x < kTileW ? a.lse : a.g) + at, ok);
+  }
+}
+
+__global__ void __launch_bounds__(fma::kThreads, 2)
+links_fold_kernel(const LinksArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int j0 = blockIdx.x * kTileW, i0 = blockIdx.y * kTileW;
+  const int b = blockIdx.z;
+  const int L = a.L, ol = graph_len(a, b);
+  float* const out = a.links_out + static_cast<long long>(b) * L * L;
+  const int2 tiles = live_col_tiles(i0, L, ol, a.mtl);
+  const int t = j0 / kTileW;
+  if (t < tiles.x || t >= tiles.x + tiles.y) {
+    for (int idx = tid; idx < kTileW * kTileW; idx += fma::kThreads) {
+      const int i = i0 + idx / kTileW, j = j0 + idx % kTileW;
+      if (i < L && j < L) out[static_cast<long long>(i) * L + j] = -INFINITY;
+    }
+    return;
+  }
+
+  load_fold_stage(smem, a, b, 0, i0, j0);
+  cp_async_commit();
+  // per entry (row 4 ty + r, column tx + 16 u): running max and sum of
+  // exp(v - max) over the heads
+  float rmax[4][4], rsum[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      rmax[r][u] = -INFINITY;
+      rsum[r][u] = 0.f;
+    }
+  }
+  bool ok[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ok[r][u] = link_valid(i0 + 4 * ty + r, j0 + tx + 16 * u, ol, a.mtl);
+    }
+  }
+  for (int h = 0; h < a.H; ++h) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (h + 1 < a.H) {
+      load_fold_stage(smem + ((h + 1) & 1) * kFoldStage, a, b, h + 1, i0,
+                      j0);
+      cp_async_commit();
+    }
+    const float* st = smem + (h & 1) * kFoldStage;
+    float s[4][4] = {};
+    fma::score_chunk(s, st + 4 * ty * fma::kPitch,
+                     st + fma::kTile + tx * fma::kPitch);
+    const float* lse = st + 2 * fma::kTile + 4 * ty;
+    const float* gate = lse + kTileW;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!ok[r][u]) continue;
+        // logsumexp over heads, one exp: of the two terms the larger is 1
+        const float v = s[r][u] * a.scale - lse[r] + gate[r];
+        const float d = v - rmax[r][u];
+        const float e = expf(-fabsf(d));
+        rsum[r][u] = d > 0.f ? fmaf(rsum[r][u], e, 1.f) : rsum[r][u] + e;
+        rmax[r][u] = fmaxf(rmax[r][u], v);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 4 * ty + r;
+    if (i >= L) continue;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + tx + 16 * u;
+      if (j < L) {
+        out[static_cast<long long>(i) * L + j] =
+            ok[r][u] ? logf(rsum[r][u]) + rmax[r][u] : -INFINITY;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ backward: dq
+
+// dynamic shared memory: two stages of [K_h tile, links tile, dlinks tile]
+constexpr int kDqStage = 3 * tc::kTile;
+constexpr int kDqSmem = 2 * kDqStage * 4;
+
+__device__ __forceinline__ void load_dq_stage(float* st, const LinksArgs& a,
+                                              int b, int h, int i0, int j0) {
+  const long long mat = static_cast<long long>(b) * a.L * a.L;
+  tc::load_tile(st, packed(a.k, a), b, h, j0, a.L);
+  tc::load_matrix_tile(st + tc::kTile, a.links + mat, a.L, a.L, i0, j0);
+  tc::load_matrix_tile(st + 2 * tc::kTile, a.dlinks + mat, a.L, a.L, i0, j0);
+}
+
+// the A fragments (fp32) of rows ra, ra + 8 of head h of a packed tensor
+__device__ __forceinline__ void row_fragments(float f[8][4], const float* p,
+                                              const LinksArgs& a, int b,
+                                              int h, int ra, int t) {
+  const Operand x = packed(p, a);
+  const bool ok0 = ra < a.L, ok1 = ra + 8 < a.L;
+  const float* x0 = x.at(b, ok0 ? ra : 0, h);
+  const float* x1 = x.at(b, ok1 ? ra + 8 : 0, h);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    f[kk][0] = ok0 ? x0[kk * 8 + t] : 0.f;
+    f[kk][1] = ok1 ? x1[kk * 8 + t] : 0.f;
+    f[kk][2] = ok0 ? x0[kk * 8 + t + 4] : 0.f;
+    f[kk][3] = ok1 ? x1[kk * 8 + t + 4] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(tc::kThreads, 2)
+links_bwd_dq_kernel(const LinksArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane >> 2, t = lane & 3;
+  const int i0 = blockIdx.x * kTileW, h = blockIdx.y, b = blockIdx.z;
+  const int wrow = warp * 16 + gid;         // the thread's rows in the tile
+  const int ia = i0 + wrow;                 // rows ia, ia + 8
+  const int L = a.L, ol = graph_len(a, b);
+  const int2 tiles = live_col_tiles(i0, L, ol, a.mtl);
+  const int nsteps = 2 * tiles.y;           // a sweep for r, one for dq
+
+  if (nsteps > 0) {
+    load_dq_stage(smem, a, b, h, i0, tiles.x * kTileW);
+    cp_async_commit();
+  }
+  float qf[8][4];
+  row_fragments(qf, a.q, a, b, h, ia, t);
+  float lse[2], gate[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = ia + 8 * r;
+    const long long at = (static_cast<long long>(b) * L + (i < L ? i : 0)) *
+                             a.H + h;
+    lse[r] = i < L ? a.lse[at] : 0.f;
+    gate[r] = i < L ? a.g[at] : 0.f;
+  }
+
+  float rsum[2] = {0.f, 0.f};
+  float s[8][4], dq[8][4];
+  tc::zero(dq);
+  for (int st = 0; st < nsteps; ++st) {
+    const bool second = st >= tiles.y;
+    const int j0 = (tiles.x + st % tiles.y) * kTileW;
+    cp_async_wait_all();
+    __syncthreads();
+    if (st + 1 < nsteps) {
+      load_dq_stage(smem + ((st + 1) & 1) * kDqStage, a, b, h, i0,
+                    (tiles.x + (st + 1) % tiles.y) * kTileW);
+      cp_async_commit();
+    }
+    if (st == tiles.y) {
+      // the first sweep is done: r of the rows, summed over the quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      }
+    }
+    const float* Ks = smem + (st & 1) * kDqStage;
+    const float* Ls = Ks + tc::kTile;
+    const float* Gs = Ls + tc::kTile;
+    tc::zero(s);
+    tc::mma_rows<tc::kGroup>(s, [&](int kk, float x[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = qf[kk][e];
+    }, Ks, gid, t);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = wrow + 8 * (e >> 1), cc = n * 8 + 2 * t + (e & 1);
+        const bool ok = link_valid(i0 + rr, j0 + cc, ol, a.mtl);
+        const float sc = s[n][e] * a.scale - lse[e >> 1];
         const float pg =
-            valid ? expf(s - lh + gh - Ps[rl][jj]) * Gs[rl][jj] : 0.f;
-        if (pass == 0) {
-          r += pg;
+            ok ? __expf(sc + gate[e >> 1] - Ls[rr * tc::kPitch + cc]) *
+                     Gs[rr * tc::kPitch + cc]
+               : 0.f;
+        if (!second) {
+          rsum[e >> 1] += pg;
         } else {
-          const float ds = valid ? (pg - expf(s - lh) * r) * a.scale : 0.f;
-#pragma unroll
-          for (int t = 0; t < KPT; ++t) {
-            dqa[t] = fmaf(ds, Ks[jj][sub + TPR * t], dqa[t]);
-          }
+          s[n][e] = ok ? (pg - __expf(sc) * rsum[e >> 1]) * a.scale : 0.f;
         }
       }
     }
+    if (second) tc::mma_cols<tc::kGroup>(dq, s, Ks, gid, t);
   }
-  if (row_ok) {
+
+  const long long HD = static_cast<long long>(a.H) * kLinksDK;
 #pragma unroll
-    for (int t = 0; t < KPT; ++t) {
-      a.dq[(rowL + i) * HD + h * DK + sub + TPR * t] = dqa[t];
+  for (int r = 0; r < 2; ++r) {
+    const int i = ia + 8 * r;
+    if (i >= L) continue;
+    const long long row = static_cast<long long>(b) * L + i;
+    float* out = a.dq + row * HD + h * kLinksDK;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
+          make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
     }
-    if (sub == 0) a.dg[(rowL + i) * a.H + h] = r;
+    if (t == 0) a.dg[row * a.H + h] = rsum[r];
   }
 }
 
-__global__ void __launch_bounds__(kLbOwn * kLbTPR)
-links_bwd_dk_kernel(const LinksBwdArgs a) {
-  constexpr int TPR = kLbTPR, BN = kLbOwn, BM = kLbTile;
-  constexpr int NT = BN * TPR, DK = kLinksDK, KPT = DK / TPR;
-  __shared__ float Qs[BM][DK];
-  __shared__ float Ps[BM][BN + 1];   // links
-  __shared__ float Gs[BM][BN + 1];   // dlinks
-  __shared__ float Ls[BM], Gt[BM], Rs[BM];
+// ------------------------------------------------------------ backward: dk
 
-  const int tid = threadIdx.x;
-  const int sub = tid % TPR;
-  const int jl = tid / TPR;
-  const int j0 = blockIdx.x * BN;
-  const int j = j0 + jl;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int L = a.L;
-  const int ol = a.out_len[b];
-  const bool col_ok = j < L;
-  const long long HD = static_cast<long long>(a.H) * DK;
-  const long long rowL = b * static_cast<long long>(L);
+// dynamic shared memory: two stages of [Q_h tile, links tile, dlinks tile,
+// lse_h, log_gates_h and r_h of the 64 rows]
+constexpr int kDkStage = 3 * tc::kTile + 3 * kTileW;
+constexpr int kDkSmem = 2 * kDkStage * 4;
 
-  float kr[KPT], dka[KPT];
-#pragma unroll
-  for (int t = 0; t < KPT; ++t) {
-    kr[t] = col_ok ? a.k[(rowL + j) * HD + h * DK + sub + TPR * t] : 0.f;
-    dka[t] = 0.f;
+__device__ __forceinline__ void load_dk_stage(float* st, const LinksArgs& a,
+                                              int b, int h, int i0, int j0) {
+  const long long mat = static_cast<long long>(b) * a.L * a.L;
+  tc::load_tile(st, packed(a.q, a), b, h, i0, a.L);
+  tc::load_matrix_tile(st + tc::kTile, a.links + mat, a.L, a.L, i0, j0);
+  tc::load_matrix_tile(st + 2 * tc::kTile, a.dlinks + mat, a.L, a.L, i0, j0);
+  for (int x = threadIdx.x; x < 3 * kTileW; x += tc::kThreads) {
+    const int i = i0 + x % kTileW, which = x / kTileW;
+    const bool ok = i < a.L;
+    const float* src = which == 0 ? a.lse : which == 1 ? a.g : a.dg;
+    cp_async<4>(st + 3 * tc::kTile + x,
+                src + (static_cast<long long>(b) * a.L + (ok ? i : 0)) *
+                          a.H + h,
+                ok);
   }
+}
 
-  // rows that can be valid for some column of this tile
-  const int j_last = min(L, j0 + BN) - 1;
-  const int i_lo = (a.mtl >= 0) ? max(0, j0 - a.mtl) : 0;
-  const int i_hi = (j0 < ol) ? j_last : 0;   // i < j <= j_last
-  for (int i0 = (i_lo / BM) * BM; i0 < i_hi; i0 += BM) {
+__global__ void __launch_bounds__(tc::kThreads, 2)
+links_bwd_dk_kernel(const LinksArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane >> 2, t = lane & 3;
+  const int j0 = blockIdx.x * kTileW, h = blockIdx.y, b = blockIdx.z;
+  const int wrow = warp * 16 + gid;         // the thread's keys in the tile
+  const int ja = j0 + wrow;                 // keys ja, ja + 8
+  const int L = a.L, ol = graph_len(a, b);
+  const int2 tiles = live_row_tiles(j0, ol, a.mtl);
+
+  if (tiles.y > 0) {
+    load_dk_stage(smem, a, b, h, tiles.x * kTileW, j0);
+    cp_async_commit();
+  }
+  float kf[8][4];
+  row_fragments(kf, a.k, a, b, h, ja, t);
+  float s[8][4], dk[8][4];
+  tc::zero(dk);
+  for (int st = 0; st < tiles.y; ++st) {
+    const int i0 = (tiles.x + st) * kTileW;
+    cp_async_wait_all();
     __syncthreads();
-    for (int idx = tid; idx < BM * DK; idx += NT) {
-      const int ii = idx / DK, d = idx % DK, i = i0 + ii;
-      Qs[ii][d] = (i < L) ? a.q[(rowL + i) * HD + h * DK + d] : 0.f;
+    if (st + 1 < tiles.y) {
+      load_dk_stage(smem + ((st + 1) & 1) * kDkStage, a, b, h, i0 + kTileW,
+                    j0);
+      cp_async_commit();
     }
-    for (int idx = tid; idx < BM * BN; idx += NT) {
-      const int ii = idx / BN, cc = idx % BN;
-      const int i = i0 + ii, jj = j0 + cc;
-      const bool in = i < L && jj < L;
-      Ps[ii][cc] = in ? a.links[(rowL + i) * L + jj] : 0.f;
-      Gs[ii][cc] = in ? a.dlinks[(rowL + i) * L + jj] : 0.f;
-    }
-    for (int ii = tid; ii < BM; ii += NT) {
-      const int i = i0 + ii;
-      const bool in = i < L;
-      Ls[ii] = in ? a.lse[(rowL + i) * a.H + h] : 0.f;
-      Gt[ii] = in ? a.g[(rowL + i) * a.H + h] : 0.f;
-      Rs[ii] = in ? a.dg[(rowL + i) * a.H + h] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int ii = 0; ii < BM; ++ii) {
-      const int i = i0 + ii;
-      float s = 0.f;
+    const float* Qs = smem + (st & 1) * kDkStage;
+    const float* Ls = Qs + tc::kTile;
+    const float* Gs = Ls + tc::kTile;
+    const float* lse = Gs + tc::kTile;
+    const float* gate = lse + kTileW;
+    const float* rr = gate + kTileW;
+    // Sᵀ: rows keys (wrow, wrow + 8), columns queries n * 8 + 2t + c
+    tc::zero(s);
+    tc::mma_rows<tc::kGroup>(s, [&](int kk, float x[4]) {
 #pragma unroll
-      for (int t = 0; t < KPT; ++t) s = fmaf(kr[t], Qs[ii][sub + TPR * t], s);
-      s = row_sum<TPR>(s) * a.scale;
-      const bool valid = col_ok && i < L && link_valid(i, j, ol, a.mtl);
-      const float pg =
-          valid ? expf(s - Ls[ii] + Gt[ii] - Ps[ii][jl]) * Gs[ii][jl] : 0.f;
-      const float ds =
-          valid ? (pg - expf(s - Ls[ii]) * Rs[ii]) * a.scale : 0.f;
+      for (int e = 0; e < 4; ++e) x[e] = kf[kk][e];
+    }, Qs, gid, t);
 #pragma unroll
-      for (int t = 0; t < KPT; ++t) {
-        dka[t] = fmaf(ds, Qs[ii][sub + TPR * t], dka[t]);
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = wrow + 8 * (e >> 1), qq = n * 8 + 2 * t + (e & 1);
+        const bool ok = link_valid(i0 + qq, j0 + jj, ol, a.mtl);
+        const float sc = s[n][e] * a.scale - lse[qq];
+        const float pg =
+            ok ? __expf(sc + gate[qq] - Ls[qq * tc::kPitch + jj]) *
+                     Gs[qq * tc::kPitch + jj]
+               : 0.f;
+        s[n][e] = ok ? (pg - __expf(sc) * rr[qq]) * a.scale : 0.f;
       }
     }
+    tc::mma_cols<tc::kGroup>(dk, s, Qs, gid, t);
   }
-  if (col_ok) {
+
+  const long long HD = static_cast<long long>(a.H) * kLinksDK;
 #pragma unroll
-    for (int t = 0; t < KPT; ++t) {
-      a.dk[(rowL + j) * HD + h * DK + sub + TPR * t] = dka[t];
+  for (int r = 0; r < 2; ++r) {
+    const int j = ja + 8 * r;
+    if (j >= L) continue;
+    float* out = a.dk + (static_cast<long long>(b) * L + j) * HD +
+                 h * kLinksDK;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
+          make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
     }
   }
 }
 
+template <class Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   const LinksArgs& a, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace daspeech
+
+// lse [B, L, H] is written (the fold reads it); the wrapper passes scratch
+// when the caller does not keep it
+extern "C" int daspeech_links_fwd(const float* q, const float* k,
+                                  const float* log_gates, const int* out_len,
+                                  float* links, float* lse, int B, int L,
+                                  int H, int DK, float scale, int mtl,
+                                  void* stream) {
+  using namespace daspeech;
+  if (DK != kLinksDK || L < 1 || H < 1 || lse == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LinksArgs a{};
+  a.q = q;
+  a.k = k;
+  a.g = log_gates;
+  a.out_len = out_len;
+  a.lse = lse;
+  a.links_out = links;
+  a.lse_out = lse;
+  a.L = L;
+  a.H = H;
+  a.scale = scale;
+  a.mtl = mtl;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nt = (L + kTileW - 1) / kTileW;
+  // the fold reads lse: same stream
+  cudaError_t err = launch(links_lse_kernel, dim3(nt, H, B), fma::kThreads,
+                           kLseSmem, a, st);
+  if (err == cudaSuccess) {
+    err = launch(links_fold_kernel, dim3(nt, nt, B), fma::kThreads,
+                 kFoldSmem, a, st);
+  }
+  return static_cast<int>(err);
+}
 
 extern "C" int daspeech_links_bwd(const float* q, const float* k,
                                   const float* log_gates, const int* out_len,
@@ -464,15 +612,31 @@ extern "C" int daspeech_links_bwd(const float* q, const float* k,
                                   float* dgates, int B, int L, int H, int DK,
                                   float scale, int mtl, void* stream) {
   using namespace daspeech;
-  if (DK != kLinksDK || L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const LinksBwdArgs args{q, k, log_gates, out_len, links, lse, dlinks,
-                          dq, dk, dgates, L, H, scale, mtl};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + kLbOwn - 1) / kLbOwn, H, B);
+  if (DK != kLinksDK || L < 1 || H < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LinksArgs a{};
+  a.q = q;
+  a.k = k;
+  a.g = log_gates;
+  a.out_len = out_len;
+  a.links = links;
+  a.lse = lse;
+  a.dlinks = dlinks;
+  a.dq = dq;
+  a.dk = dk;
+  a.dg = dgates;
+  a.L = L;
+  a.H = H;
+  a.scale = scale;
+  a.mtl = mtl;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((L + kTileW - 1) / kTileW, H, B);
   // the dq kernel writes r (= dgates), which the dk kernel reads
-  links_bwd_dq_kernel<<<grid, kLbOwn * kLbTPR, 0, st>>>(args);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  links_bwd_dk_kernel<<<grid, kLbOwn * kLbTPR, 0, st>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = launch(links_bwd_dq_kernel, grid, tc::kThreads, kDqSmem,
+                           a, st);
+  if (err == cudaSuccess) {
+    err = launch(links_bwd_dk_kernel, grid, tc::kThreads, kDkSmem, a, st);
+  }
+  return static_cast<int>(err);
 }

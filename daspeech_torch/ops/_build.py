@@ -150,14 +150,11 @@ def library() -> ctypes.CDLL:
     return load(build().path)
 
 
-def load(path: Path, strict: bool = True) -> ctypes.CDLL:
-    """Load a built kernel library and declare its entry points; with
-    ``strict=False`` (another tree's library, built before some of them)
-    those it lacks are left out."""
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library (this tree's, or another tree's with the
+    same entry points) and declare its entry points."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
-        if not strict and not hasattr(lib, name):
-            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -23,9 +23,9 @@ are asked for (inference), run every product on the tensor cores in
 3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``); their
 training forward (``with_stats``) sums on the fp32 FMA pipes, which it
 needs: the tensor cores' accumulation bias there moves batch-wide gradient
-sums past fp32's noise. That is a register-tiled kernel for the packed and
-head-major layouts (``csrc/attention_fma.cuh``) and a SIMT kernel for the
-full bias (``csrc/attention.cuh``). Each forward wrapper counts its
+sums past fp32's noise. That is a register-tiled kernel
+(``csrc/attention_fma.cuh``) for the packed and head-major layouts and, in
+its full-bias mode, for the full bias. Each forward wrapper counts its
 launches in ``launches`` and, of those, the training forwards in
 ``train_launches``.
 All are differentiable. Their forward and backward take the plain versions

@@ -4,8 +4,10 @@ Counterpart of ``daspeech_tpu/ops/fused_links.py``. The CUDA kernels
 (``csrc/fused_links.cu``) replace the Pallas ``fused_extract_links``
 (``fused_links.py:141``: forward ``_links_fwd_kernel`` at :70, backward
 ``_links_bwd_kernel`` at :91). The plain versions build the [B, L, L, H]
-score tensor; the kernels keep each head's scores in registers and write
-only the [B, L, L] result (forward) or dq, dk and dgates (backward).
+score tensor; the kernels visit only the 64 x 64 tiles that hold a valid
+transition, keep each head's score tile in registers and write only the
+per-head row log-sum-exp and the [B, L, L] result (forward, on the fp32
+FMA pipes) or dq, dk and dgates (backward, on the tensor cores).
 
 :func:`fused_extract_links` is differentiable in q, k and log_gates. CPU
 tensors take the plain versions, CUDA tensors the kernels; there is no
@@ -22,7 +24,7 @@ from daspeech_torch.ops import _build
 
 NEG_FLOOR = -1e9
 HEAD_DIM = 64
-MAX_L = 1024         # max_target_positions; the kernel's register arrays
+MAX_L = 1024         # max_target_positions (the kernels have no cap)
 
 
 def _valid(L, output_length, mtl, device):
@@ -99,22 +101,24 @@ def _check(name, q, k, log_gates, ol, num_heads):
 def links_fwd_kernel(q, k, log_gates, output_length, num_heads: int,
                      scale: float, mtl: Optional[int],
                      with_lse: bool = False):
-    """Launch the forward kernel: (links, lse_h [B, L, H] or None)."""
+    """Launch the forward kernels: (links, lse_h [B, L, H] or None). The
+    kernels always write lse_h (the second reads it); it is returned only
+    ``with_lse``."""
     B, L, C = q.shape
     ol = output_length.to(torch.int32).contiguous()
     _check("fused_extract_links", q, k, log_gates, ol, num_heads)
     links = torch.empty((B, L, L), dtype=torch.float32, device=q.device)
-    lse = (torch.empty((B, L, num_heads), dtype=torch.float32,
-                       device=q.device) if with_lse else None)
+    lse = torch.empty((B, L, num_heads), dtype=torch.float32,
+                      device=q.device)
     with torch.cuda.device(q.device):
         rc = _build.library().daspeech_links_fwd(
             q.data_ptr(), k.data_ptr(), log_gates.data_ptr(), ol.data_ptr(),
-            links.data_ptr(), _build.ptr(lse), B, L, num_heads, HEAD_DIM,
+            links.data_ptr(), lse.data_ptr(), B, L, num_heads, HEAD_DIM,
             float(scale), -1 if mtl is None else int(mtl),
             _build.stream_of(q))
     _build.check(rc, "daspeech_links_fwd")
     fused_extract_links.launches += 1
-    return links, lse
+    return links, (lse if with_lse else None)
 
 
 def links_bwd_kernel(q, k, log_gates, output_length, links, lse, dlinks,

@@ -1,7 +1,10 @@
 """The order of work of the FMA training forward (``csrc/attention_fma.cuh``:
 the training forward of the packed, head-major and rel-pos attention),
 emulated in torch on the CPU and held against the plain versions and the
-JAX Pallas kernels.
+JAX Pallas kernels; and its full-bias mode (the full-bias attention's
+training forward: one chunk, the bias a [query tile, key tile] block of
+bias4, dropout keyed by seeds[0] with the batch row in the fourth counter
+word).
 
 The kernel cannot run here, so this file checks its algorithm: keys in
 tiles of 64 with one online rescale of the running sum l and the output per
@@ -15,18 +18,20 @@ the same with ``nsplit`` ranges. ``tests/test_torch_cuda_kernels.py``
 holds the kernel itself to the plain versions on the card.
 
 Inputs are made with numpy from a seed. The emulation is held to
-``attention_plain``, ``attention_hm_plain`` and ``relpos_plain`` at
-Tk = 1, 63, 65 and 130 with a fully padded batch row, p = 0 and 0.1, within
-1e-5 (fp32 sums in another order); the plain backward recomputed from its
-statistics (P = exp(s - m) / l, delta = rowsum(dO * O)) to
-``attention_bwd_plain`` and ``relpos_bwd_plain`` within 1e-5; and, at
-p = 0, to JAX's ``fused_attention_packed``, ``fused_attention`` and
-``fused_attention_relpos`` in Pallas interpret mode, as
+``attention_plain``, ``attention_hm_plain``, ``relpos_plain`` and
+``attention_full_bias_plain`` at Tk = 1, 63, 65 and 130 with a fully padded
+batch row (and, for the full bias, one fully masked query row), p = 0 and
+0.1, within 1e-5 (fp32 sums in another order); the plain backward
+recomputed from its statistics (P = exp(s - m) / l, delta = rowsum(dO * O))
+to ``attention_bwd_plain``, ``relpos_bwd_plain`` and
+``attention_full_bias_bwd_plain`` within 1e-5; and, at p = 0, to JAX's
+``fused_attention_packed``, ``fused_attention``, ``fused_attention_relpos``
+and ``fused_attention_full_bias`` in Pallas interpret mode, as
 ``tests/test_torch_ops.py`` runs them, within 1e-5. The JAX kernels' own
 dropout bits are another generator's, and they pad keys to a multiple of 8
-(packed, rel-pos) or 128 (head-major) with the bias -1e30, so a fully
-padded row averages over the padding there: that row is left out of the
-comparison with JAX only.
+(packed, rel-pos) or 128 (head-major, full bias) with the bias -1e30, so a
+fully padded row averages over the padding there (ROADMAP Queue 3): those
+rows are left out of the comparison with JAX only.
 """
 
 import math
@@ -40,8 +45,8 @@ import jax.numpy as jnp
 
 from daspeech_torch.ops import fused_attention as tfa
 from daspeech_torch.ops import fused_relpos as tfr
-from daspeech_torch.ops.philox import (attention_keep, keep_threshold,
-                                       philox4x32_10)
+from daspeech_torch.ops.philox import (attention_keep, full_bias_keep,
+                                       keep_threshold, philox4x32_10)
 from daspeech_tpu.ops import fused_attention as jfa
 from daspeech_tpu.ops import fused_relpos as jfr
 
@@ -49,7 +54,7 @@ ATOL = 1e-5
 TILE = 64            # keys of a tile, and the depth of a score chunk
 B, H, D, C = 2, 2, 64, 256
 SCALE = 0.125
-KINDS = ("packed", "head_major", "relpos")
+KINDS = ("packed", "head_major", "relpos", "full_bias")
 LENGTHS = (1, 63, 65, 130)
 
 
@@ -76,16 +81,20 @@ def _packed(x):
     return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
 
 
-def _tile_keep(seeds, Tq, j0, p):
+def _tile_keep(seeds, Tq, j0, p, full=False):
     """[B, H, Tq, 64] dropout multipliers of the key tile at j0, drawn as
     the kernel draws them: one Philox draw per (row, 4-key group) of the
-    tile, key j taking word j % 4 of philox((j / 4, i, h, 0), seed[b])."""
+    tile, key j taking word j % 4 of philox((j / 4, i, h, 0), seed[b]), or
+    with ``full`` (the full bias) of philox((j / 4, i, h, b), seed[0])."""
     groups = torch.arange(j0 // 4, (j0 + TILE) // 4, dtype=torch.int64)
+    key = seeds.to(torch.int64) & 0xFFFFFFFF
+    rows = torch.arange(B, dtype=torch.int64)[:, None, None, None]
     words = philox4x32_10(
         groups[None, None, None, :],
         torch.arange(Tq, dtype=torch.int64)[None, None, :, None],
-        torch.arange(H, dtype=torch.int64)[None, :, None, None], 0,
-        (seeds.to(torch.int64) & 0xFFFFFFFF)[:, None, None, None], 0)
+        torch.arange(H, dtype=torch.int64)[None, :, None, None],
+        rows if full else 0,
+        key[0] if full else key[:, None, None, None], 0)
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
     bits = bits.reshape(B, H, Tq, TILE)
     return (bits <= keep_threshold(p)).float() * (1.0 / (1.0 - p))
@@ -101,8 +110,9 @@ def _tile(x, j0, n):
 def emulate_forward(chunks, v, bias, p, seeds, nsplit=1):
     """The kernel's forward: ``chunks`` the score's (X [B, H, Tq, 64],
     Y [., ., Tk, 64]) pairs in the kernel's order, v [B, H, Tk, 64], bias
-    [B, Tk], the key tiles in ``nsplit`` contiguous ranges merged at the
-    end. Returns out [B, H, Tq, 64] and stats [B, H, Tq, 2] (m, l)."""
+    [B, Tk] or (the full bias) [B, H, Tq, Tk], the key tiles in ``nsplit``
+    contiguous ranges merged at the end. Returns out [B, H, Tq, 64] and
+    stats [B, H, Tq, 2] (m, l)."""
     Tk = v.shape[2]
     ntiles = -(-Tk // TILE)
     parts = [_key_range(chunks, v, bias, p, seeds,
@@ -123,6 +133,8 @@ def _key_range(chunks, v, bias, p, seeds, tiles):
     """One block's work over the key tiles starting at ``tiles``: its
     unnormalized output, m and l."""
     Tq, Tk = chunks[0][0].shape[2], v.shape[2]
+    full = bias.dim() == 4
+    bias4 = bias if full else bias[:, None, None, :]
     m = torch.full((B, H, Tq), -math.inf)
     l = torch.zeros((B, H, Tq))
     o = torch.zeros((B, H, Tq, D))
@@ -131,9 +143,9 @@ def _key_range(chunks, v, bias, p, seeds, tiles):
         s = torch.zeros((B, H, Tq, TILE))
         for X, Y in chunks:
             s = s + X @ _tile(Y, j0, n).transpose(-1, -2)
-        bt = torch.zeros((B, TILE))
-        bt[:, :n] = bias[:, j0:j0 + n]
-        s = s * SCALE + bt[:, None, None, :]
+        bt = torch.zeros((*bias4.shape[:-1], TILE))
+        bt[..., :n] = bias4[..., j0:j0 + n]
+        s = s * SCALE + bt
         s[..., n:] = -math.inf
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
@@ -141,7 +153,7 @@ def _key_range(chunks, v, bias, p, seeds, tiles):
         pr = torch.exp(s - m_new[..., None])
         l = l + pr.sum(-1)
         if p:
-            pr = pr * _tile_keep(seeds, Tq, j0, p)
+            pr = pr * _tile_keep(seeds, Tq, j0, p, full)
         o = o + pr @ _tile(v, j0, n)
         m = m_new
     return o, m, l
@@ -152,11 +164,13 @@ def backward_from_stats(chunks, v, bias, p, seeds, out, stats, dout):
     as the tensor-core backward recomputes it: the gradients of each
     chunk's X and Y, and dv."""
     Tq, Tk = out.shape[2], v.shape[2]
+    full = bias.dim() == 4
     s = sum(X @ Y.transpose(-1, -2) for X, Y in chunks)
-    s = s * SCALE + bias[:, None, None, :]
+    s = s * SCALE + (bias if full else bias[:, None, None, :])
     P = torch.exp(s - stats[..., :1]) / stats[..., 1:]
-    z = (attention_keep(seeds, H, Tq, Tk, p) if p
-         else torch.ones_like(P))
+    z = (torch.ones_like(P) if not p
+         else full_bias_keep(seeds[:1], B, H, Tq, Tk, p) if full
+         else attention_keep(seeds, H, Tq, Tk, p))
     dv = (P * z).transpose(-1, -2) @ dout
     delta = (dout * out).sum(-1, keepdim=True)
     ds = P * (z * (dout @ v.transpose(-1, -2)) - delta) * SCALE
@@ -167,7 +181,9 @@ def backward_from_stats(chunks, v, bias, p, seeds, out, stats, dout):
 def _inputs(kind, T, p):
     """numpy inputs from a seed: packed q, k, v, do [B, T, H*64], a
     [B, T, H*256] (rel-pos), e [T, 256], a bias [B, T] whose last row is
-    fully padded, int32 seeds [B]."""
+    fully padded (the full bias: that bias plus N(0, 1) noise over
+    [B, H, T, T], and query row T / 2 of head 0 of the first batch row
+    fully masked), int32 seeds [B]."""
     rng = np.random.default_rng(1000 * LENGTHS.index(T) + KINDS.index(kind)
                                 + int(10 * p))
     q, k, v, do = (rng.normal(size=(B, T, H * D)).astype(np.float32)
@@ -179,6 +195,10 @@ def _inputs(kind, T, p):
                     tfa.NEG).astype(np.float32)
     bias[-1] = tfa.NEG
     seeds = rng.integers(-2 ** 31, 2 ** 31, size=B, dtype=np.int64)
+    if kind == "full_bias":
+        bias = (bias[:, None, None, :]
+                + rng.normal(size=(B, H, T, T))).astype(np.float32)
+        bias[0, 0, T // 2] = tfa.NEG
     return (*(torch.tensor(x) for x in (q, k, v, do, a, e, bias)),
             torch.tensor(seeds.astype(np.int32)))
 
@@ -195,6 +215,9 @@ def _chunks(kind, q, k, a, e):
 
 def _plain(kind, q, k, v, a, e, bias, p, seeds):
     """The plain version's forward, head-major [B, H, T, 64]."""
+    if kind == "full_bias":
+        return tfa.attention_full_bias_plain(_heads(q), _heads(k), _heads(v),
+                                             bias, SCALE, p, seeds[:1])
     if kind == "relpos":
         return _heads(tfr.relpos_plain(q, k, v, a, e, bias, H, SCALE, p,
                                        seeds))
@@ -232,6 +255,11 @@ def test_emulation_matches_plain(kind, T, p):
         got = (dxy[0][0], dxy[0][1], dv,
                torch.cat([dx for dx, _ in dxy[1:]], dim=-1))
         want = [_heads(w) for w in want]
+    elif kind == "full_bias":
+        want = tfa.attention_full_bias_bwd_plain(
+            _heads(q), _heads(k), _heads(v), bias, _heads(do), SCALE, p,
+            seeds[:1])[:3]
+        got = (dxy[0][0], dxy[0][1], dv)
     else:
         want = tfa.attention_bwd_plain(q, k, v, bias, do, H, SCALE, p, seeds)
         got, want = (dxy[0][0], dxy[0][1], dv), [_heads(w) for w in want]
@@ -243,12 +271,21 @@ def test_emulation_matches_plain(kind, T, p):
 @pytest.mark.parametrize("kind", KINDS)
 def test_emulation_matches_pallas(kind, T):
     """At p = 0 the emulated forward agrees with JAX's Pallas kernel (in
-    interpret mode) on every row but the fully padded one."""
+    interpret mode) on every row but the fully padded (or masked) ones."""
     q, k, v, _, a, e, bias, _ = _inputs(kind, T, 0.0)
     out, _ = emulate_forward(_chunks(kind, q, k, a, e), _heads(v), bias,
                              0.0, None)
     seed = jnp.zeros((B,), jnp.int32)
     j = [jnp.asarray(x.numpy()) for x in (q, k, v, a, e, bias)]
+    if kind == "full_bias":
+        hm = [jnp.asarray(_heads(x).contiguous().numpy()) for x in (q, k, v)]
+        want = _packed(torch.tensor(np.asarray(jfa.fused_attention_full_bias(
+            *hm, j[5], 0, SCALE, 0.0, False))))
+        out[0, 0, T // 2] = 0.0      # the fully masked row (ROADMAP Queue 3)
+        want = _heads(want)
+        want[0, 0, T // 2] = 0.0
+        assert _max_err(out[:-1], want[:-1]) <= ATOL
+        return
     if kind == "relpos":
         want = jfr.fused_attention_relpos(*j, seed, SCALE, 0.0, False, H)
     elif kind == "packed":

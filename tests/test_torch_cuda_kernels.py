@@ -19,7 +19,14 @@ also where its launcher splits the keys over several blocks and merges
 them, bit-identical over two runs, its statistics through the tensor-core
 backward, packed equal to head-major and #5 with a = 0 equal to #2 within
 1e-6; the fused FFN at one row, ragged row tiles and F chunks, with its
-weight gradients bit-identical over two runs.
+weight gradients bit-identical over two runs; the link extraction on live
+tiles at lengths around the 64-wide tile (63, 65, 129) and the 1024 cap,
+with and without the transition band, and at J-long's [14, 700] H = 8
+(the -inf pattern, a finite lse_h, the tensor-core backward bit-identical
+over two runs); the full-bias attention's training forward (the FMA
+kernel's full-bias mode) with dropout and a fully masked row, its
+statistics through the tensor-core backward; and a library that holds no
+SIMT attention forward.
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -738,7 +745,7 @@ RAGGED_T = (1, 63, 65, 120, 300)
 @pytest.mark.parametrize("T", RAGGED_T)
 def test_relpos_tensor_core_forward_and_backward(gen, T, p):
     """#5's inference forward and backward (tensor cores) and its training
-    forward (SIMT) against the plain versions, a fully padded batch row
+    forward (FMA) against the plain versions, a fully padded batch row
     included, dropout on the same bits; the backward bit-identical over two
     runs."""
     B, H, C, sc = 3, 4, fr.POS_DIM, 0.125
@@ -767,7 +774,7 @@ def test_relpos_tensor_core_forward_and_backward(gen, T, p):
 @pytest.mark.parametrize("Tq,Tk", [(T, T) for T in RAGGED_T] + [(65, 130)])
 def test_full_bias_tensor_core_forward_and_backward(gen, Tq, Tk, p):
     """#3's inference forward and backward (tensor cores) and its training
-    forward (SIMT) against the plain versions, one fully masked row, dropout
+    forward (FMA) against the plain versions, one fully masked row, dropout
     on; dbias and the other gradients bit-identical over two runs."""
     B, H, sc = 2, 4, 0.125
     q = _randn(gen, B, H, Tq, 64)
@@ -988,3 +995,85 @@ def test_fma_relpos_with_a_zero_equals_head_major(gen, B, T, p):
     torch.cuda.synchronize()
     assert _max_err(_heads(out, H), out_h) <= 1e-6
     assert _max_err(st, st_h) <= 1e-6
+
+
+# link extraction on live tiles: lengths one short of and one over a tile,
+# two tiles and one row over, and the 1024-vertex cap, with and without the
+# transition band; then J-long's [14, 700] at H = 8
+LINK_EDGES = [(B, L, 8, mtl) for B, L in ((3, 63), (3, 65), (2, 129),
+                                          (1, 1024))
+              for mtl in (None, 5)] + [(14, 700, 8, None)]
+
+
+@pytest.mark.parametrize("B,L,H,mtl", LINK_EDGES)
+def test_links_live_tiles_forward_and_backward(gen, B, L, H, mtl):
+    """The forward (lse kernel and fold over the live tiles) and the
+    tensor-core backward against the plain versions, ragged out_len down
+    to 1 (a graph with no valid transition): the same -inf pattern, no NaN,
+    a finite lse_h on every row, the gradients within TOL and bit-identical
+    over two runs."""
+    q, k = _randn(gen, B, L, H * 64, scale=0.5), _randn(gen, B, L, H * 64)
+    gates = torch.log_softmax(_randn(gen, B, L, H), dim=-1)
+    ol = torch.randint(1, L + 1, (B,), generator=gen)
+    ol[0] = L
+    ol[-1] = 1 if B > 1 else L
+    ol = ol.cuda()
+    sc = 0.125
+    links, lse = fl.links_fwd_kernel(q, k, gates, ol, H, sc, mtl,
+                                     with_lse=True)
+    torch.cuda.synchronize()
+    want = fl.links_plain(q, k, gates, ol, H, sc, mtl)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(links), finite)
+    assert bool((links[~finite] == -math.inf).all())
+    assert torch.isfinite(lse).all()
+    if finite.any():
+        assert (links[finite] - want[finite]).abs().max().item() <= TOL
+    dlinks = _randn(gen, B, L, L)
+    runs = [fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H, sc,
+                                mtl) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, mtl)
+    for g, again, w in zip(*runs, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+        assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,T", [(2, 4, 1), (2, 4, 65), (80, 4, 120),
+                                   (4, 4, 1040)])
+def test_full_bias_fma_training_forward(gen, B, H, T, p):
+    """#3's training forward (attention_fma.cuh, full-bias mode; [4, 4,
+    1040] splits the keys) against the plain version with dropout and a
+    fully masked row, bit-identical over two runs, its statistics through
+    the tensor-core backward, which replays the forward's mask."""
+    sc = 0.125
+    q, k, v, do = (_randn(gen, B, H, T, 64) for _ in range(4))
+    bias = _full_bias(gen, B, H, T, T, masked_row=True)
+    seed = _seeds(gen, 1) if p else None
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias, sc, p, seed,
+                                         with_stats=True)
+    again = fa.attention_fb_fwd_kernel(q, k, v, bias, sc, p, seed,
+                                       with_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(st, again[1])
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    assert _max_err(out, fa.attention_full_bias_plain(q, k, v, bias, sc, p,
+                                                      seed)) <= TOL
+    got = fa.attention_fb_bwd_kernel(q, k, v, bias, out, st, do, sc, p, seed)
+    torch.cuda.synchronize()
+    want = fa.attention_full_bias_bwd_plain(q, k, v, bias, do, sc, p, seed)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+
+
+def test_no_simt_attention_forward_is_built(gen):
+    """The built library holds the FMA training forward's full-bias
+    instance and no SIMT attention forward (``attn_fwd_kernel``)."""
+    from daspeech_torch.ops import _build
+
+    image = _build.build().path.read_bytes()
+    assert b"15attn_fwd_kernel" not in image
+    assert b"19attn_fma_fwd_kernelILi1ELb1E" in image

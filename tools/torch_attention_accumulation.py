@@ -43,7 +43,7 @@ def variant(group: int) -> Path:
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(ROOT / "daspeech_torch", root / "daspeech_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    hdr = root / "daspeech_torch" / "csrc" / "attention_tc.cuh"
+    hdr = root / "daspeech_torch" / "csrc" / "tiles.cuh"
     text = hdr.read_text()
     if DEFAULT not in text:
         raise RuntimeError(f"{hdr}: no '{DEFAULT}' to replace")
