@@ -6,8 +6,9 @@
 commit unpacked with ``git archive``; its kernels are built too, and the
 kernel phase times the rows of the kernels redesigned since (the training
 forward of #1, #2, #3 and #5, the link extraction #4 forward and backward,
-the DP #8 and the Viterbi #9) with its library as well, on the same inputs
-in the same process.)
+the DP #8 and the Viterbi #9, the fused FFN #6 forward and backward and
+the MRF level #7) with its library as well, on the same inputs in the same
+process.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -38,7 +39,13 @@ in the same process.)
    fused FFN
    #6 at cell T's encoder and serving A's and B's, its weight gradients
    bit-identical over two runs, its backward against autograd of the plain
-   forward (the same masks) and its drop fraction within 1% of p; the
+   forward (the same masks) and its drop fraction within 1% of p, beside
+   the unfused module (LayerNorm, two ``F.linear``, SiLU and dropout;
+   forward, and its autograd backward); the MRF level #7 at serving A's
+   levels 1-3, B's level 1 and a chunk window, at every tile, against the
+   plain ``F.conv1d`` chain (which is also its library time, cuDNN) and at
+   the window against float64; HMMA in the SASS of #6's and #7's kernels
+   and no spills in their ptxas report; the
    full-bias attention #3 at three shapes with a fully masked row, and
    against the head-major kernel on a column bias, <= 1e-4), with median
    CUDA-event times of the kernel, the plain version and, for attention,
@@ -89,8 +96,9 @@ in the same process.)
    fan-in) on serving A's and B's mels: ``fused_mrf=True`` (the run whose launch
    count of the MRF kernel is read: 3 per batch) against the default mode
    (<= 1e-4), each mode's vocoder ms; exact chunked vocoding
-   (``serve_chunk=64``, B=1) against one-shot (<= 1e-5), its first-chunk
-   latency and whole time, once with ``fused_mrf=True``; ResBlock type 2
+   (``serve_chunk=64``, B=1) against one-shot in its own mode (<= 1e-5) and
+   the default one-shot (<= 1e-4), its first-chunk latency and whole
+   time, once with ``fused_mrf=True``; ResBlock type 2
    at hifi-gan's config_v3 widths, one-shot and chunked, against a B=1 CPU
    run (<= 2.5e-4);
 9. TTS phase: ``NonAutoregressiveSpeechGenerator`` (FastSpeech 2 4+4Lx256d
@@ -550,6 +558,10 @@ FMA_INSTANCES = ("<1,0>", "<5,0>", "<1,1>")
 # the tensor cores
 LINKS_FMA = ("links_lse_kernel", "links_fold_kernel")
 LINKS_TC = ("links_bwd_dq_kernel", "links_bwd_dk_kernel")
+# the kernels of gemm_tc.cuh's tiles (tensor cores): the MRF level's conv
+# (#7) and the fused FFN's forward, backward rows and weight gradients (#6)
+GEMM_TC = ("mrf_conv_kernel", "ffn_fwd_kernel", "ffn_bwd_rows_kernel",
+           "ffn_wgrad_kernel")
 # rows also timed with the parent tree's library when one is given
 # (--parent): every row of a name, or " training": its training-forward
 # rows
@@ -557,7 +569,7 @@ REDESIGNED = ("fused_attention_packed training", "fused_attention training",
               "fused_attention_relpos training",
               "fused_attention_full_bias training", "fused_extract_links",
               "fused_extract_links_bwd", "dag_loss_forward",
-              "dag_best_alignment")
+              "dag_best_alignment", "fused_ffn", "fused_ffn_bwd", "mrf_level")
 PARENT = {}               # "lib": the parent tree's kernel library
 # (tag, fn): calls whose device time the kernel phase splits by kernel at
 # its end (kernel_split), after the profile of attention_launch_path
@@ -582,6 +594,38 @@ def parent_ms(fn):
     """``cuda_ms(fn)`` with the parent tree's kernel library."""
     with parent_library():
         return cuda_ms(fn)
+
+
+def parent_mrf_level(x, W, bias, kernel_sizes, dilations):
+    """The parent tree's MRF level at its own tile choice. A tree before
+    the implicit-GEMM kernel has an entry point without the y scratch and
+    tiles of 64 and 128 frames only (128 where B ceil(T / 128) fills the
+    SMs); a later one takes this tree's wrapper."""
+    import ctypes
+
+    from daspeech_torch.ops import _build
+    from daspeech_torch.ops import fused_mrf as fm
+
+    if PARENT["mrf_ybuf"]:
+        with parent_library():
+            return fm.mrf_level_kernel(x, W, bias, kernel_sizes, dilations)
+    B, C, T = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile = 128 if B * -(-T // 128) >= sms else 64
+    n_dil = len(dilations[0])
+    out = torch.empty_like(x)
+    tmp = [torch.empty_like(x) if n_dil > i + 1 else None for i in range(2)]
+    ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
+    ds = (ctypes.c_int * (len(kernel_sizes) * n_dil))(
+        *(d for blk in dilations for d in blk))
+    fn = PARENT["lib"].daspeech_mrf_level
+    sig = _build.SIGNATURES["daspeech_mrf_level"]
+    fn.argtypes = sig[:6] + sig[7:]
+    _build.check(fn(x.data_ptr(), W.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), _build.ptr(tmp[0]), _build.ptr(tmp[1]),
+                    B, C, T, len(kernel_sizes), ks, n_dil, ds, tile,
+                    _build.stream_of(x)), "parent daspeech_mrf_level")
+    return out
 
 
 def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
@@ -651,8 +695,9 @@ def kernel_split(fn, tag, reps=3):
 
 def sass_counts(lib_path):
     """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
-    attention_tc.cuh, of the FMA forward and of the link extraction in the
-    built library's SASS (``cuobjdump -sass``), a template kernel's
+    attention_tc.cuh, of the FMA forward, of the link extraction and of
+    #6's and #7's kernels (gemm_tc.cuh's tiles) in the built library's SASS
+    (``cuobjdump -sass``), a template kernel's
     instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
     #3's; ``attn_fma_fwd_kernel<1,0>``: #1's and #2's, ``<5,0>``: #5's,
     ``<1,1>``: #3's); None without cuobjdump."""
@@ -672,7 +717,7 @@ def sass_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = next((t for t in (*TC_KERNELS, FMA_FORWARD, *LINKS_FMA,
-                                     *LINKS_TC)
+                                     *LINKS_TC, *GEMM_TC)
                          if t in m.group(1)), None)
             inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
             if name and inst:
@@ -686,29 +731,37 @@ def sass_counts(lib_path):
     return counts
 
 
-def fma_spills(ptxas):
-    """The FMA forward's instances in nvcc's -Xptxas -v report: each must
-    use no more than 255 registers and spill nothing."""
+def no_spills(ptxas, name, n_instances):
+    """The instances of kernel ``name`` in nvcc's -Xptxas -v report: there
+    must be ``n_instances``, each using no more than 255 registers and
+    spilling nothing."""
     import re
 
     lines = ptxas.splitlines()
     found = 0
     for i, line in enumerate(lines):
-        if "entry function" not in line or FMA_FORWARD not in line:
+        if "entry function" not in line or name not in line:
             continue
         found += 1
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", info)
-        log(f"  {FMA_FORWARD} instance {found}: {regs.group(1)} registers, "
+        log(f"  {name} instance {found}: {regs.group(1)} registers, "
             f"spill stores/loads {spill.group(1)}/{spill.group(2)} bytes")
         if int(regs.group(1)) > 255 or spill.group(1) != "0" \
                 or spill.group(2) != "0":
-            raise AssertionError(f"{FMA_FORWARD} spills: {info}")
-    if found != len(FMA_INSTANCES):
-        raise AssertionError(f"{found} instances of {FMA_FORWARD} in the "
-                             f"ptxas report, not {len(FMA_INSTANCES)}")
+            raise AssertionError(f"{name} spills: {info}")
+    if found != n_instances:
+        raise AssertionError(f"{found} instances of {name} in the ptxas "
+                             f"report, not {n_instances}")
+
+
+# instances of each kernel checked for spills: the FMA forward's three,
+# the MRF conv's six (32, 64 and 128 channels x 64 and 128 frames)
+SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 6,
+                 "ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
+                 "ffn_wgrad_kernel": 1}
 
 
 def kernel_phase():
@@ -724,13 +777,19 @@ def kernel_phase():
 
     def record(name, shape, err, run_kernel, run_plain, flops, nbytes,
                run_library=None, tol=TOL_KERNEL, rate=PEAK_FLOPS_MMA,
-               **extra):
+               run_parent=None, **extra):
+        """One row: the kernel's, the plain version's and the library's
+        ms, and with --parent the parent tree's (``run_parent``; None: the
+        same call with the parent's library; False: none)."""
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
         training = shape.endswith(" training")
         fma_row = f"{name} training" in REDESIGNED and training
         redesigned = fma_row or name in REDESIGNED
-        was = parent_ms(run_kernel) if PARENT and redesigned else None
+        was = None
+        if PARENT and redesigned and run_parent is not False:
+            was = (cuda_ms(run_parent) if run_parent is not None
+                   else parent_ms(run_kernel))
         b_ms, b_by = bound(flops, nbytes, rate)
         if fma_row:
             # the FMA forward's own ceiling: its products at the fp32 FMA
@@ -1056,33 +1115,38 @@ def kernel_phase():
     # --- the HiFi-GAN MRF level (#7, three ResBlock1 of kernels 3/7/11,
     # dilations 1/3/5): serving A's levels 1-3, batch B's level 1, and one
     # chunk window of 64 + 2 * 15 mel frames at level 1, each with the tile
-    # the wrapper picks, then with the other; the work is the 126 taps of
-    # C x C products at every frame
+    # the wrapper picks (its row also with the plain F.conv1d chain as the
+    # library time, cuDNN's, and the parent's kernel), then with the
+    # others; the work is the 126 taps of C x C products at every frame
     dev = torch.device("cuda")
-    picked = [fm.pick_tile(B, T, dev) for B, _, T in MRF_SHAPES]
-    other = [next(u for u in fm.TILES if u != t) for t in picked]
-    for (B, C, T), tile in zip(MRF_SHAPES * 2, picked + other):
+    for B, C, T in MRF_SHAPES:
         x, W, bias = mrf_inputs(g, B, C, T)
         args = (x, W, bias, MRF_KERNELS, MRF_DILATIONS)
-        got = fm.mrf_level_kernel(*args, tile)
+        picked = fm.pick_tile(B, T, dev)
         want = fm.mrf_level_ref(*args)
-        shape = (f"[{B},{C},{T}] tile {tile}"
-                 + (" (picked)" if tile == fm.pick_tile(B, T, dev) else ""))
-        log(f"  mrf_level {shape}: output std {want.std().item():.3f}")
-        if B == 1:
-            # the kernel and cuDNN's fp32 implicit GEMM can sum in the same
-            # order; both against float64 show each one's own rounding
-            exact = fm.mrf_level_ref(*(t.double() for t in args[:3]),
-                                     MRF_KERNELS, MRF_DILATIONS)
-            log(f"  mrf_level {shape} against float64: kernel "
-                f"{_max_err(got.double(), exact):.3g}, plain "
-                f"{_max_err(want.double(), exact):.3g}")
-        record("mrf_level", shape, _max_err(got, want),
-               lambda: fm.mrf_level_kernel(*args, tile),
-               lambda: fm.mrf_level_ref(*args),
-               2 * B * T * C * C * W.shape[0],
-               (2 * B * C * T + W.numel() + bias.numel()) * F32)
-        del x, args, got, want
+        log(f"  mrf_level [{B},{C},{T}]: output std {want.std().item():.3f}")
+        for tile in (picked, *(t for t in fm.TILES if t != picked)):
+            got = fm.mrf_level_kernel(*args, tile)
+            shape = (f"[{B},{C},{T}] tile {tile}"
+                     + (" (picked)" if tile == picked else ""))
+            if B == 1:
+                # each version's own rounding, against float64
+                exact = fm.mrf_level_ref(*(t.double() for t in args[:3]),
+                                         MRF_KERNELS, MRF_DILATIONS)
+                log(f"  mrf_level {shape} against float64: kernel "
+                    f"{_max_err(got.double(), exact):.3g}, plain "
+                    f"{_max_err(want.double(), exact):.3g}")
+            record("mrf_level", shape, _max_err(got, want),
+                   lambda: fm.mrf_level_kernel(*args, tile),
+                   lambda: fm.mrf_level_ref(*args),
+                   2 * B * T * C * C * W.shape[0],
+                   (2 * B * C * T + W.numel() + bias.numel()) * F32,
+                   (lambda: fm.mrf_level_ref(*args)) if tile == picked
+                   else None,
+                   run_parent=((lambda: parent_mrf_level(*args))
+                               if tile == picked else False))
+            del got
+        del x, args, want
     alternate_kernel_cases(g, record)
     run_5_3 = chunked_wrapper_calls(g)
     # twelve wrapper calls: the inference forward, the training forward
@@ -1121,6 +1185,17 @@ def ffn_params(g, C, Fd):
             _randn(g, C, Fd, scale=Fd ** -0.5), _randn(g, C, scale=0.1))
 
 
+def ffn_unfused(x, gamma, beta, w1, b1, w2, b2, p):
+    """The unfused module's computation (``FeedForwardModule(fused=False)``:
+    LayerNorm, ``F.linear``, SiLU, dropout, ``F.linear``, dropout with
+    PyTorch's own draws at rate p): #6's library time, forward and autograd
+    backward, timed here only."""
+    F_ = torch.nn.functional
+    h = F_.silu(F_.linear(F_.layer_norm(x, x.shape[-1:], gamma, beta, 1e-6),
+                          w1, b1))
+    return F_.dropout(F_.linear(F_.dropout(h, p), w2, b2), p)
+
+
 def full_bias4(g, B, H, Tq, Tk, masked_row):
     """Random scores N(0, 1) plus a [B, Tk] pad mask of -1e30 on each row's
     last keys; with ``masked_row`` one query row of the last batch row is
@@ -1151,18 +1226,31 @@ def alternate_kernel_cases(g, record):
         out = ff.ffn_fwd_kernel(*args)
         record("fused_ffn", shape, _max_err(out, ff.ffn_plain(*args)),
                lambda: ff.ffn_fwd_kernel(*args), lambda: ff.ffn_plain(*args),
-               4 * N * C * Fd, (2 * N * C + 2 * C * Fd + Fd + 3 * C) * F32)
+               4 * N * C * Fd, (2 * N * C + 2 * C * Fd + Fd + 3 * C) * F32,
+               lambda: ffn_unfused(x, *params, p))
         # a mean loss's cotangent: the weight gradients, sums over the N
         # rows, stay of order 1
         do = _randn(g, B, T, C, scale=N ** -0.5)
         bargs = (x, *params, do, seeds, p, p)
         got = ff.ffn_bwd_kernel(*bargs)
+        lib = [t.detach().requires_grad_(True) for t in (x, *params)]
+        o_lib = ffn_unfused(*lib, p)
+        if p:
+            # the device time of each kernel of the forward and backward
+            SPLITS.extend([
+                (f"fused_ffn {shape}", functools.partial(ff.ffn_fwd_kernel,
+                                                         *args)),
+                (f"fused_ffn_bwd {shape}",
+                 functools.partial(ff.ffn_bwd_kernel, *bargs))])
         record("fused_ffn_bwd", shape,
                _max_err(got, ff.ffn_bwd_plain(*bargs)),
                lambda: ff.ffn_bwd_kernel(*bargs),
                lambda: ff.ffn_bwd_plain(*bargs),
                10 * N * C * Fd,
-               (3 * N * C + 4 * C * Fd + 2 * Fd + 6 * C) * F32)
+               (3 * N * C + 4 * C * Fd + 2 * Fd + 6 * C) * F32,
+               lambda: torch.autograd.grad(o_lib, lib, do,
+                                           retain_graph=True))
+        del lib, o_lib
         if not p:
             continue
         again = ff.ffn_bwd_kernel(*bargs)
@@ -2769,6 +2857,7 @@ def vocoder_phase(mels):
 
     voc = with_weights(voc_cpu)
     fused = with_weights(voc_cpu, fused_mrf=True)
+    # every level at one tile
     fused_tiles = {t: with_weights(voc_cpu, fused_mrf=True, mrf_tile=t)
                    for t in fm.TILES}
     with torch.inference_mode():
@@ -2800,25 +2889,36 @@ def vocoder_phase(mels):
                 f"level at {ms_tiles}); fused vs default max abs diff "
                 f"{err:.3g} (<= {TOL_FUSED})")
 
-        # --- exact chunked vocoding at B = 1 (one utterance of batch A)
+        # --- exact chunked vocoding at B = 1 (one utterance of batch A):
+        # each mode's chunks against its own one-shot run (<= 1e-5), the
+        # fused mode's also against the default one-shot (<= 1e-4)
         mel1 = mels["A"][:1].contiguous()
         one = voc(mel1)
-        for tag, chunked in (("default", with_weights(
-                voc_cpu, serve_chunk=SERVE_CHUNK)), ("fused_mrf", with_weights(
-                    voc_cpu, fused_mrf=True, serve_chunk=SERVE_CHUNK))):
+        one_fused = fused(mel1)
+        for tag, chunked, own in (
+                ("default", with_weights(voc_cpu, serve_chunk=SERVE_CHUNK),
+                 one),
+                ("fused_mrf", with_weights(voc_cpu, fused_mrf=True,
+                                           serve_chunk=SERVE_CHUNK),
+                 one_fused)):
             fn = make_vocode_fn(chunked)
             got = fn(mel1)
-            err = _max_err(got, one)
-            tol = TOL_CHUNKED if tag == "default" else TOL_FUSED
-            if not (got.shape == one.shape and err <= tol):
+            err = _max_err(got, own)
+            err_default = _max_err(got, one)
+            if not (got.shape == one.shape and err <= TOL_CHUNKED
+                    and err_default <= TOL_FUSED):
                 raise AssertionError(f"chunked ({tag}) vs one-shot: "
-                                     f"{tuple(got.shape)}, max abs diff {err}")
+                                     f"{tuple(got.shape)}, max abs diff "
+                                     f"{err} (own mode), {err_default} "
+                                     "(default mode)")
             log(f"  chunked {tag} (chunk {SERVE_CHUNK}, B=1, "
                 f"{mel1.shape[1]} frames): first chunk "
                 f"{first_chunk_ms(chunked, mel1, SERVE_CHUNK):.3f} ms after "
                 f"the mel, whole {cuda_ms(lambda: fn(mel1), 5, 1):.3f} ms; "
                 f"one-shot {cuda_ms(lambda: voc(mel1), 5, 1):.3f} ms; max abs "
-                f"diff {err:.3g} (<= {tol})")
+                f"diff {err:.3g} against its mode's one-shot (<= "
+                f"{TOL_CHUNKED}), {err_default:.3g} against the default's "
+                f"(<= {TOL_FUSED})")
 
         # --- ResBlock type 2 at config_v3 widths
         v3_cpu = init_vocoder_(HiFiGANGenerator(HiFiGANConfig(**V3)),
@@ -3064,6 +3164,8 @@ def main() -> int:
         # another checkout (the parent commit), whose kernels are built
         # beside this tree's and timed beside the redesigned rows
         root = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
+        PARENT["mrf_ybuf"] = "ybuf" in (root / "daspeech_torch" / "csrc" /
+                                        "fused_mrf.cu").read_text()
         parent = threading.Thread(target=lambda: PARENT.update(
             build=_build.build(root / "daspeech_torch" / "csrc",
                                root / "build" / "daspeech_torch")))
@@ -3072,7 +3174,8 @@ def main() -> int:
     log(f"kernels built in {built.seconds:.1f} s -> {built.path}")
     if built.ptxas:
         log(built.ptxas.strip())
-        fma_spills(built.ptxas)
+        for name, n in SPILL_CHECKED.items():
+            no_spills(built.ptxas, name, n)
     _build.library()
     if parent is not None:
         parent.join()
@@ -3084,14 +3187,16 @@ def main() -> int:
                              "in the kernel library")
     sass = sass_counts(built.path)
     log(f"HMMA and FFMA instructions in the SASS of attention_tc.cuh's "
-        "kernels, of the FMA forward and of the link extraction: "
+        "kernels, of the FMA forward, of the link extraction and of #6's "
+        "and #7's kernels: "
         + ("cuobjdump not found, not checked" if sass is None else str(sass)))
     if sass is not None:
         fma_names = {f"{FMA_FORWARD}{i}" for i in FMA_INSTANCES} | set(
             LINKS_FMA)
         tc = {n: c for n, c in sass.items() if n not in fma_names}
         fma = {n: c for n, c in sass.items() if n in fma_names}
-        if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC}
+        if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC,
+                                               *GEMM_TC}
                 or not all(c["HMMA"] for c in tc.values())):
             raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
         if (set(fma) != fma_names

@@ -6,68 +6,86 @@
 // Replaces the Pallas kernels of daspeech_tpu/ops/fused_ffn.py:175
 // fused_ffn (forward _ffn_fwd_kernel, :59; backward _ffn_bwd_kernel, :84).
 // The TPU kernel runs one batch row per program with the whole [T, F]
-// intermediate in VMEM and carries dW across its sequential grid; here:
+// intermediate in VMEM and carries dW across its sequential grid.
 //
-// Forward (ffn_fwd_kernel): a block owns BM = 64 rows of the [B*T, C] input.
-// It normalizes them into shared memory, then walks F in chunks of FC = 64:
-// pre = y W1[f0:f0+FC]^T (the first product, K = C, weights staged in K
-// slices), then + b1, swish and mask 1 in shared memory, then
-// acc += h W2[:, f0:f0+FC]^T into a [BM, C] accumulator held in registers
-// (8 x 8 per thread). The [T, F] intermediate never leaves the block. The
-// epilogue adds b2, applies mask 2 and writes the rows.
+// What bounds it on this card: operations. At N = B T = 9600 rows, C = 256,
+// F = 2048 the forward is 2 products, 20.1 GFLOP, against 20 MB of x,
+// weights and output (0.12 ms at the tensor cores' 3xTF32 rate of 165
+// TFLOP/s, 0.30 ms at the fp32 FMA pipes' 67); the backward 5 products,
+// 50 GFLOP. Every product runs on the tensor cores, 3xTF32 mma.sync with
+// each operand element split into its TF32 hi and lo parts once
+// (gemm_tc.cuh). A row tile alone is little work (a block that walks all
+// of F for 64 rows filled 15 of 132 SMs at serving's 960 rows), so F is
+// split across the blocks of a thread-block cluster.
+//
+// Forward (ffn_fwd_kernel): a cluster of cs = min(8, ceil(F / 256)) blocks
+// owns BM = 32 rows; block `rank` takes the 256-column F slices rank,
+// rank + cs, ... For a slice it normalizes the rows into planes, takes
+// pre = y W1[slice]^T on the tensor cores, applies + b1, swish and mask 1
+// into planes, and adds h W2[:, slice]^T into its [32, 256] partial sum.
+// The weight slices stream in 16-deep chunks by cp.async through a ring of
+// kRing raw fp32 tiles, kRing - 1 chunks ahead of the products; each
+// weight element feeds one warp only, so that warp splits it as it loads
+// its fragment (gemm::RawOp), once, with no plane pass. The
+// partials are summed through distributed shared memory in rank order
+// (each block sums a share of ceil(32 / cs) rows over the cluster, RowShare),
+// then + b2 and mask 2. The [T, F] intermediate never leaves the cluster.
 //
 // Backward, three launches, no atomics (two runs give the same bits):
-//  1. ffn_bwd_rows_kernel, row-tiled as the forward: recomputes y, pre and
-//     the masks; per F chunk gh = g W2 (g = dout * m2) beside pre in one K
-//     loop, gpre = gh * m1 * swish'(pre), and gy += gpre W1 (registers);
-//     the epilogue runs LayerNorm's backward into dx. It writes y, g, h * m1
-//     and gpre to scratch ([N, C] and [N, F]) for the weight gradients, and
-//     each block's column sums (db1, db2, dgamma, dbeta) to partial rows.
-//  2. ffn_wgrad_kernel: dW1 = gpre^T y and dW2 = g^T (h * m1), each a
-//     [64 x 64] output tile per block over one of S fixed slices of the
-//     N rows, into per-slice partial sums. The TPU's per-row dW products
-//     contracted over only K = T' (~120) and lost to XLA's one big product
-//     (daspeech_tpu/models/conformer.py:325-330); here every tile contracts
-//     over N / S rows (~1000).
+//  1. ffn_bwd_rows_kernel, clustered as the forward: g = dout * m2 into
+//     planes; per slice, pre = y W1[slice]^T and gh = g W2[:, slice] on the
+//     tensor cores, gpre = gh * m1 * swish'(pre) into planes (and, with
+//     h * m1, to scratch [N, F] for the weight gradients), then
+//     gy += gpre W1[slice]; the gy partials are summed through distributed
+//     shared memory in rank order and each block runs LayerNorm's backward
+//     on its row share into dx. Column sums (db1, db2, dgamma, dbeta) go to
+//     partial rows.
+//  2. ffn_wgrad_kernel: dW1 = gpre^T y and dW2 = g^T (h * m1), a [128, 128]
+//     output tile per block over one of S fixed slices of the N rows, on the
+//     tensor cores, into per-slice partial sums.
 //  3. ffn_reduce_kernel adds the partial sums in a fixed order.
-// Writing the [N, F] intermediates in the backward (2 x 78.6 MB at the
-// training shape, N = 9600, F = 2048) costs ~0.05 ms of bandwidth and
-// spares recomputing both first products in a dW kernel.
-//
-// What bounds it on this card: operations. At N = 9600, C = 256, F = 2048
-// the forward is 2 products, 20.1 GFLOP (0.30 ms at 67 TFLOP/s fp32), against
-// 20 MB of x, weights and output; the backward 5 products, 50 GFLOP. The
-// products are SIMT fp32 FMAs on register tiles fed from shared memory
-// (4 x 4 per thread for the [64 x 64] tiles, 8 x 8 for [64 x 256]); tensor
-// cores (TF32 or bf16 wgmma) are where speed would come from.
 //
 // Dropout (philox.cuh): element (t, j) of batch row b at site s (1: after
 // the swish, width F; 2: after the second product, width C) is kept when
 // word j % 4 of philox4x32_10((j / 4, t, 0, s), (seed[b], 0)) <= thresh,
 // then scaled by 1 / keep_p; ops/philox.py ffn_keep draws the same bits.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "gemm_tc.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using namespace daspeech;
+namespace cg = cooperative_groups;
 
-constexpr int C = 256;      // model width the kernels are built for
-constexpr int NT = 256;     // threads per block (one per channel)
-constexpr int BM = 64;      // rows per block
-constexpr int FC = 64;      // F columns per chunk
-constexpr int KT = 32;      // K slice of the products over C
-constexpr int KF = 16;      // K slice of the products over F
-constexpr int YP = C + 4;   // row pitch of [BM, C] tiles (16-byte rows)
-constexpr int HP = FC + 4;  // row pitch of [BM, FC] tiles
-constexpr int WP = FC + 1;  // row pitch of [KT, FC] weight slices
-constexpr int CP = C + 1;   // row pitch of [KF, C] weight slices
-constexpr int STAGE = (2 * KT * WP > KF * CP) ? 2 * KT * WP : KF * CP;
+constexpr int C = 256;         // model width the kernels are built for
+constexpr int NT = 256;        // threads per block: 8 warps of 32 columns
+constexpr int BM = 32;         // rows of a cluster
+constexpr int FS = 256;        // F columns of a slice
+constexpr int KC = 16;         // depth of a streamed weight chunk
+constexpr int kRing = 4;       // raw weight chunks in flight
+constexpr int kMaxCluster = 8; // the portable cluster limit
+constexpr int AP = C + 4;      // pitch of [BM][256] planes (≡ 4 mod 32)
+constexpr int APLANE = BM * AP;
+constexpr int NKP = KC + 4;    // pitch of [256][KC] chunks (k inner)
+constexpr int KNP = 256 + 8;   // pitch of [KC][256] chunks (k outer)
+constexpr int WRAW = 256 * NKP;    // words of a raw weight chunk
 constexpr float kEps = 1e-6f;
-static_assert(NT == C, "column sums give each thread one channel");
+static_assert(FS == C && KC * KNP <= WRAW, "slice and chunk shapes");
+static_assert(NT == C, "the column sums give each thread one column");
+// forward: one [BM][256] plane pair (y, then h), the ring of raw weight
+// chunks, mean and 1/std; backward: two [BM][256] plane pairs (y, then
+// gpre; g), the ring, mean and 1/std
+constexpr size_t kFwdSmem =
+    sizeof(uint32_t) * (2 * APLANE + kRing * WRAW) + sizeof(float) * 2 * BM;
+constexpr size_t kBwdSmem =
+    sizeof(uint32_t) * (4 * APLANE + kRing * WRAW) + sizeof(float) * 2 * BM;
 
 struct FfnArgs {
   const float *x, *gamma, *beta, *w1, *b1, *w2, *b2;
@@ -82,6 +100,23 @@ struct FfnScratch {
   float *y, *g;           // [N, C]: LN output, dout * m2
   float *hd, *gpre;       // [N, F]: swish(pre) * m1, its pre-activation grad
   float* part;            // [ntiles, F + 3C]: db1 | db2 | dgamma | dbeta
+};
+
+__host__ __device__ inline int cluster_size(int F) {
+  const int slices = (F + FS - 1) / FS;
+  return slices < kMaxCluster ? slices : kMaxCluster;
+}
+
+// The rows of a cluster's tile that block `rank` of cs reduces over the
+// cluster: ceil(BM / cs) from r0 on, the last share shorter (cs = 3:
+// 11, 11, 10), so every row has one block at every cluster size.
+struct RowShare {
+  int r0, rows;
+  __device__ RowShare(int cs, int rank) {
+    const int per = (BM + cs - 1) / cs;
+    r0 = rank * per;
+    rows = max(0, min(per, BM - r0));
+  }
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -105,34 +140,45 @@ __device__ __forceinline__ float keep(uint32_t w, uint32_t thresh,
   return w <= thresh ? scale : 0.f;
 }
 
-// LayerNorm of rows n0 .. n0 + BM into Ys (0 for rows >= N), one warp a row;
-// each row's mean and 1/std into mu, rs; with y_out, y is also written there
-__device__ void layer_norm_tile(const FfnArgs& a, int n0, float (*Ys)[YP],
+// LayerNorm of rows n0 .. n0 + BM into the plane pair ys (0 for rows >= N),
+// one warp a row (each warp's rows loaded together); each row's mean and
+// 1/std into mu, rs; with y_out, y is also written there
+__device__ void layer_norm_rows(const FfnArgs& a, int n0, uint32_t* ys,
                                 float* mu, float* rs, float* y_out) {
+  constexpr int RW = BM / (NT / 32);     // rows of a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int n = n0 + r;
-    float v[C / 32];
-    float s = 0.f;
+  float v[RW][C / 32];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int n = n0 + warp + i * (NT / 32);
 #pragma unroll
     for (int t = 0; t < C / 32; ++t) {
-      v[t] = n < a.N ? a.x[static_cast<long long>(n) * C + lane + 32 * t] : 0.f;
-      s += v[t];
+      v[i][t] = n < a.N ? a.x[static_cast<long long>(n) * C + lane + 32 * t]
+                        : 0.f;
     }
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * (NT / 32), n = n0 + r;
+    float s = 0.f;
+#pragma unroll
+    for (int t = 0; t < C / 32; ++t) s += v[i][t];
     const float mean = warp_sum(s) * (1.f / C);
     float q = 0.f;
 #pragma unroll
     for (int t = 0; t < C / 32; ++t) {
-      const float d = v[t] - mean;
+      const float d = v[i][t] - mean;
       q = fmaf(d, d, q);
     }
     const float rstd = rsqrtf(warp_sum(q) * (1.f / C) + kEps);
 #pragma unroll
     for (int t = 0; t < C / 32; ++t) {
       const int c = lane + 32 * t;
-      const float y =
-          n < a.N ? fmaf((v[t] - mean) * rstd, a.gamma[c], a.beta[c]) : 0.f;
-      Ys[r][c] = y;
+      const float y = n < a.N
+                          ? fmaf((v[i][t] - mean) * rstd, a.gamma[c],
+                                 a.beta[c])
+                          : 0.f;
+      gemm::put(ys, APLANE, r * AP + c, y);
       if (y_out != nullptr && n < a.N) {
         y_out[static_cast<long long>(n) * C + c] = y;
       }
@@ -144,159 +190,159 @@ __device__ void layer_norm_tile(const FfnArgs& a, int n0, float (*Ys)[YP],
   }
 }
 
-// stage W1[f0 + f, k0 + kk] as W1s[kk][f] (0 beyond F)
-__device__ __forceinline__ void stage_w1t(const FfnArgs& a, int f0, int k0,
-                                          float (*W1s)[WP]) {
-  for (int idx = threadIdx.x; idx < KT * FC; idx += NT) {
-    const int kk = idx % KT, f = idx / KT;
-    W1s[kk][f] = (f0 + f < a.F)
-                     ? a.w1[static_cast<long long>(f0 + f) * C + k0 + kk]
-                     : 0.f;
+// The first kRing - 1 chunks of a streamed product (see product): issued
+// before the work that precedes the product, so that their latency hides
+// behind it; the ring must be free (the last product has ended)
+template <class Copy>
+__device__ __forceinline__ void prefetch(float* ring, Copy copy) {
+#pragma unroll
+  for (int kc = 0; kc < kRing - 1; ++kc) {
+    copy(kc, ring + kc * WRAW);
+    cp_async_commit();
   }
 }
 
-// stage W2[k0 + kk, f0 + f] as W2s[kk][f] (0 beyond F)
-__device__ __forceinline__ void stage_w2(const FfnArgs& a, int f0, int k0,
-                                         float (*W2s)[WP]) {
-  for (int idx = threadIdx.x; idx < KT * FC; idx += NT) {
-    const int f = idx % FC, kk = idx / FC;
-    W2s[kk][f] = (f0 + f < a.F)
-                     ? a.w2[static_cast<long long>(k0 + kk) * a.F + f0 + f]
-                     : 0.f;
-  }
-}
-
-// acc[BM, C] (8 x 8 a thread: rows ty + 8i, columns tx + 32j) +=
-// As[BM, f0 .. f0 + FC] Wk[FC, C], with Wk[f][c] = w[c * ldc + f0 + f]
-// (w2: the forward's second product) or w[(f0 + f) * C + c] (w1: gy)
-template <bool W_IS_W1>
-__device__ __forceinline__ void chunk_times_w(const FfnArgs& a, int f0,
-                                              float (*As)[HP],
-                                              float (*Ws)[CP],
-                                              float (&acc)[8][8]) {
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  for (int k0 = 0; k0 < FC; k0 += KF) {
-    for (int idx = tid; idx < KF * C; idx += NT) {
-      int kk, c;
-      if (W_IS_W1) {
-        c = idx % C;
-        kk = idx / C;
-      } else {
-        kk = idx % KF;
-        c = idx / KF;
-      }
-      const int f = f0 + k0 + kk;
-      float w = 0.f;
-      if (f < a.F) {
-        w = W_IS_W1 ? a.w1[static_cast<long long>(f) * C + c]
-                    : a.w2[static_cast<long long>(c) * a.F + f];
-      }
-      Ws[kk][c] = w;
+// acc (this warp's 32 rows x 32 columns at column 32 warp) += A · B over
+// K = 256: A resident in the plane pair `as` ([BM][AP], k from 0), B
+// streamed in 16-deep chunks that copy(kc, tile) brings by cp.async into
+// the ring at `ring`, kRing - 1 chunks ahead (the first ones by prefetch);
+// BK: B's chunks are [KC][256] (k outer), else [256][KC]. Ends with a
+// barrier: the caller may restage `as` or the ring.
+template <bool BK, class Copy>
+__device__ __forceinline__ void product(float (&acc)[2][4][4],
+                                        const uint32_t* as, float* ring,
+                                        Copy copy) {
+  constexpr int pitch = BK ? KNP : NKP, nk = 256 / KC;
+  const int n0 = (threadIdx.x / 32) * 32;
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<kRing - 2>();      // chunk kc: this thread's copies
+    __syncthreads();                 // everyone's; the oldest tile is free
+    if (kc + kRing - 1 < nk) {
+      copy(kc + kRing - 1, ring + ((kc + kRing - 1) % kRing) * WRAW);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KF; ++kk) {
-      float hv[8], wv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) hv[i] = As[ty + 8 * i][k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = Ws[kk][tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(hv[i], wv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+    cp_async_commit();
+    gemm::warp_mma<2, 4, KC / 8, false, BK>(
+        acc, gemm::Op{as, APLANE, AP, 0, kc * KC},
+        gemm::RawOp{ring + (kc % kRing) * WRAW, pitch, n0, 0});
   }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(NT) ffn_fwd_kernel(const FfnArgs a,
-                                                     float* out) {
+// the copy of chunk kc of a [256][KC] (k inner) or [KC][256] (k outer)
+// weight tile
+using NKChunk = gemm::RawChunk<256, KC, NT>;
+using KNChunk = gemm::RawChunk<KC, 256, NT>;
+
+// The accumulator element (m, h, n, e) of this thread: row 16 m + gid + 8 h,
+// column 32 warp + 8 n + 2 t + e (gemm_tc.cuh's C fragment)
+struct Frag {
+  int gid, tq, col0;
+  __device__ Frag()
+      : gid((threadIdx.x % 32) >> 2), tq(threadIdx.x & 3),
+        col0((threadIdx.x / 32) * 32) {}
+  __device__ int row(int m, int h) const { return 16 * m + gid + 8 * h; }
+  __device__ int col(int n) const { return col0 + 8 * n + 2 * tq; }
+};
+
+__global__ void __launch_bounds__(NT, 1) ffn_fwd_kernel(const FfnArgs a,
+                                                        float* out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float(*Ys)[YP] = reinterpret_cast<float(*)[YP]>(smem);
-  float(*Hs)[HP] = reinterpret_cast<float(*)[HP]>(smem + BM * YP);
-  float* stage = smem + BM * YP + BM * HP;
-  float* mu = stage + STAGE;
+  // y, then h * m1 (pre is in registers when h is written), then the
+  // partial sum
+  uint32_t* ys = reinterpret_cast<uint32_t*>(smem4);
+  float* ring = reinterpret_cast<float*>(ys + 2 * APLANE);
+  float* mu = ring + kRing * WRAW;
   float* rs = mu + BM;
-  float(*W1s)[WP] = reinterpret_cast<float(*)[WP]>(stage);
-  float(*W2s)[CP] = reinterpret_cast<float(*)[CP]>(stage);
+  const int n0 = blockIdx.y * BM;
+  const int nslices = (a.F + FS - 1) / FS;
+  const bool vecF = a.F % 4 == 0;   // W2's rows allow 16-byte copies
+  const Frag fr;
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BM;
-  layer_norm_tile(a, n0, Ys, mu, rs, nullptr);
-  __syncthreads();
-
-  const int ty1 = tid / 16, tx1 = tid % 16;   // first product: 4 x 4
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int f0 = 0; f0 < a.F; f0 += FC) {
-    float pre[4][4] = {};
-    for (int k0 = 0; k0 < C; k0 += KT) {
-      stage_w1t(a, f0, k0, W1s);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KT; ++kk) {
-        float yv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) yv[i] = Ys[ty1 + 16 * i][k0 + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = W1s[kk][tx1 + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) pre[i][j] = fmaf(yv[i], wv[j], pre[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Hs[ty1 + 16 * i][tx1 + 16 * j] = pre[i][j];
-    }
+  float acc[2][4][4];
+  gemm::zero(acc);
+  for (int s = rank; s < nslices; s += cs) {
+    const int f0 = s * FS;
+    auto w1_chunk = [&](int kc, float* t) {   // W1[f0 .., kc KC ..]
+      NKChunk::copy(t, NKP, a.w1, C, f0, kc * KC, a.F, C, true);
+    };
+    auto w2_chunk = [&](int kc, float* t) {   // W2[:, f0 + kc KC ..]
+      NKChunk::copy(t, NKP, a.w2, a.F, 0, f0 + kc * KC, C, a.F, vecF);
+    };
+    prefetch(ring, w1_chunk);
+    layer_norm_rows(a, n0, ys, mu, rs, nullptr);
     __syncthreads();
-    // + b1, swish, mask 1, four columns (one Philox draw) a step
-    for (int g = tid; g < BM * FC / 4; g += NT) {
-      const int r = g / (FC / 4), q = g % (FC / 4), n = n0 + r;
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (a.drop1 && n < a.N) bits = site_bits(a, n, f0 / 4 + q, 1u);
+    float pre[2][4][4];
+    gemm::zero(pre);
+    product<false>(pre, ys, ring, w1_chunk);
+    prefetch(ring, w2_chunk);
+    // h = swish(pre + b1) * m1 into ys (y is dead), 0 beyond F
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int f = f0 + 4 * q + u;
-        float h = 0.f;
-        if (f < a.F && n < a.N) {
-          const float p = Hs[r][4 * q + u] + a.b1[f];
-          h = p / (1.f + expf(-p));
-          if (a.drop1) h *= keep(philox_word(bits, u), a.thresh1, a.scale1);
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = fr.row(m, h), n = n0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int f = f0 + fr.col(j);
+          uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+          if (a.drop1 && n < a.N && f < a.F) bits = site_bits(a, n, f >> 2, 1u);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float hv = 0.f;
+            if (f + e < a.F) {
+              const float p = pre[m][j][2 * h + e] + a.b1[f + e];
+              hv = p / (1.f + expf(-p));
+              if (a.drop1) {
+                hv *= n < a.N ? keep(philox_word(bits, (f + e) & 3),
+                                     a.thresh1, a.scale1)
+                              : 0.f;
+              }
+            }
+            gemm::put(ys, APLANE, r * AP + fr.col(j) + e, hv);
+          }
         }
-        Hs[r][4 * q + u] = h;
       }
     }
     __syncthreads();
-    chunk_times_w<false>(a, f0, Hs, W2s, acc);
+    product<false>(acc, ys, ring, w2_chunk);
   }
 
-  // epilogue: + b2 into Ys, then mask 2 and the store, four columns a step
-  const int ty = tid / 32, tx = tid % 32;
+  // the partial sum into ys as fp32 [BM][AP]; each block then sums its row
+  // share over the cluster in rank order: + b2, mask 2, store
+  float* part = reinterpret_cast<float*>(ys);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      Ys[ty + 8 * i][tx + 32 * j] = acc[i][j] + a.b2[tx + 32 * j];
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float2*>(part + fr.row(m, h) * AP + fr.col(j)) =
+            make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+      }
     }
   }
-  __syncthreads();
-  for (int g = tid; g < BM * C / 4; g += NT) {
-    const int r = g / (C / 4), q = g % (C / 4), n = n0 + r;
+  cluster.sync();
+  const RowShare sh(cs, rank);
+  for (int g = threadIdx.x; g < sh.rows * (C / 4); g += NT) {
+    const int r = sh.r0 + g / (C / 4), q = g % (C / 4), n = n0 + r;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < cs; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, k) + r * AP + 4 * q);
+      o.x += v.x;
+      o.y += v.y;
+      o.z += v.z;
+      o.w += v.w;
+    }
     if (n >= a.N) continue;
-    float4 o = *reinterpret_cast<const float4*>(&Ys[r][4 * q]);
+    const float4 bb = *reinterpret_cast<const float4*>(a.b2 + 4 * q);
+    o.x += bb.x;
+    o.y += bb.y;
+    o.z += bb.z;
+    o.w += bb.w;
     if (a.drop2) {
       const uint4 bits = site_bits(a, n, q, 2u);
       o.x *= keep(bits.x, a.thresh2, a.scale2);
@@ -307,32 +353,30 @@ __global__ void __launch_bounds__(NT) ffn_fwd_kernel(const FfnArgs a,
     *reinterpret_cast<float4*>(out + static_cast<long long>(n) * C + 4 * q) =
         o;
   }
+  cluster.sync();   // no block leaves while a peer reads its partial
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     ffn_bwd_rows_kernel(const FfnArgs a, const float* dout, float* dx,
                         const FfnScratch sc) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float(*Ys)[YP] = reinterpret_cast<float(*)[YP]>(smem);
-  float(*Gs)[YP] = reinterpret_cast<float(*)[YP]>(smem + BM * YP);
-  float(*Hs)[HP] = reinterpret_cast<float(*)[HP]>(smem + 2 * BM * YP);
-  float(*Ps)[HP] = reinterpret_cast<float(*)[HP]>(smem + 2 * BM * YP +
-                                                   BM * HP);
-  float* stage = smem + 2 * BM * YP + 2 * BM * HP;
-  float* mu = stage + STAGE;
+  uint32_t* ys = reinterpret_cast<uint32_t*>(smem4);  // y, then gpre
+  uint32_t* gs = ys + 2 * APLANE;                     // g, then gy partial
+  float* ring = reinterpret_cast<float*>(gs + 2 * APLANE);
+  float* mu = ring + kRing * WRAW;
   float* rs = mu + BM;
-  float(*W1s)[WP] = reinterpret_cast<float(*)[WP]>(stage);
-  float(*W2s)[WP] = reinterpret_cast<float(*)[WP]>(stage + KT * WP);
-  float(*Wn)[CP] = reinterpret_cast<float(*)[CP]>(stage);
-
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BM;
+  const int nslices = (a.F + FS - 1) / FS;
   const int width = a.F + 3 * C;
-  float* part = sc.part + static_cast<long long>(blockIdx.x) * width;
+  float* part = sc.part + static_cast<long long>(blockIdx.y) * width;
+  const bool vecF = a.F % 4 == 0;
+  const Frag fr;
 
-  layer_norm_tile(a, n0, Ys, mu, rs, sc.y);
-  // g = dout * m2 into Gs (0 for rows >= N), and to scratch
+  // g = dout * m2 into gs (0 for rows >= N); rank 0 also to scratch
   for (int g = tid; g < BM * C / 4; g += NT) {
     const int r = g / (C / 4), q = g % (C / 4), n = n0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -346,121 +390,128 @@ __global__ void __launch_bounds__(NT)
         v.z *= keep(bits.z, a.thresh2, a.scale2);
         v.w *= keep(bits.w, a.thresh2, a.scale2);
       }
-      *reinterpret_cast<float4*>(sc.g + static_cast<long long>(n) * C +
-                                 4 * q) = v;
+      if (rank == 0) {
+        *reinterpret_cast<float4*>(sc.g + static_cast<long long>(n) * C +
+                                   4 * q) = v;
+      }
     }
-    *reinterpret_cast<float4*>(&Gs[r][4 * q]) = v;
-  }
-  __syncthreads();
-  {
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) s += Gs[r][tid];
-    part[a.F + tid] = s;                               // db2
+    gemm::put(gs, APLANE, r * AP + 4 * q, v.x);
+    gemm::put(gs, APLANE, r * AP + 4 * q + 1, v.y);
+    gemm::put(gs, APLANE, r * AP + 4 * q + 2, v.z);
+    gemm::put(gs, APLANE, r * AP + 4 * q + 3, v.w);
   }
 
-  const int ty1 = tid / 16, tx1 = tid % 16;
-  float acc[8][8];   // gy
+  float gy[2][4][4];
+  gemm::zero(gy);
+  for (int s = rank; s < nslices; s += cs) {
+    const int f0 = s * FS;
+    auto w1_chunk = [&](int kc, float* t) {   // W1[f0 .., kc KC ..]
+      NKChunk::copy(t, NKP, a.w1, C, f0, kc * KC, a.F, C, true);
+    };
+    auto w2_chunk = [&](int kc, float* t) {   // W2[kc KC .., f0 ..]
+      KNChunk::copy(t, KNP, a.w2, a.F, kc * KC, f0, C, a.F, vecF);
+    };
+    auto w1t_chunk = [&](int kc, float* t) {  // W1[f0 + kc KC .., :]
+      KNChunk::copy(t, KNP, a.w1, C, f0 + kc * KC, 0, a.F, C, true);
+    };
+    prefetch(ring, w1_chunk);
+    layer_norm_rows(a, n0, ys, mu, rs, s == 0 ? sc.y : nullptr);
+    __syncthreads();
+    float pre[2][4][4], gh[2][4][4];
+    gemm::zero(pre);
+    gemm::zero(gh);
+    product<false>(pre, ys, ring, w1_chunk);
+    prefetch(ring, w2_chunk);
+    product<true>(gh, gs, ring, w2_chunk);
+    prefetch(ring, w1t_chunk);
+    // gpre = gh * m1 * swish'(pre) into ys (0 beyond F and N), and with
+    // h * m1 to scratch
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int f0 = 0; f0 < a.F; f0 += FC) {
-    // pre = y W1^T and gh = g W2 over the chunk, one K loop
-    float pre[4][4] = {}, gh[4][4] = {};
-    for (int k0 = 0; k0 < C; k0 += KT) {
-      stage_w1t(a, f0, k0, W1s);
-      stage_w2(a, f0, k0, W2s);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KT; ++kk) {
-        float yv[4], gv[4], w1v[4], w2v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          yv[i] = Ys[ty1 + 16 * i][k0 + kk];
-          gv[i] = Gs[ty1 + 16 * i][k0 + kk];
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int r = fr.row(m, h), n = n0 + r;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          w1v[j] = W1s[kk][tx1 + 16 * j];
-          w2v[j] = W2s[kk][tx1 + 16 * j];
-        }
+          const int f = f0 + fr.col(j);
+          uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+          if (a.drop1 && n < a.N && f < a.F) bits = site_bits(a, n, f >> 2, 1u);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            pre[i][j] = fmaf(yv[i], w1v[j], pre[i][j]);
-            gh[i][j] = fmaf(gv[i], w2v[j], gh[i][j]);
+          for (int e = 0; e < 2; ++e) {
+            float gp = 0.f;
+            if (f + e < a.F && n < a.N) {
+              const float p = pre[m][j][2 * h + e] + a.b1[f + e];
+              const float sg = 1.f / (1.f + expf(-p));
+              const float z = a.drop1 ? keep(philox_word(bits, (f + e) & 3),
+                                             a.thresh1, a.scale1)
+                                      : 1.f;
+              gp = gh[m][j][2 * h + e] * z * (sg * (1.f + p * (1.f - sg)));
+              const long long o = static_cast<long long>(n) * a.F + f + e;
+              sc.hd[o] = p * sg * z;
+              sc.gpre[o] = gp;
+            }
+            gemm::put(ys, APLANE, r * AP + fr.col(j) + e, gp);
           }
         }
       }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Hs[ty1 + 16 * i][tx1 + 16 * j] = pre[i][j];
-        Ps[ty1 + 16 * i][tx1 + 16 * j] = gh[i][j];
-      }
     }
     __syncthreads();
-    // swish and its derivative, mask 1: h * m1 and gpre to scratch, gpre
-    // into Ps
-    for (int g = tid; g < BM * FC / 4; g += NT) {
-      const int r = g / (FC / 4), q = g % (FC / 4), n = n0 + r;
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (a.drop1 && n < a.N) bits = site_bits(a, n, f0 / 4 + q, 1u);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int f = f0 + 4 * q + u;
-        float gp = 0.f;
-        if (f < a.F && n < a.N) {
-          const float p = Hs[r][4 * q + u] + a.b1[f];
-          const float s = 1.f / (1.f + expf(-p));
-          const float z =
-              a.drop1 ? keep(philox_word(bits, u), a.thresh1, a.scale1) : 1.f;
-          gp = Ps[r][4 * q + u] * z * (s * (1.f + p * (1.f - s)));
-          const long long o = static_cast<long long>(n) * a.F + f;
-          sc.hd[o] = p * s * z;
-          sc.gpre[o] = gp;
-        }
-        Ps[r][4 * q + u] = gp;
+    if (f0 + tid < a.F) {                              // db1
+      float sum = 0.f;
+      for (int r = 0; r < BM && n0 + r < a.N; ++r) {
+        sum += __ldcg(sc.gpre + static_cast<long long>(n0 + r) * a.F + f0 +
+                      tid);
       }
+      part[f0 + tid] = sum;
     }
-    __syncthreads();
-    if (tid < FC && f0 + tid < a.F) {                  // db1
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r) s += Ps[r][tid];
-      part[f0 + tid] = s;
+    product<true>(gy, ys, ring, w1t_chunk);
+  }
+  if (rank == 0) {                                     // db2
+    float sum = 0.f;
+    for (int r = 0; r < BM && n0 + r < a.N; ++r) {
+      sum += __ldcg(sc.g + static_cast<long long>(n0 + r) * C + tid);
     }
-    chunk_times_w<true>(a, f0, Ps, Wn, acc);           // gy += gpre W1
+    part[a.F + tid] = sum;
   }
 
-  // epilogue: gy into Ys; LayerNorm's backward a row a warp, xhat into Gs
-  const int ty = tid / 32, tx = tid % 32;
+  // the gy partial into gs as fp32 [BM][AP]; each block sums its row share
+  // over the cluster in rank order and runs LayerNorm's backward on it
+  float* pg = reinterpret_cast<float*>(gs);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) Ys[ty + 8 * i][tx + 32 * j] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float2*>(pg + fr.row(m, h) * AP + fr.col(j)) =
+            make_float2(gy[m][j][2 * h], gy[m][j][2 * h + 1]);
+      }
+    }
   }
-  __syncthreads();
+  cluster.sync();
+  const RowShare sh(cs, rank);
+  const int rows = sh.rows, r0 = sh.r0;
   const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int n = n0 + r;
+  float* cols = reinterpret_cast<float*>(ys);   // [2][rows][C]: gy, xhat
+  for (int rl = warp; rl < rows; rl += NT / 32) {
+    const int r = r0 + rl, n = n0 + r;
     float xh[C / 32], dxh[C / 32];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int t = 0; t < C / 32; ++t) {
       const int c = lane + 32 * t;
+      float v = 0.f;
+      for (int k = 0; k < cs; ++k) {
+        v += cluster.map_shared_rank(pg, k)[r * AP + c];
+      }
       xh[t] = n < a.N
                   ? (a.x[static_cast<long long>(n) * C + c] - mu[r]) * rs[r]
                   : 0.f;
-      dxh[t] = Ys[r][c] * a.gamma[c];
+      dxh[t] = v * a.gamma[c];
       s1 += dxh[t];
       s2 = fmaf(dxh[t], xh[t], s2);
-      Gs[r][c] = xh[t];
+      cols[rl * C + c] = v;
+      cols[(rows + rl) * C + c] = xh[t];
     }
     const float m1 = warp_sum(s1) * (1.f / C);
     const float m2 = warp_sum(s2) * (1.f / C);
@@ -472,14 +523,29 @@ __global__ void __launch_bounds__(NT)
       }
     }
   }
-  __syncthreads();
+  cluster.sync();   // the partials are read; cols is visible block-wide
+  // dgamma and dbeta: this block's rows into gs, then block 0 of the
+  // cluster adds the blocks' sums in rank order into the tile's row
   float sg = 0.f, sb = 0.f;
-  for (int r = 0; r < BM; ++r) {
-    sg = fmaf(Ys[r][tid], Gs[r][tid], sg);
-    sb += Ys[r][tid];
+  for (int rl = 0; rl < rows; ++rl) {
+    const float v = cols[rl * C + tid];
+    sg = fmaf(v, cols[(rows + rl) * C + tid], sg);
+    sb += v;
   }
-  part[a.F + C + tid] = sg;                            // dgamma
-  part[a.F + 2 * C + tid] = sb;                        // dbeta
+  pg[tid] = sg;
+  pg[C + tid] = sb;
+  cluster.sync();
+  if (rank == 0) {
+    sg = sb = 0.f;
+    for (int k = 0; k < cs; ++k) {
+      const float* q = cluster.map_shared_rank(pg, k);
+      sg += q[tid];
+      sb += q[C + tid];
+    }
+    part[a.F + C + tid] = sg;                          // dgamma
+    part[a.F + 2 * C + tid] = sb;                      // dbeta
+  }
+  cluster.sync();   // block 0 has read every block's sums
 }
 
 // out[m][p] = sum over the rows n of one slice of A[n][m] Bm[n][p]
@@ -495,53 +561,76 @@ struct WgradArgs {
   int N, rows;       // rows per slice
 };
 
+constexpr int WT = 128;          // output tile of the weight gradients
+constexpr int WTP = WT + 8;      // pitch of [KC][128] planes (k outer)
+constexpr int WTPLANE = KC * WTP;
+constexpr int WTRAW = KC * WT;   // a raw [KC][128] chunk
+// A's and B's planes [2][2][KC][WTP] and raw rings [kRing][KC][WT]
+constexpr size_t kWgradSmem =
+    sizeof(uint32_t) * (8 * WTPLANE + 2 * kRing * WTRAW);
+
+// 8 warps: 4 along the output's rows x 2 along its columns, 32 x 64 each.
+// A chunk's rows are shared by 2 warps and B's by 4, so each thread splits
+// what its own cp.async brought into planes (one barrier a chunk).
 __global__ void __launch_bounds__(NT) ffn_wgrad_kernel(const WgradArgs a) {
-  constexpr int TM = 64, TK = 16;
+  using Ch = gemm::RawChunk<KC, WT, NT>;
   const WgradJob jb = (blockIdx.z & 1) ? a.job[1] : a.job[0];
   const int s = blockIdx.z >> 1;
-  const int tiles_p = (jb.P + TM - 1) / TM;
-  const int m0 = (blockIdx.x / tiles_p) * TM, p0 = (blockIdx.x % tiles_p) * TM;
+  const int tiles_p = (jb.P + WT - 1) / WT;
+  const int m0 = (blockIdx.x / tiles_p) * WT, p0 = (blockIdx.x % tiles_p) * WT;
   const int nb = s * a.rows, ne = min(a.N, nb + a.rows);
-  __shared__ float As[TK][TM];
-  __shared__ float Bs[TK][TM];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int n = nb; n < ne; n += TK) {
-    for (int idx = tid; idx < TK * TM; idx += NT) {
-      const int kk = idx / TM, c = idx % TM;
-      const bool row = n + kk < ne;
-      As[kk][c] = (row && m0 + c < jb.M)
-                      ? jb.A[static_cast<long long>(n + kk) * jb.M + m0 + c]
-                      : 0.f;
-      Bs[kk][c] = (row && p0 + c < jb.P)
-                      ? jb.Bm[static_cast<long long>(n + kk) * jb.P + p0 + c]
-                      : 0.f;
-    }
-    __syncthreads();
+  extern __shared__ float4 smem4[];
+  uint32_t* as = reinterpret_cast<uint32_t*>(smem4);  // [2][2][KC][WTP]
+  uint32_t* bs = as + 4 * WTPLANE;
+  float* araw = reinterpret_cast<float*>(bs + 4 * WTPLANE);
+  float* braw = araw + kRing * WTRAW;
+  const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;
+  const bool vec = jb.M % 4 == 0 && jb.P % 4 == 0;
+
+  float acc[2][8][4];
+  gemm::zero(acc);
+  const int nk = (ne - nb + KC - 1) / KC;
+  auto copy = [&](int kc) {
+    const int slot = (kc % kRing) * WTRAW;
+    Ch::copy(araw + slot, WT, jb.A, jb.M, nb + kc * KC, m0, ne, jb.M, vec);
+    Ch::copy(braw + slot, WT, jb.Bm, jb.P, nb + kc * KC, p0, ne, jb.P, vec);
+  };
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int kc = 0; kc < kRing - 1; ++kc) {
+    if (kc < nk) copy(kc);
+    cp_async_commit();
   }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<kRing - 2>();
+    uint32_t* ab = as + (kc & 1) * 2 * WTPLANE;
+    uint32_t* bb = bs + (kc & 1) * 2 * WTPLANE;
+    Ch::split(araw + (kc % kRing) * WTRAW, WT, ab, WTPLANE, WTP);
+    Ch::split(braw + (kc % kRing) * WTRAW, WT, bb, WTPLANE, WTP);
+    __syncthreads();
+    if (kc + kRing - 1 < nk) copy(kc + kRing - 1);
+    cp_async_commit();
+    gemm::warp_mma<2, 8, KC / 8, true, true>(
+        acc, gemm::Op{ab, WTPLANE, WTP, wm * 32, 0},
+        gemm::Op{bb, WTPLANE, WTP, wn * 64, 0});
+  }
+  cp_async_wait<0>();
   float* out = jb.part + static_cast<long long>(s) * jb.M * jb.P;
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + tx + 16 * j;
-      if (m < jb.M && p < jb.P) {
-        out[static_cast<long long>(m) * jb.P + p] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 32 + 16 * m + gid + 8 * h;
+      if (row >= jb.M) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = p0 + wn * 64 + 8 * n + 2 * tq + e;
+          if (p < jb.P) {
+            out[static_cast<long long>(row) * jb.P + p] = acc[m][n][2 * h + e];
+          }
+        }
       }
     }
   }
@@ -564,15 +653,22 @@ __global__ void ffn_reduce_kernel(const ReduceArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= jb.n) return;
+  // the terms in order, kLoads of them loaded before they are added
+  constexpr int kLoads = 8;
   float s = 0.f;
-  for (int k = 0; k < jb.S; ++k) s += jb.part[k * jb.stride + i];
+  for (int k0 = 0; k0 < jb.S; k0 += kLoads) {
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      v[u] = k0 + u < jb.S ? jb.part[(k0 + u) * jb.stride + i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (k0 + u < jb.S) s += v[u];
+    }
+  }
   jb.out[i] = s;
 }
-
-constexpr size_t kFwdSmem = sizeof(float) * (BM * YP + BM * HP + STAGE +
-                                             2 * BM);
-constexpr size_t kBwdSmem = sizeof(float) * (2 * BM * YP + 2 * BM * HP +
-                                             STAGE + 2 * BM);
 
 FfnArgs ffn_args(const float* x, const float* gamma, const float* beta,
                  const float* w1, const float* b1, const float* w2,
@@ -600,6 +696,33 @@ FfnArgs ffn_args(const float* x, const float* gamma, const float* beta,
   return a;
 }
 
+// a row kernel on clusters of cluster_size(F) blocks along x, one cluster
+// per BM-row tile along y, `smem` bytes of shared memory a block
+template <typename... Params, typename... Args>
+cudaError_t launch_rows(void (*kernel)(Params...), size_t smem,
+                        const FfnArgs& a, cudaStream_t stream,
+                        Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int cs = cluster_size(a.F);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (a.N + BM - 1) / BM);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int daspeech_ffn_fwd(const float* x, const float* gamma,
@@ -616,17 +739,13 @@ extern "C" int daspeech_ffn_fwd(const float* x, const float* gamma,
   const FfnArgs a = ffn_args(x, gamma, beta, w1, b1, w2, b2, seeds, drop1,
                              thresh1, scale1, drop2, thresh2, scale2, B, T,
                              F);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kFwdSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_fwd_kernel<<<(a.N + BM - 1) / BM, NT, kFwdSmem,
-                   static_cast<cudaStream_t>(stream)>>>(a, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_rows(ffn_fwd_kernel, kFwdSmem, a,
+                                      static_cast<cudaStream_t>(stream), a,
+                                      out));
 }
 
-// scratch: y, g [N, C]; hd, gpre [N, F]; part_rows [ceil(N / 64), F + 3C];
-// part_w [2, S, F * C] (the S row slices of dW1, then of dW2)
+// scratch: y, g [N, C]; hd, gpre [N, F]; part_rows [ceil(N / 32),
+// F + 3 C]; part_w [2, S, F * C] (the S row slices of dW1, then of dW2)
 extern "C" int daspeech_ffn_bwd(
     const float* x, const float* gamma, const float* beta, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* dout,
@@ -643,13 +762,10 @@ extern "C" int daspeech_ffn_bwd(
                              thresh1, scale1, drop2, thresh2, scale2, B, T,
                              F);
   const int ntiles = (a.N + BM - 1) / BM;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBwdSmem));
+  cudaError_t err = launch_rows(ffn_bwd_rows_kernel, kBwdSmem, a, st, a,
+                                dout, dx,
+                                FfnScratch{y, g, hd, gpre, part_rows});
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_rows_kernel<<<ntiles, NT, kBwdSmem, st>>>(
-      a, dout, dx, FfnScratch{y, g, hd, gpre, part_rows});
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   const long long FC_ = static_cast<long long>(F) * C;
   WgradArgs w;
@@ -657,8 +773,12 @@ extern "C" int daspeech_ffn_bwd(
   w.job[1] = {g, hd, part_w + S * FC_, C, F};
   w.N = a.N;
   w.rows = (a.N + S - 1) / S;
-  const int tiles = ((F + 63) / 64) * ((C + 63) / 64);
-  ffn_wgrad_kernel<<<dim3(tiles, 1, 2 * S), NT, 0, st>>>(w);
+  err = cudaFuncSetAttribute(ffn_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kWgradSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((F + WT - 1) / WT) * ((C + WT - 1) / WT);
+  ffn_wgrad_kernel<<<dim3(tiles, 1, 2 * S), NT, kWgradSmem, st>>>(w);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   const long long width = F + 3 * C;

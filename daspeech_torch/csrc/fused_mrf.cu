@@ -5,220 +5,235 @@
 //
 // A level is n_blocks ResBlock1 chains over the same input x [B, C, T],
 // averaged. Each chain is n_dil "iterations"; iteration i of block k is
-//   y   = lrelu(conv_{K_k, d_i}(lrelu(cur)) + b1)      (dilated conv)
-//   cur = cur + conv_{K_k, 1}(y) + b2                   (plain conv)
+//   y   = conv_{K_k, d_i}(lrelu(cur)) + b1              (dilated conv)
+//   cur = cur + conv_{K_k, 1}(lrelu(y)) + b2            (plain conv)
 // with SAME zero padding at EVERY conv: frames outside [0, T) of each
 // conv's input read as zero, for the second conv of a pair as for the
-// first. The level's output is the average of the blocks' final cur.
-//
-// Design: one launch per iteration (9 for config_v1's 3 x 3), each fusing
-// lrelu -> dilated conv -> bias -> lrelu -> conv -> bias -> residual. A
-// block owns TILE output frames of one batch row and all C channels; it
-// stages lrelu(cur) for TILE + 2 (c + c d) frames (c = (K - 1) / 2), KC
-// input channels at a time, with their weights for all K taps, and keeps
-// the pair's intermediate y for TILE + 2c frames in shared memory
-// (C x 16 (NF + 1) floats: 40 KB at C = 128 and TILE = 64). y is written
-// as zero at frames outside [0, T): that is the second conv's SAME padding
-// (the TPU kernel re-zeroes the same positions, fused_mrf.py:94-101, 141,
-// 145). The halo is read from global memory with bounds checks, so
-// neighbouring tiles re-read it from L2; nothing carries over between
-// blocks. The running value ping-pongs between two scratch buffers; the
-// last iteration of each block adds its result into the output, and the
-// last block scales by 1 / n_blocks. Each thread computes RC = C / 16
-// output channels for NF frames spaced 16 apart (register tile), reading
-// the staged weights (two addresses a warp) and activations (consecutive
-// frames) from shared memory.
+// first (the TPU kernel re-zeroes the same positions, fused_mrf.py:94-101,
+// 141, 145). The level's output is the average of the blocks' final cur.
 //
 // What bounds it on this card: operations. At serving A's level 1
-// ([8, 128, 26624]) a level is 2 B T C^2 126 = 879 GFLOP of fp32 FMA
-// against 218 MB of activations: 13 ms at 67 TFLOP/s, 0.07 ms of traffic.
-// The register tile does RC x (NF + 1) FMAs per RC + NF + 1 shared-memory
-// loads; the intermediate's frames at the tile's ends are recomputed by
-// both neighbours (2c / TILE extra first-conv work), and the first conv
-// computes 16 frames more than the TILE + 2c it needs. Tensor cores (TF32
-// or bf16 wgmma over [C, K C] x [K C, TILE]) are later work.
+// ([8, 128, 26624]) a level is 2 B T C^2 126 = 879 GFLOP against 218 MB of
+// activations: 5.3 ms at the tensor cores' 3xTF32 rate (165 TFLOP/s), 13
+// ms even at the full 67 TFLOP/s of the fp32 FMA pipes, so the products
+// run on the tensor cores.
+//
+// Design: each conv is an implicit GEMM, one launch per conv (18 a level
+// for config_v1), out[co, t] = sum_tap sum_ci W_tap[co, ci] x[ci, t + (tap -
+// c) d] (c = (K - 1) / 2): M = C_out, N = a tile of BN frames, depth K C_in
+// (up to 11 x 128 = 1408). A block owns BN (64 or 128)
+// frames of one batch row and all C channels (padded to CP >= 32 with
+// zeros); its CP / 32 x BN / 64 warps each hold a 32-channel x 64-frame
+// accumulator (gemm_tc.cuh, 3xTF32 mma.sync m16n8k8). The input is taken
+// 16 channels at a time: their activation tile, BN + (K - 1) d frames, is
+// split into TF32 hi/lo planes with lrelu applied (zero outside [0, T) and
+// past C) and serves every tap as a column-shifted view (no im2col copy).
+// For each (channel chunk, tap) stage the 16 x C weight slice W[tap, ci0
+// .., :] is split into the other of two plane buffers. Both arrive by
+// cp.async into raw fp32 tiles ahead of use, the weights kRing - 1 stages
+// ahead, the next channel chunk's activations one chunk ahead, and each
+// thread splits what its own copies brought: one barrier a stage. Every
+// operand element is split once. The epilogue adds the bias, and for the
+// second conv the residual, and writes the running value or the level's
+// average. The dilated conv's
+// output y goes to a [B, C, T] scratch buffer and the plain conv stages
+// lrelu(y) from it: keeping the pair's intermediate in shared memory would
+// take ~140 KB of hi/lo planes at C = 128, against ~1.2 ms of traffic for
+// the level's 18 x 2 passes over [B, C, T] at serving A (3.35 TB/s).
+//
+// Sum order: every output sums its ci chunks in order, each chunk's taps in
+// order, each (chunk, tap) as two k-steps whose three products go into a
+// fresh accumulator added in fp32; it does not depend on the frame's place
+// in its tile, on B or on T, so a chunked vocoder's windows reproduce the
+// one-shot level.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gemm_tc.cuh"
+
 namespace {
 
-constexpr int kThreadsT = 16;   // threads along time in a block
-constexpr int kMaxK = 17;       // 2 c <= 16 frames of first-conv headroom
+using namespace daspeech;
+
+constexpr int kMaxK = 17;       // largest kernel size taken
+constexpr int KC = 16;          // input channels staged a step
+constexpr int kRing = 4;        // raw weight tiles in flight
+constexpr int kMaxFrames = 8192;  // most staged frames of a tile
 constexpr float kSlope = 0.1f;  // HiFi-GAN's LRELU_SLOPE
 
 __device__ __forceinline__ float lrelu(float v) {
   return v >= 0.f ? v : kSlope * v;
 }
 
-template <int C>
-struct Shape {
-  static constexpr int CG = C < 16 ? C : 16;        // threads along channels
-  static constexpr int RC = C / CG;                 // channels per thread
-  static constexpr int KC = C < 4 ? C : 4;          // channels staged a step
-  static constexpr int kThreads = kThreadsT * CG;
-};
-
-struct IterArgs {
-  const float* xin;    // [B, C, T] cur
-  float* xout;         // [B, C, T] next cur, or null (last iteration)
-  float* acc;          // [B, C, T] level output
-  const float* w1;     // [K, C, C] (tap, in, out) of the dilated conv
-  const float* b1;     // [C]
-  const float* w2;     // [K, C, C] of the plain conv
-  const float* b2;     // [C]
+struct ConvArgs {
+  const float* in;     // [B, C, T] conv input (before lrelu)
+  const float* w;      // [K, C, C] (tap, in, out)
+  const float* bias;   // [C]
+  const float* res;    // [B, C, T] residual added to the output, or null
+  float* out;          // [B, C, T] output, or null
+  float* acc;          // [B, C, T] level output (acc_mode != 0)
   int K, d;
   int acc_mode;        // 0: none; 1: acc = v * scale; 2: acc = (acc + v) * scale
   float acc_scale;
 };
 
-// Stage the weights of input channels [ci0, ci0 + KC) for every tap.
-template <int C>
-__device__ __forceinline__ void stage_weights(float* ws, const float* w,
-                                              int K, int ci0) {
-  using S = Shape<C>;
-  for (int e = threadIdx.x; e < K * S::KC * C; e += S::kThreads) {
-    const int j = e / (S::KC * C), r = e % (S::KC * C);
-    ws[e] = w[(static_cast<long long>(j) * C + ci0 + r / C) * C + r % C];
-  }
+// the staged frames of a tile and their row pitch (>= frames, ≡ 8 mod 32)
+__host__ __device__ inline int staged_frames(int BN, int K, int d) {
+  return BN + (K - 1) * d;
+}
+__host__ __device__ inline int frame_pitch(int nx) {
+  return nx + ((8 - nx % 32) % 32 + 32) % 32;
 }
 
-template <int C, int NF>
-__global__ void __launch_bounds__(Shape<C>::kThreads)
-    mrf_iteration_kernel(IterArgs a, int T) {
-  using S = Shape<C>;
-  constexpr int RC = S::RC, KC = S::KC;
-  constexpr int TILE = kThreadsT * NF;     // output frames of a block
-  constexpr int NF1 = NF + 1;              // intermediate frames a thread
-  constexpr int NY = kThreadsT * NF1;      // intermediate frames of a block
+// a block of BN output frames and CP channels: WM x WN warps of 32
+// channels x 64 frames (MT = 2 row blocks of 16, NTW = 8 column blocks of 8)
+template <int CP, int BN>
+struct Tile {
+  static constexpr int MT = 2, NTW = 8;
+  static constexpr int WM = CP / (16 * MT), WN = BN / (8 * NTW);
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int WP = CP + 8;          // weight plane pitch
+  static constexpr int kWPlane = KC * WP;
+  static constexpr int kWRaw = KC * CP;      // a raw weight tile
+};
 
-  extern __shared__ float smem[];
+// shared memory of a block: the weight planes [2][2][KC][WP] and raw ring
+// [kRing][KC][CP], x planes [2][KC][pitch] and raw [KC][nx]
+template <int CP, int BN>
+__host__ __device__ inline int smem_words(int nx) {
+  using S = Tile<CP, BN>;
+  return 2 * KC * frame_pitch(nx) + KC * nx + 4 * S::kWPlane +
+         kRing * S::kWRaw;
+}
+
+// minimum blocks 1: a bound of two blocks an SM caps a thread at 128
+// registers, and the 32 x 64 accumulator then spills
+template <int CP, int BN>
+__global__ void __launch_bounds__(Tile<CP, BN>::kThreads, 1)
+    mrf_conv_kernel(const ConvArgs a, int C, int T) {
+  using S = Tile<CP, BN>;
+  constexpr int NT = S::kThreads, MT = S::MT, NTW = S::NTW, WP = S::WP;
+  constexpr int WPLANE = S::kWPlane;
+  using WChunk = gemm::RawChunk<KC, CP, NT>;
+  extern __shared__ float4 smem4[];
   const int K = a.K, d = a.d, c = (K - 1) / 2;
-  const int nxw = NY + (K - 1) * d;        // staged input frames a channel
-  float* ys = smem;                        // [C][NY]
-  float* ws = ys + C * NY;                 // [K][KC][C]
-  float* xs = ws + K * KC * C;             // [KC][nxw]
+  const int NX = staged_frames(BN, K, d), NXP = frame_pitch(NX);
+  const int XPLANE = KC * NXP;
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem4);  // weight planes
+  float* wraw = reinterpret_cast<float*>(ws + 4 * WPLANE);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(wraw + kRing * S::kWRaw);
+  float* xraw = reinterpret_cast<float*>(xs + 2 * XPLANE);
 
-  const int tx = threadIdx.x % kThreadsT, ty = threadIdx.x / kThreadsT;
-  const int t0 = blockIdx.x * TILE;
-  const long long row0 = static_cast<long long>(blockIdx.y) * C;
-  const int xbase = t0 - c - c * d;        // frame of xs[.][0]
-  const int ybase = t0 - c;                // frame of ys[.][0]
+  const int warp = threadIdx.x / 32, wm = warp % S::WM, wn = warp / S::WM;
+  const int nchunk = CP / KC, nstage = nchunk * K;   // stage: (chunk, tap)
 
-  // ---- y = lrelu(conv_{K, d}(lrelu(cur)) + b1), zero outside [0, T)
-  float acc1[RC][NF1];
-#pragma unroll
-  for (int r = 0; r < RC; ++r)
-#pragma unroll
-    for (int i = 0; i < NF1; ++i) acc1[r][i] = 0.f;
-  for (int ci0 = 0; ci0 < C; ci0 += KC) {
-    stage_weights<C>(ws, a.w1, K, ci0);
-    for (int e = threadIdx.x; e < KC * nxw; e += S::kThreads) {
-      const int cl = e / nxw, g = xbase + e % nxw;
-      xs[e] = (g >= 0 && g < T)
-                  ? lrelu(a.xin[(row0 + ci0 + cl) * T + g]) : 0.f;
+  // the cp.async copies of stage s's weights W[s % K, 16 (s / K) .., :]
+  // and of chunk ch's activations; thread tid owns elements tid + i NT
+  auto copy_w = [&](int s) {
+    WChunk::copy(wraw + (s % kRing) * S::kWRaw, CP,
+                 a.w + static_cast<long long>(s % K) * C * C, C,
+                 (s / K) * KC, 0, C, C, C % 4 == 0);
+  };
+  auto copy_x = [&](int ch) {
+    // the batch row's input and the frame of staged column 0
+    const float* in = a.in + static_cast<long long>(blockIdx.y) * C * T;
+    const int xbase = static_cast<int>(blockIdx.x) * BN - c * d;
+    for (int e = threadIdx.x; e < KC * NX; e += NT) {
+      const int r = e / NX, ci = ch * KC + r, g = xbase + e - r * NX;
+      const bool ok = ci < C && g >= 0 && g < T;
+      cp_async<4>(xraw + e, ok ? in + static_cast<long long>(ci) * T + g : in,
+                  ok);
     }
-    __syncthreads();
-#pragma unroll
-    for (int cl = 0; cl < KC; ++cl) {
-      for (int j = 0; j < K; ++j) {
-        const float* wr = ws + (j * KC + cl) * C + ty * RC;
-        const float* xr = xs + cl * nxw + j * d + tx;
-        float wv[RC], xv[NF1];
-#pragma unroll
-        for (int r = 0; r < RC; ++r) wv[r] = wr[r];
-#pragma unroll
-        for (int i = 0; i < NF1; ++i) xv[i] = xr[kThreadsT * i];
-#pragma unroll
-        for (int r = 0; r < RC; ++r)
-#pragma unroll
-          for (int i = 0; i < NF1; ++i)
-            acc1[r][i] = fmaf(wv[r], xv[i], acc1[r][i]);
+  };
+
+  float acc[MT][NTW][4];
+  gemm::zero(acc);
+  copy_x(0);
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < nstage) copy_w(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nstage; ++s) {
+    const int j = s % K;
+    if (j == 0) {
+      if (s) __syncthreads();             // the last chunk's products are done
+      cp_async_wait<0>();                 // this chunk's activations
+      for (int e = threadIdx.x; e < KC * NX; e += NT) {
+        const int r = e / NX;
+        gemm::put(xs, XPLANE, r * NXP + e - r * NX, lrelu(xraw[e]));
       }
+    } else {
+      cp_async_wait<kRing - 2>();         // stage s's weights
     }
+    uint32_t* wb = ws + (s & 1) * 2 * WPLANE;
+    WChunk::split(wraw + (s % kRing) * S::kWRaw, CP, wb, WPLANE, WP);
     __syncthreads();
+    if (j == 0 && s / K + 1 < nchunk) copy_x(s / K + 1);
+    if (s + kRing - 1 < nstage) copy_w(s + kRing - 1);
+    cp_async_commit();
+    // A = W_tap [ci][co] (k outer), B = the tile shifted by j d frames
+    gemm::warp_mma<MT, NTW, KC / 8, true, true>(
+        acc, gemm::Op{wb, WPLANE, WP, wm * 16 * MT, 0},
+        gemm::Op{xs, XPLANE, NXP, wn * 8 * NTW + j * d, 0});
   }
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tq = lane & 3;
+  const int t0 = blockIdx.x * BN, b = blockIdx.y;
 #pragma unroll
-  for (int r = 0; r < RC; ++r) {
-    const int co = ty * RC + r;
-    const float bias = a.b1[co];
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int i = 0; i < NF1; ++i) {
-      const int s = tx + kThreadsT * i, g = ybase + s;
-      ys[co * NY + s] = (g >= 0 && g < T) ? lrelu(acc1[r][i] + bias) : 0.f;
-    }
-  }
-
-  // ---- cur + conv_{K, 1}(y) + b2 (the first stage_weights' barrier
-  // makes ys visible)
-  float acc2[RC][NF];
+    for (int h = 0; h < 2; ++h) {
+      const int co = wm * 16 * MT + 16 * m + gid + 8 * h;
+      if (co >= C) continue;
+      const float bias = a.bias[co];
+      const long long row = (static_cast<long long>(b) * C + co) * T;
 #pragma unroll
-  for (int r = 0; r < RC; ++r)
+      for (int n = 0; n < NTW; ++n) {
 #pragma unroll
-    for (int i = 0; i < NF; ++i) acc2[r][i] = 0.f;
-  for (int ci0 = 0; ci0 < C; ci0 += KC) {
-    stage_weights<C>(ws, a.w2, K, ci0);
-    __syncthreads();
-#pragma unroll
-    for (int cl = 0; cl < KC; ++cl) {
-      for (int j = 0; j < K; ++j) {
-        const float* wr = ws + (j * KC + cl) * C + ty * RC;
-        const float* yr = ys + (ci0 + cl) * NY + j + tx;
-        float wv[RC], yv[NF];
-#pragma unroll
-        for (int r = 0; r < RC; ++r) wv[r] = wr[r];
-#pragma unroll
-        for (int i = 0; i < NF; ++i) yv[i] = yr[kThreadsT * i];
-#pragma unroll
-        for (int r = 0; r < RC; ++r)
-#pragma unroll
-          for (int i = 0; i < NF; ++i)
-            acc2[r][i] = fmaf(wv[r], yv[i], acc2[r][i]);
+        for (int e = 0; e < 2; ++e) {
+          const int t = t0 + wn * 8 * NTW + 8 * n + 2 * tq + e;
+          if (t >= T) continue;
+          const long long idx = row + t;
+          float v = acc[m][n][2 * h + e] + bias;
+          if (a.res) v = a.res[idx] + v;
+          if (a.out) a.out[idx] = v;
+          if (a.acc_mode == 1) {
+            a.acc[idx] = v * a.acc_scale;
+          } else if (a.acc_mode == 2) {
+            a.acc[idx] = (a.acc[idx] + v) * a.acc_scale;
+          }
+        }
       }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < RC; ++r) {
-    const int co = ty * RC + r;
-    const float bias = a.b2[co];
-#pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      const int t = t0 + tx + kThreadsT * i;
-      if (t >= T) continue;
-      const long long idx = (row0 + co) * T + t;
-      const float v = a.xin[idx] + (acc2[r][i] + bias);
-      if (a.xout) a.xout[idx] = v;
-      if (a.acc_mode == 1) a.acc[idx] = v * a.acc_scale;
-      else if (a.acc_mode == 2) a.acc[idx] = (a.acc[idx] + v) * a.acc_scale;
     }
   }
 }
 
-template <int C, int NF>
-cudaError_t launch_iteration(const IterArgs& a, int B, int T,
-                             cudaStream_t stream) {
-  using S = Shape<C>;
-  constexpr int TILE = kThreadsT * NF, NY = kThreadsT * (NF + 1);
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(C) * NY + static_cast<size_t>(a.K) * S::KC * C +
-       static_cast<size_t>(S::KC) * (NY + (a.K - 1) * a.d));
+template <int CP, int BN>
+cudaError_t launch_conv(const ConvArgs& a, int B, int C, int T,
+                        cudaStream_t stream) {
+  using S = Tile<CP, BN>;
+  if (a.d > kMaxFrames) return cudaErrorInvalidValue;
+  const int nx = staged_frames(BN, a.K, a.d);
+  if (nx > kMaxFrames) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(uint32_t) * smem_words<CP, BN>(nx);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      mrf_iteration_kernel<C, NF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      mrf_conv_kernel<CP, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + TILE - 1) / TILE, B);
-  mrf_iteration_kernel<C, NF><<<grid, S::kThreads, smem, stream>>>(a, T);
+  const dim3 grid((T + BN - 1) / BN, B);
+  mrf_conv_kernel<CP, BN><<<grid, S::kThreads, smem, stream>>>(a, C, T);
   return cudaGetLastError();
 }
 
-// All n_blocks x n_dil iterations of a level.
-template <int C, int NF>
+// All n_blocks x n_dil iterations of a level, two convs each.
+template <int CP, int BN>
 cudaError_t run_level(const float* x, const float* w, const float* bias,
-                      float* out, float* tmp0, float* tmp1, int B, int T,
-                      int n_blocks, const int* kernel_sizes, int n_dil,
+                      float* out, float* tmp0, float* tmp1, float* ybuf,
+                      int B, int C, int T, int n_blocks,
+                      const int* kernel_sizes, int n_dil,
                       const int* dilations, cudaStream_t stream) {
+  const long long CC = static_cast<long long>(C) * C;
   long long tap = 0;
   int conv = 0;
   for (int blk = 0; blk < n_blocks; ++blk) {
@@ -226,21 +241,30 @@ cudaError_t run_level(const float* x, const float* w, const float* bias,
     const float* cur = x;
     for (int it = 0; it < n_dil; ++it) {
       const bool last = it == n_dil - 1;
-      IterArgs a;
-      a.xin = cur;
-      a.xout = last ? nullptr : (it % 2 == 0 ? tmp0 : tmp1);
-      a.acc = out;
-      a.w1 = w + tap * C * C;
-      a.b1 = bias + static_cast<long long>(conv) * C;
-      a.w2 = w + (tap + K) * C * C;
-      a.b2 = bias + static_cast<long long>(conv + 1) * C;
+      ConvArgs a{};
+      a.in = cur;
+      a.w = w + tap * CC;
+      a.bias = bias + static_cast<long long>(conv) * C;
+      a.out = ybuf;
       a.K = K;
       a.d = dilations[blk * n_dil + it];
-      a.acc_mode = !last ? 0 : (blk == 0 ? 1 : 2);
-      a.acc_scale = last && blk == n_blocks - 1 ? 1.f / n_blocks : 1.f;
-      const cudaError_t err = launch_iteration<C, NF>(a, B, T, stream);
+      cudaError_t err = launch_conv<CP, BN>(a, B, C, T, stream);
       if (err != cudaSuccess) return err;
-      cur = a.xout;
+      ConvArgs p{};
+      p.in = ybuf;
+      p.w = w + (tap + K) * CC;
+      p.bias = bias + static_cast<long long>(conv + 1) * C;
+      p.res = cur;
+      p.out = last ? nullptr : (it % 2 == 0 ? tmp0 : tmp1);
+      p.acc = out;
+      p.K = K;
+      p.d = 1;
+      p.acc_mode = !last ? 0 : (blk == 0 ? 1 : 2);
+      p.acc_scale = last && blk == n_blocks - 1 ? 1.f / n_blocks : 1.f;
+      if ((err = launch_conv<CP, BN>(p, B, C, T, stream)) != cudaSuccess) {
+        return err;
+      }
+      cur = p.out;
       tap += 2 * K;
       conv += 2;
     }
@@ -248,29 +272,23 @@ cudaError_t run_level(const float* x, const float* w, const float* bias,
   return cudaSuccess;
 }
 
-template <int NF>
+template <int BN>
 cudaError_t dispatch_channels(int C, const float* x, const float* w,
                               const float* bias, float* out, float* tmp0,
-                              float* tmp1, int B, int T, int n_blocks,
-                              const int* ks, int n_dil, const int* ds,
-                              cudaStream_t s) {
-#define DASPEECH_MRF_CASE(c)                                               \
-  case c:                                                                  \
-    return run_level<c, NF>(x, w, bias, out, tmp0, tmp1, B, T, n_blocks,   \
-                            ks, n_dil, ds, s);
-  switch (C) {
-    DASPEECH_MRF_CASE(1)
-    DASPEECH_MRF_CASE(2)
-    DASPEECH_MRF_CASE(4)
-    DASPEECH_MRF_CASE(8)
-    DASPEECH_MRF_CASE(16)
-    DASPEECH_MRF_CASE(32)
-    DASPEECH_MRF_CASE(64)
-    DASPEECH_MRF_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
+                              float* tmp1, float* ybuf, int B, int T,
+                              int n_blocks, const int* ks, int n_dil,
+                              const int* ds, cudaStream_t s) {
+  if (C < 1 || C > 128 || (C & (C - 1))) return cudaErrorInvalidValue;
+  if (C <= 32) {
+    return run_level<32, BN>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
+                             n_blocks, ks, n_dil, ds, s);
   }
-#undef DASPEECH_MRF_CASE
+  if (C == 64) {
+    return run_level<64, BN>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
+                             n_blocks, ks, n_dil, ds, s);
+  }
+  return run_level<128, BN>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
+                            n_blocks, ks, n_dil, ds, s);
 }
 
 }  // namespace
@@ -280,13 +298,16 @@ cudaError_t dispatch_channels(int C, const float* x, const float* w,
 // dilations[n_blocks * n_dil] (host arrays). w holds every conv's taps
 // [K, C, C] (in, out) and bias [2 n_blocks n_dil, C] every conv's bias, in
 // the order block, iteration, (dilated, plain). tmp0 and tmp1 are [B, C, T]
-// scratch (unused when n_dil == 1; tmp1 unused when n_dil == 2). C is a
-// power of two <= 128, each K odd and <= 17, tile 64 or 128 frames.
+// scratch for the running value (unused when n_dil == 1; tmp1 unused when
+// n_dil == 2), ybuf [B, C, T] scratch for each dilated conv's output. C is
+// a power of two <= 128, each K odd and <= 17, tile (output frames a
+// block) 64 or 128.
 extern "C" int daspeech_mrf_level(const float* x, const float* w,
                                   const float* bias, float* out, float* tmp0,
-                                  float* tmp1, int B, int C, int T,
-                                  int n_blocks, const int* kernel_sizes,
-                                  int n_dil, const int* dilations, int tile,
+                                  float* tmp1, float* ybuf, int B, int C,
+                                  int T, int n_blocks,
+                                  const int* kernel_sizes, int n_dil,
+                                  const int* dilations, int tile,
                                   void* stream) {
   if (B < 1 || T < 1 || n_blocks < 1 || n_dil < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -300,12 +321,12 @@ extern "C" int daspeech_mrf_level(const float* x, const float* w,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
-    return static_cast<int>(dispatch_channels<4>(
-        C, x, w, bias, out, tmp0, tmp1, B, T, n_blocks, kernel_sizes, n_dil,
-        dilations, s));
+    return static_cast<int>(dispatch_channels<64>(
+        C, x, w, bias, out, tmp0, tmp1, ybuf, B, T, n_blocks, kernel_sizes,
+        n_dil, dilations, s));
   if (tile == 128)
-    return static_cast<int>(dispatch_channels<8>(
-        C, x, w, bias, out, tmp0, tmp1, B, T, n_blocks, kernel_sizes, n_dil,
-        dilations, s));
+    return static_cast<int>(dispatch_channels<128>(
+        C, x, w, bias, out, tmp0, tmp1, ybuf, B, T, n_blocks, kernel_sizes,
+        n_dil, dilations, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -60,8 +60,8 @@ SIGNATURES = {
                                      _P),
     "daspeech_dag_viterbi_max_clusters": (_I, _I, _I, _P),
     "daspeech_dag_block": (_I, _I, _P, _P),
-    "daspeech_mrf_level": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                           _I, _P),
+    "daspeech_mrf_level": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                           _P, _I, _P),
     "daspeech_attention_fb_fwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _I, _I,
                                   _I, _I, _I, _F, _P),
     "daspeech_attention_fb_bwd": (_P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _P,

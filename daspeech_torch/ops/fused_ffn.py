@@ -4,10 +4,12 @@
 Counterpart of ``daspeech_tpu/ops/fused_ffn.py``. The CUDA kernels
 (``csrc/fused_ffn.cu``) replace its Pallas kernels (:175 ``fused_ffn``:
 forward ``_ffn_fwd_kernel`` at :59, backward ``_ffn_bwd_kernel`` at :84).
-The forward keeps the [T, F] intermediate on the chip; the backward
-recomputes LayerNorm, the first product and the masks and sums the weight
-gradients over all B·T rows in a fixed order (no atomics: two runs give the
-same bits).
+Every product runs on the tensor cores (3xTF32). A thread-block cluster of
+up to 8 blocks owns 32 rows and splits F between its blocks, whose partial
+sums meet in distributed shared memory in a fixed order; the forward keeps
+the [T, F] intermediate on the chip; the backward recomputes LayerNorm,
+the first product and the masks and sums the weight gradients over all B·T
+rows in a fixed order (no atomics: two runs give the same bits).
 
 Weight layout: ``w1`` is ``w_1.weight`` [F, C] and ``w2`` is ``w_2.weight``
 [C, F], ``nn.Linear``'s layout (the transposes of JAX's kernels [C, F] and
@@ -38,7 +40,7 @@ from daspeech_torch.ops.philox import ffn_keep, keep_threshold
 
 LN_EPS = 1e-6        # flax nn.LayerNorm's default, as the module
 WIDTH = 256          # the one model width C the kernels are built for
-ROW_TILE = 64        # rows per block of the kernels (csrc/fused_ffn.cu BM)
+ROW_TILE = 32        # rows per cluster of the kernels (csrc/fused_ffn.cu BM)
 SLICE_ROWS = 1024    # about this many rows per slice of the dW sums
 
 

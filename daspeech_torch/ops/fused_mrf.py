@@ -6,8 +6,8 @@ on the same input and averaged: 18 chained 1-D convs with leaky-ReLU
 pre-activations and residual adds. The CUDA kernel (``csrc/fused_mrf.cu``)
 replaces the Pallas ``mrf_level`` (``fused_mrf.py:156``; ``_mrf_kernel`` at
 :87); it computes in the port's ``[B, C, T]`` layout, not the TPU's folded
-``[B, T/f, f*C]`` view, one launch per dilation iteration, and keeps each
-conv pair's intermediate in shared memory.
+``[B, T/f, f*C]`` view, one launch per conv, each an implicit GEMM on the
+tensor cores (3xTF32) over per-tap shifted views of a staged input tile.
 
 Inference only, as in JAX: neither version has a gradient. CPU tensors take
 the plain version (:func:`mrf_level_ref`, the convs through ``F.conv1d``);
@@ -95,11 +95,11 @@ def _check(x, W, biases, kernel_sizes, dilations, tile):
 
 def pick_tile(B: int, T: int, device) -> int:
     """The kernel's tile for x ``[B, C, T]``: 128 output frames a block
-    (more FMAs per shared-memory load) when the batch's 128-frame tiles
-    fill the card's SMs, else 64 (twice the blocks; a chunk window of one
-    utterance)."""
+    (each staged weight slice serves more frames) when the batch's
+    128-frame tiles fill the card's SMs twice over, else 64 (the most
+    blocks: a chunk window of one utterance)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 128 if B * -(-T // 128) >= sms else 64
+    return 128 if B * -(-T // 128) >= 2 * sms else 64
 
 
 def mrf_level_kernel(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
@@ -112,7 +112,7 @@ def mrf_level_kernel(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
     if tile is None:
         tile = pick_tile(B, T, x.device)
     n_dil = len(dilations[0])
-    out = torch.empty_like(x)
+    out, ybuf = torch.empty_like(x), torch.empty_like(x)
     tmp = [torch.empty_like(x) if n_dil > i + 1 else None for i in range(2)]
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds = (ctypes.c_int * (len(kernel_sizes) * n_dil))(
@@ -120,7 +120,7 @@ def mrf_level_kernel(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = _build.library().daspeech_mrf_level(
             x.data_ptr(), W.data_ptr(), biases.data_ptr(), out.data_ptr(),
-            _build.ptr(tmp[0]), _build.ptr(tmp[1]), B, C, T,
+            _build.ptr(tmp[0]), _build.ptr(tmp[1]), ybuf.data_ptr(), B, C, T,
             len(kernel_sizes), ks, n_dil, ds, tile, _build.stream_of(x))
     _build.check(rc, "daspeech_mrf_level")
     mrf_level.launches += 1
@@ -133,11 +133,12 @@ def mrf_level(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
               tile: Optional[int] = None) -> torch.Tensor:
     """One MRF level (see :func:`mrf_level_ref`) from the stacked weights of
     :func:`prepare_level`; ``tile`` is the kernel's output frames per block
-    (64 or 128; None: :func:`pick_tile`).
+    (one of ``TILES``; None: :func:`pick_tile`).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes contiguous fp32 inputs with C a power of two <= 128 and odd
-    kernel sizes <= 17, and raises on anything else. Neither has a
+    which takes contiguous fp32 inputs with C a power of two <= 128 (C < 32
+    padded with zero channels inside it) and odd kernel sizes <= 17, and
+    raises on anything else. Neither has a
     gradient: under autograd with an input that requires one, this raises."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, W, biases)):
         raise RuntimeError("mrf_level is inference only: run it under "

@@ -19,7 +19,11 @@ also where its launcher splits the keys over several blocks and merges
 them, bit-identical over two runs, its statistics through the tensor-core
 backward, packed equal to head-major and #5 with a = 0 equal to #2 within
 1e-6; the fused FFN at one row, ragged row tiles and F chunks, with its
-weight gradients bit-identical over two runs; the link extraction on live
+weight gradients bit-identical over two runs, and on thread-block clusters
+(F split over 2, 4 and 8 blocks) with ragged row tiles; the tensor-core
+MRF kernel at C = 32, 64 and 128, every tile, T = 1, 65 and 513, the same
+bits at every tile and in a window as in the whole sequence; the link
+extraction on live
 tiles at lengths around the 64-wide tile (63, 65, 129) and the 1024 cap,
 with and without the transition band, and at J-long's [14, 700] H = 8
 (the -inf pattern, a finite lse_h, the tensor-core backward bit-identical
@@ -644,6 +648,64 @@ def test_fused_ffn_weight_gradients_are_bit_identical(gen):
     b = ff.ffn_bwd_kernel(x, *params, do, seeds, 0.1, 0.1)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+# the tensor-core MRF kernel (implicit GEMM, 3xTF32): each width of
+# config_v1's fused levels at every tile it takes, ragged lengths, and its
+# sum order: the same bits at every tile, and in a window that holds a
+# frame's receptive field the bits of the whole sequence
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 65, 513])
+def test_mrf_level_tensor_cores_every_tile(gen, C, T):
+    x, W, biases = _mrf_inputs(gen, 2, C, T, V1_KERNELS, V1_DILATIONS)
+    outs = [fm.mrf_level(x, W, biases, V1_KERNELS, V1_DILATIONS, t)
+            for t in fm.TILES]
+    torch.cuda.synchronize()
+    want = fm.mrf_level_ref(x, W, biases, V1_KERNELS, V1_DILATIONS)
+    for o in outs:
+        assert _max_err(o, want) <= TOL
+        assert torch.equal(o, outs[0])
+
+
+def test_mrf_level_window_reproduces_the_whole_sequence(gen):
+    halo = sum((k - 1) // 2 * (d + 1) for k in V1_KERNELS for d in (1, 3, 5))
+    x, W, biases = _mrf_inputs(gen, 2, 128, 3000, V1_KERNELS, V1_DILATIONS)
+    whole = fm.mrf_level(x, W, biases, V1_KERNELS, V1_DILATIONS)
+    a, n = 1237, 300
+    win = x[1:, :, a - halo:a + n + halo].contiguous()
+    part = fm.mrf_level(win, W, biases, V1_KERNELS, V1_DILATIONS)
+    torch.cuda.synchronize()
+    assert torch.equal(part[:, :, halo:halo + n], whole[1:, :, a:a + n])
+
+
+# the fused FFN on thread-block clusters (F split over 2 to 8 blocks, two
+# slices a block at F = 4000; at 3, 5, 6 and 7 blocks the 32 rows of a tile
+# split into unequal shares), ragged row tiles, dropout off and on; forward
+# and backward the same bits over two runs
+@pytest.mark.parametrize("B,T,Fd,p", [(3, 29, 300, 0.0), (3, 29, 300, 0.1),
+                                      (2, 77, 1000, 0.1), (1, 50, 4000, 0.0),
+                                      (5, 31, 2048, 0.1), (1, 33, 2048, 0.0),
+                                      (2, 45, 600, 0.1), (1, 90, 1100, 0.0),
+                                      (2, 47, 1536, 0.1), (1, 95, 1700, 0.0)])
+def test_fused_ffn_on_clusters(gen, B, T, Fd, p):
+    from daspeech_torch.ops import fused_ffn as ff
+
+    x = _randn(gen, B, T, 256)
+    params = _ffn_params(gen, 256, Fd)
+    seeds = _seeds(gen, B) if p else None
+    do = _randn(gen, B, T, 256, scale=(B * T) ** -0.5)
+    out = ff.ffn_fwd_kernel(x, *params, seeds, p, p)
+    got = ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)
+    again = (ff.ffn_fwd_kernel(x, *params, seeds, p, p),
+             ff.ffn_bwd_kernel(x, *params, do, seeds, p, p))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _max_err(out, ff.ffn_plain(x, *params, seeds, p, p)) <= TOL
+    for g, w in zip(got, ff.ffn_bwd_plain(x, *params, do, seeds, p, p)):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _max_err(g, w) <= TOL
+    assert torch.equal(out, again[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again[1]))
 
 
 def _full_bias(gen, B, H, Tq, Tk, masked_row):
