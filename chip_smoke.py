@@ -117,7 +117,25 @@ process.)
    ``fused_attention_full_bias`` on an ALiBi-style bias [8, 8, 240, 64],
    forward and backward against the plain version, and its profile (the
    training forward the FMA kernel's). Both kernels launch 0 times on every
-   other path (asserted).
+   other path (asserted);
+11. decode-strategy phase, on the serving phase's model and batches:
+   ``S2SNATGenerator`` under ``viterbi`` and ``jointviterbi`` at serving A
+   and B (B's FastSpeech 2 takes #2), ``S2TNATGenerator`` under
+   ``beamsearch`` at the reference's defaults (beamsize 100, top_cand_n 5,
+   top_p 0.9, alpha 1.1), lookahead with ``length_beam=3`` and with
+   ``iter_decode_max_iter=2``, at A: each run's launches of #1, #2, #4 and
+   #5 (the length beam's encoder and decoder once, asserted), tokens
+   against a CPU run of the same weights (a row that differs must be a
+   near tie of the CPU's own scores of the two hypotheses, within 1e-4),
+   mel within 1e-2, the decode stage's median host ms of 5 and its device
+   kernels under ``torch.profiler``;
+12. vocoder-training phase (``VocoderTrainer``, HiFi-GAN config_v1 against
+   MPD + MSD, fp32): one D + G update on the card against one on the CPU
+   at B=2 (losses within 1e-4 relative, gradients within 1e-3 of their
+   norm), 3 warm-up and 10 timed updates at B=16 x 8192 samples (D and G
+   halves apart, IQR), peak memory, the device busy share of one profiled
+   update, and 30 updates on one batch that must bring the mel loss to
+   <= 0.9 of its first value.
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -597,35 +615,12 @@ def parent_ms(fn):
 
 
 def parent_mrf_level(x, W, bias, kernel_sizes, dilations):
-    """The parent tree's MRF level at its own tile choice. A tree before
-    the implicit-GEMM kernel has an entry point without the y scratch and
-    tiles of 64 and 128 frames only (128 where B ceil(T / 128) fills the
-    SMs); a later one takes this tree's wrapper."""
-    import ctypes
-
-    from daspeech_torch.ops import _build
+    """The parent tree's MRF level at its own tile choice (the same
+    wrapper, the parent's entry point)."""
     from daspeech_torch.ops import fused_mrf as fm
 
-    if PARENT["mrf_ybuf"]:
-        with parent_library():
-            return fm.mrf_level_kernel(x, W, bias, kernel_sizes, dilations)
-    B, C, T = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile = 128 if B * -(-T // 128) >= sms else 64
-    n_dil = len(dilations[0])
-    out = torch.empty_like(x)
-    tmp = [torch.empty_like(x) if n_dil > i + 1 else None for i in range(2)]
-    ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
-    ds = (ctypes.c_int * (len(kernel_sizes) * n_dil))(
-        *(d for blk in dilations for d in blk))
-    fn = PARENT["lib"].daspeech_mrf_level
-    sig = _build.SIGNATURES["daspeech_mrf_level"]
-    fn.argtypes = sig[:6] + sig[7:]
-    _build.check(fn(x.data_ptr(), W.data_ptr(), bias.data_ptr(),
-                    out.data_ptr(), _build.ptr(tmp[0]), _build.ptr(tmp[1]),
-                    B, C, T, len(kernel_sizes), ks, n_dil, ds, tile,
-                    _build.stream_of(x)), "parent daspeech_mrf_level")
-    return out
+    with parent_library():
+        return fm.mrf_level_kernel(x, W, bias, kernel_sizes, dilations)
 
 
 def attention_wrapper_calls(q, k, v, do, bias, seeds, H, p, heads):
@@ -1694,7 +1689,11 @@ def e2e_phase():
             set_durations_(model, d)
             _, z, zmask = gen.decode(*gen.to_device(batch))
             mels[tag] = gen.synthesize(z, zmask)[0]
-    return launches, mels
+    # the model, vocoder and batches, for the decode-strategy phase
+    ctx = {"cfg": cfg, "model": model, "model_cpu": model_cpu, "voc": voc,
+           "voc_cpu": voc_cpu, "batches": {"A": (batch_a, 416),
+                                           "B": (batch_b, 1040)}}
+    return launches, mels, ctx
 
 
 def sub_stage_ms(gen, batch, reps=5):
@@ -3136,6 +3135,475 @@ def alternates_phase():
     return runs, ms
 
 
+# ---------------------------------------------------------------------------
+# decode-strategy phase: Viterbi, joint-Viterbi, beam search, the length
+# beam and iterative refinement on the serving phase's model
+# ---------------------------------------------------------------------------
+
+# (tag, serving batch, generator, DecodeConfig fields). Beam search is S2T
+# only, at the reference's defaults (beamsize 100, top_cand_n 5, top_p 0.9,
+# alpha 1.1); at serving B (1040 mel frames) FastSpeech 2 takes #2
+DECODE_RUNS = (
+    ("viterbi A", "A", "s2s", {"strategy": "viterbi"}),
+    ("jointviterbi A", "A", "s2s", {"strategy": "jointviterbi"}),
+    ("viterbi B", "B", "s2s", {"strategy": "viterbi"}),
+    ("jointviterbi B", "B", "s2s", {"strategy": "jointviterbi"}),
+    ("beamsearch A", "A", "s2t", {"strategy": "beamsearch"}),
+    ("length_beam=3 A", "A", "s2s", {"length_beam": 3}),
+    ("iter_decode_max_iter=2 A", "A", "s2s", {"iter_decode_max_iter": 2}),
+)
+# the kernels every decode run launches (DAG decoder, links, encoder)
+DECODE_KERNELS = ("fused_attention_packed", "fused_extract_links",
+                  "fused_attention_relpos")
+
+
+def decoder_outputs(model, fbank, lens, prev):
+    """(logits, links) of the generators' encoder + decoder pass."""
+    from daspeech_torch.decode.generator import decoder_pass
+
+    return decoder_pass(model, fbank, lens, prev, None)[:2]
+
+
+def length_beam_inputs(model, fbank, lens, prev, vocab, beam):
+    """(logits, links, graph inputs) of the length beam's B * beam
+    candidates, from the generators' own decoder pass."""
+    from daspeech_torch.decode.generator import decoder_pass
+
+    logits, links, _, prev_b = decoder_pass(model, fbank, lens, prev, vocab,
+                                            beam)
+    return logits, links, prev_b
+
+
+def viterbi_path_score(logits, links, ol, path, pred_len, dc, joint):
+    """The penalised Viterbi score of each row's given path (as
+    ``viterbi_path`` returns it) under these logits and links."""
+    tok = dc.beta * torch.log_softmax(logits.float(), -1).max(-1).values
+    links = links.float().clamp_min(-1e9)
+    out = []
+    for b in range(logits.shape[0]):
+        n = int(pred_len[b])
+        vs = path[b, :n].flip(0).tolist()
+        sc = float(links[b, 0, vs[0]] + tok[b, vs[0]])
+        sc += float(tok[b, 0]) if joint else 0.0
+        for u, v in zip(vs[:-1], vs[1:]):
+            sc += float(links[b, u, v]) + (float(tok[b, v]) if joint else 0.0)
+        sc += float(links[b, vs[-1], int(ol[b]) - 1])
+        out.append(sc / n ** dc.viterbibeta)
+    return out
+
+
+def beam_hypothesis_score(logits, links, ol, toks, dc, pad):
+    """The best penalised beam-search score, under these logits and links
+    (one row), of a path that emits exactly the tokens ``toks``: a
+    max-plus DP over (vertex, tokens emitted) through each vertex's
+    candidates as ``beam_search`` prepares them (top_cand_n, top_p), in at
+    most its number of steps; -inf where no such path exists."""
+    from daspeech_torch.decode import beam_search as bs
+
+    NEG, C = bs.NEG, int(dc.top_cand_n)
+    L = logits.shape[1]
+    logp = torch.log_softmax(logits[0].float(), -1)
+    top_logits, top_tokens = bs.top_k(logp, C)
+    cand = (links[0].float().clamp_min(NEG)[:, :, None]
+            + dc.beta * top_logits[None, :, :])
+    cs, cf = bs.top_k(cand.reshape(L, L * C), C)
+    nxt, tok = cf // C, top_tokens.reshape(-1)[cf]               # [L, C]
+    if dc.top_p < 1.0:
+        p = torch.softmax(cs, -1)
+        cs = torch.where(torch.cumsum(p, -1) - p < dc.top_p, cs, NEG)
+    y, n = torch.as_tensor(toks, dtype=torch.int64), len(toks)
+    if n == 0 or int(logp[0].argmax()) != int(y[0]):
+        return -math.inf
+    k = torch.arange(n + 1)
+    # emits[i, c, k]: candidate c of vertex i emits after k tokens; it must
+    # then emit y[k] (with dedup, a repeat of y[k - 1] emits nothing)
+    emits = (tok != pad)[:, :, None].expand(L, C, n + 1)
+    if dc.dedup:
+        emits = emits & (tok[:, :, None] != y[(k - 1).clamp_min(0)])
+    ok = ~emits | ((k < n) & (tok[:, :, None] == y[k.clamp_max(n - 1)]))
+    k_new = (k + emits.long()).clamp_max(n)
+    final = nxt[:, :, None] == int(ol[0]) - 1
+    state = torch.full((L, n + 1), NEG)
+    state[0, 1] = 0.0
+    best = NEG
+    for _ in range(dc.max_output_length or max(2, L // 2)):
+        live = ok & (state[:, None, :] > NEG / 2) & (cs[:, :, None] > NEG / 2)
+        new = torch.where(live, state[:, None, :] + cs[:, :, None], NEG)
+        fin = new[final.expand_as(new) & (k_new == n)]
+        if fin.numel():
+            best = max(best, float(fin.max()) / n ** dc.alpha)
+        new = torch.where(final, NEG, new)
+        state = torch.full(((n + 1) * L,), NEG).scatter_reduce(
+            0, (nxt[:, :, None] * (n + 1) + k_new).reshape(-1),
+            new.reshape(-1), "amax").reshape(L, n + 1)
+    return best if best > NEG / 2 else -math.inf
+
+
+def lookahead_split_margin(model, model_cpu, fbank, lens, prev, vocab, b,
+                           beta):
+    """On one graph input: the top-2 margin, on the CPU, of the lookahead
+    decision where row b's tokens first differ between card and CPU (inf
+    where they agree)."""
+    from daspeech_torch.decode.dag_decode import greedy_or_lookahead_decode
+
+    outs = []
+    for m, dev in ((model, DEVICE), (model_cpu, "cpu")):
+        logits, links = decoder_outputs(m, fbank.to(dev), lens.to(dev),
+                                        prev.to(dev))
+        ol = (prev.to(dev) != vocab.pad).sum(1)
+        outs.append((greedy_or_lookahead_decode(logits, links, ol, vocab.pad,
+                                                beta), logits, links, ol))
+    tg, tc = outs[0][0].tokens[b].cpu(), outs[1][0].tokens[b]
+    if torch.equal(tg, tc):
+        return math.inf
+    s = int((tg != tc).nonzero()[0, 0])
+    res, logits, links, ol = outs[1]
+    v = int(res.feat_idx[b, s]) if s > 0 else 0
+    return path_margin(logits, links, ol, b, v, beta)
+
+
+def decode_margin(kind, dc, ctx, batch, b):
+    """The CPU's own scores of the card's and the CPU's hypotheses of row
+    b differ by this much: the penalised Viterbi score of the card's path
+    against the CPU's best; the beam-search score of the card's tokens
+    (:func:`beam_hypothesis_score`) against the CPU's best; the
+    length beam's path score of the card's pick against the CPU's best, or
+    (same pick) the lookahead margin there; refinement's lookahead margin
+    at the first pass whose tokens differ."""
+    from daspeech_torch.decode import beam_search as bs
+    from daspeech_torch.decode import dag_decode as dd
+    from daspeech_torch.decode.generator import (_strategy_decode,
+                                                 length_beam_scores)
+
+    model, model_cpu = ctx["model"], ctx["model_cpu"]
+    vocab = ctx["cfg"].dag.vocab
+    dev_in = {dev: [torch.as_tensor(batch[k], device=dev)
+                    for k in ("fbank", "src_lengths", "prev_output_tokens")]
+              for dev in (DEVICE, "cpu")}
+    for dev in dev_in:
+        dev_in[dev][1:] = [t.long() for t in dev_in[dev][1:]]
+    ms = {DEVICE: model, "cpu": model_cpu}
+    if dc.strategy in ("viterbi", "jointviterbi") and kind == "plain":
+        joint = dc.strategy == "jointviterbi"
+        got = {}
+        for dev, m in ms.items():
+            fbank, lens, prev = dev_in[dev]
+            logits, links = decoder_outputs(m, fbank, lens, prev)
+            ol = (prev != vocab.pad).sum(1)
+            got[dev] = (logits, links, ol, dd.viterbi_path(
+                logits, links, ol, dc.beta, dc.viterbibeta, joint,
+                dc.max_output_length or max(2, prev.shape[1] // 4)))
+        logits, links, ol, (_, _, _, best) = got["cpu"]
+        path, pred_len = (t.cpu() for t in got[DEVICE][3][:2])
+        card = viterbi_path_score(logits[b:b + 1], links[b:b + 1],
+                                  ol[b:b + 1], path[b:b + 1],
+                                  pred_len[b:b + 1], dc, joint)[0]
+        return abs(float(best[b]) - card)
+    if dc.strategy == "beamsearch":
+        got = {}
+        for dev, m in ms.items():
+            fbank, lens, prev = dev_in[dev]
+            logits, links = decoder_outputs(m, fbank, lens, prev)
+            ol = (prev != vocab.pad).sum(1)
+            got[dev] = (logits, links, ol, bs.beam_search(
+                logits, links, ol, vocab.pad, vocab.bos,
+                beam_size=int(dc.beamsize), top_cand_n=int(dc.top_cand_n),
+                decode_beta=dc.beta, decode_alpha=dc.alpha, top_p=dc.top_p,
+                dedup=dc.dedup, max_steps=dc.max_output_length or 0))
+        logits, links, ol, (_, best) = got["cpu"]
+        res = got[DEVICE][3][0]
+        toks = res.tokens[b, :int(res.lengths[b])].cpu().tolist()
+        card = beam_hypothesis_score(logits[b:b + 1], links[b:b + 1],
+                                     ol[b:b + 1], toks, dc, vocab.pad)
+        return abs(float(best[b]) - card)
+    if kind == "length_beam":
+        beam = int(dc.length_beam)
+        sc, inputs = {}, None
+        for dev, m in ms.items():
+            fbank, lens, prev = dev_in[dev]
+            logits, links, prev_b = length_beam_inputs(m, fbank, lens, prev,
+                                                       vocab, beam)
+            res = _strategy_decode(dc, vocab, logits, links, prev_b)
+            sc[dev] = length_beam_scores(dc, logits, res, beam)[b].cpu()
+            inputs = prev_b.cpu()
+        pick, best = int(sc[DEVICE].argmax()), float(sc["cpu"].max())
+        if pick != int(sc["cpu"].argmax()):
+            return abs(best - float(sc["cpu"][pick]))
+        fbank, lens, _ = dev_in["cpu"]
+        row = b * beam + pick
+        return lookahead_split_margin(
+            model, model_cpu, fbank[b:b + 1], lens[b:b + 1],
+            inputs[row:row + 1], vocab, 0, dc.beta)
+    # refinement: walk the passes on the CPU's inputs
+    fbank, lens, cur = dev_in["cpu"]
+    for _ in range(1 + int(dc.iter_decode_max_iter)):
+        m = lookahead_split_margin(model, model_cpu, fbank[b:b + 1],
+                                   lens[b:b + 1], cur[b:b + 1], vocab, 0,
+                                   dc.beta)
+        if m < math.inf:
+            return m
+        logits, links = decoder_outputs(model_cpu, fbank, lens, cur)
+        cur = dd.greedy_or_lookahead_decode(
+            logits, links, (cur != vocab.pad).sum(1), vocab.pad,
+            dc.beta).tokens
+    return math.inf
+
+
+def decode_stage(kind, gen, batch):
+    """A function that runs the run's decode stage alone, on the
+    decoder's outputs: the strategy (and, for the length beam, the
+    candidates' scores and the pick); for refinement, the whole loop of
+    passes (each re-runs the encoder and the decoder)."""
+    from daspeech_torch.decode.generator import (_strategy_decode,
+                                                 length_beam_scores)
+
+    fbank, lens, prev = gen.to_device(batch)
+    vocab, dc = gen.vocab, gen.cfg
+    if kind == "refine":
+        return lambda: gen.refine(fbank, lens, prev)
+    if kind == "length_beam":
+        beam = int(dc.length_beam)
+        logits, links, prev_b = length_beam_inputs(gen.model, fbank, lens,
+                                                   prev, vocab, beam)
+        return lambda: length_beam_scores(dc, logits, _strategy_decode(
+            dc, vocab, logits, links, prev_b), beam).argmax(1)
+    logits, links = decoder_outputs(gen.model, fbank, lens, prev)
+    return lambda: _strategy_decode(dc, vocab, logits, links, prev)
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock ms of ``reps`` calls after a warm-up, each closed
+    by a synchronize."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def decode_phase(ctx):
+    """Every decode strategy but lookahead, the length beam and iterative
+    refinement, through ``S2SNATGenerator`` (``S2TNATGenerator`` for beam
+    search) on the serving phase's model and batches: each run's launches
+    (#1, #4 and #5 in every run, #2 at B), tokens against a CPU run of the
+    same weights (a row that differs must be a near tie of the CPU's own
+    scores, within MARGIN), the mel within TOL_MEL, the decode stage's
+    median host ms of 5 and its device kernels under ``torch.profiler``.
+    Returns each run's launches."""
+    from daspeech_torch.config import DecodeConfig
+    from daspeech_torch.decode import S2SNATGenerator, S2TNATGenerator
+
+    vocab = ctx["cfg"].dag.vocab
+    model, model_cpu = ctx["model"], ctx["model_cpu"]
+    runs = {}
+    with torch.inference_mode():
+        for tag, bt, which, fields in DECODE_RUNS:
+            batch, M = ctx["batches"][bt]
+            dc = DecodeConfig(**fields)
+            kind = ("length_beam" if dc.length_beam > 1 else "refine"
+                    if dc.iter_decode_max_iter > 0 else "plain")
+            if which == "s2s":
+                def make(m, v):
+                    return S2SNATGenerator(m, vocab, dc, max_mel_len=M,
+                                           vocoder=v)
+                gen, gen_cpu = make(model, ctx["voc"]), make(model_cpu, None)
+                _, d = durations_to_fill(gen, batch)
+                set_durations_(model, d)
+                set_durations_(model_cpu, d)
+            else:
+                gen = S2TNATGenerator(model, vocab, dc)
+                gen_cpu = S2TNATGenerator(model_cpu, vocab, dc)
+            reset_launches()
+            hyps = gen.generate(batch)
+            torch.cuda.synchronize()
+            launches = runs[tag] = read_launches()
+            want = DECODE_KERNELS + (("fused_attention",) if bt == "B"
+                                     and which == "s2s" else ())
+            missing = [n for n in want if launches[n] <= 0]
+            if missing:
+                raise AssertionError(f"decode {tag}: {missing} not launched")
+            t0 = time.perf_counter()
+            hyp_cpu = (gen_cpu.generate(batch, generate_waveform=False)
+                       if which == "s2s" else gen_cpu.generate(batch))
+            cpu_s = time.perf_counter() - t0
+            margins, mel_err = [], 0.0
+            for b, (hg, hc) in enumerate(zip(hyps, hyp_cpu)):
+                if not np.array_equal(hg["tokens"], hc["tokens"]):
+                    m = decode_margin(kind, dc, ctx, batch, b)
+                    log(f"  decode {tag} sample {b}: tokens differ; the CPU's "
+                        f"scores of the two hypotheses differ by {m:.3g}")
+                    if not m <= MARGIN:
+                        raise AssertionError(
+                            f"decode {tag} sample {b}: tokens differ, score "
+                            f"gap {m} > {MARGIN}")
+                    margins.append(m)
+                elif which == "s2s" and hg["feature"].size:
+                    if hg["feature"].shape != hc["feature"].shape:
+                        raise AssertionError(f"decode {tag}: mel lengths "
+                                             "differ between card and CPU")
+                    mel_err = max(mel_err, float(
+                        np.abs(hg["feature"] - hc["feature"]).max()))
+                for key in ("feature", "waveform"):
+                    if key in hg and not np.isfinite(hg[key]).all():
+                        raise AssertionError(f"decode {tag}[{b}]: non-finite "
+                                             f"{key}")
+            if not mel_err <= TOL_MEL:
+                raise AssertionError(f"decode {tag}: mel differs from the "
+                                     f"CPU run by {mel_err}")
+            stage = decode_stage(kind, gen, batch)
+            ms = host_ms(stage)
+            events, _ = profiled_kernels(stage, f"decode {tag}")
+            same = ("identical" if not margins
+                    else f"{len(margins)} near ties")
+            log(f"  decode {tag}: tokens/utt "
+                f"{[len(h['tokens']) for h in hyps]}; card vs CPU tokens "
+                f"{same}, mel max abs diff {mel_err:.3g} (<= {TOL_MEL}; CPU run "
+                f"{cpu_s:.1f} s); decode stage {ms:.3f} ms (median of 5), "
+                f"{len(events)} device kernels; launches "
+                + ", ".join(f"{n} {launches[n]}" for n in
+                            (*DECODE_KERNELS, "fused_attention")))
+    base = runs["viterbi A"]["fused_attention_relpos"]
+    beam = runs["length_beam=3 A"]
+    if (beam["fused_attention_relpos"] != base
+            or beam["fused_extract_links"] != 1):
+        raise AssertionError("the length beam's encoder or decoder ran more "
+                             f"than once: {beam}")
+    log(f"  length beam: encoder once ({base} rel-pos launches), links once "
+        "over the B * 3 candidates")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# vocoder-training phase: HiFi-GAN config_v1 against MPD + MSD
+# ---------------------------------------------------------------------------
+
+VOC_B, VOC_SEGMENT = 16, 8192   # hifi-gan config_v1.json batch, segment
+VOC_PARITY_B = 2
+VOC_WARM, VOC_TIMED = 3, 10
+VOC_LEARN_STEPS, VOC_LEARN_FRACTION = 30, 0.9
+
+
+def vocoder_batch(B, seed, mel_fn):
+    """(mel [B, 32, 80], wav [B, 8192]) on the CPU: each waveform three
+    tones of random pitch, level and phase in noise, its log-mel by
+    ``mel_fn`` (the mel loss's own)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(VOC_SEGMENT) / 22050.0
+    wav = sum(rng.uniform(0.1, 0.3, (B, 1)) * np.sin(
+        2 * np.pi * rng.uniform(80, 4000, (B, 1)) * t
+        + rng.uniform(0, 2 * np.pi, (B, 1))) for _ in range(3))
+    wav = torch.from_numpy((wav + 0.01 * rng.normal(size=wav.shape))
+                           .astype(np.float32))
+    return mel_fn(wav), wav
+
+
+def vocoder_train_phase():
+    """``daspeech_torch.train.vocoder_train.VocoderTrainer`` at config_v1
+    with MPD + MSD, fp32, TF32 off: one D + G update on the card against
+    one on the CPU at B = 2 (losses within TOL_LOSS, gradients within
+    TOL_GRAD of their norm); 3 warm-up and 10 timed updates at B = 16 x
+    8192 samples, the D and G halves apart, peak memory, the device busy
+    share of one profiled update; 30 updates on one batch that must bring
+    the mel loss to <= 0.9 of its first value. Returns the launches of the
+    timed run (no hand kernel is on this path)."""
+    from daspeech_torch.config import HiFiGANConfig
+    from daspeech_torch.train.vocoder_train import (VocoderTrainer,
+                                                    make_mel_fn)
+
+    cfg = HiFiGANConfig()
+    mel_cpu = make_mel_fn(device="cpu")
+    trainers = {dev: VocoderTrainer(cfg, make_mel_fn(device=dev), device=dev)
+                for dev in (DEVICE, "cpu")}
+    tr = trainers[DEVICE]
+
+    def fresh(dev, seed=SEED + 60):
+        return trainers[dev].init_state(torch.Generator().manual_seed(seed))
+
+    def grads(state):
+        named = [(f"gen.{n}", p) for n, p in state.gen.named_parameters()]
+        named += [(f"{k}.{n}", p) for k in ("mpd", "msd")
+                  for n, p in state.disc[k].named_parameters()]
+        return [n for n, _ in named], [p.grad.detach().cpu() for _, p in
+                                       named]
+
+    # --- one update on the card and one on the CPU, same weights and batch
+    mel, wav = vocoder_batch(VOC_PARITY_B, SEED + 61, mel_cpu)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        state, m = trainers[dev].train_step(fresh(dev), mel.to(dev),
+                                            wav.to(dev))
+        sync()
+        out[dev] = ({k: v.item() for k, v in m.items()}, *grads(state))
+        log(f"  vocoder update on {dev} (B={VOC_PARITY_B}): "
+            + ", ".join(f"{k} {v:.6f}" for k, v in out[dev][0].items())
+            + f" ({time.perf_counter() - t0:.1f} s)")
+    (mg, names, gg), (mc, _, gc) = out[DEVICE], out["cpu"]
+    dloss = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("d_loss",
+                                                          "g_loss"))
+    gerr = grad_error(names, gg, gc, "vocoder_update")
+    log(f"  vocoder update, card vs CPU: D and G loss rel diff {dloss:.3g} "
+        f"(<= {TOL_LOSS}); worst per-parameter gradient rel diff "
+        f"{gerr:.3g} (<= {TOL_GRAD})")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD):
+        log("  FAILED: vocoder update: card and CPU disagree")
+        DISAGREEMENTS.append("vocoder update")
+
+    # --- 3 warm-up and 10 timed updates at B = 16, counters from 0
+    mel, wav = (t.to(DEVICE) for t in vocoder_batch(VOC_B, SEED + 62,
+                                                    mel_cpu))
+    state = fresh(DEVICE)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"D": [], "G": [], "update": []}
+    for i in range(VOC_WARM + VOC_TIMED):
+        sync()
+        t0 = time.perf_counter()
+        state, d_loss = tr.d_update(state, mel, wav)
+        sync()
+        t1 = time.perf_counter()
+        state, m = tr.g_update(state, mel, wav)
+        sync()
+        t2 = time.perf_counter()
+        if i >= VOC_WARM:
+            for k, v in (("D", t1 - t0), ("G", t2 - t1), ("update", t2 - t0)):
+                times[k].append(v * 1e3)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(v.item()) for v in (d_loss, *m.values())):
+        raise AssertionError(f"vocoder updates: non-finite losses {m}")
+    stats = {k: np.percentile(v, [25, 50, 75]) for k, v in times.items()}
+    log(f"  vocoder updates (B={VOC_B} x {VOC_SEGMENT}, config_v1, MPD + MSD)"
+        f", median ms over {VOC_TIMED} (IQR): " + "; ".join(
+            f"{k} {q[1]:.3f} ({q[0]:.3f}-{q[2]:.3f})"
+            for k, q in stats.items())
+        + f"; peak memory {peak:.2f} GiB; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    if launches["mrf_level"]:
+        raise AssertionError("vocoder training launched the inference MRF "
+                             "kernel")
+    device_busy(lambda: tr.train_step(state, mel, wav), "vocoder update")
+
+    # --- learning: VOC_LEARN_STEPS updates on one batch
+    state = fresh(DEVICE, SEED + 63)
+    first = None
+    for _ in range(VOC_LEARN_STEPS):
+        state, m = tr.train_step(state, mel, wav)
+        first = m["g_mel"].item() if first is None else first
+    last = m["g_mel"].item()
+    log(f"  vocoder learning: mel loss {first:.4f} -> {last:.4f} over "
+        f"{VOC_LEARN_STEPS} updates on one batch (<= {VOC_LEARN_FRACTION} "
+        f"of the first); D loss {m['d_loss'].item():.4f}, G adversarial "
+        f"{m['g_adv'].item():.4f}")
+    if not last <= VOC_LEARN_FRACTION * first:
+        raise AssertionError(f"vocoder mel loss {first} -> {last}")
+    return launches, {k: (float(q[1]), float(q[0]), float(q[2]))
+                      for k, q in stats.items()}, peak
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -3164,8 +3632,6 @@ def main() -> int:
         # another checkout (the parent commit), whose kernels are built
         # beside this tree's and timed beside the redesigned rows
         root = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
-        PARENT["mrf_ybuf"] = "ybuf" in (root / "daspeech_torch" / "csrc" /
-                                        "fused_mrf.cu").read_text()
         parent = threading.Thread(target=lambda: PARENT.update(
             build=_build.build(root / "daspeech_torch" / "csrc",
                                root / "build" / "daspeech_torch")))
@@ -3206,7 +3672,7 @@ def main() -> int:
     log("kernel phase:")
     cases = kernel_phase()
     log("end-to-end phase (serving):")
-    serving, mels = e2e_phase()
+    serving, mels, ctx = e2e_phase()
     log("training phase (S2TT):")
     training = train_phase()
     log("joint S2ST training phase:")
@@ -3219,6 +3685,11 @@ def main() -> int:
     tts = tts_phase(voc_cpu)
     log("alternates phase (#6 fused FFN, #3 full-bias attention):")
     alternates, _ = alternates_phase()
+    log("decode-strategy phase:")
+    decoding = decode_phase(ctx)
+    del ctx
+    log("vocoder-training phase:")
+    voc_train, _, _ = vocoder_train_phase()
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
@@ -3229,7 +3700,9 @@ def main() -> int:
     by_path = {"serving": serving, "training": training,
                "joint_J": joint["J"], "joint_J-long": joint["J-long"],
                "fs2_pretraining": pretrain, "vocoder_fused": vocoder,
-               "tts_A": tts["A"], "tts_B": tts["B"]}
+               "tts_A": tts["A"], "tts_B": tts["B"],
+               **{f"decode {tag}": v for tag, v in decoding.items()},
+               "vocoder_training": voc_train}
     # the alternate backends launch on no other path
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in ALTERNATE_KERNELS if v[n]}
@@ -3237,12 +3710,14 @@ def main() -> int:
         raise AssertionError(f"alternate kernels launched elsewhere: {stray}")
     log(f"  {', '.join(ALTERNATE_KERNELS)}: 0 launches on every other path")
     # serving runs inference forwards only: no launch writes statistics
+    serving_paths = ("serving", "vocoder_fused", "tts_A", "tts_B",
+                     *(f"decode {tag}" for tag in decoding))
     trained = {(p, n): by_path[p][f"{n} training"] for n in TRAIN_FORWARDS
-               for p in ("serving", "vocoder_fused", "tts_A", "tts_B")
-               if by_path[p][f"{n} training"]}
+               for p in serving_paths if by_path[p][f"{n} training"]}
     if trained:
         raise AssertionError(f"training forwards on serving paths: {trained}")
-    log("  training forwards on the serving, vocoder and TTS paths: 0")
+    log("  training forwards on the serving, vocoder, TTS and decode-strategy"
+        " paths: 0")
     by_path.update({"alternates_ffn": alternates["fused"],
                     "alternates_full_bias": alternates["full_bias"]})
     kernels = []

@@ -1,11 +1,16 @@
 """daspeech_torch: the PyTorch + CUDA port of ``daspeech_tpu``.
 
 It serves two-pass S2ST (fbank -> Conformer -> DAG decoder + links ->
-lookahead decode -> FFN adaptor + FastSpeech 2 -> HiFi-GAN -> waveform)
-through ``decode.generator.S2SNATGenerator``, and trains through
+DAG decode -> FFN adaptor + FastSpeech 2 -> HiFi-GAN -> waveform) through
+``decode.generator.S2SNATGenerator`` and S2TT through
+``decode.generator.S2TNATGenerator``, with every decode strategy of the
+JAX package (lookahead, greedy, viterbi, jointviterbi, beamsearch), the
+length beam and iterative refinement. It trains through
 ``train.make_train_step`` over ``losses.nat_dag_loss`` (the S2TT DAG
 model), ``losses.s2s_dag_fastspeech2_loss`` (the joint S2ST model) and
-``losses.fastspeech2_criterion`` (FastSpeech 2 pretraining on phonemes).
+``losses.fastspeech2_criterion`` (FastSpeech 2 pretraining on phonemes),
+and trains the HiFi-GAN vocoder against its MPD/MSD discriminators through
+``train.vocoder_train.VocoderTrainer``.
 Hand-written CUDA kernels for sm_90a (``csrc/``) carry attention, packed
 and head-major, and rel-pos attention (forward and backward, with
 dropout), link extraction (forward and backward), the DAG alpha/beta

@@ -1,8 +1,9 @@
 """The configuration dataclasses the port's modules read.
 
-They mirror the fields of ``daspeech_tpu/core/config.py`` that the serving
-slice, the S2TT DAG training step, the joint S2ST step and FastSpeech 2
-pretraining use, with the same names and defaults
+They mirror the fields of ``daspeech_tpu/core/config.py`` that the port's
+serving and decoding, the S2TT DAG training step, the joint S2ST step,
+FastSpeech 2 pretraining and vocoder training use, with the same names and
+defaults
 (the recipe's: ``tests/test_torch_models.py::test_config_mirrors_jax``
 holds them to the JAX package's), and leave out the fields of paths not
 ported yet and the TPU kernel switches. The port's modules read configs by
@@ -61,10 +62,24 @@ class DAGDecoderConfig:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    strategy: str = "lookahead"      # the port decodes lookahead | greedy
+    # greedy | lookahead | viterbi | jointviterbi | beamsearch
+    strategy: str = "lookahead"
     beta: float = 1.0                # logit scale (decode_beta)
+    viterbibeta: float = 1.0         # length penalty for (joint)viterbi
+    alpha: float = 1.1               # beam-search length penalty
+    top_cand_n: int = 5
+    beamsize: int = 100
+    top_p: float = 0.9
+    dedup: bool = False
+    max_output_length: Optional[int] = None
+    # NAT length beam: decode `length_beam` graph sizes around
+    # lambda*src_len and keep the candidate with the best mean logprob
     length_beam: int = 1
+    # iterative refinement: up to `iter_decode_max_iter` extra passes on
+    # the decoded tokens; unless `iter_decode_force_max_iter`, a sample
+    # stops once its output equals its input
     iter_decode_max_iter: int = 0
+    iter_decode_force_max_iter: bool = False
 
 
 @dataclass(frozen=True)

@@ -9,7 +9,10 @@ module that owns it, following the inverses of
 
 - Dense ``kernel [in, out]`` -> ``nn.Linear.weight [out, in]``;
 - Conv ``kernel [k, in, out]`` -> ``nn.Conv1d.weight [out, in, k]`` (the
-  depthwise ``[k, 1, C]`` -> ``[C, 1, k]`` is the same transpose);
+  depthwise ``[k, 1, C]`` -> ``[C, 1, k]`` and a grouped ``[k, in/g, out]``
+  -> ``[out, in/g, k]`` are the same transpose);
+- 2D Conv ``kernel [kh, kw, in, out]`` (HWIO) -> ``nn.Conv2d.weight
+  [out, in, kh, kw]`` (OIHW);
 - ``ConvTranspose1dTorch`` ``kernel [k, in, out]`` ->
   ``nn.ConvTranspose1d.weight [in, out, k]``;
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
@@ -33,6 +36,10 @@ from torch import nn
 from daspeech_torch.models.dag_model import S2TConformerDAG
 from daspeech_torch.models.fastspeech2 import FastSpeech2Encoder
 from daspeech_torch.models.hifigan import HiFiGANGenerator
+from daspeech_torch.models.hifigan_discriminators import (
+    MultiPeriodDiscriminator,
+    MultiScaleDiscriminator,
+)
 from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
 
 _INDEXED = re.compile(r"^(.*?)_?(\d+)$")
@@ -63,6 +70,8 @@ def _convert(owner: nn.Module, leaf: str, value: np.ndarray):
             return "weight", np.transpose(x, (1, 2, 0))
         if isinstance(owner, nn.Conv1d):
             return "weight", np.transpose(x, (2, 1, 0))
+        if isinstance(owner, nn.Conv2d):
+            return "weight", np.transpose(x, (3, 2, 0, 1))
         if isinstance(owner, nn.Linear):
             return "weight", x.T
     elif leaf == "scale":
@@ -143,3 +152,16 @@ def vocoder_from_flax(variables: Dict[str, Any], cfg, device="cuda",
     or off."""
     return load_flax_(HiFiGANGenerator(cfg, **serving),
                       variables).to(device).eval()
+
+
+def discriminators_from_flax(variables: Dict[str, Any], device="cuda"
+                             ) -> Dict[str, nn.Module]:
+    """The vocoder's discriminators ``{"mpd": MultiPeriodDiscriminator,
+    "msd": MultiScaleDiscriminator}`` with the JAX package's weights
+    (``variables`` as the JAX trainer's ``disc_params``: ``{"mpd":
+    {"params": ...}, "msd": {"params": ...}}``), on ``device``, in train
+    mode."""
+    return {"mpd": load_flax_(MultiPeriodDiscriminator(),
+                              variables["mpd"]).to(device).train(),
+            "msd": load_flax_(MultiScaleDiscriminator(),
+                              variables["msd"]).to(device).train()}

@@ -1,11 +1,13 @@
-"""Two-pass S2ST generation (PyTorch): the serving entry point.
+"""Generators (PyTorch): S2TT decoding and two-pass S2ST serving.
 
 Counterpart of ``daspeech_tpu/decode/generator.py``: encoder -> DAG decoder
-+ links -> lookahead/greedy decode -> hidden-state gather -> adaptor +
++ links -> decode strategy (lookahead, greedy, viterbi, jointviterbi or
+beamsearch), optionally over a length beam of graph sizes and with
+iterative refinement; for S2ST then the hidden-state gather -> adaptor +
 FastSpeech 2 -> gcmvn denormalization -> HiFi-GAN. Batches and hypotheses
-keep the JAX package's keys. Only single-pass decoding with
-``length_beam=1`` is ported; the reranker, iterative refinement, the length
-beam and the Viterbi/beam-search strategies raise ``NotImplementedError``.
+keep the JAX package's keys, and the port refuses what JAX refuses, with
+the same exception types. Only the external reranker of the length beam is
+not ported (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -15,65 +17,126 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from daspeech_torch.decode.beam_search import beam_search_decode
 from daspeech_torch.decode.dag_decode import (
     DecodeResult,
     gather_path_features,
     greedy_or_lookahead_decode,
+    path_score,
+    viterbi_decode,
 )
 from daspeech_torch.decode.speech_generator import make_vocode_fn
+from daspeech_torch.models.dag_model import initialize_output_tokens
 
 HOP = 256        # samples per mel frame (generator.py:334)
 
 
-def _check_supported(cfg) -> None:
-    if cfg.strategy not in ("lookahead", "greedy"):
-        raise NotImplementedError(f"decode strategy {cfg.strategy!r} is not "
-                                  "ported yet; use lookahead or greedy")
-    if int(cfg.length_beam) > 1:
-        raise NotImplementedError("length_beam > 1 is not ported yet")
-    if cfg.iter_decode_max_iter > 0:
-        raise NotImplementedError("iterative refinement is not ported yet")
+def _strategy_decode(cfg, vocab, logits, links, prev) -> DecodeResult:
+    """One decode strategy on [B, L, V] logits and [B, L, L] links
+    (``generator.py:34-56``)."""
+    ol = (prev != vocab.pad).sum(dim=1)
+    if cfg.strategy in ("lookahead", "greedy"):
+        return greedy_or_lookahead_decode(
+            logits, links, ol, vocab.pad, cfg.beta,
+            lookahead=cfg.strategy == "lookahead")
+    if cfg.strategy in ("viterbi", "jointviterbi"):
+        return viterbi_decode(
+            logits, links, ol, vocab.pad, cfg.beta, cfg.viterbibeta,
+            joint=cfg.strategy == "jointviterbi",
+            max_length=cfg.max_output_length or max(2, prev.shape[1] // 4))
+    if cfg.strategy == "beamsearch":
+        return beam_search_decode(
+            logits, links, ol, vocab.pad, vocab.bos,
+            beam_size=int(cfg.beamsize), top_cand_n=int(cfg.top_cand_n),
+            decode_beta=cfg.beta, decode_alpha=cfg.alpha, top_p=cfg.top_p,
+            dedup=cfg.dedup, max_steps=cfg.max_output_length or 0)
+    raise NotImplementedError(cfg.strategy)
+
+
+def length_beam_scores(cfg, logits: torch.Tensor, res: DecodeResult,
+                       beam: int) -> torch.Tensor:
+    """[B, beam] length-beam candidate scores: the mean log-prob of each
+    candidate's path (:func:`path_score`), the start vertex's included
+    under lookahead and greedy (``generator.py:136-141``)."""
+    logp_max = torch.log_softmax(logits.float(), dim=-1).max(dim=-1).values
+    return path_score(logp_max, res, include_start=cfg.strategy in (
+        "lookahead", "greedy")).reshape(-1, beam)
+
+
+def decoder_pass(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
+                 prev: torch.Tensor, vocab, beam: int = 1):
+    """Encoder -> (length-beam expanded) decoder: (logits, links, features,
+    graph inputs), over B * beam rows.
+
+    With ``beam > 1`` the encoder runs once and its output is repeated
+    beam-wise, and the graph sizes ``glen + arange(beam) - beam // 2``,
+    clipped to [2, L], become the graph inputs
+    (``generator.py:117-128``)."""
+    enc, enc_pad, _ = model.encode(fbank, src_lengths)
+    if beam > 1:
+        L = prev.shape[1]
+        glen = (prev != vocab.pad).sum(dim=1)
+        offs = torch.arange(beam, device=prev.device) - beam // 2
+        prev = initialize_output_tokens(
+            (glen[:, None] + offs[None, :]).reshape(-1).clamp(2, L), L, vocab)
+        enc = enc.repeat_interleave(beam, dim=0)
+        enc_pad = enc_pad.repeat_interleave(beam, dim=0)
+    logits, links, feats = model.decode(prev, enc, enc_pad)
+    return logits, links, feats, prev
 
 
 def dag_forward_decode(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
                        prev: torch.Tensor, vocab, cfg):
-    """Encoder -> decoder -> decode strategy (``generator.py:90-146`` with
-    ``length_beam=1``). Returns (DecodeResult, features [B, L, D])."""
-    _check_supported(cfg)
-    enc, enc_pad, _ = model.encode(fbank, src_lengths)
-    logits, links, feats = model.decode(prev, enc, enc_pad)
-    ol = (prev != vocab.pad).sum(dim=1)
-    res = greedy_or_lookahead_decode(logits, links, ol, vocab.pad, cfg.beta,
-                                     lookahead=cfg.strategy == "lookahead")
+    """:func:`decoder_pass` -> decode strategy (``generator.py:90-146``
+    without a reranker).
+
+    With ``cfg.length_beam > 1`` the candidate with the best
+    :func:`path_score` (first on ties) survives. Returns (DecodeResult,
+    features [B, L, D]) at the original batch size."""
+    beam = max(1, int(cfg.length_beam))
+    if beam > 1 and cfg.strategy == "beamsearch":
+        # beam search carries no per-path feat_idx, so the mean-logprob
+        # candidate score would be 0 and argmax would pick the shortest
+        # graph every time
+        raise ValueError("length_beam > 1 is not supported with the "
+                         "beamsearch strategy; use lookahead/viterbi")
+    logits, links, feats, prev = decoder_pass(model, fbank, src_lengths,
+                                              prev, vocab, beam)
+    res = _strategy_decode(cfg, vocab, logits, links, prev)
+    if beam > 1:
+        best = length_beam_scores(cfg, logits, res, beam).argmax(dim=1)
+        rows = torch.arange(best.shape[0], device=best.device) * beam + best
+        res = DecodeResult(*(x[rows] for x in res))
+        feats = feats[rows]
     return res, feats
 
 
-class S2SNATGenerator:
-    """DAG decode -> hidden-state gather -> adaptor + FastSpeech 2 ->
-    (gcmvn denorm) -> (vocoder); ``generator.py:247-347``.
+class S2TNATGenerator:
+    """DAG decoding to target tokens, optionally with iterative refinement
+    (``generator.py:149-244``).
 
-    ``model`` and ``vocoder`` are eval-mode modules on one device; the
-    batch's numpy arrays are moved there. ``gcmvn``, when given, has the
-    interface of the JAX package's ``GlobalCMVN`` (``mean``, ``std``,
-    ``denormalize``). The three stages are public so
-    that a caller can time them apart; :meth:`generate` runs them in order
-    under ``torch.inference_mode()``."""
+    ``model`` is an eval-mode module on one device; the batch's numpy
+    arrays are moved there. :meth:`run` is one decode pass;
+    :meth:`generate` runs the passes under ``torch.inference_mode()``."""
 
-    def __init__(self, model, vocab, decode_cfg, max_mel_len: int = 1024,
-                 vocoder=None, gcmvn=None, d_factor: float = 1.0,
-                 reranker=None):
+    def __init__(self, model, vocab, decode_cfg, reranker=None):
+        if decode_cfg.length_beam > 1 and decode_cfg.iter_decode_max_iter > 0:
+            # the reference refines all B*beam candidates and reduces the
+            # beam after the loop; here the beam reduces inside each pass,
+            # so feeding the winner back would re-initialise its graph from
+            # its length alone and drop the fed-back tokens
+            raise ValueError(
+                "length_beam > 1 cannot be combined with "
+                "iter_decode_max_iter > 0: the length beam reduces inside "
+                "each pass, so refinement would not see the fed-back "
+                "tokens. Use one or the other.")
         if reranker is not None:
             raise NotImplementedError("reranking is not ported yet")
-        _check_supported(decode_cfg)
         self.model = model
         self.vocab = vocab
         self.cfg = decode_cfg
-        self.max_mel_len = max_mel_len
-        self.vocoder = vocoder
-        self.gcmvn = gcmvn
-        self.d_factor = d_factor
-        self.device = next(model.parameters()).device
-        self._vocode = make_vocode_fn(vocoder, gcmvn)
+        self.device = (next(model.parameters()).device if model is not None
+                       else torch.device("cpu"))
 
     def to_device(self, batch: Dict[str, np.ndarray]):
         """(fbank, src_lengths, prev_output_tokens) as tensors on the
@@ -84,13 +147,93 @@ class S2SNATGenerator:
                 torch.as_tensor(batch["src_lengths"], device=d).long(),
                 torch.as_tensor(batch["prev_output_tokens"], device=d).long())
 
+    def run(self, fbank, src_lengths, prev):
+        """One decode pass: (DecodeResult, features [B, L, D])."""
+        return dag_forward_decode(self.model, fbank, src_lengths, prev,
+                                  self.vocab, self.cfg)
+
+    def refine(self, fbank, src_lengths, prev):
+        """Iterative refinement (``generator.py:188-226``): re-run the
+        decoder on its own padded output, up to ``iter_decode_max_iter``
+        extra passes. Unless ``iter_decode_force_max_iter``, a sample is done
+        once its output equals its input (the reference's ``is_a_loop``),
+        and the loop stops when every sample is; done rows keep their
+        accepted result by masking. Returns (DecodeResult, accepted_input),
+        where a pass on accepted_input reproduces the accepted output (the
+        decoder is deterministic in eval mode). Each pass's stop test reads
+        one bool back to the host."""
+        res, _ = self.run(fbank, src_lengths, prev)
+        adaptive = not self.cfg.iter_decode_force_max_iter
+        accepted, accepted_input = list(res), prev
+        terminated = torch.zeros(prev.shape[0], dtype=torch.bool,
+                                 device=prev.device)
+        for _ in range(int(self.cfg.iter_decode_max_iter)):
+            cur = accepted[0]                  # the previous pass's tokens
+            new, _ = self.run(fbank, src_lengths, cur)
+            live = ~terminated
+            accepted = [torch.where(live if a.ndim == 1 else live[:, None],
+                                    n, a) for n, a in zip(new, accepted)]
+            accepted_input = torch.where(live[:, None], cur, accepted_input)
+            if adaptive:
+                terminated = terminated | (new.tokens == cur).all(dim=1)
+                if bool(terminated.all()):
+                    break
+        return DecodeResult(*accepted), accepted_input
+
+    def generate(self, batch: Dict[str, np.ndarray]) -> List[Dict]:
+        with torch.inference_mode():
+            inputs = self.to_device(batch)
+            res = (self.refine(*inputs)[0]
+                   if self.cfg.iter_decode_max_iter > 0
+                   else self.run(*inputs)[0])
+            tokens = res.tokens.cpu().numpy()
+            lengths = res.lengths.cpu().numpy()
+        return [{"tokens": tokens[b, : lengths[b]]}
+                for b in range(tokens.shape[0])]
+
+
+class S2SNATGenerator(S2TNATGenerator):
+    """DAG decode -> hidden-state gather -> adaptor + FastSpeech 2 ->
+    (gcmvn denorm) -> (vocoder); ``generator.py:247-347``.
+
+    ``model`` and ``vocoder`` are eval-mode modules on one device.
+    ``gcmvn``, when given, has the interface of the JAX package's
+    ``GlobalCMVN`` (``mean``, ``std``, ``denormalize``). Every strategy but
+    ``beamsearch`` (which tracks no path features) is served; under
+    refinement the tokens are refined first and the speech is synthesised
+    from the accepted graph input. The three stages are public so that a
+    caller can time them apart; :meth:`generate` runs them in order under
+    ``torch.inference_mode()``."""
+
+    def __init__(self, model, vocab, decode_cfg, max_mel_len: int = 1024,
+                 vocoder=None, gcmvn=None, d_factor: float = 1.0,
+                 reranker=None):
+        super().__init__(model, vocab, decode_cfg, reranker=reranker)
+        if decode_cfg.strategy == "beamsearch":
+            # beam_search_decode returns feat_idx = -1 everywhere (S2T
+            # only); gathering from it would synthesise from vertex 0
+            raise NotImplementedError(
+                "beamsearch does not track path features for the TTS pass; "
+                "use lookahead, viterbi, or jointviterbi for S2S")
+        self.max_mel_len = max_mel_len
+        self.vocoder = vocoder
+        self.gcmvn = gcmvn
+        self.d_factor = d_factor
+        self._vocode = make_vocode_fn(vocoder, gcmvn)
+
     def decode(self, fbank, src_lengths, prev):
-        """Stage 1: encoder + decoder + links + lookahead decode ->
-        (DecodeResult, path features [B, L, D], their pad mask)."""
-        res, feats = dag_forward_decode(self.model, fbank, src_lengths, prev,
-                                        self.vocab, self.cfg)
-        # lookahead/greedy: slot 0 (<bos>) carries no feature
-        z, zmask = gather_path_features(feats, res, skip_first=True)
+        """Stage 1: encoder + decoder + links + decode strategy ->
+        (DecodeResult, path features [B, L, D], their pad mask). Under
+        refinement, the tokens are refined first and this pass runs on the
+        accepted graph input (``generator.py:309-320``)."""
+        if self.cfg.iter_decode_max_iter > 0:
+            _, prev = self.refine(fbank, src_lengths, prev)
+        res, feats = self.run(fbank, src_lengths, prev)
+        # lookahead/greedy: slot 0 (<bos>) carries no feature; Viterbi
+        # keeps the first emitted vertex's
+        z, zmask = gather_path_features(
+            feats, res,
+            skip_first=self.cfg.strategy in ("lookahead", "greedy"))
         return res, z, zmask
 
     def synthesize(self, z, zmask):

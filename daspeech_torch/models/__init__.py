@@ -17,6 +17,10 @@ from daspeech_torch.models.hifigan import (
     vocode_chunked,
     vocode_chunks,
 )
+from daspeech_torch.models.hifigan_discriminators import (
+    MultiPeriodDiscriminator,
+    MultiScaleDiscriminator,
+)
 from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
 
 __all__ = [
@@ -25,6 +29,8 @@ __all__ = [
     "FastSpeech2Encoder",
     "GlatLinkDecoder",
     "HiFiGANGenerator",
+    "MultiPeriodDiscriminator",
+    "MultiScaleDiscriminator",
     "S2SConformerDAGFastSpeech2",
     "S2TConformerDAG",
     "fused_mrf_route",

@@ -10,9 +10,10 @@ package and the frozen golden fixture, at the tiny configuration of
   and waveform within 1e-3;
 * an import guard: a fresh interpreter runs the port's CPU serving slice,
   one S2TT DAG training step, one joint S2ST step, one FastSpeech 2
-  pretraining step and one batch each of the fused-MRF vocoder, the
-  chunked vocoder and the TTS generator, and never imports jax or the JAX
-  package.
+  pretraining step, one batch each of the fused-MRF vocoder, the chunked
+  vocoder and the TTS generator, the joint-Viterbi strategy with
+  refinement, the length beam, beam search and one vocoder training
+  update, and never imports jax or the JAX package.
 """
 
 import os
@@ -285,6 +286,26 @@ qf = torch.randn(2, 2, 5, 8, requires_grad=True)
 fused_attention_full_bias(qf, qf, qf, torch.zeros(2, 2, 5, 5), 3, 0.35, 0.1,
                           True).sum().backward()
 assert torch.isfinite(qf.grad).all()
+# the other decode strategies, and one vocoder training update
+from daspeech_torch.decode import S2TNATGenerator
+from daspeech_torch.train import VocoderTrainer, make_mel_fn
+
+batch = {"fbank": np.random.default_rng(1).normal(size=(2, 40, 80)).astype(
+    np.float32), "src_lengths": lens.numpy(), "prev_output_tokens": prev.numpy()}
+for dc in (DecodeConfig(strategy="jointviterbi", iter_decode_max_iter=1),
+           DecodeConfig(length_beam=3)):
+    for h in S2SNATGenerator(model, cfg.dag.vocab, dc, max_mel_len=32,
+                             vocoder=voc_c).generate(batch):
+        assert np.isfinite(h["feature"]).all()
+hyps = S2TNATGenerator(model, cfg.dag.vocab, DecodeConfig(
+    strategy="beamsearch", beamsize=8)).generate(batch)
+assert all(len(h["tokens"]) >= 1 for h in hyps)
+trainer = VocoderTrainer(voc_cfg, mel_fn=make_mel_fn(n_fft=64, hop_length=16,
+                         num_mels=8, fmax=None, device="cpu"), device="cpu")
+vstate = trainer.init_state(torch.Generator().manual_seed(0))
+vstate, vm = trainer.train_step(vstate, torch.randn(2, 16, 80),
+                                torch.randn(2, 64) * 0.1)
+assert vstate.step == 1 and all(torch.isfinite(v) for v in vm.values())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "daspeech_tpu"))
 assert not bad, bad
