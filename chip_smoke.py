@@ -135,7 +135,28 @@ process.)
    norm), 3 warm-up and 10 timed updates at B=16 x 8192 samples (D and G
    halves apart, IQR), peak memory, the device busy share of one profiled
    update, and 30 updates on one batch that must bring the mel loss to
-   <= 0.9 of its first value.
+   <= 0.9 of its first value;
+13. runtime phase: a CVSS-style data directory written to disk (80
+   utterances of 440-520 fbank frames and 4 of 1200 in a stored zip,
+   vocab 128, target mels with durations that sum to their length, pitch
+   and energy); the joint model at config J trained for 8 updates through
+   ``NATSpeechToSpeechTask.get_batch_iterator`` -> ``prefetch_epoch``
+   (collated and moved to the card on the producer thread) ->
+   ``make_train_step`` (the run whose launches are read), logged through
+   ``MetricsAggregator`` + ``JsonProgressLogger`` and saved through
+   ``CheckpointManager(keep_last=2)`` every 2 updates; a fresh model and
+   optimizer restored from update 4's checkpoint and resumed at its saved
+   iterator position must reproduce updates 5-8 bit for bit (both runs in
+   torch's deterministic mode) and collate none of the skipped batches;
+   the last 2 checkpoints averaged; the generate CLI
+   (``daspeech_torch.cli.generate.main``, in-process) over the data
+   directory from a checkpoint of the serving phase's model and a
+   ``VocoderTrainer`` checkpoint: its tokens equal those of the in-process
+   ``S2SNATGenerator`` on the CLI's own batches (features within 1e-5), and
+   a CPU run of the CLI on 2 utterances (tokens by the near-tie rule,
+   features within 1e-2); it prints the data wait, collate, checkpoint and
+   CLI numbers, each beside the card's name and power limit. The data and
+   checkpoints live under ``build/`` and are deleted at the end.
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -3604,6 +3625,494 @@ def vocoder_train_phase():
                       for k, q in stats.items()}, peak
 
 
+# ---------------------------------------------------------------------------
+# runtime phase
+# ---------------------------------------------------------------------------
+
+RT_A = (80, 440, 520)     # utterances, least and most fbank frames (serving A)
+RT_B = (4, 1200)          # utterances, fbank frames (serving B)
+RT_VOCAB = 128            # the recipe's phoneme vocabulary, rounded up
+RT_FRAMES_PER_PHONE = 10  # fbank frames (10 ms) per target phoneme
+RT_UPDATES = 8
+RT_EVERY = 2              # log and save every RT_EVERY updates
+RT_RESTART = 4            # the update whose checkpoint is resumed
+RT_MAX_TOKENS = 12288     # 24 utterances of 512 frames: 5 batches an
+#                           epoch, so that update 4's checkpoint sits
+#                           mid-epoch
+RT_DUR = 8                # mel frames per token of the served model
+RT_MEL = 1040             # --max-mel-len: B's mels reach #2 (>= 798)
+RT_CPU_UTTS = 2           # utterances of the CLI's CPU run
+TOL_CLI_FEATURE = 1e-5    # CLI features against the in-process generator
+
+
+def pack_npy_zip(path: Path, arrays):
+    """Store ``arrays`` as .npy members of an uncompressed zip and return
+    their ``zip:offset:length`` paths (the reference's packed layout,
+    ``tests/test_data.py``)."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for i, a in enumerate(arrays):
+            buf = io.BytesIO()
+            np.save(buf, a)
+            zf.writestr(f"{i}.npy", buf.getvalue())
+    with zipfile.ZipFile(path) as zf:
+        return [f"{path}:{info.header_offset + len(info.FileHeader())}:"
+                f"{info.file_size}" for info in zf.infolist()]
+
+
+def write_runtime_data(root: Path, seed: int):
+    """A CVSS-style S2ST data directory: ``vocab.txt`` (RT_VOCAB symbols),
+    fbank [S, 80] N(0, 1) in a stored zip, target mels [M, 80] in another,
+    phoneme targets of S / 10 random phonemes whose durations (4-12
+    frames, a trailing 0 for EOS) sum to the mel length M, pitch and energy
+    U(0, 2). Splits: ``train`` (the RT_A utterances), ``test`` (those and
+    the RT_B ones) and ``test_cpu`` (the first RT_CPU_UTTS of ``test``).
+    No config.yaml. Returns the number of test utterances."""
+    import csv
+
+    from daspeech_torch.data import Dictionary
+
+    rng = np.random.default_rng(seed)
+    d = Dictionary()
+    for i in range(RT_VOCAB - d.nspecial):
+        d.add_symbol(f"P{i}")
+    d.save(root / "vocab.txt")
+    n_a, lo, hi = RT_A
+    lengths = [int(x) for x in rng.integers(lo, hi + 1, size=n_a)]
+    lengths += [RT_B[1]] * RT_B[0]
+    fbanks = [rng.normal(size=(s, 80)).astype(np.float32) for s in lengths]
+    rows, mels = [], []
+    for i, s in enumerate(lengths):
+        n = s // RT_FRAMES_PER_PHONE
+        dur = rng.integers(4, 13, size=n)
+        mels.append(rng.normal(size=(int(dur.sum()), 80)).astype(np.float32))
+        rows.append({
+            "id": f"utt{i:03d}", "src_n_frames": str(s),
+            "tgt_text": " ".join(d.symbols[int(t)] for t in rng.integers(
+                d.nspecial, RT_VOCAB, size=n)),
+            "tgt_n_frames": str(int(dur.sum())),
+            "duration": " ".join(map(str, [*dur.tolist(), 0])),
+            "pitch": " ".join(f"{x:.4f}" for x in rng.uniform(0, 2, n + 1)),
+            "energy": " ".join(f"{x:.4f}" for x in rng.uniform(0, 2, n + 1)),
+        })
+    for r, src, tgt in zip(rows, pack_npy_zip(root / "fbank.zip", fbanks),
+                           pack_npy_zip(root / "mel.zip", mels)):
+        r["src_audio"], r["tgt_audio"] = src, tgt
+    for split, part in (("train", rows[:n_a]), ("test", rows),
+                        ("test_cpu", rows[:RT_CPU_UTTS])):
+        with open(root / f"{split}.tsv", "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]), delimiter="\t")
+            w.writeheader()
+            w.writerows(part)
+    return len(rows)
+
+
+class collate_spy:
+    """Wrap ``batcher.collate``: record each collated batch's indices and
+    the ms it took (on the producer thread)."""
+
+    def __init__(self, batcher):
+        self.batcher, self.orig = batcher, batcher.collate
+        self.indices, self.ms = [], []
+
+    def __enter__(self):
+        def collate(spec, idxs, **kw):
+            t0 = time.perf_counter()
+            out = self.orig(spec, idxs, **kw)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.indices.append(list(idxs))
+            return out
+
+        self.batcher.collate = collate
+        return self
+
+    def __exit__(self, *exc):
+        self.batcher.collate = self.orig
+
+
+class deterministic:
+    """torch's deterministic algorithms (cuDNN's included) for the runtime
+    phase's two training runs; an op without a deterministic version warns
+    (collected, logged once each) instead of raising."""
+
+    def __enter__(self):
+        import warnings
+
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        log("  torch's deterministic algorithms on")
+        self._catch = warnings.catch_warnings(record=True)
+        self.caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        self._catch.__exit__(*exc)
+        torch.use_deterministic_algorithms(self.prev[0],
+                                           warn_only=self.prev[1])
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.prev[2:]
+        msgs = sorted({str(w.message).split("\n")[0] for w in self.caught})
+        for m in msgs:
+            log(f"  deterministic-mode warning: {m}")
+
+
+def rt_train(state, step, batcher, manager, epoch, start, losses, rec,
+             on_save=None):
+    """The training loop of the runtime phase, to RT_UPDATES updates:
+    batches through ``prefetch_epoch`` (collated and moved to the card on
+    the producer thread), one update each, its dropout drawn from a
+    generator seeded by the step; every RT_EVERY updates the metrics go
+    through ``MetricsAggregator`` + ``JsonProgressLogger`` (stderr) and a
+    checkpoint (with its metric and the next batch's position) through
+    ``manager``, then ``on_save(step)``. ``rec`` collects data-wait,
+    update and save times."""
+    from daspeech_torch.data.prefetch import prefetch_epoch, to_device
+    from daspeech_torch.train.metrics import (JsonProgressLogger,
+                                              MetricsAggregator)
+
+    agg = MetricsAggregator()
+    logger = JsonProgressLogger(stream=sys.stderr, log_interval=RT_EVERY)
+    while len(losses) < RT_UPDATES:
+        n_batches = len(batcher.batches_for_epoch(epoch))
+        it = iter(prefetch_epoch(batcher, epoch, start=start,
+                                 to_device=lambda b: to_device(b, DEVICE)))
+        for i in range(start, n_batches):
+            t0 = time.perf_counter()
+            _, batch = next(it)
+            rec["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            metrics = step(state, batch,
+                           torch.Generator().manual_seed(SEED + 100
+                                                         + state.step))
+            losses.append(metrics["loss"].item())
+            rec["update_ms"].append((time.perf_counter() - t0) * 1e3)
+            for k, v in metrics.items():
+                agg.log_scalar(k, float(v))
+            agg.log_speed("ups")
+            if state.step % RT_EVERY == 0:
+                logger.log(agg.get_smoothed_values(), state.step, epoch)
+                agg.reset()
+                nxt = (epoch, i + 1) if i + 1 < n_batches else (epoch + 1, 0)
+                sync()
+                t0 = time.perf_counter()
+                manager.save(state, state.step, metric=losses[-1],
+                             extra={"epoch": nxt[0], "batch_idx": nxt[1]})
+                rec["save_s"].append(time.perf_counter() - t0)
+                if on_save is not None:
+                    on_save(state.step)
+            if len(losses) == RT_UPDATES:
+                return
+        epoch, start = epoch + 1, 0
+
+
+def rt_state(cfg, seed):
+    from daspeech_torch.models import S2SConformerDAGFastSpeech2
+    from daspeech_torch.train import GuardedAdam, TrainState
+
+    model = init_random_(S2SConformerDAGFastSpeech2(cfg), seed).to(DEVICE)
+    opt = GuardedAdam(warmup_updates=10)
+    return TrainState.create(model.train(), opt), opt
+
+
+def hypos_of(out_dir: Path, d):
+    """{utt id: token ids with <bos> in front (the generator's slot 0)}
+    read back from ``hypos.txt``."""
+    out = {}
+    for line in (out_dir / "hypos.txt").read_text().splitlines():
+        utt, _, text = line.partition("\t")
+        out[utt] = np.concatenate([[d.bos()], d.encode_line(
+            text, append_eos=False)]).astype(np.int64)
+    return out
+
+
+def runtime_phase(ctx, smi, algorithms=deterministic):
+    """The runtime (data -> tasks -> train loop -> checkpoints -> CLI) on
+    the card: a data directory written to disk, 8 updates of the joint
+    model at config J through the task's batch iterator and the
+    prefetcher, checkpoints every 2 updates, a resume from update 4's
+    checkpoint that must reproduce updates 5-8 bit for bit and collate no
+    skipped batch, averaging, and the generate CLI over the data directory
+    from the serving model's checkpoint and a vocoder checkpoint, against
+    the in-process generator and a CPU run of the CLI. ``algorithms`` is
+    the context manager both training runs are made under (torch's
+    deterministic algorithms unless the caller passes another). Returns
+    the launches of the training run and of the CLI run."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from daspeech_torch.cli import generate
+    from daspeech_torch.config import DecodeConfig, HiFiGANConfig
+    from daspeech_torch.decode import S2SNATGenerator
+    from daspeech_torch.tasks import NATSpeechToSpeechTask, TaskConfig
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+    from daspeech_torch.train.checkpoint import (CheckpointManager,
+                                                 average_checkpoints,
+                                                 resume_position)
+    from daspeech_torch.train.vocoder_train import VocoderTrainer
+
+    def say(msg):          # every reading beside the card's name and limit
+        log(f"  [{smi}] {msg}")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="runtime_smoke_", dir=build))
+    try:
+        t0 = time.perf_counter()
+        n_test = write_runtime_data(root, SEED)
+        say(f"data directory written in {time.perf_counter() - t0:.2f} s:"
+            f" {n_test} utterances ({RT_A[0]} of {RT_A[1]}-{RT_A[2]} fbank "
+            f"frames, {RT_B[0]} of {RT_B[1]}), vocab {RT_VOCAB}, "
+            f"{sum(p.stat().st_size for p in root.iterdir()) / 2**20:.1f} "
+            "MiB")
+
+        # --- training at config J through the task and the prefetcher
+        cfg, _ = joint_configs()
+        task = NATSpeechToSpeechTask.setup_task(TaskConfig(
+            data_dir=str(root), max_tokens=RT_MAX_TOKENS))
+        task.load_dataset("train")
+        batcher = task.get_batch_iterator("train", seed=SEED + 1)
+        plan = [len(batcher.batches_for_epoch(e)) for e in range(3)]
+        say(f"buckets: {[vars(s) for s in batcher.specs]}; batches per "
+            f"epoch {plan}")
+        state, opt = rt_state(cfg, SEED)
+        step = make_train_step(joint_loss_fn(cfg, 0.5), opt)
+        manager = CheckpointManager(root / "ckpt", keep_last=2)
+        # keep_last=2 prunes update 4's checkpoint by update 8: the resume
+        # reads a copy taken when it was committed
+        resume_dir = root / f"ckpt_update{RT_RESTART}"
+        resume_dir.mkdir()
+
+        def keep_restart(s):
+            if s == RT_RESTART:
+                for suffix in (".pt", ".json"):
+                    shutil.copy(manager.dir / f"checkpoint_{s}{suffix}",
+                                resume_dir)
+
+        rec = {"wait_ms": [], "update_ms": [], "save_s": []}
+        losses = []
+        with algorithms(), collate_spy(batcher) as spy:
+            reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            rt_train(state, step, batcher, manager, 0, 0, losses, rec,
+                     keep_restart)
+            sync()
+            train_s = time.perf_counter() - t0
+            train_launches = read_launches()
+        say(f"runtime training, config J, {RT_UPDATES} updates in "
+            f"{train_s:.3f} s (saves included), update ms "
+            f"{np.round(rec['update_ms'], 3)}; losses {losses}")
+        say(f"data wait per update: median "
+            f"{np.median(rec['wait_ms']):.3f} ms (first "
+            f"{rec['wait_ms'][0]:.3f}, all {np.round(rec['wait_ms'], 3)}); "
+            f"collate per batch: median {np.median(spy.ms):.3f} ms over "
+            f"{len(spy.ms)} batches")
+        for name in TRAIN_KERNELS:
+            if train_launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     "runtime training run")
+        kept = manager.all_steps()
+        best = manager._best_step()
+        say(f"checkpoints kept {kept} (keep_last=2, best {best})")
+        if kept != sorted({best, RT_UPDATES - RT_EVERY, RT_UPDATES}):
+            raise AssertionError(f"keep-last-2 pruning kept {kept}")
+        ck_bytes = (manager.dir / f"checkpoint_{RT_UPDATES}.pt").stat().st_size
+        say(f"checkpoint {ck_bytes} bytes ({ck_bytes / 2**30:.3f} "
+            f"GiB: model, Adam moments and counts); save s "
+            f"{[round(s, 3) for s in rec['save_s']]}")
+        want_params = {k: v.detach().cpu().clone()
+                       for k, v in state.model.state_dict().items()}
+        want_moments = [m.cpu() for m in
+                        state.opt_state.mu + state.opt_state.nu]
+        names = [n for n, _ in state.model.named_parameters()]
+        del state
+
+        # --- resume at update 4's position in a fresh model and optimizer
+        resumed, opt2 = rt_state(cfg, SEED + 7)
+        step2 = make_train_step(joint_loss_fn(cfg, 0.5), opt2)
+        sync()
+        t0 = time.perf_counter()
+        CheckpointManager(resume_dir).restore(resumed, step=RT_RESTART)
+        sync()
+        restore_s = time.perf_counter() - t0
+        epoch, start = resume_position(CheckpointManager(resume_dir))
+        say(f"restore s {restore_s:.3f}; resuming at epoch "
+            f"{epoch}, batch {start}, update {resumed.step}")
+        again = losses[:RT_RESTART]
+        with algorithms(), collate_spy(batcher) as spy2:
+            rt_train(resumed, step2, batcher,
+                     CheckpointManager(root / "ckpt_resumed"), epoch, start,
+                     again, {"wait_ms": [], "update_ms": [], "save_s": []})
+        order = [ix for e in range(epoch + 1)
+                 for _, ix in batcher.batches_for_epoch(e)]
+        skipped = order[:sum(plan[:epoch]) + start]
+        n_skipped_collated = sum(ix in skipped for ix in spy2.indices)
+        first = spy2.indices[0] == order[len(skipped)]
+        diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+                 zip(want_params.values(),
+                     (v.detach().cpu() for v in
+                      resumed.model.state_dict().values()))]
+        mdiffs = [float((a - b.cpu()).abs().max()) for a, b in zip(
+            want_moments, resumed.opt_state.mu + resumed.opt_state.nu)]
+        same = (again == losses and not any(diffs) and not any(mdiffs))
+        say(f"resumed updates {RT_RESTART + 1}-{RT_UPDATES}: losses "
+            f"{again[RT_RESTART:]} against {losses[RT_RESTART:]}; parameters"
+            f" max abs diff {max(diffs):.3g}, moments {max(mdiffs):.3g}: "
+            f"{'bit-identical' if same else 'DIFFERENT'}; batches collated "
+            f"while skipping {n_skipped_collated} (skipped "
+            f"{len(skipped)}), first collated is the saved position: "
+            f"{first}")
+        if not same:
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+        if n_skipped_collated or not first:
+            raise AssertionError("the resume collated a skipped batch")
+        del resumed
+
+        # --- averaging the last 2 checkpoints
+        t0 = time.perf_counter()
+        avg = average_checkpoints(manager, last_n=2, keys=names)
+        avg_s = time.perf_counter() - t0
+        a, b = (manager.restore(step=s)["model"] for s in kept[-2:])
+        bad = [n for n in names if not torch.equal(
+            avg[n], ((a[n].double() + b[n].double()) / 2).float())]
+        say(f"average of checkpoints {kept[-2:]}: {avg_s:.3f} s, "
+            f"{len(avg)} tensors, {len(bad)} off the float64 mean")
+        if bad or not all(torch.isfinite(v).all() for v in avg.values()):
+            raise AssertionError(f"averaged checkpoints: {bad[:5]}")
+        del avg, a, b
+
+        # --- the generate CLI on the e2e phase's serving model
+        serve_cpu = set_durations_(ctx["model_cpu"], RT_DUR)
+        serve = copy.deepcopy(serve_cpu).requires_grad_(True)
+        CheckpointManager(root / "serve").save(
+            TrainState.create(serve, GuardedAdam()), 1)
+        del serve
+        voc_state = VocoderTrainer(HiFiGANConfig(), device="cpu").init_state(
+            torch.Generator().manual_seed(SEED))
+        voc_state.gen.load_state_dict(ctx["voc_cpu"].state_dict())
+        CheckpointManager(root / "vocoder").save(voc_state, 1)
+        del voc_state
+        cli = [str(root), "--task", "nat_speech_to_speech",
+               "--checkpoint-dir", str(root / "serve"),
+               "--max-mel-len", str(RT_MEL)]
+        out_gpu, out_cpu = root / "out_gpu", root / "out_cpu"
+        buf = io.StringIO()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = generate.main(cli + [
+                "--vocoder-checkpoint", str(root / "vocoder"),
+                "--results-path", str(out_gpu)])
+        sync()
+        cli_s = time.perf_counter() - t0
+        cli_launches = read_launches()
+        rec_out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        feats = {p.stem: np.load(p) for p in (out_gpu / "feat").glob("*.npy")}
+        audio_s = sum(f.shape[1] for f in feats.values()) * 256 / 22050.0
+        say(f"generate CLI: rc {rc}, {rec_out['generated']} "
+            f"utterances in {cli_s:.3f} s wall (restores included), "
+            f"{audio_s:.2f} s of audio = {audio_s / cli_s:.2f} audio-s per "
+            f"wall-s; launches {cli_launches}")
+        if rc != 0 or rec_out["generated"] != n_test or len(feats) != n_test:
+            raise AssertionError(f"generate CLI: rc {rc}, {rec_out}")
+        for name in SERVING_KERNELS + ("fused_attention",):
+            if cli_launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     "generate CLI")
+        for utt, f in feats.items():
+            wav, _ = generate.read_wav(out_gpu / "wav" / f"{utt}_pred.wav")
+            if not (f.shape[0] == 80 and f.shape[1] <= RT_MEL
+                    and np.isfinite(f).all()
+                    and len(wav) == f.shape[1] * 256):
+                raise AssertionError(f"CLI output of {utt}: feature "
+                                     f"{f.shape}, {len(wav)} samples")
+        long_mels = sorted(f.shape[1] for f in feats.values())[-RT_B[0]:]
+        say(f"CLI mel frames: median "
+            f"{np.median([f.shape[1] for f in feats.values()]):.0f}, the "
+            f"{RT_B[0]} longest {long_mels}")
+
+        # the in-process generator on the CLI's own batches
+        d = task.tgt_dict
+        cli_tokens = hypos_of(out_gpu, d)
+        model = copy.deepcopy(serve_cpu).to(DEVICE).eval()
+        gen = S2SNATGenerator(model, task.vocab, DecodeConfig(),
+                              max_mel_len=RT_MEL)
+        # the CLI's task: its default --max-tokens
+        task = NATSpeechToSpeechTask.setup_task(TaskConfig(
+            data_dir=str(root), max_tokens=generate.parse_args(
+                [str(root)]).max_tokens))
+        task.load_dataset("test")
+        it = task.get_batch_iterator("test")
+        worst, n_tok = 0.0, 0
+        for spec, idxs in it.batches_for_epoch(0):
+            hyps = gen.generate(it.collate(spec, idxs, pad_last=False),
+                                generate_waveform=False)
+            for local, h in zip(idxs, hyps):
+                utt = it.dataset.rows[local]["id"]
+                toks = h["tokens"][(h["tokens"] != d.bos())
+                                   & (h["tokens"] != d.eos())
+                                   & (h["tokens"] != d.pad())]
+                if not np.array_equal(cli_tokens[utt][1:], toks):
+                    raise AssertionError(f"{utt}: CLI tokens differ from "
+                                         "the in-process generator's")
+                n_tok += len(toks)
+                worst = max(worst, float(np.abs(feats[utt]
+                                                - h["feature"].T).max())
+                            if h["feature"].size else 0.0)
+        say(f"CLI against the in-process S2SNATGenerator on the CLI's own "
+            f"batches (same buckets, batch axis unpadded): tokens identical "
+            f"({n_tok} tokens), features max abs diff {worst:.3g} "
+            f"({'bit-identical' if worst == 0 else 'not bit-identical'})")
+        if not worst <= TOL_CLI_FEATURE:
+            raise AssertionError(f"CLI features off by {worst}")
+        del model, gen
+
+        # the CLI on the CPU for RT_CPU_UTTS utterances
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = generate.main(cli + ["--gen-subset", "test_cpu",
+                                      "--device", "cpu",
+                                      "--results-path", str(out_cpu)])
+        cpu_s = time.perf_counter() - t0
+        cpu_tokens = hypos_of(out_cpu, d)
+        ids = sorted(cpu_tokens)
+        task.load_dataset("test_cpu")
+        it = task.get_batch_iterator("test_cpu")
+        spec = max(it.specs, key=lambda s: s.src)
+        batch = it.collate(spec, list(range(len(ids))), pad_last=False)
+        gen_cpu = S2SNATGenerator(serve_cpu, task.vocab, DecodeConfig(),
+                                  max_mel_len=RT_MEL)
+        margin = compare_tokens(
+            gen_cpu, batch, [{"tokens": cli_tokens[u]} for u in ids],
+            [{"tokens": cpu_tokens[u]} for u in ids])
+        mel_err = max((float(np.abs(
+            np.load(out_cpu / "feat" / f"{u}.npy") - feats[u]).max())
+            for u in ids if np.array_equal(cpu_tokens[u], cli_tokens[u])
+            and feats[u].size), default=0.0)
+        say(f"CLI on the CPU ({len(ids)} utterances, rc {rc}, "
+            f"{cpu_s:.1f} s): tokens "
+            f"{'identical' if margin is None else 'near-tie differences'}"
+            f", features max abs diff {mel_err:.3g}")
+        if rc != 0 or not mel_err <= TOL_MEL:
+            raise AssertionError(f"CPU CLI: rc {rc}, features off by "
+                                 f"{mel_err}")
+        return train_launches, cli_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -3687,9 +4196,11 @@ def main() -> int:
     alternates, _ = alternates_phase()
     log("decode-strategy phase:")
     decoding = decode_phase(ctx)
-    del ctx
     log("vocoder-training phase:")
     voc_train, _, _ = vocoder_train_phase()
+    log("runtime phase (data, tasks, train loop, checkpoints, generate CLI):")
+    rt_train_launches, cli_launches = runtime_phase(ctx, smi)
+    del ctx
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
@@ -3702,7 +4213,9 @@ def main() -> int:
                "fs2_pretraining": pretrain, "vocoder_fused": vocoder,
                "tts_A": tts["A"], "tts_B": tts["B"],
                **{f"decode {tag}": v for tag, v in decoding.items()},
-               "vocoder_training": voc_train}
+               "vocoder_training": voc_train,
+               "runtime_train": rt_train_launches,
+               "cli_generate": cli_launches}
     # the alternate backends launch on no other path
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in ALTERNATE_KERNELS if v[n]}
@@ -3711,13 +4224,13 @@ def main() -> int:
     log(f"  {', '.join(ALTERNATE_KERNELS)}: 0 launches on every other path")
     # serving runs inference forwards only: no launch writes statistics
     serving_paths = ("serving", "vocoder_fused", "tts_A", "tts_B",
-                     *(f"decode {tag}" for tag in decoding))
+                     "cli_generate", *(f"decode {tag}" for tag in decoding))
     trained = {(p, n): by_path[p][f"{n} training"] for n in TRAIN_FORWARDS
                for p in serving_paths if by_path[p][f"{n} training"]}
     if trained:
         raise AssertionError(f"training forwards on serving paths: {trained}")
-    log("  training forwards on the serving, vocoder, TTS and decode-strategy"
-        " paths: 0")
+    log("  training forwards on the serving, vocoder, TTS, decode-strategy "
+        "and CLI paths: 0")
     by_path.update({"alternates_ffn": alternates["fused"],
                     "alternates_full_bias": alternates["full_bias"]})
     kernels = []

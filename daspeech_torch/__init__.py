@@ -10,7 +10,11 @@ length beam and iterative refinement. It trains through
 model), ``losses.s2s_dag_fastspeech2_loss`` (the joint S2ST model) and
 ``losses.fastspeech2_criterion`` (FastSpeech 2 pretraining on phonemes),
 and trains the HiFi-GAN vocoder against its MPD/MSD discriminators through
-``train.vocoder_train.VocoderTrainer``.
+``train.vocoder_train.VocoderTrainer``. Around the models: the data
+pipeline (``data``), the tasks (``tasks``), checkpoints
+(``train.checkpoint``), metrics (``train.metrics``), released fairseq
+``.pt`` loading (``train.fairseq_import``) and the generate CLI
+(``python -m daspeech_torch.cli.generate``).
 Hand-written CUDA kernels for sm_90a (``csrc/``) carry attention, packed
 and head-major, and rel-pos attention (forward and backward, with
 dropout), link extraction (forward and backward), the DAG alpha/beta

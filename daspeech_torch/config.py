@@ -8,12 +8,16 @@ defaults
 holds them to the JAX package's), and leave out the fields of paths not
 ported yet and the TPU kernel switches. The port's modules read configs by
 attribute, so the JAX package's config objects work in their place.
+:func:`from_dict` / :func:`to_dict` (``core/config.py:237-272``) read and
+write them as plain dicts (a model YAML).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import typing
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -173,3 +177,25 @@ class TrainingConfig:
     tts_loss_weight: float = 5.0
     dag_freezing_steps: int = -1
     training_strategy: str = "expect"
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def from_dict(cls, data: Dict[str, Any]):
+    """Rebuild a (nested) config dataclass from a plain dict (e.g. YAML);
+    keys the dataclass lacks are ignored, lists become tuples."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        tp = hints.get(f.name, f.type)
+        if dataclasses.is_dataclass(tp) and isinstance(v, dict):
+            v = from_dict(tp, v)
+        elif isinstance(v, list):
+            v = tuple(tuple(e) if isinstance(e, list) else e for e in v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
