@@ -156,7 +156,35 @@ process.)
    a CPU run of the CLI on 2 utterances (tokens by the near-tie rule,
    features within 1e-2); it prints the data wait, collate, checkpoint and
    CLI numbers, each beside the card's name and power limit. The data and
-   checkpoints live under ``build/`` and are deleted at the end.
+   checkpoints live under ``build/`` and are deleted at the end. The
+   training loop is the train CLI's (``cli.train.train_loop``);
+14. CLI phase, on the runtime phase's data (plus ``train_long``, all 84
+   utterances; ``dev``, 8; a vocoder TSV of 16 synthetic waveforms of
+   26624 samples, written with ``preprocess.prep_data``) at the recipe's
+   widths: ``daspeech_torch.cli.train.main`` in-process for stage 1
+   (S2TT, 6 updates, saves at 3 and 6, ``--encoder-freezing-updates 2
+   --weight-decay 0``: the encoder unchanged with zero Adam moments
+   through update 2, moved by update 3), stage 2 (FastSpeech 2, 4
+   updates) and stage 3 (joint ``expect`` from stages 1 and 2, 6 updates
+   over the long bucket too, validating and saving every 3: the train
+   kernels #1, #4, #5, #8, #9 and their backwards on every update, the
+   head-major #2 forward and backward on the 1216-frame bucket's and on
+   no other; its first update's loss equal to an in-process
+   ``make_train_step`` update within 1e-5; the run whose launches are read
+   as ``cli_train``), stage 3 ``--restore`` to 9 (its stderr names step 6
+   and the saved position), stage 3 under ``torch.distributed.run
+   --nproc_per_node 1`` (NCCL: update 1's loss equal, the gradient
+   all-reduce and 24 BatchNorm reductions run), ``cli.train_vocoder`` (20
+   updates at B=16 x 8192), ``cli.eval_pipeline --skip-asr
+   --average-last-n 2`` over stage 3's last two checkpoints (shaped as the
+   serving phase's decoder) with the vocoder CLI's checkpoint,
+   ``cli.parity --skip-generate`` against ``cli.generate`` with the same
+   arguments (tokens and mels equal), the pipeline's ASR stage
+   (``"asr_bleu": null`` and its note without the model), and every batch
+   of one epoch through the pinned copy against its numpy collate, bit
+   for bit, timed against a plain ``.to(device)``; it prints the update
+   ms, data wait, h2d, ``input_wait_frac``, save s and peak memory of
+   each stage, each beside the card's name and power limit.
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -3766,51 +3794,32 @@ class deterministic:
 
 def rt_train(state, step, batcher, manager, epoch, start, losses, rec,
              on_save=None):
-    """The training loop of the runtime phase, to RT_UPDATES updates:
-    batches through ``prefetch_epoch`` (collated and moved to the card on
-    the producer thread), one update each, its dropout drawn from a
-    generator seeded by the step; every RT_EVERY updates the metrics go
-    through ``MetricsAggregator`` + ``JsonProgressLogger`` (stderr) and a
-    checkpoint (with its metric and the next batch's position) through
-    ``manager``, then ``on_save(step)``. ``rec`` collects data-wait,
-    update and save times."""
-    from daspeech_torch.data.prefetch import prefetch_epoch, to_device
-    from daspeech_torch.train.metrics import (JsonProgressLogger,
-                                              MetricsAggregator)
+    """The training loop of the runtime phase, to RT_UPDATES updates: the
+    train CLI's loop (``daspeech_torch.cli.train.train_loop``) from
+    ``(epoch, start)``: batches through ``prefetch_epoch`` (collated and
+    copied to the card from pinned memory on the producer thread), one
+    update each, its dropout drawn from a generator seeded by the step;
+    every RT_EVERY updates the metrics go through ``MetricsAggregator`` +
+    ``JsonProgressLogger`` (stderr) and a checkpoint (with its metric and
+    the next batch's position) through ``manager``, then ``on_save(step)``.
+    Each update's loss goes to ``losses``; ``rec`` collects the data wait,
+    the CUDA-event update times and the save times."""
+    from daspeech_torch.cli.train import LoopConfig, train_loop
+    from daspeech_torch.train.metrics import JsonProgressLogger
 
-    agg = MetricsAggregator()
-    logger = JsonProgressLogger(stream=sys.stderr, log_interval=RT_EVERY)
-    while len(losses) < RT_UPDATES:
-        n_batches = len(batcher.batches_for_epoch(epoch))
-        it = iter(prefetch_epoch(batcher, epoch, start=start,
-                                 to_device=lambda b: to_device(b, DEVICE)))
-        for i in range(start, n_batches):
-            t0 = time.perf_counter()
-            _, batch = next(it)
-            rec["wait_ms"].append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            metrics = step(state, batch,
-                           torch.Generator().manual_seed(SEED + 100
-                                                         + state.step))
-            losses.append(metrics["loss"].item())
-            rec["update_ms"].append((time.perf_counter() - t0) * 1e3)
-            for k, v in metrics.items():
-                agg.log_scalar(k, float(v))
-            agg.log_speed("ups")
-            if state.step % RT_EVERY == 0:
-                logger.log(agg.get_smoothed_values(), state.step, epoch)
-                agg.reset()
-                nxt = (epoch, i + 1) if i + 1 < n_batches else (epoch + 1, 0)
-                sync()
-                t0 = time.perf_counter()
-                manager.save(state, state.step, metric=losses[-1],
-                             extra={"epoch": nxt[0], "batch_idx": nxt[1]})
-                rec["save_s"].append(time.perf_counter() - t0)
-                if on_save is not None:
-                    on_save(state.step)
-            if len(losses) == RT_UPDATES:
-                return
-        epoch, start = epoch + 1, 0
+    stats = train_loop(
+        state, step, batcher, DEVICE,
+        LoopConfig(max_update=RT_UPDATES, seed=SEED + 100,
+                   log_interval=RT_EVERY, save_interval_updates=RT_EVERY),
+        manager=manager,
+        logger=JsonProgressLogger(stream=sys.stderr, log_interval=RT_EVERY),
+        start=(epoch, start), on_save=on_save)
+    manager.wait_until_finished()
+    losses.extend(stats.losses)
+    for key, got in (("wait_ms", stats.wait_ms),
+                     ("update_ms", stats.update_ms),
+                     ("save_s", stats.save_s)):
+        rec[key].extend(got)
 
 
 def rt_state(cfg, seed):
@@ -3881,7 +3890,7 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
             data_dir=str(root), max_tokens=RT_MAX_TOKENS))
         task.load_dataset("train")
         batcher = task.get_batch_iterator("train", seed=SEED + 1)
-        plan = [len(batcher.batches_for_epoch(e)) for e in range(3)]
+        plan = [len(batcher.batches_for_epoch(e)) for e in (1, 2, 3)]
         say(f"buckets: {[vars(s) for s in batcher.specs]}; batches per "
             f"epoch {plan}")
         state, opt = rt_state(cfg, SEED)
@@ -3904,13 +3913,13 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
             reset_launches()
             sync()
             t0 = time.perf_counter()
-            rt_train(state, step, batcher, manager, 0, 0, losses, rec,
+            rt_train(state, step, batcher, manager, 1, 0, losses, rec,
                      keep_restart)
             sync()
             train_s = time.perf_counter() - t0
             train_launches = read_launches()
         say(f"runtime training, config J, {RT_UPDATES} updates in "
-            f"{train_s:.3f} s (saves included), update ms "
+            f"{train_s:.3f} s (saves included), update ms (CUDA events) "
             f"{np.round(rec['update_ms'], 3)}; losses {losses}")
         say(f"data wait per update: median "
             f"{np.median(rec['wait_ms']):.3f} ms (first "
@@ -3928,7 +3937,8 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
             raise AssertionError(f"keep-last-2 pruning kept {kept}")
         ck_bytes = (manager.dir / f"checkpoint_{RT_UPDATES}.pt").stat().st_size
         say(f"checkpoint {ck_bytes} bytes ({ck_bytes / 2**30:.3f} "
-            f"GiB: model, Adam moments and counts); save s "
+            f"GiB: model, Adam moments and counts); save s (to the return "
+            f"of a non-blocking save: the host copy) "
             f"{[round(s, 3) for s in rec['save_s']]}")
         want_params = {k: v.detach().cpu().clone()
                        for k, v in state.model.state_dict().items()}
@@ -3953,9 +3963,9 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
             rt_train(resumed, step2, batcher,
                      CheckpointManager(root / "ckpt_resumed"), epoch, start,
                      again, {"wait_ms": [], "update_ms": [], "save_s": []})
-        order = [ix for e in range(epoch + 1)
+        order = [ix for e in range(1, epoch + 1)
                  for _, ix in batcher.batches_for_epoch(e)]
-        skipped = order[:sum(plan[:epoch]) + start]
+        skipped = order[:sum(plan[:epoch - 1]) + start]
         n_skipped_collated = sum(ix in skipped for ix in spy2.indices)
         first = spy2.indices[0] == order[len(skipped)]
         diffs = [float((a.float() - b.float()).abs().max()) for a, b in
@@ -4113,6 +4123,436 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# CLI phase
+# ---------------------------------------------------------------------------
+
+CLI_UPDATES = {"s1": 6, "s2": 4, "s3": 6}
+CLI_RESTORE_TO = 9        # stage 3 resumed from its update-6 checkpoint
+CLI_EVERY = 3             # stages 1 and 3 save (and 3 validates) this often
+CLI_FREEZE = 2            # --encoder-freezing-updates of stage 1
+CLI_DEV = 8               # utterances of the valid split
+CLI_TTS_SENTENCES = 16    # --max-sentences of stage 2
+CLI_VOC = (16, 3 * 8192 + 2048)   # vocoder TSV: waveforms, samples each
+CLI_VOC_UPDATES = 20
+TOL_CLI_LOSS = 1e-5       # stage 3's first update against make_train_step
+LOG_ROUNDING = 5e-5       # the progress log's 4 decimals
+
+
+def write_cli_data(root: Path, seed: int) -> int:
+    """``write_runtime_data``'s directory plus the views the CLI phase
+    reads, written with the port's ``prep_data``: ``train_long`` (the 80
+    short utterances and the 4 of RT_B[1] fbank frames), ``dev`` (the first
+    CLI_DEV) and ``vocoder.tsv`` over a stored zip of CLI_VOC[0] synthetic
+    voiced waveforms (22.05 kHz). The S2TT and TTS tasks read the S2ST
+    rows as they are. Returns the number of utterances."""
+    from daspeech_torch.data.datasets import load_tsv
+    from daspeech_torch.preprocess.prep_data import (pack_features_to_zip,
+                                                     write_tsv)
+
+    n = write_runtime_data(root, seed)
+    rows = load_tsv(root / "test.tsv")
+    write_tsv(rows, root / "train_long.tsv")
+    write_tsv(rows[:CLI_DEV], root / "dev.tsv")
+    rng = np.random.default_rng(seed + 5)
+    t = np.arange(CLI_VOC[1]) / 22050.0
+    wavs = []
+    for _ in range(CLI_VOC[0]):
+        phase = 2 * np.pi * np.cumsum(rng.uniform(90, 260) * (1 + 0.1 * t))
+        wav = sum((0.4 / k) * np.sin(k * phase / 22050.0) for k in (1, 2, 3))
+        wavs.append((wav + 0.01 * rng.normal(size=t.shape)).astype(
+            np.float32))
+    names = [f"voc{i:02d}" for i in range(len(wavs))]
+    paths = pack_features_to_zip(wavs, names, root / "vocoder_wavs.zip")
+    write_tsv([{"id": k, "audio": p} for k, p in zip(names, paths)],
+              root / "vocoder.tsv")
+    return n
+
+
+def run_train_cli(argv, on_update=None):
+    """``daspeech_torch.cli.train.main`` in-process: (rc, its JSON records,
+    its stderr, the loop's statistics, wall s, peak GiB). Its stderr is
+    copied to this script's log."""
+    import contextlib
+    import io
+
+    from daspeech_torch.cli import train
+
+    out, err, got = io.StringIO(), io.StringIO(), {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = train.main(argv, on_update=on_update,
+                        on_stats=lambda s: got.update(stats=s))
+    sync()
+    wall = time.perf_counter() - t0
+    for line in err.getvalue().splitlines():
+        if "FutureWarning" not in line and "return all_reduce" not in line:
+            log(f"    | {line}")
+    records = [json.loads(x) for x in out.getvalue().splitlines()
+               if x.startswith("{")]
+    return (rc, records, err.getvalue(), got["stats"], wall,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def next_position(batcher, updates: int):
+    """(epoch, batch) of the batch after ``updates`` batches from epoch 1."""
+    epoch = 1
+    while updates >= len(batcher.batches_for_epoch(epoch)):
+        updates -= len(batcher.batches_for_epoch(epoch))
+        epoch += 1
+    return epoch, updates
+
+
+def cli_phase(smi):
+    """The command line on the card (module docstring, 14th item): the
+    three recipe stages through ``daspeech_torch.cli.train.main``, stage 3
+    resumed, stage 3 under torchrun (world 1, NCCL), the vocoder CLI, the
+    evaluation pipeline, the parity CLI and the pinned copy. Returns stage
+    3's launches (the ``cli_train`` path)."""
+    import contextlib
+    import io
+    import shutil
+    import socket
+    import tempfile
+
+    from daspeech_torch.cli import eval_pipeline, generate, parity, train
+    from daspeech_torch.cli import train_vocoder
+    from daspeech_torch.data import prefetch
+    from daspeech_torch.tasks import NATSpeechToSpeechTask, TaskConfig
+
+    def say(msg):          # every reading beside the card's name and limit
+        log(f"  [{smi}] {msg}")
+
+    def stage_line(tag, stats, wall, peak):
+        ms = stats.update_ms[1:] or stats.update_ms
+        tot = stats.run_totals()
+        wait = stats.wait_ms[1:] or stats.wait_ms
+        say(f"{tag}: {len(stats.update_ms)} updates, update ms (CUDA events,"
+            f" first left out) median {np.median(ms):.3f} (first "
+            f"{stats.update_ms[0]:.3f}); data_wait_ms per update "
+            f"{np.mean(stats.wait_ms):.3f} (after the first "
+            f"{np.mean(wait):.3f}), h2d_ms per batch "
+            f"{np.mean(stats.h2d_ms):.3f}, input_wait_frac "
+            f"{tot['input_wait_frac']}, h2d MB per update "
+            f"{tot['h2d_mb_per_step']}; save s "
+            f"{[round(x, 3) for x in stats.save_s]}; wall {wall:.2f} s; "
+            f"peak memory {peak:.2f} GiB")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=build))
+    try:
+        t0 = time.perf_counter()
+        n_utts = write_cli_data(root, SEED)
+        say(f"CLI data written in {time.perf_counter() - t0:.2f} s: "
+            f"{n_utts} utterances, splits train / train_long / dev, "
+            f"vocoder TSV of {CLI_VOC[0]} x {CLI_VOC[1]} samples")
+        base = [str(root), "--seed", str(SEED), "--max-tokens",
+                str(RT_MAX_TOKENS), "--keep-last-checkpoints", "2"]
+
+        # --- stage 1: S2TT DAG, the encoder frozen for 2 updates
+        enc = {}
+
+        def s1_hook(state, update, spec, metrics):
+            if update > CLI_FREEZE + 1:
+                return
+            named = list(state.model.named_parameters())
+            enc[update] = (
+                {n: p.detach().cpu().clone() for n, p in named
+                 if n.startswith("encoder.")},
+                all(not m.any() for (n, _), m in zip(named,
+                                                     state.opt_state.mu)
+                    if n.startswith("encoder.")))
+
+        rc, _, _, st1, wall, peak = run_train_cli(base + [
+            "--task", "nat_speech_to_text", "--criterion", "nat_dag_loss",
+            "--save-dir", str(root / "s1"), "--max-update",
+            str(CLI_UPDATES["s1"]), "--save-interval-updates",
+            str(CLI_EVERY), "--log-interval", str(CLI_EVERY),
+            "--encoder-freezing-updates", str(CLI_FREEZE),
+            "--weight-decay", "0", "--valid-subset", "none"], s1_hook)
+        stage_line("stage 1 (S2TT, nat_dag_loss)", st1, wall, peak)
+        frozen = all(torch.equal(a, enc[CLI_FREEZE][0][n])
+                     for n, a in enc[1][0].items())
+        moved = sum(not torch.equal(a, enc[CLI_FREEZE + 1][0][n])
+                    for n, a in enc[CLI_FREEZE][0].items())
+        say(f"stage 1 encoder: unchanged through update {CLI_FREEZE}: "
+            f"{frozen}, Adam moments still 0: {enc[CLI_FREEZE][1]}; tensors "
+            f"moved by update {CLI_FREEZE + 1}: {moved} of "
+            f"{len(enc[1][0])}; checkpoints "
+            f"{train.CheckpointManager(root / 's1').all_steps()}")
+        if (rc != 0 or not frozen or not enc[CLI_FREEZE][1]
+                or enc[CLI_FREEZE + 1][1] or moved < len(enc[1][0]) // 2):
+            raise AssertionError("stage 1's encoder freezing")
+        if train.CheckpointManager(root / "s1").all_steps() != [3, 6]:
+            raise AssertionError("stage 1's checkpoints")
+
+        # --- stage 2: FastSpeech 2 pretraining
+        rc, _, _, st2, wall, peak = run_train_cli(base + [
+            "--task", "text_to_speech", "--criterion", "fastspeech2",
+            "--max-sentences", str(CLI_TTS_SENTENCES),
+            "--save-dir", str(root / "s2"), "--max-update",
+            str(CLI_UPDATES["s2"]), "--save-interval-updates", "1000",
+            "--log-interval", str(CLI_UPDATES["s2"]),
+            "--valid-subset", "none"])
+        stage_line("stage 2 (FastSpeech 2)", st2, wall, peak)
+        if rc != 0:
+            raise AssertionError("stage 2")
+
+        # --- stage 3: joint, from stages 1 and 2, validating every 3
+        s3 = base + [
+            "--task", "nat_speech_to_speech",
+            "--criterion", "s2s_dag_fastspeech2_loss",
+            "--training-strategy", "expect", "--train-subset", "train_long",
+            "--valid-subset", "dev", "--load-pretrained-dag-from",
+            str(root / "s1"), "--load-pretrained-fastspeech-from",
+            str(root / "s2"), "--save-interval-updates", str(CLI_EVERY),
+            "--validate-interval-updates", str(CLI_EVERY),
+            "--log-interval", str(CLI_EVERY), "--save-dir", str(root / "s3")]
+        per_update, first = [], {}
+        before = [None]
+
+        def s3_hook(state, update, spec, metrics):
+            now = read_launches()
+            per_update.append((update, spec.src, {
+                k: now[k] - before[0][k] for k in now}))
+            before[0] = now
+            if update == 1:
+                first["loss"] = metrics["loss"].item()
+
+        copies = prefetch.COPIES["pinned"]
+        reset_launches()
+        before[0] = read_launches()
+        rc, recs, _, st3, wall, peak = run_train_cli(
+            s3 + ["--max-update", str(CLI_UPDATES["s3"])], s3_hook)
+        launches = read_launches()
+        stage_line("stage 3 (joint, expect)", st3, wall, peak)
+        valid = [r["valid_loss"] for r in recs if r["tag"] == "valid"]
+        n_copies = prefetch.COPIES["pinned"] - copies
+        say(f"stage 3: valid_loss {valid}; batches copied through the pinned"
+            f" path {n_copies}; launches {launches}")
+        if rc != 0 or len(valid) != 2 or n_copies < CLI_UPDATES["s3"]:
+            raise AssertionError(f"stage 3: rc {rc}, valid {valid}, "
+                                 f"pinned copies {n_copies}")
+        for update, src, d in per_update:
+            missing = [k for k in TRAIN_KERNELS if d[k] <= 0]
+            hm = (d["fused_attention"], d["fused_attention_bwd"])
+            long = src >= RT_B[1]
+            say(f"  update {update} (bucket {src} fbank frames): head-major "
+                f"#2 forward / backward {hm[0]} / {hm[1]}")
+            if missing or (long and min(hm) <= 0) or (not long and max(hm)):
+                raise AssertionError(f"stage 3 update {update}: {missing} "
+                                     f"not launched, #2 {hm}")
+        if not any(src >= RT_B[1] for _, src, _ in per_update):
+            raise AssertionError("stage 3 ran no long-bucket update")
+
+        # its first update against make_train_step in-process
+        run = train.build(train.parse_args(
+            s3 + ["--max-update", str(CLI_UPDATES["s3"])]), DEVICE)
+        spec, idxs = run.batcher.batches_for_epoch(1)[0]
+        m = run.step(run.state, prefetch.consume(prefetch.to_device(
+            run.batcher.collate(spec, idxs), DEVICE)),
+            train.update_generator(SEED, 0, 0))
+        ref = m["loss"].item()
+        rel = abs(first["loss"] - ref) / abs(ref)
+        say(f"stage 3 update 1 loss: CLI {first['loss']!r}, in-process "
+            f"make_train_step {ref!r}: relative {rel:.3g} (<= "
+            f"{TOL_CLI_LOSS})")
+        if not rel <= TOL_CLI_LOSS:
+            raise AssertionError("stage 3's first update")
+        restart = next_position(run.batcher, CLI_UPDATES["s3"])
+        del run, m
+        torch.cuda.empty_cache()
+
+        # --restore to CLI_RESTORE_TO
+        rc, recs, err, st9, wall, peak = run_train_cli(
+            s3 + ["--max-update", str(CLI_RESTORE_TO), "--restore"])
+        msg = (f"restored checkpoint at step {CLI_UPDATES['s3']} (epoch "
+               f"{restart[0]}, batch {restart[1]})")
+        stage_line(f"stage 3 resumed to {CLI_RESTORE_TO}", st9, wall, peak)
+        say(f"stage 3 --restore: {msg!r} in its stderr: {msg in err}; "
+            f"done at update {recs[-1]['update']}")
+        if rc != 0 or msg not in err or recs[-1]["update"] != CLI_RESTORE_TO:
+            raise AssertionError("stage 3's restore")
+
+        # --- stage 3 under torchrun, world 1 (NCCL)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        ddp = list(s3) + ["--max-update", "1"]
+        for flag, value in (("--valid-subset", "none"),
+                            ("--save-dir", str(root / "ddp")),
+                            ("--log-interval", "1")):
+            ddp[ddp.index(flag) + 1] = value
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+               "--master_port", str(port), "-m", "daspeech_torch.cli.train",
+               *ddp]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=900)
+        ddp_s = time.perf_counter() - t0
+        recs = [json.loads(x) for x in proc.stdout.splitlines()
+                if x.startswith("{")]
+        if proc.returncode != 0 or not recs:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"torchrun stage 3: rc {proc.returncode}")
+        done = recs[-1]
+        got = next(r["loss"] for r in recs if r.get("update") == 1
+                   and not r.get("done"))
+        diff = abs(got - first["loss"])
+        say(f"stage 3 under torchrun (world 1, NCCL; {ddp_s:.1f} s with the "
+            f"process start): update 1 loss {got} (logged to 4 decimals) "
+            f"against {first['loss']!r}; world {done.get('world_size')}, "
+            f"gradient all-reduces {done.get('grad_all_reduces')}, "
+            f"BatchNorm syncs {done.get('bn_syncs')}")
+        if (diff > TOL_CLI_LOSS * abs(first["loss"]) + LOG_ROUNDING
+                or done.get("world_size") != 1
+                or not done.get("grad_all_reduces")
+                or done.get("bn_syncs", 0) < 2 * 12):
+            raise AssertionError(f"torchrun stage 3: {done}")
+
+        # --- the vocoder CLI
+        voc_ms, last = [], [None]
+
+        def voc_hook(state, update, metrics):
+            sync()
+            now = time.perf_counter()
+            if last[0] is not None:
+                voc_ms.append((now - last[0]) * 1e3)
+            last[0] = now
+
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_vocoder.main([
+                str(root / "vocoder.tsv"), "--save-dir", str(root / "voc"),
+                "--max-update", str(CLI_VOC_UPDATES), "--batch-size", "16",
+                "--segment-size", "8192", "--log-interval",
+                str(CLI_VOC_UPDATES), "--save-interval-updates",
+                str(CLI_VOC_UPDATES), "--seed", str(SEED)],
+                on_update=voc_hook)
+        voc_s = time.perf_counter() - t0
+        vrec = json.loads(out.getvalue().splitlines()[-1])
+        say(f"vocoder CLI: {CLI_VOC_UPDATES} updates at B=16 x 8192 in "
+            f"{voc_s:.2f} s (set-up and saves included); update ms (host "
+            f"clock, synchronized, segments, copy and mel included) median "
+            f"{np.median(voc_ms[2:]):.3f} over {len(voc_ms[2:])}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"last record {vrec}")
+        if rc != 0 or not vrec.get("done"):
+            raise AssertionError("vocoder CLI")
+
+        # --- the evaluation pipeline, generate and parity, on stage 3's
+        # last 2 checkpoints shaped as the serving phase shapes its random
+        # model (after 9 updates the graph decodes to no token, and the
+        # predicted durations round to 0 frames: no mel to hold)
+        from daspeech_torch.models import S2SConformerDAGFastSpeech2
+
+        task = NATSpeechToSpeechTask.setup_task(TaskConfig(
+            data_dir=str(root)))
+        model = S2SConformerDAGFastSpeech2(generate.build_model_cfg(
+            "s2s_dag_fastspeech2_loss", None, task.vocab))
+        served = train.CheckpointManager(root / "served")
+        for step in train.CheckpointManager(root / "s3").all_steps()[-2:]:
+            model.load_state_dict(train.CheckpointManager(
+                root / "s3").restore(step=step)["model"])
+            shape_random_decoder_(model, SEED)
+            set_durations_(model, RT_DUR)
+            served.save({"model": model.state_dict()}, step)
+        del model
+        common = ["--max-tokens", str(RT_MAX_TOKENS), "--max-mel-len",
+                  str(RT_MEL), "--average-last-n", "2",
+                  "--vocoder-checkpoint", str(root / "voc")]
+        pipe = [str(root), "--checkpoint-dir", str(root / "served"),
+                "--gen-subset", "dev", *common]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = eval_pipeline.main(pipe + ["--skip-asr", "--results-path",
+                                            str(root / "pipe")])
+        pipe_s = time.perf_counter() - t0
+        prec = json.loads(out.getvalue().splitlines()[-1])
+        wavs = sorted((root / "pipe" / "wav").glob("*_pred.wav"))
+        frames = [np.load(f).shape[1] for f in
+                  sorted((root / "pipe" / "feat").glob("*.npy"))]
+        say(f"eval pipeline (--skip-asr, average of the last 2 of stage 3, "
+            f"{RT_DUR} frames a token; the vocoder CLI's checkpoint): rc "
+            f"{rc}, {len(wavs)} waveforms, mel frames {frames}, wall "
+            f"{pipe_s:.2f} s; {prec}")
+        if rc != 0 or len(wavs) != CLI_DEV or min(frames) <= 0:
+            raise AssertionError("eval pipeline")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = generate.main([
+                str(root), "--task", "nat_speech_to_speech",
+                "--checkpoint-dir", str(root / "served"), "--gen-subset",
+                "dev", "--results-path", str(root / "gen"), *common])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc2 = parity.main([str(root), "--skip-generate", "--skip-asr",
+                               "--results-path", str(root / "pipe"),
+                               "--reference-results", str(root / "gen")])
+        par = json.loads(out.getvalue().splitlines()[-1])
+        say(f"parity CLI (pipeline against generate with the same "
+            f"arguments): {par}")
+        if (rc or rc2 or par.get("token_exact_match") != 1.0
+                or par.get("mel_mse") != 0.0):
+            raise AssertionError(f"parity: {par}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = eval_pipeline.main(pipe + ["--results-path",
+                                            str(root / "pipe_asr")])
+        arec = json.loads(out.getvalue().splitlines()[-1])
+        say(f"eval pipeline with the ASR stage: {arec}")
+        if rc != 0 or arec.get("asr_bleu", "") is not None or not arec.get(
+                "note"):
+            raise AssertionError(f"eval pipeline ASR stage: {arec}")
+
+        # --- the pinned copy: every batch of one epoch, bit for bit
+        task = NATSpeechToSpeechTask.setup_task(TaskConfig(
+            data_dir=str(root), max_tokens=RT_MAX_TOKENS))
+        task.load_dataset("train_long")
+        batcher = task.get_batch_iterator("train_long", seed=SEED)
+        hosts = [batcher.collate(spec, idxs)
+                 for spec, idxs in batcher.batches_for_epoch(1)]
+        nbytes = [sum(v.nbytes for v in h.values()) for h in hosts]
+        pinned, plain = ([], []), []
+        for turn in (0, 1):      # the staging ring grows in the first pass
+            for host in hosts:
+                sync()
+                t0 = time.perf_counter()
+                dev = prefetch.consume(prefetch.to_device(host, DEVICE))
+                sync()
+                pinned[turn].append((time.perf_counter() - t0) * 1e3)
+                if turn:
+                    t0 = time.perf_counter()
+                    ref = {k: torch.from_numpy(v).to(DEVICE)
+                           for k, v in host.items()}
+                    sync()
+                    plain.append((time.perf_counter() - t0) * 1e3)
+                    del ref
+                for k, v in host.items():
+                    if not torch.equal(dev[k].cpu(),
+                                       torch.from_numpy(v).to(dev[k].dtype)):
+                        raise AssertionError(f"pinned copy of {k} differs")
+                del dev
+        mb = np.median(nbytes) / 2 ** 20
+        say(f"pinned copy: the {len(hosts)} batches of one epoch, twice, "
+            f"equal their numpy collate bit for bit; ms per batch (host "
+            f"clock, synchronized, medians) pinned {np.median(pinned[1]):.3f}"
+            f" (first pass, the ring growing: {np.median(pinned[0]):.3f}), "
+            f"plain .to(device) {np.median(plain):.3f}; MB per batch "
+            f"{mb:.2f} (largest {max(nbytes) / 2**20:.2f}): "
+            f"{np.median(nbytes) / np.median(pinned[1]) / 1e6:.2f} GB/s "
+            f"pinned, {np.median(nbytes) / np.median(plain) / 1e6:.2f} "
+            f"plain")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -4201,6 +4641,9 @@ def main() -> int:
     log("runtime phase (data, tasks, train loop, checkpoints, generate CLI):")
     rt_train_launches, cli_launches = runtime_phase(ctx, smi)
     del ctx
+    log("CLI phase (the three recipe stages, resume, torchrun, vocoder, "
+        "pipeline, parity, pinned copy):")
+    cli_train = cli_phase(smi)
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
@@ -4215,7 +4658,7 @@ def main() -> int:
                **{f"decode {tag}": v for tag, v in decoding.items()},
                "vocoder_training": voc_train,
                "runtime_train": rt_train_launches,
-               "cli_generate": cli_launches}
+               "cli_generate": cli_launches, "cli_train": cli_train}
     # the alternate backends launch on no other path
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in ALTERNATE_KERNELS if v[n]}

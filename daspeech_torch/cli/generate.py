@@ -172,12 +172,12 @@ def refuse_unported(args) -> None:
                                   + NOT_PORTED.format(item="#5"))
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str, prog: str = "generate") -> torch.device:
     """The device to run on; a CUDA device that is missing ends the run
     (exit code 1) before anything is written."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"generate: --device {name}, but no CUDA device is "
+        raise SystemExit(f"{prog}: --device {name}, but no CUDA device is "
                          "available; pass --device cpu to run on the CPU")
     return device
 

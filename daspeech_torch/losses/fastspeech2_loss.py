@@ -3,7 +3,8 @@
 Counterpart of ``daspeech_tpu/losses/fastspeech2_loss.py``: L1(mel) +
 MSE(log duration) + MSE(pitch) + MSE(energy), each averaged over the valid
 (unpadded) positions. The Postnet is not ported, so there is no postnet L1
-term.
+term. Under a data-parallel step the positions are counted over every rank
+(``parallel.multihost.global_sum``).
 """
 
 from __future__ import annotations
@@ -12,14 +13,18 @@ from typing import Dict, Tuple
 
 import torch
 
+from daspeech_torch.parallel.multihost import global_sum
+
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of x over the positions where mask is True (mask broadcast over
-    trailing dims); 0 when none is (``fastspeech2_loss.py:16-22``)."""
+    trailing dims); 0 when none is (``fastspeech2_loss.py:16-22``). Inside
+    ``multihost.data_parallel`` the count is the group's: the mean is this
+    rank's share of the global batch's."""
     while mask.dim() < x.dim():
         mask = mask[..., None]
     w = mask.expand(x.shape).to(torch.float32)
-    return (x * w).sum() / w.sum().clamp(min=1.0)
+    return (x * w).sum() / global_sum(w.sum()).clamp(min=1.0)
 
 
 def fastspeech2_losses(mel_out: torch.Tensor, log_dur_out: torch.Tensor,

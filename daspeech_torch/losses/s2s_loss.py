@@ -28,7 +28,7 @@ from daspeech_torch.losses.dag_loss import (
     compute_dag_loss,
     conditional_stop_gradient,
     device_generator,
-    glat_glance,
+    glance_pass,
 )
 from daspeech_torch.losses.fastspeech2_loss import fastspeech2_losses
 from daspeech_torch.models.layers import lengths_to_padding_mask
@@ -94,7 +94,10 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
                              training_strategy: str = "expect",
                              freeze_dag: bool = False,
                              freeze_encoder: bool = False,
-                             glat_draws: Optional[GlanceDraws] = None):
+                             glat_draws: Optional[GlanceDraws] = None,
+                             glance_strategy: Optional[str] = "number-random",
+                             no_force_emit: bool = False,
+                             train: bool = True):
     """Criterion forward of one joint training pass (``s2s_loss.py:95-273``,
     full-matrix path, ``number-random`` glance): (loss, metrics).
 
@@ -105,7 +108,9 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
     and optionally sample_mask [B]. ``freeze_dag`` (see :func:`dag_frozen`)
     stops every gradient into the DAG half (encoder and decoder) through
     the DAG loss and the TTS loss; ``freeze_encoder`` stops the encoder's.
-    ``glat_draws`` replaces the glance's own draws."""
+    ``glat_draws`` replaces the glance's own draws. ``train=False`` is the
+    validation loss (``cli/train.py:622-642``): an inference pass (no
+    dropout, BatchNorm's running statistics), without a glance."""
     if training_strategy not in ("expect", "argmax"):
         raise ValueError(training_strategy)
     fbank, src_lengths = batch["fbank"], batch["src_lengths"]
@@ -116,28 +121,28 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
     enc_seed, dec_seed, glat_seed, tts_seed = (
         int(s) for s in torch.randint(0, 2 ** 62, (4,), generator=rng))
 
-    enc, enc_pad, _ = model.encode(fbank, src_lengths,
-                                   rng=device_generator(dev, enc_seed))
+    def gen(seed):          # a training pass draws; validation does not
+        return device_generator(dev, seed) if train else None
+
+    enc, enc_pad, _ = model.encode(fbank, src_lengths, rng=gen(enc_seed))
     enc = conditional_stop_gradient(enc, freeze_encoder)
 
-    with torch.no_grad():
-        logits1, links1, _ = model.decode(
-            prev_output_tokens, enc, enc_pad,
-            rng=device_generator(dev, dec_seed))
-        info = glat_glance(logits1, links1, tgt_tokens, prev_output_tokens,
-                           glat_p, vocab.pad,
-                           rng=device_generator(dev, glat_seed),
-                           draws=glat_draws, sample_mask=sample_mask)
-    prev2 = info.prev_output_tokens
+    info = glance_pass(model, prev_output_tokens, enc, enc_pad, dec_seed,
+                       tgt_tokens, glat_p, vocab, glat_seed, glat_draws,
+                       sample_mask, glance_strategy if train else None)
+    prev2 = prev_output_tokens if info is None else info.prev_output_tokens
 
-    logits, links, features = model.decode(
-        prev2, enc, enc_pad, rng=device_generator(dev, dec_seed))
+    logits, links, features = model.decode(prev2, enc, enc_pad,
+                                           rng=gen(dec_seed))
     logits = conditional_stop_gradient(logits, freeze_dag)
     links = conditional_stop_gradient(links, freeze_dag)
     features = conditional_stop_gradient(features, freeze_dag)
     dagloss, metrics, alpha, beta = compute_dag_loss(
-        logits, links, tgt_tokens, prev2, vocab.pad, info.matchmask,
-        info.keep_word_mask, sample_mask=sample_mask, with_alpha_beta=True)
+        logits, links, tgt_tokens, prev2, vocab.pad,
+        None if info is None else info.matchmask,
+        None if info is None else info.keep_word_mask,
+        sample_mask=sample_mask, with_alpha_beta=True,
+        no_force_emit=no_force_emit)
 
     # ---- FastSpeech 2 over the selected hidden states
     if training_strategy == "expect":
@@ -155,7 +160,7 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
     energies = batch["energies"][:, :n]
     mel, _, log_dur_out, pitch_out, energy_out = model.synthesize(
         z, z_pad_mask, M, durations, pitches=pitches, energies=energies,
-        rng=device_generator(dev, tts_seed))
+        rng=gen(tts_seed))
 
     src_mask = ~z_pad_mask
     mel_mask = ~lengths_to_padding_mask(batch["target_audio_lengths"], M)
@@ -170,6 +175,7 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
     loss = dagloss + tts_loss * tts_loss_weight
     metrics.update(tts_metrics)
     metrics["loss"] = loss.detach()
-    metrics["glat_accu"] = info.glat_accu
-    metrics["glat_keep"] = info.glat_keep
+    if info is not None:
+        metrics["glat_accu"] = info.glat_accu
+        metrics["glat_keep"] = info.glat_keep
     return loss, metrics

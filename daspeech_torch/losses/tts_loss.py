@@ -18,7 +18,7 @@ from daspeech_torch.models.layers import lengths_to_padding_mask
 
 
 def fastspeech2_criterion(model, batch: Dict[str, torch.Tensor],
-                          rng: torch.Generator, vocab):
+                          rng: torch.Generator, vocab, train: bool = True):
     """Criterion forward of one training pass (``tts_loss.py:20-69``):
     (loss, metrics).
 
@@ -27,7 +27,8 @@ def fastspeech2_criterion(model, batch: Dict[str, torch.Tensor],
     [B, M, 80], target_audio_lengths [B], durations / pitches / energies
     [B, T] and optionally sample_mask [B] (0 = a bucket-fill duplicate).
     ``rng`` is a host ``torch.Generator``; the dropout draws come from a
-    device generator seeded by it (no device sync)."""
+    device generator seeded by it (no device sync). ``train=False`` is the
+    validation loss: an inference pass, without dropout."""
     tokens = batch["src_tokens"]
     mel_tgt = batch["target_audio"]
     M = mel_tgt.shape[1]
@@ -35,7 +36,7 @@ def fastspeech2_criterion(model, batch: Dict[str, torch.Tensor],
     mel, _, log_dur, pitch_out, energy_out = model(
         src_tokens=tokens, max_out_len=M, durations=batch["durations"],
         pitches=batch["pitches"], energies=batch["energies"],
-        rng=device_generator(tokens.device, seed))
+        rng=device_generator(tokens.device, seed) if train else None)
 
     src_mask = tokens != vocab.pad
     mel_mask = ~lengths_to_padding_mask(batch["target_audio_lengths"], M)

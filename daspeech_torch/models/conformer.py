@@ -26,6 +26,7 @@ from daspeech_torch.models.layers import (
 )
 from daspeech_torch.ops import fused_ffn as _ff
 from daspeech_torch.ops import fused_relpos as _fr
+from daspeech_torch.parallel import multihost as mh
 
 
 class Conv1dSubsampler(nn.Module):
@@ -124,16 +125,37 @@ class MaskedBatchNorm(nn.Module):
         if valid is None:
             mean, var = self.running_mean, self.running_var
         else:
-            w = valid[:, :, None].to(x.dtype)
-            n = torch.clamp(w.sum(), min=1.0)
-            mean = (x * w).sum(dim=(0, 1)) / n
-            var = (torch.square(x - mean) * w).sum(dim=(0, 1)) / n
+            if mh.step_group() is not None:
+                mean, var = self._group_statistics(x, valid)
+            else:
+                w = valid[:, :, None].to(x.dtype)
+                n = torch.clamp(w.sum(), min=1.0)
+                mean = (x * w).sum(dim=(0, 1)) / n
+                var = (torch.square(x - mean) * w).sum(dim=(0, 1)) / n
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.mul_(m).add_((1 - m) * mean)
                 self.running_var.mul_(m).add_((1 - m) * var)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+    @staticmethod
+    def _group_statistics(x: torch.Tensor, valid: torch.Tensor):
+        """The masked mean and biased variance of the valid frames of every
+        rank of the data-parallel step (``parallel.multihost``), in the
+        single-process arithmetic: the summed frames and their count give
+        the mean, then the summed centred squares the variance (not
+        E[x^2] - E[x]^2, which rounds otherwise). Both sums are reduced
+        differentiably: each rank's frames move every rank's statistics."""
+        w = valid[:, :, None].to(x.dtype)
+        C = x.shape[-1]
+        sums = mh.global_sum_autograd(torch.cat([(x * w).sum(dim=(0, 1)),
+                                                 w.sum()[None]]))
+        n = torch.clamp(sums[C], min=1.0)
+        mean = sums[:C] / n
+        var = mh.global_sum_autograd(
+            (torch.square(x - mean) * w).sum(dim=(0, 1))) / n
+        return mean, var
 
 
 class ConvolutionModule(nn.Module):

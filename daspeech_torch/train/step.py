@@ -1,9 +1,14 @@
 """The training step (PyTorch): value and grad, gradient accumulation, the
 NaN guard, global-norm clipping and the guarded Adam update.
 
-Counterpart of ``daspeech_tpu/train/step.py:21-115`` on one device. The
-step never reads a value back to the host: the skip decision is a device
-bool that gates the update (``train_state.guarded_adam_``).
+Counterpart of ``daspeech_tpu/train/step.py:21-115`` with
+``jit_data_parallel`` (``:149-167``). The step never reads a value back to
+the host: the skip decision is a device bool that gates the update
+(``train_state.guarded_adam_``). Given a process group, each rank runs the
+loss on its rows of the global batch under ``multihost.data_parallel``
+(counts and BatchNorm statistics over the group), and the gradients, the
+loss and the metrics are summed over the group before the norm, so that
+every rank clips by the same norm and takes the same skip decision.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from typing import Callable, Dict, List
 
 import torch
 
+from daspeech_torch.parallel import multihost as mh
 from daspeech_torch.train.train_state import GuardedAdam, TrainState
 
 
@@ -20,39 +26,61 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def _sum_metrics_(loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                  group):
+    """(loss, metrics) summed over ``group`` in one all-reduce (float64,
+    each value cast back to its own type). Under ``data_parallel`` every
+    loss term and metric is a rank's share of the global batch's value, so
+    their sum is the global value."""
+    keys = list(metrics)
+    vec = torch.stack([loss.double()]
+                      + [metrics[k].double().reshape(()) for k in keys])
+    torch.distributed.all_reduce(vec, group=group)
+    return (vec[0].to(loss.dtype),
+            {k: vec[i + 1].to(metrics[k].dtype) for i, k in enumerate(keys)})
+
+
 def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, group=None):
     """Build ``train_step(state, batch, rng) -> metrics``.
 
     ``loss_fn(model, batch, rng) -> (loss, metrics)``. ``accum_steps > 1``
-    is ``--update-freq`` accumulation: every batch tensor then carries a
-    leading microbatch axis [A, ...], and the gradients and the loss are
-    averaged over it. A non-finite loss or gradient norm skips the update
-    (``skipped`` = 1), leaving the parameters, moments and optimizer counts
-    untouched; BatchNorm statistics move either way, as in the JAX step."""
+    is ``--update-freq`` accumulation: ``batch`` is then a sequence of A
+    microbatches (the JAX step's leading [A, ...] axis), and the gradients
+    and the loss are averaged over them. A non-finite loss or gradient norm
+    skips the update (``skipped`` = 1), leaving the parameters, moments and
+    optimizer counts untouched; BatchNorm statistics move either way, as in
+    the JAX step.
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   rng: torch.Generator) -> Dict[str, torch.Tensor]:
+    ``group``: a ``torch.distributed`` process group for data parallelism
+    (module docstring); ``batch`` then holds this rank's rows only."""
+
+    def train_step(state: TrainState, batch, rng: torch.Generator
+                   ) -> Dict[str, torch.Tensor]:
         params = state.params
         for p in params:
             p.grad = None
-        if accum_steps == 1:
-            loss, metrics = loss_fn(state.model, batch, rng)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            losses, per_micro = [], []
-            for a in range(accum_steps):
-                mb = {k: v[a] for k, v in batch.items()}
-                micro_loss, m = loss_fn(state.model, mb, rng)
-                (micro_loss / accum_steps).backward()
-                losses.append(micro_loss.detach())
-                per_micro.append(m)
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([m[k].float() for m in per_micro]
-                                      ).mean() for k in per_micro[0]}
+        with mh.data_parallel(group):
+            if accum_steps == 1:
+                loss, metrics = loss_fn(state.model, batch, rng)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                losses, per_micro = [], []
+                assert len(batch) == accum_steps, len(batch)
+                for mb in batch:
+                    micro_loss, m = loss_fn(state.model, mb, rng)
+                    (micro_loss / accum_steps).backward()
+                    losses.append(micro_loss.detach())
+                    per_micro.append(m)
+                loss = torch.stack(losses).mean()
+                metrics = {k: torch.stack([m[k].float() for m in per_micro]
+                                          ).mean() for k in per_micro[0]}
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        if group is not None:
+            mh.all_reduce_grads_(grads, group)
+            loss, metrics = _sum_metrics_(loss, metrics, group)
         gnorm = global_norm(grads)
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
         state.opt_state = optimizer.update_(params, grads, state.opt_state,

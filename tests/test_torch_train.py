@@ -462,8 +462,7 @@ def test_accumulated_step_matches_one_big_batch(accum):
             lambda m, bb, rng: tloss.nat_dag_loss(m, bb, rng, 0.0,
                                                   cfg.vocab), opt,
             accum_steps=a)
-        batch = b if a == 1 else {k: torch.stack([x] * a)
-                                  for k, x in b.items()}
+        batch = b if a == 1 else [b] * a
         metrics = step(state, batch, torch.Generator().manual_seed(0))
         results.append((metrics["loss"], [p.detach() for p in state.params]))
     np.testing.assert_allclose(results[0][0].item(), results[1][0].item(),
