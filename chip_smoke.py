@@ -184,7 +184,30 @@ process.)
    of one epoch through the pinned copy against its numpy collate, bit
    for bit, timed against a plain ``.to(device)``; it prints the update
    ms, data wait, h2d, ``input_wait_frac``, save s and peak memory of
-   each stage, each beside the card's name and power limit.
+   each stage, each beside the card's name and power limit; and stages 1
+   and 2 again under ``--dtype bfloat16``, 4 updates each, stage 2 then
+   validating (stage 1's eval-BLEU needs sacrebleu), all finite;
+15. bf16 phase (``--dtype bfloat16``; it runs after the pretraining
+   phase): the bf16 entry points of #1, #2, #4 and #5 against their plain
+   bf16 versions at cell T's, J-long's and a serving shape (inference and
+   training forward and backward, within 2^-7 of the output's largest
+   magnitude; the links and dgates fp32), the same kernels as the fp32
+   call (names and counts under the profiler, and every wrapper's count;
+   these rows are taken in a process of their own, the script run with
+   ``--bf16-kernel-rows``),
+   and one row each in the kernels' JSON (forward + backward: kernel,
+   plain and SDPA ms in bf16, the bound at 989 TFLOP/s on the bf16
+   bytes); the card's bf16 step against the CPU's at T (B=2) and J-long
+   (B=1), dropout and GLAT off: ||card_bf16 - cpu_fp32|| <= 2
+   ||cpu_bf16 - cpu_fp32|| over the gradients (each scaled by its fp32
+   norm), each gradient within 8 times its own bar, the loss within it
+   (floored at 2^-8 of the loss); 13 updates at T, J-long and P in fp32
+   and then in bf16 (median of the last 10, device busy share of one
+   profiled update, peak memory; every bf16 launch of #1, #2, #4 and #5
+   on bf16 operands); 30 updates of S2TT at full width on one batch of
+   16 at a constant lr in each dtype, the bf16 run ending within 5% of
+   the fp32 one and below its first loss. No bf16 launch on any fp32 path
+   (asserted).
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -358,6 +381,8 @@ def reset_launches():
         w.launches = 0
         if hasattr(w, "train_launches"):
             w.train_launches = 0
+        if hasattr(w, "bf16_launches"):
+            w.bf16_launches = 0
         if hasattr(w, "cluster_launches"):
             w.cluster_launches.clear()
 
@@ -367,6 +392,9 @@ def read_launches():
     launches = {n: w.launches for n, w in counters.items()}
     launches.update({f"{n} training": counters[n].train_launches
                      for n in TRAIN_FORWARDS})
+    # of each count, the launches on bf16 operands (the bf16 entry points)
+    launches.update({f"{n} bf16": counters[n].bf16_launches
+                     for n in (*BF16_KERNELS, *BF16_KERNELS.values())})
     return launches
 
 
@@ -1798,6 +1826,15 @@ def profile_dir():
     return out_dir
 
 
+def busy_ms(events):
+    """The union of the kernel events' intervals, in ms."""
+    busy, end = 0.0, -1.0
+    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy / 1e3
+
+
 def device_busy(fn, tag):
     """``fn()`` once under ``torch.profiler``: the device's busy time
     (union of kernel intervals) against the wall time, and the kernels that
@@ -1809,11 +1846,7 @@ def device_busy(fn, tag):
         log(f"  {tag} profiled: wall {wall:.2f} ms; the profiler saw no "
             "kernels, device busy not measured")
         return None
-    busy, end = 0.0, -1.0
-    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    busy /= 1e3
+    busy = busy_ms(events)
     log(f"  {tag} profiled: wall {wall:.2f} ms, {len(events)} kernels, "
         f"device busy {busy:.2f} ms ({busy / wall:.3f} of wall)")
     by_name = {}
@@ -2832,6 +2865,503 @@ def fs2_phase():
         lambda: step(state, batch, torch.Generator()), "pretraining step P"),
         "pretraining step P")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# bf16 phase
+# ---------------------------------------------------------------------------
+
+PEAK_FLOPS_BF16 = 989e12  # bf16 tensor cores, dense
+BF16_BYTES = 2
+TOL_BF16 = 2.0 ** -7      # a bf16 kernel against its plain bf16 version, of
+#                           the output's largest magnitude (one bf16 ulp at 1)
+BF16_FLOOR = 1e-5         # absolute, for an output that is 0 exactly
+# each bf16 entry point (a row of the kernels line) -> its backward's counter
+BF16_KERNELS = {"fused_attention_packed": "fused_attention_packed_bwd",
+                "fused_attention": "fused_attention_bwd",
+                "fused_attention_relpos": "fused_attention_relpos_bwd",
+                "fused_extract_links": "fused_extract_links_bwd"}
+# card vs CPU in bf16, against the CPU in fp32: ||card_bf16 - cpu_fp32||
+# <= 2 ||cpu_bf16 - cpu_fp32|| over all gradients (each scaled by its fp32
+# norm), each gradient alone within BF16_PER_TENSOR times that bar, the
+# loss within it floored at one bf16 rounding of the loss
+# (tests/test_torch_bf16_train.py sets out why)
+BF16_PER_TENSOR = 8.0
+BF16_LOSS_FLOOR = 2.0 ** -8
+# the convergence run: S2TT at full width on one batch of 16, constant lr
+CONVERGE_B, CONVERGE_LR, CONVERGE_TOL = 16, 3e-4, 0.05
+
+
+def bf16_close(what, got, want):
+    """A bf16 kernel output against its plain bf16 version: the same dtype,
+    finite, within TOL_BF16 of the output's largest magnitude (or
+    BF16_FLOOR where that is smaller). Returns the max abs error."""
+    err = _max_err(got.float(), want.float())
+    tol = max(TOL_BF16 * want.float().abs().max().item(), BF16_FLOOR)
+    if (got.dtype != want.dtype or not torch.isfinite(got.float()).all()
+            or not err <= tol):
+        raise AssertionError(f"{what}: {got.dtype} vs {want.dtype}, max abs "
+                             f"err {err} > {tol}")
+    return err
+
+
+def same_kernels(name, run32, run16, expect):
+    """The fp32 and the bf16 call (forward and backward) launch the same
+    kernels (by name and count, under ``torch.profiler``; each name of
+    ``expect`` among them) and add the same counts to every wrapper's
+    ``launches``; returns the kernel count."""
+    seen = []
+    for tag, fn in (("fp32", run32), ("bf16", run16)):
+        before = read_launches()
+        # a first kernel in the profiled window (a fill) that the
+        # comparison leaves out: the profiler has been seen to miss the
+        # window's first kernel
+        events, _ = profiled_kernels(
+            lambda fn=fn: (torch.ones(1, device="cuda"), fn()),
+            f"bf16_same_kernels_{name}_{tag}")
+        after = read_launches()
+        seen.append((sorted(e["name"] for e in events
+                            if "daspeech" in e["name"]),
+                     {k: after[k] - before[k] for k in after
+                      if not k.endswith(" bf16")}))
+    if seen[0] != seen[1] or not all(any(x in n for n in seen[0][0])
+                                     for x in expect):
+        raise AssertionError(f"{name}: the bf16 call launches "
+                             f"{seen[1]}, the fp32 call {seen[0]}")
+    log(f"  {name} bf16: the same {len(seen[0][0])} kernels as the fp32 "
+        f"call ({', '.join(sorted(set(n[:40] for n in seen[0][0])))})")
+    return len(seen[0][0])
+
+
+def bf16_kernel_rows():
+    """Each bf16 entry point (#1, #2, #4, #5) against its plain bf16
+    version at cell T's, J-long's and a serving shape: the inference and
+    the training forward and the backward, and (forward + backward) the
+    kernels', the plain version's and SDPA's bf16 times beside the bound at
+    989 TFLOP/s and on the bf16 bytes. Returns the rows."""
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_links as fl
+    from daspeech_torch.ops import fused_relpos as fr
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 40)
+    rows = {f"{n} bf16": [] for n in BF16_KERNELS}
+
+    def row(name, shape, err, run_kernel, run_plain, flops, nbytes,
+            run_library, **extra):
+        ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
+        lib_ms = cuda_ms(run_library) if run_library is not None else None
+        b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_BF16)
+        rows[f"{name} bf16"].append({
+            "shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, **extra})
+        log(f"  {name} bf16 {shape}, forward (training) + backward: max abs "
+            f"err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by})  library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+
+    def bf16(*shape, scale=1.0):
+        return _randn(g, *shape, scale=scale).to(bf)
+
+    # --- #1 packed: cell T's decoder self-attention (dropout 0.1), J-long's
+    # cross-attention (700 x 350) and serving A's self-attention
+    for i, (tag, B, Tq, Tk, H, p) in enumerate((
+            ("T", 80, 240, 240, 8, 0.1), ("J-long", 14, 700, 350, 8, 0.1),
+            ("serving A", 8, 240, 240, 8, 0.0))):
+        C, d = H * 64, 64
+        q = bf16(B, Tq, C, scale=d ** -0.5)
+        k, v, do = bf16(B, Tk, C), bf16(B, Tk, C), bf16(B, Tq, C)
+        bias = _key_bias(B, Tk, g)
+        seeds = _seeds(g, B) if p else None
+        shape = f"{tag} q[{B},{Tq},{C}] kv_T={Tk} H={H} p={p}"
+        want = fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds)
+        err = bf16_close(f"#1 bf16 {shape} inference", fa.attention_fwd_kernel(
+            q, k, v, bias, H, 1.0, p, seeds)[0], want)
+        out, st = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                          with_stats=True)
+        err = max(err, bf16_close(f"#1 bf16 {shape} training", out, want))
+        for x, w in zip(fa.attention_bwd_kernel(q, k, v, bias, out, st, do, H,
+                                                1.0, p, seeds),
+                        fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p,
+                                               seeds)):
+            err = max(err, bf16_close(f"#1 bf16 {shape} backward", x, w))
+
+        def run(q=q, k=k, v=v, do=do, bias=bias, seeds=seeds):
+            o, s = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                           with_stats=True)
+            return fa.attention_bwd_kernel(q, k, v, bias, o, s, do, H, 1.0,
+                                           p, seeds)
+
+        extra = {}
+        if i == 0:
+            f32 = [x.float() for x in (q, k, v, do)]
+            extra["same_kernels_as_fp32"] = same_kernels(
+                "fused_attention_packed", lambda: run(*f32), run,
+                (FMA_FORWARD, *TC_KERNELS[1:3]))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        h4 = lambda x: x.reshape(B, x.shape[1], H, d).transpose(1, 2)  # noqa: E731,E501
+        mask = bias.to(bf)[:, None, None, :]
+        row("fused_attention_packed", shape, err, run,
+            lambda: fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p,
+                                           seeds)
+            + (fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds),),
+            14 * B * H * Tq * Tk * d,
+            (4 * B * Tq * C + 4 * B * Tk * C) * BF16_BYTES + B * Tk * F32,
+            lambda: torch.autograd.grad(
+                torch.nn.functional.scaled_dot_product_attention(
+                    *(h4(x) for x in leaves), attn_mask=mask, dropout_p=p,
+                    scale=1.0), leaves, h4(do)), **extra)
+
+    # --- #2 head-major: J-long's FastSpeech 2 decoder (1040 frames) and
+    # DAG self-attention (700 vertices, dropout 0.1), serving B's decoder
+    for i, (tag, B, H, T, p) in enumerate((
+            ("J-long FS2", 14, 4, 1040, 0.0), ("J-long DAG", 14, 8, 700, 0.1),
+            ("serving B FS2", 2, 4, 1040, 0.0))):
+        d = 64
+        q = bf16(B, H, T, d, scale=d ** -0.5)
+        k, v, do = bf16(B, H, T, d), bf16(B, H, T, d), bf16(B, H, T, d)
+        bias = _key_bias(B, T, g)
+        seeds = _seeds(g, B) if p else None
+        shape = f"{tag} [{B},{H},{T},{d}] p={p}"
+        want = fa.attention_hm_plain(q, k, v, bias, 1.0, p, seeds)
+        err = bf16_close(f"#2 bf16 {shape} inference",
+                         fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p,
+                                                    seeds)[0], want)
+        out, st = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
+                                             with_stats=True)
+        err = max(err, bf16_close(f"#2 bf16 {shape} training", out, want))
+        for x, w in zip(fa.attention_hm_bwd_kernel(q, k, v, bias, out, st, do,
+                                                   1.0, p, seeds),
+                        fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p,
+                                                  seeds)):
+            err = max(err, bf16_close(f"#2 bf16 {shape} backward", x, w))
+
+        def run(q=q, k=k, v=v, do=do, bias=bias, seeds=seeds):
+            o, s = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
+                                              with_stats=True)
+            return fa.attention_hm_bwd_kernel(q, k, v, bias, o, s, do, 1.0,
+                                              p, seeds)
+
+        extra = {}
+        if i == 0:
+            f32 = [x.float() for x in (q, k, v, do)]
+            extra["same_kernels_as_fp32"] = same_kernels(
+                "fused_attention", lambda: run(*f32), run,
+                (FMA_FORWARD, *TC_KERNELS[1:3]))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        mask = bias.to(bf)[:, None, None, :]
+        row("fused_attention", shape, err, run,
+            lambda: fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p,
+                                              seeds)
+            + (fa.attention_hm_plain(q, k, v, bias, 1.0, p, seeds),),
+            14 * B * H * T * T * d,
+            8 * B * H * T * d * BF16_BYTES + B * T * F32,
+            lambda: torch.autograd.grad(
+                torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, dropout_p=p, scale=1.0),
+                leaves, do), **extra)
+
+    # --- #5 rel-pos: cell T's encoder (dropout 0.1), J-long's (350
+    # frames) and serving A's (inference shape, here forward + backward)
+    for i, (tag, B, T, p) in enumerate((("T", 80, 120, 0.1),
+                                        ("J-long", 14, 350, 0.1),
+                                        ("serving A", 8, 120, 0.0))):
+        H, C, P = 4, 256, fr.POS_DIM
+        d = C // H
+        q, k, v, do = (bf16(B, T, C, scale=0.5) for _ in range(4))
+        a = bf16(B, T, H * P, scale=0.1)
+        e = fr.relpos_basis(T, P, device="cuda")[2].to(bf).contiguous()
+        bias = _key_bias(B, T, g)
+        seeds = _seeds(g, B) if p else None
+        sc = 1.0 / math.sqrt(d)
+        shape = f"{tag} [{B},{T},{C}] H={H} p={p}"
+        want = fr.relpos_plain(q, k, v, a, e, bias, H, sc, p, seeds)
+        err = bf16_close(f"#5 bf16 {shape} inference", fr.relpos_fwd_kernel(
+            q, k, v, a, e, bias, H, sc, p, seeds)[0], want)
+        out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p, seeds,
+                                       with_stats=True)
+        err = max(err, bf16_close(f"#5 bf16 {shape} training", out, want))
+        for x, w in zip(fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st,
+                                             do, H, sc, p, seeds),
+                        fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc,
+                                            p, seeds)):
+            err = max(err, bf16_close(f"#5 bf16 {shape} backward", x, w))
+
+        def run(q=q, k=k, v=v, a=a, e=e, do=do, bias=bias, seeds=seeds):
+            o, s = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, sc, p, seeds,
+                                        with_stats=True)
+            return fr.relpos_bwd_kernel(q, k, v, a, e, bias, o, s, do, H, sc,
+                                        p, seeds)
+
+        extra = {}
+        if i == 0:
+            f32 = [x.float() for x in (q, k, v, a, e, do)]
+            extra["same_kernels_as_fp32"] = same_kernels(
+                "fused_attention_relpos", lambda: run(*f32), run,
+                (FMA_FORWARD, "attn_tc_chunk_ds_kernel",
+                 "attn_tc_grad_kernel"))
+        ops = relpos_sdpa_operands(q, k, v, a, e, bias.to(bf), H)
+        leaves = [x.detach().requires_grad_(True) for x in ops[:3]]
+        do4 = do.reshape(B, T, H, d).transpose(1, 2)
+        row("fused_attention_relpos", shape, err, run,
+            lambda: fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, sc, p,
+                                        seeds)
+            + (fr.relpos_plain(q, k, v, a, e, bias, H, sc, p, seeds),),
+            2 * B * H * T * T * (7 * d + 3 * P),
+            (9 * B * T * C + 2 * B * T * H * P + T * P) * BF16_BYTES
+            + B * T * F32,
+            lambda: torch.autograd.grad(
+                relpos_sdpa(*leaves, ops[3], sc, p), leaves, do4),
+            library_prep_ms=cuda_ms(lambda: relpos_sdpa_operands(
+                q, k, v, a, e, bias.to(bf), H)), **extra)
+        del ops, leaves
+
+    # --- #4 links: cell T's [80, 240], J-long's [14, 700], serving A's
+    for i, (tag, B, L) in enumerate((("T", 80, 240), ("J-long", 14, 700),
+                                     ("serving A", 8, 240))):
+        C, H = 512, 8
+        dkh = C // H
+        q, k = bf16(B, L, C, scale=0.5), bf16(B, L, C)
+        gates = torch.log_softmax(_randn(g, B, L, H), dim=-1)
+        ol = torch.randint(L // 2, L + 1, (B,), generator=g)
+        ol[0] = L
+        n_valid = int(sum(int(n) * (int(n) - 1) // 2 for n in ol))
+        ol = ol.cuda()
+        sc = 1.0 / math.sqrt(dkh)
+        dlinks = _randn(g, B, L, L)
+        shape = f"{tag} [{B},{L}] C={C} H={H}"
+        links, lse = fl.links_fwd_kernel(q, k, gates, ol, H, sc, None,
+                                         with_lse=True)
+        want = fl.links_plain(q, k, gates, ol, H, sc, None)
+        if links.dtype != torch.float32 or lse.dtype != torch.float32:
+            raise AssertionError(f"#4 bf16 {shape}: links {links.dtype}, "
+                                 f"lse {lse.dtype}")
+        err = _finite_err(links, want, f"#4 bf16 links {shape}")
+        got = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H, sc,
+                                  None)
+        wq, wk, wg = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, None)
+        err = max(err, bf16_close(f"#4 bf16 {shape} dq", got[0], wq),
+                  bf16_close(f"#4 bf16 {shape} dk", got[1], wk))
+        dg_err = _max_err(got[2], wg)
+        if got[2].dtype != torch.float32 or not dg_err <= TOL_KERNEL:
+            raise AssertionError(f"#4 bf16 {shape} dgates: {got[2].dtype}, "
+                                 f"{dg_err}")
+        err = max(err, dg_err)
+
+        def run(q=q, k=k, gates=gates, ol=ol, dlinks=dlinks):
+            lk, ls = fl.links_fwd_kernel(q, k, gates, ol, H, sc, None,
+                                         with_lse=True)
+            return fl.links_bwd_kernel(q, k, gates, ol, lk, ls, dlinks, H,
+                                       sc, None)
+
+        extra = {}
+        if i == 0:
+            f32 = [q.float(), k.float()]
+            extra["same_kernels_as_fp32"] = same_kernels(
+                "fused_extract_links", lambda: run(*f32), run,
+                (*LINKS_FMA, *LINKS_TC))
+        row("fused_extract_links", shape, err, run,
+            lambda: fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, None)
+            + (fl.links_plain(q, k, gates, ol, H, sc, None),),
+            8 * n_valid * H * dkh,
+            4 * B * L * C * BF16_BYTES
+            + (2 * B * L * H + 2 * B * L * L) * F32, None, **extra)
+    return rows
+
+
+def bf16_kernel_rows_apart():
+    """:func:`bf16_kernel_rows` in a fresh process (this script with
+    ``--bf16-kernel-rows``, the library already built): late in a long
+    process the profiler has been seen to lose every kernel of a short
+    window, which the same-kernels check profiles."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--bf16-kernel-rows"], capture_output=True,
+                         text=True, cwd=here, timeout=900)
+    for line in out.stderr.splitlines():
+        if "UserWarning" not in line and "_warn_once" not in line:
+            log(line)
+    if out.returncode != 0 or not out.stdout.strip():
+        raise AssertionError(f"the bf16 kernel rows failed: rc "
+                             f"{out.returncode}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def busy_share(fn, tag):
+    """(device busy ms, wall ms) of one ``fn()`` under ``torch.profiler``
+    (the union of its kernel intervals), or (None, wall)."""
+    events, wall = profiled_kernels(fn, tag)
+    return (busy_ms(events) if events else None), wall
+
+
+def bf16_vs_cpu(tag, model_cpu, loss_fn, batch):
+    """The card's bf16 step against the CPU's fp32 one, each gradient and
+    the loss, held to the CPU's own bf16 step (the bars above BF16_KERNELS'
+    definition). Dropout 0 and GLAT 0 in ``loss_fn``."""
+    from daspeech_torch.models.layers import set_dtype
+
+    runs = []
+    for dev, dt in ((DEVICE, torch.bfloat16), ("cpu", torch.bfloat16),
+                    ("cpu", torch.float32)):
+        model = set_dtype(copy.deepcopy(model_cpu), dt).to(dev).train()
+        t0 = time.perf_counter()
+        loss, grads, _ = loss_and_grads(
+            model, {k: v.to(dev) for k, v in batch.items()}, SEED, loss_fn)
+        sync()
+        runs.append((loss.item(), [x.cpu().double() for x in grads]))
+        log(f"  {tag} {dev} {str(dt)[6:]}: loss {loss.item():.6f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    (lk, gk), (lb, gb), (lf, gf) = runs
+    names = [n for n, _ in model_cpu.named_parameters()]
+    loss_bar = max(2 * abs(lb - lf), BF16_LOSS_FLOOR * abs(lf))
+    card = cpu = 0.0
+    worst = (0.0, "")
+    # a key projection's bias has an exact gradient of 0: each tensor's
+    # scale is floored at 1e-4 of the global norm (as grad_errors')
+    floor = 1e-4 * math.sqrt(sum(float(f.norm()) ** 2 for f in gf))
+    per = []
+    for n, a, b, f in zip(names, gk, gb, gf):
+        scale = max(float(f.norm()), floor)
+        da, db = float((a - f).norm()), float((b - f).norm())
+        card += (da / scale) ** 2
+        cpu += (db / scale) ** 2
+        ratio = da / max(2 * db, 1e-6 * scale)
+        worst = max(worst, (ratio, n))
+        per.append((da / scale, db / scale, n))
+    card, cpu = card ** 0.5, cpu ** 0.5
+    for da, db, n in sorted(per, reverse=True)[:5]:
+        log(f"    {n}: ||card - fp32|| {da:.3g}, ||CPU bf16 - fp32|| {db:.3g}"
+            " of its fp32 norm")
+    log(f"  {tag}: loss card bf16 {lk:.6f}, CPU bf16 {lb:.6f}, CPU fp32 "
+        f"{lf:.6f} (|card - fp32| {abs(lk - lf):.3g} <= {loss_bar:.3g}); "
+        f"gradients, each scaled by its fp32 norm: ||card - fp32|| {card:.4g}"
+        f" <= 2 ||CPU bf16 - fp32|| = {2 * cpu:.4g}; worst tensor "
+        f"{worst[1]} at {worst[0]:.3g} of its own bar (<= "
+        f"{BF16_PER_TENSOR})")
+    if not (abs(lk - lf) <= loss_bar and card <= 2 * cpu
+            and worst[0] <= BF16_PER_TENSOR):
+        raise AssertionError(f"{tag}: the card's bf16 step is not a bf16 "
+                             "step of the CPU's")
+    return {"card_vs_fp32": card, "cpu_bf16_vs_fp32": cpu,
+            "worst_ratio": worst[0]}
+
+
+def bf16_phase():
+    """bf16 compute on the card (``--dtype bfloat16``): the bf16 entry
+    points of #1, #2, #4 and #5; the bf16 updates of ``make_train_step`` at
+    T, J-long and P beside fp32's in the same call (median of 10 after 3
+    warm-ups, device busy share, peak memory); the card's bf16 step against
+    the CPU's at T (B=2) and J-long (B=1); 30 updates of S2TT in bf16 and in fp32.
+    Returns (rows, launches by path)."""
+    from daspeech_torch.config import FastSpeech2Config, VocabConfig
+    from daspeech_torch.models import (FastSpeech2Encoder,
+                                       S2SConformerDAGFastSpeech2,
+                                       S2TConformerDAG)
+    from daspeech_torch.models.layers import set_dtype
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    bf = torch.bfloat16
+    rows = bf16_kernel_rows_apart()
+
+    # --- card vs CPU, dropout 0 and GLAT 0 (T at B=2, J-long at B=1: the
+    # CPU's bf16 step is several times slower than its fp32 one)
+    cfg, no_drop = train_configs()
+    model_s2t = init_random_(S2TConformerDAG(cfg), SEED)
+    ref = S2TConformerDAG(no_drop)
+    ref.load_state_dict(model_s2t.state_dict())
+    parity = {"T": bf16_vs_cpu(
+        "S2TT T bf16 step B=2", ref, loss_fn_for(no_drop, 0.0),
+        make_train_batch(2, TRAIN_S, TRAIN_T, no_drop, SEED + 41, "cpu"))}
+    jcfg, jno_drop = joint_configs()
+    model_joint = init_random_(S2SConformerDAGFastSpeech2(jcfg), SEED)
+    jref = S2SConformerDAGFastSpeech2(jno_drop)
+    jref.load_state_dict(model_joint.state_dict())
+    _, S, T, M, dur = JOINT_SHAPES["J-long"]
+    parity["J-long"] = bf16_vs_cpu(
+        "joint J-long bf16 step B=1", jref, joint_loss_fn(jno_drop, 0.0),
+        make_joint_batch(1, S, T, M, dur, jno_drop, SEED + 42, "cpu"))
+
+    # --- updates at T, J-long and P: fp32, then bf16, in turns
+    vocab = VocabConfig(size=128)
+    model_fs2 = init_random_(FastSpeech2Encoder(FastSpeech2Config(),
+                                                vocab.size), SEED + 20)
+    B, Tp, Mp, durp = P_SHAPE
+    configs = {
+        "T": (model_s2t, loss_fn_for(cfg, 0.5), lambda: make_train_batch(
+            TRAIN_B, TRAIN_S, TRAIN_T, cfg, SEED + 4, DEVICE)),
+        "J-long": (model_joint, joint_loss_fn(jcfg, 0.5),
+                   lambda: make_joint_batch(*JOINT_SHAPES["J-long"], jcfg,
+                                            SEED + 12, DEVICE)),
+        "P": (model_fs2, fs2_loss_fn(vocab), lambda: make_fs2_batch(
+            B, Tp, Mp, durp, vocab, SEED + 22, DEVICE))}
+    updates, by_path = {}, {}
+    for tag, (model_cpu, loss_fn, make_batch) in configs.items():
+        batch = make_batch()
+        for dt in (torch.float32, bf):
+            name = "bf16" if dt == bf else "fp32"
+            model = set_dtype(copy.deepcopy(model_cpu), dt).to(DEVICE)
+            opt = GuardedAdam()
+            state = TrainState.create(model, opt)
+            step = make_train_step(loss_fn, opt)
+            med, iqr, launches, peak, _ = timed_updates(
+                step, state, batch, 3, 10, f"{tag} {name} update")
+            busy, wall = busy_share(lambda: step(state, batch,
+                                                 torch.Generator()),
+                                    f"bf16 phase {tag} {name} step")
+            share = None if busy is None else busy / wall
+            log(f"  {tag} {name}: device busy "
+                + ("not measured" if busy is None else
+                   f"{busy:.2f} of {wall:.2f} ms ({share:.3f})"))
+            updates[(tag, name)] = {"ms": med, "iqr": iqr, "peak_gib": peak,
+                                    "busy_ms": busy, "busy_share": share}
+            if dt == bf:
+                by_path[f"bf16_{tag}"] = launches
+                own = {n: launches[f"{n} bf16"] for n in BF16_KERNELS} | {
+                    b: launches[f"{b} bf16"] for b in BF16_KERNELS.values()}
+                wanted = (("fused_attention_packed", "fused_attention")
+                          if tag == "P" else
+                          tuple(BF16_KERNELS) if tag == "J-long" else
+                          ("fused_attention_packed", "fused_attention_relpos",
+                           "fused_extract_links"))
+                if any(own[n] <= 0 or own[n] != launches[n] for n in wanted) \
+                        or any(own[n] != launches[n] for n in own):
+                    raise AssertionError(f"{tag} bf16 updates: bf16 launches "
+                                         f"{own}, all {launches}")
+                log(f"  {tag} bf16 launches over 13 updates: {own}")
+            del model, opt, state, step
+            torch.cuda.empty_cache()
+        f32, b16 = updates[(tag, "fp32")], updates[(tag, "bf16")]
+        log(f"  {tag}: bf16 {b16['ms']:.3f} ms an update against fp32 "
+            f"{f32['ms']:.3f} ({b16['ms'] / f32['ms']:.3f}); peak "
+            f"{b16['peak_gib']:.2f} against {f32['peak_gib']:.2f} GiB")
+
+    # --- convergence: 30 updates of S2TT at full width on one batch of
+    # CONVERGE_B, constant lr, dropout 0 and GLAT 0, in bf16 and in fp32
+    batch = make_train_batch(CONVERGE_B, TRAIN_S, TRAIN_T, no_drop, SEED + 43,
+                             DEVICE)
+    curves = {}
+    for dt in (torch.float32, bf):
+        model = set_dtype(copy.deepcopy(ref), dt).to(DEVICE)
+        opt = GuardedAdam(lr=CONVERGE_LR, warmup_updates=10 ** 6,
+                          warmup_init_lr=CONVERGE_LR)
+        state = TrainState.create(model, opt)
+        step = make_train_step(loss_fn_for(no_drop, 0.0), opt)
+        gen = torch.Generator().manual_seed(SEED + 44)
+        losses = [step(state, batch, gen)["loss"] for _ in range(LEARN_STEPS)]
+        curves[dt] = [x.item() for x in losses]
+        log(f"  {LEARN_STEPS} updates, B={CONVERGE_B}, lr {CONVERGE_LR} "
+            f"constant, {str(dt)[6:]}: loss {curves[dt][0]:.4f} -> "
+            f"{curves[dt][-1]:.4f}; every fifth: "
+            + " ".join(f"{x:.3f}" for x in curves[dt][::5]))
+    f_end, b_first, b_end = curves[torch.float32][-1], curves[bf][0], \
+        curves[bf][-1]
+    if not (abs(b_end - f_end) <= CONVERGE_TOL * abs(f_end)
+            and b_end < b_first):
+        raise AssertionError(f"bf16 convergence: {b_first} -> {b_end}, fp32 "
+                             f"ends at {f_end}")
+    return rows, by_path, {"updates": updates, "parity": parity,
+                           "curves": curves}
 
 
 # ---------------------------------------------------------------------------
@@ -4135,6 +4665,7 @@ CLI_DEV = 8               # utterances of the valid split
 CLI_TTS_SENTENCES = 16    # --max-sentences of stage 2
 CLI_VOC = (16, 3 * 8192 + 2048)   # vocoder TSV: waveforms, samples each
 CLI_VOC_UPDATES = 20
+CLI_BF16_UPDATES = 4      # stages 1 and 2 under --dtype bfloat16
 TOL_CLI_LOSS = 1e-5       # stage 3's first update against make_train_step
 LOG_ROUNDING = 5e-5       # the progress log's 4 decimals
 
@@ -4287,6 +4818,34 @@ def cli_phase(smi):
             raise AssertionError("stage 1's encoder freezing")
         if train.CheckpointManager(root / "s1").all_steps() != [3, 6]:
             raise AssertionError("stage 1's checkpoints")
+
+        # --- stages 1 and 2 in bf16 (--dtype bfloat16), 4 updates each;
+        # stage 2 then validates (the valid loss). Stage 1's validation is
+        # eval-BLEU, and sacrebleu is not installed on the card's machine
+        for tag, argv, key in (
+                ("stage 1", ["--task", "nat_speech_to_text", "--criterion",
+                             "nat_dag_loss", "--valid-subset", "none"], None),
+                ("stage 2", ["--task", "text_to_speech", "--criterion",
+                             "fastspeech2", "--max-sentences",
+                             str(CLI_TTS_SENTENCES), "--valid-subset", "dev",
+                             "--validate-interval-updates",
+                             str(CLI_BF16_UPDATES)], "valid_loss")):
+            rc, recs, _, stb, wall, peak = run_train_cli(base + argv + [
+                "--dtype", "bfloat16", "--save-dir",
+                str(root / f"{tag.replace(' ', '')}_bf16"), "--max-update",
+                str(CLI_BF16_UPDATES), "--save-interval-updates", "1000",
+                "--log-interval", "1"])
+            stage_line(f"{tag} in bf16 (--dtype bfloat16)", stb, wall, peak)
+            losses = [r["loss"] for r in recs
+                      if r["tag"] == "train" and not r.get("done")]
+            valid = [r for r in recs if r["tag"] == "valid"]
+            say(f"{tag} in bf16: losses {losses}; validation {valid}")
+            if (rc != 0 or len(losses) != CLI_BF16_UPDATES
+                    or not np.isfinite(losses).all()
+                    or (key is not None and (
+                        len(valid) != 1 or not np.isfinite(valid[0][key])))):
+                raise AssertionError(f"{tag} in bf16: rc {rc}, losses "
+                                     f"{losses}, validation {valid}")
 
         # --- stage 2: FastSpeech 2 pretraining
         rc, _, _, st2, wall, peak = run_train_cli(base + [
@@ -4594,9 +5153,13 @@ def main() -> int:
     _build.library()
     if parent is not None:
         parent.join()
-        PARENT["lib"] = _build.load(PARENT["build"].path)
+        PARENT["lib"] = _build.load(PARENT["build"].path, strict=False)
         log(f"parent tree's kernels built in {PARENT['build'].seconds:.1f} s "
             f"-> {PARENT['build'].path}")
+    if "--bf16-kernel-rows" in sys.argv:
+        # the bf16 phase's kernel rows, in a process of their own
+        print(json.dumps(bf16_kernel_rows()))
+        return 0
     if b"15attn_fwd_kernel" in built.path.read_bytes():
         raise AssertionError("a SIMT attention forward (attn_fwd_kernel) is "
                              "in the kernel library")
@@ -4628,6 +5191,11 @@ def main() -> int:
     joint = joint_phase()
     log("FastSpeech 2 pretraining phase:")
     pretrain = fs2_phase()
+    # before the later phases: late in a long process the profiler has
+    # been seen to lose kernel events, which the bf16 phase's profiles read
+    log("bf16 phase (--dtype bfloat16: #1, #2, #4, #5 in bf16, the updates "
+        "at T, J-long and P, card vs CPU, convergence):")
+    bf16_rows, bf16_paths, _ = bf16_phase()
     log("vocoder-mode phase:")
     vocoder, voc_cpu = vocoder_phase(mels)
     log("TTS phase:")
@@ -4674,6 +5242,13 @@ def main() -> int:
         raise AssertionError(f"training forwards on serving paths: {trained}")
     log("  training forwards on the serving, vocoder, TTS, decode-strategy "
         "and CLI paths: 0")
+    # the bf16 entry points launch on the bf16 paths only
+    stray = {(p, n): v[n] for p, v in by_path.items()
+             for n in v if n.endswith(" bf16") and v[n]}
+    if stray:
+        raise AssertionError(f"bf16 launches on fp32 paths: {stray}")
+    log("  bf16 launches on every fp32 path: 0")
+    by_path.update(bf16_paths)
     by_path.update({"alternates_ffn": alternates["fused"],
                     "alternates_full_bias": alternates["full_bias"]})
     kernels = []
@@ -4697,6 +5272,24 @@ def main() -> int:
             "launches": by_path[main_path][name],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
             **train,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shapes": shapes})
+    # the bf16 entry points: launches from the bf16 updates at T (#1, #4,
+    # #5) and J-long (#2); forward and backward timed as one row
+    for name, shapes in bf16_rows.items():
+        base = name[:-len(" bf16")]
+        src, replaces = KERNELS[base]
+        main_path = "bf16_J-long" if base == "fused_attention" else "bf16_T"
+        first = shapes[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": by_path[main_path][name],
+            "bwd_launches": by_path[main_path][f"{BF16_KERNELS[base]} bf16"],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            "same_kernels_as_fp32": first["same_kernels_as_fp32"],
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -21,7 +21,10 @@ dropout), link extraction (forward and backward), the DAG alpha/beta
 recursion and the Viterbi alignment on the card; CPU tensors take each
 kernel's plain PyTorch version instead.
 
-Serving and training run in float32, as the JAX default does. Importing this
+Serving and training run in float32, as the JAX default does; a model given
+``dtype=torch.bfloat16`` (``cli.train --dtype bfloat16``) computes in bf16
+on fp32 parameters, as JAX's ``--dtype bfloat16`` does, and the attention,
+rel-pos and link kernels take bf16 operands. Importing this
 package sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
 ``torch.backends.cudnn.allow_tf32 = False``: cuDNN convolutions otherwise
 default to TF32, which holds only about three decimal digits.

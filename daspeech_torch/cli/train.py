@@ -162,7 +162,9 @@ def parse_args(argv=None):
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 is not ported yet and raises")
+                   help="model compute dtype (parameters, gradients and "
+                        "Adam stay fp32; the DAG DP and every loss run "
+                        "fp32); validation runs in it too")
     p.add_argument("--heartbeat-timeout", type=float, default=-1,
                    help="kill the process (stack dump + SIGINT) if no "
                         "update completes for N seconds; <= 0 disables; "
@@ -176,9 +178,6 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the options whose modules are not ported, naming their
     ROADMAP item."""
-    if args.dtype == "bfloat16":
-        raise NotImplementedError("--dtype bfloat16 "
-                                  + NOT_PORTED.format(item="#5"))
     if args.criterion in ("tts_transformer", "s2s_multidecoder"):
         raise NotImplementedError(f"--criterion {args.criterion} "
                                   + NOT_PORTED.format(item="#6"))
@@ -310,12 +309,16 @@ def build(args, device, group=None) -> Run:
     cfg = build_model_cfg(args.criterion, args.model_yaml, vocab)
     is_s2s = args.criterion == "s2s_dag_fastspeech2_loss"
     is_tts = args.criterion == "fastspeech2"
+    # bf16 compute on fp32 parameters, as JAX's --dtype bfloat16 (which
+    # replaces the reference's fp16 AMP and loss scaler)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if is_tts:
-        model = FastSpeech2Encoder(cfg, vocab_size=vocab.size, pad=vocab.pad)
+        model = FastSpeech2Encoder(cfg, vocab_size=vocab.size, pad=vocab.pad,
+                                   dtype=dtype)
     elif is_s2s:
-        model = S2SConformerDAGFastSpeech2(cfg)
+        model = S2SConformerDAGFastSpeech2(cfg, dtype=dtype)
     else:
-        model = S2TConformerDAG(cfg)
+        model = S2TConformerDAG(cfg, dtype=dtype)
     init_weights_(model, torch.Generator().manual_seed(args.seed))
     if args.load_pretrained_dag_from or args.load_pretrained_fastspeech_from:
         load_pretrained_(model, args.load_pretrained_dag_from,
@@ -460,7 +463,8 @@ def make_validator(args, run: Run, device):
                 tokens = torch.as_tensor(b["src_tokens"], device=device)
                 mel, out_lens = model(src_tokens=tokens.long(),
                                       max_out_len=2 * M)[:2]
-                mel, out_lens = mel.cpu().numpy(), out_lens.cpu().numpy()
+                mel = mel.float().cpu().numpy()
+                out_lens = out_lens.cpu().numpy()
                 for i in range(len(idxs)):
                     if b["sample_mask"][i] == 0 or len(vals) >= per_proc:
                         break

@@ -26,6 +26,21 @@
 // attention_tc.cuh's (tensor cores, 3xTF32); the tile primitives both use
 // are tiles.cuh's.
 //
+// Element type: every operand, output and gradient view is fp32 or, with its
+// bf16 flag set, bf16 in device memory (the _bf16 entry points). The tiles
+// in shared memory, the products, the softmax and its statistics, the bias,
+// delta and every scratch buffer stay fp32: a bf16 row is widened to fp32
+// as it is loaded (load_rows64, ld4, ld1) and an output is rounded to bf16
+// (round to nearest even) as it is stored (st2, st4). bf16 rows are loaded
+// by plain loads, not cp.async, which cannot convert: their copy into the
+// next stage no longer overlaps this stage's products. A bf16 training
+// forward also writes its output in fp32 (o32), and the backward reads that
+// for delta = rowsum(dO∘O): from the rounded bf16 O, delta cancels against
+// dO.V where a softmax row is near uniform, and put the q and k gradients
+// of cell T's deep decoder layers off by up to three times their norm. The
+// Pallas kernels take delta = rowsum(P∘dP) in fp32, which is the same sum
+// over the unrounded O.
+//
 // The backward, with P = softmax(s), Z the dropout multipliers, O the
 // output, is attention_tc.cuh's:
 //   dV[j]   = sum_i P[i,j] Z[i,j] dO[i]
@@ -35,9 +50,12 @@
 // with P = exp(s - m) / l recomputed from the saved row statistics.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -45,13 +63,89 @@ namespace daspeech {
 
 template <typename T>
 struct View {
-  T* ptr;
+  T* ptr;                // fp32 elements, or bf16 ones when bf16
   long long sb, sr, sh;  // batch, row and head strides in elements
+  bool bf16 = false;
+  __host__ __device__ __forceinline__ long long index(int b, int r,
+                                                      int h) const {
+    return b * sb + r * sr + h * sh;
+  }
+  // fp32 views only
   __device__ __forceinline__ T* at(int b, int r, int h) const {
-    return ptr + b * sb + r * sr + h * sh;
+    return ptr + index(b, r, h);
+  }
+  // the same view n elements further on
+  __host__ __device__ __forceinline__ View plus(long long n) const {
+    using Half = std::conditional_t<std::is_const_v<T>, const uint16_t,
+                                    uint16_t>;
+    View v = *this;
+    v.ptr = bf16 ? reinterpret_cast<T*>(reinterpret_cast<Half*>(ptr) + n)
+                 : ptr + n;
+    return v;
   }
 };
 using Operand = View<const float>;
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// element c of row (b, r, h), widened to fp32
+template <typename T>
+__device__ __forceinline__ float ld1(const View<T>& x, int b, int r, int h,
+                                     int c) {
+  const long long i = x.index(b, r, h) + c;
+  if (x.bf16) {
+    return __uint_as_float(
+        static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(x.ptr)[i])
+        << 16);
+  }
+  return x.ptr[i];
+}
+
+// elements c .. c + 3 of row (b, r, h), widened to fp32 (c % 4 == 0)
+template <typename T>
+__device__ __forceinline__ float4 ld4(const View<T>& x, int b, int r, int h,
+                                      int c) {
+  const long long i = x.index(b, r, h) + c;
+  if (x.bf16) {
+    const uint2 u =
+        *reinterpret_cast<const uint2*>(reinterpret_cast<const uint16_t*>(
+                                            x.ptr) + i);
+    return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                       bf16_hi(u.y));
+  }
+  return *reinterpret_cast<const float4*>(x.ptr + i);
+}
+
+// elements c, c + 1 of row (b, r, h) of an output view (c even)
+__device__ __forceinline__ void st2(const View<float>& x, int b, int r, int h,
+                                    int c, float v0, float v1) {
+  const long long i = x.index(b, r, h) + c;
+  if (x.bf16) {
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<uint16_t*>(x.ptr) +
+                                       i) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    *reinterpret_cast<float2*>(x.ptr + i) = make_float2(v0, v1);
+  }
+}
+
+// elements c .. c + 3 of row (b, r, h) of an output view (c % 4 == 0)
+__device__ __forceinline__ void st4(const View<float>& x, int b, int r, int h,
+                                    int c, float4 v) {
+  const long long i = x.index(b, r, h) + c;
+  if (x.bf16) {
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+        reinterpret_cast<uint16_t*>(x.ptr) + i);
+    p[0] = __floats2bfloat162_rn(v.x, v.y);
+    p[1] = __floats2bfloat162_rn(v.z, v.w);
+  } else {
+    *reinterpret_cast<float4*>(x.ptr + i) = v;
+  }
+}
 
 struct DropoutArgs {
   const uint32_t* seeds;  // [B] per-row Philox keys; nullptr = no dropout
@@ -66,6 +160,9 @@ struct AttnArgs {
   const float* bias4 = nullptr;  // full bias: contiguous [B, H, Tq, Tk]
   View<float> o;
   float* stats;          // [B, H, Tq, 2] row (max, sum) out, or nullptr
+  // a bf16 training forward: its output in fp32 as well (layout of o, fp32
+  // elements), which the backward's delta reads (see "Element type")
+  View<float> o32 = {nullptr, 0, 0, 0};
   int H, Tq, Tk;
   float scale;
   DropoutArgs drop;
@@ -85,14 +182,10 @@ struct AttnBwdArgs {
 };
 
 // an operand's (or gradient's) channels from c0 on
-__host__ __device__ __forceinline__ Operand channels(const Operand& x,
+template <typename T>
+__host__ __device__ __forceinline__ View<T> channels(const View<T>& x,
                                                      int c0) {
-  return Operand{x.ptr + c0, x.sb, x.sr, x.sh};
-}
-
-__host__ __device__ __forceinline__ View<float> channels(
-    const View<float>& x, int c0) {
-  return View<float>{x.ptr + c0, x.sb, x.sr, x.sh};
+  return x.plus(c0);
 }
 
 // cp.async of 16, 8 or 4 bytes; zero-fills the destination when !valid
@@ -126,10 +219,22 @@ __device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // rows r0 .. r0 + 63 of a [rows, 64] operand view into a [64][PITCH] shared
 // tile, one 16-byte cp.async per 4 channels, spread over NT threads; rows
-// past `rows` are zero-filled
+// past `rows` are zero-filled. A bf16 view: one 8-byte load per 4
+// channels, widened and stored by the thread (cp.async cannot convert),
+// one load in flight at a time: unrolled, the loads' registers made the
+// rel-pos FMA forward (128 registers a thread) spill
 template <int NT, int PITCH>
 __device__ __forceinline__ void load_rows64(float* tile, const Operand& x,
                                             int b, int h, int r0, int rows) {
+  if (x.bf16) {
+#pragma unroll 1
+    for (int c = threadIdx.x; c < 64 * 16; c += NT) {
+      const int rr = c >> 4, col = (c & 15) * 4, r = r0 + rr;
+      *reinterpret_cast<float4*>(tile + rr * PITCH + col) =
+          r < rows ? ld4(x, b, r, h, col) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
   for (int c = threadIdx.x; c < 64 * 16; c += NT) {
     const int rr = c >> 4, col = (c & 15) * 4, r = r0 + rr;
     const bool ok = r < rows;

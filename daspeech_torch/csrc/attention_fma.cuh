@@ -79,6 +79,11 @@
 // there can be), packs the 16 keep bits, and 3 shuffles among the four
 // threads hand each its words.
 //
+// bf16 operands (attention.cuh, "Element type"): the tiles are widened as
+// they are loaded and the output rounded as it is stored, and written in
+// fp32 too where args.o32 is set; the split's partial rows and (m, l) stay
+// fp32.
+//
 // Ragged tiles: keys past Tk are zero-filled by cp.async and get score
 // -inf; query rows past Tq are zero-filled, give finite scores and are
 // never stored. A fully padded row (bias -1e30 on every key) rounds every
@@ -353,8 +358,10 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
       continue;
     }
     const float inv = 1.f / l[r];
-    *reinterpret_cast<float4*>(args.o.at(b, i, h) + 4 * tx) = make_float4(
-        o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
+    const float4 out = make_float4(o[r][0] * inv, o[r][1] * inv,
+                                   o[r][2] * inv, o[r][3] * inv);
+    st4(args.o, b, i, h, 4 * tx, out);
+    if (args.o32.ptr != nullptr) st4(args.o32, b, i, h, 4 * tx, out);
     if (args.stats != nullptr && tx == 0) {
       float* st = args.stats +
                   2 * ((static_cast<long long>(b) * args.H + h) * args.Tq + i);
@@ -393,8 +400,9 @@ __global__ void attn_fma_combine_kernel(const AttnArgs args,
     o.w = fmaf(x.w, w, o.w);
   }
   const float inv = 1.f / l;
-  *reinterpret_cast<float4*>(args.o.at(b, i, h) + 4 * g) =
-      make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+  const float4 out = make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+  st4(args.o, b, i, h, 4 * g, out);
+  if (args.o32.ptr != nullptr) st4(args.o32, b, i, h, 4 * g, out);
   if (args.stats != nullptr && g == 0) {
     float* st = args.stats + 2 * row;
     st[0] = m;

@@ -11,8 +11,12 @@
 // helpers are attention.cuh's; the fragment and tile-product helpers this
 // comment describes are tiles.cuh's.
 //
-// Precision: fp32 in and out; every matrix product runs on the tensor cores
-// as 3xTF32. Each operand x is split into hi = cvt.rna.tf32(x) and
+// Precision: fp32 in and out (or bf16 in device memory, widened to fp32 as
+// it is loaded and rounded as it is stored: attention.cuh, "Element type");
+// every matrix product runs on the tensor cores as 3xTF32. On bf16 operands
+// the lo terms of their split are 0 (a bf16 value is a TF32 value) and
+// their products cost three mma.sync for one's worth; the kernels do not
+// special-case that. Each operand x is split into hi = cvt.rna.tf32(x) and
 // lo = cvt.rna.tf32(x - hi), and a·b is taken as lo·hi + hi·lo + hi·hi
 // (the small terms first), each an mma.sync m16n8k8 tf32 with fp32
 // accumulation. The dropped lo·lo term and the rounding of lo leave about
@@ -174,14 +178,13 @@ attn_tc_fwd_kernel(const AttnArgs args) {
   float qf[8][4];   // this warp's Q fragments, fp32
   {
     const bool ok0 = ia < args.Tq, ok1 = ia + 8 < args.Tq;
-    const float* q0 = args.q.at(b, ok0 ? ia : 0, h);
-    const float* q1 = args.q.at(b, ok1 ? ia + 8 : 0, h);
+    const int i0 = ok0 ? ia : 0, i1 = ok1 ? ia + 8 : 0;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      qf[kk][0] = ok0 ? q0[kk * 8 + t] : 0.f;
-      qf[kk][1] = ok1 ? q1[kk * 8 + t] : 0.f;
-      qf[kk][2] = ok0 ? q0[kk * 8 + t + 4] : 0.f;
-      qf[kk][3] = ok1 ? q1[kk * 8 + t + 4] : 0.f;
+      qf[kk][0] = ok0 ? ld1(args.q, b, i0, h, kk * 8 + t) : 0.f;
+      qf[kk][1] = ok1 ? ld1(args.q, b, i1, h, kk * 8 + t) : 0.f;
+      qf[kk][2] = ok0 ? ld1(args.q, b, i0, h, kk * 8 + t + 4) : 0.f;
+      qf[kk][3] = ok1 ? ld1(args.q, b, i1, h, kk * 8 + t + 4) : 0.f;
     }
   }
 
@@ -262,11 +265,10 @@ attn_tc_fwd_kernel(const AttnArgs args) {
     const int i = ia + 8 * r;
     if (i >= args.Tq) continue;
     const float inv = 1.f / l[r];
-    float* out = args.o.at(b, i, h);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
-          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      st2(args.o, b, i, h, n * 8 + 2 * t, o[n][2 * r] * inv,
+          o[n][2 * r + 1] * inv);
     }
   }
 }
@@ -305,12 +307,10 @@ attn_tc_bwd_dq_kernel(const AttnBwdArgs args) {
     const int c0 = (lane & 1) * 32;
     float acc = 0.f;
     if (i < f.Tq) {
-      const float4* pd =
-          reinterpret_cast<const float4*>(args.dout.at(b, i, h) + c0);
-      const float4* po = reinterpret_cast<const float4*>(f.o.at(b, i, h) + c0);
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        const float4 x = pd[u], y = po[u];
+        const float4 x = ld4(args.dout, b, i, h, c0 + 4 * u);
+        const float4 y = ld4(f.o, b, i, h, c0 + 4 * u);
         acc = fmaf(x.x, y.x, acc);
         acc = fmaf(x.y, y.y, acc);
         acc = fmaf(x.z, y.z, acc);
@@ -382,11 +382,10 @@ attn_tc_bwd_dq_kernel(const AttnBwdArgs args) {
   for (int r = 0; r < 2; ++r) {
     const int i = ia + 8 * r;
     if (i >= f.Tq) continue;
-    float* out = args.dq.at(b, i, h);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
-          make_float2(dq[n][2 * r] * f.scale, dq[n][2 * r + 1] * f.scale);
+      st2(args.dq, b, i, h, n * 8 + 2 * t, dq[n][2 * r] * f.scale,
+          dq[n][2 * r + 1] * f.scale);
     }
   }
 }
@@ -512,14 +511,11 @@ attn_tc_bwd_dkdv_kernel(const AttnBwdArgs args) {
   for (int r = 0; r < 2; ++r) {
     const int j = ja + 8 * r;
     if (j >= f.Tk) continue;
-    float* gk = args.dk.at(b, j, h);
-    float* gv = args.dv.at(b, j, h);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(gk + n * 8 + 2 * t) =
-          make_float2(dk[n][2 * r] * f.scale, dk[n][2 * r + 1] * f.scale);
-      *reinterpret_cast<float2*>(gv + n * 8 + 2 * t) =
-          make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+      st2(args.dk, b, j, h, n * 8 + 2 * t, dk[n][2 * r] * f.scale,
+          dk[n][2 * r + 1] * f.scale);
+      st2(args.dv, b, j, h, n * 8 + 2 * t, dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
@@ -738,11 +734,10 @@ attn_tc_chunk_fwd_kernel(const AttnArgs args) {
     const int i = ia + 8 * r;
     if (i >= args.Tq) continue;
     const float inv = 1.f / l[r];
-    float* out = args.o.at(b, i, h);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
-          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      st2(args.o, b, i, h, n * 8 + 2 * t, o[n][2 * r] * inv,
+          o[n][2 * r + 1] * inv);
     }
   }
 }
@@ -780,12 +775,10 @@ attn_tc_chunk_ds_kernel(const AttnBwdArgs args) {
     const int c0 = (lane & 1) * 32;
     float acc = 0.f;
     if (i < f.Tq) {
-      const float4* pd =
-          reinterpret_cast<const float4*>(args.dout.at(b, i, h) + c0);
-      const float4* po = reinterpret_cast<const float4*>(f.o.at(b, i, h) + c0);
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        const float4 x = pd[u], y = po[u];
+        const float4 x = ld4(args.dout, b, i, h, c0 + 4 * u);
+        const float4 y = ld4(f.o, b, i, h, c0 + 4 * u);
         acc = fmaf(x.x, y.x, acc);
         acc = fmaf(x.y, y.y, acc);
         acc = fmaf(x.z, y.z, acc);
@@ -975,11 +968,10 @@ attn_tc_grad_kernel(const TcGradArgs args) {
   for (int r = 0; r < 2; ++r) {
     const int i = r0 + wrow + 8 * r;
     if (i >= rows) continue;
-    float* out = job.out.at(b, i, h);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) = make_float2(
-          acc[n][2 * r] * job.scale, acc[n][2 * r + 1] * job.scale);
+      st2(job.out, b, i, h, n * 8 + 2 * t, acc[n][2 * r] * job.scale,
+          acc[n][2 * r + 1] * job.scale);
     }
   }
 }

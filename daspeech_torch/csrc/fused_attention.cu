@@ -1,5 +1,10 @@
 // Multi-head attention, forward and backward, for Hopper (sm_90a), fp32, in
-// two layouts and two bias modes.
+// two layouts and two bias modes. The packed and head-major entry points
+// have _bf16 variants (the same arguments, the same kernels) whose q, k, v,
+// out, dout, dq, dk and dv are bf16 in device memory; the bias, the
+// statistics and delta stay fp32, and every sum is fp32 (attention.cuh,
+// "Element type"), as the Pallas kernels upcast bf16 operands and cast
+// their outputs (fused_attention.py:79-100, :305-321).
 //
 // Replaces three Pallas kernels of daspeech_tpu/ops/fused_attention.py:
 //   - packed, fused_attention_packed (:522; forward _attn_kernel_packed,
@@ -73,27 +78,28 @@ using namespace daspeech;
 constexpr long long kD = 64;
 
 // (batch, row, head) strides of a [B, T, H*64] packed or a [B, H, T, 64]
-// head-major tensor of `rows` rows
+// head-major tensor of `rows` rows; bf16: its elements are bf16
 template <typename T>
-View<T> view(T* p, int rows, int H, bool head_major) {
+View<T> view(const void* p, int rows, int H, bool head_major, bool bf16) {
   const long long n = static_cast<long long>(rows) * H * kD;
-  return head_major ? View<T>{p, n, kD, rows * kD}
-                    : View<T>{p, n, H * kD, kD};
+  T* ptr = static_cast<T*>(const_cast<void*>(p));
+  return head_major ? View<T>{ptr, n, kD, rows * kD, bf16}
+                    : View<T>{ptr, n, H * kD, kD, bf16};
 }
 
-AttnArgs attn_args(const float* q, const float* k, const float* v,
+AttnArgs attn_args(const void* q, const void* k, const void* v,
                    const float* bias, const uint32_t* seeds, uint32_t thresh,
-                   float keep_scale, float* out, float* stats, int Tq, int Tk,
-                   int H, float scale, bool head_major) {
+                   float keep_scale, void* out, float* stats, int Tq, int Tk,
+                   int H, float scale, bool head_major, bool bf16) {
   AttnArgs args;
-  args.q = view(q, Tq, H, head_major);
+  args.q = view<const float>(q, Tq, H, head_major, bf16);
   args.a = {nullptr, 0, 0, 0};
-  args.k = view(k, Tk, H, head_major);
+  args.k = view<const float>(k, Tk, H, head_major, bf16);
   args.e = {nullptr, 0, 0, 0};
-  args.v = view(v, Tk, H, head_major);
+  args.v = view<const float>(v, Tk, H, head_major, bf16);
   args.bias = bias;
   args.bias_sb = Tk;
-  args.o = view(out, Tq, H, head_major);
+  args.o = view<float>(out, Tq, H, head_major, bf16);
   args.stats = stats;
   args.H = H;
   args.Tq = Tq;
@@ -103,14 +109,17 @@ AttnArgs attn_args(const float* q, const float* k, const float* v,
   return args;
 }
 
-int attention_fwd(const float* q, const float* k, const float* v,
+int attention_fwd(const void* q, const void* k, const void* v,
                   const float* bias, const uint32_t* seeds, uint32_t thresh,
-                  float keep_scale, float* out, float* stats, int B, int Tq,
-                  int Tk, int H, int D, float scale, void* stream,
-                  bool head_major) {
+                  float keep_scale, void* out, float* stats, float* out32,
+                  int B, int Tq, int Tk, int H, int D, float scale,
+                  void* stream, bool head_major, bool bf16) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  const AttnArgs args = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
-                                  out, stats, Tq, Tk, H, scale, head_major);
+  AttnArgs args = attn_args(q, k, v, bias, seeds, thresh, keep_scale, out,
+                            stats, Tq, Tk, H, scale, head_major, bf16);
+  if (out32 != nullptr) {
+    args.o32 = view<float>(out32, Tq, H, head_major, false);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // training (statistics asked for): the fp32 FMA forward of
   // attention_fma.cuh; inference: the tensor-core forward
@@ -120,22 +129,23 @@ int attention_fwd(const float* q, const float* k, const float* v,
                               : tc::launch_attn_tc_fwd(args, B, s));
 }
 
-int attention_bwd(const float* q, const float* k, const float* v,
+int attention_bwd(const void* q, const void* k, const void* v,
                   const float* bias, const uint32_t* seeds, uint32_t thresh,
-                  float keep_scale, const float* out, const float* stats,
-                  const float* dout, float* dq, float* dk, float* dv,
+                  float keep_scale, const void* out, const float* stats,
+                  const void* dout, void* dq, void* dk, void* dv,
                   float* delta, int B, int Tq, int Tk, int H, int D,
-                  float scale, void* stream, bool head_major) {
+                  float scale, void* stream, bool head_major, bool bf16) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   AttnBwdArgs args;
   args.f = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
-                     const_cast<float*>(out), const_cast<float*>(stats), Tq,
-                     Tk, H, scale, head_major);
-  args.dout = view(dout, Tq, H, head_major);
-  args.dq = view(dq, Tq, H, head_major);
+                     const_cast<void*>(out), const_cast<float*>(stats), Tq,
+                     Tk, H, scale, head_major, bf16);
+  args.f.o.bf16 = false;   // the fp32 output (a bf16 forward's out32)
+  args.dout = view<const float>(dout, Tq, H, head_major, bf16);
+  args.dq = view<float>(dq, Tq, H, head_major, bf16);
   args.da = {nullptr, 0, 0, 0};
-  args.dk = view(dk, Tk, H, head_major);
-  args.dv = view(dv, Tk, H, head_major);
+  args.dk = view<float>(dk, Tk, H, head_major, bf16);
+  args.dv = view<float>(dv, Tk, H, head_major, bf16);
   args.delta = delta;
   return static_cast<int>(
       tc::launch_attn_tc_bwd(args, B, static_cast<cudaStream_t>(stream)));
@@ -146,7 +156,7 @@ AttnArgs full_bias_args(const float* q, const float* k, const float* v,
                         uint32_t thresh, float keep_scale, float* out,
                         float* stats, int Tq, int Tk, int H, float scale) {
   AttnArgs args = attn_args(q, k, v, nullptr, seed, thresh, keep_scale, out,
-                            stats, Tq, Tk, H, scale, true);
+                            stats, Tq, Tk, H, scale, true, false);
   args.bias_sb = 0;
   args.bias4 = bias4;
   return args;
@@ -162,7 +172,21 @@ extern "C" int daspeech_attention_fwd(const float* q, const float* k,
                                       int H, int D, float scale,
                                       void* stream) {
   return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
-                       B, Tq, Tk, H, D, scale, stream, false);
+                       nullptr, B, Tq, Tk, H, D, scale, stream, false, false);
+}
+
+// bf16 q, k, v and out; out32 [B, Tq, H*64] fp32, written by a training
+// forward (stats given) and read by the backward as its `out`
+extern "C" int daspeech_attention_fwd_bf16(const void* q, const void* k,
+                                           const void* v, const float* bias,
+                                           const uint32_t* seeds,
+                                           uint32_t thresh, float keep_scale,
+                                           void* out, float* stats,
+                                           float* out32, int B, int Tq,
+                                           int Tk, int H, int D, float scale,
+                                           void* stream) {
+  return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       out32, B, Tq, Tk, H, D, scale, stream, false, true);
 }
 
 extern "C" int daspeech_attention_bwd(
@@ -173,7 +197,18 @@ extern "C" int daspeech_attention_bwd(
     float scale, void* stream) {
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
-                       stream, false);
+                       stream, false, false);
+}
+
+extern "C" int daspeech_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const float* bias,
+    const uint32_t* seeds, uint32_t thresh, float keep_scale,
+    const void* out, const float* stats, const void* dout, void* dq,
+    void* dk, void* dv, float* delta, int B, int Tq, int Tk, int H, int D,
+    float scale, void* stream) {
+  return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
+                       stream, false, true);
 }
 
 extern "C" int daspeech_attention_hm_fwd(const float* q, const float* k,
@@ -184,7 +219,16 @@ extern "C" int daspeech_attention_hm_fwd(const float* q, const float* k,
                                          int Tq, int Tk, int H, int D,
                                          float scale, void* stream) {
   return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
-                       B, Tq, Tk, H, D, scale, stream, true);
+                       nullptr, B, Tq, Tk, H, D, scale, stream, true, false);
+}
+
+extern "C" int daspeech_attention_hm_fwd_bf16(
+    const void* q, const void* k, const void* v, const float* bias,
+    const uint32_t* seeds, uint32_t thresh, float keep_scale, void* out,
+    float* stats, float* out32, int B, int Tq, int Tk, int H, int D,
+    float scale, void* stream) {
+  return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       out32, B, Tq, Tk, H, D, scale, stream, true, true);
 }
 
 extern "C" int daspeech_attention_hm_bwd(
@@ -195,7 +239,18 @@ extern "C" int daspeech_attention_hm_bwd(
     float scale, void* stream) {
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
-                       stream, true);
+                       stream, true, false);
+}
+
+extern "C" int daspeech_attention_hm_bwd_bf16(
+    const void* q, const void* k, const void* v, const float* bias,
+    const uint32_t* seeds, uint32_t thresh, float keep_scale,
+    const void* out, const float* stats, const void* dout, void* dq,
+    void* dk, void* dv, float* delta, int B, int Tq, int Tk, int H, int D,
+    float scale, void* stream) {
+  return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
+                       dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
+                       stream, true, true);
 }
 
 // full bias: bias4 [B, H, Tq, Tk] contiguous, seed a pointer to ONE int32
@@ -228,11 +283,11 @@ extern "C" int daspeech_attention_fb_bwd(
   args.f = full_bias_args(q, k, v, bias4, seed, thresh, keep_scale,
                           const_cast<float*>(out), const_cast<float*>(stats),
                           Tq, Tk, H, scale);
-  args.dout = view(dout, Tq, H, true);
-  args.dq = view(dq, Tq, H, true);
+  args.dout = view<const float>(dout, Tq, H, true, false);
+  args.dq = view<float>(dq, Tq, H, true, false);
   args.da = {nullptr, 0, 0, 0};
-  args.dk = view(dk, Tk, H, true);
-  args.dv = view(dv, Tk, H, true);
+  args.dk = view<float>(dk, Tk, H, true, false);
+  args.dv = view<float>(dv, Tk, H, true, false);
   // scratch: delta [B, H, Tq] (padded to 4 floats), then P∘Z
   // [B, H, Tq, Tk]
   const long long rows = static_cast<long long>(B) * H * Tq;

@@ -1,4 +1,9 @@
 // DAG link extraction, forward and backward, for Hopper (sm_90a), fp32.
+// The _bf16 entry points (the same arguments, the same kernels) take bf16 q
+// and k and write bf16 dq and dk; log_gates, links, lse, dlinks and dgates
+// stay fp32 and every sum is fp32 (attention.cuh, "Element type"), as the
+// Pallas kernel upcasts q and k and writes fp32 links
+// (fused_links.py:62-66, :177-199).
 //
 // Replaces the Pallas kernels of daspeech_tpu/ops/fused_links.py:141
 // (fused_extract_links: forward _links_fwd_kernel, :70; backward
@@ -97,7 +102,7 @@ constexpr float kLinksFloor = -1e9f;
 constexpr float kLinksNone = -2e9f;
 
 struct LinksArgs {
-  const float* q;        // [B, L, H*64]
+  const float* q;        // [B, L, H*64], fp32 or (bf16) bf16
   const float* k;
   const float* g;        // log_gates [B, L, H]
   const int* out_len;    // [B]
@@ -106,12 +111,13 @@ struct LinksArgs {
   const float* dlinks;   // backward: [B, L, L]
   float* links_out;      // forward: [B, L, L]
   float* lse_out;        // forward: [B, L, H]
-  float* dq;
+  float* dq;             // q's element type
   float* dk;
   float* dg;             // dgates [B, L, H]; the dk kernel reads it as r
   int L, H;
   float scale;
   int mtl;
+  bool bf16;             // q, k, dq and dk are bf16
 };
 
 __device__ __forceinline__ bool link_valid(int i, int j, int ol, int mtl) {
@@ -123,10 +129,11 @@ __device__ __forceinline__ int graph_len(const LinksArgs& a, int b) {
   return min(a.out_len[b], a.L);
 }
 
-// head h of a packed [B, L, H*64] tensor
-__device__ __forceinline__ Operand packed(const float* p, const LinksArgs& a) {
+// head h of a packed [B, L, H*64] tensor (q, k, dq or dk)
+template <typename T>
+__device__ __forceinline__ View<T> packed(T* p, const LinksArgs& a) {
   const long long row = static_cast<long long>(a.H) * kLinksDK;
-  return Operand{p, a.L * row, row, kLinksDK};
+  return View<T>{p, a.L * row, row, kLinksDK, a.bf16};
 }
 
 // the live column tiles of the row tile at i0: the first tile's index and
@@ -356,14 +363,13 @@ __device__ __forceinline__ void row_fragments(float f[8][4], const float* p,
                                               int h, int ra, int t) {
   const Operand x = packed(p, a);
   const bool ok0 = ra < a.L, ok1 = ra + 8 < a.L;
-  const float* x0 = x.at(b, ok0 ? ra : 0, h);
-  const float* x1 = x.at(b, ok1 ? ra + 8 : 0, h);
+  const int r0 = ok0 ? ra : 0, r1 = ok1 ? ra + 8 : 0;
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    f[kk][0] = ok0 ? x0[kk * 8 + t] : 0.f;
-    f[kk][1] = ok1 ? x1[kk * 8 + t] : 0.f;
-    f[kk][2] = ok0 ? x0[kk * 8 + t + 4] : 0.f;
-    f[kk][3] = ok1 ? x1[kk * 8 + t + 4] : 0.f;
+    f[kk][0] = ok0 ? ld1(x, b, r0, h, kk * 8 + t) : 0.f;
+    f[kk][1] = ok1 ? ld1(x, b, r1, h, kk * 8 + t) : 0.f;
+    f[kk][2] = ok0 ? ld1(x, b, r0, h, kk * 8 + t + 4) : 0.f;
+    f[kk][3] = ok1 ? ld1(x, b, r1, h, kk * 8 + t + 4) : 0.f;
   }
 }
 
@@ -445,17 +451,15 @@ links_bwd_dq_kernel(const LinksArgs a) {
     if (second) tc::mma_cols<tc::kGroup>(dq, s, Ks, gid, t);
   }
 
-  const long long HD = static_cast<long long>(a.H) * kLinksDK;
+  const View<float> out = packed(a.dq, a);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = ia + 8 * r;
     if (i >= L) continue;
     const long long row = static_cast<long long>(b) * L + i;
-    float* out = a.dq + row * HD + h * kLinksDK;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
-          make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
+      st2(out, b, i, h, n * 8 + 2 * t, dq[n][2 * r], dq[n][2 * r + 1]);
     }
     if (t == 0) a.dg[row * a.H + h] = rsum[r];
   }
@@ -542,17 +546,14 @@ links_bwd_dk_kernel(const LinksArgs a) {
     tc::mma_cols<tc::kGroup>(dk, s, Qs, gid, t);
   }
 
-  const long long HD = static_cast<long long>(a.H) * kLinksDK;
+  const View<float> out = packed(a.dk, a);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int j = ja + 8 * r;
     if (j >= L) continue;
-    float* out = a.dk + (static_cast<long long>(b) * L + j) * HD +
-                 h * kLinksDK;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
-          make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+      st2(out, b, j, h, n * 8 + 2 * t, dk[n][2 * r], dk[n][2 * r + 1]);
     }
   }
 }
@@ -567,23 +568,18 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace daspeech
-
 // lse [B, L, H] is written (the fold reads it); the wrapper passes scratch
 // when the caller does not keep it
-extern "C" int daspeech_links_fwd(const float* q, const float* k,
-                                  const float* log_gates, const int* out_len,
-                                  float* links, float* lse, int B, int L,
-                                  int H, int DK, float scale, int mtl,
-                                  void* stream) {
-  using namespace daspeech;
+int links_fwd(const void* q, const void* k, const float* log_gates,
+              const int* out_len, float* links, float* lse, int B, int L,
+              int H, int DK, float scale, int mtl, void* stream, bool bf16) {
   if (DK != kLinksDK || L < 1 || H < 1 || lse == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LinksArgs a{};
-  a.q = q;
-  a.k = k;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.bf16 = bf16;
   a.g = log_gates;
   a.out_len = out_len;
   a.lse = lse;
@@ -605,26 +601,25 @@ extern "C" int daspeech_links_fwd(const float* q, const float* k,
   return static_cast<int>(err);
 }
 
-extern "C" int daspeech_links_bwd(const float* q, const float* k,
-                                  const float* log_gates, const int* out_len,
-                                  const float* links, const float* lse,
-                                  const float* dlinks, float* dq, float* dk,
-                                  float* dgates, int B, int L, int H, int DK,
-                                  float scale, int mtl, void* stream) {
-  using namespace daspeech;
+int links_bwd(const void* q, const void* k, const float* log_gates,
+              const int* out_len, const float* links, const float* lse,
+              const float* dlinks, void* dq, void* dk, float* dgates, int B,
+              int L, int H, int DK, float scale, int mtl, void* stream,
+              bool bf16) {
   if (DK != kLinksDK || L < 1 || H < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LinksArgs a{};
-  a.q = q;
-  a.k = k;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.bf16 = bf16;
   a.g = log_gates;
   a.out_len = out_len;
   a.links = links;
   a.lse = lse;
   a.dlinks = dlinks;
-  a.dq = dq;
-  a.dk = dk;
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
   a.dg = dgates;
   a.L = L;
   a.H = H;
@@ -639,4 +634,49 @@ extern "C" int daspeech_links_bwd(const float* q, const float* k,
     err = launch(links_bwd_dk_kernel, grid, tc::kThreads, kDkSmem, a, st);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+}  // namespace daspeech
+
+extern "C" int daspeech_links_fwd(const float* q, const float* k,
+                                  const float* log_gates, const int* out_len,
+                                  float* links, float* lse, int B, int L,
+                                  int H, int DK, float scale, int mtl,
+                                  void* stream) {
+  return daspeech::links_fwd(q, k, log_gates, out_len, links, lse, B, L, H,
+                             DK, scale, mtl, stream, false);
+}
+
+extern "C" int daspeech_links_fwd_bf16(const void* q, const void* k,
+                                       const float* log_gates,
+                                       const int* out_len, float* links,
+                                       float* lse, int B, int L, int H,
+                                       int DK, float scale, int mtl,
+                                       void* stream) {
+  return daspeech::links_fwd(q, k, log_gates, out_len, links, lse, B, L, H,
+                             DK, scale, mtl, stream, true);
+}
+
+extern "C" int daspeech_links_bwd(const float* q, const float* k,
+                                  const float* log_gates, const int* out_len,
+                                  const float* links, const float* lse,
+                                  const float* dlinks, float* dq, float* dk,
+                                  float* dgates, int B, int L, int H, int DK,
+                                  float scale, int mtl, void* stream) {
+  return daspeech::links_bwd(q, k, log_gates, out_len, links, lse, dlinks,
+                             dq, dk, dgates, B, L, H, DK, scale, mtl, stream,
+                             false);
+}
+
+extern "C" int daspeech_links_bwd_bf16(const void* q, const void* k,
+                                       const float* log_gates,
+                                       const int* out_len, const float* links,
+                                       const float* lse, const float* dlinks,
+                                       void* dq, void* dk, float* dgates,
+                                       int B, int L, int H, int DK,
+                                       float scale, int mtl, void* stream) {
+  return daspeech::links_bwd(q, k, log_gates, out_len, links, lse, dlinks,
+                             dq, dk, dgates, B, L, H, DK, scale, mtl, stream,
+                             true);
 }

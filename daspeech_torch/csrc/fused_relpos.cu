@@ -1,5 +1,8 @@
 // Conformer relative-position self-attention, forward and backward, for
-// Hopper (sm_90a), fp32.
+// Hopper (sm_90a), fp32. The _bf16 entry points (the same arguments, the
+// same kernels) take bf16 q, k, v, a, e, out, dout, dq, dk, dv and da in
+// device memory, every sum fp32 (attention.cuh, "Element type"), as the
+// Pallas kernels upcast bf16 operands (fused_relpos.py:102-122).
 //
 // Replaces the Pallas kernels of daspeech_tpu/ops/fused_relpos.py:373
 // (fused_attention_relpos: forward _relpos_fwd_kernel, :90; backward
@@ -50,21 +53,29 @@ namespace {
 
 using namespace daspeech;
 
-AttnArgs relpos_args(const float* q, const float* k, const float* v,
-                     const float* a, const float* e, const float* bias,
+// a [B, T, H*w] packed operand (fp32, or bf16 when bf16)
+template <typename T>
+View<T> packed(const void* p, int T_, int H, long long w, bool bf16) {
+  return View<T>{static_cast<T*>(const_cast<void*>(p)), T_ * H * w, H * w,
+                 w, bf16};
+}
+
+AttnArgs relpos_args(const void* q, const void* k, const void* v,
+                     const void* a, const void* e, const float* bias,
                      const uint32_t* seeds, uint32_t thresh, float keep_scale,
-                     float* out, float* stats, int T, int H, float scale) {
+                     void* out, float* stats, int T, int H, float scale,
+                     bool bf16) {
   constexpr long long D = 64, C = 256;
-  const long long HD = H * D, HC = H * C;
   AttnArgs args;
-  args.q = {q, T * HD, HD, D};
-  args.a = {a, T * HC, HC, C};
-  args.k = {k, T * HD, HD, D};
-  args.e = {e, 0, C, 0};
-  args.v = {v, T * HD, HD, D};
+  args.q = packed<const float>(q, T, H, D, bf16);
+  args.a = packed<const float>(a, T, H, C, bf16);
+  args.k = packed<const float>(k, T, H, D, bf16);
+  // e [T, C]: the same rows for every batch row and head
+  args.e = Operand{static_cast<const float*>(e), 0, C, 0, bf16};
+  args.v = packed<const float>(v, T, H, D, bf16);
   args.bias = bias;
   args.bias_sb = T;
-  args.o = {out, T * HD, HD, D};
+  args.o = packed<float>(out, T, H, D, bf16);
   args.stats = stats;
   args.H = H;
   args.Tq = T;
@@ -72,6 +83,51 @@ AttnArgs relpos_args(const float* q, const float* k, const float* v,
   args.scale = scale;
   args.drop = {seeds, thresh, keep_scale};
   return args;
+}
+
+int relpos_fwd(const void* q, const void* k, const void* v, const void* a,
+               const void* e, const float* bias, const uint32_t* seeds,
+               uint32_t thresh, float keep_scale, void* out, float* stats,
+               float* out32, int B, int T, int H, int D, int C, float scale,
+               void* stream, bool bf16) {
+  if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgs args = relpos_args(q, k, v, a, e, bias, seeds, thresh, keep_scale,
+                              out, stats, T, H, scale, bf16);
+  if (out32 != nullptr) args.o32 = packed<float>(out32, T, H, D, false);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // training (statistics asked for): the fp32 FMA forward of
+  // attention_fma.cuh; inference: the tensor cores (attention_tc.cuh)
+  return static_cast<int>(
+      stats != nullptr
+          ? fma::launch_attn_fma_fwd<5>(args, B, s)
+          : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
+}
+
+int relpos_bwd(const void* q, const void* k, const void* v, const void* a,
+               const void* e, const float* bias, const uint32_t* seeds,
+               uint32_t thresh, float keep_scale, const void* out,
+               const float* stats, const void* dout, void* dq, void* dk,
+               void* dv, void* da, float* scratch, int B, int T, int H, int D,
+               int C, float scale, void* stream, bool bf16) {
+  if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
+  AttnBwdArgs args;
+  args.f = relpos_args(q, k, v, a, e, bias, seeds, thresh, keep_scale,
+                       const_cast<void*>(out), const_cast<float*>(stats), T,
+                       H, scale, bf16);
+  args.f.o.bf16 = false;   // the fp32 output (a bf16 forward's out32)
+  args.dout = packed<const float>(dout, T, H, 64, bf16);
+  args.dq = packed<float>(dq, T, H, 64, bf16);
+  args.da = packed<float>(da, T, H, 256, bf16);
+  args.dk = packed<float>(dk, T, H, 64, bf16);
+  args.dv = packed<float>(dv, T, H, 64, bf16);
+  // scratch: delta [B, H, T] (padded to 4 floats), then dS and P∘Z
+  // [B, H, T, T] each
+  const long long rows = static_cast<long long>(B) * H * T;
+  args.delta = scratch;
+  args.dbias = scratch + (rows + 3) / 4 * 4;
+  args.pz = args.dbias + rows * T;
+  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<5, false>(
+      args, B, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -83,17 +139,22 @@ extern "C" int daspeech_relpos_fwd(const float* q, const float* k,
                                    float keep_scale, float* out, float* stats,
                                    int B, int T, int H, int D, int C,
                                    float scale, void* stream) {
-  using namespace daspeech;
-  if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
-  const AttnArgs args = relpos_args(q, k, v, a, e, bias, seeds, thresh,
-                                    keep_scale, out, stats, T, H, scale);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // training (statistics asked for): the fp32 FMA forward of
-  // attention_fma.cuh; inference: the tensor cores (attention_tc.cuh)
-  return static_cast<int>(
-      stats != nullptr
-          ? fma::launch_attn_fma_fwd<5>(args, B, s)
-          : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
+  return relpos_fwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
+                    stats, nullptr, B, T, H, D, C, scale, stream, false);
+}
+
+// bf16 q, k, v, a, e and out; out32 [B, T, H*64] fp32, written by a
+// training forward (stats given) and read by the backward as its `out`
+extern "C" int daspeech_relpos_fwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* a,
+                                        const void* e, const float* bias,
+                                        const uint32_t* seeds,
+                                        uint32_t thresh, float keep_scale,
+                                        void* out, float* stats, float* out32,
+                                        int B, int T, int H, int D, int C,
+                                        float scale, void* stream) {
+  return relpos_fwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
+                    stats, out32, B, T, H, D, C, scale, stream, true);
 }
 
 extern "C" int daspeech_relpos_bwd(
@@ -102,25 +163,18 @@ extern "C" int daspeech_relpos_bwd(
     float keep_scale, const float* out, const float* stats, const float* dout,
     float* dq, float* dk, float* dv, float* da, float* scratch, int B, int T,
     int H, int D, int C, float scale, void* stream) {
-  using namespace daspeech;
-  if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
-  const long long HD = static_cast<long long>(H) * 64;
-  const long long HC = static_cast<long long>(H) * 256;
-  AttnBwdArgs args;
-  args.f = relpos_args(q, k, v, a, e, bias, seeds, thresh, keep_scale,
-                       const_cast<float*>(out), const_cast<float*>(stats), T, H,
-                       scale);
-  args.dout = {dout, T * HD, HD, 64};
-  args.dq = {dq, T * HD, HD, 64};
-  args.da = {da, T * HC, HC, 256};
-  args.dk = {dk, T * HD, HD, 64};
-  args.dv = {dv, T * HD, HD, 64};
-  // scratch: delta [B, H, T] (padded to 4 floats), then dS and P∘Z
-  // [B, H, T, T] each
-  const long long rows = static_cast<long long>(B) * H * T;
-  args.delta = scratch;
-  args.dbias = scratch + (rows + 3) / 4 * 4;
-  args.pz = args.dbias + rows * T;
-  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<5, false>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  return relpos_bwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
+                    stats, dout, dq, dk, dv, da, scratch, B, T, H, D, C, scale,
+                    stream, false);
+}
+
+extern "C" int daspeech_relpos_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* a,
+    const void* e, const float* bias, const uint32_t* seeds, uint32_t thresh,
+    float keep_scale, const void* out, const float* stats, const void* dout,
+    void* dq, void* dk, void* dv, void* da, float* scratch, int B, int T,
+    int H, int D, int C, float scale, void* stream) {
+  return relpos_bwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
+                    stats, dout, dq, dk, dv, da, scratch, B, T, H, D, C, scale,
+                    stream, true);
 }

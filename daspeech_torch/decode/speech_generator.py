@@ -47,8 +47,8 @@ def make_vocode_fn(voc, gcmvn=None, quant: str = "none"
     if quant != "none" or dtype != torch.float32:
         raise NotImplementedError(
             f"vocoder serving in {quant if quant != 'none' else dtype} is "
-            "not ported yet (ROADMAP Queue 1 #5: bf16/AMP, then the bf16 and "
-            "int8 vocoder rungs); serve the fp32 vocoder")
+            "not ported yet (ROADMAP Queue 1 #5b: the bf16 and int8 vocoder "
+            "rungs); serve the fp32 vocoder")
     stats = gcmvn_stats(gcmvn, next(voc.parameters()).device)
     chunk = int(getattr(voc, "serve_chunk", 0) or 0)
 

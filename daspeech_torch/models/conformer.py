@@ -19,10 +19,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from daspeech_torch.models.layers import (
+    FP32,
+    Compute,
+    Conv1d,
+    Linear,
     dropout,
     layer_norm,
     padding_bias,
     row_seeds,
+    set_dtype,
 )
 from daspeech_torch.ops import fused_ffn as _ff
 from daspeech_torch.ops import fused_relpos as _fr
@@ -41,8 +46,8 @@ class Conv1dSubsampler(nn.Module):
         cin = in_channels
         for i, k in enumerate(kernel_sizes):
             cout = mid_channels if i < n - 1 else out_channels * 2
-            self.conv.append(nn.Conv1d(cin, cout, k, stride=2,
-                                       padding=k // 2))
+            self.conv.append(Conv1d(cin, cout, k, stride=2,
+                                    padding=k // 2))
             cin = cout // 2
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
@@ -58,20 +63,23 @@ class Conv1dSubsampler(nn.Module):
         return x * mask[:, :, None], lengths
 
 
-class RelPosMultiHeadAttention(nn.Module):
+class RelPosMultiHeadAttention(Compute, nn.Module):
     """Transformer-XL rel-pos MHSA with learned pos_bias_u/v in the rotation
-    form (``conformer.py:99-189``), dropout on the probabilities."""
+    form (``conformer.py:99-189``), dropout on the probabilities. In bf16,
+    pos_bias_u/v, the permuted ``linear_pos`` kernel, the rotation's sin/cos
+    and the basis e are rounded to bf16 (``conformer.py:143-154``), and the
+    attention kernel takes bf16 q_u, k, v, a and e."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
         C, d = embed_dim, embed_dim // num_heads
-        self.linear_q = nn.Linear(C, C)
-        self.linear_k = nn.Linear(C, C)
-        self.linear_v = nn.Linear(C, C)
-        self.linear_out = nn.Linear(C, C)
-        self.linear_pos = nn.Linear(C, C, bias=False)
+        self.linear_q = Linear(C, C)
+        self.linear_k = Linear(C, C)
+        self.linear_v = Linear(C, C)
+        self.linear_out = Linear(C, C)
+        self.linear_pos = Linear(C, C, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, d))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, d))
         # split-half (sin | cos) channel order of W_p's input rows
@@ -88,13 +96,15 @@ class RelPosMultiHeadAttention(nn.Module):
         q = self.linear_q(x)
         k = self.linear_k(x)
         v = self.linear_v(x)
-        q_u = q + self.pos_bias_u.reshape(-1)
-        q_v = (q + self.pos_bias_v.reshape(-1)).reshape(B, T, H, d)
+        cast = self.compute
+        q_u = q + cast(self.pos_bias_u.reshape(-1))
+        q_v = (q + cast(self.pos_bias_v.reshape(-1))).reshape(B, T, H, d)
         # z = W_p^T q_v per head; flax's kernel [in, out] is weight^T
-        Kr = self.linear_pos.weight.t()[self.perm].reshape(C, H, d)
+        Kr = cast(self.linear_pos.weight.t()[self.perm]).reshape(C, H, d)
         z = torch.einsum("bthm,chm->bthc", q_v, Kr)          # [B, T, H, C]
         s_i, c_i, e = _fr.relpos_basis(T, C, device=x.device)
-        a = _fr.relpos_rotate(z, s_i[:, None], c_i[:, None])
+        a = _fr.relpos_rotate(z, cast(s_i[:, None]), cast(c_i[:, None]))
+        e = cast(e)
         bias = padding_bias(key_padding_mask, B, T, x.device)
         seeds = row_seeds(rng, self.dropout, B, x.device)
         out = _fr.fused_attention_relpos(
@@ -108,7 +118,9 @@ class MaskedBatchNorm(nn.Module):
     203-240``; eps 1e-5). Inference uses the running statistics; a training
     pass (``valid`` given) normalizes by the mean and biased variance of the
     valid frames only and moves the running statistics toward them with
-    flax's momentum 0.9 (in place, outside autograd)."""
+    flax's momentum 0.9 (in place, outside autograd). The statistics, the
+    running statistics and the output are float32 whatever the input's
+    dtype, as in JAX (a bf16 input meets the fp32 mask and statistics)."""
 
     MOMENTUM = 0.9
 
@@ -128,7 +140,7 @@ class MaskedBatchNorm(nn.Module):
             if mh.step_group() is not None:
                 mean, var = self._group_statistics(x, valid)
             else:
-                w = valid[:, :, None].to(x.dtype)
+                w = valid[:, :, None].to(FP32)
                 n = torch.clamp(w.sum(), min=1.0)
                 mean = (x * w).sum(dim=(0, 1)) / n
                 var = (torch.square(x - mean) * w).sum(dim=(0, 1)) / n
@@ -146,8 +158,9 @@ class MaskedBatchNorm(nn.Module):
         single-process arithmetic: the summed frames and their count give
         the mean, then the summed centred squares the variance (not
         E[x^2] - E[x]^2, which rounds otherwise). Both sums are reduced
-        differentiably: each rank's frames move every rank's statistics."""
-        w = valid[:, :, None].to(x.dtype)
+        differentiably: each rank's frames move every rank's statistics.
+        The sums and the count are float32 (a bf16 x meets the fp32 w)."""
+        w = valid[:, :, None].to(FP32)
         C = x.shape[-1]
         sums = mh.global_sum_autograd(torch.cat([(x * w).sum(dim=(0, 1)),
                                                  w.sum()[None]]))
@@ -168,12 +181,12 @@ class ConvolutionModule(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.layer_norm = layer_norm(embed_dim)
-        self.pointwise_conv1 = nn.Linear(embed_dim, 2 * embed_dim, bias=False)
-        self.depthwise_conv = nn.Conv1d(
+        self.pointwise_conv1 = Linear(embed_dim, 2 * embed_dim, bias=False)
+        self.depthwise_conv = Conv1d(
             embed_dim, embed_dim, kernel_size, padding=(kernel_size - 1) // 2,
             groups=embed_dim, bias=False)
         self.batch_norm = MaskedBatchNorm(embed_dim)
-        self.pointwise_conv2 = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.pointwise_conv2 = Linear(embed_dim, embed_dim, bias=False)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -190,7 +203,7 @@ class ConvolutionModule(nn.Module):
         return dropout(x, self.dropout, rng)
 
 
-class FeedForwardModule(nn.Module):
+class FeedForwardModule(Compute, nn.Module):
     """Macaron FFN with swish (``conformer.py:321-370``): LN -> W1 -> swish
     -> dropout -> W2 -> dropout.
 
@@ -201,7 +214,9 @@ class FeedForwardModule(nn.Module):
     dropout seeds from ``rng``. JAX takes its Pallas kernel only while
     ``ffn_fits_vmem`` holds (about 200 rows at C=256, F=2048) and on one
     TPU, and XLA's unfused path otherwise; the port's kernel tiles rows and
-    takes any T. Both routes compute the same function."""
+    takes any T. Both routes compute the same function. The fused route
+    takes float32 only: its bf16 entry point is ROADMAP Queue 1 #5b, and a
+    bf16 module with ``fused=True`` raises."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0,
                  fused: bool = False):
@@ -209,12 +224,16 @@ class FeedForwardModule(nn.Module):
         self.dropout = dropout
         self.fused = fused
         self.layer_norm = layer_norm(embed_dim)
-        self.w_1 = nn.Linear(embed_dim, ffn_dim)
-        self.w_2 = nn.Linear(ffn_dim, embed_dim)
+        self.w_1 = Linear(embed_dim, ffn_dim)
+        self.w_2 = Linear(ffn_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.fused and x.dim() == 3:
+            if self.dtype != FP32:
+                raise TypeError("FeedForwardModule(fused=True) computes in "
+                                "float32 only: its bf16 entry point is "
+                                "ROADMAP Queue 1 #5b")
             seeds = row_seeds(rng, self.dropout, x.shape[0], x.device)
             p = 0.0 if seeds is None else self.dropout
             return _ff.fused_ffn(
@@ -256,21 +275,23 @@ class ConformerEncoderLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """``S2TConformerEncoder``, rel_pos variant (``conformer.py:415-463``):
     fbank [B, T, 80] + lengths -> states [B, T', C], padding mask [B, T']
-    (True = pad) and T' lengths."""
+    (True = pad) and T' lengths; ``dtype`` is the compute dtype
+    (``set_dtype``)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dtype: torch.dtype = FP32):
         super().__init__()
         self.scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
         self.dropout = cfg.dropout
         self.subsample = Conv1dSubsampler(
             cfg.input_feat_dim, cfg.conv_channels, cfg.embed_dim,
             tuple(cfg.conv_kernel_sizes))
-        self.linear = nn.Linear(cfg.embed_dim, cfg.embed_dim)
+        self.linear = Linear(cfg.embed_dim, cfg.embed_dim)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(cfg.embed_dim, cfg.ffn_dim, cfg.num_heads,
                                   cfg.depthwise_kernel_size, cfg.dropout,
                                   cfg.attn_dropout)
             for _ in range(cfg.num_layers))
+        set_dtype(self, dtype)
 
     def forward(self, fbank: torch.Tensor, lengths: torch.Tensor,
                 rng: Optional[torch.Generator] = None):

@@ -7,7 +7,9 @@ transition matrix. Link extraction always goes through
 ``ops.fused_links.fused_extract_links`` (CUDA kernel for CUDA tensors, plain
 versions for CPU tensors). A forward given ``rng`` is a training pass
 (``models/layers.py``). The banded and fused-vocab variants are not ported
-yet.
+yet. In bf16 (``dtype``) the decoder and the link projections compute in
+bf16 as JAX's do; the gates' log-softmax is taken in fp32 and the links
+come out fp32 (``dag_model.py:151-158``), so the DAG DP sees fp32.
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ from torch import nn
 
 from daspeech_torch.models.conformer import ConformerEncoder
 from daspeech_torch.models.layers import (
+    FP32,
+    Embedding,
     LearnedPositionalEmbedding,
+    Linear,
     dropout,
+    set_dtype,
     SinusoidalPositionalEmbedding,
     TransformerDecoderLayer,
 )
@@ -39,7 +45,7 @@ class GlatLinkDecoder(nn.Module):
         self.dropout = cfg.dropout
         self.share_input_output_embed = cfg.share_input_output_embed
         self.max_transition_length = cfg.max_transition_length
-        self.embed_tokens = nn.Embedding(vocab_size, D)
+        self.embed_tokens = Embedding(vocab_size, D)
         pos_cls = (LearnedPositionalEmbedding if cfg.learned_pos
                    else SinusoidalPositionalEmbedding)
         self.embed_positions = pos_cls(cfg.max_target_positions, D, pad)
@@ -49,7 +55,7 @@ class GlatLinkDecoder(nn.Module):
                                     cfg.attn_dropout, cfg.activation_dropout)
             for _ in range(cfg.num_layers))
         if not self.share_input_output_embed:
-            self.output_projection = nn.Linear(D, vocab_size, bias=False)
+            self.output_projection = Linear(D, vocab_size, bias=False)
         feats = cfg.links_feature.split(":")
         self._use_feature = "feature" in feats
         use_position = "position" in feats or "sinposition" in feats
@@ -60,9 +66,9 @@ class GlatLinkDecoder(nn.Module):
                 LearnedPositionalEmbedding(cfg.max_target_positions, D, pad)
                 if "position" in feats else
                 SinusoidalPositionalEmbedding(cfg.max_target_positions, D, pad))
-        self.query_linear = nn.Linear(n_parts * D, D)
-        self.key_linear = nn.Linear(n_parts * D, D)
-        self.gate_linear = nn.Linear(n_parts * D, cfg.num_heads)
+        self.query_linear = Linear(n_parts * D, D)
+        self.key_linear = Linear(n_parts * D, D)
+        self.gate_linear = Linear(n_parts * D, cfg.num_heads)
 
     def extract_features(self, prev_output_tokens: torch.Tensor,
                          enc_out: torch.Tensor,
@@ -80,7 +86,7 @@ class GlatLinkDecoder(nn.Module):
 
     def output_layer(self, features: torch.Tensor) -> torch.Tensor:
         if self.share_input_output_embed:
-            return features @ self.embed_tokens.weight.t()   # tied ``attend``
+            return self.embed_tokens.attend(features)
         return self.output_projection(features)
 
     def extract_links(self, features: torch.Tensor,
@@ -106,15 +112,17 @@ class GlatLinkDecoder(nn.Module):
 
 
 class S2TConformerDAG(nn.Module):
-    """Conformer encoder + GlatLinkDecoder (``dag_model.py:287-394``)."""
+    """Conformer encoder + GlatLinkDecoder (``dag_model.py:287-394``);
+    ``dtype`` is the compute dtype (``layers.set_dtype``)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dtype: torch.dtype = FP32):
         super().__init__()
         e, d = cfg.encoder, cfg.decoder
         self.encoder = ConformerEncoder(e)
-        self.enc_proj = (nn.Linear(e.embed_dim, d.embed_dim)
+        self.enc_proj = (Linear(e.embed_dim, d.embed_dim)
                          if e.embed_dim != d.embed_dim else None)
         self.decoder = GlatLinkDecoder(cfg.vocab.size, cfg.vocab.pad, d)
+        set_dtype(self, dtype)
 
     def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor,
                rng: Optional[torch.Generator] = None):

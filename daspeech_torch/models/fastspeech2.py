@@ -21,15 +21,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from daspeech_torch.models.layers import (
+    FP32,
+    Compute,
+    Conv1d,
+    Embedding,
+    Linear,
     MultiHeadAttention,
     dropout,
     layer_norm,
     lengths_to_padding_mask,
+    set_dtype,
     sinusoidal_embedding_table,
 )
 
 
-def _conv_btc(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+def _conv_btc(conv: Conv1d, x: torch.Tensor) -> torch.Tensor:
     """Conv1d on a [B, T, C] tensor."""
     return conv(x.transpose(1, 2)).transpose(1, 2)
 
@@ -43,8 +49,8 @@ class PositionwiseConvFFN(nn.Module):
         super().__init__()
         p = (kernel_size - 1) // 2
         self.dropout = dropout
-        self.conv1 = nn.Conv1d(in_dim, hidden_dim, kernel_size, padding=p)
-        self.conv2 = nn.Conv1d(hidden_dim, in_dim, kernel_size, padding=p)
+        self.conv1 = Conv1d(in_dim, hidden_dim, kernel_size, padding=p)
+        self.conv2 = Conv1d(hidden_dim, in_dim, kernel_size, padding=p)
         self.layer_norm = layer_norm(in_dim)
 
     def forward(self, x: torch.Tensor,
@@ -81,13 +87,13 @@ class VariancePredictor(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.conv1 = nn.Conv1d(in_dim, hidden_dim, kernel_size,
-                               padding=(kernel_size - 1) // 2)
+        self.conv1 = Conv1d(in_dim, hidden_dim, kernel_size,
+                            padding=(kernel_size - 1) // 2)
         self.ln1 = layer_norm(hidden_dim)
         # the reference's second conv pads 1 whatever the kernel size
-        self.conv2 = nn.Conv1d(hidden_dim, hidden_dim, kernel_size, padding=1)
+        self.conv2 = Conv1d(hidden_dim, hidden_dim, kernel_size, padding=1)
         self.ln2 = layer_norm(hidden_dim)
-        self.proj = nn.Linear(hidden_dim, 1)
+        self.proj = Linear(hidden_dim, 1)
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -127,8 +133,8 @@ class VarianceAdaptor(nn.Module):
         self.duration_predictor = vp()
         self.pitch_predictor = vp()
         self.energy_predictor = vp()
-        self.embed_pitch = nn.Embedding(cfg.var_pred_n_bins, dim)
-        self.embed_energy = nn.Embedding(cfg.var_pred_n_bins, dim)
+        self.embed_pitch = Embedding(cfg.var_pred_n_bins, dim)
+        self.embed_energy = Embedding(cfg.var_pred_n_bins, dim)
         n = cfg.var_pred_n_bins - 1
         # f32 bin edges; jnp.linspace on XLA:CPU lands up to one ulp away
         # on some edges (tests/test_torch_models.py::test_variance_bins)
@@ -145,7 +151,9 @@ class VarianceAdaptor(nn.Module):
                 p_factor: float = 1.0, e_factor: float = 1.0,
                 rng: Optional[torch.Generator] = None):
         """Gold ``durations``, ``pitches`` and ``energies`` (training) take
-        the place of the predictions where given."""
+        the place of the predictions where given. A bf16 prediction picks
+        its bucket against the fp32 edges (exactly: every bf16 value is an
+        fp32 value), as JAX's ``searchsorted`` promotes it."""
         log_dur_out = self.duration_predictor(x, rng)
         dur_out = torch.clamp(torch.round((torch.exp(log_dur_out) - 1)
                                           * d_factor), min=0).long()
@@ -154,14 +162,16 @@ class VarianceAdaptor(nn.Module):
         pitch_out = self.pitch_predictor(x, rng)
         pitch_src = pitches if pitches is not None else pitch_out * p_factor
         x = x + self.embed_pitch(
-            torch.searchsorted(self.pitch_bins, pitch_src.contiguous(),
-                               right=True))
+            torch.searchsorted(self.pitch_bins,
+                               pitch_src.to(self.pitch_bins.dtype)
+                               .contiguous(), right=True))
         energy_out = self.energy_predictor(x, rng)
         energy_src = (energies if energies is not None
                       else energy_out * e_factor)
         x = x + self.embed_energy(
-            torch.searchsorted(self.energy_bins, energy_src.contiguous(),
-                               right=True))
+            torch.searchsorted(self.energy_bins,
+                               energy_src.to(self.energy_bins.dtype)
+                               .contiguous(), right=True))
 
         use_dur = durations if durations is not None else dur_out
         x, out_lens = length_regulate(x, use_dur, max_out_len)
@@ -173,12 +183,15 @@ def _positions(pad_mask: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cumsum(keep, dim=1) * keep + pad
 
 
-class FastSpeech2Encoder(nn.Module):
+class FastSpeech2Encoder(Compute, nn.Module):
     """FastSpeech2 (``fastspeech2.py:215-331``): hidden states [B, T, C]
     (NoEmb path) or, with ``vocab_size`` > 0, phoneme tokens [B, T] (the
-    ``embed_tokens`` path) -> mel."""
+    ``embed_tokens`` path) -> mel. ``dtype`` is the compute dtype
+    (``layers.set_dtype``); the positional tables are rounded to it before
+    their fp32 scale multiplies them, as in ``fastspeech2.py:259``."""
 
-    def __init__(self, cfg, vocab_size: int = 0, pad: int = 1):
+    def __init__(self, cfg, vocab_size: int = 0, pad: int = 1,
+                 dtype: torch.dtype = FP32):
         super().__init__()
         if cfg.add_postnet or (cfg.speaker_embed_dim > 0
                                and cfg.num_speakers > 0):
@@ -189,8 +202,7 @@ class FastSpeech2Encoder(nn.Module):
                 "the CTC head and the unfused attention path are not ported")
         self.cfg, self.pad = cfg, pad
         if vocab_size > 0:
-            self.embed_tokens = nn.Embedding(vocab_size,
-                                             cfg.encoder_embed_dim)
+            self.embed_tokens = Embedding(vocab_size, cfg.encoder_embed_dim)
         self.pos_emb_alpha = nn.Parameter(torch.ones(1))
         self.encoder_fft = nn.ModuleList(
             FFTLayer(cfg.encoder_embed_dim, cfg.encoder_heads,
@@ -204,8 +216,9 @@ class FastSpeech2Encoder(nn.Module):
                      cfg.fft_hidden_dim, cfg.fft_kernel_size, cfg.dropout,
                      cfg.attention_dropout)
             for _ in range(cfg.decoder_layers))
-        self.out_proj = nn.Linear(cfg.decoder_embed_dim,
-                                  cfg.output_frame_dim * cfg.n_frames_per_step)
+        self.out_proj = Linear(cfg.decoder_embed_dim,
+                               cfg.output_frame_dim * cfg.n_frames_per_step)
+        set_dtype(self, dtype)
 
     def forward(self, x: Optional[torch.Tensor] = None,
                 enc_pad_mask: Optional[torch.Tensor] = None,
@@ -227,7 +240,8 @@ class FastSpeech2Encoder(nn.Module):
         table = sinusoidal_embedding_table(
             x.shape[1] + self.pad + 1, c.encoder_embed_dim, self.pad,
             device=x.device)
-        x = x + self.pos_emb_alpha * table[_positions(enc_pad_mask, self.pad)]
+        x = x + self.pos_emb_alpha * self.compute(table[
+            _positions(enc_pad_mask, self.pad)])
         x = dropout(x, c.dropout, rng)
         for layer in self.encoder_fft:
             x = layer(x, enc_pad_mask, rng)
@@ -240,8 +254,8 @@ class FastSpeech2Encoder(nn.Module):
         table_d = sinusoidal_embedding_table(
             x.shape[1] + self.pad + 1, c.decoder_embed_dim, self.pad,
             device=x.device)
-        x = x + self.dec_pos_emb_alpha * table_d[
-            _positions(dec_pad_mask, self.pad)]
+        x = x + self.dec_pos_emb_alpha * self.compute(table_d[
+            _positions(dec_pad_mask, self.pad)])
         for layer in self.decoder_fft:
             x = layer(x, dec_pad_mask, rng)
         return self.out_proj(x), out_lens, log_dur_out, pitch_out, energy_out
@@ -255,8 +269,8 @@ class FFNAdapter(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.fc1 = nn.Linear(in_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.fc1 = Linear(in_dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, out_dim)
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:

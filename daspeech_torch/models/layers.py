@@ -7,6 +7,17 @@ long sequences the JAX layer sends there (``packed_route``); both launch
 the CUDA kernels for CUDA tensors and take the plain versions for CPU
 tensors.
 
+The compute dtype is flax's ``dtype`` field: ``set_dtype(model, dtype)``
+(which the models' ``dtype`` argument calls) sets it on every
+:class:`Compute` module of a model. Parameters stay float32 whatever it is.
+In bfloat16 each :class:`Linear`, :class:`Conv1d` and :class:`Embedding`
+rounds its operands to bf16 and its result once (the product summed in
+fp32), then adds its bias in bf16, as flax's ``nn.Dense``/``nn.Conv`` do;
+each :class:`LayerNorm` normalizes in fp32 and rounds its output once; the
+other tensor ops follow torch's type promotion, which is JAX's (bf16 with
+bf16 stays bf16, bf16 with a float32 tensor is float32, a Python float
+keeps the tensor's type).
+
 Training mode is an argument, as ``train=True`` is in the JAX modules: a
 forward given ``rng`` (a ``torch.Generator`` on the tensors' device) is a
 training pass. It draws its dropout masks and the attention kernels'
@@ -28,15 +39,96 @@ from daspeech_torch.ops import fused_attention as _fa
 from daspeech_torch.ops.fused_attention import NEG
 
 LN_EPS = 1e-6
+FP32 = torch.float32
+BF16 = torch.bfloat16
+DTYPES = (FP32, BF16)
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+class Compute:
+    """A module with a compute dtype (flax's ``dtype`` field), float32
+    unless :func:`set_dtype` sets it. In float32 a module computes in the
+    dtype of its parameters and inputs, as before there was a choice (a
+    float64 copy of a model stays float64)."""
+
+    dtype = FP32
+
+    def compute(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` in the compute dtype (as it is, in float32 mode)."""
+        return t if self.dtype == FP32 else t.to(self.dtype)
 
 
-# "gelu" is the exact erf form, which the JAX package takes in f32
-# (``layers.py:19-27``); the port runs in f32 only
-ACTIVATIONS = {"relu": F.relu, "gelu": F.gelu, "swish": F.silu,
+def set_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the compute dtype of every :class:`Compute` module under
+    ``module`` (float32 or bfloat16); returns ``module``."""
+    if dtype not in DTYPES:
+        raise ValueError(f"compute dtype {dtype} unsupported "
+                         f"(float32 or bfloat16)")
+    for m in module.modules():
+        if isinstance(m, Compute):
+            m.dtype = dtype
+    return module
+
+
+class Linear(Compute, nn.Linear):
+    """``nn.Dense(dtype=...)``: in bf16, x and the weight rounded to bf16,
+    the product summed in fp32 and rounded once, then the bf16 bias added
+    in bf16 (flax's ``y += bias`` after the dot)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == FP32:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Conv1d(Compute, nn.Conv1d):
+    """``nn.Conv(dtype=...)`` on [B, C, T]: the rounding of :class:`Linear`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == FP32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
+                               None)
+        return (y if self.bias is None
+                else y + self.bias.to(self.dtype)[:, None])
+
+
+class LayerNorm(Compute, nn.LayerNorm):
+    """``nn.LayerNorm(dtype=...)``: the fp32 layer norm of the input (fp32
+    scale and bias), rounded once to the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == FP32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
+
+
+class Embedding(Compute, nn.Embedding):
+    """``nn.Embed(dtype=...)``: rows of the table in the compute dtype;
+    :meth:`attend` is the tied output projection, ``x @ tableᵀ`` with the
+    rounding of :class:`Linear`."""
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.compute(super().forward(idx))
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        return self.compute(x) @ self.compute(self.weight).t()
+
+
+def layer_norm(dim: int) -> LayerNorm:
+    return LayerNorm(dim, eps=LN_EPS)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact erf form, the tanh approximation in half precision
+    (``layers.py:19-27``)."""
+    if x.dtype in (BF16, torch.float16):
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
+ACTIVATIONS = {"relu": F.relu, "gelu": gelu, "swish": F.silu,
                "silu": F.silu, "tanh": torch.tanh}
 
 
@@ -44,7 +136,9 @@ def dropout(x: torch.Tensor, rate: float,
             rng: Optional[torch.Generator]) -> torch.Tensor:
     """JAX's u16-threshold dropout (``layers.py:39-71``): keep where a
     16-bit draw is below q = round((1 - rate) * 65536), scale kept values
-    by 1 / keep_p with keep_p = q / 65536. Off without ``rng``."""
+    by 1 / keep_p with keep_p = q / 65536, that factor rounded to x's
+    dtype as JAX rounds it (``jnp.asarray(1 / keep_p, x.dtype)``: 1.109375
+    in bf16 at rate 0.1). Off without ``rng``."""
     if rng is None or rate == 0.0:
         return x
     if rate == 1.0:
@@ -54,7 +148,10 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     bits = torch.randint(0, 65536, x.shape, generator=rng, device=x.device,
                          dtype=torch.int32)
-    return torch.where(bits < q, x * (65536.0 / q), torch.zeros_like(x))
+    scale = 65536.0 / q
+    if x.dtype != FP32:
+        scale = torch.tensor(scale, dtype=x.dtype).item()
+    return torch.where(bits < q, x * scale, torch.zeros_like(x))
 
 
 def row_seeds(rng: Optional[torch.Generator], rate: float, B: int,
@@ -139,10 +236,10 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.q_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(embed_dim, embed_dim)
+        self.v_proj = Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
@@ -175,8 +272,8 @@ class TransformerFFN(nn.Module):
     def __init__(self, ffn_dim: int, embed_dim: int, activation: str = "relu",
                  dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(embed_dim, ffn_dim)
-        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.fc1 = Linear(embed_dim, ffn_dim)
+        self.fc2 = Linear(ffn_dim, embed_dim)
         self.act = ACTIVATIONS[activation]
         self.dropout, self.activation_dropout = dropout, activation_dropout
 

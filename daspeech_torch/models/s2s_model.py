@@ -15,12 +15,14 @@ from torch import nn
 
 from daspeech_torch.models.dag_model import S2TConformerDAG
 from daspeech_torch.models.fastspeech2 import FastSpeech2Encoder, FFNAdapter
+from daspeech_torch.models.layers import FP32, set_dtype
 
 
 class S2SConformerDAGFastSpeech2(nn.Module):
-    """``s2s_model.py:24-102``."""
+    """``s2s_model.py:24-102``; ``dtype`` is the compute dtype of all three
+    parts (``layers.set_dtype``)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dtype: torch.dtype = FP32):
         super().__init__()
         self.cfg = cfg
         self.dag = S2TConformerDAG(cfg.dag)
@@ -29,6 +31,7 @@ class S2SConformerDAGFastSpeech2(nn.Module):
                                   cfg.tts.encoder_embed_dim,
                                   cfg.adaptor_dropout)
         self.tts = FastSpeech2Encoder(cfg.tts, pad=cfg.dag.vocab.pad)
+        set_dtype(self, dtype)
 
     def encode(self, fbank: torch.Tensor, src_lengths: torch.Tensor,
                rng: Optional[torch.Generator] = None):

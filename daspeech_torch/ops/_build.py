@@ -10,7 +10,10 @@ unchanged one is reused. The build runs at first use (never at import) into
 
 Each C entry point returns a ``cudaError_t`` (0 on success): the caller
 raises on anything else, because a refused launch never runs and a later
-``torch.cuda.synchronize()`` would not report it.
+``torch.cuda.synchronize()`` would not report it. An entry point whose name
+ends in ``_bf16`` is the bf16 variant of the one without: the same
+arguments and the same kernels, its operands and outputs bf16 in device
+memory (:func:`entry`).
 """
 
 from __future__ import annotations
@@ -72,6 +75,19 @@ SIGNATURES = {
                          _U, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _I, _I, _I, _I, _P),
 }
+# the bf16 variants (#1, #2, #4, #5): the fp32 entry points' arguments, and
+# in a forward the pointer of the fp32 output (out32) after the statistics'
+BF16_ENTRIES = ("daspeech_attention_fwd", "daspeech_attention_bwd",
+                "daspeech_attention_hm_fwd", "daspeech_attention_hm_bwd",
+                "daspeech_relpos_fwd", "daspeech_relpos_bwd",
+                "daspeech_links_fwd", "daspeech_links_bwd")
+OUT32_AT = {"daspeech_attention_fwd": 9, "daspeech_attention_hm_fwd": 9,
+            "daspeech_relpos_fwd": 11}
+SIGNATURES.update({
+    f"{n}_bf16": (SIGNATURES[n] if n not in OUT32_AT else
+                  SIGNATURES[n][:OUT32_AT[n]] + (_P,)
+                  + SIGNATURES[n][OUT32_AT[n]:])
+    for n in BF16_ENTRIES})
 
 
 class Build(NamedTuple):
@@ -150,20 +166,38 @@ def library() -> ctypes.CDLL:
     return load(build().path)
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library (this tree's, or another tree's with the
-    same entry points) and declare its entry points."""
+def load(path: Path, strict: bool = True) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points. Another
+    tree's library (``chip_smoke.py --parent``) may lack entry points that
+    this tree added (the ``_bf16`` variants before they existed): with
+    ``strict=False`` those are left undeclared, and calling one raises
+    AttributeError."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:
+            if strict:
+                raise
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def check_inputs(name: str, *tensors, int32=()) -> None:
-    """Raise unless every tensor is a contiguous float32 (``int32``: int32)
-    tensor on one CUDA device — what the kernels take."""
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``name`` for operands of ``dtype``: its ``_bf16``
+    variant for bfloat16."""
+    lib = library()
+    return getattr(lib, name if dtype == torch.float32 else f"{name}_bf16")
+
+
+def check_inputs(name: str, *tensors, int32=(),
+                 dtype=torch.float32) -> None:
+    """Raise unless every tensor is contiguous, on one CUDA device and of
+    its dtype — ``dtype`` is one dtype for all of ``tensors`` or a sequence
+    of one per tensor — and every ``int32`` tensor is int32: what the
+    kernels take."""
     dev = tensors[0].device
     for t in (*tensors, *int32):
         if t.device != dev or t.device.type != "cuda":
@@ -171,9 +205,14 @@ def check_inputs(name: str, *tensors, int32=()) -> None:
                              f"got {[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous inputs")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+    dtypes = ([dtype] * len(tensors) if isinstance(dtype, torch.dtype)
+              else list(dtype))
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{name}: {len(dtypes)} dtypes for "
+                         f"{len(tensors)} tensors")
+    for t, want in zip(tensors, dtypes):
+        if t.dtype != want:
+            raise TypeError(f"{name}: kernel takes {want}, got {t.dtype}")
     for t in int32:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: kernel takes int32 lengths, got {t.dtype}")

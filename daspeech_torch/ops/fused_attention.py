@@ -27,7 +27,8 @@ sums past fp32's noise. That is a register-tiled kernel
 (``csrc/attention_fma.cuh``) for the packed and head-major layouts and, in
 its full-bias mode, for the full bias. Each forward wrapper counts its
 launches in ``launches`` and, of those, the training forwards in
-``train_launches``.
+``train_launches``; every packed and head-major wrapper counts its bf16
+launches in ``bf16_launches`` too.
 All are differentiable. Their forward and backward take the plain versions
 for CPU tensors and launch the kernels for CUDA tensors; there is no
 fallback between the two. Dropout multiplies the softmax probabilities by
@@ -36,6 +37,18 @@ i, head h) in both layouts, which the kernels draw from the same counters:
 kernel and plain version agree element for element with dropout on, and so
 do the two layouts at a shape both take. The full-bias op takes one scalar
 seed and keys by (seed, j / 4, i, h, b) (``philox.full_bias_keep``).
+
+bf16: the packed and head-major kernels also take bf16 q, k, v (the bias and
+the softmax statistics stay fp32), through the ``_bf16`` variants of their C
+entry points: the same kernels, which read the bf16 operands, compute in
+fp32 and write out, dq, dk and dv in bf16, as the Pallas kernels upcast
+their operands and cast their outputs (``fused_attention.py:79-100``,
+``:305-321``). A bf16 training forward also writes its output in fp32
+(``out32``), which the backward takes for delta = rowsum(dO∘O): the Pallas
+backward sums P∘dP in fp32, the same value, where the rounded bf16 output
+would cancel against dO·V in a near-uniform softmax row. Each plain version, given bf16 operands, upcasts them, runs
+the fp32 plain version and casts its outputs back. The full-bias op takes
+float32 only (its bf16 entry point is ROADMAP Queue 1 #5b).
 """
 
 from __future__ import annotations
@@ -50,6 +63,25 @@ from daspeech_torch.ops.philox import (attention_keep, full_bias_keep,
 
 NEG = -1e30          # additive bias of a padded key (fused_attention.py:33)
 HEAD_DIM = 64        # the one head depth the kernels are built for
+FP32, BF16 = torch.float32, torch.bfloat16
+
+
+def operand_dtype(name: str, q: torch.Tensor) -> torch.dtype:
+    """q's dtype if a kernel takes it as its operands' (fp32 or bf16)."""
+    if q.dtype not in (FP32, BF16):
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16 "
+                        f"operands, got {q.dtype}")
+    return q.dtype
+
+
+def _bf16_plain(fn, *args, **kwargs):
+    """``fn`` (a plain fp32 version) on bf16 operands: the tensors among
+    ``args`` upcast, each tensor result cast back to bf16."""
+    out = fn(*[a.float() if isinstance(a, torch.Tensor)
+               and a.dtype == BF16 else a for a in args], **kwargs)
+    if isinstance(out, tuple):
+        return tuple(o.to(BF16) for o in out)
+    return out.to(BF16)
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -70,7 +102,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q_h k_hᵀ·sm_scale + bias[b]) v_h per head on packed
     q [B, Tq, H·d], k/v [B, Tk, H·d], bias [B, Tk] -> [B, Tq, H·d]; with
     ``dropout_p`` > 0 the probabilities take the Philox mask of the int32
-    per-row ``seeds`` [B]."""
+    per-row ``seeds`` [B]. bf16 operands: see :func:`_bf16_plain`."""
+    if q.dtype == BF16:
+        return _bf16_plain(attention_plain, q, k, v, bias, num_heads,
+                           sm_scale, dropout_p, seeds)
     B, Tq, C = q.shape
     p = _probs(q, k, bias, num_heads, sm_scale)
     if dropout_p > 0.0:
@@ -85,6 +120,9 @@ def attention_bwd_plain(q, k, v, bias, dout, num_heads: int,
     """(dq, dk, dv) of :func:`attention_plain` for the cotangent ``dout``,
     in closed form: dV = (P∘Z)ᵀ dO, dS = P∘(Z∘(dO Vᵀ) − rowsum(P∘Z∘(dO Vᵀ))),
     dQ = dS K·scale, dK = dSᵀ Q·scale (Z the dropout multipliers)."""
+    if q.dtype == BF16:
+        return _bf16_plain(attention_bwd_plain, q, k, v, bias, dout,
+                           num_heads, sm_scale, dropout_p, seeds)
     B, Tq, C = q.shape
     Tk = k.shape[1]
     p = _probs(q, k, bias, num_heads, sm_scale)
@@ -113,7 +151,9 @@ def _check(name, q, k, v, bias, num_heads, seeds, dropout_p):
     B, Tq, C = q.shape
     Tk = k.shape[1]
     drop = () if dropout_p == 0.0 else (seeds,)
-    _build.check_inputs(name, q, k, v, bias, int32=drop)
+    dt = operand_dtype(name, q)
+    _build.check_inputs(name, q, k, v, bias, int32=drop,
+                        dtype=(dt, dt, dt, FP32))
     _check_aligned(name, q, k, v)
     if C % num_heads or C // num_heads != HEAD_DIM:
         raise ValueError(f"{name}: head depth {C / num_heads} unsupported "
@@ -128,12 +168,53 @@ def _check(name, q, k, v, bias, num_heads, seeds, dropout_p):
         raise ValueError(f"{name}: dropout_p {dropout_p} not in [0, 1)")
 
 
+def _flat(stats):
+    return stats if isinstance(stats, tuple) else (stats,)
+
+
+def _unflat(saved):
+    """(out, stats) from the saved (out, stats) or (out, stats, out32)."""
+    out, *stats = saved
+    return out, (stats[0] if len(stats) == 1 else tuple(stats))
+
+
 def _bwd_scratch(rows: int, n: int, device) -> torch.Tensor:
     """A backward's scratch buffer: delta [rows], padded to 4 floats so that
     what follows stays 16-byte aligned for cp.async, then ``n`` floats (the
     [B, H, Tq, Tk] dS and P∘Z buffers of the chunked-score kernels)."""
     return torch.empty((rows + 3) // 4 * 4 + n, dtype=torch.float32,
                        device=device)
+
+
+def _fwd_outputs(q, num_heads, Tq, with_stats):
+    """(out, stats, out32): the forward's output (q's layout and dtype),
+    the [B, H, Tq, 2] row statistics of a training forward, and for a bf16
+    training forward its output in fp32 too (see the module docstring)."""
+    out = torch.empty_like(q)
+    stats = out32 = None
+    if with_stats:
+        stats = torch.empty((q.shape[0], num_heads, Tq, 2),
+                            dtype=torch.float32, device=q.device)
+        if q.dtype == BF16:
+            out32 = torch.empty(q.shape, dtype=FP32, device=q.device)
+    return out, stats, out32
+
+
+def _saved(stats, out32):
+    """What a forward hands its backward: the statistics, or for bf16 the
+    pair (statistics, fp32 output)."""
+    return stats if out32 is None else (stats, out32)
+
+
+def _bwd_out(name, q, out, stats):
+    """(fp32 output, statistics) of a forward's ``out`` and ``stats`` (a
+    bf16 forward's pair: its fp32 output stands in for ``out``)."""
+    if q.dtype == BF16:
+        if not isinstance(stats, tuple):
+            raise TypeError(f"{name}: a bf16 backward takes the forward's "
+                            "(stats, out32)")
+        stats, out = stats
+    return out, stats
 
 
 def _drop_args(dropout_p, seeds):
@@ -146,32 +227,36 @@ def attention_fwd_kernel(q, k, v, bias, num_heads: int, sm_scale: float,
                          dropout_p: float = 0.0, seeds=None,
                          with_stats: bool = False):
     """Launch the forward kernel: (out, stats) with stats the [B, H, Tq, 2]
-    row softmax (max, sum) the backward needs, or None."""
+    row softmax (max, sum) the backward needs (bf16 operands: the pair
+    (stats, out32), out32 the output in fp32), or None."""
     _check("fused_attention_packed", q, k, v, bias, num_heads, seeds,
            dropout_p)
     B, Tq, C = q.shape
-    out = torch.empty_like(q)
-    stats = (torch.empty((B, num_heads, Tq, 2), dtype=torch.float32,
-                         device=q.device) if with_stats else None)
+    out, stats, out32 = _fwd_outputs(q, num_heads, Tq, with_stats)
+    extra = () if q.dtype == FP32 else (_build.ptr(out32),)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_fwd(
+        rc = _build.entry("daspeech_attention_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *_drop_args(dropout_p, seeds), out.data_ptr(), _build.ptr(stats),
-            B, Tq, k.shape[1], num_heads, HEAD_DIM, float(sm_scale),
+            *extra, B, Tq, k.shape[1], num_heads, HEAD_DIM, float(sm_scale),
             _build.stream_of(q))
     _build.check(rc, "daspeech_attention_fwd")
     fused_attention_packed.launches += 1
     fused_attention_packed.train_launches += with_stats
-    return out, stats
+    fused_attention_packed.bf16_launches += q.dtype == BF16
+    return out, _saved(stats, out32)
 
 
 def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
                          sm_scale: float, dropout_p: float = 0.0,
                          seeds=None):
-    """Launch the backward kernels: (dq, dk, dv)."""
+    """Launch the backward kernels: (dq, dk, dv). ``stats``: what the
+    training forward returned."""
     _check("fused_attention_packed backward", q, k, v, bias, num_heads, seeds,
            dropout_p)
-    _build.check_inputs("fused_attention_packed backward", out, stats, dout)
+    out, stats = _bwd_out("fused_attention_packed backward", q, out, stats)
+    _build.check_inputs("fused_attention_packed backward", out, stats, dout,
+                        dtype=(FP32, FP32, q.dtype))
     _check_aligned("fused_attention_packed backward", out, dout)
     B, Tq, C = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -183,7 +268,7 @@ def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
     delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
                         device=q.device)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_bwd(
+        rc = _build.entry("daspeech_attention_bwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *_drop_args(dropout_p, seeds), out.data_ptr(), stats.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -191,6 +276,7 @@ def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
             float(sm_scale), _build.stream_of(q))
     _build.check(rc, "daspeech_attention_bwd")
     attention_bwd_kernel.launches += 1
+    attention_bwd_kernel.bf16_launches += q.dtype == BF16
     return dq, dk, dv
 
 
@@ -205,7 +291,7 @@ class _PackedAttention(torch.autograd.Function):
         out, stats = attention_fwd_kernel(
             q, k, v, bias, num_heads, sm_scale, dropout_p, seeds,
             with_stats=any(ctx.needs_input_grad))
-        ctx.save_for_backward(q, k, v, bias, seeds, out, stats)
+        ctx.save_for_backward(q, k, v, bias, seeds, out, *_flat(stats))
         return out
 
     @staticmethod
@@ -217,7 +303,7 @@ class _PackedAttention(torch.autograd.Function):
             grads = attention_bwd_plain(q, k, v, bias, dout, num_heads,
                                         sm_scale, dropout_p, seeds)
         else:
-            out, stats = saved
+            out, stats = _unflat(saved)
             grads = attention_bwd_kernel(q, k, v, bias, out, stats, dout,
                                          num_heads, sm_scale, dropout_p,
                                          seeds)
@@ -233,15 +319,18 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q, k and v.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
-    which take fp32, contiguous inputs with head depth 64 (and int32 seeds
-    with dropout), and raise on anything else."""
+    which take fp32 or bf16, contiguous q, k, v with head depth 64, an fp32
+    bias (and int32 seeds with dropout), and raise on anything else; the
+    output and the gradients have q's dtype."""
     return _PackedAttention.apply(q, k, v, bias, num_heads, sm_scale,
                                   dropout_p, seeds)
 
 
 fused_attention_packed.launches = 0
 fused_attention_packed.train_launches = 0
+fused_attention_packed.bf16_launches = 0     # of launches, the bf16 ones
 attention_bwd_kernel.launches = 0
+attention_bwd_kernel.bf16_launches = 0
 
 
 def packed_route(Tq: int, Tk: int, C: int, num_heads: int) -> bool:
@@ -265,7 +354,11 @@ def attention_hm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ·sm_scale + bias[b]) v on head-major q [B, H, Tq, d],
     k/v [B, H, Tk, d], bias [B, Tk] -> [B, H, Tq, d]; with ``dropout_p`` > 0
     the probabilities take the Philox mask of the int32 per-row ``seeds``
-    [B] (the packed layout's mask)."""
+    [B] (the packed layout's mask). bf16 operands: see
+    :func:`_bf16_plain`."""
+    if q.dtype == BF16:
+        return _bf16_plain(attention_hm_plain, q, k, v, bias, sm_scale,
+                           dropout_p, seeds)
     B, H, Tq, _ = q.shape
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     p = torch.softmax(s + bias[:, None, None, :], dim=-1)
@@ -279,6 +372,9 @@ def attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale: float = 1.0,
                            seeds: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of :func:`attention_hm_plain` for the cotangent
     ``dout``, in the closed form of :func:`attention_bwd_plain`."""
+    if q.dtype == BF16:
+        return _bf16_plain(attention_hm_bwd_plain, q, k, v, bias, dout,
+                           sm_scale, dropout_p, seeds)
     B, H, Tq, _ = q.shape
     Tk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
@@ -295,7 +391,9 @@ def attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale: float = 1.0,
 
 def _check_hm(name, q, k, v, bias, seeds, dropout_p):
     drop = () if dropout_p == 0.0 else (seeds,)
-    _build.check_inputs(name, q, k, v, bias, int32=drop)
+    dt = operand_dtype(name, q)
+    _build.check_inputs(name, q, k, v, bias, int32=drop,
+                        dtype=(dt, dt, dt, FP32))
     _check_aligned(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: takes [B, H, T, d] q, k, v")
@@ -318,29 +416,33 @@ def attention_hm_fwd_kernel(q, k, v, bias, sm_scale: float,
                             dropout_p: float = 0.0, seeds=None,
                             with_stats: bool = False):
     """Launch the head-major forward kernel: (out [B, H, Tq, d], stats) with
-    stats the [B, H, Tq, 2] row softmax (max, sum), or None."""
+    stats the [B, H, Tq, 2] row softmax (max, sum) (bf16 operands: the pair
+    (stats, out32)), or None."""
     _check_hm("fused_attention", q, k, v, bias, seeds, dropout_p)
     B, H, Tq, _ = q.shape
-    out = torch.empty_like(q)
-    stats = (torch.empty((B, H, Tq, 2), dtype=torch.float32,
-                         device=q.device) if with_stats else None)
+    out, stats, out32 = _fwd_outputs(q, H, Tq, with_stats)
+    extra = () if q.dtype == FP32 else (_build.ptr(out32),)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_hm_fwd(
+        rc = _build.entry("daspeech_attention_hm_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *_drop_args(dropout_p, seeds), out.data_ptr(), _build.ptr(stats),
-            B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
+            *extra, B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
             _build.stream_of(q))
     _build.check(rc, "daspeech_attention_hm_fwd")
     fused_attention.launches += 1
     fused_attention.train_launches += with_stats
-    return out, stats
+    fused_attention.bf16_launches += q.dtype == BF16
+    return out, _saved(stats, out32)
 
 
 def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
                             dropout_p: float = 0.0, seeds=None):
-    """Launch the head-major backward kernels: (dq, dk, dv)."""
+    """Launch the head-major backward kernels: (dq, dk, dv). ``stats``:
+    what the training forward returned."""
     _check_hm("fused_attention backward", q, k, v, bias, seeds, dropout_p)
-    _build.check_inputs("fused_attention backward", out, stats, dout)
+    out, stats = _bwd_out("fused_attention backward", q, out, stats)
+    _build.check_inputs("fused_attention backward", out, stats, dout,
+                        dtype=(FP32, FP32, q.dtype))
     _check_aligned("fused_attention backward", out, dout)
     B, H, Tq, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -352,7 +454,7 @@ def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
     delta = torch.empty(stats.shape[:-1], dtype=torch.float32,
                         device=q.device)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_hm_bwd(
+        rc = _build.entry("daspeech_attention_hm_bwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *_drop_args(dropout_p, seeds), out.data_ptr(), stats.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -360,6 +462,7 @@ def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
             float(sm_scale), _build.stream_of(q))
     _build.check(rc, "daspeech_attention_hm_bwd")
     attention_hm_bwd_kernel.launches += 1
+    attention_hm_bwd_kernel.bf16_launches += q.dtype == BF16
     return dq, dk, dv
 
 
@@ -374,7 +477,7 @@ class _HeadMajorAttention(torch.autograd.Function):
         out, stats = attention_hm_fwd_kernel(
             q, k, v, bias, sm_scale, dropout_p, seeds,
             with_stats=any(ctx.needs_input_grad))
-        ctx.save_for_backward(q, k, v, bias, seeds, out, stats)
+        ctx.save_for_backward(q, k, v, bias, seeds, out, *_flat(stats))
         return out
 
     @staticmethod
@@ -386,7 +489,7 @@ class _HeadMajorAttention(torch.autograd.Function):
             grads = attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale,
                                            dropout_p, seeds)
         else:
-            out, stats = saved
+            out, stats = _unflat(saved)
             grads = attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout,
                                             sm_scale, dropout_p, seeds)
         return (*grads, None, None, None, None)
@@ -400,15 +503,18 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable in q, k and v.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
-    which take fp32, contiguous [B, H, T, 64] inputs (and int32 seeds with
-    dropout), and raise on anything else."""
+    which take fp32 or bf16, contiguous [B, H, T, 64] q, k, v, an fp32 bias
+    (and int32 seeds with dropout), and raise on anything else; the output
+    and the gradients have q's dtype."""
     return _HeadMajorAttention.apply(q, k, v, bias, sm_scale, dropout_p,
                                      seeds)
 
 
 fused_attention.launches = 0
 fused_attention.train_launches = 0
+fused_attention.bf16_launches = 0
 attention_hm_bwd_kernel.launches = 0
+attention_hm_bwd_kernel.bf16_launches = 0
 
 
 def attention_full_bias_plain(q: torch.Tensor, k: torch.Tensor,
@@ -567,7 +673,11 @@ def fused_attention_full_bias(q: torch.Tensor, k: torch.Tensor,
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
     which take fp32, contiguous [B, H, T, 64] q, k, v (head depth 64 only,
     as the other attention kernels) and a contiguous fp32 bias4, and raise
-    on anything else."""
+    on anything else. bf16 operands raise on either device: the bf16 entry
+    point of this kernel is ROADMAP Queue 1 #5b."""
+    if q.dtype != FP32:
+        raise TypeError("fused_attention_full_bias takes float32 only: its "
+                        "bf16 entry point is ROADMAP Queue 1 #5b")
     p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
     seed_t = None
     if p > 0.0:

@@ -202,7 +202,12 @@ def fused_ffn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """The FFN of :func:`ffn_plain`, differentiable in x and every
     parameter; JAX's argument order. ``seed`` is an int, or int32 per-row
     seeds [B] (a scalar s gives row b the seed s + b, as JAX's
-    ``_norm_seeds``), used only when ``train`` and p > 0."""
+    ``_norm_seeds``), used only when ``train`` and p > 0. Float32 only, on
+    either device: a bf16 x raises (the bf16 entry point is ROADMAP Queue 1
+    #5b)."""
+    if x.dtype != torch.float32:
+        raise TypeError("fused_ffn takes float32 only: its bf16 entry point "
+                        "is ROADMAP Queue 1 #5b")
     p1 = float(p1) if train else 0.0
     p2 = float(p2) if train else 0.0
     seeds = None

@@ -12,6 +12,12 @@ FMA pipes) or dq, dk and dgates (backward, on the tensor cores).
 :func:`fused_extract_links` is differentiable in q, k and log_gates. CPU
 tensors take the plain versions, CUDA tensors the kernels; there is no
 fallback between the two.
+
+bf16: the kernels also take bf16 q and k (log_gates stays fp32) through the
+``_bf16`` variants of their C entry points: they compute in fp32, write fp32
+links and lse, and return bf16 dq and dk with fp32 dgates, as the Pallas
+kernel does (``fused_links.py:62-66``, ``:177-199``); the plain versions
+upcast q and k and cast dq and dk back.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Optional
 import torch
 
 from daspeech_torch.ops import _build
+from daspeech_torch.ops.fused_attention import BF16, FP32, operand_dtype
 
 NEG_FLOOR = -1e9
 HEAD_DIM = 64
@@ -51,7 +58,10 @@ def links_plain(q: torch.Tensor, k: torch.Tensor, log_gates: torch.Tensor,
                 mtl: Optional[int]) -> torch.Tensor:
     """links [B, L, L] f32: per-head masked row log-softmax of q_h k_hᵀ·scale
     (-1e9 floor) plus ``log_gates[i, h]``, logsumexp over heads, -inf where
-    (j > i) ∧ (j < output_length) [∧ j - i <= mtl] fails."""
+    (j > i) ∧ (j < output_length) [∧ j - i <= mtl] fails. bf16 q and k are
+    upcast; the links stay f32."""
+    if q.dtype == BF16:
+        q, k = q.float(), k.float()
     valid = _valid(q.shape[1], output_length, mtl, q.device)
     scores = _floored_scores(q, k, valid, num_heads, scale)
     log_attn = scores - torch.logsumexp(scores, dim=2, keepdim=True)
@@ -66,7 +76,13 @@ def links_bwd_plain(q, k, log_gates, output_length, dlinks, num_heads: int,
     head posterior p_h = exp(s_h - lse_h + g_h - links),
     dgates_h = Σ_j p_h G, dS_h = (p_h G - softmax_j(s_h)·dgates_h)·scale on
     the valid entries (the -1e9 floor is a constant), dq_h = dS_h k_h,
-    dk_h = dS_hᵀ q_h."""
+    dk_h = dS_hᵀ q_h. bf16 q and k: computed on their upcast values, dq and
+    dk cast back to bf16 (dgates f32)."""
+    if q.dtype == BF16:
+        dq, dk, r = links_bwd_plain(q.float(), k.float(), log_gates,
+                                    output_length, dlinks, num_heads, scale,
+                                    mtl)
+        return dq.to(BF16), dk.to(BF16), r
     B, L, C = q.shape
     valid = _valid(L, output_length, mtl, q.device)
     scores = _floored_scores(q, k, valid, num_heads, scale)      # [B,L,L,H]
@@ -87,7 +103,9 @@ def links_bwd_plain(q, k, log_gates, output_length, dlinks, num_heads: int,
 
 def _check(name, q, k, log_gates, ol, num_heads):
     B, L, C = q.shape
-    _build.check_inputs(name, q, k, log_gates, int32=(ol,))
+    dt = operand_dtype(name, q)
+    _build.check_inputs(name, q, k, log_gates, int32=(ol,),
+                        dtype=(dt, dt, FP32))
     if C % num_heads or C // num_heads != HEAD_DIM or not 1 <= L <= MAX_L:
         raise ValueError(f"{name}: d={C / num_heads}, L={L} unsupported "
                          f"(kernel takes d={HEAD_DIM}, L <= {MAX_L})")
@@ -111,13 +129,14 @@ def links_fwd_kernel(q, k, log_gates, output_length, num_heads: int,
     lse = torch.empty((B, L, num_heads), dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_links_fwd(
+        rc = _build.entry("daspeech_links_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), log_gates.data_ptr(), ol.data_ptr(),
             links.data_ptr(), lse.data_ptr(), B, L, num_heads, HEAD_DIM,
             float(scale), -1 if mtl is None else int(mtl),
             _build.stream_of(q))
     _build.check(rc, "daspeech_links_fwd")
     fused_extract_links.launches += 1
+    fused_extract_links.bf16_launches += q.dtype == BF16
     return links, (lse if with_lse else None)
 
 
@@ -134,9 +153,9 @@ def links_bwd_kernel(q, k, log_gates, output_length, links, lse, dlinks,
                          f"links{tuple(links.shape)} lse{tuple(lse.shape)} "
                          f"dlinks{tuple(dlinks.shape)}")
     dq, dk = torch.empty_like(q), torch.empty_like(k)
-    dg = torch.empty_like(log_gates)
+    dg = torch.empty_like(log_gates)         # f32, as log_gates
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_links_bwd(
+        rc = _build.entry("daspeech_links_bwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), log_gates.data_ptr(), ol.data_ptr(),
             links.data_ptr(), lse.data_ptr(), dlinks.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dg.data_ptr(), B, L, num_heads,
@@ -144,6 +163,7 @@ def links_bwd_kernel(q, k, log_gates, output_length, links, lse, dlinks,
             _build.stream_of(q))
     _build.check(rc, "daspeech_links_bwd")
     links_bwd_kernel.launches += 1
+    links_bwd_kernel.bf16_launches += q.dtype == BF16
     return dq, dk, dg
 
 
@@ -184,11 +204,14 @@ def fused_extract_links(q: torch.Tensor, k: torch.Tensor,
     and log_gates.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
-    which take fp32 q/k with head depth 64, L <= 1024, and raise on
-    anything else."""
+    which take fp32 or bf16 q/k (one dtype) with head depth 64, L <= 1024,
+    fp32 log_gates, and raise on anything else. The links are fp32 either
+    way."""
     return _ExtractLinks.apply(q, k, log_gates, output_length, num_heads,
                                scale, mtl)
 
 
 fused_extract_links.launches = 0
+fused_extract_links.bf16_launches = 0        # of launches, the bf16 ones
 links_bwd_kernel.launches = 0
+links_bwd_kernel.bf16_launches = 0

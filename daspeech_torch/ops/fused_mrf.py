@@ -139,7 +139,12 @@ def mrf_level(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
     which takes contiguous fp32 inputs with C a power of two <= 128 (C < 32
     padded with zero channels inside it) and odd kernel sizes <= 17, and
     raises on anything else. Neither has a
-    gradient: under autograd with an input that requires one, this raises."""
+    gradient: under autograd with an input that requires one, this raises.
+    Float32 only, on either device: a bf16 x raises (the bf16 and int8
+    entry points are ROADMAP Queue 1 #5b)."""
+    if x.dtype != torch.float32:
+        raise TypeError("mrf_level takes float32 only: its bf16 and int8 "
+                        "entry points are ROADMAP Queue 1 #5b")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, W, biases)):
         raise RuntimeError("mrf_level is inference only: run it under "
                            "torch.no_grad() or torch.inference_mode()")

@@ -20,6 +20,14 @@ every length on the card.
 :func:`fused_attention_relpos` is differentiable in q, k, v and a (``e`` is
 a constant basis). CPU tensors take the plain versions, CUDA tensors the
 kernels; there is no fallback between the two.
+
+bf16: the kernels also take bf16 q, k, v, a and e (the bias and the
+statistics stay fp32) through the ``_bf16`` variants of their C entry
+points, compute in fp32 and write out, dq, dk, dv and da in bf16, as the
+Pallas kernels do (``fused_relpos.py:102-122``); a bf16 training forward
+also writes its output in fp32, for the backward's delta (as
+``ops/fused_attention.py``'s). The plain versions upcast bf16 operands and
+cast their outputs back (``fused_attention._bf16_plain``).
 """
 
 from __future__ import annotations
@@ -30,8 +38,11 @@ from typing import Optional
 import torch
 
 from daspeech_torch.ops import _build
-from daspeech_torch.ops.fused_attention import (_bwd_scratch, _check_aligned,
-                                                _drop_args)
+from daspeech_torch.ops.fused_attention import (BF16, FP32, _bf16_plain,
+                                                _bwd_out, _bwd_scratch,
+                                                _check_aligned, _drop_args,
+                                                _flat, _fwd_outputs, _saved,
+                                                _unflat, operand_dtype)
 from daspeech_torch.ops.philox import attention_keep
 
 NEG = -1e30
@@ -78,6 +89,9 @@ def relpos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v [B, T, H·d], a [B, T, H·C], e [T, C], bias [B, T]; with
     ``dropout_p`` > 0 the probabilities take the Philox mask of the int32
     per-row ``seeds`` [B]."""
+    if q.dtype == BF16:
+        return _bf16_plain(relpos_plain, q, k, v, a, e, bias, num_heads,
+                           sm_scale, dropout_p, seeds)
     B, T, Cq = q.shape
     p = _relpos_probs(q, k, a, e, bias, num_heads, sm_scale)
     if dropout_p > 0.0:
@@ -90,6 +104,9 @@ def relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads: int,
                      sm_scale: float, dropout_p: float = 0.0, seeds=None):
     """(dq, dk, dv, da) of :func:`relpos_plain` for the cotangent ``dout``
     in closed form (as ``attention_bwd_plain``; da = dS e·scale per head)."""
+    if q.dtype == BF16:
+        return _bf16_plain(relpos_bwd_plain, q, k, v, a, e, bias, dout,
+                           num_heads, sm_scale, dropout_p, seeds)
     B, T, Cq = q.shape
     H = num_heads
     p = _relpos_probs(q, k, a, e, bias, H, sm_scale)
@@ -109,7 +126,9 @@ def relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads: int,
 def _check(name, q, k, v, a, e, bias, num_heads, seeds, dropout_p):
     B, T, Cq = q.shape
     drop = () if dropout_p == 0.0 else (seeds,)
-    _build.check_inputs(name, q, k, v, a, e, bias, int32=drop)
+    dt = operand_dtype(name, q)
+    _build.check_inputs(name, q, k, v, a, e, bias, int32=drop,
+                        dtype=(dt,) * 5 + (FP32,))
     _check_aligned(name, q, k, v, a, e)
     d = Cq // num_heads
     C = e.shape[1]
@@ -131,31 +150,35 @@ def relpos_fwd_kernel(q, k, v, a, e, bias, num_heads: int, sm_scale: float,
                       dropout_p: float = 0.0, seeds=None,
                       with_stats: bool = False):
     """Launch the forward kernel: (out, stats) with stats the [B, H, T, 2]
-    row softmax (max, sum) the backward needs, or None."""
+    row softmax (max, sum) the backward needs (bf16 operands: the pair
+    (stats, out32)), or None."""
     _check("fused_attention_relpos", q, k, v, a, e, bias, num_heads, seeds,
            dropout_p)
     B, T, Cq = q.shape
-    out = torch.empty_like(q)
-    stats = (torch.empty((B, num_heads, T, 2), dtype=torch.float32,
-                         device=q.device) if with_stats else None)
+    out, stats, out32 = _fwd_outputs(q, num_heads, T, with_stats)
+    extra = () if q.dtype == FP32 else (_build.ptr(out32),)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_relpos_fwd(
+        rc = _build.entry("daspeech_relpos_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
             e.data_ptr(), bias.data_ptr(), *_drop_args(dropout_p, seeds),
-            out.data_ptr(), _build.ptr(stats), B, T, num_heads, HEAD_DIM,
-            POS_DIM, float(sm_scale), _build.stream_of(q))
+            out.data_ptr(), _build.ptr(stats), *extra, B, T, num_heads,
+            HEAD_DIM, POS_DIM, float(sm_scale), _build.stream_of(q))
     _build.check(rc, "daspeech_relpos_fwd")
     fused_attention_relpos.launches += 1
     fused_attention_relpos.train_launches += with_stats
-    return out, stats
+    fused_attention_relpos.bf16_launches += q.dtype == BF16
+    return out, _saved(stats, out32)
 
 
 def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
                       sm_scale: float, dropout_p: float = 0.0, seeds=None):
-    """Launch the backward kernels: (dq, dk, dv, da)."""
+    """Launch the backward kernels: (dq, dk, dv, da). ``stats``: what the
+    training forward returned."""
     _check("fused_attention_relpos backward", q, k, v, a, e, bias, num_heads,
            seeds, dropout_p)
-    _build.check_inputs("fused_attention_relpos backward", out, stats, dout)
+    out, stats = _bwd_out("fused_attention_relpos backward", q, out, stats)
+    _build.check_inputs("fused_attention_relpos backward", out, stats, dout,
+                        dtype=(FP32, FP32, q.dtype))
     _check_aligned("fused_attention_relpos backward", out, dout)
     B, T, Cq = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -169,7 +192,7 @@ def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
     rows = B * num_heads * T
     scratch = _bwd_scratch(rows, 2 * rows * T, q.device)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_relpos_bwd(
+        rc = _build.entry("daspeech_relpos_bwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
             e.data_ptr(), bias.data_ptr(), *_drop_args(dropout_p, seeds),
             out.data_ptr(), stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
@@ -178,6 +201,7 @@ def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
             _build.stream_of(q))
     _build.check(rc, "daspeech_relpos_bwd")
     relpos_bwd_kernel.launches += 1
+    relpos_bwd_kernel.bf16_launches += q.dtype == BF16
     return dq, dk, dv, da
 
 
@@ -193,7 +217,7 @@ class _RelPosAttention(torch.autograd.Function):
         out, stats = relpos_fwd_kernel(q, k, v, a, e, bias, num_heads,
                                      sm_scale, dropout_p, seeds,
                                      with_stats=any(ctx.needs_input_grad))
-        ctx.save_for_backward(q, k, v, a, e, bias, seeds, out, stats)
+        ctx.save_for_backward(q, k, v, a, e, bias, seeds, out, *_flat(stats))
         return out
 
     @staticmethod
@@ -205,7 +229,7 @@ class _RelPosAttention(torch.autograd.Function):
             grads = relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads,
                                      sm_scale, dropout_p, seeds)
         else:
-            out, stats = saved
+            out, stats = _unflat(saved)
             grads = relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout,
                                       num_heads, sm_scale, dropout_p, seeds)
         return (*grads, None, None, None, None, None, None)
@@ -221,12 +245,15 @@ def fused_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v and a.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
-    which take fp32, contiguous inputs with d = 64 and C = 256 (and int32
-    seeds with dropout), and raise on anything else."""
+    which take fp32 or bf16, contiguous q, k, v, a, e (one dtype) with
+    d = 64 and C = 256, an fp32 bias (and int32 seeds with dropout), and
+    raise on anything else; the output and the gradients have q's dtype."""
     return _RelPosAttention.apply(q, k, v, a, e, bias, num_heads, sm_scale,
                                   dropout_p, seeds)
 
 
 fused_attention_relpos.launches = 0
 fused_attention_relpos.train_launches = 0
+fused_attention_relpos.bf16_launches = 0     # of launches, the bf16 ones
 relpos_bwd_kernel.launches = 0
+relpos_bwd_kernel.bf16_launches = 0

@@ -1139,3 +1139,138 @@ def test_no_simt_attention_forward_is_built(gen):
     image = _build.build().path.read_bytes()
     assert b"15attn_fwd_kernel" not in image
     assert b"19attn_fma_fwd_kernelILi1ELb1E" in image
+
+
+# ------------------------------------------------------------------ bf16
+
+BF16_TOL = 2.0 ** -7     # of the output's largest magnitude
+BF16_FLOOR = 1e-5        # absolute, for an output that is 0 exactly
+
+
+def _bf16_close(got, want):
+    """A bf16 kernel output against its plain bf16 version: the same
+    dtype, within 2^-7 (one bf16 ulp at 1) of the output's largest
+    magnitude, or 1e-5 where that is smaller (dq at a single key is 0 in
+    the plain version and fp32 rounding in the kernel)."""
+    assert got.dtype == want.dtype
+    assert torch.isfinite(got.float()).all()
+    scale = want.float().abs().max().item()
+    assert _max_err(got.float(), want.float()) <= max(BF16_TOL * scale,
+                                                      BF16_FLOOR)
+
+
+def _bf16(gen, *shape, scale=1.0):
+    return _randn(gen, *shape, scale=scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("head_major", [False, True])
+@pytest.mark.parametrize("B,Tq,Tk,H,p", [(2, 1, 1, 1, 0.0),
+                                         (2, 65, 130, 4, 0.1),
+                                         (3, 240, 120, 8, 0.1),
+                                         (2, 1040, 1040, 4, 0.0)])
+def test_bf16_attention(gen, head_major, B, Tq, Tk, H, p):
+    """#1 and #2 on bf16 q, k, v: the inference and the training forward
+    and the backward against the plain bf16 versions (dropout, a fully
+    padded row), bf16 out and gradients; the training forward's fp32
+    statistics and fp32 output."""
+    shape = (lambda T: (B, H, T, 64)) if head_major else (
+        lambda T: (B, T, H * 64))
+    q = _bf16(gen, *shape(Tq), scale=0.125)
+    k, v, = _bf16(gen, *shape(Tk)), _bf16(gen, *shape(Tk))
+    do = _bf16(gen, *shape(Tq))
+    bias = _bias(gen, B, Tk, all_padded_row=B > 1)
+    seeds = _seeds(gen, B) if p else None
+    if head_major:
+        fwd = lambda st: fa.attention_hm_fwd_kernel(  # noqa: E731
+            q, k, v, bias, 1.0, p, seeds, with_stats=st)
+        want = fa.attention_hm_plain(q, k, v, bias, 1.0, p, seeds)
+        want_g = fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p, seeds)
+    else:
+        fwd = lambda st: fa.attention_fwd_kernel(  # noqa: E731
+            q, k, v, bias, H, 1.0, p, seeds, with_stats=st)
+        want = fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds)
+        want_g = fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p, seeds)
+    infer, _ = fwd(False)
+    out, st = fwd(True)
+    torch.cuda.synchronize()
+    # the statistics and the output in fp32, for the backward's delta
+    assert [x.dtype for x in st] == [torch.float32] * 2
+    _bf16_close(st[1].to(torch.bfloat16), out)
+    _bf16_close(infer, want)
+    _bf16_close(out, want)
+    bwd = fa.attention_hm_bwd_kernel if head_major else (
+        lambda *a: fa.attention_bwd_kernel(*a[:7], H, *a[7:]))
+    got = bwd(q, k, v, bias, out, st, do, 1.0, p, seeds)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want_g):
+        _bf16_close(g, w)
+
+
+@pytest.mark.parametrize("B,T,H,p", [(2, 1, 4, 0.0), (2, 65, 4, 0.1),
+                                     (3, 120, 4, 0.1), (2, 300, 4, 0.0)])
+def test_bf16_relpos(gen, B, T, H, p):
+    """#5 on bf16 q, k, v, a and e, forward (inference and training) and
+    backward, against the plain bf16 versions."""
+    C = 256
+    q, k, v = (_bf16(gen, B, T, H * 64, scale=0.5) for _ in range(3))
+    a = _bf16(gen, B, T, H * C, scale=0.1)
+    e = fr.relpos_basis(T, C, device="cuda")[2].to(torch.bfloat16)
+    bias = _bias(gen, B, T, all_padded_row=B > 2)
+    seeds = _seeds(gen, B) if p else None
+    do = _bf16(gen, B, T, H * 64)
+    want = fr.relpos_plain(q, k, v, a, e, bias, H, 0.125, p, seeds)
+    infer, _ = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, 0.125, p, seeds)
+    out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, 0.125, p, seeds,
+                                   with_stats=True)
+    torch.cuda.synchronize()
+    _bf16_close(infer, want)
+    _bf16_close(out, want)
+    got = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, 0.125, p,
+                               seeds)
+    torch.cuda.synchronize()
+    want_g = fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, 0.125, p, seeds)
+    for g, w in zip(got, want_g):
+        _bf16_close(g, w)
+
+
+@pytest.mark.parametrize("B,L,H,mtl", [(2, 1, 8, None), (3, 65, 8, 5),
+                                       (2, 240, 8, None), (1, 1024, 8, None)])
+def test_bf16_links(gen, B, L, H, mtl):
+    """#4 on bf16 q and k: fp32 links (the -inf pattern of the plain
+    version, 1e-4 on the finite ones) and lse; bf16 dq, dk and fp32
+    dgates against the plain bf16 versions."""
+    q, k = _bf16(gen, B, L, H * 64, scale=0.5), _bf16(gen, B, L, H * 64)
+    gates = torch.log_softmax(_randn(gen, B, L, H), dim=-1)
+    ol = torch.randint(1, L + 1, (B,), generator=gen)
+    ol[0] = L
+    ol = ol.cuda()
+    links, lse = fl.links_fwd_kernel(q, k, gates, ol, H, 0.125, mtl,
+                                     with_lse=True)
+    torch.cuda.synchronize()
+    want = fl.links_plain(q, k, gates, ol, H, 0.125, mtl)
+    assert links.dtype == torch.float32 and lse.dtype == torch.float32
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(links), finite)
+    if finite.any():
+        assert (links[finite] - want[finite]).abs().max().item() <= TOL
+    dlinks = _randn(gen, B, L, L)
+    dq, dk_, dg = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H,
+                                      0.125, mtl)
+    torch.cuda.synchronize()
+    wq, wk, wg = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, 0.125, mtl)
+    _bf16_close(dq, wq)
+    _bf16_close(dk_, wk)
+    assert dg.dtype == torch.float32
+    assert _max_err(dg, wg) <= TOL
+
+
+def test_bf16_wrappers_refuse_mixed_dtypes(gen):
+    """The bf16 entry points take one operand dtype and an fp32 bias."""
+    q = _bf16(gen, 1, 4, 128)
+    bias = torch.zeros((1, 4), device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.fused_attention_packed(q, q.float(), q, bias, 2)
+    with pytest.raises(TypeError, match="float32"):
+        fa.fused_attention_packed(q, q, q, bias.to(torch.bfloat16), 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.fused_attention_packed(q.half(), q.half(), q.half(), bias, 2)

@@ -656,7 +656,6 @@ def test_crash_checkpoint(corpus, tmp_path, capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dtype", "bfloat16"], "#5"),
     (["--criterion", "tts_transformer"], "#6"),
     (["--criterion", "s2s_multidecoder"], "#6"),
     (["--banded-dp"], "#6"),
