@@ -341,6 +341,8 @@ JOINT_KERNELS = TRAIN_KERNELS + ("fused_attention", "fused_attention_bwd")
 # the verified alternate backends (#6, #3): only the alternates phase runs them
 ALTERNATE_KERNELS = ("fused_ffn", "fused_ffn_bwd", "fused_attention_full_bias",
                      "fused_attention_full_bias_bwd")
+# the bf16 modes of #7, #6 and #3 (the vocoder-rung and alternates phases)
+BF16_ALTERNATES = ("mrf_level", *ALTERNATE_KERNELS)
 
 
 def launch_counters():
@@ -394,7 +396,8 @@ def read_launches():
                      for n in TRAIN_FORWARDS})
     # of each count, the launches on bf16 operands (the bf16 entry points)
     launches.update({f"{n} bf16": counters[n].bf16_launches
-                     for n in (*BF16_KERNELS, *BF16_KERNELS.values())})
+                     for n in (*BF16_KERNELS, *BF16_KERNELS.values(),
+                               *BF16_ALTERNATES)})
     return launches
 
 
@@ -830,8 +833,9 @@ def no_spills(ptxas, name, n_instances):
 
 
 # instances of each kernel checked for spills: the FMA forward's three,
-# the MRF conv's six (32, 64 and 128 channels x 64 and 128 frames)
-SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 6,
+# the MRF conv's twelve (32, 64 and 128 channels x 64 and 128 frames x
+# fp32 and bf16 weights)
+SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 12,
                  "ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
                  "ffn_wgrad_kernel": 1}
 
@@ -3214,37 +3218,65 @@ def bf16_vs_cpu(tag, model_cpu, loss_fn, batch):
             f"({time.perf_counter() - t0:.1f} s)")
     (lk, gk), (lb, gb), (lf, gf) = runs
     names = [n for n, _ in model_cpu.named_parameters()]
-    loss_bar = max(2 * abs(lb - lf), BF16_LOSS_FLOOR * abs(lf))
-    card = cpu = 0.0
-    worst = (0.0, "")
+    return bf16_step_check(tag, names, {"loss": (lk, lb, lf)}, gk, gb, gf)
+
+
+def bf16_step_check(tag, names, losses, gk, gb, gf, separate=False,
+                    noise=None):
+    """A bf16 step on the card against the CPU's (``gk``, ``gb``: gradients
+    in the order of ``names``) and the CPU's fp32 step (``gf``): each loss
+    of ``losses`` ({name: (card, CPU bf16, CPU fp32)}) within 2x the CPU's
+    own bf16 error (floored at BF16_LOSS_FLOOR of the value), the
+    gradients, each scaled by its fp32 norm, within 2x the CPU's bf16 error
+    on the aggregate and each within BF16_PER_TENSOR times its own, or,
+    given ``noise`` (each tensor's ||card fp32 - CPU fp32|| in the same
+    order), times that where it is larger: a tensor that bf16 barely moves
+    is held to the card's fp32 disagreement with the CPU. With
+    ``separate``, the card's gradients must also lie closer to the CPU's
+    bf16 step than to its fp32 one (a card that rounded nothing fails)."""
+    for what, (lk, lb, lf) in losses.items():
+        loss_bar = max(2 * abs(lb - lf), BF16_LOSS_FLOOR * abs(lf))
+        log(f"  {tag}: {what} card bf16 {lk:.6f}, CPU bf16 {lb:.6f}, CPU "
+            f"fp32 {lf:.6f} (|card - fp32| {abs(lk - lf):.3g} <= "
+            f"{loss_bar:.3g})")
+        if not abs(lk - lf) <= loss_bar:
+            raise AssertionError(f"{tag}: the card's bf16 {what} is not a "
+                                 "bf16 step's of the CPU's")
+    card = cpu = apart = 0.0
+    worst = (0.0, "", 0.0, 0.0, 0.0)
     # a key projection's bias has an exact gradient of 0: each tensor's
     # scale is floored at 1e-4 of the global norm (as grad_errors')
     floor = 1e-4 * math.sqrt(sum(float(f.norm()) ** 2 for f in gf))
     per = []
-    for n, a, b, f in zip(names, gk, gb, gf):
+    for i, (n, a, b, f) in enumerate(zip(names, gk, gb, gf)):
         scale = max(float(f.norm()), floor)
         da, db = float((a - f).norm()), float((b - f).norm())
         card += (da / scale) ** 2
         cpu += (db / scale) ** 2
-        ratio = da / max(2 * db, 1e-6 * scale)
-        worst = max(worst, (ratio, n))
+        apart += (float((a - b).norm()) / scale) ** 2
+        own = max(2 * db, 1e-6 * scale,
+                  0.0 if noise is None else noise[i])
+        worst = max(worst, (da / own, n, da / scale, db / scale,
+                            0.0 if noise is None else noise[i] / scale))
         per.append((da / scale, db / scale, n))
-    card, cpu = card ** 0.5, cpu ** 0.5
+    card, cpu, apart = card ** 0.5, cpu ** 0.5, apart ** 0.5
     for da, db, n in sorted(per, reverse=True)[:5]:
         log(f"    {n}: ||card - fp32|| {da:.3g}, ||CPU bf16 - fp32|| {db:.3g}"
             " of its fp32 norm")
-    log(f"  {tag}: loss card bf16 {lk:.6f}, CPU bf16 {lb:.6f}, CPU fp32 "
-        f"{lf:.6f} (|card - fp32| {abs(lk - lf):.3g} <= {loss_bar:.3g}); "
-        f"gradients, each scaled by its fp32 norm: ||card - fp32|| {card:.4g}"
-        f" <= 2 ||CPU bf16 - fp32|| = {2 * cpu:.4g}; worst tensor "
-        f"{worst[1]} at {worst[0]:.3g} of its own bar (<= "
-        f"{BF16_PER_TENSOR})")
-    if not (abs(lk - lf) <= loss_bar and card <= 2 * cpu
-            and worst[0] <= BF16_PER_TENSOR):
+    log(f"  {tag}: gradients, each scaled by its fp32 norm: ||card - fp32|| "
+        f"{card:.4g} <= 2 ||CPU bf16 - fp32|| = {2 * cpu:.4g}; ||card - CPU "
+        f"bf16|| {apart:.4g}{f' < {card:.4g}' if separate else ''}; worst "
+        f"tensor {worst[1]} at {worst[0]:.3g} of its own bar (<= "
+        f"{BF16_PER_TENSOR}; ||card - fp32|| {worst[2]:.3g}, ||CPU bf16 - "
+        f"fp32|| {worst[3]:.3g}"
+        + ("" if noise is None else f", card fp32 vs CPU {worst[4]:.3g}")
+        + " of its fp32 norm)")
+    if not (card <= 2 * cpu and worst[0] <= BF16_PER_TENSOR
+            and (not separate or apart < card)):
         raise AssertionError(f"{tag}: the card's bf16 step is not a bf16 "
                              "step of the CPU's")
     return {"card_vs_fp32": card, "cpu_bf16_vs_fp32": cpu,
-            "worst_ratio": worst[0]}
+            "card_vs_cpu_bf16": apart, "worst_ratio": worst[0]}
 
 
 def bf16_phase():
@@ -3515,6 +3547,373 @@ def vocoder_phase(mels):
     return launches, voc_cpu
 
 
+# ---------------------------------------------------------------------------
+# vocoder-rung phase: the serving ladder (--vocoder-quant) at config_v1,
+# and the bf16 modes of #7, #6 and #3 against their plain bf16 versions
+# ---------------------------------------------------------------------------
+
+# (tag, --vocoder-quant, fused_mrf): the ladder, and the bf16 rung with the
+# fused MRF (#7 with bf16 weights)
+RUNGS = (("fp32", "none", False), ("bf16", "bf16", False),
+         ("bf16 fused_mrf", "bf16", True), ("int8", "int8", False),
+         ("int8-skip1", "int8-skip1", False))
+RUNG_CALIB = 2              # the int8 rungs calibrate over A and B
+RUNG_CPU_FRAMES = 96        # mel frames of the card-vs-CPU comparison
+# a reduced-precision rung's waveform against its CPU run and its chunked
+# run against its one-shot run: the norm of the difference within this
+# share of the rung's own error (||rung - fp32||) on the same device.
+# bf16: twice, the bar for another implementation's independent bf16
+# roundings (PERF.md §2). The conv library computes some sites' output
+# elements with other bits in a 94-frame window than in the 1040-frame
+# batch of serving B (``window_witness``); a bf16 rounding that flips
+# there moves every later site, and B's chunked run read 0.69 of the
+# rung's error against a bar of 0.5 set before the first run. int8: one
+# int8 error, as the card's fp32 conv_pre moves activations across int8
+# rounding boundaries and every later site's inputs with them (the CPU
+# tests read 0.35 against JAX, ``tests/test_torch_vocoder_rungs.py``).
+# Against the CPU, each reduced rung must also lie nearer the CPU's rung
+# than the CPU's fp32 waveform: a card that did not round or quantize
+# fails that
+RUNG_RATIO = {"bf16": 2.0, "int8": 1.0}
+
+
+def _norm(t):
+    return float(t.double().norm())
+
+
+def window_witness(voc, mels):
+    """Whether each conv site of the vocoder ``voc`` (on the card) gives an
+    output element the same bits when it computes a whole batch and when it
+    computes the window of SERVE_CHUNK + 2 halo mel frames that
+    ``vocode_chunks`` takes from the batch's middle: ``conv_pre``, each
+    upsample and each ResBlock conv in the form the generator computes it at
+    its level (``HiFiGANGenerator.forward``, ``res_conv``) and ``conv_post``,
+    on N(0, 1) inputs of the batch's shape at the site's rate, compared over
+    the window's interior (each edge's reach of the conv dropped). Returns
+    {batch: {"sites", "sites_differing", "elements_differing",
+    "elements"}}."""
+    from daspeech_torch.models.hifigan import level_fold, receptive_halo_mel
+    from daspeech_torch.models.layers import FP32
+
+    cfg = voc.cfg
+    W = SERVE_CHUNK + 2 * receptive_halo_mel(cfg)
+
+    def form(conv, ch):
+        return (conv if conv.dtype == FP32 or level_fold(ch) == 1
+                else conv.product)
+
+    # (module's call, input channels, frames per mel frame in, out, reach)
+    sites, f, ch = [(voc.conv_pre, cfg.num_mels, 1, 1, 3)], 1, \
+        cfg.upsample_initial_channel
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates,
+                                   cfg.upsample_kernel_sizes)):
+        up = voc.ups[i]
+        sites.append((up if up.dtype == FP32 else up.product, ch, f, f * u,
+                      k))
+        f, ch = f * u, ch // 2
+        for block in voc.resblocks[i * voc.num_kernels:
+                                   (i + 1) * voc.num_kernels]:
+            for conv in block.modules():
+                if isinstance(conv, torch.nn.Conv1d):
+                    sites.append((form(conv, ch), ch, f, f,
+                                  (conv.kernel_size[0] - 1) // 2
+                                  * conv.dilation[0]))
+    sites.append((form(voc.conv_post, ch), ch, f, f, 3))
+    dev = next(voc.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    out = {}
+    with torch.inference_mode():
+        for tag, mel in mels.items():
+            B, M = mel.shape[:2]
+            s0 = (M - W) // 2
+            n_sites = n_diff = n_el = n_all = 0
+            for fn, cin, fi, fo, reach in sites:
+                x = torch.randn(B, cin, M * fi, generator=g, device=dev)
+                whole = fn(x)
+                win = fn(x[..., s0 * fi:(s0 + W) * fi])
+                a, b = s0 * fo + reach, (s0 + W) * fo - reach
+                d = int((whole[..., a:b] != win[..., reach:W * fo - reach])
+                        .sum())
+                n_sites += 1
+                n_diff += d > 0
+                n_el += d
+                n_all += whole[..., a:b].numel()
+                del x, whole, win
+            out[tag] = {"sites": n_sites, "sites_differing": n_diff,
+                        "elements_differing": n_el, "elements": n_all}
+    return out
+
+
+def vocoder_rung_phase(mels, voc_cpu):
+    """Each rung of ``RUNGS`` through ``make_vocode_fn`` at config_v1 (the
+    vocoder-mode phase's weights) on serving A [8, 416] and B [2, 1040],
+    one-shot and with ``serve_chunk=64``: the launches of its first served
+    pass over A and B (the int8 rungs' calibration), ms per batch (median
+    of 5) after calibration, device busy on A, the chunked run against the
+    one-shot run, ``window_witness`` of the fp32 and bf16 rungs, and the
+    card against the CPU's same rung on one utterance (int8 with the
+    card's frozen scales), nearer it than the CPU's fp32 waveform.
+    Returns ({tag: launches}, rows)."""
+    from daspeech_torch.decode import make_vocode_fn
+    from daspeech_torch.decode.speech_generator import quant_fields
+    from daspeech_torch.models import HiFiGANGenerator
+
+    def build(device, **serving):
+        voc = HiFiGANGenerator(voc_cpu.cfg, **serving)
+        voc.load_state_dict(voc_cpu.state_dict())
+        return voc.eval().requires_grad_(False).to(device)
+
+    sub = mels["A"][:1, :RUNG_CPU_FRAMES].contiguous()
+    launches, rows, fp32 = {}, {}, {}
+    with torch.inference_mode():
+        cpu_fp32 = voc_cpu(sub.cpu())
+        for tag, quant, fused in RUNGS:
+            fields = dict(quant_fields(quant), fused_mrf=fused)
+            kind = "bf16" if quant == "bf16" else "int8"
+            voc = build("cuda", **fields)
+            fn = make_vocode_fn(voc, calib_batches=RUNG_CALIB)
+            reset_launches()
+            for mel in mels.values():
+                fn(mel)
+            torch.cuda.synchronize()
+            launches[tag] = read_launches()
+            n_mrf = (launches[tag]["mrf_level"],
+                     launches[tag]["mrf_level bf16"])
+            want_mrf = ((3 * len(mels), 3 * len(mels)) if fused else (0, 0))
+            if n_mrf != want_mrf:
+                raise AssertionError(f"vocoder {tag}: mrf_level launches "
+                                     f"(all, bf16) {n_mrf}, not {want_mrf}")
+            one = {b: fn(mel) for b, mel in mels.items()}
+            if quant == "none":
+                fp32 = one
+            chunked = build("cuda", serve_chunk=SERVE_CHUNK, **fields)
+            fn_c = make_vocode_fn(chunked, calib_batches=RUNG_CALIB)
+            for mel in mels.values():
+                fn_c(mel)                          # the same calibration
+            row = {}
+            for b, mel in mels.items():
+                got = fn_c(mel)
+                own = _norm(one[b] - fp32[b])
+                if quant == "none":
+                    err, bar = _max_err(got, one[b]), TOL_CHUNKED
+                else:
+                    err, bar = (_norm(got - one[b]),
+                                RUNG_RATIO[kind] * own)
+                if not (got.shape == one[b].shape
+                        and torch.isfinite(got).all() and err <= bar):
+                    raise AssertionError(f"vocoder {tag} batch {b}: chunked "
+                                         f"vs one-shot {err} > {bar}")
+                audio_s = mel.shape[0] * mel.shape[1] * 256 / 22050.0
+                ms = cuda_ms(lambda: fn(mel), reps=5, warm=1)
+                ms_c = cuda_ms(lambda: fn_c(mel), reps=5, warm=1)
+                row[b] = {"ms": ms, "chunked_ms": ms_c,
+                          "audio_s_per_s": audio_s / (ms / 1e3),
+                          "vs_fp32_norm": own,
+                          "wav_norm": _norm(fp32[b]),
+                          "chunked_vs_one_shot": err, "chunk_bar": bar}
+                log(f"  vocoder {tag} batch {b} mel{list(mel.shape)}: "
+                    f"one-shot {ms:.3f} ms ({audio_s / (ms / 1e3):.1f} "
+                    f"audio-s per s), chunked ({SERVE_CHUNK}) {ms_c:.3f} ms;"
+                    f" ||rung - fp32|| {own:.4g} of ||fp32|| "
+                    f"{_norm(fp32[b]):.4g}; chunked vs one-shot {err:.3g} "
+                    f"(<= {bar:.3g})")
+            names = device_busy(lambda: fn(mels["A"]), f"vocoder {tag} A")
+            if fused and names is not None and not any(
+                    "mrf_conv_kernel" in n and "true" in n for n in names):
+                raise AssertionError(f"vocoder {tag}: the profile holds no "
+                                     "bf16 mrf_conv_kernel")
+            if not fused and quant in ("none", "bf16"):
+                # witness of the chunked run's differences: the conv sites'
+                # bits in a window against the whole batch's
+                row["window_witness"] = window_witness(voc, mels)
+                for b, w in row["window_witness"].items():
+                    log(f"  vocoder {tag} batch {b}: {w['sites_differing']}"
+                        f" of {w['sites']} conv sites give another bit in "
+                        f"the window than in the whole batch "
+                        f"({w['elements_differing']} of {w['elements']} "
+                        "elements)")
+            # the card against the CPU's same rung, one utterance
+            cpu = build("cpu", **fields)
+            for (name, buf), (_, b_card) in zip(cpu.named_buffers(),
+                                                voc.named_buffers()):
+                buf.copy_(b_card.cpu())
+            want = cpu(sub.cpu())
+            got = voc(sub).cpu()
+            if quant == "none":
+                err, bar = _max_err(got, want), TOL_WAV_CPU
+                off = apart = None
+            else:
+                err = _norm(got - want)
+                bar = RUNG_RATIO[kind] * _norm(want - cpu_fp32)
+                # a card that did not round or quantize lies nearer the
+                # CPU's fp32 waveform than the CPU's rung
+                off, apart = _norm(got - cpu_fp32), _norm(want - cpu_fp32)
+            row["card_vs_cpu"], row["card_vs_cpu_bar"] = err, bar
+            row["card_vs_cpu_fp32"] = off
+            log(f"  vocoder {tag}, card vs CPU (utterance 0 of A, "
+                f"{RUNG_CPU_FRAMES} frames): {err:.4g} (<= {bar:.4g})"
+                + ("" if off is None else
+                   f", card vs the CPU's fp32 {off:.4g} (> {err:.4g}); "
+                   f"CPU rung vs CPU fp32 {apart:.4g}"))
+            if not err <= bar:
+                raise AssertionError(f"vocoder {tag}: card vs CPU {err} > "
+                                     f"{bar}")
+            if off is not None and not err < off:
+                raise AssertionError(f"vocoder {tag}: the card lies nearer "
+                                     f"the CPU's fp32 waveform ({off}) than "
+                                     f"its rung ({err})")
+            rows[tag] = row
+            del voc, chunked, cpu
+    return launches, rows
+
+
+def mrf_chain_bf16(x, W, biases, kernel_sizes, dilations):
+    """#7's library time: the level as a chain of ``F.conv1d`` in bf16
+    (activations, weights and biases bf16). Timed only."""
+    F_ = torch.nn.functional
+    x, W, biases = x.to(torch.bfloat16), W.to(torch.bfloat16), \
+        biases.to(torch.bfloat16)
+    tap, conv, out = 0, 0, None
+    for k, ds in zip(kernel_sizes, dilations):
+        cur = x
+        for d in ds:
+            w1 = W[tap:tap + k].permute(2, 1, 0)
+            w2 = W[tap + k:tap + 2 * k].permute(2, 1, 0)
+            xt = F_.conv1d(F_.leaky_relu(cur, 0.1), w1, biases[conv],
+                           padding=(k - 1) // 2 * d, dilation=d)
+            cur = cur + F_.conv1d(F_.leaky_relu(xt, 0.1), w2,
+                                  biases[conv + 1], padding=(k - 1) // 2)
+            tap, conv = tap + 2 * k, conv + 2
+        out = cur if out is None else out + cur
+    return out / len(kernel_sizes)
+
+
+def bf16_alternate_rows():
+    """#7, #6 and #3 with bf16 operands against their plain bf16 versions
+    (within 2^-7 of the output's largest magnitude): #7 at serving A's
+    level 1 and a chunk window, #6 at cell T's FFN [80, 120] (forward and
+    backward, dropout 0.1), #3 at the ALiBi shape (training forward and
+    backward, dropout 0.1); each row's kernel, plain and library times
+    beside the bound at 989 TFLOP/s and on the bf16 bytes. Returns
+    {name: rows}."""
+    from daspeech_torch.models import conformer
+    from daspeech_torch.models.layers import set_dtype
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_ffn as ff
+    from daspeech_torch.ops import fused_mrf as fm
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 60)
+    rows = {n: [] for n in ("mrf_level bf16", "fused_ffn bf16",
+                            "fused_attention_full_bias bf16")}
+
+    def row(name, shape, err, run_kernel, run_plain, flops, nbytes,
+            run_library):
+        ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
+        lib_ms = cuda_ms(run_library)
+        b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_BF16)
+        rows[name].append({
+            "shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms})
+        log(f"  {name} {shape}: max abs err {err:.3g}  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
+            f"{lib_ms:.4f} ms")
+
+    # --- #7: bf16 weights, fp32 activations and output
+    n_taps = 2 * len(MRF_DILATIONS[0]) * sum(MRF_KERNELS)
+    for B, C, T in (MRF_SHAPES[0], MRF_SHAPES[4]):
+        x, W, biases = mrf_inputs(g, B, C, T)
+        Wb = W.to(bf)
+        shape = f"x[{B},{C},{T}] bf16 W"
+        with torch.inference_mode():
+            got = fm.mrf_level(x, Wb, biases, MRF_KERNELS, MRF_DILATIONS)
+            err = bf16_close(f"#7 bf16 {shape}", got, fm.mrf_level_ref(
+                x, Wb, biases, MRF_KERNELS, MRF_DILATIONS))
+            row("mrf_level bf16", shape, err,
+                lambda: fm.mrf_level(x, Wb, biases, MRF_KERNELS,
+                                     MRF_DILATIONS),
+                lambda: fm.mrf_level_ref(x, Wb, biases, MRF_KERNELS,
+                                         MRF_DILATIONS),
+                2 * B * T * C * C * n_taps,
+                2 * B * C * T * F32 + n_taps * C * C * BF16_BYTES,
+                lambda: mrf_chain_bf16(x, W, biases, MRF_KERNELS,
+                                       MRF_DILATIONS))
+        del x, W, Wb, biases, got
+
+    # --- #6: bf16 x, weights and biases; forward + backward
+    C, Fd = ff.WIDTH, FFN_DIM
+    B, T, p = FFN_SHAPES[0]
+    N = B * T
+    x = _randn(g, B, T, C).to(bf)
+    gm, bt, w1, b1, w2, b2 = ffn_params(g, C, Fd)
+    params = (gm, bt, *(t.to(bf) for t in (w1, b1, w2, b2)))
+    seeds = _seeds(g, B)
+    do = _randn(g, B, T, C, scale=N ** -0.5).to(bf)
+    shape = f"x[{B},{T},{C}] F={Fd} p={p} bf16"
+    err = bf16_close(f"#6 bf16 {shape}", ff.ffn_fwd_kernel(
+        x, *params, seeds, p, p), ff.ffn_plain(x, *params, seeds, p, p))
+    for u, w in zip(ff.ffn_bwd_kernel(x, *params, do, seeds, p, p),
+                    ff.ffn_bwd_plain(x, *params, do, seeds, p, p)):
+        err = max(err, bf16_close(f"#6 bf16 {shape} backward", u, w))
+    lib = set_dtype(conformer.FeedForwardModule(C, Fd, dropout=p),
+                    bf).cuda().train()
+    lib_ins = [x.detach().requires_grad_(True)]
+
+    def run_lib():
+        out = lib(lib_ins[0], torch.Generator(device="cuda"))
+        return torch.autograd.grad(out, [lib_ins[0], *lib.parameters()], do)
+
+    row("fused_ffn bf16", shape, err,
+        lambda: (ff.ffn_fwd_kernel(x, *params, seeds, p, p),
+                 ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)),
+        lambda: (ff.ffn_plain(x, *params, seeds, p, p),
+                 ff.ffn_bwd_plain(x, *params, do, seeds, p, p)),
+        14 * N * C * Fd,
+        (4 * N * C + 2 * C * Fd + Fd + C) * BF16_BYTES
+        + (2 * C * Fd + Fd + 5 * C) * F32, run_lib)
+    del x, params, do, lib, lib_ins
+
+    # --- #3: bf16 q, k, v, fp32 bias4; training forward + backward
+    B, H, T = ALIBI_SHAPE
+    q = _randn(g, B, H, T, 64, scale=0.125).to(bf)
+    k, v, do = (_randn(g, B, H, T, 64).to(bf) for _ in range(3))
+    bias4 = alibi_bias(B, H, T)
+    seed = torch.tensor([99], dtype=torch.int32, device="cuda")
+    shape = f"ALiBi [{B},{H},{T},64] p=0.1 bf16"
+    want = fa.attention_full_bias_plain(q, k, v, bias4, 1.0, 0.1, seed)
+    err = bf16_close(f"#3 bf16 {shape} inference", fa.attention_fb_fwd_kernel(
+        q, k, v, bias4, 1.0, 0.1, seed)[0], want)
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, 0.1, seed,
+                                         with_stats=True)
+    err = max(err, bf16_close(f"#3 bf16 {shape} training", out, want))
+    for u, w in zip(fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do,
+                                               1.0, 0.1, seed),
+                    fa.attention_full_bias_bwd_plain(q, k, v, bias4, do, 1.0,
+                                                     0.1, seed)):
+        err = max(err, bf16_close(f"#3 bf16 {shape} backward", u, w))
+
+    def run():
+        o, s = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, 0.1, seed,
+                                          with_stats=True)
+        return fa.attention_fb_bwd_kernel(q, k, v, bias4, o, s, do, 1.0, 0.1,
+                                          seed)
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    mask = bias4.to(bf).requires_grad_(True)
+    row("fused_attention_full_bias bf16", shape, err, run,
+        lambda: (fa.attention_full_bias_plain(q, k, v, bias4, 1.0, 0.1, seed),
+                 fa.attention_full_bias_bwd_plain(q, k, v, bias4, do, 1.0,
+                                                  0.1, seed)),
+        14 * B * H * T * T * 64,
+        8 * B * H * T * 64 * BF16_BYTES + 2 * B * H * T * T * F32,
+        lambda: torch.autograd.grad(
+            torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, dropout_p=0.1, scale=1.0),
+            [*leaves, mask], do))
+    return rows
+
+
 def tts_phase(voc_cpu):
     """``NonAutoregressiveSpeechGenerator`` at the recipe's widths (random
     weights, every phoneme 8 frames) with the vocoder-mode phase's config_v1
@@ -3610,6 +4009,7 @@ def alternates_phase():
     ``fused_attention_full_bias`` on an ALiBi-style bias, forward and
     backward against the plain version. Returns each run's launches."""
     from daspeech_torch.models import S2TConformerDAG
+    from daspeech_torch.models.layers import set_dtype
     from daspeech_torch.ops import fused_attention as fa
     from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
 
@@ -3665,6 +4065,28 @@ def alternates_phase():
     if any(runs["unfused"][n] for n in ALTERNATE_KERNELS):
         raise AssertionError("the unfused run launched an alternate kernel")
 
+    # --- cell T in bf16 (--dtype bfloat16) with every encoder FFN fused:
+    # 3 warm-up and 10 timed updates whose launches are read, each FFN on
+    # the bf16 entry points
+    model = set_dtype(set_fused_ffn_(copy.deepcopy(model_cpu).to(DEVICE),
+                                     True), torch.bfloat16)
+    opt = GuardedAdam()
+    step = make_train_step(loss_fn_for(cfg, 0.5), opt)
+    med, iqr, launches, peak, _ = timed_updates(
+        step, TrainState.create(model, opt), batch, 3, 10,
+        f"S2TT T bf16, encoder FFN fused (B={TRAIN_B}, dropout 0.1, GLAT "
+        "0.5)")
+    runs["fused bf16"] = launches
+    per = {n: launches[f"{n} bf16"] / 13 for n in ("fused_ffn",
+                                                    "fused_ffn_bwd")}
+    log(f"  bf16 fused_ffn launches per update: forward "
+        f"{per['fused_ffn']:g}, backward {per['fused_ffn_bwd']:g} (expected "
+        f"{FFN_PER_UPDATE} each); update {med:.3f} ms (IQR {iqr[0]:.3f}-"
+        f"{iqr[1]:.3f}), peak {peak:.2f} GiB")
+    if per != {"fused_ffn": FFN_PER_UPDATE, "fused_ffn_bwd": FFN_PER_UPDATE}:
+        raise AssertionError(f"bf16 fused_ffn launches per update {per}")
+    del model, step
+
     # --- the full-bias attention on an ALiBi-style bias, through the op
     B, H, T = ALIBI_SHAPE
     g = torch.Generator().manual_seed(SEED + 51)
@@ -3690,6 +4112,30 @@ def alternates_phase():
         f"{TOL_KERNEL}); launches forward {n_fb[0]}, backward {n_fb[1]}")
     if not (err <= TOL_KERNEL and n_fb == (1, 1)):
         raise AssertionError("full-bias attention through the op failed")
+    # --- the same in bf16: bf16 q, k, v, fp32 ALiBi bias
+    bf = torch.bfloat16
+    b_ins = [*(t.detach().to(bf).requires_grad_(True) for t in ins[:3]),
+             ins[3].detach().requires_grad_(True)]
+    reset_launches()
+    out_b = fa.fused_attention_full_bias(*b_ins, 1234, 0.125, 0.1, True)
+    got_b = torch.autograd.grad(out_b, b_ins, do.to(bf))
+    torch.cuda.synchronize()
+    runs["full_bias bf16"] = read_launches()
+    b_plain = [t.detach() for t in b_ins]
+    err = bf16_close("#3 bf16 through the op", out_b,
+                     fa.attention_full_bias_plain(*b_plain, 0.125, 0.1,
+                                                  seed))
+    for u, w in zip(got_b, fa.attention_full_bias_bwd_plain(
+            *b_plain, do.to(bf), 0.125, 0.1, seed)):
+        err = max(err, bf16_close("#3 bf16 through the op, backward", u, w))
+    n_fb = tuple(runs["full_bias bf16"][f"{n} bf16"] for n in (
+        "fused_attention_full_bias", "fused_attention_full_bias_bwd"))
+    log(f"  fused_attention_full_bias bf16, ALiBi bias [{B},{H},{T},64] "
+        f"p=0.1: forward and backward against the plain bf16 version "
+        f"{err:.3g}; bf16 launches forward {n_fb[0]}, backward {n_fb[1]}")
+    if n_fb != (1, 1):
+        raise AssertionError("bf16 full-bias attention through the op did "
+                             f"not launch its kernels: {n_fb}")
     # its training forward beside SDPA's on the same bias (timed only)
     fwd = functools.partial(fa.attention_fb_fwd_kernel, *plain, 0.125, 0.1,
                             seed, with_stats=True)
@@ -4083,11 +4529,14 @@ def vocoder_train_phase():
     """``daspeech_torch.train.vocoder_train.VocoderTrainer`` at config_v1
     with MPD + MSD, fp32, TF32 off: one D + G update on the card against
     one on the CPU at B = 2 (losses within TOL_LOSS, gradients within
-    TOL_GRAD of their norm); 3 warm-up and 10 timed updates at B = 16 x
-    8192 samples, the D and G halves apart, peak memory, the device busy
-    share of one profiled update; 30 updates on one batch that must bring
-    the mel loss to <= 0.9 of its first value. Returns the launches of the
-    timed run (no hand kernel is on this path)."""
+    TOL_GRAD of their norm); the same update with ``disc_dtype=bf16`` on
+    the card and the CPU, held to the CPU's fp32 one (``bf16_step_check``,
+    with the card closer to the CPU's bf16 update than to its fp32 one);
+    3 warm-up and 10 timed updates at B = 16 x 8192 samples with bf16 D
+    and then with fp32 D, the D and G halves apart, peak memory, the
+    device busy share of one profiled update; 30 updates on one batch that
+    must bring the mel loss to <= 0.9 of its first value. Returns the
+    launches of the fp32 timed run (no hand kernel is on this path)."""
     from daspeech_torch.config import HiFiGANConfig
     from daspeech_torch.train.vocoder_train import (VocoderTrainer,
                                                     make_mel_fn)
@@ -4131,25 +4580,64 @@ def vocoder_train_phase():
         log("  FAILED: vocoder update: card and CPU disagree")
         DISAGREEMENTS.append("vocoder update")
 
-    # --- 3 warm-up and 10 timed updates at B = 16, counters from 0
+    # --- the same update with bf16 discriminators (disc_dtype=bf16) on the
+    # card and on the CPU, held to the CPU's fp32 update above
+    tr16 = {dev: VocoderTrainer(cfg, make_mel_fn(device=dev), device=dev,
+                                disc_dtype=torch.bfloat16)
+            for dev in (DEVICE, "cpu")}
+    out16 = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        state, m = tr16[dev].train_step(
+            tr16[dev].init_state(torch.Generator().manual_seed(SEED + 60)),
+            mel.to(dev), wav.to(dev))
+        sync()
+        out16[dev] = ({k: v.item() for k, v in m.items()},
+                      [g.double() for g in grads(state)[1]])
+        log(f"  vocoder bf16-D update on {dev} (B={VOC_PARITY_B}): "
+            + ", ".join(f"{k} {v:.6f}" for k, v in out16[dev][0].items())
+            + f" ({time.perf_counter() - t0:.1f} s)")
+    (mk, gk), (mb, gb) = out16[DEVICE], out16["cpu"]
+    bf16_step_check("vocoder bf16-D update", names,
+                    {k: (mk[k], mb[k], mc[k]) for k in ("d_loss", "g_loss")},
+                    gk, gb, [g.double() for g in gc], separate=True,
+                    noise=[float((a.double() - b.double()).norm())
+                           for a, b in zip(gg, gc)])
+
+    # --- 3 warm-up and 10 timed updates at B = 16, counters from 0, fp32
+    # D (the launches and peak memory are this run's) and bf16 D
     mel, wav = (t.to(DEVICE) for t in vocoder_batch(VOC_B, SEED + 62,
                                                     mel_cpu))
-    state = fresh(DEVICE)
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    times = {"D": [], "G": [], "update": []}
-    for i in range(VOC_WARM + VOC_TIMED):
-        sync()
-        t0 = time.perf_counter()
-        state, d_loss = tr.d_update(state, mel, wav)
-        sync()
-        t1 = time.perf_counter()
-        state, m = tr.g_update(state, mel, wav)
-        sync()
-        t2 = time.perf_counter()
-        if i >= VOC_WARM:
-            for k, v in (("D", t1 - t0), ("G", t2 - t1), ("update", t2 - t0)):
-                times[k].append(v * 1e3)
+    for tag, trainer in (("bf16-D", tr16[DEVICE]), ("fp32", tr)):
+        # the state carries the discriminators' compute dtype
+        state = trainer.init_state(torch.Generator().manual_seed(SEED + 60))
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        times = {"D": [], "G": [], "update": []}
+        for i in range(VOC_WARM + VOC_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            state, d_loss = trainer.d_update(state, mel, wav)
+            sync()
+            t1 = time.perf_counter()
+            state, m = trainer.g_update(state, mel, wav)
+            sync()
+            t2 = time.perf_counter()
+            if i >= VOC_WARM:
+                for k, v in (("D", t1 - t0), ("G", t2 - t1),
+                             ("update", t2 - t0)):
+                    times[k].append(v * 1e3)
+        if tag == "bf16-D":
+            q = {k: np.percentile(v, [25, 50, 75]) for k, v in times.items()}
+            log(f"  vocoder updates with bf16 D (B={VOC_B} x {VOC_SEGMENT})"
+                f", median ms over {VOC_TIMED} (IQR): " + "; ".join(
+                    f"{k} {v[1]:.3f} ({v[0]:.3f}-{v[2]:.3f})"
+                    for k, v in q.items())
+                + f"; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            if not all(math.isfinite(v.item()) for v in (d_loss,
+                                                          *m.values())):
+                raise AssertionError(f"bf16-D updates: non-finite {m}")
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(math.isfinite(v.item()) for v in (d_loss, *m.values())):
@@ -4200,6 +4688,13 @@ RT_MAX_TOKENS = 12288     # 24 utterances of 512 frames: 5 batches an
 RT_DUR = 8                # mel frames per token of the served model
 RT_MEL = 1040             # --max-mel-len: B's mels reach #2 (>= 798)
 RT_CPU_UTTS = 2           # utterances of the CLI's CPU run
+RT_RUNG_A = 12            # utterances of A in the CLI's rung runs (with B's)
+RT_RUNG_TOKENS = 4000     # their --max-tokens: batches of 8 and 4 of A,
+#                           3 and 1 of B
+RT_RUNG_CALIB = 1         # their --vocoder-calib-batches
+RT_RUNG_OFF = 0.25        # a rung's waveforms off fp32's by at most this
+#                           share of their norm (and by more than 0)
+WAV_STEP = 1 / 32767      # the int16 WAV's step
 TOL_CLI_FEATURE = 1e-5    # CLI features against the in-process generator
 
 
@@ -4226,7 +4721,8 @@ def write_runtime_data(root: Path, seed: int):
     phoneme targets of S / 10 random phonemes whose durations (4-12
     frames, a trailing 0 for EOS) sum to the mel length M, pitch and energy
     U(0, 2). Splits: ``train`` (the RT_A utterances), ``test`` (those and
-    the RT_B ones) and ``test_cpu`` (the first RT_CPU_UTTS of ``test``).
+    the RT_B ones), ``test_cpu`` (the first RT_CPU_UTTS of ``test``) and
+    ``test_rung`` (the last RT_RUNG_A of A and the RT_B ones).
     No config.yaml. Returns the number of test utterances."""
     import csv
 
@@ -4259,12 +4755,136 @@ def write_runtime_data(root: Path, seed: int):
                            pack_npy_zip(root / "mel.zip", mels)):
         r["src_audio"], r["tgt_audio"] = src, tgt
     for split, part in (("train", rows[:n_a]), ("test", rows),
-                        ("test_cpu", rows[:RT_CPU_UTTS])):
+                        ("test_cpu", rows[:RT_CPU_UTTS]),
+                        ("test_rung", rows[n_a - RT_RUNG_A:])):
         with open(root / f"{split}.tsv", "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=list(rows[0]), delimiter="\t")
             w.writeheader()
             w.writerows(part)
     return len(rows)
+
+
+def cli_rung_runs(generate, cli, root, say):
+    """``generate.main(cli + ...)`` for each ``--vocoder-quant`` (none,
+    bf16, int8, int8-skip1), one-shot and with ``--vocoder-chunk``
+    SERVE_CHUNK. Each run's vocoder (caught as ``load_vocoder_and_gcmvn``
+    returns it) must carry the rung's fields, the chunk and
+    RT_RUNG_CALIB; its forwards are recorded: an int8 run calibrates its
+    first RT_RUNG_CALIB batches one-shot, then serves frozen scales (the
+    chunked run in windows), and leaves every site of a quantized level
+    with an amax and every skipped level's at 0. The features must equal
+    the fp32 run's; a rung's waveforms differ from fp32's by more than 0
+    and at most RT_RUNG_OFF of their norm; the chunked run's within the
+    vocoder-rung phase's bar of the one-shot run's (fp32: one WAV step,
+    each sample). Returns {(quant, chunk): seconds}."""
+    import contextlib
+    import io
+
+    from daspeech_torch.decode.speech_generator import quant_fields
+    from daspeech_torch.models.hifigan import receptive_halo_mel
+
+    caught = []
+    orig = generate.load_vocoder_and_gcmvn
+
+    def load(*a, **kw):
+        voc, gcmvn = orig(*a, **kw)
+        calls = []
+        fwd = voc.forward
+
+        def forward(mel):
+            calls.append((mel.shape[1], bool(voc.calibrate)))
+            return fwd(mel)
+
+        voc.forward = forward
+        caught.append((voc, calls))
+        return voc, gcmvn
+
+    def read(out):
+        feats = {p.stem: np.load(p) for p in (out / "feat").glob("*.npy")}
+        wavs = {u: generate.read_wav(out / "wav" / f"{u}_pred.wav")[0]
+                for u in feats}
+        return feats, wavs
+
+    def diff(a, b):
+        return float(np.sqrt(sum(np.sum((a[u].astype(np.float64) - b[u])
+                                        ** 2) for u in a)))
+
+    secs, wavs, fp32_feats = {}, {}, None
+    generate.load_vocoder_and_gcmvn = load
+    try:
+        for quant in ("none", "bf16", "int8", "int8-skip1"):
+            for chunk in (0, SERVE_CHUNK):
+                out = root / f"out_{quant}_{chunk}"
+                sync()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = generate.main(cli + [
+                        "--vocoder-quant", quant,
+                        "--vocoder-chunk", str(chunk),
+                        "--results-path", str(out)])
+                sync()
+                secs[quant, chunk] = time.perf_counter() - t0
+                voc, calls = caught[-1]
+                want = dict(quant_fields(quant), serve_chunk=chunk,
+                            serve_calib_batches=RT_RUNG_CALIB)
+                got = {k: getattr(voc, k) for k in want}
+                if rc != 0 or got != want:
+                    raise AssertionError(f"CLI --vocoder-quant {quant} "
+                                         f"--vocoder-chunk {chunk}: rc {rc},"
+                                         f" vocoder fields {got} != {want}")
+                feats, wavs[quant, chunk] = read(out)
+                fp32_feats = fp32_feats or feats
+                if any(not np.array_equal(f, fp32_feats[u])
+                       for u, f in feats.items()):
+                    raise AssertionError(f"CLI {quant}: features differ "
+                                         "from the fp32 run's")
+                W = SERVE_CHUNK + 2 * receptive_halo_mel(voc.cfg)
+                if voc.quant_int8:
+                    n = RT_RUNG_CALIB
+                    if (len(calls) <= n or not all(c for _, c in calls[:n])
+                            or any(c for _, c in calls[n:])
+                            or (chunk and any(m > W for m, _ in calls[n:]))):
+                        raise AssertionError(f"CLI {quant} chunk {chunk}: "
+                                             f"forwards {calls}")
+                    for name, buf in voc.named_buffers():
+                        if not name.endswith("_amax"):
+                            continue
+                        level = (int(name.split(".")[1]) // voc.num_kernels
+                                 if name.startswith("resblocks.")
+                                 else int(name.split("_")[1]))
+                        if (float(buf) > 0) != (level
+                                                >= voc.quant_skip_levels):
+                            raise AssertionError(f"CLI {quant}: {name} = "
+                                                 f"{float(buf)}")
+                n_win = sum(m == W for m, _ in calls)
+                fp32 = wavs["none", 0]
+                off, ref = diff(wavs[quant, chunk], fp32), diff(fp32, {
+                    u: np.zeros_like(w) for u, w in fp32.items()})
+                say(f"generate CLI --vocoder-quant {quant} --vocoder-chunk "
+                    f"{chunk}: {len(feats)} utterances in "
+                    f"{secs[quant, chunk]:.3f} s wall, {len(calls)} vocoder "
+                    f"forwards ({n_win} windows); ||wav - fp32 wav|| "
+                    f"{off:.4g} of {ref:.4g}")
+                if quant != "none" and not 0 < off <= RT_RUNG_OFF * ref:
+                    raise AssertionError(f"CLI {quant}: waveforms off fp32 "
+                                         f"by {off} of {ref}")
+                if chunk:
+                    one = wavs[quant, 0]
+                    if quant == "none":
+                        err = max(float(np.abs(wavs[quant, chunk][u]
+                                               - one[u]).max()) for u in one)
+                        bar = 1.01 * WAV_STEP      # one step, read in fp32
+                    else:
+                        err = diff(wavs[quant, chunk], one)
+                        kind = "bf16" if quant == "bf16" else "int8"
+                        bar = RUNG_RATIO[kind] * diff(one, fp32)
+                    say(f"  chunked vs one-shot: {err:.4g} (<= {bar:.4g})")
+                    if not err <= bar:
+                        raise AssertionError(f"CLI {quant}: chunked vs "
+                                             f"one-shot {err} > {bar}")
+    finally:
+        generate.load_vocoder_and_gcmvn = orig
+    return secs
 
 
 class collate_spy:
@@ -4380,7 +5000,8 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
     checkpoint that must reproduce updates 5-8 bit for bit and collate no
     skipped batch, averaging, and the generate CLI over the data directory
     from the serving model's checkpoint and a vocoder checkpoint, against
-    the in-process generator and a CPU run of the CLI. ``algorithms`` is
+    the in-process generator and a CPU run of the CLI, and the CLI's
+    vocoder rungs (``cli_rung_runs``). ``algorithms`` is
     the context manager both training runs are made under (torch's
     deterministic algorithms unless the caller passes another). Returns
     the launches of the training run and of the CLI run."""
@@ -4392,6 +5013,7 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
     from daspeech_torch.cli import generate
     from daspeech_torch.config import DecodeConfig, HiFiGANConfig
     from daspeech_torch.decode import S2SNATGenerator
+    from daspeech_torch.models import HiFiGANGenerator
     from daspeech_torch.tasks import NATSpeechToSpeechTask, TaskConfig
     from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
     from daspeech_torch.train.checkpoint import (CheckpointManager,
@@ -4542,6 +5164,11 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
             torch.Generator().manual_seed(SEED))
         voc_state.gen.load_state_dict(ctx["voc_cpu"].state_dict())
         CheckpointManager(root / "vocoder").save(voc_state, 1)
+        # the rung runs' vocoder: the vocoder-mode phase's weights, whose
+        # waveform stays out of tanh's saturation
+        voc_state.gen.load_state_dict(init_vocoder_(
+            HiFiGANGenerator(HiFiGANConfig()), SEED + 1).state_dict())
+        CheckpointManager(root / "vocoder_rung").save(voc_state, 1)
         del voc_state
         cli = [str(root), "--task", "nat_speech_to_speech",
                "--checkpoint-dir", str(root / "serve"),
@@ -4618,6 +5245,13 @@ def runtime_phase(ctx, smi, algorithms=deterministic):
         if not worst <= TOL_CLI_FEATURE:
             raise AssertionError(f"CLI features off by {worst}")
         del model, gen
+
+        # the serving ladder through the CLI: --vocoder-quant, one-shot and
+        # chunked, --vocoder-calib-batches
+        cli_rung_runs(generate, cli + [
+            "--gen-subset", "test_rung", "--max-tokens", str(RT_RUNG_TOKENS),
+            "--vocoder-checkpoint", str(root / "vocoder_rung"),
+            "--vocoder-calib-batches", str(RT_RUNG_CALIB)], root, say)
 
         # the CLI on the CPU for RT_CPU_UTTS utterances
         t0 = time.perf_counter()
@@ -5198,6 +5832,11 @@ def main() -> int:
     bf16_rows, bf16_paths, _ = bf16_phase()
     log("vocoder-mode phase:")
     vocoder, voc_cpu = vocoder_phase(mels)
+    log("vocoder-rung phase (--vocoder-quant: fp32, bf16, bf16 + fused MRF, "
+        "int8, int8-skip1; one-shot and chunked):")
+    rungs, _ = vocoder_rung_phase(mels, voc_cpu)
+    log("bf16 rows of #7, #6 and #3:")
+    bf16_alt_rows = bf16_alternate_rows()
     log("TTS phase:")
     tts = tts_phase(voc_cpu)
     log("alternates phase (#6 fused FFN, #3 full-bias attention):")
@@ -5250,7 +5889,10 @@ def main() -> int:
     log("  bf16 launches on every fp32 path: 0")
     by_path.update(bf16_paths)
     by_path.update({"alternates_ffn": alternates["fused"],
-                    "alternates_full_bias": alternates["full_bias"]})
+                    "alternates_full_bias": alternates["full_bias"],
+                    "alternates_ffn_bf16": alternates["fused bf16"],
+                    "alternates_full_bias_bf16": alternates["full_bias bf16"],
+                    **{f"vocoder {tag}": v for tag, v in rungs.items()}})
     kernels = []
     for name, shapes in cases.items():
         src, replaces = KERNELS[name]
@@ -5290,6 +5932,31 @@ def main() -> int:
             "bwd_launches": by_path[main_path][f"{BF16_KERNELS[base]} bf16"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "same_kernels_as_fp32": first["same_kernels_as_fp32"],
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shapes": shapes})
+    # the bf16 modes of #7 (launches from the bf16 fused-MRF vocoder run),
+    # #6 (the bf16 fused-FFN updates) and #3 (the bf16 ALiBi step)
+    alt_paths = {"mrf_level": ("vocoder bf16 fused_mrf", None),
+                 "fused_ffn": ("alternates_ffn_bf16", "fused_ffn_bwd"),
+                 "fused_attention_full_bias": (
+                     "alternates_full_bias_bf16",
+                     "fused_attention_full_bias_bwd")}
+    for name, shapes in bf16_alt_rows.items():
+        base = name[:-len(" bf16")]
+        src, replaces = KERNELS[base]
+        main_path, bwd = alt_paths[base]
+        first = shapes[0]
+        launches = by_path[main_path][name]
+        if not launches:
+            raise AssertionError(f"{name}: no launch on {main_path}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            **({} if bwd is None else {
+                "bwd_launches": by_path[main_path][f"{bwd} bf16"]}),
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -9,7 +9,9 @@ the default), S2TT (``nat_speech_to_text``) and FastSpeech 2 alone
 
   python -m daspeech_torch.cli.generate DATA --checkpoint-dir DIR \\
       [--average-last-n N] --results-path results/ \\
-      [--vocoder-checkpoint VDIR | --vocoder-torch G.pt]
+      [--vocoder-checkpoint VDIR | --vocoder-torch G.pt] \\
+      [--vocoder-quant {none,bf16,int8,int8-skip1}] \\
+      [--vocoder-calib-batches N] [--vocoder-chunk N]
 
 The weights come from a port checkpoint directory (``--checkpoint-dir``,
 written by ``daspeech_torch.train.checkpoint.CheckpointManager``) or a
@@ -144,11 +146,21 @@ def parse_args(argv=None):
                         "griffin_lim is not ported yet and raises")
     p.add_argument("--vocoder-quant", default="none",
                    choices=["none", "bf16", "int8", "int8-skip1"],
-                   help="only none (fp32) is ported; the others raise")
+                   help="reduced-precision vocoder serving ladder: bf16 = "
+                        "bfloat16 activations; int8 = W8A8 with static "
+                        "activation scales calibrated over the first "
+                        "batches; int8-skip1 keeps level 0 in fp32; none "
+                        "= fp32")
     p.add_argument("--vocoder-chunk", type=int, default=0,
                    help="vocode in exact windows of N mel frames "
                         "(+receptive-field halo) instead of one shot "
-                        "(models/hifigan.py::vocode_chunked); 0 = one-shot")
+                        "(models/hifigan.py::vocode_chunked); 0 = one-shot. "
+                        "Stacks with --vocoder-quant")
+    p.add_argument("--vocoder-calib-batches", type=int, default=4,
+                   help="int8 rungs: the number of served batches the "
+                        "static activation scales are calibrated over "
+                        "before they freeze "
+                        "(decode/speech_generator.py::make_vocode_fn)")
     p.add_argument("--gcmvn-stats", default=None,
                    help="gcmvn_stats.npz for mel denormalization")
     return p.parse_args(argv)
@@ -167,9 +179,6 @@ def refuse_unported(args) -> None:
     if args.vocoder_type == "griffin_lim":
         raise NotImplementedError("--vocoder-type griffin_lim "
                                   + NOT_PORTED.format(item="#6"))
-    if args.vocoder_quant != "none":
-        raise NotImplementedError(f"--vocoder-quant {args.vocoder_quant} "
-                                  + NOT_PORTED.format(item="#5"))
 
 
 def resolve_device(name: str, prog: str = "generate") -> torch.device:
@@ -356,10 +365,14 @@ def load_vocoder_and_gcmvn(args, task, device):
                                   + NOT_PORTED.format(item="#6"))
     vocoder = None
     if has_ckpt:
+        from daspeech_torch.decode.speech_generator import quant_fields
         from daspeech_torch.models import HiFiGANGenerator
 
         hifi_cfg = HiFiGANConfig()
-        vocoder = HiFiGANGenerator(hifi_cfg, serve_chunk=args.vocoder_chunk)
+        vocoder = HiFiGANGenerator(
+            hifi_cfg, serve_chunk=args.vocoder_chunk,
+            serve_calib_batches=getattr(args, "vocoder_calib_batches", 4),
+            **quant_fields(getattr(args, "vocoder_quant", "none")))
         if args.vocoder_torch:
             from daspeech_torch.train.fairseq_import import (import_hifigan,
                                                              load_pt)

@@ -17,7 +17,9 @@ module that owns it, following the inverses of
   ``nn.ConvTranspose1d.weight [in, out, k]``;
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
   (``batch_stats``) -> ``running_mean``/``running_var``;
-- Embed ``embedding`` -> ``nn.Embedding.weight``; bare params keep their name.
+- Embed ``embedding`` -> ``nn.Embedding.weight``; bare params keep their name;
+- the vocoder's ``quant`` collection (each int8 site's activation amax,
+  ``hifigan.py:334-353``) -> the generator's amax buffers of the same names.
 
 The port keeps the JAX structure where it differs from fairseq: ``enc_proj``
 (256 -> 512) and the 512-wide cross-attention k/v inputs.
@@ -84,10 +86,11 @@ def _convert(owner: nn.Module, leaf: str, value: np.ndarray):
 
 
 def load_flax_(module: nn.Module, variables: Dict[str, Any]) -> nn.Module:
-    """Copy a flax ``{"params", "batch_stats"}`` tree (nested dicts of numpy
-    arrays) into ``module`` in place; every port tensor must be covered."""
+    """Copy a flax ``{"params", "batch_stats", "quant"}`` tree (nested dicts
+    of numpy arrays) into ``module`` in place; every port tensor of its
+    state dict must be covered."""
     loaded = set()
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant"):
         for path, value in _leaves(variables.get(collection, {})):
             owner = module
             for name in path[:-1]:
@@ -147,9 +150,13 @@ def vocoder_from_flax(variables: Dict[str, Any], cfg, device="cuda",
                       **serving) -> HiFiGANGenerator:
     """HiFi-GAN (ResBlock type 1 or 2) with the JAX package's weights, on
     ``device``, in eval mode; ``serving`` holds the generator's serving
-    arguments (``fused_mrf``, ``mrf_tile``, ``serve_chunk``). The flax tree
-    is the same for ``fold_to=0`` and ``fold_to=128``, with ``fused_mrf`` on
-    or off."""
+    arguments (``fused_mrf``, ``mrf_tile``, ``serve_chunk``, ``dtype``,
+    ``quant_int8``, ``quant_skip_levels``, ``calibrate``,
+    ``serve_calib_batches``). The flax ``params`` tree is the same for
+    ``fold_to=0`` and ``fold_to=128`` and in every serving mode; a
+    ``quant`` collection (an int8 vocoder's calibrated amax per site)
+    is carried into the amax buffers, so that both packages quantize
+    with the same frozen scales."""
     return load_flax_(HiFiGANGenerator(cfg, **serving),
                       variables).to(device).eval()
 

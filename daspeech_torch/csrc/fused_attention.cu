@@ -1,8 +1,8 @@
 // Multi-head attention, forward and backward, for Hopper (sm_90a), fp32, in
-// two layouts and two bias modes. The packed and head-major entry points
-// have _bf16 variants (the same arguments, the same kernels) whose q, k, v,
-// out, dout, dq, dk and dv are bf16 in device memory; the bias, the
-// statistics and delta stay fp32, and every sum is fp32 (attention.cuh,
+// two layouts and two bias modes. Every entry point has a _bf16 variant (the
+// same arguments, the same kernels; a forward also takes out32) whose q, k,
+// v, out, dout, dq, dk and dv are bf16 in device memory; the bias (the
+// full bias and its gradient dS too), the statistics and delta stay fp32, and every sum is fp32 (attention.cuh,
 // "Element type"), as the Pallas kernels upcast bf16 operands and cast
 // their outputs (fused_attention.py:79-100, :305-321).
 //
@@ -151,15 +151,61 @@ int attention_bwd(const void* q, const void* k, const void* v,
       tc::launch_attn_tc_bwd(args, B, static_cast<cudaStream_t>(stream)));
 }
 
-AttnArgs full_bias_args(const float* q, const float* k, const float* v,
+AttnArgs full_bias_args(const void* q, const void* k, const void* v,
                         const float* bias4, const uint32_t* seed,
-                        uint32_t thresh, float keep_scale, float* out,
-                        float* stats, int Tq, int Tk, int H, float scale) {
+                        uint32_t thresh, float keep_scale, void* out,
+                        float* stats, int Tq, int Tk, int H, float scale,
+                        bool bf16) {
   AttnArgs args = attn_args(q, k, v, nullptr, seed, thresh, keep_scale, out,
-                            stats, Tq, Tk, H, scale, true, false);
+                            stats, Tq, Tk, H, scale, true, bf16);
   args.bias_sb = 0;
   args.bias4 = bias4;
   return args;
+}
+
+int full_bias_fwd(const void* q, const void* k, const void* v,
+                  const float* bias4, const uint32_t* seed, uint32_t thresh,
+                  float keep_scale, void* out, float* stats, float* out32,
+                  int B, int Tq, int Tk, int H, int D, float scale,
+                  void* stream, bool bf16) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgs args = full_bias_args(q, k, v, bias4, seed, thresh, keep_scale,
+                                 out, stats, Tq, Tk, H, scale, bf16);
+  if (out32 != nullptr) {
+    args.o32 = view<float>(out32, Tq, H, true, false);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      stats != nullptr
+          ? fma::launch_attn_fma_fwd<1, true>(args, B, s)
+          : tc::launch_attn_tc_chunk_fwd<1, true>(args, B, s));
+}
+
+int full_bias_bwd(const void* q, const void* k, const void* v,
+                  const float* bias4, const uint32_t* seed, uint32_t thresh,
+                  float keep_scale, const void* out, const float* stats,
+                  const void* dout, void* dq, void* dk, void* dv,
+                  float* dbias, float* scratch, int B, int Tq, int Tk, int H,
+                  int D, float scale, void* stream, bool bf16) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  AttnBwdArgs args;
+  args.f = full_bias_args(q, k, v, bias4, seed, thresh, keep_scale,
+                          const_cast<void*>(out), const_cast<float*>(stats),
+                          Tq, Tk, H, scale, bf16);
+  args.f.o.bf16 = false;   // the fp32 output (a bf16 forward's out32)
+  args.dout = view<const float>(dout, Tq, H, true, bf16);
+  args.dq = view<float>(dq, Tq, H, true, bf16);
+  args.da = {nullptr, 0, 0, 0};
+  args.dk = view<float>(dk, Tk, H, true, bf16);
+  args.dv = view<float>(dv, Tk, H, true, bf16);
+  // scratch: delta [B, H, Tq] (padded to 4 floats), then P∘Z
+  // [B, H, Tq, Tk]
+  const long long rows = static_cast<long long>(B) * H * Tq;
+  args.delta = scratch;
+  args.dbias = dbias;
+  args.pz = scratch + (rows + 3) / 4 * 4;
+  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<1, true>(
+      args, B, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -261,15 +307,19 @@ extern "C" int daspeech_attention_fb_fwd(const float* q, const float* k,
                                          float* out, float* stats, int B,
                                          int Tq, int Tk, int H, int D,
                                          float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  const AttnArgs args = full_bias_args(q, k, v, bias4, seed, thresh,
-                                       keep_scale, out, stats, Tq, Tk, H,
-                                       scale);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      stats != nullptr
-          ? fma::launch_attn_fma_fwd<1, true>(args, B, s)
-          : tc::launch_attn_tc_chunk_fwd<1, true>(args, B, s));
+  return full_bias_fwd(q, k, v, bias4, seed, thresh, keep_scale, out, stats,
+                       nullptr, B, Tq, Tk, H, D, scale, stream, false);
+}
+
+// bf16 q, k, v and out (bias4 fp32); out32 [B, H, Tq, 64] fp32, written by
+// a training forward (stats given) and read by the backward as its `out`
+extern "C" int daspeech_attention_fb_fwd_bf16(
+    const void* q, const void* k, const void* v, const float* bias4,
+    const uint32_t* seed, uint32_t thresh, float keep_scale, void* out,
+    float* stats, float* out32, int B, int Tq, int Tk, int H, int D,
+    float scale, void* stream) {
+  return full_bias_fwd(q, k, v, bias4, seed, thresh, keep_scale, out, stats,
+                       out32, B, Tq, Tk, H, D, scale, stream, true);
 }
 
 extern "C" int daspeech_attention_fb_bwd(
@@ -278,22 +328,20 @@ extern "C" int daspeech_attention_fb_bwd(
     const float* out, const float* stats, const float* dout, float* dq,
     float* dk, float* dv, float* dbias, float* scratch, int B, int Tq,
     int Tk, int H, int D, float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  AttnBwdArgs args;
-  args.f = full_bias_args(q, k, v, bias4, seed, thresh, keep_scale,
-                          const_cast<float*>(out), const_cast<float*>(stats),
-                          Tq, Tk, H, scale);
-  args.dout = view<const float>(dout, Tq, H, true, false);
-  args.dq = view<float>(dq, Tq, H, true, false);
-  args.da = {nullptr, 0, 0, 0};
-  args.dk = view<float>(dk, Tk, H, true, false);
-  args.dv = view<float>(dv, Tk, H, true, false);
-  // scratch: delta [B, H, Tq] (padded to 4 floats), then P∘Z
-  // [B, H, Tq, Tk]
-  const long long rows = static_cast<long long>(B) * H * Tq;
-  args.delta = scratch;
-  args.dbias = dbias;
-  args.pz = scratch + (rows + 3) / 4 * 4;
-  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<1, true>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  return full_bias_bwd(q, k, v, bias4, seed, thresh, keep_scale, out, stats,
+                       dout, dq, dk, dv, dbias, scratch, B, Tq, Tk, H, D,
+                       scale, stream, false);
+}
+
+// bf16 q, k, v, dout, dq, dk and dv; out the forward's fp32 out32; bias4
+// and dbias fp32
+extern "C" int daspeech_attention_fb_bwd_bf16(
+    const void* q, const void* k, const void* v, const float* bias4,
+    const uint32_t* seed, uint32_t thresh, float keep_scale,
+    const float* out, const float* stats, const void* dout, void* dq,
+    void* dk, void* dv, float* dbias, float* scratch, int B, int Tq, int Tk,
+    int H, int D, float scale, void* stream) {
+  return full_bias_bwd(q, k, v, bias4, seed, thresh, keep_scale, out, stats,
+                       dout, dq, dk, dv, dbias, scratch, B, Tq, Tk, H, D,
+                       scale, stream, true);
 }

@@ -45,6 +45,20 @@
 //     tensor cores, into per-slice partial sums.
 //  3. ffn_reduce_kernel adds the partial sums in a fixed order.
 //
+// bf16 (daspeech_ffn_fwd_bf16, daspeech_ffn_bwd_bf16; x, W1, b1, W2, b2,
+// out, dout and dx bf16 in device memory, gamma, beta and the weight and
+// bias gradients fp32): the same kernels with `lp` set, which round each
+// product's operands to bf16 where _ffn_fwd_kernel and _ffn_bwd_kernel
+// cast them (fused_ffn.py:70-78, :102-128): y before W1, h before W2; in
+// the backward g, gpre and h * m1 (and y) before their products. A bf16
+// value is exact in TF32, so the 3xTF32 split of a rounded operand is the
+// value and a zero lo part, and each product sums the bf16 values in fp32
+// as the Pallas kernel's preferred_element_type=f32 does. LayerNorm, the
+// swish, the masks, the biases and the column sums (db1 over the unrounded
+// gpre, db2 over the unrounded g) stay fp32. The entry points widen the
+// bf16 tensors into fp32 scratch from cudaMallocAsync and round out and dx
+// to bf16 when they are written.
+//
 // Dropout (philox.cuh): element (t, j) of batch row b at site s (1: after
 // the swish, width F; 2: after the second product, width C) is kept when
 // word j % 4 of philox4x32_10((j / 4, t, 0, s), (seed[b], 0)) <= thresh,
@@ -94,6 +108,7 @@ struct FfnArgs {
   uint32_t thresh1, thresh2;
   float scale1, scale2;
   int N, T, F;            // N = B * T rows
+  int lp;                 // round the products' operands to bf16
 };
 
 struct FfnScratch {
@@ -175,8 +190,9 @@ __device__ void layer_norm_rows(const FfnArgs& a, int n0, uint32_t* ys,
     for (int t = 0; t < C / 32; ++t) {
       const int c = lane + 32 * t;
       const float y = n < a.N
-                          ? fmaf((v[i][t] - mean) * rstd, a.gamma[c],
-                                 a.beta[c])
+                          ? gemm::bf16_if(fmaf((v[i][t] - mean) * rstd,
+                                               a.gamma[c], a.beta[c]),
+                                          a.lp)
                           : 0.f;
       gemm::put(ys, APLANE, r * AP + c, y);
       if (y_out != nullptr && n < a.N) {
@@ -301,7 +317,8 @@ __global__ void __launch_bounds__(NT, 1) ffn_fwd_kernel(const FfnArgs a,
                               : 0.f;
               }
             }
-            gemm::put(ys, APLANE, r * AP + fr.col(j) + e, hv);
+            gemm::put(ys, APLANE, r * AP + fr.col(j) + e,
+                      gemm::bf16_if(hv, a.lp));
           }
         }
       }
@@ -395,10 +412,10 @@ __global__ void __launch_bounds__(NT, 1)
                                    4 * q) = v;
       }
     }
-    gemm::put(gs, APLANE, r * AP + 4 * q, v.x);
-    gemm::put(gs, APLANE, r * AP + 4 * q + 1, v.y);
-    gemm::put(gs, APLANE, r * AP + 4 * q + 2, v.z);
-    gemm::put(gs, APLANE, r * AP + 4 * q + 3, v.w);
+    gemm::put(gs, APLANE, r * AP + 4 * q, gemm::bf16_if(v.x, a.lp));
+    gemm::put(gs, APLANE, r * AP + 4 * q + 1, gemm::bf16_if(v.y, a.lp));
+    gemm::put(gs, APLANE, r * AP + 4 * q + 2, gemm::bf16_if(v.z, a.lp));
+    gemm::put(gs, APLANE, r * AP + 4 * q + 3, gemm::bf16_if(v.w, a.lp));
   }
 
   float gy[2][4][4];
@@ -450,7 +467,8 @@ __global__ void __launch_bounds__(NT, 1)
               sc.hd[o] = p * sg * z;
               sc.gpre[o] = gp;
             }
-            gemm::put(ys, APLANE, r * AP + fr.col(j) + e, gp);
+            gemm::put(ys, APLANE, r * AP + fr.col(j) + e,
+                      gemm::bf16_if(gp, a.lp));
           }
         }
       }
@@ -559,6 +577,7 @@ struct WgradJob {
 struct WgradArgs {
   WgradJob job[2];   // dW1 = gpre^T y, dW2 = g^T (h * m1)
   int N, rows;       // rows per slice
+  int lp;            // round the operands to bf16 as they are split
 };
 
 constexpr int WT = 128;          // output tile of the weight gradients
@@ -604,8 +623,8 @@ __global__ void __launch_bounds__(NT) ffn_wgrad_kernel(const WgradArgs a) {
     cp_async_wait<kRing - 2>();
     uint32_t* ab = as + (kc & 1) * 2 * WTPLANE;
     uint32_t* bb = bs + (kc & 1) * 2 * WTPLANE;
-    Ch::split(araw + (kc % kRing) * WTRAW, WT, ab, WTPLANE, WTP);
-    Ch::split(braw + (kc % kRing) * WTRAW, WT, bb, WTPLANE, WTP);
+    Ch::split(araw + (kc % kRing) * WTRAW, WT, ab, WTPLANE, WTP, a.lp);
+    Ch::split(braw + (kc % kRing) * WTRAW, WT, bb, WTPLANE, WTP, a.lp);
     __syncthreads();
     if (kc + kRing - 1 < nk) copy(kc + kRing - 1);
     cp_async_commit();
@@ -693,8 +712,96 @@ FfnArgs ffn_args(const float* x, const float* gamma, const float* beta,
   a.N = B * T;
   a.T = T;
   a.F = F;
+  a.lp = 0;
   return a;
 }
+
+// dst[i] = widen or round src[i] over several arrays (blockIdx.y a job)
+struct CastJob {
+  const void* src;
+  void* dst;
+  long long n;
+};
+
+struct CastArgs {
+  CastJob job[6];
+};
+
+__global__ void widen_kernel(const CastArgs a) {
+  const CastJob& jb = a.job[blockIdx.y];
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < jb.n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    static_cast<float*>(jb.dst)[i] =
+        __bfloat162float(static_cast<const __nv_bfloat16*>(jb.src)[i]);
+  }
+}
+
+__global__ void narrow_kernel(const float* src, __nv_bfloat16* dst,
+                              long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
+constexpr int kCastBlocks = 1024;
+
+// fp32 copies, from one cudaMallocAsync block, of the bf16 operands of a
+// bf16 entry point (x, W1, b1, W2, b2 and, for the backward, dout) and an
+// fp32 output buffer of N C floats; release() frees them in stream order
+struct Widened {
+  float *x = nullptr, *w1, *b1, *w2, *b2, *dout, *out;
+  void* block = nullptr;
+  cudaStream_t st;
+
+  cudaError_t make(const void* x16, const void* w116, const void* b116,
+                   const void* w216, const void* b216, const void* dout16,
+                   int N, int F, cudaStream_t stream) {
+    st = stream;
+    const long long NC = static_cast<long long>(N) * C,
+                    FC_ = static_cast<long long>(F) * C;
+    // each array starts on a 16-byte boundary (cp.async, float4 reads)
+    auto up4 = [](long long n) { return (n + 3) / 4 * 4; };
+    const long long total = up4(NC) * (dout16 ? 3 : 2) + 2 * up4(FC_) +
+                            up4(F) + up4(C);
+    cudaError_t err = cudaMallocAsync(&block, total * sizeof(float), st);
+    if (err != cudaSuccess) return err;
+    float* p = static_cast<float*>(block);
+    x = p;
+    p += up4(NC);
+    out = p;
+    p += up4(NC);
+    w1 = p;
+    p += up4(FC_);
+    w2 = p;
+    p += up4(FC_);
+    b1 = p;
+    p += up4(F);
+    b2 = p;
+    p += up4(C);
+    dout = dout16 ? p : nullptr;
+    CastArgs c{};
+    c.job[0] = {x16, x, NC};
+    c.job[1] = {w116, w1, FC_};
+    c.job[2] = {b116, b1, F};
+    c.job[3] = {w216, w2, FC_};
+    c.job[4] = {b216, b2, C};
+    c.job[5] = {dout16, dout, dout16 ? NC : 0};
+    widen_kernel<<<dim3(kCastBlocks, 6), 256, 0, st>>>(c);
+    return cudaGetLastError();
+  }
+
+  // out rounded into dst (bf16), then the scratch freed
+  cudaError_t finish(void* dst, int N) {
+    narrow_kernel<<<kCastBlocks, 256, 0, st>>>(
+        out, static_cast<__nv_bfloat16*>(dst), static_cast<long long>(N) * C);
+    cudaError_t err = cudaGetLastError();
+    const cudaError_t ferr = cudaFreeAsync(block, st);
+    return err != cudaSuccess ? err : ferr;
+  }
+};
 
 // a row kernel on clusters of cluster_size(F) blocks along x, one cluster
 // per BM-row tile along y, `smem` bytes of shared memory a block
@@ -723,6 +830,50 @@ cudaError_t launch_rows(void (*kernel)(Params...), size_t smem,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+cudaError_t ffn_fwd(const FfnArgs& a, float* out, cudaStream_t st) {
+  return launch_rows(ffn_fwd_kernel, kFwdSmem, a, st, a, out);
+}
+
+cudaError_t ffn_bwd(const FfnArgs& a, const float* dout, float* dx,
+                    float* dgamma, float* dbeta, float* dw1, float* db1,
+                    float* dw2, float* db2, float* y, float* g, float* hd,
+                    float* gpre, float* part_rows, float* part_w, int S,
+                    cudaStream_t st) {
+  const int F = a.F;
+  const int ntiles = (a.N + BM - 1) / BM;
+  cudaError_t err = launch_rows(ffn_bwd_rows_kernel, kBwdSmem, a, st, a,
+                                dout, dx,
+                                FfnScratch{y, g, hd, gpre, part_rows});
+  if (err != cudaSuccess) return err;
+
+  const long long FC_ = static_cast<long long>(F) * C;
+  WgradArgs w;
+  w.job[0] = {gpre, y, part_w, F, C};
+  w.job[1] = {g, hd, part_w + S * FC_, C, F};
+  w.N = a.N;
+  w.rows = (a.N + S - 1) / S;
+  w.lp = a.lp;
+  err = cudaFuncSetAttribute(ffn_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kWgradSmem));
+  if (err != cudaSuccess) return err;
+  const int tiles = ((F + WT - 1) / WT) * ((C + WT - 1) / WT);
+  ffn_wgrad_kernel<<<dim3(tiles, 1, 2 * S), NT, kWgradSmem, st>>>(w);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const long long width = F + 3 * C;
+  ReduceArgs r;
+  r.job[0] = {part_w, dw1, FC_, FC_, S};
+  r.job[1] = {part_w + S * FC_, dw2, FC_, FC_, S};
+  r.job[2] = {part_rows, db1, F, width, ntiles};
+  r.job[3] = {part_rows + F, db2, C, width, ntiles};
+  r.job[4] = {part_rows + F + C, dgamma, C, width, ntiles};
+  r.job[5] = {part_rows + F + 2 * C, dbeta, C, width, ntiles};
+  ffn_reduce_kernel<<<dim3(static_cast<unsigned>((FC_ + 255) / 256), 6), 256,
+                      0, st>>>(r);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int daspeech_ffn_fwd(const float* x, const float* gamma,
@@ -739,9 +890,34 @@ extern "C" int daspeech_ffn_fwd(const float* x, const float* gamma,
   const FfnArgs a = ffn_args(x, gamma, beta, w1, b1, w2, b2, seeds, drop1,
                              thresh1, scale1, drop2, thresh2, scale2, B, T,
                              F);
-  return static_cast<int>(launch_rows(ffn_fwd_kernel, kFwdSmem, a,
-                                      static_cast<cudaStream_t>(stream), a,
-                                      out));
+  return static_cast<int>(
+      ffn_fwd(a, out, static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 x, w1, b1, w2, b2 and out; gamma and beta fp32
+extern "C" int daspeech_ffn_fwd_bf16(const void* x, const float* gamma,
+                                     const float* beta, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, const uint32_t* seeds,
+                                     int drop1, uint32_t thresh1,
+                                     float scale1, int drop2,
+                                     uint32_t thresh2, float scale2,
+                                     void* out, int B, int T, int Cw, int F,
+                                     void* stream) {
+  if (Cw != C || B < 1 || T < 1 || F < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Widened wd;
+  cudaError_t err = wd.make(x, w1, b1, w2, b2, nullptr, B * T, F, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FfnArgs a = ffn_args(wd.x, gamma, beta, wd.w1, wd.b1, wd.w2, wd.b2, seeds,
+                       drop1, thresh1, scale1, drop2, thresh2, scale2, B, T,
+                       F);
+  a.lp = 1;
+  err = ffn_fwd(a, wd.out, st);
+  const cudaError_t ferr = wd.finish(out, B * T);
+  return static_cast<int>(err != cudaSuccess ? err : ferr);
 }
 
 // scratch: y, g [N, C]; hd, gpre [N, F]; part_rows [ceil(N / 32),
@@ -757,39 +933,37 @@ extern "C" int daspeech_ffn_bwd(
   if (Cw != C || B < 1 || T < 1 || F < 1 || S < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FfnArgs a = ffn_args(x, gamma, beta, w1, b1, w2, b2, seeds, drop1,
                              thresh1, scale1, drop2, thresh2, scale2, B, T,
                              F);
-  const int ntiles = (a.N + BM - 1) / BM;
-  cudaError_t err = launch_rows(ffn_bwd_rows_kernel, kBwdSmem, a, st, a,
-                                dout, dx,
-                                FfnScratch{y, g, hd, gpre, part_rows});
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(ffn_bwd(a, dout, dx, dgamma, dbeta, dw1, db1, dw2,
+                                  db2, y, g, hd, gpre, part_rows, part_w, S,
+                                  static_cast<cudaStream_t>(stream)));
+}
 
-  const long long FC_ = static_cast<long long>(F) * C;
-  WgradArgs w;
-  w.job[0] = {gpre, y, part_w, F, C};
-  w.job[1] = {g, hd, part_w + S * FC_, C, F};
-  w.N = a.N;
-  w.rows = (a.N + S - 1) / S;
-  err = cudaFuncSetAttribute(ffn_wgrad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kWgradSmem));
+// bf16 x, w1, b1, w2, b2, dout and dx; the parameter gradients and the
+// scratch fp32
+extern "C" int daspeech_ffn_bwd_bf16(
+    const void* x, const float* gamma, const float* beta, const void* w1,
+    const void* b1, const void* w2, const void* b2, const void* dout,
+    const uint32_t* seeds, int drop1, uint32_t thresh1, float scale1,
+    int drop2, uint32_t thresh2, float scale2, void* dx, float* dgamma,
+    float* dbeta, float* dw1, float* db1, float* dw2, float* db2, float* y,
+    float* g, float* hd, float* gpre, float* part_rows, float* part_w, int B,
+    int T, int Cw, int F, int S, void* stream) {
+  if (Cw != C || B < 1 || T < 1 || F < 1 || S < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Widened wd;
+  cudaError_t err = wd.make(x, w1, b1, w2, b2, dout, B * T, F, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((F + WT - 1) / WT) * ((C + WT - 1) / WT);
-  ffn_wgrad_kernel<<<dim3(tiles, 1, 2 * S), NT, kWgradSmem, st>>>(w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const long long width = F + 3 * C;
-  ReduceArgs r;
-  r.job[0] = {part_w, dw1, FC_, FC_, S};
-  r.job[1] = {part_w + S * FC_, dw2, FC_, FC_, S};
-  r.job[2] = {part_rows, db1, F, width, ntiles};
-  r.job[3] = {part_rows + F, db2, C, width, ntiles};
-  r.job[4] = {part_rows + F + C, dgamma, C, width, ntiles};
-  r.job[5] = {part_rows + F + 2 * C, dbeta, C, width, ntiles};
-  ffn_reduce_kernel<<<dim3(static_cast<unsigned>((FC_ + 255) / 256), 6), 256,
-                      0, st>>>(r);
-  return static_cast<int>(cudaGetLastError());
+  FfnArgs a = ffn_args(wd.x, gamma, beta, wd.w1, wd.b1, wd.w2, wd.b2, seeds,
+                       drop1, thresh1, scale1, drop2, thresh2, scale2, B, T,
+                       F);
+  a.lp = 1;
+  err = ffn_bwd(a, wd.dout, wd.out, dgamma, dbeta, dw1, db1, dw2, db2, y, g,
+                hd, gpre, part_rows, part_w, S, st);
+  const cudaError_t ferr = wd.finish(dx, B * T);
+  return static_cast<int>(err != cudaSuccess ? err : ferr);
 }

@@ -1,7 +1,8 @@
 // GEMM-shaped 3xTF32 tensor-core tiles for Hopper (sm_90a), fp32, shared by
 // the fused Conformer FFN (fused_ffn.cu) and the HiFi-GAN MRF level
 // (fused_mrf.cu): operands staged into shared memory already split into
-// TF32 hi/lo planes, warp products of mma.sync m16n8k8 over them, and the
+// TF32 hi/lo planes, warp products of mma.sync m16n8k8 over them (or, for
+// bf16 operands, packed bf16 pairs and mma.sync m16n8k16), and the
 // cp.async copy of a 2-D chunk of a row-major matrix into a ring of raw
 // fp32 tiles, several chunks ahead of the products.
 //
@@ -38,6 +39,12 @@ namespace daspeech {
 namespace gemm {
 // internal linkage: fused_ffn.cu and fused_mrf.cu each include this header
 namespace {
+
+// x rounded to bf16 (round to nearest even) when `round`, else x: a bf16
+// product's operand, which TF32 holds exactly
+__device__ __forceinline__ float bf16_if(float x, bool round) {
+  return round ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
 
 // the hi and lo TF32 parts of x at word idx of a plane pair
 __device__ __forceinline__ void put(uint32_t* hi, int plane, int idx,
@@ -156,6 +163,53 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
   }
 }
 
+// d = a·b (m16n8k16, bf16 operands, fp32 out) with a zero accumulator
+__device__ __forceinline__ void mma_bf16_0(float d[4], const uint32_t a[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[m][n] += A · B for one 16-deep stage of packed bf16 pairs: A the
+// weight plane [8][wp] (rows co from a0), B the activation plane [8][xp]
+// (frames from b0)
+template <int MT, int NTW>
+__device__ __forceinline__ void warp_mma_bf16(float (&acc)[MT][NTW][4],
+                                              const uint32_t* w, int wp,
+                                              int a0, const uint32_t* x,
+                                              int xp, int b0) {
+  const int lane = threadIdx.x % 32, gid = lane >> 2, t = lane & 3;
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int r = a0 + 16 * m + gid;
+    a[m][0] = w[t * wp + r];
+    a[m][1] = w[t * wp + r + 8];
+    a[m][2] = w[(t + 4) * wp + r];
+    a[m][3] = w[(t + 4) * wp + r + 8];
+  }
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int c = b0 + 8 * n + gid;
+    const uint32_t b_lo = x[t * xp + c], b_hi = x[(t + 4) * xp + c];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float f[4];
+      mma_bf16_0(f, a[m], b_lo, b_hi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] += f[e];
+    }
+  }
+}
+
 template <int MT, int NT>
 __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 #pragma unroll
@@ -204,10 +258,12 @@ struct RawChunk {
   }
 
   // this thread's elements of a raw tile [ROWS][rpitch] split into the
-  // plane pair at hi, [ROWS][pitch]
+  // plane pair at hi, [ROWS][pitch]; with `round`, each first rounded to
+  // bf16 (round to nearest even), so its lo part is 0
   __device__ __forceinline__ static void split(const float* raw, int rpitch,
                                                uint32_t* hi, int plane,
-                                               int pitch) {
+                                               int pitch,
+                                               bool round = false) {
 #pragma unroll
     for (int i = 0; i < kIters; ++i) {
       const int g = static_cast<int>(threadIdx.x) + i * NT;
@@ -215,10 +271,10 @@ struct RawChunk {
       const int r = g / (COLS / 4), c = 4 * (g % (COLS / 4));
       const float4 v = *reinterpret_cast<const float4*>(raw + r * rpitch + c);
       const int o = r * pitch + c;
-      put(hi, plane, o, v.x);
-      put(hi, plane, o + 1, v.y);
-      put(hi, plane, o + 2, v.z);
-      put(hi, plane, o + 3, v.w);
+      put(hi, plane, o, bf16_if(v.x, round));
+      put(hi, plane, o + 1, bf16_if(v.y, round));
+      put(hi, plane, o + 2, bf16_if(v.z, round));
+      put(hi, plane, o + 3, bf16_if(v.w, round));
     }
   }
 };

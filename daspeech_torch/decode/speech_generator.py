@@ -3,15 +3,17 @@
 Counterpart of ``daspeech_tpu/decode/speech_generator.py``. The vocoder was
 trained on raw (unnormalized) mels, so a gcmvn-normalized mel is
 denormalized before it is vocoded (``speech_generator.py``'s
-gcmvn_denormalize -> get_waveform order). :func:`make_vocode_fn` serves the
-fp32 vocoder one-shot or, with ``serve_chunk > 0`` on the vocoder, in exact
-chunks; the bf16 and int8 rungs are not ported.
+gcmvn_denormalize -> get_waveform order). :func:`make_vocode_fn` serves
+every rung of the ladder (``--vocoder-quant``: the fp32 vocoder, bf16 and
+the int8 rungs with their calibration) one-shot or, with ``serve_chunk >
+0`` on the vocoder, in exact chunks.
 :class:`NonAutoregressiveSpeechGenerator` is the ``nat_tts`` entry point:
 phonemes -> FastSpeech 2 -> (gcmvn denorm) -> HiFi-GAN.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -19,7 +21,19 @@ import torch
 
 from daspeech_torch.models.hifigan import vocode_chunked
 
+logger = logging.getLogger(__name__)
+
 QUANT_MODES = ("none", "bf16", "int8", "int8-skip1")   # --vocoder-quant
+
+
+def quant_fields(quant: str) -> Dict:
+    """The ``HiFiGANGenerator`` fields of a ``--vocoder-quant`` rung
+    (``daspeech_tpu/cli/generate.py:490-499``)."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant {quant!r} not in {QUANT_MODES}")
+    return dict(dtype=torch.bfloat16 if quant == "bf16" else torch.float32,
+                quant_int8=quant.startswith("int8"),
+                quant_skip_levels=1 if quant == "int8-skip1" else 0)
 
 
 def gcmvn_stats(gcmvn, device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
@@ -31,31 +45,65 @@ def gcmvn_stats(gcmvn, device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
             torch.as_tensor(gcmvn.std, dtype=torch.float32, device=device))
 
 
-def make_vocode_fn(voc, gcmvn=None, quant: str = "none"
+def make_vocode_fn(voc, gcmvn=None, calib_batches: Optional[int] = None,
+                   saturation_margin: float = 1.25
                    ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
-    """mel [B, M, 80] (gcmvn-normalized when ``gcmvn`` is given) -> wav
+    """mel [B, M, 80] (gcmvn-normalized when ``gcmvn`` is given) -> fp32 wav
     [B, M * hop] (``speech_generator.py:24-136``): gcmvn denormalization,
     then the vocoder, one-shot or, when ``voc.serve_chunk > 0``, chunk by
-    chunk (:func:`~daspeech_torch.models.hifigan.vocode_chunked`). ``quant``
-    is ``--vocoder-quant``; only "none" (fp32) is ported. Nothing here
-    waits for the card."""
+    chunk (:func:`~daspeech_torch.models.hifigan.vocode_chunked`), in the
+    vocoder's rung (its ``dtype``, ``quant_int8``, ``quant_skip_levels``).
+
+    An int8 vocoder (``quant_int8``) starts with empty calibration: the
+    first ``max(1, calib_batches)`` served batches (default the vocoder's
+    ``serve_calib_batches``) run one-shot, even with ``serve_chunk > 0``,
+    quantizing each activation by its own amax and raising each site's
+    running amax; then the scales freeze. A later batch whose denormalized
+    input amax exceeds ``saturation_margin`` times the calibration
+    batches' largest logs one warning: the frozen scales are likely
+    saturating. Nothing here waits for the card but that check's one
+    scalar of an int8 batch."""
     if voc is None:
         return None
-    if quant not in QUANT_MODES:
-        raise ValueError(f"quant {quant!r} not in {QUANT_MODES}")
-    dtype = next(voc.parameters()).dtype
-    if quant != "none" or dtype != torch.float32:
-        raise NotImplementedError(
-            f"vocoder serving in {quant if quant != 'none' else dtype} is "
-            "not ported yet (ROADMAP Queue 1 #5b: the bf16 and int8 vocoder "
-            "rungs); serve the fp32 vocoder")
     stats = gcmvn_stats(gcmvn, next(voc.parameters()).device)
     chunk = int(getattr(voc, "serve_chunk", 0) or 0)
+    if calib_batches is None:
+        calib_batches = int(getattr(voc, "serve_calib_batches", 4))
+
+    def denorm(mel: torch.Tensor) -> torch.Tensor:
+        return mel if stats is None else mel * stats[1] + stats[0]
+
+    def serve(mel: torch.Tensor) -> torch.Tensor:
+        wav = vocode_chunked(voc, mel, chunk) if chunk else voc(mel)
+        return wav.float()
+
+    if not getattr(voc, "quant_int8", False):
+        return lambda mel: serve(denorm(mel))
+
+    voc.reset_calibration_()
+    state = {"n": 0, "amax": 0.0, "warned": False}
 
     def vocode(mel: torch.Tensor) -> torch.Tensor:
-        if stats is not None:
-            mel = mel * stats[1] + stats[0]
-        return vocode_chunked(voc, mel, chunk) if chunk else voc(mel)
+        mel = denorm(mel)
+        amax = float(mel.abs().max())
+        if state["n"] < max(1, calib_batches):
+            voc.calibrate = True
+            try:
+                wav = voc(mel).float()
+            finally:
+                voc.calibrate = False
+            state["amax"] = max(state["amax"], amax)
+            state["n"] += 1
+            return wav
+        if amax > saturation_margin * state["amax"] and not state["warned"]:
+            state["warned"] = True
+            logger.warning(
+                "int8 vocoder: served batch input amax %.3g exceeds the "
+                "calibration-time maximum %.3g by more than %.0f%% — the "
+                "frozen activation scales are likely saturating at the "
+                "int8 clip; consider more --vocoder-calib-batches.",
+                amax, state["amax"], (saturation_margin - 1) * 100)
+        return serve(mel)
 
     return vocode
 

@@ -214,9 +214,9 @@ class FeedForwardModule(Compute, nn.Module):
     dropout seeds from ``rng``. JAX takes its Pallas kernel only while
     ``ffn_fits_vmem`` holds (about 200 rows at C=256, F=2048) and on one
     TPU, and XLA's unfused path otherwise; the port's kernel tiles rows and
-    takes any T. Both routes compute the same function. The fused route
-    takes float32 only: its bf16 entry point is ROADMAP Queue 1 #5b, and a
-    bf16 module with ``fused=True`` raises."""
+    takes any T. Both routes compute the same function. In bf16 the fused
+    route hands the kernel x and the weights and biases in bf16 and
+    LayerNorm's parameters in fp32 (``conformer.py:359-363``)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0,
                  fused: bool = False):
@@ -230,16 +230,13 @@ class FeedForwardModule(Compute, nn.Module):
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.fused and x.dim() == 3:
-            if self.dtype != FP32:
-                raise TypeError("FeedForwardModule(fused=True) computes in "
-                                "float32 only: its bf16 entry point is "
-                                "ROADMAP Queue 1 #5b")
             seeds = row_seeds(rng, self.dropout, x.shape[0], x.device)
             p = 0.0 if seeds is None else self.dropout
+            c = self.compute
             return _ff.fused_ffn(
-                x, self.layer_norm.weight, self.layer_norm.bias,
-                self.w_1.weight, self.w_1.bias, self.w_2.weight,
-                self.w_2.bias, seeds, p, p, seeds is not None)
+                c(x), self.layer_norm.weight, self.layer_norm.bias,
+                c(self.w_1.weight), c(self.w_1.bias), c(self.w_2.weight),
+                c(self.w_2.bias), seeds, p, p, seeds is not None)
         x = dropout(F.silu(self.w_1(self.layer_norm(x))), self.dropout, rng)
         return dropout(self.w_2(x), self.dropout, rng)
 

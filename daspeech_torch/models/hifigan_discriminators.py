@@ -10,6 +10,12 @@ Submodules carry the flax tree's names (``disc_p2`` .. ``disc_p11``,
 ``disc_s0`` .. ``disc_s2``, ``convs_i``, ``conv_post``), so
 ``convert.discriminators_from_flax`` maps a JAX tree onto them. Feature
 maps are NCHW / NCL, where JAX's are NHWC / NLC.
+
+``dtype`` (float32 or bfloat16) is the compute dtype of every conv
+(``models.layers.Conv1d``/``Conv2d``, flax's ``nn.Conv(dtype=...)``: bf16
+outputs with the bias added in bf16); the parameters stay fp32, and the
+losses take their means in fp32 (``mean(..., dtype=f32)``,
+``hifigan_discriminators.py:167-194``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from daspeech_torch.models.layers import FP32, Conv1d, Conv2d, set_dtype
 
 LRELU_SLOPE = 0.1
 PERIODS = (2, 3, 5, 7, 11)
@@ -39,10 +47,10 @@ class DiscriminatorP(nn.Module):
         kp = (kernel_size - 1) // 2
         chans = (1, 32, 128, 512, 1024)
         self.convs = nn.ModuleList(
-            nn.Conv2d(cin, cout, (kernel_size, 1), (stride, 1), (kp, 0))
+            Conv2d(cin, cout, (kernel_size, 1), (stride, 1), (kp, 0))
             for cin, cout in zip(chans[:-1], chans[1:]))
-        self.convs.append(nn.Conv2d(1024, 1024, (kernel_size, 1), 1, (2, 0)))
-        self.conv_post = nn.Conv2d(1024, 1, (3, 1), 1, (1, 0))
+        self.convs.append(Conv2d(1024, 1024, (kernel_size, 1), 1, (2, 0)))
+        self.conv_post = Conv2d(1024, 1, (3, 1), 1, (1, 0))
 
     def forward(self, x: torch.Tensor):
         """x [B, T] -> (scores [B, n], feature maps)."""
@@ -68,9 +76,9 @@ class DiscriminatorS(nn.Module):
         super().__init__()
         cins = (1,) + tuple(s[0] for s in SCALE_SPEC[:-1])
         self.convs = nn.ModuleList(
-            nn.Conv1d(cin, ch, k, s, pad, groups=g)
+            Conv1d(cin, ch, k, s, pad, groups=g)
             for cin, (ch, k, s, g, pad) in zip(cins, SCALE_SPEC))
-        self.conv_post = nn.Conv1d(1024, 1, 3, 1, 1)
+        self.conv_post = Conv1d(1024, 1, 3, 1, 1)
 
     def forward(self, x: torch.Tensor):
         """x [B, T] -> (scores [B, n], feature maps)."""
@@ -109,10 +117,11 @@ class MultiPeriodDiscriminator(nn.Module):
     together (the same sums; half the calls); the JAX module takes it as a
     field, here one set of parameters serves both forms."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = FP32):
         super().__init__()
         for p in PERIODS:
             self.add_module(f"disc_p{p}", DiscriminatorP(p))
+        set_dtype(self, dtype)
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor,
                 pair_batch: bool = False):
@@ -133,10 +142,11 @@ class MultiScaleDiscriminator(nn.Module):
     """``hifigan_discriminators.py:139-162``: the waveform at scales 1, 1/2
     and 1/4; ``pair_batch`` as in :class:`MultiPeriodDiscriminator`."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = FP32):
         super().__init__()
         for i in range(3):
             self.add_module(f"disc_s{i}", DiscriminatorS())
+        set_dtype(self, dtype)
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor,
                 pair_batch: bool = False):
@@ -155,7 +165,8 @@ def feature_loss(fmap_r: List, fmap_g: List) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):
         for rl, gl in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(rl.detach() - gl))
+            loss = loss + torch.mean(torch.abs(rl.detach() - gl),
+                                     dtype=FP32)
     return loss * 2.0
 
 
@@ -163,7 +174,8 @@ def discriminator_loss(real_outs: List, gen_outs: List) -> torch.Tensor:
     """LSGAN D loss (``hifigan_discriminators.py:179-186``)."""
     loss = 0.0
     for dr, dg in zip(real_outs, gen_outs):
-        loss = loss + torch.mean((1.0 - dr) ** 2) + torch.mean(dg ** 2)
+        loss = (loss + torch.mean((1.0 - dr) ** 2, dtype=FP32)
+                + torch.mean(dg ** 2, dtype=FP32))
     return loss
 
 
@@ -171,5 +183,5 @@ def generator_loss(gen_outs: List) -> torch.Tensor:
     """LSGAN G loss (``hifigan_discriminators.py:189-194``)."""
     loss = 0.0
     for dg in gen_outs:
-        loss = loss + torch.mean((1.0 - dg) ** 2)
+        loss = loss + torch.mean((1.0 - dg) ** 2, dtype=FP32)
     return loss

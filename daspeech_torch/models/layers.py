@@ -81,16 +81,44 @@ class Linear(Compute, nn.Linear):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
-class Conv1d(Compute, nn.Conv1d):
-    """``nn.Conv(dtype=...)`` on [B, C, T]: the rounding of :class:`Linear`."""
+class _ComputeConv(Compute):
+    """The rounding of :class:`Linear` for a torch conv module: in bf16 the
+    input and weight rounded, the product (:meth:`product`, no bias)
+    summed in fp32 and rounded once, then the bias in the compute dtype
+    added (flax's ``nn.Conv(dtype=...)``)."""
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv without its bias, in the compute dtype."""
+        return self._conv_forward(x.to(self.dtype),
+                                  self.weight.to(self.dtype), None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == FP32:
             return super().forward(x)
-        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
-                               None)
-        return (y if self.bias is None
-                else y + self.bias.to(self.dtype)[:, None])
+        y = self.product(x)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype).reshape(-1, *[1] * (y.dim() - 2))
+
+
+class Conv1d(_ComputeConv, nn.Conv1d):
+    """``nn.Conv(dtype=...)`` on [B, C, T]: the rounding of :class:`Linear`."""
+
+
+class Conv2d(_ComputeConv, nn.Conv2d):
+    """``nn.Conv(dtype=...)`` with a 2-D kernel on [B, C, H, W]: the
+    rounding of :class:`Linear`."""
+
+
+class ConvTranspose1d(_ComputeConv, nn.ConvTranspose1d):
+    """``ConvTranspose1dTorch(dtype=...)`` (``hifigan.py:372-403``) on
+    [B, C, T]: the rounding of :class:`Linear`."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return F.conv_transpose1d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class LayerNorm(Compute, nn.LayerNorm):

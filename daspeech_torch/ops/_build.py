@@ -13,7 +13,11 @@ raises on anything else, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it. An entry point whose name
 ends in ``_bf16`` is the bf16 variant of the one without: the same
 arguments and the same kernels, its operands and outputs bf16 in device
-memory (:func:`entry`).
+memory (:func:`entry`), except where the Pallas kernel keeps a tensor
+fp32: the MRF level's bf16 variant takes bf16 weights and fp32
+activations, biases and output; the full-bias attention's keeps its bias
+and dS fp32; the fused FFN's keeps LayerNorm's parameters and the
+parameter gradients fp32.
 """
 
 from __future__ import annotations
@@ -75,14 +79,18 @@ SIGNATURES = {
                          _U, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _I, _I, _I, _I, _P),
 }
-# the bf16 variants (#1, #2, #4, #5): the fp32 entry points' arguments, and
-# in a forward the pointer of the fp32 output (out32) after the statistics'
+# the bf16 variants (every kernel): the fp32 entry points' arguments, and
+# in an attention forward the pointer of the fp32 output (out32) after the
+# statistics'
 BF16_ENTRIES = ("daspeech_attention_fwd", "daspeech_attention_bwd",
                 "daspeech_attention_hm_fwd", "daspeech_attention_hm_bwd",
                 "daspeech_relpos_fwd", "daspeech_relpos_bwd",
-                "daspeech_links_fwd", "daspeech_links_bwd")
+                "daspeech_links_fwd", "daspeech_links_bwd",
+                "daspeech_mrf_level", "daspeech_attention_fb_fwd",
+                "daspeech_attention_fb_bwd", "daspeech_ffn_fwd",
+                "daspeech_ffn_bwd")
 OUT32_AT = {"daspeech_attention_fwd": 9, "daspeech_attention_hm_fwd": 9,
-            "daspeech_relpos_fwd": 11}
+            "daspeech_relpos_fwd": 11, "daspeech_attention_fb_fwd": 9}
 SIGNATURES.update({
     f"{n}_bf16": (SIGNATURES[n] if n not in OUT32_AT else
                   SIGNATURES[n][:OUT32_AT[n]] + (_P,)

@@ -46,9 +46,12 @@ their operands and cast their outputs (``fused_attention.py:79-100``,
 ``:305-321``). A bf16 training forward also writes its output in fp32
 (``out32``), which the backward takes for delta = rowsum(dO∘O): the Pallas
 backward sums P∘dP in fp32, the same value, where the rounded bf16 output
-would cancel against dO·V in a near-uniform softmax row. Each plain version, given bf16 operands, upcasts them, runs
-the fp32 plain version and casts its outputs back. The full-bias op takes
-float32 only (its bf16 entry point is ROADMAP Queue 1 #5b).
+would cancel against dO·V in a near-uniform softmax row. The full-bias
+kernels take bf16 q, k, v the same way, with an fp32 bias4 and an fp32
+dbias (dS), as the Pallas kernel writes dS in fp32
+(``fused_attention.py:664-666``, ``:718``). Each plain version, given
+bf16 operands, upcasts them, runs the fp32 plain version and casts its
+outputs back (dbias stays fp32).
 """
 
 from __future__ import annotations
@@ -526,6 +529,9 @@ def attention_full_bias_plain(q: torch.Tensor, k: torch.Tensor,
     [B, H, Tq, d], k/v [B, H, Tk, d] with a full additive bias4
     [B, H, Tq, Tk]; with ``dropout_p`` > 0 the probabilities take the
     Philox mask of the one int32 ``seed``."""
+    if q.dtype == BF16:
+        return _bf16_plain(attention_full_bias_plain, q, k, v, bias4,
+                           sm_scale, dropout_p, seed)
     B, H, Tq, _ = q.shape
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     p = torch.softmax(s + bias4, dim=-1)
@@ -545,7 +551,13 @@ def attention_full_bias_bwd_plain(q, k, v, bias4, dout, sm_scale: float = 1.0,
                                   seed: Optional[torch.Tensor] = None):
     """(dq, dk, dv, dbias) of :func:`attention_full_bias_plain` for the
     cotangent ``dout``; dbias = dS = P∘(Z∘(dO Vᵀ) − rowsum(P∘Z∘(dO Vᵀ))),
-    the pre-dropout P as in ``fused_attention.py:633``."""
+    the pre-dropout P as in ``fused_attention.py:633``. bf16 operands:
+    bf16 dq, dk, dv and an fp32 dbias."""
+    if q.dtype == BF16:
+        dq, dk, dv, ds = attention_full_bias_bwd_plain(
+            q.float(), k.float(), v.float(), bias4, dout.float(), sm_scale,
+            dropout_p, seed)
+        return dq.to(BF16), dk.to(BF16), dv.to(BF16), ds
     B, H, Tq, _ = q.shape
     Tk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
@@ -562,7 +574,9 @@ def attention_full_bias_bwd_plain(q, k, v, bias4, dout, sm_scale: float = 1.0,
 
 def _check_fb(name, q, k, v, bias4, seed, dropout_p):
     drop = () if dropout_p == 0.0 else (seed,)
-    _build.check_inputs(name, q, k, v, bias4, int32=drop)
+    dt = operand_dtype(name, q)
+    _build.check_inputs(name, q, k, v, bias4, int32=drop,
+                        dtype=(dt, dt, dt, FP32))
     _check_aligned(name, q, k, v, bias4)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: takes [B, H, T, d] q, k, v")
@@ -585,21 +599,22 @@ def attention_fb_fwd_kernel(q, k, v, bias4, sm_scale: float,
                             dropout_p: float = 0.0, seed=None,
                             with_stats: bool = False):
     """Launch the full-bias forward kernel: (out [B, H, Tq, d], stats) with
-    stats the [B, H, Tq, 2] row softmax (max, sum), or None."""
+    stats the [B, H, Tq, 2] row softmax (max, sum) (bf16 operands: the pair
+    (stats, out32)), or None."""
     _check_fb("fused_attention_full_bias", q, k, v, bias4, seed, dropout_p)
     B, H, Tq, _ = q.shape
-    out = torch.empty_like(q)
-    stats = (torch.empty((B, H, Tq, 2), dtype=torch.float32,
-                         device=q.device) if with_stats else None)
+    out, stats, out32 = _fwd_outputs(q, H, Tq, with_stats)
+    extra = () if q.dtype == FP32 else (_build.ptr(out32),)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_fb_fwd(
+        rc = _build.entry("daspeech_attention_fb_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
             *_drop_args(dropout_p, seed), out.data_ptr(), _build.ptr(stats),
-            B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
+            *extra, B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
             _build.stream_of(q))
     _build.check(rc, "daspeech_attention_fb_fwd")
     attention_fb_fwd_kernel.launches += 1
-    return out, stats
+    attention_fb_fwd_kernel.bf16_launches += q.dtype == BF16
+    return out, _saved(stats, out32)
 
 
 def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
@@ -607,8 +622,10 @@ def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
     """Launch the full-bias backward kernels: (dq, dk, dv, dbias)."""
     _check_fb("fused_attention_full_bias backward", q, k, v, bias4, seed,
               dropout_p)
+    out, stats = _bwd_out("fused_attention_full_bias backward", q, out,
+                          stats)
     _build.check_inputs("fused_attention_full_bias backward", out, stats,
-                        dout)
+                        dout, dtype=(FP32, FP32, q.dtype))
     _check_aligned("fused_attention_full_bias backward", out, dout)
     B, H, Tq, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -621,7 +638,7 @@ def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
     # delta [B, H, Tq], then P∘Z [B, H, Tq, Tk]
     scratch = _bwd_scratch(B * H * Tq, B * H * Tq * k.shape[2], q.device)
     with torch.cuda.device(q.device):
-        rc = _build.library().daspeech_attention_fb_bwd(
+        rc = _build.entry("daspeech_attention_fb_bwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias4.data_ptr(),
             *_drop_args(dropout_p, seed), out.data_ptr(), stats.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -629,6 +646,7 @@ def attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout, sm_scale: float,
             HEAD_DIM, float(sm_scale), _build.stream_of(q))
     _build.check(rc, "daspeech_attention_fb_bwd")
     attention_fb_bwd_kernel.launches += 1
+    attention_fb_bwd_kernel.bf16_launches += q.dtype == BF16
     return dq, dk, dv, dbias
 
 
@@ -643,7 +661,7 @@ class _FullBiasAttention(torch.autograd.Function):
         out, stats = attention_fb_fwd_kernel(
             q, k, v, bias4, sm_scale, dropout_p, seed,
             with_stats=any(ctx.needs_input_grad))
-        ctx.save_for_backward(q, k, v, bias4, seed, out, stats)
+        ctx.save_for_backward(q, k, v, bias4, seed, out, *_flat(stats))
         return out
 
     @staticmethod
@@ -655,7 +673,7 @@ class _FullBiasAttention(torch.autograd.Function):
             grads = attention_full_bias_bwd_plain(q, k, v, bias4, dout,
                                                   sm_scale, dropout_p, seed)
         else:
-            out, stats = saved
+            out, stats = _unflat(saved)
             grads = attention_fb_bwd_kernel(q, k, v, bias4, out, stats, dout,
                                             sm_scale, dropout_p, seed)
         return (*grads, None, None, None)
@@ -671,13 +689,10 @@ def fused_attention_full_bias(q: torch.Tensor, k: torch.Tensor,
     used only when ``train`` and ``dropout_p`` > 0.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
-    which take fp32, contiguous [B, H, T, 64] q, k, v (head depth 64 only,
-    as the other attention kernels) and a contiguous fp32 bias4, and raise
-    on anything else. bf16 operands raise on either device: the bf16 entry
-    point of this kernel is ROADMAP Queue 1 #5b."""
-    if q.dtype != FP32:
-        raise TypeError("fused_attention_full_bias takes float32 only: its "
-                        "bf16 entry point is ROADMAP Queue 1 #5b")
+    which take fp32 or bf16, contiguous [B, H, T, 64] q, k, v (head depth
+    64 only, as the other attention kernels) and a contiguous fp32 bias4,
+    and raise on anything else; bf16 q, k, v give a bf16 output and
+    gradients and an fp32 bias gradient."""
     p = float(dropout_p) if train and dropout_p > 0.0 else 0.0
     seed_t = None
     if p > 0.0:
@@ -687,4 +702,6 @@ def fused_attention_full_bias(q: torch.Tensor, k: torch.Tensor,
 
 
 attention_fb_fwd_kernel.launches = 0
+attention_fb_fwd_kernel.bf16_launches = 0
 attention_fb_bwd_kernel.launches = 0
+attention_fb_bwd_kernel.bf16_launches = 0

@@ -21,10 +21,19 @@ per-row int32 seeds [B]; the kernels draw the same bits, so kernel and
 plain version agree element for element with dropout on, and the backward
 replays the forward's masks.
 
+bf16: with bf16 x, w1, b1, w2 and b2 (gamma and beta fp32) the kernels
+round each product's operands to bf16 where the Pallas kernels cast them
+(``fused_ffn.py:70-78``, ``:102-128``): y before W1 and h before W2; in
+the backward g, h·m1, gpre and y before their products. LayerNorm, the
+swish, the masks and the bias and column sums stay fp32; out and dx are
+bf16, the parameter gradients fp32. The plain versions round at the same
+points.
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels, which
-take fp32, contiguous tensors of width C = 256 (the recipe's), any T and
-any F, and raise on anything else. Like the JAX op it is a verified
-alternate backend: ``FeedForwardModule(fused=True)`` reaches it.
+take fp32 or bf16 (as above), contiguous tensors of width C = 256 (the
+recipe's), any T and any F, and raise on anything else. Like the JAX op it
+is a verified alternate backend: ``FeedForwardModule(fused=True)`` reaches
+it.
 """
 
 from __future__ import annotations
@@ -50,20 +59,33 @@ def _masks(seeds, T, C, Fd, p1, p2):
     return m1, m2
 
 
+def _rounding(x: torch.Tensor):
+    """(the operands widened to fp32, the rounding of a product's operand):
+    bf16 round trips for bf16 x, identities otherwise."""
+    if x.dtype != torch.bfloat16:
+        return (lambda t: t), (lambda t: t)
+    return (lambda t: t.float()), (lambda t: t.to(x.dtype).float())
+
+
 def ffn_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, seeds: Optional[torch.Tensor] = None,
               p1: float = 0.0, p2: float = 0.0) -> torch.Tensor:
     """x [B, T, C] -> LN(gamma, beta; eps 1e-6) -> ·w1ᵀ + b1 -> swish ->
     mask 1 -> ·w2ᵀ + b2 -> mask 2, with w1 [F, C] and w2 [C, F]; a site with
-    p > 0 takes the Philox mask of the int32 per-row ``seeds`` [B]."""
+    p > 0 takes the Philox mask of the int32 per-row ``seeds`` [B]. bf16
+    x (and weights): y and h rounded to bf16 before their products, the
+    output rounded to bf16 (module docstring)."""
     _, T, C = x.shape
+    wide, rnd = _rounding(x)
     m1, m2 = _masks(seeds, T, C, w1.shape[0], p1, p2)
-    h = F.silu(F.linear(F.layer_norm(x, (C,), gamma, beta, LN_EPS), w1, b1))
+    y = rnd(F.layer_norm(wide(x), (C,), gamma, beta, LN_EPS))
+    h = F.silu(F.linear(y, wide(w1), wide(b1)))
     if m1 is not None:
         h = h * m1
-    out = F.linear(h, w2, b2)
-    return out if m2 is None else out * m2
+    out = F.linear(rnd(h), wide(w2), wide(b2))
+    out = out if m2 is None else out * m2
+    return out.to(x.dtype)
 
 
 def ffn_bwd_plain(x, gamma, beta, w1, b1, w2, b2, dout,
@@ -72,36 +94,47 @@ def ffn_bwd_plain(x, gamma, beta, w1, b1, w2, b2, dout,
     """(dx, dgamma, dbeta, dw1, db1, dw2, db2) of :func:`ffn_plain` for the
     cotangent ``dout``, in closed form (``fused_ffn.py:93-149``): g = dout·m2,
     dW2 = gᵀ(h·m1), gpre = (g w2)·m1·swish'(pre), dW1 = gpreᵀ y,
-    gy = gpre w1, and LayerNorm's backward."""
+    gy = gpre w1, and LayerNorm's backward. bf16 x (and weights): g, h·m1,
+    gpre and y rounded to bf16 before their products, dx rounded to bf16,
+    the parameter gradients fp32 (the sums of the unrounded g and gpre)."""
     B, T, C = x.shape
     Fd = w1.shape[0]
+    wide, rnd = _rounding(x)
+    dtype = x.dtype
+    x, w1, b1, w2, dout = (wide(t) for t in (x, w1, b1, w2, dout))
     m1, m2 = _masks(seeds, T, C, Fd, p1, p2)
     mu = x.mean(-1, keepdim=True)
     r = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + LN_EPS)
     xhat = (x - mu) * r
-    y = xhat * gamma + beta
+    y = rnd(xhat * gamma + beta)
     pre = F.linear(y, w1, b1)
     s = torch.sigmoid(pre)
     hd = pre * s if m1 is None else pre * s * m1
     g = dout if m2 is None else dout * m2
-    gh = g @ w2
+    gh = rnd(g) @ w2
     if m1 is not None:
         gh = gh * m1
     gpre = gh * (s * (1.0 + pre * (1.0 - s)))
-    dw2 = g.reshape(-1, C).t() @ hd.reshape(-1, Fd)
-    dw1 = gpre.reshape(-1, Fd).t() @ y.reshape(-1, C)
-    gy = gpre @ w1
+    dw2 = rnd(g).reshape(-1, C).t() @ rnd(hd).reshape(-1, Fd)
+    dw1 = rnd(gpre).reshape(-1, Fd).t() @ y.reshape(-1, C)
+    gy = rnd(gpre) @ w1
     dxhat = gy * gamma
     dx = r * (dxhat - dxhat.mean(-1, keepdim=True)
               - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return (dx, (gy * xhat).sum((0, 1)), gy.sum((0, 1)), dw1,
+    return (dx.to(dtype), (gy * xhat).sum((0, 1)), gy.sum((0, 1)), dw1,
             gpre.sum((0, 1)), dw2, g.sum((0, 1)))
 
 
 def _check(name, x, gamma, beta, w1, b1, w2, b2, seeds, p1, p2, extra=()):
     drop = (seeds,) if (p1 > 0.0 or p2 > 0.0) else ()
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16 x, got "
+                        f"{dt}")
     _build.check_inputs(name, x, gamma, beta, w1, b1, w2, b2, *extra,
-                        int32=drop)
+                        int32=drop,
+                        dtype=(dt, torch.float32, torch.float32, dt, dt, dt,
+                               dt, *(dt for _ in extra)))
     if x.dim() != 3:
         raise ValueError(f"{name}: takes [B, T, C] x, got {tuple(x.shape)}")
     B, T, C = x.shape
@@ -138,13 +171,14 @@ def ffn_fwd_kernel(x, gamma, beta, w1, b1, w2, b2, seeds=None,
     B, T, C = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = _build.library().daspeech_ffn_fwd(
+        rc = _build.entry("daspeech_ffn_fwd", x.dtype)(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             *_drop_args(seeds, p1, p2), out.data_ptr(), B, T, C,
             w1.shape[0], _build.stream_of(x))
     _build.check(rc, "daspeech_ffn_fwd")
     ffn_fwd_kernel.launches += 1
+    ffn_fwd_kernel.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
@@ -166,7 +200,7 @@ def ffn_bwd_kernel(x, gamma, beta, w1, b1, w2, b2, dout, seeds=None,
     scratch = (new(N, C), new(N, C), new(N, Fd), new(N, Fd),
                new(math.ceil(N / ROW_TILE), Fd + 3 * C), new(2, S, Fd * C))
     with torch.cuda.device(x.device):
-        rc = _build.library().daspeech_ffn_bwd(
+        rc = _build.entry("daspeech_ffn_bwd", x.dtype)(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), dout.data_ptr(),
             *_drop_args(seeds, p1, p2), dx.data_ptr(),
@@ -174,6 +208,7 @@ def ffn_bwd_kernel(x, gamma, beta, w1, b1, w2, b2, dout, seeds=None,
             B, T, C, Fd, S, _build.stream_of(x))
     _build.check(rc, "daspeech_ffn_bwd")
     ffn_bwd_kernel.launches += 1
+    ffn_bwd_kernel.bf16_launches += x.dtype == torch.bfloat16
     return (dx, *grads)
 
 
@@ -202,12 +237,10 @@ def fused_ffn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """The FFN of :func:`ffn_plain`, differentiable in x and every
     parameter; JAX's argument order. ``seed`` is an int, or int32 per-row
     seeds [B] (a scalar s gives row b the seed s + b, as JAX's
-    ``_norm_seeds``), used only when ``train`` and p > 0. Float32 only, on
-    either device: a bf16 x raises (the bf16 entry point is ROADMAP Queue 1
-    #5b)."""
-    if x.dtype != torch.float32:
-        raise TypeError("fused_ffn takes float32 only: its bf16 entry point "
-                        "is ROADMAP Queue 1 #5b")
+    ``_norm_seeds``), used only when ``train`` and p > 0. x, w1, b1, w2
+    and b2 are all fp32 or all bf16 (gamma and beta fp32; see the module
+    docstring); the gradients of bf16 weights come back in bf16, as
+    autograd casts a gradient to its input's dtype."""
     p1 = float(p1) if train else 0.0
     p2 = float(p2) if train else 0.0
     seeds = None
@@ -220,4 +253,6 @@ def fused_ffn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 ffn_fwd_kernel.launches = 0
+ffn_fwd_kernel.bf16_launches = 0
 ffn_bwd_kernel.launches = 0
+ffn_bwd_kernel.bf16_launches = 0

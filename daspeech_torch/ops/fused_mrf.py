@@ -7,7 +7,14 @@ pre-activations and residual adds. The CUDA kernel (``csrc/fused_mrf.cu``)
 replaces the Pallas ``mrf_level`` (``fused_mrf.py:156``; ``_mrf_kernel`` at
 :87); it computes in the port's ``[B, C, T]`` layout, not the TPU's folded
 ``[B, T/f, f*C]`` view, one launch per conv, each an implicit GEMM on the
-tensor cores (3xTF32) over per-tap shifted views of a staged input tile.
+tensor cores over per-tap shifted views of a staged input tile.
+
+Two modes, picked by the weights' dtype. fp32 weights: every product in
+3xTF32, which keeps fp32's accuracy. bf16 weights (a bf16 vocoder; JAX's
+TPU kernel always takes these, ``fused_mrf.py:120``, ``:178``): each conv's
+input activation rounded to bf16, native bf16 products with fp32 sums;
+the residual spine, biases, sequence masking, the average and the output
+stay fp32, as in the Pallas kernel.
 
 Inference only, as in JAX: neither version has a gradient. CPU tensors take
 the plain version (:func:`mrf_level_ref`, the convs through ``F.conv1d``);
@@ -30,35 +37,47 @@ MAX_KERNEL = 17             # largest conv kernel size the kernel takes
 MAX_CHANNELS = 128
 
 
-def prepare_level(resblocks) -> Tuple[torch.Tensor, torch.Tensor]:
+def prepare_level(resblocks, dtype: torch.dtype = torch.float32
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stack a level's ResBlock1 conv weights and biases for :func:`mrf_level`:
-    ``W [n_taps, C, C]`` (each conv's taps in order, each tap ``[in, out]``)
-    and ``biases [n_convs, C]``, convs in the order block, dilation,
-    (``convs1``, ``convs2``) — the order of ``fused_mrf.prepare_level``."""
+    ``W [n_taps, C, C]`` in ``dtype`` (each conv's taps in order, each tap
+    ``[in, out]``) and fp32 ``biases [n_convs, C]``, convs in the order
+    block, dilation, (``convs1``, ``convs2``) — the order of
+    ``fused_mrf.prepare_level``."""
     mats, biases = [], []
     for blk in resblocks:
         for c1, c2 in zip(blk.convs1, blk.convs2):
             for conv in (c1, c2):
                 mats.append(conv.weight.permute(2, 1, 0))
                 biases.append(conv.bias)
-    return torch.cat(mats).contiguous(), torch.stack(biases).contiguous()
+    return (torch.cat(mats).to(dtype).contiguous(),
+            torch.stack(biases).contiguous())
 
 
 def mrf_level_ref(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
                   kernel_sizes: Sequence[int],
                   dilations: Sequence[Sequence[int]]) -> torch.Tensor:
     """The average over blocks of the ResBlock1 chains, x ``[B, C, T]`` ->
-    ``[B, C, T]``, with ``F.conv1d`` (SAME zero padding at every conv)."""
+    ``[B, C, T]``, with ``F.conv1d`` (SAME zero padding at every conv). With
+    bf16 ``W`` each conv's input activation is rounded to bf16 and the
+    products summed in fp32 (the Pallas kernel's ``operand_dtype``); the
+    rest stays fp32."""
+    conv1d = F.conv1d
+    if W.dtype == torch.bfloat16:
+        W = W.float()
+
+        def conv1d(a, w, b, **kw):
+            return F.conv1d(a.to(torch.bfloat16).float(), w, b, **kw)
     tap, conv, out = 0, 0, None
     for k, ds in zip(kernel_sizes, dilations):
         cur = x
         for d in ds:
             w1 = W[tap:tap + k].permute(2, 1, 0)
             w2 = W[tap + k:tap + 2 * k].permute(2, 1, 0)
-            xt = F.conv1d(F.leaky_relu(cur, LRELU_SLOPE), w1, biases[conv],
-                          padding=(k - 1) // 2 * d, dilation=d)
-            xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), w2,
-                          biases[conv + 1], padding=(k - 1) // 2)
+            xt = conv1d(F.leaky_relu(cur, LRELU_SLOPE), w1, biases[conv],
+                        padding=(k - 1) // 2 * d, dilation=d)
+            xt = conv1d(F.leaky_relu(xt, LRELU_SLOPE), w2,
+                        biases[conv + 1], padding=(k - 1) // 2)
             cur = cur + xt
             tap, conv = tap + 2 * k, conv + 2
         out = cur if out is None else out + cur
@@ -66,7 +85,8 @@ def mrf_level_ref(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
 
 
 def _check(x, W, biases, kernel_sizes, dilations, tile):
-    _build.check_inputs("mrf_level", x, W, biases)
+    _build.check_inputs("mrf_level", x, W, biases,
+                        dtype=(torch.float32, W.dtype, torch.float32))
     if x.dim() != 3:
         raise ValueError(f"mrf_level: x must be [B, C, T], got {tuple(x.shape)}")
     B, C, T = x.shape
@@ -118,12 +138,13 @@ def mrf_level_kernel(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
     ds = (ctypes.c_int * (len(kernel_sizes) * n_dil))(
         *(d for blk in dilations for d in blk))
     with torch.cuda.device(x.device):
-        rc = _build.library().daspeech_mrf_level(
+        rc = _build.entry("daspeech_mrf_level", W.dtype)(
             x.data_ptr(), W.data_ptr(), biases.data_ptr(), out.data_ptr(),
             _build.ptr(tmp[0]), _build.ptr(tmp[1]), ybuf.data_ptr(), B, C, T,
             len(kernel_sizes), ks, n_dil, ds, tile, _build.stream_of(x))
     _build.check(rc, "daspeech_mrf_level")
     mrf_level.launches += 1
+    mrf_level.bf16_launches += W.dtype == torch.bfloat16
     return out
 
 
@@ -135,16 +156,19 @@ def mrf_level(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
     :func:`prepare_level`; ``tile`` is the kernel's output frames per block
     (one of ``TILES``; None: :func:`pick_tile`).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes contiguous fp32 inputs with C a power of two <= 128 (C < 32
-    padded with zero channels inside it) and odd kernel sizes <= 17, and
-    raises on anything else. Neither has a
-    gradient: under autograd with an input that requires one, this raises.
-    Float32 only, on either device: a bf16 x raises (the bf16 and int8
-    entry points are ROADMAP Queue 1 #5b)."""
-    if x.dtype != torch.float32:
-        raise TypeError("mrf_level takes float32 only: its bf16 and int8 "
-                        "entry points are ROADMAP Queue 1 #5b")
+    ``x`` and ``biases`` are fp32; ``W`` is fp32 (3xTF32 products) or bf16
+    (each conv's input rounded to bf16, bf16 products with fp32 sums: the
+    bf16 vocoder's level and the TPU kernel's arithmetic); the output is
+    fp32. CPU tensors take the plain version. CUDA tensors launch the
+    kernel, which takes contiguous inputs with C a power of two <= 128
+    (C < 32 padded with zero channels inside it) and odd kernel sizes
+    <= 17, and raises on anything else. Neither has a gradient: under
+    autograd with an input that requires one, this raises. The fused MRF
+    never quantizes (``hifigan.py:696-722``), so it has no int8 mode."""
+    if (x.dtype != torch.float32 or biases.dtype != torch.float32
+            or W.dtype not in (torch.float32, torch.bfloat16)):
+        raise TypeError(f"mrf_level takes fp32 x and biases and fp32 or "
+                        f"bf16 W, got {x.dtype}, {biases.dtype}, {W.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, W, biases)):
         raise RuntimeError("mrf_level is inference only: run it under "
                            "torch.no_grad() or torch.inference_mode()")
@@ -154,3 +178,4 @@ def mrf_level(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
 
 
 mrf_level.launches = 0
+mrf_level.bf16_launches = 0     # of launches, those with bf16 W

@@ -31,6 +31,7 @@ from torch import nn
 
 from daspeech_torch import convert
 from daspeech_torch.models.hifigan import HiFiGANGenerator
+from daspeech_torch.models.layers import set_dtype
 from daspeech_torch.models.hifigan_discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
@@ -109,8 +110,10 @@ class VocoderTrainer:
 
     ``mel_fn`` maps a waveform [B, T] to a mel [B, frames, num_mels]
     (:func:`make_mel_fn` for the real loss); without it the mel loss is 0.
-    ``gen_fold`` (TPU lane folding) and a bf16 ``disc_dtype`` are not
-    ported and raise."""
+    ``disc_dtype`` (float32 or bfloat16) is the discriminators' compute
+    dtype (their parameters, Adam and the loss means stay fp32,
+    ``vocoder_train.py:64-86``). ``gen_fold`` (TPU lane folding) is not
+    ported and raises."""
 
     def __init__(self, cfg, mel_fn: Optional[Callable] = None,
                  mel_loss_weight: float = 45.0,
@@ -120,10 +123,8 @@ class VocoderTrainer:
         if gen_fold > 0:
             raise NotImplementedError("gen_fold is TPU lane folding; the "
                                       "port trains the plain generator")
-        if disc_dtype != torch.float32:
-            raise NotImplementedError("only float32 discriminators are "
-                                      "ported")
         self.cfg = cfg
+        self.disc_dtype = disc_dtype
         self.mel_fn = mel_fn
         self.mel_loss_weight = mel_loss_weight
         self.pair_batch = pair_batch
@@ -133,7 +134,8 @@ class VocoderTrainer:
     def _state(self, gen: nn.Module, disc: Dict[str, nn.Module]
                ) -> VocoderTrainState:
         gen = gen.to(self.device).train()
-        disc = {k: m.to(self.device).train() for k, m in disc.items()}
+        disc = {k: set_dtype(m, self.disc_dtype).to(self.device).train()
+                for k, m in disc.items()}
         return VocoderTrainState(
             step=0, gen=gen, disc=disc,
             gen_opt=make_vocoder_optimizer(gen.parameters()),

@@ -16,9 +16,9 @@ CPU, against the JAX package.
 * dropout's scale rounded to bf16 (1.109375 at rate 0.1, JAX's
   ``jnp.asarray(1 / keep_p, bf16)``) and gelu by dtype (tanh form in bf16,
   erf in fp32), each against JAX's;
-* the kernels that stay fp32 until ROADMAP Queue 1 #5b refuse bf16 with a
-  TypeError naming it; the bf16 C entry points take the fp32 ones'
-  arguments (a forward, one pointer more: its fp32 output).
+* the fused FFN (#6), the MRF level (#7) and the full-bias attention
+  (#3) take bf16 operands; the bf16 C entry points take the fp32 ones'
+  arguments (an attention forward, one pointer more: its fp32 output).
 """
 
 import ctypes
@@ -312,31 +312,39 @@ def test_gelu_by_dtype_is_jax_s():
                                rtol=0, atol=1e-6)
 
 
-# --------------------------------------------- fp32-only kernels (#5b)
+# ------------------------- #6, #7, #3 in bf16 (formerly fp32 only)
 
-def _refusals():
-    x = torch.randn(2, 5, 16, dtype=BF16)
+def _bf16_calls():
+    """Each of the three kernels' entry points (and the fused FFN's module
+    route) on bf16 operands: (result, the dtype it must have)."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 5, 16, generator=g).to(BF16)
 
     def ffn():
-        tff.fused_ffn(x, *(torch.ones(16),) * 2, torch.ones(32, 16),
-                      torch.ones(32), torch.ones(16, 32), torch.ones(16), 0,
-                      0.0, 0.0, False)
+        w1, w2 = (torch.randn(s, generator=g).to(BF16) * 0.2
+                  for s in ((32, 16), (16, 32)))
+        return tff.fused_ffn(x, torch.ones(16), torch.zeros(16), w1,
+                             torch.zeros(32, dtype=BF16), w2,
+                             torch.zeros(16, dtype=BF16), 0, 0.0, 0.0,
+                             False), BF16
 
     def ffn_module():
         m = tlayers.set_dtype(tconf.FeedForwardModule(16, 32, fused=True),
                               BF16)
-        m(x)
+        return m(x), BF16
 
     def mrf():
         with torch.no_grad():
-            tmrf.mrf_level(torch.randn(1, 32, 20, dtype=BF16),
-                           torch.randn(2, 3, 32, 32, 3), torch.zeros(2, 3, 32),
-                           (3, 3), ((1, 3, 5), (1, 3, 5)))
+            return tmrf.mrf_level(torch.randn(1, 32, 20, generator=g),
+                                  (torch.randn(36, 32, 32, generator=g)
+                                   * 0.05).to(BF16), torch.zeros(12, 32),
+                                  (3, 3), ((1, 3, 5), (1, 3, 5))), \
+                torch.float32
 
     def full_bias():
-        q = torch.randn(1, 2, 6, 64, dtype=BF16)
-        tfa.fused_attention_full_bias(q, q, q, torch.zeros(1, 2, 6, 6), 0,
-                                      1.0, 0.0, False)
+        q = torch.randn(1, 2, 6, 64, generator=g).to(BF16)
+        return tfa.fused_attention_full_bias(q, q, q, torch.zeros(1, 2, 6, 6),
+                                             0, 1.0, 0.0, False), BF16
 
     return {"fused_ffn": ffn, "FeedForwardModule": ffn_module,
             "mrf_level": mrf, "full_bias": full_bias}
@@ -344,9 +352,11 @@ def _refusals():
 
 @pytest.mark.parametrize("name", ["fused_ffn", "FeedForwardModule",
                                   "mrf_level", "full_bias"])
-def test_fp32_only_kernels_refuse_bf16(name):
-    with pytest.raises(TypeError, match="#5b"):
-        _refusals()[name]()
+def test_bf16_kernels_take_bf16(name):
+    """#6, #7 and #3 take bf16 operands on the CPU (their plain bf16
+    versions): a finite result of the kernel's output dtype."""
+    out, dtype = _bf16_calls()[name]()
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
 
 
 def test_bf16_entry_points_share_the_fp32_signatures():

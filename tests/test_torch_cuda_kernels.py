@@ -29,8 +29,9 @@ with and without the transition band, and at J-long's [14, 700] H = 8
 (the -inf pattern, a finite lse_h, the tensor-core backward bit-identical
 over two runs); the full-bias attention's training forward (the FMA
 kernel's full-bias mode) with dropout and a fully masked row, its
-statistics through the tensor-core backward; and a library that holds no
-SIMT attention forward.
+statistics through the tensor-core backward; a library that holds no
+SIMT attention forward; and the int8 vocoder rungs' int32 sums and one
+short utterance at 16 rows or fewer (``torch._int_mm``'s floor on CUDA).
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -1274,3 +1275,127 @@ def test_bf16_wrappers_refuse_mixed_dtypes(gen):
         fa.fused_attention_packed(q, q, q, bias.to(torch.bfloat16), 2)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.fused_attention_packed(q.half(), q.half(), q.half(), bias, 2)
+
+
+@pytest.mark.parametrize("B,C,T,tile", [(3, 128, 200, 64), (3, 64, 257, 128),
+                                        (1, 32, 513, None), (3, 8, 100, 64),
+                                        (2, 128, 1, 64)])
+def test_bf16_mrf_level(gen, B, C, T, tile):
+    """#7 with bf16 weights (each conv's input rounded to bf16, bf16
+    products, fp32 sums) against its plain bf16 version: fp32 out within
+    2^-7 of its largest magnitude, the same bits at every tile, and further
+    from the fp32 level than the two are from each other."""
+    x, W, biases = _mrf_inputs(gen, B, C, T, V1_KERNELS, V1_DILATIONS)
+    Wb = W.to(torch.bfloat16)
+    got = fm.mrf_level(x, Wb, biases, V1_KERNELS, V1_DILATIONS, tile)
+    torch.cuda.synchronize()
+    want = fm.mrf_level_ref(x, Wb, biases, V1_KERNELS, V1_DILATIONS)
+    assert got.dtype == torch.float32
+    _bf16_close(got, want)
+    for t in fm.TILES:
+        assert torch.equal(
+            fm.mrf_level(x, Wb, biases, V1_KERNELS, V1_DILATIONS, t), got)
+    f32 = fm.mrf_level_ref(x, Wb.float(), biases, V1_KERNELS, V1_DILATIONS)
+    assert _max_err(got, want) < _max_err(f32, want)
+
+
+@pytest.mark.parametrize("B,T,Fd,p", [(3, 37, 2048, 0.1), (1, 1, 300, 0.0),
+                                      (5, 29, 1100, 0.1)])
+def test_bf16_fused_ffn(gen, B, T, Fd, p):
+    """#6 on bf16 x, weights and biases (fp32 LayerNorm parameters): the
+    forward and the backward against the plain bf16 versions (bf16 out and
+    dx, fp32 parameter gradients within 2^-7 of each one's largest
+    magnitude), the same bits over two runs."""
+    from daspeech_torch.ops import fused_ffn as ff
+
+    x = _bf16(gen, B, T, 256)
+    g, b, w1, b1, w2, b2 = _ffn_params(gen, 256, Fd)
+    params = (g, b, *(t.to(torch.bfloat16) for t in (w1, b1, w2, b2)))
+    seeds = _seeds(gen, B) if p else None
+    got = ff.ffn_fwd_kernel(x, *params, seeds, p, p)
+    torch.cuda.synchronize()
+    _bf16_close(got, ff.ffn_plain(x, *params, seeds, p, p))
+    assert torch.equal(got, ff.ffn_fwd_kernel(x, *params, seeds, p, p))
+    do = _bf16(gen, B, T, 256, scale=(B * T) ** -0.5)
+    got = ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)
+    torch.cuda.synchronize()
+    want = ff.ffn_bwd_plain(x, *params, do, seeds, p, p)
+    assert got[0].dtype == torch.bfloat16
+    for u, w in zip(got, want):
+        assert u.shape == w.shape
+        _bf16_close(u, w)
+    for u, v in zip(got, ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,p", [(3, 2, 65, 130, 0.1),
+                                         (1, 4, 1, 1, 0.0),
+                                         (3, 8, 120, 120, 0.1)])
+def test_bf16_full_bias(gen, B, H, Tq, Tk, p):
+    """#3 on bf16 q, k, v with an fp32 bias4 (a fully masked row): the
+    inference and training forward and the backward against the plain
+    bf16 versions; dbias fp32."""
+    q = _bf16(gen, B, H, Tq, 64, scale=0.125)
+    k, v = _bf16(gen, B, H, Tk, 64), _bf16(gen, B, H, Tk, 64)
+    do = _bf16(gen, B, H, Tq, 64)
+    bias4 = _randn(gen, B, H, Tq, Tk)
+    bias4[-1, 0, 0] = -1e30
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda") if p else None
+    want = fa.attention_full_bias_plain(q, k, v, bias4, 1.0, p, seed)
+    infer, _ = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, p, seed)
+    out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, p, seed,
+                                         with_stats=True)
+    torch.cuda.synchronize()
+    _bf16_close(infer, want)
+    _bf16_close(out, want)
+    got = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0, p,
+                                     seed)
+    torch.cuda.synchronize()
+    wants = fa.attention_full_bias_bwd_plain(q, k, v, bias4, do, 1.0, p, seed)
+    assert got[3].dtype == torch.float32
+    for u, w in zip(got, wants):
+        _bf16_close(u, w)
+
+
+@pytest.mark.parametrize("T", [1, 9, 16])
+def test_int8_sums_at_few_rows(gen, T):
+    """The int8 rungs' int32 sums at B T <= 16 rows (CUDA's ``_int_mm``
+    floor, padded): the CPU's, bit for bit."""
+    from daspeech_torch.models import hifigan as hg
+
+    xq = torch.randint(-127, 128, (1, 32, T), generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (3, 32, 24), generator=gen,
+                       dtype=torch.int8)
+    got = hg.int_taps_conv(xq.cuda(), wq.cuda(), [-3, 0, 3])
+    assert torch.equal(got.cpu(), hg.int_taps_conv(xq, wq, [-3, 0, 3]))
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8-skip1"])
+def test_int8_vocoder_serves_a_short_utterance(gen, quant):
+    """config_v1 at B = 1 and 8 mel frames (level 0's sites see 8 rows),
+    calibrated on a 40-frame mel: finite, of its length, and within one
+    int8 error of the CPU's same rung with the card's frozen scales."""
+    from daspeech_torch.config import HiFiGANConfig
+    from daspeech_torch.decode import make_vocode_fn
+    from daspeech_torch.decode.speech_generator import quant_fields
+    from daspeech_torch.models import HiFiGANGenerator
+
+    torch.manual_seed(0)
+    cpu32 = HiFiGANGenerator(HiFiGANConfig()).eval()
+    cpu = HiFiGANGenerator(HiFiGANConfig(), **quant_fields(quant)).eval()
+    cpu.load_state_dict(cpu32.state_dict())
+    card = HiFiGANGenerator(HiFiGANConfig(), **quant_fields(quant))
+    card.load_state_dict(cpu32.state_dict())
+    card = card.eval().cuda()
+    calib = torch.randn(1, 40, 80, generator=gen)
+    mel = torch.randn(1, 8, 80, generator=gen)
+    with torch.inference_mode():
+        fn = make_vocode_fn(card, calib_batches=1)
+        fn(calib.cuda())
+        got = fn(mel.cuda()).cpu()
+        for buf, b_card in zip(cpu.buffers(), card.buffers()):
+            buf.copy_(b_card.cpu())
+        want, f32 = cpu(mel), cpu32(mel)
+    assert got.shape == (1, 8 * 256) and torch.isfinite(got).all()
+    assert (got - want).norm() <= (want - f32).norm()

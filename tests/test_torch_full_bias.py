@@ -150,3 +150,32 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tfa.attention_fb_fwd_kernel(x, x, x, b4, 1.0)
     tfa.fused_attention_full_bias(x, x, x, b4, 0, 1.0, 0.0, False)
     assert tfa.attention_fb_fwd_kernel.launches == 0
+
+
+@pytest.mark.parametrize("mask", ["none", "pad"])
+def test_bf16_matches_interpreted_kernel(mask):
+    """bf16 q, k, v with an fp32 bias4: the output and dq, dk, dv (bf16)
+    within one bf16 ulp of the Pallas kernel's in interpret mode, or 1e-6
+    of the largest magnitude (the plain bf16 bar,
+    ``tests/test_torch_bf16_ops.py``); dS (fp32) within the fp32 bar."""
+    from test_torch_bf16_ops import assert_within_ulp
+
+    B, H, Tq, Tk, d, sc = 2, 2, 8, 11, 16, 0.25
+    q, k, v, bias, g = inputs(B, H, Tq, Tk, d, mask, seed=11)
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v, g))
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (tq, tk, tv, tg))
+    out, vjp = jax.vjp(lambda *a: jfa.fused_attention_full_bias(
+        *a, 0, sc, 0.0, False), jq, jk, jv, jnp.asarray(bias))
+    assert out.dtype == jnp.bfloat16
+    want = vjp(jg)
+    ts = [t.requires_grad_(True) for t in (tq, tk, tv)]
+    tb = torch.from_numpy(bias).requires_grad_(True)
+    got = tfa.fused_attention_full_bias(*ts, tb, 0, sc, 0.0, False)
+    assert_within_ulp(got, out, "out")
+    got.backward(tg)
+    for t, w, name in zip(ts, want, "qkv"):
+        assert_within_ulp(t.grad, w, f"d{name}")
+    assert tb.grad.dtype == torch.float32 and want[3].dtype == jnp.float32
+    _close(tb.grad, want[3], 1e-4, 1e-5)

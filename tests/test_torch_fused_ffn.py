@@ -179,3 +179,44 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tff.ffn_bwd_kernel(*(t.detach() for t in args), x)
     tff.fused_ffn(*args, 0, 0.0, 0.0, False)
     assert tff.ffn_fwd_kernel.launches == 0                # CPU: no launch
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+def test_bf16_matches_jax_kernel(shape):
+    """bf16 modules (the fused route hands the kernel bf16 x, weights and
+    biases and fp32 LayerNorm parameters): the output and x's gradient
+    (bf16) within one bf16 ulp of JAX's Pallas kernel in interpret mode,
+    or 1e-6 of the largest magnitude (the plain bf16 bar,
+    ``tests/test_torch_bf16_ops.py``); each parameter's gradient (fp32)
+    within 2x JAX's own bf16 error against its fp32 module."""
+    from daspeech_torch.models.layers import set_dtype
+    from test_torch_bf16_models import assert_bf16_bar
+    from test_torch_bf16_ops import assert_within_ulp
+
+    B, T, C, Fd = shape
+    x, variables, _, tm = make(*shape, seed=7 + sum(shape))
+    set_dtype(tm, torch.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
+    want, grads = {}, {}
+    for dt in (jnp.bfloat16, jnp.float32):
+        jm = jconf.FeedForwardModule(C, Fd, dropout=0.0, fused=True,
+                                     dtype=dt)
+        xin = jx if dt == jnp.bfloat16 else jx.astype(jnp.float32)
+        want[dt] = jm.apply(variables, xin, train=False)
+        gv, gx = jax.grad(lambda v, x: jnp.sum(
+            jm.apply(v, x, train=False).astype(jnp.float32) ** 2),
+            argnums=(0, 1))(variables, xin)
+        grads[dt] = (convert.load_flax_(tconf.FeedForwardModule(C, Fd),
+                                        jax.tree.map(np.asarray, gv)), gx)
+    assert want[jnp.bfloat16].dtype == jnp.bfloat16
+    tx.requires_grad_(True)
+    out = tm(tx)
+    assert_within_ulp(out, want[jnp.bfloat16], "out")
+    (out.float() ** 2).sum().backward()
+    assert_within_ulp(tx.grad, grads[jnp.bfloat16][1], "dx")
+    for (name, p), (_, wb), (_, wf) in zip(
+            tm.named_parameters(), grads[jnp.bfloat16][0].named_parameters(),
+            grads[jnp.float32][0].named_parameters()):
+        assert p.grad.dtype == torch.float32, name
+        assert_bf16_bar(p.grad, wb.detach(), wf.detach(), name)

@@ -13,6 +13,11 @@ fbank, ``tests/test_data.py::make_dataset``) and one fabricated fairseq
 * ``--checkpoint-dir`` (with ``--average-last-n``) against the in-process
   ``S2SNATGenerator`` on the CLI's own batches: the same tokens and the
   same feature bits;
+* ``--vocoder-quant bf16|int8|int8-skip1``, one-shot and with
+  ``--vocoder-chunk``, serves wavs of the fp32 run's lengths; the int8
+  rungs' chunked wavs equal their one-shot ones within 1e-5 (the chunked
+  run calibrates one-shot too), and ``--vocoder-calib-batches`` reaches
+  the vocoder;
 * every refused option raises and names its ROADMAP item, and without
   ``--device cpu`` the CLI exits non-zero here and writes nothing.
 """
@@ -156,6 +161,83 @@ def test_vocoder_torch_matches_jax_cli(setup):
         np.testing.assert_allclose(pw, jw, rtol=0, atol=WAV_TOL)
 
 
+def _voc_pt(setup):
+    path = setup / "g_v1.pt"
+    if not path.exists():
+        sd = hifigan_sd(HiFiGANConfig(), seed=3)
+        for k in [k for k in sd if k.endswith("weight_g")]:
+            sd[k] *= 0.3
+        torch.save({"generator": {k: torch.from_numpy(v)
+                                  for k, v in sd.items()}}, path)
+    return path
+
+
+def _tts_variables():
+    """The FastSpeech 2 weights of ``test_nat_tts_matches_jax_cli``: the
+    fabricated checkpoint's, durations of ~4 frames a token."""
+    from daspeech_tpu.train.torch_import import import_fastspeech2
+
+    sd = {"encoder." + k[4:]: v for k, v in fabricate_sd().items()
+          if k.startswith("tts.")}
+    sd["encoder.embed_tokens.weight"] = np.random.default_rng(4).normal(
+        0, 0.3, size=(V, TTS_D)).astype(np.float32)
+    sd["encoder.var_adaptor.duration_predictor.proj.weight"][:] = 0
+    sd["encoder.var_adaptor.duration_predictor.proj.bias"][:] = np.log(4.0)
+    return import_fastspeech2(sd, flax_cfg().tts)
+
+
+def _port_wavs(setup, tag, flags):
+    """The wavs of the port's ``nat_tts`` route (mels up to 64 frames) with
+    the config_v1 vocoder of ``_voc_pt`` and ``flags``."""
+    from daspeech_torch import convert
+    from daspeech_torch.models import FastSpeech2Encoder
+
+    ckpt = setup / "tts_rung_ckpt"
+    if not ckpt.exists():
+        model = convert.load_flax_(FastSpeech2Encoder(port_cfg().tts, V, 1),
+                                   _tts_variables())
+        CheckpointManager(ckpt).save(TrainState.create(model, GuardedAdam()),
+                                     1)
+    out = setup / tag
+    assert out.exists() or tgen.main(_common(setup, tag, "text_to_speech") + [
+        "--model-yaml", str(setup / "tts.yaml"), "--device", "cpu",
+        "--generator-type", "nat_tts", "--checkpoint-dir", str(ckpt),
+        "--max-mel-len", "64", "--vocoder-torch", str(_voc_pt(setup)),
+        *flags]) == 0
+    return {p.name: tgen.read_wav(p)[0] for p in (out / "wav").glob("*.wav")}
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8", "int8-skip1"])
+def test_vocoder_quant_rungs_serve(quant, setup):
+    base = _port_wavs(setup, "rung_fp32", [])
+    assert len(base) == 5
+    got = {c: _port_wavs(setup, f"rung_{quant}_{c}",
+                         ["--vocoder-quant", quant, "--vocoder-chunk", str(c),
+                          "--vocoder-calib-batches", "2"])
+           for c in (0, 4)}
+    assert sum(w.size for w in base.values()) > 0
+    for name, want in base.items():
+        for c, wavs in got.items():
+            w = wavs[name]
+            assert w.shape == want.shape and np.isfinite(w).all()
+            if want.size:
+                assert 0 < np.linalg.norm(w - want) < 0.5 * np.linalg.norm(
+                    want)
+        if quant != "bf16":
+            np.testing.assert_allclose(got[4][name], got[0][name], rtol=0,
+                                       atol=1e-5, err_msg=name)
+    args = tgen.parse_args([str(setup), "--vocoder-torch",
+                            str(_voc_pt(setup)), "--vocoder-quant", quant,
+                            "--vocoder-calib-batches", "3"])
+    task = NATSpeechToSpeechTask.setup_task(TaskConfig(data_dir=str(setup)))
+    voc, _ = tgen.load_vocoder_and_gcmvn(args, task, "cpu")
+    assert voc.serve_calib_batches == 3
+    assert voc.quant_int8 == quant.startswith("int8")
+    assert voc.quant_skip_levels == (quant == "int8-skip1")
+    assert voc.dtype == (torch.bfloat16 if quant == "bf16"
+                         else torch.float32)
+
+
 def test_nat_tts_matches_jax_cli(setup):
     """``--generator-type nat_tts`` from each package's own checkpoint of
     the same FastSpeech 2 weights."""
@@ -231,9 +313,6 @@ def test_checkpoint_dir_matches_in_process_generator(setup):
     (["--generator-type", "at_s2s"], "#6"),
     (["--reranker-dir", "somewhere"], "#6"),
     (["--vocoder-type", "griffin_lim"], "#6"),
-    (["--vocoder-quant", "bf16"], "#5"),
-    (["--vocoder-quant", "int8"], "#5"),
-    (["--vocoder-quant", "int8-skip1"], "#5"),
 ])
 def test_refused_options(flags, item, setup):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):

@@ -283,23 +283,6 @@ def test_make_vocode_fn_one_shot_and_chunked_agree(chunk_setup):
     assert tsg.make_vocode_fn(None) is None
 
 
-@pytest.mark.parametrize("quant", ["bf16", "int8", "int8-skip1"])
-def test_make_vocode_fn_refuses_unported_rungs(chunk_setup, quant):
-    tm = chunk_setup[3]
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        tsg.make_vocode_fn(tm, quant=quant)
-    with pytest.raises(ValueError, match="quant"):
-        tsg.make_vocode_fn(tm, quant="fp8")
-
-
-def test_make_vocode_fn_refuses_a_bf16_vocoder(chunk_setup):
-    import copy
-
-    voc = copy.deepcopy(chunk_setup[3]).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        tsg.make_vocode_fn(voc)
-
-
 TTS_V = 20
 TTS_HOP = 4
 VOC_CFG = dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
