@@ -207,7 +207,31 @@ process.)
    on bf16 operands); 30 updates of S2TT at full width on one batch of
    16 at a constant lr in each dtype, the bf16 run ending within 5% of
    the fp32 one and below its first loss. No bf16 launch on any fp32 path
-   (asserted).
+   (asserted);
+16. AR and TTS-options phase (after the decode-strategy phase), at the
+   recipe widths with random weights from a seed, fp32: ``at_tts``
+   (``AutoRegressiveSpeechGenerator``, Transformer-TTS 4+4L x 256d) on
+   TTS A's 8 x 52 phonemes for 1024 steps and ``at_s2s``
+   (``MultiDecoderSpeechGenerator``, Conformer 12L x 256d, text decoder
+   4L, synthesizer 2L, mel decoder 4L) on serving A's batch for 200 text
+   and 1024 mel steps (the stop biases and the <eos> row placed by short
+   probes on the card so that about half of the rows stop, and end,
+   within 64 frames and 32 tokens), each checked against the CPU
+   teacher-forced once on the card's buffer (every frame within 1e-3,
+   every token the CPU's argmax or within 1e-4 of it, each stop step the
+   CPU's or a near tie of the threshold within 1e-4), with ms per batch
+   (at_tts: median of 5; at_s2s: the checked run), launches (#5 on
+   at_s2s) and a profiled shorter run; the length beam of 3 at
+   serving A reranked by the multi-decoder (scores within 1e-4 of the
+   CPU's, decode-pass ms with and without the reranker, #5's launches);
+   Griffin-Lim on serving A's mel (relative L2 within 1e-3 of the CPU's,
+   each row alone equal to the batch bit for bit, ms); FastSpeech 2 with
+   the Postnet, 4 speakers, ctc_weight 0.1 and the unfused attention at
+   P's shape (a card-vs-CPU step at B=4, as the pretraining phase's;
+   update ms unfused and on the kernels);
+   and one card-vs-CPU step plus 5 timed updates each of
+   ``tts_transformer_criterion`` (TTS A) and ``multidecoder_criterion``
+   (serving A, #5 forward and backward).
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -2676,11 +2700,12 @@ def joint_sub_stages(state, batch, opt, cfg, reps=5):
         zpad = lengths_to_padding_mask((tgt != pad).sum(1) - 1, n)
         gold = [batch[k][:, :n] for k in ("durations", "pitches",
                                           "energies")]
-        mel, _, log_dur, pitch, energy = model.synthesize(
+        mel, _, _, log_dur, pitch, energy = model.synthesize(
             z, zpad, M, gold[0], pitches=gold[1], energies=gold[2],
             rng=device_generator(DEVICE, tt))
         tts, _ = fastspeech2_losses(
-            mel, log_dur, pitch, energy, batch["target_audio"], *gold, ~zpad,
+            mel, None, log_dur, pitch, energy, batch["target_audio"], *gold,
+            ~zpad,
             ~lengths_to_padding_mask(batch["target_audio_lengths"], M))
         loss = dagloss + 5.0 * tts
         mark()
@@ -4502,6 +4527,473 @@ def decode_phase(ctx):
 
 
 # ---------------------------------------------------------------------------
+# AR and TTS-options phase: Transformer-TTS (at_tts), the two-pass
+# multi-decoder S2ST (at_s2s) with the length beam's reranker, Griffin-Lim,
+# FastSpeech 2's Postnet, speakers, CTC head and unfused attention, and the
+# two AR criteria's training steps
+# ---------------------------------------------------------------------------
+
+AR_TTS_SHAPE = (8, 52)       # TTS A: utterances, phonemes
+AR_MAX_MEL = 1024            # --max-mel-len, the generate CLI's default
+AR_MAX_TEXT = 200            # --max-text-len, the generate CLI's default
+AR_PROFILE = (32, 128)       # text steps, mel frames of the profiled runs
+AR_PROBE = (32, 64)          # text steps, mel frames of the shaping probes
+AR_THRESHOLD = 0.5           # --stop-threshold, the CLI's default
+TOL_AR_MEL = 1e-3            # a generated frame against the CPU's
+TOL_RERANK = 1e-4            # a reranker score against the CPU's
+TOL_GL = 1e-3                # Griffin-Lim waveform, relative L2, vs CPU
+AR_TRAIN_TTS = (8, 52, 416)  # B, phonemes, mel frames
+AR_TRAIN_MDEC = (8, 480, 64, 416)   # B, fbank frames, text tokens, mel
+FS2_SPEAKERS = 4
+
+
+class no_prenet_dropout:
+    """Within the block the AR mel decoders' prenet dropout (a fixed 0.5)
+    is 0: the card's and the CPU's generators draw other masks, so a
+    card-vs-CPU step runs with every dropout off."""
+
+    def __enter__(self):
+        from daspeech_torch.models import tts_transformer as tt
+
+        self.module, self.orig = tt, tt.PRENET_DROPOUT
+        tt.PRENET_DROPOUT = 0.0
+        return self
+
+    def __exit__(self, *exc):
+        self.module.PRENET_DROPOUT = self.orig
+
+
+def place_stops_(model, decode, B):
+    """Random weights stop every row at its first frame or never. Zero the
+    stop head's bias, run AR_PROBE[1] steps on the card, then set the bias
+    halfway between the 4th and 5th highest row peaks of the probe's stop
+    logits: the first AR_PROBE[1] frames of the real run are the probe's
+    (no frame depends on the stop head), so half of the rows stop within
+    them. Returns the bias."""
+    from daspeech_torch.models.tts_transformer import ar_mel_loop
+
+    with torch.inference_mode():
+        model.stop_out.bias.zero_()
+        mel, _ = ar_mel_loop(decode, B, AR_PROBE[1], model.out_dim,
+                             model.dtype, DEVICE)
+        _, stop = decode(torch.cat([torch.zeros_like(mel[:, :1]),
+                                    mel[:, :-1]], dim=1))
+        peaks = stop.float().max(dim=1).values.sort(descending=True).values
+        bias = -float(peaks[B // 2 - 1] + peaks[B // 2]) / 2
+        model.stop_out.bias.fill_(bias)
+    return bias
+
+
+def place_eos_(md, enc, enc_pad, vocab):
+    """Random weights emit <s> or <eos> at every step, or one word. The
+    tied table's <s>, <pad> and <unk> rows become 0, and <eos>'s row e is
+    scaled by s; the learned position row of slot 0 (where every prefix
+    holds <eos>) takes the change of that row's input, so the decoder's
+    states do not move. With the row zeroed, a probe of AR_PROBE[0] steps
+    gives each row the least s at which <eos> would first win (the tokens
+    before are the probe's), and s is set halfway between the 4th and 5th
+    smallest: half of the rows end within the probe's steps. Returns s."""
+    dec = md.mt_decoder
+    emb, pos = dec.embed_tokens.weight, dec.embed_positions.weight
+    row, root = vocab.pad + 1, math.sqrt(dec.embed_dim)
+
+    def set_eos(value):
+        pos[row] += (emb[vocab.eos] - value) * root
+        emb[vocab.eos] = value
+
+    with torch.inference_mode():
+        e = emb[vocab.eos].clone()
+        emb[[vocab.bos, vocab.pad, vocab.unk]] = 0.0
+        set_eos(torch.zeros_like(e))
+        B = enc.shape[0]
+        buf = torch.full((B, AR_PROBE[0] + 1), vocab.pad, dtype=torch.long,
+                         device=DEVICE)
+        buf[:, 0] = vocab.eos
+        for t in range(AR_PROBE[0]):   # the probe, no row ending
+            logits, _ = md.mt_decode(buf[:, : t + 1], enc, enc_pad)
+            buf[:, t + 1] = logits[:, t].argmax(dim=-1)
+        logits, feats = md.mt_decode(buf[:, :-1], enc, enc_pad)
+        a = feats.float() @ e.float()                       # [B, K]
+        logits[..., vocab.eos] = -math.inf
+        m = logits.float().max(dim=-1).values
+        ratio = torch.where(a > 0, m / a, torch.full_like(a, math.inf))
+        first = ratio.clamp(min=0.0).min(dim=1).values.sort().values
+        k = B // 2
+        s = (float(first[k - 1] + first[k]) / 2
+             if bool(torch.isfinite(first[k])) else 0.0)
+        set_eos(s * e)
+    return s
+
+
+def check_ar_mels(tag, mel, lens, decode_cpu):
+    """The card's generated frames against the CPU teacher-forced once on
+    the card's buffer (no drift compounds): every frame within TOL_AR_MEL,
+    and each row's stop step the CPU's first crossing, or else the CPU's
+    stop logit at the step where the two part within MARGIN of the
+    threshold's logit. Returns (max abs diff, stop steps, near ties)."""
+    mel = mel.float().cpu()
+    prev = torch.cat([torch.zeros_like(mel[:, :1]), mel[:, :-1]], dim=1)
+    with torch.inference_mode():
+        mel_c, stop_c = decode_cpu(prev)
+    err = float((mel_c.float() - mel).abs().max())
+    if not (torch.isfinite(mel).all() and err <= TOL_AR_MEL):
+        raise AssertionError(f"{tag}: frames differ from the CPU's by {err}")
+    thr = math.log(AR_THRESHOLD / (1 - AR_THRESHOLD))
+    M, ties = mel.shape[1], []
+    steps = [int(x) for x in lens.cpu()]
+    for b, got in enumerate(steps):
+        hits = (stop_c[b].float() > thr).nonzero()
+        want = int(hits[0]) + 1 if len(hits) else M
+        if got != want:
+            t = min(got, want) - 1
+            gap = abs(float(stop_c[b, t]) - thr)
+            log(f"  {tag} row {b}: the card stops at {got}, the CPU at "
+                f"{want}; the CPU's stop logit at step {t} is {gap:.3g} "
+                "from the threshold's")
+            if not gap <= MARGIN:
+                raise AssertionError(f"{tag} row {b}: stop steps differ, "
+                                     f"gap {gap} > {MARGIN}")
+            ties.append(gap)
+    return err, steps, ties
+
+
+def ar_tts_run(vocab, rng):
+    """``at_tts``: Transformer-TTS (TTSTransformerConfig's defaults, 4+4L x
+    256d) on TTS A's batch, AR_MAX_MEL steps. Returns its launches."""
+    from daspeech_torch.config import TTSTransformerConfig, to_dict
+    from daspeech_torch.decode import AutoRegressiveSpeechGenerator
+    from daspeech_torch.models import TTSTransformer
+
+    model_cpu = init_random_(TTSTransformer(
+        vocab.size, vocab.pad, **to_dict(TTSTransformerConfig())),
+        SEED + 60).eval().requires_grad_(False)
+    model = copy.deepcopy(model_cpu).to(DEVICE)
+    B, n = AR_TTS_SHAPE
+    batch = {"src_tokens": rng.integers(4, vocab.size, size=(B, n))}
+    tokens = torch.as_tensor(batch["src_tokens"])
+    with torch.inference_mode():
+        enc_d = model.encode(tokens.to(DEVICE))
+    bias = place_stops_(model, lambda p: model.decode_mel(p, *enc_d), B)
+    model_cpu.load_state_dict(model.state_dict())
+    gen = AutoRegressiveSpeechGenerator(model, vocab, max_mel_len=AR_MAX_MEL)
+    reset_launches()
+    with torch.inference_mode():
+        mel, lens = gen.synthesize(tokens.to(DEVICE))
+    sync()
+    launches = read_launches()
+    with torch.inference_mode():
+        enc = model_cpu.encode(tokens)
+    err, steps, ties = check_ar_mels(
+        "at_tts", mel, lens, lambda prev: model_cpu.decode_mel(prev, *enc))
+    ms = host_ms(lambda: gen.generate(batch, generate_waveform=False))
+    short = AutoRegressiveSpeechGenerator(model, vocab,
+                                          max_mel_len=AR_PROFILE[1])
+    with torch.inference_mode():
+        device_busy(lambda: short.synthesize(tokens.to(DEVICE)),
+                    f"at_tts {AR_PROFILE[1]} frames")
+    log(f"  at_tts ({B} x {n} phonemes, {AR_MAX_MEL} steps): generate() "
+        f"{ms:.3f} ms (median of 5), {ms / AR_MAX_MEL:.3f} ms a step; stop "
+        f"bias {bias:.4g}, stop steps {steps}; frames vs the CPU "
+        f"teacher-forced on the card's buffer {err:.3g} (<= {TOL_AR_MEL}), "
+        f"{len(ties)} stop near ties; "
+        "launches " + (", ".join(f"{k} {v}" for k, v in launches.items()
+                                 if v) or "none (every attention plain)"))
+    return launches
+
+
+def ar_s2s_run(ctx, vocab):
+    """``at_s2s`` with MultiDecoderConfig's defaults (Conformer 12L x 256d,
+    text decoder 4L, synthesizer 2L, mel decoder 4L) on serving A's batch,
+    then the same model as the length beam's reranker of serving A's DAG
+    model. Returns (at_s2s launches, reranker launches)."""
+    from daspeech_torch.config import DecodeConfig, MultiDecoderConfig, to_dict
+    from daspeech_torch.decode import (MultiDecoderSpeechGenerator,
+                                       S2TNATGenerator)
+    from daspeech_torch.decode.generator import (_strategy_decode,
+                                                 decoder_pass,
+                                                 length_beam_scores,
+                                                 rerank_scores)
+    from daspeech_torch.models import S2SMultiDecoderModel
+
+    md_cpu = init_random_(S2SMultiDecoderModel(
+        vocab.size, vocab.pad, vocab.bos, vocab.eos,
+        **to_dict(MultiDecoderConfig())), SEED + 61).eval().requires_grad_(
+            False)
+    md = copy.deepcopy(md_cpu).to(DEVICE)
+    batch = ctx["batches"]["A"][0]
+    TL = AR_MAX_TEXT
+    gen = MultiDecoderSpeechGenerator(md, vocab, max_text_len=TL,
+                                      max_mel_len=AR_MAX_MEL)
+    with torch.inference_mode():
+        fbank, lens = gen.to_device(batch)
+        enc, enc_pad = md.forward_encoder(fbank, lens)
+    eos_scale = place_eos_(md, enc, enc_pad, vocab)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        buf, tl, enc, enc_pad = gen.translate(fbank, lens)
+        sync()
+        t_text = time.perf_counter() - t0
+        synth, mt_pad_d = gen.synth_states(buf, tl, enc, enc_pad)
+    bias = place_stops_(md, lambda p: md.tts_decode(p, synth, mt_pad_d),
+                        fbank.shape[0])
+    sync()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        mel, mel_lens = gen.synthesize(buf, tl, enc, enc_pad)
+    sync()
+    ms = (t_text + time.perf_counter() - t1) * 1e3
+    launches = read_launches()
+    md_cpu.load_state_dict(md.state_dict())
+    if launches["fused_attention_relpos"] <= 0:
+        raise AssertionError("at_s2s did not launch the rel-pos attention")
+    # the CPU teacher-forced on the card's tokens: each token the CPU's
+    # argmax, or within MARGIN of it
+    gen_c = MultiDecoderSpeechGenerator(md_cpu, vocab, max_text_len=TL,
+                                        max_mel_len=AR_MAX_MEL)
+    buf_c, tl_c = buf.cpu(), tl.cpu()
+    with torch.inference_mode():
+        fb_c, lens_c = gen_c.to_device(batch)
+        enc_c, pad_c = md_cpu.forward_encoder(fb_c, lens_c)
+        logits, _ = md_cpu.mt_decode(buf_c[:, :TL], enc_c, pad_c)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_ties = []
+    for b in range(buf_c.shape[0]):
+        for t in range(int(tl_c[b])):
+            card = int(buf_c[b, t + 1])
+            gap = float(logp[b, t].max() - logp[b, t, card])
+            if gap > 0:
+                log(f"  at_s2s row {b} step {t}: the CPU's top token is not "
+                    f"the card's; log-prob gap {gap:.3g}")
+                if not gap <= MARGIN:
+                    raise AssertionError(f"at_s2s row {b} step {t}: token "
+                                         f"differs, gap {gap} > {MARGIN}")
+                tok_ties.append(gap)
+    with torch.inference_mode():
+        idx = torch.arange(TL)[None, :]
+        prev_mt = torch.where(idx < tl_c[:, None], buf_c[:, :TL], vocab.pad)
+        _, feats = md_cpu.mt_decode(prev_mt, enc_c, pad_c)
+        mt_pad = prev_mt == vocab.pad
+        synth = md_cpu.synthesize_encode(feats, mt_pad)
+    err, steps, ties = check_ar_mels(
+        "at_s2s", mel, mel_lens,
+        lambda prev: md_cpu.tts_decode(prev, synth, mt_pad))
+    short = MultiDecoderSpeechGenerator(md, vocab, max_text_len=AR_PROFILE[0],
+                                        max_mel_len=AR_PROFILE[1])
+    device_busy(lambda: short.generate(batch, generate_waveform=False),
+                f"at_s2s {AR_PROFILE[0]} tokens {AR_PROFILE[1]} frames")
+    log(f"  at_s2s (serving A, 8 x 480 fbank frames, {TL} text and "
+        f"{AR_MAX_MEL} mel steps): translate + synthesize {ms:.3f} ms (one "
+        "run, the stop probe left out); "
+        f"<eos> scale {eos_scale:.4g}, stop bias {bias:.4g}; "
+        f"text lengths {tl_c.tolist()}, card vs CPU tokens "
+        f"{'identical' if not tok_ties else f'{len(tok_ties)} near ties'}; "
+        f"stop steps {steps}; frames vs the CPU {err:.3g} (<= "
+        f"{TOL_AR_MEL}), {len(ties)} stop near ties; fused_attention_relpos "
+        f"launches {launches['fused_attention_relpos']} (the Conformer's "
+        "12 layers, one encoder pass)")
+
+    # the length beam of 3 over serving A's DAG model, reranked by md
+    dc = DecodeConfig(length_beam=3)
+    dag = ctx["model"]
+    gen_r = S2TNATGenerator(dag, vocab, dc, reranker=md)
+    gen_p = S2TNATGenerator(dag, vocab, dc)
+    reset_launches()
+    gen_r.generate(batch)
+    sync()
+    launches_r = read_launches()
+    if launches_r["fused_attention_relpos"] <= 0:
+        raise AssertionError("the reranked length beam did not launch the "
+                             "rel-pos attention")
+    with torch.inference_mode():
+        fbank, lens, prev = gen_r.to_device(batch)
+        lg, lk, _, prev3 = decoder_pass(dag, fbank, lens, prev, vocab, 3)
+        res = _strategy_decode(dc, vocab, lg, lk, prev3)
+        sc = rerank_scores(md, fbank, lens, res.tokens, vocab.pad,
+                           vocab.eos, 3)
+        sc_c = rerank_scores(md_cpu, fb_c, lens_c, res.tokens.cpu(),
+                             vocab.pad, vocab.eos, 3)
+        by_path = length_beam_scores(dc, lg, res, 3).argmax(1).cpu()
+    rerr = float((sc.cpu() - sc_c).abs().max())
+    if not rerr <= TOL_RERANK:
+        raise AssertionError(f"reranker scores differ from the CPU's by "
+                             f"{rerr}")
+    moved = int((sc_c.reshape(-1, 3).argmax(1) != by_path).sum())
+    with torch.inference_mode():
+        ms_r = host_ms(lambda: gen_r.run(fbank, lens, prev))
+        ms_p = host_ms(lambda: gen_p.run(fbank, lens, prev))
+    log(f"  length beam 3 at serving A reranked by the multi-decoder: "
+        f"scores vs the CPU's {rerr:.3g} (<= {TOL_RERANK}); the reranker "
+        f"picks another candidate than the path score in {moved} of "
+        f"{len(by_path)} rows; decode pass {ms_r:.3f} ms with the reranker, "
+        f"{ms_p:.3f} ms without (median of 5); fused_attention_relpos "
+        f"launches {launches_r['fused_attention_relpos']} (the DAG's and the "
+        "reranker's encoders, one pass each)")
+    return launches, launches_r
+
+
+def griffin_lim_run(mel):
+    """Griffin-Lim (32 iterations) on serving A's mel against the CPU
+    (relative L2 within TOL_GL), each row alone against the batch bit for
+    bit, and its CUDA-event ms."""
+    from daspeech_torch.models import GriffinLimVocoder
+
+    voc = GriffinLimVocoder()
+    with torch.inference_mode():
+        mel = mel.float()
+        wav = voc(mel)
+        sync()
+        wav_c = voc(mel.cpu())
+        rel = float((wav.cpu() - wav_c).norm() / wav_c.norm())
+        if not (torch.isfinite(wav).all() and rel <= TOL_GL):
+            raise AssertionError(f"Griffin-Lim: waveform off the CPU's by "
+                                 f"{rel}")
+        for i in range(mel.shape[0]):
+            if not torch.equal(voc(mel[i:i + 1])[0], wav[i]):
+                raise AssertionError(f"Griffin-Lim: row {i} alone differs "
+                                     "from the batch")
+        ms = cuda_ms(lambda: voc(mel), reps=5, warm=1)
+    log(f"  Griffin-Lim, serving A's mel {tuple(mel.shape)}, 32 iterations: "
+        f"{ms:.3f} ms (median of 5); vs the CPU relative L2 {rel:.3g} (<= "
+        f"{TOL_GL}); each row alone equal to the batch, bit for bit")
+
+
+def fs2_options_run(vocab):
+    """FastSpeech 2 with the Postnet, FS2_SPEAKERS speakers, ctc_weight 0.1
+    and the unfused attention at P's shape: one card-vs-CPU step (dropout
+    off) on P_PARITY_B of P's utterances, as the pretraining phase's (at
+    B = 14 the Postnet's conv weights, which feed a BatchNorm that cancels
+    most of their gradient, read 1.8e-3: the CPU's own fp32 sat 9.4e-4 of
+    their norm off float64 there, the card's 2.0e-3); then 5 timed
+    updates at P on the unfused route and on the kernel route
+    (the same options and weights, fused_attention=True), in turns.
+    Returns the unfused updates' launches."""
+    import dataclasses
+
+    from daspeech_torch.config import FastSpeech2Config
+    from daspeech_torch.models import FastSpeech2Encoder
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    cfg = FastSpeech2Config(add_postnet=True, num_speakers=FS2_SPEAKERS,
+                            ctc_weight=0.1, fused_attention=False)
+    model_cpu = init_random_(FastSpeech2Encoder(cfg, vocab.size), SEED + 62)
+    ref = FastSpeech2Encoder(dataclasses.replace(
+        cfg, dropout=0.0, var_pred_dropout=0.0, postnet_dropout=0.0),
+        vocab.size)
+    ref.load_state_dict(model_cpu.state_dict())
+    B, T, M, dur = P_SHAPE
+    batch = make_fs2_batch(B, T, M, dur, vocab, SEED + 63, "cpu")
+    batch["speaker"] = torch.arange(B) % FS2_SPEAKERS
+    step_parity(f"FastSpeech 2 options P (B={P_PARITY_B}, M={M})", ref,
+                fs2_loss_fn(vocab),
+                {k: v[:P_PARITY_B] for k, v in batch.items()})
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    opt = GuardedAdam()
+    runs = {}
+    for fused in (False, True, False):
+        m = FastSpeech2Encoder(dataclasses.replace(cfg, fused_attention=fused),
+                               vocab.size)
+        m.load_state_dict(model_cpu.state_dict())
+        state = TrainState.create(m.to(DEVICE), opt)
+        route = "kernel route" if fused else "unfused route"
+        med, _, launches, _, _ = timed_updates(
+            make_train_step(fs2_loss_fn(vocab), opt), state, batch, 2, 5,
+            f"FastSpeech 2 options P, {route}")
+        runs.setdefault(route, (med, launches))
+    if runs["unfused route"][1]["fused_attention"] or (
+            runs["unfused route"][1]["fused_attention_packed"]):
+        raise AssertionError("the unfused route launched an attention kernel")
+    if runs["kernel route"][1]["fused_attention"] <= 0:
+        raise AssertionError("the kernel route's 1040-frame decoder did not "
+                             "take the head-major attention")
+    log(f"  FastSpeech 2 options P: update {runs['unfused route'][0]:.3f} ms "
+        f"unfused, {runs['kernel route'][0]:.3f} ms on the kernels (median "
+        "of 5 each)")
+    return runs["unfused route"][1]
+
+
+def ar_train_run(vocab):
+    """One card-vs-CPU step (every dropout off) and 5 timed updates (the
+    models' own dropout) of ``tts_transformer_criterion`` at TTS A's shape
+    and ``multidecoder_criterion`` at serving A's. Returns the
+    multi-decoder updates' launches."""
+    from daspeech_torch.config import (MultiDecoderConfig,
+                                       TTSTransformerConfig, to_dict)
+    from daspeech_torch.losses import (multidecoder_criterion,
+                                       tts_transformer_criterion)
+    from daspeech_torch.models import S2SMultiDecoderModel, TTSTransformer
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    rng = np.random.default_rng(SEED + 64)
+    B, n, M = AR_TRAIN_TTS
+    tts_batch = {
+        "src_tokens": torch.from_numpy(rng.integers(4, vocab.size,
+                                                    size=(B, n))),
+        "target_audio": torch.from_numpy(
+            rng.normal(size=(B, M, 80)).astype(np.float32)),
+        "target_audio_lengths": torch.from_numpy(
+            rng.integers(M // 2, M + 1, size=B))}
+    B, S, T, M = AR_TRAIN_MDEC
+    tgt = rng.integers(4, vocab.size, size=(B, T))
+    tgt[:, 0], tgt[:, -1] = vocab.bos, vocab.eos
+    md_batch = {
+        "fbank": torch.from_numpy(
+            rng.normal(size=(B, S, 80)).astype(np.float32)),
+        "src_lengths": torch.full((B,), S), "target_text":
+            torch.from_numpy(tgt),
+        "target_audio": torch.from_numpy(
+            rng.normal(size=(B, M, 80)).astype(np.float32)),
+        "target_audio_lengths": torch.from_numpy(
+            rng.integers(M // 2, M + 1, size=B))}
+    runs = {}
+    for tag, build, crit, batch, seed in (
+            ("Transformer-TTS A", lambda **kw: TTSTransformer(
+                vocab.size, vocab.pad, **{**to_dict(TTSTransformerConfig()),
+                                          **kw}),
+             tts_transformer_criterion, tts_batch, SEED + 65),
+            ("multi-decoder S2ST A", lambda **kw: S2SMultiDecoderModel(
+                vocab.size, vocab.pad, vocab.bos, vocab.eos,
+                **{**to_dict(MultiDecoderConfig()), **kw}),
+             multidecoder_criterion, md_batch, SEED + 66)):
+        loss_fn = functools.partial(
+            lambda c, m, b, g: c(m, b, g, vocab), crit)
+        model_cpu = init_random_(build(), seed)
+        ref = build(dropout=0.0)
+        ref.load_state_dict(model_cpu.state_dict())
+        with no_prenet_dropout():
+            step_parity(tag, ref, loss_fn, batch)
+        opt = GuardedAdam()
+        state = TrainState.create(copy.deepcopy(model_cpu).to(DEVICE), opt)
+        dev_batch = {k: v.to(DEVICE) for k, v in batch.items()}
+        step = make_train_step(loss_fn, opt)
+        med, _, launches, peak, _ = timed_updates(step, state, dev_batch, 2,
+                                                  5, f"{tag} updates")
+        runs[tag] = launches
+    md = runs["multi-decoder S2ST A"]
+    for name in ("fused_attention_relpos", "fused_attention_relpos_bwd"):
+        if md[name] <= 0:
+            raise AssertionError(f"multidecoder training did not launch "
+                                 f"{name}")
+    log("  multi-decoder updates: fused_attention_relpos "
+        f"{md['fused_attention_relpos']}, backward "
+        f"{md['fused_attention_relpos_bwd']} over 7 updates")
+    return md
+
+
+def ar_phase(ctx, mel_a):
+    """The AR and TTS-options phase. Returns {path: launches}."""
+    vocab = ctx["cfg"].dag.vocab
+    rng = np.random.default_rng(SEED + 59)
+    paths = {"at_tts": ar_tts_run(vocab, rng)}
+    paths["at_s2s"], paths["reranker"] = ar_s2s_run(ctx, vocab)
+    griffin_lim_run(mel_a)
+    paths["fs2_options"] = fs2_options_run(vocab)
+    paths["ar_train_mdec"] = ar_train_run(vocab)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # vocoder-training phase: HiFi-GAN config_v1 against MPD + MSD
 # ---------------------------------------------------------------------------
 
@@ -5843,6 +6335,9 @@ def main() -> int:
     alternates, _ = alternates_phase()
     log("decode-strategy phase:")
     decoding = decode_phase(ctx)
+    log("AR and TTS-options phase (at_tts, at_s2s, the reranker, "
+        "Griffin-Lim, FastSpeech 2's options, the AR training steps):")
+    ar_paths = ar_phase(ctx, mels["A"])
     log("vocoder-training phase:")
     voc_train, _, _ = vocoder_train_phase()
     log("runtime phase (data, tasks, train loop, checkpoints, generate CLI):")
@@ -5865,7 +6360,8 @@ def main() -> int:
                **{f"decode {tag}": v for tag, v in decoding.items()},
                "vocoder_training": voc_train,
                "runtime_train": rt_train_launches,
-               "cli_generate": cli_launches, "cli_train": cli_train}
+               "cli_generate": cli_launches, "cli_train": cli_train,
+               **ar_paths}
     # the alternate backends launch on no other path
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in ALTERNATE_KERNELS if v[n]}
@@ -5874,13 +6370,14 @@ def main() -> int:
     log(f"  {', '.join(ALTERNATE_KERNELS)}: 0 launches on every other path")
     # serving runs inference forwards only: no launch writes statistics
     serving_paths = ("serving", "vocoder_fused", "tts_A", "tts_B",
-                     "cli_generate", *(f"decode {tag}" for tag in decoding))
+                     "cli_generate", "at_tts", "at_s2s", "reranker",
+                     *(f"decode {tag}" for tag in decoding))
     trained = {(p, n): by_path[p][f"{n} training"] for n in TRAIN_FORWARDS
                for p in serving_paths if by_path[p][f"{n} training"]}
     if trained:
         raise AssertionError(f"training forwards on serving paths: {trained}")
-    log("  training forwards on the serving, vocoder, TTS, decode-strategy "
-        "and CLI paths: 0")
+    log("  training forwards on the serving, vocoder, TTS, decode-strategy, "
+        "AR serving and CLI paths: 0")
     # the bf16 entry points launch on the bf16 paths only
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in v if n.endswith(" bf16") and v[n]}

@@ -47,7 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--vocoder-torch", default=None)
     p.add_argument("--vocoder-type", default="auto",
                    choices=["auto", "hifigan", "griffin_lim"],
-                   help="griffin_lim is not ported yet and raises "
+                   help="griffin_lim = checkpoint-free mel->wav, so the "
+                        "ASR stage can run without a trained vocoder "
                         "(cli.generate --vocoder-type)")
     p.add_argument("--gcmvn-stats", default=None)
     p.add_argument("--model-yaml", default=None)

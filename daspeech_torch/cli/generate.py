@@ -3,20 +3,26 @@ vocoder) waveforms, on the card.
 
 Counterpart of ``daspeech_tpu/cli/generate.py`` (a rebuild of
 ``DASpeech/generator/generate_features.py`` + ``hifi-gan/inference_e2e.py``)
-for its non-autoregressive routes: two-pass S2ST (``nat_speech_to_speech``,
-the default), S2TT (``nat_speech_to_text``) and FastSpeech 2 alone
-(``--generator-type nat_tts`` or ``--task text_to_speech``)::
+with its four generator types: two-pass S2ST (``nat_speech_to_speech``,
+the default), S2TT (``nat_speech_to_text``), FastSpeech 2 alone
+(``--generator-type nat_tts`` or ``--task text_to_speech``), and the AR
+baselines ``--generator-type at_tts`` (Transformer-TTS) and ``at_s2s`` (the
+two-pass multi-decoder S2ST)::
 
   python -m daspeech_torch.cli.generate DATA --checkpoint-dir DIR \\
       [--average-last-n N] --results-path results/ \\
-      [--vocoder-checkpoint VDIR | --vocoder-torch G.pt] \\
+      [--vocoder-checkpoint VDIR | --vocoder-torch G.pt \\
+       | --vocoder-type griffin_lim] \\
       [--vocoder-quant {none,bf16,int8,int8-skip1}] \\
-      [--vocoder-calib-batches N] [--vocoder-chunk N]
+      [--vocoder-calib-batches N] [--vocoder-chunk N] \\
+      [--length-beam N --reranker-dir RDIR [--reranker-yaml R.yaml]]
 
 The weights come from a port checkpoint directory (``--checkpoint-dir``,
 written by ``daspeech_torch.train.checkpoint.CheckpointManager``) or a
 released fairseq ``.pt`` (``--model-torch``); the vocoder from a port
-``VocoderTrainer`` checkpoint directory or a hifi-gan generator ``.pt``.
+``VocoderTrainer`` checkpoint directory or a hifi-gan generator ``.pt``, or
+Griffin-Lim with no weights; the length beam's reranker from a
+``--criterion s2s_multidecoder`` checkpoint directory.
 It runs on ``--device`` (default ``cuda``) and exits non-zero when that
 device is missing: it never falls back to the CPU on its own. Outputs:
 ``hypos.txt``, ``feat/<id>.npy`` ([80, T]), ``wav/<id>_pred.wav``, and as
@@ -43,8 +49,11 @@ from daspeech_torch.config import (
     DecodeConfig,
     FastSpeech2Config,
     HiFiGANConfig,
+    MultiDecoderConfig,
     S2SModelConfig,
+    TTSTransformerConfig,
     from_dict,
+    to_dict,
 )
 from daspeech_torch.tasks import (
     NATSpeechToSpeechTask,
@@ -56,10 +65,6 @@ from daspeech_torch.train.checkpoint import (
     CheckpointManager,
     average_checkpoints,
 )
-
-# the autoregressive generators, not ported yet (refused)
-AR_GENERATORS = ("at_tts", "at_s2s")
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 {item})"
 
 
 def write_wav(path, wav: np.ndarray, sample_rate: int = 22050):
@@ -88,11 +93,19 @@ def parse_args(argv=None):
                    choices=["nat_speech_to_text", "nat_speech_to_speech",
                             "text_to_speech"])
     p.add_argument("--generator-type", default="auto",
-                   choices=["auto", "nat_s2s", "nat_tts", *AR_GENERATORS],
+                   choices=["auto", "nat_s2s", "nat_tts", "at_tts",
+                            "at_s2s"],
                    help="nat_s2s = two-pass DAG+TTS (the S2S task's "
                         "default), nat_tts = FastSpeech2-only phoneme->mel "
-                        "(the text_to_speech task); at_tts and at_s2s are "
-                        "not ported yet and raise")
+                        "(the text_to_speech task), at_tts = AR "
+                        "Transformer-TTS (cli.train --criterion "
+                        "tts_transformer checkpoints), at_s2s = two-pass AR "
+                        "multi-decoder S2ST (--criterion s2s_multidecoder)")
+    p.add_argument("--max-text-len", type=int, default=200,
+                   help="at_s2s: the AR text decode's steps")
+    p.add_argument("--stop-threshold", type=float, default=0.5,
+                   help="at_tts / at_s2s: the mel decoder's stop "
+                        "probability threshold")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on; without a card, pass "
                         "--device cpu (the default never falls back)")
@@ -124,8 +137,13 @@ def parse_args(argv=None):
                         "lambda*src_len, keep the best mean-logprob "
                         "candidate (s2t_nat_generator.py:59-76)")
     p.add_argument("--reranker-dir", default=None,
-                   help="an AR reranker for the length beam; not ported "
-                        "yet, raises")
+                   help="checkpoint directory of an s2s_multidecoder model "
+                        "whose text decoder reranks the --length-beam "
+                        "candidates by teacher-forced mean log-prob (the "
+                        "reference's external reranker)")
+    p.add_argument("--reranker-yaml", default=None,
+                   help="MultiDecoderConfig YAML of --reranker-dir (the "
+                        "default config when omitted)")
     p.add_argument("--iter-decode-max-iter", type=int, default=0,
                    help="iterative refinement: feed decoded tokens back "
                         "as the next graph input for up to N extra "
@@ -142,8 +160,9 @@ def parse_args(argv=None):
                         "(the reference's VCTK_V1 release format)")
     p.add_argument("--vocoder-type", default="auto",
                    choices=["auto", "hifigan", "griffin_lim"],
-                   help="auto = hifigan when a checkpoint is given; "
-                        "griffin_lim is not ported yet and raises")
+                   help="griffin_lim = checkpoint-free mel->wav; auto = "
+                        "hifigan when a checkpoint is given, else the data "
+                        "config's vocoder type, else none")
     p.add_argument("--vocoder-quant", default="none",
                    choices=["none", "bf16", "int8", "int8-skip1"],
                    help="reduced-precision vocoder serving ladder: bf16 = "
@@ -166,21 +185,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise for the options whose modules are not ported, naming their
-    ROADMAP item."""
-    if args.generator_type in AR_GENERATORS:
-        raise NotImplementedError(
-            f"--generator-type {args.generator_type} "
-            + NOT_PORTED.format(item="#6"))
-    if args.reranker_dir:
-        raise NotImplementedError("--reranker-dir "
-                                  + NOT_PORTED.format(item="#6"))
-    if args.vocoder_type == "griffin_lim":
-        raise NotImplementedError("--vocoder-type griffin_lim "
-                                  + NOT_PORTED.format(item="#6"))
-
-
 def resolve_device(name: str, prog: str = "generate") -> torch.device:
     """The device to run on; a CUDA device that is missing ends the run
     (exit code 1) before anything is written."""
@@ -194,12 +198,11 @@ def resolve_device(name: str, prog: str = "generate") -> torch.device:
 def build_model_cfg(criterion: str, model_yaml, vocab):
     """The model config of a criterion, from ``model_yaml`` (a YAML of the
     config's fields) or the defaults, with the task's vocabulary stamped in
-    (``daspeech_tpu/cli/train.py:209-240``). The NAT criteria only."""
-    if criterion in ("tts_transformer", "s2s_multidecoder"):
-        raise NotImplementedError(f"the {criterion} model "
-                                  + NOT_PORTED.format(item="#6"))
+    where the config holds one (``daspeech_tpu/cli/train.py:209-240``)."""
     cls = {"fastspeech2": FastSpeech2Config,
-           "s2s_dag_fastspeech2_loss": S2SModelConfig}.get(
+           "s2s_dag_fastspeech2_loss": S2SModelConfig,
+           "tts_transformer": TTSTransformerConfig,
+           "s2s_multidecoder": MultiDecoderConfig}.get(
         criterion, DAGModelConfig)
     if model_yaml:
         import yaml
@@ -207,7 +210,7 @@ def build_model_cfg(criterion: str, model_yaml, vocab):
         cfg = from_dict(cls, yaml.safe_load(Path(model_yaml).read_text()))
     else:
         cfg = cls()
-    if cls is FastSpeech2Config:
+    if cls in (FastSpeech2Config, TTSTransformerConfig, MultiDecoderConfig):
         return cfg
     if cls is S2SModelConfig:
         return dataclasses.replace(
@@ -217,8 +220,11 @@ def build_model_cfg(criterion: str, model_yaml, vocab):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
+    if args.generator_type == "at_tts":
+        return _generate_ar_tts(args, device)
+    if args.generator_type == "at_s2s":
+        return _generate_at_s2s(args, device)
     if args.generator_type == "nat_tts" or args.task == "text_to_speech":
         return _generate_tts(args, device)
     from daspeech_torch.models import (S2SConformerDAGFastSpeech2,
@@ -244,6 +250,7 @@ def main(argv=None):
     it = task.get_batch_iterator(args.gen_subset,
                                  upsample_scale=args.src_upsample_scale)
     vocoder, gcmvn = load_vocoder_and_gcmvn(args, task, device)
+    reranker = load_reranker(args, task.vocab, device)
     decode_cfg = DecodeConfig(
         strategy=args.decode_strategy, beta=args.decode_beta,
         viterbibeta=args.decode_viterbibeta, alpha=args.decode_alpha,
@@ -256,9 +263,10 @@ def main(argv=None):
     if is_s2s:
         gen = task.build_generator(model, decode_cfg,
                                    max_mel_len=args.max_mel_len,
-                                   vocoder=vocoder, gcmvn=gcmvn)
+                                   vocoder=vocoder, gcmvn=gcmvn,
+                                   reranker=reranker)
     else:
-        gen = task.build_generator(model, decode_cfg)
+        gen = task.build_generator(model, decode_cfg, reranker=reranker)
     return emit_outputs(
         it, gen, Path(args.results_path),
         hypo_line=lambda utt_id, h:
@@ -323,6 +331,83 @@ def _generate_tts(args, device):
                         Path(args.results_path))
 
 
+def _generate_ar_tts(args, device):
+    """``--generator-type at_tts``: AR Transformer-TTS phoneme->mel(->wav)
+    over ``--criterion tts_transformer`` checkpoints
+    (``daspeech_tpu/cli/generate.py:366-404``)."""
+    from daspeech_torch.decode.speech_generator import (
+        AutoRegressiveSpeechGenerator)
+    from daspeech_torch.models import TTSTransformer
+
+    task = TextToSpeechTask.setup_task(TaskConfig(data_dir=args.data))
+    task.load_dataset(args.gen_subset)
+    vocab = task.vocab
+    cfg = build_model_cfg("tts_transformer", args.model_yaml, vocab)
+    model = TTSTransformer(vocab.size, vocab.pad, **to_dict(cfg))
+    if not args.checkpoint_dir:
+        raise SystemExit("at_tts needs --checkpoint-dir (cli.train "
+                         "--criterion tts_transformer output)")
+    restore_model_(model, args.checkpoint_dir, args.average_last_n)
+    model.to(device).eval()
+    vocoder, gcmvn = load_vocoder_and_gcmvn(args, task, device)
+    gen = AutoRegressiveSpeechGenerator(
+        model, vocab, max_mel_len=args.max_mel_len, vocoder=vocoder,
+        gcmvn=gcmvn, stop_threshold=args.stop_threshold)
+    return emit_outputs(task.get_batch_iterator(args.gen_subset), gen,
+                        Path(args.results_path))
+
+
+def _generate_at_s2s(args, device):
+    """``--generator-type at_s2s``: the two-pass AR multi-decoder S2ST over
+    ``--criterion s2s_multidecoder`` checkpoints
+    (``daspeech_tpu/cli/generate.py:407-465``)."""
+    from daspeech_torch.decode.speech_generator import (
+        MultiDecoderSpeechGenerator)
+
+    task = NATSpeechToSpeechTask.setup_task(TaskConfig(
+        data_dir=args.data, max_tokens=args.max_tokens))
+    task.load_dataset(args.gen_subset,
+                      upsample_scale=args.src_upsample_scale)
+    if not args.checkpoint_dir:
+        raise SystemExit("at_s2s needs --checkpoint-dir (cli.train "
+                         "--criterion s2s_multidecoder output)")
+    model = build_multidecoder(args.model_yaml, task.vocab)
+    restore_model_(model, args.checkpoint_dir, args.average_last_n)
+    model.to(device).eval()
+    vocoder, gcmvn = load_vocoder_and_gcmvn(args, task, device)
+    gen = MultiDecoderSpeechGenerator(
+        model, task.vocab, max_text_len=args.max_text_len,
+        max_mel_len=args.max_mel_len, vocoder=vocoder, gcmvn=gcmvn,
+        stop_threshold=args.stop_threshold)
+    it = task.get_batch_iterator(args.gen_subset,
+                                 upsample_scale=args.src_upsample_scale)
+    return emit_outputs(
+        it, gen, Path(args.results_path),
+        hypo_line=lambda utt_id, h:
+            f"{utt_id}\t{task.tgt_dict.string(h['tokens'])}\n")
+
+
+def build_multidecoder(model_yaml, vocab):
+    """An ``S2SMultiDecoderModel`` of the YAML's config (else the default)
+    over the task's vocabulary."""
+    from daspeech_torch.models import S2SMultiDecoderModel
+
+    cfg = build_model_cfg("s2s_multidecoder", model_yaml, vocab)
+    return S2SMultiDecoderModel(vocab.size, vocab.pad, vocab.bos, vocab.eos,
+                                **to_dict(cfg))
+
+
+def load_reranker(args, vocab, device):
+    """The length beam's AR reranker from ``--reranker-dir`` (its config
+    from ``--reranker-yaml``), in eval mode on ``device``, or None
+    (``daspeech_tpu/cli/generate.py:533-569``)."""
+    if not args.reranker_dir:
+        return None
+    model = build_multidecoder(args.reranker_yaml, vocab)
+    restore_model_(model, args.reranker_dir)
+    return model.to(device).eval()
+
+
 def emit_outputs(it, gen, out_dir: Path, hypo_line=None):
     """The batch loop (``generate_features.py:87-133``): per utterance a
     ``hypos.txt`` line (given ``hypo_line``), its mel transposed to
@@ -352,19 +437,24 @@ def emit_outputs(it, gen, out_dir: Path, hypo_line=None):
 
 
 def load_vocoder_and_gcmvn(args, task, device):
-    """(vocoder or None, gcmvn or None): the HiFi-GAN generator from
-    ``--vocoder-torch`` or ``--vocoder-checkpoint`` on ``device``, and the
-    gcmvn stats from ``--gcmvn-stats``, else from config.yaml's
-    ``global_cmvn`` (``data_cfg.py:179-182``)."""
+    """(vocoder or None, gcmvn or None): Griffin-Lim for ``--vocoder-type
+    griffin_lim`` (or the data config's ``griffin_lim`` vocoder when no
+    checkpoint is given), else the HiFi-GAN generator from
+    ``--vocoder-torch`` or ``--vocoder-checkpoint`` on ``device``
+    (``get_vocoder``, ``daspeech_tpu/cli/generate.py:468-490``); the gcmvn
+    stats from ``--gcmvn-stats``, else from config.yaml's ``global_cmvn``
+    (``data_cfg.py:179-182``)."""
     cfg_voc_type = (task.data_cfg.vocoder.get("type")
                     if task.data_cfg is not None else None)
     has_ckpt = bool(args.vocoder_torch or args.vocoder_checkpoint)
-    if (args.vocoder_type == "auto" and cfg_voc_type == "griffin_lim"
-            and not has_ckpt):
-        raise NotImplementedError("the data config's griffin_lim vocoder "
-                                  + NOT_PORTED.format(item="#6"))
     vocoder = None
-    if has_ckpt:
+    if args.vocoder_type == "griffin_lim" or (
+            args.vocoder_type == "auto" and cfg_voc_type == "griffin_lim"
+            and not has_ckpt):
+        from daspeech_torch.models import GriffinLimVocoder
+
+        vocoder = GriffinLimVocoder()
+    elif has_ckpt:
         from daspeech_torch.decode.speech_generator import quant_fields
         from daspeech_torch.models import HiFiGANGenerator
 

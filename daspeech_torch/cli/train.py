@@ -1,5 +1,6 @@
 """Training CLI, on the card: the three recipe stages (S2TT DAG,
-FastSpeech 2, joint S2ST), resume, validation and data parallelism.
+FastSpeech 2, joint S2ST), the two AR baselines (Transformer-TTS and the
+two-pass multi-decoder S2ST), resume, validation and data parallelism.
 
 Counterpart of ``daspeech_tpu/cli/train.py`` (a rebuild of
 ``fairseq_cli/train.py`` for the DASpeech recipes)::
@@ -12,6 +13,10 @@ Counterpart of ``daspeech_tpu/cli/train.py`` (a rebuild of
       --criterion s2s_dag_fastspeech2_loss --save-dir ckpt/joint \\
       --load-pretrained-dag-from ckpt/s2tt \\
       --load-pretrained-fastspeech-from ckpt/fs2 ...
+  python -m daspeech_torch.cli.train DATA --task text_to_speech \\
+      --criterion tts_transformer --save-dir ckpt/at_tts ...
+  python -m daspeech_torch.cli.train DATA --task nat_speech_to_speech \\
+      --criterion s2s_multidecoder --save-dir ckpt/at_s2s ...
   torchrun --nproc_per_node 4 -m daspeech_torch.cli.train DATA ...
 
 It runs on ``--device`` (default ``cuda``) and exits non-zero when that
@@ -81,8 +86,10 @@ def parse_args(argv=None):
                    choices=["nat_dag_loss", "s2s_dag_fastspeech2_loss",
                             "fastspeech2", "tts_transformer",
                             "s2s_multidecoder"],
-                   help="tts_transformer and s2s_multidecoder (the AR "
-                        "baselines) are not ported yet and raise")
+                   help="tts_transformer = the AR Transformer-TTS baseline "
+                        "(at_tts generation); s2s_multidecoder = the "
+                        "two-pass AR S2ST baseline (at_s2s generation, and "
+                        "the length beam's reranker)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on; without a card, pass "
                         "--device cpu (the default never falls back)")
@@ -178,15 +185,12 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the options whose modules are not ported, naming their
     ROADMAP item."""
-    if args.criterion in ("tts_transformer", "s2s_multidecoder"):
-        raise NotImplementedError(f"--criterion {args.criterion} "
-                                  + NOT_PORTED.format(item="#6"))
     if args.banded_dp:
         raise NotImplementedError("--banded-dp "
-                                  + NOT_PORTED.format(item="#6"))
+                                  + NOT_PORTED.format(item="#6b"))
     if args.fused_vocab_chunk is not None:
         raise NotImplementedError("--fused-vocab-chunk "
-                                  + NOT_PORTED.format(item="#6"))
+                                  + NOT_PORTED.format(item="#6b"))
     if args.fsdp or args.min_fsdp_size is not None:
         raise NotImplementedError("--fsdp / --min-fsdp-size "
                                   + NOT_PORTED.format(item="#4c"))
@@ -281,12 +285,15 @@ def build(args, device, group=None) -> Run:
     """The task and its datasets (the valid split when present), the model
     initialised from ``--seed``, the stage-3 transfers, the optimizer, the
     training state on ``device``, the criterion and the step."""
+    from daspeech_torch.config import to_dict
     from daspeech_torch.losses import (dag_frozen, fastspeech2_criterion,
-                                       nat_dag_loss,
-                                       s2s_dag_fastspeech2_loss)
+                                       multidecoder_criterion, nat_dag_loss,
+                                       s2s_dag_fastspeech2_loss,
+                                       tts_transformer_criterion)
     from daspeech_torch.models import (FastSpeech2Encoder,
                                        S2SConformerDAGFastSpeech2,
-                                       S2TConformerDAG)
+                                       S2SMultiDecoderModel,
+                                       S2TConformerDAG, TTSTransformer)
 
     task_cls = {"nat_speech_to_speech": NATSpeechToSpeechTask,
                 "text_to_speech": TextToSpeechTask}.get(
@@ -315,6 +322,12 @@ def build(args, device, group=None) -> Run:
     if is_tts:
         model = FastSpeech2Encoder(cfg, vocab_size=vocab.size, pad=vocab.pad,
                                    dtype=dtype)
+    elif args.criterion == "tts_transformer":
+        model = TTSTransformer(vocab.size, vocab.pad, dtype=dtype,
+                               **to_dict(cfg))
+    elif args.criterion == "s2s_multidecoder":
+        model = S2SMultiDecoderModel(vocab.size, vocab.pad, vocab.bos,
+                                     vocab.eos, dtype=dtype, **to_dict(cfg))
     elif is_s2s:
         model = S2SConformerDAGFastSpeech2(cfg, dtype=dtype)
     else:
@@ -340,6 +353,10 @@ def build(args, device, group=None) -> Run:
         step = state.step
         if is_tts:
             return fastspeech2_criterion(m, batch, rng, vocab)
+        if args.criterion == "tts_transformer":
+            return tts_transformer_criterion(m, batch, rng, vocab)
+        if args.criterion == "s2s_multidecoder":
+            return multidecoder_criterion(m, batch, rng, vocab)
         glat_p = anneal_value(glat_sched, step)
         enc_freeze = step < args.encoder_freezing_updates
         if is_s2s:
@@ -355,7 +372,7 @@ def build(args, device, group=None) -> Run:
                             no_force_emit=args.no_force_emit,
                             freeze_encoder=enc_freeze)
 
-    if is_tts:
+    if is_tts or args.criterion == "tts_transformer":
         batcher = task.get_batch_iterator(args.train_subset,
                                           max_sentences=args.max_sentences,
                                           seed=args.seed)
@@ -374,7 +391,8 @@ def make_validator(args, run: Run, device):
     """``validate(state) -> (metric or None, [(record, tag)])``, or None
     when nothing is validated: eval-BLEU through the lookahead generator
     for ``nat_dag_loss`` (``cli/train.py:594-617``), the valid loss for the
-    joint and FastSpeech 2 criteria (``:693-720``) and, with
+    joint, FastSpeech 2 and AR criteria (``:620-645``, ``:693-720``) and,
+    with
     ``--eval-inference``, FastSpeech 2's corpus MCD (``:663-691``). Each
     kind runs on this rank's round-robin share of the valid batches and is
     gathered over the ranks."""
@@ -385,7 +403,7 @@ def make_validator(args, run: Run, device):
     is_tts = crit == "fastspeech2"
 
     def batches():
-        if is_tts:
+        if is_tts or crit == "tts_transformer":
             vit = task.get_batch_iterator(args.valid_subset,
                                           max_sentences=args.max_sentences,
                                           seed=args.seed)
@@ -427,13 +445,21 @@ def make_validator(args, run: Run, device):
         return validate
 
     from daspeech_torch.losses import (fastspeech2_criterion,
-                                       s2s_dag_fastspeech2_loss)
+                                       multidecoder_criterion,
+                                       s2s_dag_fastspeech2_loss,
+                                       tts_transformer_criterion)
 
     def eval_loss(batch):
         g = torch.Generator().manual_seed(args.seed)
         if is_tts:
             return fastspeech2_criterion(model, batch, g, run.vocab,
                                          train=False)
+        if crit == "tts_transformer":
+            return tts_transformer_criterion(model, batch, g, run.vocab,
+                                             train=False)
+        if crit == "s2s_multidecoder":
+            return multidecoder_criterion(model, batch, g, run.vocab,
+                                          train=False)
         return s2s_dag_fastspeech2_loss(
             model, batch, g, 0.0, run.vocab,
             tts_loss_weight=args.tts_loss_weight,
@@ -461,8 +487,10 @@ def make_validator(args, run: Run, device):
             for _, idxs, b in batches():
                 M = int(b["target_audio"].shape[1])
                 tokens = torch.as_tensor(b["src_tokens"], device=device)
-                mel, out_lens = model(src_tokens=tokens.long(),
-                                      max_out_len=2 * M)[:2]
+                mel, mel_post, out_lens = model(src_tokens=tokens.long(),
+                                                max_out_len=2 * M)[:3]
+                if mel_post is not None:
+                    mel = mel_post
                 mel = mel.float().cpu().numpy()
                 out_lens = out_lens.cpu().numpy()
                 for i in range(len(idxs)):

@@ -2,8 +2,8 @@
 
 They mirror the fields of ``daspeech_tpu/core/config.py`` that the port's
 serving and decoding, the S2TT DAG training step, the joint S2ST step,
-FastSpeech 2 pretraining and vocoder training use, with the same names and
-defaults
+FastSpeech 2 pretraining, the two AR baselines and vocoder training use,
+with the same names and defaults
 (the recipe's: ``tests/test_torch_models.py::test_config_mirrors_jax``
 holds them to the JAX package's), and leave out the fields of paths not
 ported yet and the TPU kernel switches. The port's modules read configs by
@@ -109,12 +109,51 @@ class FastSpeech2Config:
     pitch_max: float = 600.0
     energy_min: float = 0.0
     energy_max: float = 5000.0
-    add_postnet: bool = False        # not ported: True raises
-    fused_attention: bool = True     # the unfused path is not ported:
-    #                                  False raises
-    speaker_embed_dim: int = 64
-    num_speakers: int = 0            # not ported: > 0 raises
-    ctc_weight: float = 0.0          # the CTC head is not ported: > 0 raises
+    add_postnet: bool = False
+    postnet_layers: int = 5
+    postnet_conv_dim: int = 512
+    postnet_conv_kernel_size: int = 5
+    postnet_dropout: float = 0.5
+    fused_attention: bool = True     # False: the plain attention path
+    speaker_embed_dim: int = 64      # used only when num_speakers > 0
+    num_speakers: int = 0            # 0 = single-speaker (no embedding)
+    ctc_weight: float = 0.0          # > 0: the CTC head and its loss term
+
+
+@dataclass(frozen=True)
+class TTSTransformerConfig:
+    """The AR Transformer-TTS baseline (``at_tts``): 4+4L x 256d."""
+    embed_dim: int = 256
+    ffn_dim: int = 1024
+    encoder_layers: int = 4
+    decoder_layers: int = 4
+    num_heads: int = 4
+    dropout: float = 0.1
+    prenet_dim: int = 256
+    out_dim: int = 80
+    add_postnet: bool = False
+
+
+@dataclass(frozen=True)
+class MultiDecoderConfig:
+    """The two-pass AR S2ST baseline (``at_s2s``, and the length beam's
+    reranker): Conformer 12L x 256d, text decoder 4L, synthesizer encoder
+    2L, mel decoder 4L."""
+    encoder_embed_dim: int = 256
+    encoder_layers: int = 12
+    encoder_heads: int = 4
+    mt_embed_dim: int = 256
+    mt_layers: int = 4
+    mt_heads: int = 4
+    ffn_dim: int = 1024
+    synth_encoder_layers: int = 2
+    tts_decoder_layers: int = 4
+    prenet_dim: int = 256
+    out_dim: int = 80
+    dropout: float = 0.1
+    conv_channels: int = 256
+    depthwise_kernel_size: int = 31
+    max_positions: int = 1024
 
 
 @dataclass(frozen=True)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from daspeech_torch.config import to_dict
 from daspeech_torch.models.dag_model import S2TConformerDAG
 from daspeech_torch.models.fastspeech2 import FastSpeech2Encoder
 from daspeech_torch.models.hifigan import HiFiGANGenerator
@@ -43,6 +44,8 @@ from daspeech_torch.models.hifigan_discriminators import (
     MultiScaleDiscriminator,
 )
 from daspeech_torch.models.s2s_model import S2SConformerDAGFastSpeech2
+from daspeech_torch.models.s2s_multidecoder import S2SMultiDecoderModel
+from daspeech_torch.models.tts_transformer import TTSTransformer
 
 _INDEXED = re.compile(r"^(.*?)_?(\d+)$")
 
@@ -136,6 +139,28 @@ def fs2_from_flax(variables: Dict[str, Any], cfg, vocab_size: int,
     the JAX package's weights, on ``device``, in train mode."""
     return load_flax_(FastSpeech2Encoder(cfg, vocab_size, pad),
                       variables).to(device).train()
+
+
+def tts_transformer_from_flax(variables: Dict[str, Any], cfg,
+                              vocab_size: int, pad: int = 1,
+                              device="cuda") -> TTSTransformer:
+    """The AR Transformer-TTS (``cfg`` a ``TTSTransformerConfig``) with the
+    JAX package's weights (and the Postnet's BatchNorm statistics), on
+    ``device``, in eval mode; a call given a generator is a training
+    pass."""
+    return load_flax_(TTSTransformer(vocab_size, pad, **to_dict(cfg)),
+                      variables).to(device).eval()
+
+
+def multidecoder_from_flax(variables: Dict[str, Any], cfg, vocab,
+                           device="cuda") -> S2SMultiDecoderModel:
+    """The two-pass AR S2ST model (``cfg`` a ``MultiDecoderConfig``,
+    ``vocab`` the ``VocabConfig``) with the JAX package's weights and the
+    Conformer's BatchNorm statistics, on ``device``, in eval mode; a call
+    given a generator is a training pass."""
+    return load_flax_(S2SMultiDecoderModel(
+        vocab.size, vocab.pad, vocab.bos, vocab.eos, **to_dict(cfg)),
+        variables).to(device).eval()
 
 
 def dag_from_flax(variables: Dict[str, Any], cfg,

@@ -6,14 +6,22 @@ from daspeech_torch.decode.dag_decode import (
     path_score,
     viterbi_decode,
 )
-from daspeech_torch.decode.generator import S2SNATGenerator, S2TNATGenerator
+from daspeech_torch.decode.generator import (
+    S2SNATGenerator,
+    S2TNATGenerator,
+    rerank_scores,
+)
 from daspeech_torch.decode.speech_generator import (
+    AutoRegressiveSpeechGenerator,
+    MultiDecoderSpeechGenerator,
     NonAutoregressiveSpeechGenerator,
     make_vocode_fn,
 )
 
 __all__ = [
+    "AutoRegressiveSpeechGenerator",
     "DecodeResult",
+    "MultiDecoderSpeechGenerator",
     "NonAutoregressiveSpeechGenerator",
     "S2SNATGenerator",
     "S2TNATGenerator",
@@ -22,5 +30,6 @@ __all__ = [
     "greedy_or_lookahead_decode",
     "make_vocode_fn",
     "path_score",
+    "rerank_scores",
     "viterbi_decode",
 ]

@@ -6,8 +6,9 @@ beamsearch), optionally over a length beam of graph sizes and with
 iterative refinement; for S2ST then the hidden-state gather -> adaptor +
 FastSpeech 2 -> gcmvn denormalization -> HiFi-GAN. Batches and hypotheses
 keep the JAX package's keys, and the port refuses what JAX refuses, with
-the same exception types. Only the external reranker of the length beam is
-not ported (``NotImplementedError``).
+the same exception types. The length beam takes an external AR reranker
+(:func:`rerank_scores`, an ``S2SMultiDecoderModel``) in place of its own
+candidate score.
 """
 
 from __future__ import annotations
@@ -63,6 +64,30 @@ def length_beam_scores(cfg, logits: torch.Tensor, res: DecodeResult,
         "lookahead", "greedy")).reshape(-1, beam)
 
 
+def rerank_scores(reranker, fbank: torch.Tensor, src_lengths: torch.Tensor,
+                  tokens: torch.Tensor, pad: int, eos: int,
+                  beam: int) -> torch.Tensor:
+    """[B * beam] length-beam candidate scores under an AR reranker
+    (``generator.py:59-87``, the reference's
+    ``--iter-decode-with-external-reranker``): candidate position 0
+    becomes ``<eos>``, the reranker's text decoder is teacher-forced on
+    ``cand[:, :-1]``, and the score is the pad-masked mean log-prob of
+    ``cand[:, 1:]``. The reranker's encoder runs once at B and its output
+    is repeated beam-wise. ``tokens`` [B * beam, L] pad-filled."""
+    enc, enc_pad = reranker.forward_encoder(fbank, src_lengths)
+    enc = enc.repeat_interleave(beam, dim=0)
+    enc_pad = enc_pad.repeat_interleave(beam, dim=0)
+    cand = tokens.clone()
+    cand[:, 0] = eos
+    logits, _ = reranker.mt_decode(cand[:, :-1], enc, enc_pad)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt = cand[:, 1:]
+    sc = logp.gather(-1, tgt[..., None])[..., 0]
+    mask = tgt != pad
+    return (torch.where(mask, sc, torch.zeros_like(sc)).sum(dim=1)
+            / mask.sum(dim=1).clamp(min=1))
+
+
 def decoder_pass(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
                  prev: torch.Tensor, vocab, beam: int = 1):
     """Encoder -> (length-beam expanded) decoder: (logits, links, features,
@@ -86,13 +111,13 @@ def decoder_pass(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
 
 
 def dag_forward_decode(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
-                       prev: torch.Tensor, vocab, cfg):
-    """:func:`decoder_pass` -> decode strategy (``generator.py:90-146``
-    without a reranker).
+                       prev: torch.Tensor, vocab, cfg, reranker=None):
+    """:func:`decoder_pass` -> decode strategy (``generator.py:90-146``).
 
     With ``cfg.length_beam > 1`` the candidate with the best
-    :func:`path_score` (first on ties) survives. Returns (DecodeResult,
-    features [B, L, D]) at the original batch size."""
+    :func:`path_score`, or with ``reranker`` the best
+    :func:`rerank_scores`, survives (first on ties). Returns
+    (DecodeResult, features [B, L, D]) at the original batch size."""
     beam = max(1, int(cfg.length_beam))
     if beam > 1 and cfg.strategy == "beamsearch":
         # beam search carries no per-path feat_idx, so the mean-logprob
@@ -104,7 +129,12 @@ def dag_forward_decode(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
                                               prev, vocab, beam)
     res = _strategy_decode(cfg, vocab, logits, links, prev)
     if beam > 1:
-        best = length_beam_scores(cfg, logits, res, beam).argmax(dim=1)
+        if reranker is not None:
+            sc = rerank_scores(reranker, fbank, src_lengths, res.tokens,
+                               vocab.pad, vocab.eos, beam).reshape(-1, beam)
+        else:
+            sc = length_beam_scores(cfg, logits, res, beam)
+        best = sc.argmax(dim=1)
         rows = torch.arange(best.shape[0], device=best.device) * beam + best
         res = DecodeResult(*(x[rows] for x in res))
         feats = feats[rows]
@@ -116,7 +146,9 @@ class S2TNATGenerator:
     (``generator.py:149-244``).
 
     ``model`` is an eval-mode module on one device; the batch's numpy
-    arrays are moved there. :meth:`run` is one decode pass;
+    arrays are moved there. ``reranker``, an eval-mode
+    ``S2SMultiDecoderModel`` on that device, scores the length beam's
+    candidates (:func:`rerank_scores`). :meth:`run` is one decode pass;
     :meth:`generate` runs the passes under ``torch.inference_mode()``."""
 
     def __init__(self, model, vocab, decode_cfg, reranker=None):
@@ -130,9 +162,8 @@ class S2TNATGenerator:
                 "iter_decode_max_iter > 0: the length beam reduces inside "
                 "each pass, so refinement would not see the fed-back "
                 "tokens. Use one or the other.")
-        if reranker is not None:
-            raise NotImplementedError("reranking is not ported yet")
         self.model = model
+        self.reranker = reranker
         self.vocab = vocab
         self.cfg = decode_cfg
         self.device = (next(model.parameters()).device if model is not None
@@ -150,7 +181,7 @@ class S2TNATGenerator:
     def run(self, fbank, src_lengths, prev):
         """One decode pass: (DecodeResult, features [B, L, D])."""
         return dag_forward_decode(self.model, fbank, src_lengths, prev,
-                                  self.vocab, self.cfg)
+                                  self.vocab, self.cfg, self.reranker)
 
     def refine(self, fbank, src_lengths, prev):
         """Iterative refinement (``generator.py:188-226``): re-run the
@@ -237,10 +268,12 @@ class S2SNATGenerator(S2TNATGenerator):
         return res, z, zmask
 
     def synthesize(self, z, zmask):
-        """Stage 2: adaptor + FastSpeech 2 -> (mel [B, M, 80], mel_lens)."""
-        mel, mel_lens, _, _, _ = self.model.synthesize(
-            z, zmask, self.max_mel_len, d_factor=self.d_factor)
-        return mel, mel_lens
+        """Stage 2: adaptor + FastSpeech 2 -> (mel [B, M, 80], mel_lens):
+        the Postnet's mel when the model has one (``generator.py:
+        291-294``)."""
+        mel, mel_post, mel_lens = self.model.synthesize(
+            z, zmask, self.max_mel_len, d_factor=self.d_factor)[:3]
+        return (mel if mel_post is None else mel_post), mel_lens
 
     def vocode(self, mel):
         """Stage 3: gcmvn denormalization + HiFi-GAN -> wav [B, M*256],

@@ -17,7 +17,13 @@ from daspeech_torch.losses.s2s_loss import (
     expected_features,
     s2s_dag_fastspeech2_loss,
 )
-from daspeech_torch.losses.tts_loss import fastspeech2_criterion
+from daspeech_torch.losses.tts_loss import (
+    fastspeech2_criterion,
+    fastspeech2_ctc_loss,
+    multidecoder_criterion,
+    sigmoid_bce,
+    tts_transformer_criterion,
+)
 
 __all__ = [
     "GlanceDraws",
@@ -28,10 +34,14 @@ __all__ = [
     "dag_frozen",
     "expected_features",
     "fastspeech2_criterion",
+    "fastspeech2_ctc_loss",
     "fastspeech2_losses",
     "force_emit_match",
     "glat_glance",
     "masked_mean",
+    "multidecoder_criterion",
     "nat_dag_loss",
     "s2s_dag_fastspeech2_loss",
+    "sigmoid_bce",
+    "tts_transformer_criterion",
 ]

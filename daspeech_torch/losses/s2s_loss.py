@@ -158,7 +158,7 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
     durations = batch["durations"][:, :n]
     pitches = batch["pitches"][:, :n]
     energies = batch["energies"][:, :n]
-    mel, _, log_dur_out, pitch_out, energy_out = model.synthesize(
+    mel, mel_post, _, log_dur_out, pitch_out, energy_out = model.synthesize(
         z, z_pad_mask, M, durations, pitches=pitches, energies=energies,
         rng=gen(tts_seed))
 
@@ -169,7 +169,7 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
         src_mask = src_mask & real[:, None]
         mel_mask = mel_mask & real[:, None]
     tts_loss, tts_metrics = fastspeech2_losses(
-        mel, log_dur_out, pitch_out, energy_out, mel_tgt, durations,
+        mel, mel_post, log_dur_out, pitch_out, energy_out, mel_tgt, durations,
         pitches, energies, src_mask, mel_mask)
 
     loss = dagloss + tts_loss * tts_loss_weight

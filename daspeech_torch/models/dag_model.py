@@ -6,10 +6,11 @@ multi-head link predictor whose gated logsumexp gives the [B, L, L] DAG
 transition matrix. Link extraction always goes through
 ``ops.fused_links.fused_extract_links`` (CUDA kernel for CUDA tensors, plain
 versions for CPU tensors). A forward given ``rng`` is a training pass
-(``models/layers.py``). The banded and fused-vocab variants are not ported
-yet. In bf16 (``dtype``) the decoder and the link projections compute in
-bf16 as JAX's do; the gates' log-softmax is taken in fp32 and the links
-come out fp32 (``dag_model.py:151-158``), so the DAG DP sees fp32.
+(``models/layers.py``). The banded DP and the fused-vocab gather are not
+ported yet (ROADMAP Queue 1 #6b). In bf16 (``dtype``) the decoder and the
+link projections compute in bf16 as JAX's do; the gates' log-softmax is
+taken in fp32 and the links come out fp32 (``dag_model.py:151-158``), so
+the DAG DP sees fp32.
 """
 
 from __future__ import annotations

@@ -5,11 +5,13 @@ Counterpart of ``daspeech_tpu/models/fastspeech2.py``: FFT blocks, variance
 adaptor with bucketed pitch/energy embeddings, and a vectorized length
 regulator (cumsum + searchsorted). A forward given ``rng`` is a training
 pass (``models/layers.py``): dropout on the encoder input, after each conv
-FFN and in the variance predictors, and on the FFT attention probabilities
-at ``attention_dropout``; gold pitches and energies, when given, pick the
-bucket embeddings in place of the predictions. The speaker embedding, the
-CTC head and the Postnet (all off in every recipe) are not ported: their
-settings raise.
+FFN and in the variance predictors and the Postnet, and on the FFT
+attention probabilities at ``attention_dropout``; gold pitches and
+energies, when given, pick the bucket embeddings in place of the
+predictions, and the Postnet's BatchNorm takes batch statistics. The
+options that every recipe leaves off are here too: the Postnet, the
+speaker embedding, the CTC head and the unfused attention
+(``fused_attention=False``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from daspeech_torch.models.conformer import MaskedBatchNorm
 from daspeech_torch.models.layers import (
     FP32,
     Compute,
@@ -60,14 +63,17 @@ class PositionwiseConvFFN(nn.Module):
 
 
 class FFTLayer(nn.Module):
-    """Self-attention + conv FFN (``fastspeech2.py:51-76``)."""
+    """Self-attention + conv FFN (``fastspeech2.py:51-76``); the attention
+    takes the kernels unless ``fused_attention`` is False."""
 
     def __init__(self, embed_dim: int, num_heads: int, hidden_dim: int,
                  kernel_size: int, dropout: float = 0.0,
-                 attention_dropout: float = 0.0):
+                 attention_dropout: float = 0.0,
+                 fused_attention: bool = True):
         super().__init__()
         self.self_attn = MultiHeadAttention(embed_dim, num_heads,
-                                            attention_dropout)
+                                            attention_dropout,
+                                            fused=fused_attention)
         self.layer_norm = layer_norm(embed_dim)
         self.ffn = PositionwiseConvFFN(embed_dim, hidden_dim, kernel_size,
                                        dropout)
@@ -178,6 +184,39 @@ class VarianceAdaptor(nn.Module):
         return x, out_lens, log_dur_out, pitch_out, energy_out
 
 
+class Postnet(Compute, nn.Module):
+    """Tacotron 2 Postnet (``fastspeech2.py:188-211``): ``layers`` convs of
+    ``kernel_size`` taps, each followed by BatchNorm, tanh (all but the
+    last) and dropout; the caller adds the residual. JAX's ``nn.BatchNorm``
+    has no mask, so the statistics of a training pass take every frame,
+    padded ones too (:class:`MaskedBatchNorm` with every frame valid:
+    momentum 0.9, the biased variance, eps 1e-5). The statistics and the
+    normalisation are fp32; the output is rounded to the compute dtype, as
+    flax's ``BatchNorm(dtype=...)`` rounds it."""
+
+    def __init__(self, in_dim: int, conv_dim: int = 512,
+                 kernel_size: int = 5, layers: int = 5, dropout: float = 0.5):
+        super().__init__()
+        self.dropout = dropout
+        p = (kernel_size - 1) // 2
+        dims = [in_dim] + [conv_dim] * (layers - 1) + [in_dim]
+        self.conv = nn.ModuleList(Conv1d(dims[i], dims[i + 1], kernel_size,
+                                         padding=p) for i in range(layers))
+        self.bn = nn.ModuleList(MaskedBatchNorm(dims[i + 1])
+                                for i in range(layers))
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        valid = (None if rng is None else
+                 torch.ones(x.shape[:2], dtype=torch.bool, device=x.device))
+        for i, (conv, bn) in enumerate(zip(self.conv, self.bn)):
+            x = self.compute(bn(_conv_btc(conv, x), valid))
+            if i < len(self.conv) - 1:
+                x = torch.tanh(x)
+            x = dropout(x, self.dropout, rng)
+        return x
+
+
 def _positions(pad_mask: torch.Tensor, pad: int) -> torch.Tensor:
     keep = (~pad_mask).long()
     return torch.cumsum(keep, dim=1) * keep + pad
@@ -188,18 +227,18 @@ class FastSpeech2Encoder(Compute, nn.Module):
     (NoEmb path) or, with ``vocab_size`` > 0, phoneme tokens [B, T] (the
     ``embed_tokens`` path) -> mel. ``dtype`` is the compute dtype
     (``layers.set_dtype``); the positional tables are rounded to it before
-    their fp32 scale multiplies them, as in ``fastspeech2.py:259``."""
+    their fp32 scale multiplies them, as in ``fastspeech2.py:259``.
+
+    The options: ``add_postnet`` (:class:`Postnet`, residual added here),
+    ``num_speakers`` > 0 with ``speaker_embed_dim`` > 0 (``embed_speaker``
+    broadcast over time, concatenated, ``spk_emb_proj``; ``:272-289``),
+    ``ctc_weight`` > 0 on the token path (``ctc_proj`` on the pre-Postnet
+    mel, ``:316-323``) and ``fused_attention=False`` (every FFT attention
+    on the plain path)."""
 
     def __init__(self, cfg, vocab_size: int = 0, pad: int = 1,
                  dtype: torch.dtype = FP32):
         super().__init__()
-        if cfg.add_postnet or (cfg.speaker_embed_dim > 0
-                               and cfg.num_speakers > 0):
-            raise NotImplementedError(
-                "Postnet and speaker embeddings are not ported yet")
-        if cfg.ctc_weight > 0.0 or not cfg.fused_attention:
-            raise NotImplementedError(
-                "the CTC head and the unfused attention path are not ported")
         self.cfg, self.pad = cfg, pad
         if vocab_size > 0:
             self.embed_tokens = Embedding(vocab_size, cfg.encoder_embed_dim)
@@ -207,17 +246,30 @@ class FastSpeech2Encoder(Compute, nn.Module):
         self.encoder_fft = nn.ModuleList(
             FFTLayer(cfg.encoder_embed_dim, cfg.encoder_heads,
                      cfg.fft_hidden_dim, cfg.fft_kernel_size, cfg.dropout,
-                     cfg.attention_dropout)
+                     cfg.attention_dropout, cfg.fused_attention)
             for _ in range(cfg.encoder_layers))
+        if cfg.speaker_embed_dim > 0 and cfg.num_speakers > 0:
+            self.embed_speaker = Embedding(cfg.num_speakers,
+                                           cfg.speaker_embed_dim)
+            self.spk_emb_proj = Linear(
+                cfg.encoder_embed_dim + cfg.speaker_embed_dim,
+                cfg.encoder_embed_dim)
         self.var_adaptor = VarianceAdaptor(cfg, cfg.encoder_embed_dim)
         self.dec_pos_emb_alpha = nn.Parameter(torch.ones(1))
         self.decoder_fft = nn.ModuleList(
             FFTLayer(cfg.decoder_embed_dim, cfg.decoder_heads,
                      cfg.fft_hidden_dim, cfg.fft_kernel_size, cfg.dropout,
-                     cfg.attention_dropout)
+                     cfg.attention_dropout, cfg.fused_attention)
             for _ in range(cfg.decoder_layers))
-        self.out_proj = Linear(cfg.decoder_embed_dim,
-                               cfg.output_frame_dim * cfg.n_frames_per_step)
+        out_dim = cfg.output_frame_dim * cfg.n_frames_per_step
+        self.out_proj = Linear(cfg.decoder_embed_dim, out_dim)
+        self.has_ctc = cfg.ctc_weight > 0.0 and vocab_size > 0
+        if self.has_ctc:
+            self.ctc_proj = Linear(out_dim, vocab_size)
+        if cfg.add_postnet:
+            self.postnet = Postnet(out_dim, cfg.postnet_conv_dim,
+                                   cfg.postnet_conv_kernel_size,
+                                   cfg.postnet_layers, cfg.postnet_dropout)
         set_dtype(self, dtype)
 
     def forward(self, x: Optional[torch.Tensor] = None,
@@ -228,11 +280,14 @@ class FastSpeech2Encoder(Compute, nn.Module):
                 src_tokens: Optional[torch.Tensor] = None,
                 pitches: Optional[torch.Tensor] = None,
                 energies: Optional[torch.Tensor] = None,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                speaker: Optional[torch.Tensor] = None):
         """``x`` and ``enc_pad_mask`` (NoEmb path), or ``src_tokens``
-        (padding where equal to ``pad``). Returns (mel [B, M, 80],
-        out_lens [B], log_dur_out [B, T], pitch_out [B, T],
-        energy_out [B, T])."""
+        (padding where equal to ``pad``); ``speaker`` [B] ids (0 when not
+        given) for a multi-speaker model. Returns JAX's six-tuple (mel
+        [B, M, 80], mel_post [B, M, 80] or None, out_lens [B], log_dur_out
+        [B, T], pitch_out [B, T], energy_out [B, T]), and the CTC logits
+        [B, M, V] as a seventh element when the model has its CTC head."""
         c = self.cfg
         if src_tokens is not None:
             x = self.embed_tokens(src_tokens)
@@ -245,6 +300,13 @@ class FastSpeech2Encoder(Compute, nn.Module):
         x = dropout(x, c.dropout, rng)
         for layer in self.encoder_fft:
             x = layer(x, enc_pad_mask, rng)
+        if hasattr(self, "embed_speaker"):
+            if speaker is None:
+                speaker = torch.zeros(x.shape[0], dtype=torch.long,
+                                      device=x.device)
+            emb = self.embed_speaker(speaker.long())[:, None, :]
+            x = self.spk_emb_proj(torch.cat(
+                [x, emb.expand(-1, x.shape[1], -1)], dim=-1))
 
         x, out_lens, log_dur_out, pitch_out, energy_out = self.var_adaptor(
             x, enc_pad_mask, max_out_len, durations, d_factor, pitches,
@@ -258,7 +320,11 @@ class FastSpeech2Encoder(Compute, nn.Module):
             _positions(dec_pad_mask, self.pad)])
         for layer in self.decoder_fft:
             x = layer(x, dec_pad_mask, rng)
-        return self.out_proj(x), out_lens, log_dur_out, pitch_out, energy_out
+        mel = self.out_proj(x)
+        mel_post = (mel + self.postnet(mel, rng) if hasattr(self, "postnet")
+                    else None)
+        out = (mel, mel_post, out_lens, log_dur_out, pitch_out, energy_out)
+        return out + (self.ctc_proj(mel),) if self.has_ctc else out
 
 
 class FFNAdapter(nn.Module):

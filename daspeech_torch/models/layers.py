@@ -5,7 +5,8 @@ eps 1e-6, flax's default (torch's is 1e-5). Attention goes through
 ``ops.fused_attention``: the packed kernel, or the head-major one for the
 long sequences the JAX layer sends there (``packed_route``); both launch
 the CUDA kernels for CUDA tensors and take the plain versions for CPU
-tensors.
+tensors. A causal attention, or one built with ``fused=False``, takes
+JAX's unfused path in plain tensor ops instead.
 
 The compute dtype is flax's ``dtype`` field: ``set_dtype(model, dtype)``
 (which the models' ``dtype`` argument calls) sets it on every
@@ -253,17 +254,25 @@ def padding_bias(key_padding_mask: Optional[torch.Tensor], B: int, Tk: int,
 
 
 class MultiHeadAttention(nn.Module):
-    """Non-causal MHA with an optional key-padding mask (True = pad) and
-    dropout on the attention probabilities; ``layers.py:128-237``.
+    """MHA with an optional key-padding mask (True = pad) and dropout on the
+    attention probabilities; ``layers.py:128-237``, with JAX's ``causal``
+    and ``fused`` fields.
 
-    The route of ``layers.py:164-176``: the packed kernel while
-    ``packed_route(Tq, Tk, C, H)`` holds, else the head-major kernel
-    through the [B, T, H, d] -> [B, H, T, d] transposes of ``:208-214``."""
+    ``fused=True`` and ``causal=False`` take the route of
+    ``layers.py:164-176``: the packed kernel while ``packed_route(Tq, Tk,
+    C, H)`` holds, else the head-major kernel through the [B, T, H, d] ->
+    [B, H, T, d] transposes of ``:208-214``. Otherwise (JAX's unfused
+    path, ``:215-237``) the scores are an einsum summed in fp32, -inf at
+    padded keys (all-padded rows unmasked) and above the diagonal when
+    causal, softmax in fp32, the probabilities in the compute dtype, then
+    dropout (from ``rng``, as every other site) and the einsum with v."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 causal: bool = False, fused: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
+        self.causal, self.fused = causal, fused
         self.q_proj = Linear(embed_dim, embed_dim)
         self.k_proj = Linear(embed_dim, embed_dim)
         self.v_proj = Linear(embed_dim, embed_dim)
@@ -280,6 +289,9 @@ class MultiHeadAttention(nn.Module):
         q = self.q_proj(query) * (d_head ** -0.5)
         k = self.k_proj(key)
         v = self.v_proj(value)
+        if not self.fused or self.causal:
+            out = self._plain(q, k, v, key_padding_mask, rng)
+            return self.out_proj(out.reshape(B, Tq, C))
         bias = padding_bias(key_padding_mask, B, Tk, key.device)
         seeds = row_seeds(rng, self.dropout, B, key.device)
         p = 0.0 if seeds is None else self.dropout
@@ -294,6 +306,33 @@ class MultiHeadAttention(nn.Module):
                                       bias, 1.0, p, seeds)
             out = out.transpose(1, 2).reshape(B, Tq, C)
         return self.out_proj(out)
+
+    def _plain(self, q, k, v, key_padding_mask, rng) -> torch.Tensor:
+        """``layers.py:215-235`` on the projected q (scaled), k, v
+        [B, T, C] -> [B, Tq, H, d]. The scores take fp32 operands (a bf16
+        product is exact in fp32, as ``preferred_element_type=float32``
+        keeps it); the output is summed in fp32 and rounded once."""
+        B, Tq, C = q.shape
+        Tk, H = k.shape[1], self.num_heads
+
+        def split(x):       # [B, T, H, d], bf16 widened to fp32
+            x = x.reshape(B, x.shape[1], H, C // H)
+            return x.float() if x.dtype == BF16 else x
+
+        scores = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k))
+        if key_padding_mask is not None:
+            all_masked = key_padding_mask.all(dim=-1, keepdim=True)
+            kpm = key_padding_mask & ~all_masked
+            scores = scores.masked_fill(kpm[:, None, None, :], -math.inf)
+        if self.causal:
+            above = torch.ones(Tq, Tk, dtype=torch.bool,
+                               device=q.device).triu(1)
+            scores = scores.masked_fill(above, -math.inf)
+        probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype),
+                        self.dropout, rng)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(scores.dtype),
+                           split(v))
+        return out.to(q.dtype)
 
 
 class TransformerFFN(nn.Module):
@@ -312,37 +351,53 @@ class TransformerFFN(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
-    """Post-norm transformer decoder layer with non-causal self-attention
-    (the NAT decoder; ``layers.py:257-321`` with normalize_before=False)."""
+    """Transformer decoder layer (``layers.py:240-321``): post-norm unless
+    ``normalize_before``; non-causal self-attention (the NAT decoder) unless
+    ``causal`` (the AR text decoder). Both attentions take
+    ``fused_attention`` as their ``fused``, as JAX's do."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  activation: str = "gelu", dropout: float = 0.0,
                  attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0,
+                 normalize_before: bool = False, causal: bool = False,
+                 fused_attention: bool = True):
         super().__init__()
         self.dropout = dropout
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(embed_dim, num_heads,
-                                            attention_dropout)
+                                            attention_dropout, causal=causal,
+                                            fused=fused_attention)
         self.self_attn_layer_norm = layer_norm(embed_dim)
         self.encoder_attn = MultiHeadAttention(embed_dim, num_heads,
-                                               attention_dropout)
+                                               attention_dropout,
+                                               fused=fused_attention)
         self.encoder_attn_layer_norm = layer_norm(embed_dim)
         self.ffn = TransformerFFN(ffn_dim, embed_dim, activation, dropout,
                                   activation_dropout)
         self.final_layer_norm = layer_norm(embed_dim)
 
+    def _block(self, x, ln, body):
+        """The residual x + body(x), with ``ln`` on body's input (pre-norm)
+        or on the sum (post-norm)."""
+        if self.normalize_before:
+            return x + body(ln(x))
+        return ln(x + body(x))
+
     def forward(self, x: torch.Tensor, self_pad_mask: Optional[torch.Tensor],
                 enc_out: Optional[torch.Tensor],
                 enc_pad_mask: Optional[torch.Tensor],
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = self.self_attn(x, x, x, key_padding_mask=self_pad_mask, rng=rng)
-        x = self.self_attn_layer_norm(x + dropout(y, self.dropout, rng))
+        x = self._block(x, self.self_attn_layer_norm, lambda y: dropout(
+            self.self_attn(y, y, y, key_padding_mask=self_pad_mask, rng=rng),
+            self.dropout, rng))
         if enc_out is not None:
-            y = self.encoder_attn(x, enc_out, enc_out,
-                                  key_padding_mask=enc_pad_mask, rng=rng)
-            x = self.encoder_attn_layer_norm(x + dropout(y, self.dropout,
-                                                         rng))
-        return self.final_layer_norm(x + self.ffn(x, rng))
+            x = self._block(x, self.encoder_attn_layer_norm, lambda y: dropout(
+                self.encoder_attn(y, enc_out, enc_out,
+                                  key_padding_mask=enc_pad_mask, rng=rng),
+                self.dropout, rng))
+        return self._block(x, self.final_layer_norm,
+                           lambda y: self.ffn(y, rng))
 
 
 def lengths_to_padding_mask(lengths: torch.Tensor, max_len: int

@@ -54,8 +54,8 @@ class S2SConformerDAGFastSpeech2(nn.Module):
                    pitches: Optional[torch.Tensor] = None,
                    energies: Optional[torch.Tensor] = None,
                    rng: Optional[torch.Generator] = None):
-        """adaptor -> FastSpeech2 NoEmb: (mel [B, M, 80], mel_lens [B],
-        log_dur_out, pitch_out, energy_out)."""
+        """adaptor -> FastSpeech2 NoEmb: (mel [B, M, 80], mel_post or None,
+        mel_lens [B], log_dur_out, pitch_out, energy_out)."""
         return self.tts(self.adaptor(features, rng), features_pad_mask,
                         max_mel_len, durations, d_factor, pitches=pitches,
                         energies=energies, rng=rng)

@@ -209,7 +209,7 @@ def test_fastspeech2_with_gold_variances():
         pitches=pitch, energies=energy) for dt in (jnp.bfloat16, jnp.float32)}
     tm = convert.load_flax_(tfs.FastSpeech2Encoder(cfg, dtype=BF16), v)
     with torch.no_grad():
-        mel, lens, log_dur, p_out, e_out = tm(
+        mel, _, lens, log_dur, p_out, e_out = tm(
             _t(x), _t(pad), 32, _t(durs).long(), pitches=_t(pitch),
             energies=_t(energy))
     assert mel.dtype == BF16
@@ -259,7 +259,7 @@ def test_s2s_model_synthesizes_from_dag_features():
                                                               dtype=BF16), v)
     with torch.no_grad():
         _, _, feats = tm(_t(fbank), _t(lens), _t(prev))
-        mel, mel_lens, log_dur, *_ = tm.synthesize(
+        mel, _, mel_lens, log_dur, *_ = tm.synthesize(
             feats, _t(fpad), M, _t(durs).long(), pitches=_t(pitch),
             energies=_t(energy))
     assert mel.dtype == BF16

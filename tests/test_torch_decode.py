@@ -248,6 +248,60 @@ def test_s2t_generator_matches_jax(s2t_setup, decode):
     assert max(len(h["tokens"]) for h in hyps) >= 2
 
 
+@pytest.fixture(scope="module")
+def reranker_setup(s2t_setup):
+    """A tiny ``S2SMultiDecoderModel`` over the S2TT setup's vocabulary,
+    random weights in both packages."""
+    from daspeech_torch.config import MultiDecoderConfig
+    from daspeech_tpu.models.s2s_multidecoder import S2SMultiDecoderModel
+
+    cfg, _, _, _, batch = s2t_setup
+    mcfg = MultiDecoderConfig(
+        encoder_embed_dim=16, encoder_layers=1, encoder_heads=2,
+        mt_embed_dim=16, mt_layers=1, mt_heads=2, ffn_dim=32,
+        synth_encoder_layers=1, tts_decoder_layers=1, prenet_dim=16,
+        dropout=0.0, conv_channels=16, depthwise_kernel_size=7)
+    v = cfg.vocab
+    jm = S2SMultiDecoderModel(vocab_size=v.size, pad=v.pad, bos=v.bos,
+                              eos=v.eos, **vars(mcfg))
+    params = random_variables(jm, 7, batch["fbank"], batch["src_lengths"],
+                              batch["prev_output_tokens"][:, :4],
+                              np.zeros((B, 4, 80), np.float32))
+    return jm, params, convert.multidecoder_from_flax(params, mcfg, v,
+                                                      "cpu")
+
+
+def test_rerank_scores_and_the_reranked_winner_match_jax(s2t_setup,
+                                                         reranker_setup):
+    """``rerank_scores`` on the length beam's candidates within 1e-5 of
+    JAX's, and both generators keep the same candidate under the
+    reranker; with these weights the reranker picks another candidate
+    than the path score for at least one utterance."""
+    cfg, model, params, tmodel, batch = s2t_setup
+    jm, rparams, tm = reranker_setup
+    dc = DecodeConfig(strategy="lookahead", length_beam=3)
+    gen = tgen.S2TNATGenerator(tmodel, cfg.vocab, dc, reranker=tm)
+    fbank, lens, prev = gen.to_device(batch)
+    logits, links, _, prev3 = tgen.decoder_pass(tmodel, fbank, lens, prev,
+                                                cfg.vocab, 3)
+    res = tgen._strategy_decode(dc, cfg.vocab, logits, links, prev3)
+    got = tgen.rerank_scores(tm, fbank, lens, res.tokens, cfg.vocab.pad,
+                             cfg.vocab.eos, 3)
+    want = jgen.rerank_scores(jm, rparams, jnp.asarray(batch["fbank"]),
+                              jnp.asarray(batch["src_lengths"]),
+                              jnp.asarray(res.tokens.numpy()),
+                              cfg.vocab.pad, cfg.vocab.eos, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    path = tgen.length_beam_scores(dc, logits, res, 3).argmax(1)
+    assert not torch.equal(got.reshape(-1, 3).argmax(1), path)
+    jwant = jgen.S2TNATGenerator(model, cfg.vocab, dc, reranker=jm,
+                                 reranker_params=rparams).generate(params,
+                                                                   batch)
+    for g, w in zip(gen.generate(batch), jwant):
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+
+
 def test_length_beam_picks_the_best_path_score(s2t_setup):
     """The length beam decodes graph sizes glen - 1, glen, glen + 1 from one
     encoder pass and keeps the candidate whose path score is largest."""
@@ -331,8 +385,8 @@ def test_refinement_forced_runs_every_pass():
 
 
 def test_refusals_match_jax(s2t_setup):
-    """The port refuses what JAX refuses, with the same exception types;
-    only the reranker is refused by the port alone."""
+    """The port refuses what JAX refuses, with the same exception
+    types."""
     cfg, model, params, tmodel, batch = s2t_setup
     both = DecodeConfig(length_beam=2, iter_decode_max_iter=1)
     with pytest.raises(ValueError):
@@ -347,9 +401,6 @@ def test_refusals_match_jax(s2t_setup):
     unknown = DecodeConfig(strategy="sampling")
     with pytest.raises(NotImplementedError):
         tgen.S2TNATGenerator(tmodel, cfg.vocab, unknown).generate(batch)
-    with pytest.raises(NotImplementedError):
-        tgen.S2TNATGenerator(tmodel, cfg.vocab, DecodeConfig(),
-                             reranker=object())
     with pytest.raises(NotImplementedError):
         tgen.S2SNATGenerator(tmodel, cfg.vocab,
                              DecodeConfig(strategy="beamsearch"))

@@ -13,8 +13,8 @@
   whose exact gradient is 0, to 1e-4 of their kernel's gradient; see
   ``test_torch_joint.py``), with a bucket-fill row (``sample_mask``);
 * the dropout sites and rates of a training pass, which match the JAX
-  module's, and the settings the port does not take (Postnet, CTC head,
-  unfused attention) raise;
+  module's; each option (Postnet, CTC head, unfused attention, speakers)
+  alone against JAX's forward;
 * a few pretraining updates lower the loss.
 
 Pitch and energy targets lie at bucket centres (see
@@ -127,7 +127,7 @@ def test_train_forward_matches_jax(path):
                  pitches=_t(gold["pitches"]), energies=_t(gold["energies"]),
                  rng=torch.Generator())
     mel, _, lens, log_dur, pitch, energy = want
-    t_mel, t_lens, t_log_dur, t_pitch, t_energy = got
+    t_mel, _, t_lens, t_log_dur, t_pitch, t_energy = got
     np.testing.assert_array_equal(t_lens.numpy(), np.asarray(lens))
     np.testing.assert_allclose(t_mel.detach().numpy(), np.asarray(mel),
                                rtol=0, atol=1e-3)
@@ -187,8 +187,8 @@ def test_fastspeech2_losses_and_input_gradients_match_jax():
     want_g = jax.grad(lambda *o: jloss(*o)[0], argnums=(0, 1, 2, 3))(*outs)
     ts = [_t(o, True) for o in outs]
     got, got_m = tfl.fastspeech2_losses(
-        *ts, _t(tgts[0]), _t(tgts[1]).long(), _t(tgts[2]), _t(tgts[3]),
-        _t(src_mask), _t(mel_mask))
+        ts[0], None, *ts[1:], _t(tgts[0]), _t(tgts[1]).long(),
+        _t(tgts[2]), _t(tgts[3]), _t(src_mask), _t(mel_mask))
     got.backward()
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
     for k in want_m:
@@ -278,9 +278,36 @@ def test_adaptor_dropout():
 @pytest.mark.parametrize("kw", [dict(add_postnet=True), dict(ctc_weight=0.1),
                                 dict(fused_attention=False),
                                 dict(num_speakers=2)])
-def test_unported_settings_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tfs.FastSpeech2Encoder(_cfg(**kw), vocab_size=V)
+def test_option_matches_jax(kw):
+    """Each option alone, on the token path in eval mode: the mel and the
+    Postnet's mel within 1e-3 of JAX's, the CTC logits within 1e-4, the
+    lengths equal (``tests/test_torch_fs2_options.py`` takes all four
+    together through a training step)."""
+    cfg = _cfg(**kw)
+    batch = _batch(cfg, 40)
+    spk = np.array([1, 0, 1], np.int32)
+    jm, v = _token_model(cfg, batch, 41)
+    M = batch["target_audio"].shape[1]
+    want, mut = jm.apply(v, src_tokens=batch["src_tokens"], max_out_len=M,
+                         durations=batch["durations"], speaker=spk,
+                         mutable=["intermediates"])
+    tm = convert.fs2_from_flax(v, cfg, V, VOCAB.pad, device="cpu").eval()
+    with torch.no_grad():
+        got = tm(src_tokens=_t(batch["src_tokens"]).long(), max_out_len=M,
+                 durations=_t(batch["durations"]).long(),
+                 speaker=_t(spk).long())
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-3)
+    assert (got[1] is None) == (want[1] is None) == (not cfg.add_postnet)
+    if cfg.add_postnet:
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=0, atol=1e-3)
+    assert (len(got) == 7) == (cfg.ctc_weight > 0)
+    if cfg.ctc_weight > 0:
+        np.testing.assert_allclose(
+            got[6].numpy(), np.asarray(mut["intermediates"]["ctc_logits"][0]),
+            rtol=0, atol=1e-4)
 
 
 def test_pretraining_updates_lower_the_loss():

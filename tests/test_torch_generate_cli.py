@@ -18,8 +18,11 @@ fbank, ``tests/test_data.py::make_dataset``) and one fabricated fairseq
   rungs' chunked wavs equal their one-shot ones within 1e-5 (the chunked
   run calibrates one-shot too), and ``--vocoder-calib-batches`` reaches
   the vocoder;
-* every refused option raises and names its ROADMAP item, and without
-  ``--device cpu`` the CLI exits non-zero here and writes nothing.
+* ``--generator-type at_tts`` and ``at_s2s``, the length beam's
+  ``--reranker-dir`` and ``--vocoder-type griffin_lim`` against JAX's CLI
+  on one set of weights;
+* without ``--device cpu`` the CLI exits non-zero here and writes
+  nothing.
 """
 
 import csv
@@ -308,21 +311,125 @@ def test_checkpoint_dir_matches_in_process_generator(setup):
     assert (out / "hypos.txt").read_text().splitlines() == lines
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--generator-type", "at_tts"], "#6"),
-    (["--generator-type", "at_s2s"], "#6"),
-    (["--reranker-dir", "somewhere"], "#6"),
-    (["--vocoder-type", "griffin_lim"], "#6"),
-])
-def test_refused_options(flags, item, setup):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        tgen.main(_common(setup, "refused") + ["--device", "cpu", *flags])
-    assert not (setup / "refused").exists()
+AR_TTS_YAML = {"embed_dim": 16, "ffn_dim": 32, "encoder_layers": 1,
+               "decoder_layers": 1, "num_heads": 2, "prenet_dim": 16}
+MDEC_YAML = {"encoder_embed_dim": D_ENC, "encoder_layers": 1,
+             "encoder_heads": 2, "mt_embed_dim": 16, "mt_layers": 1,
+             "mt_heads": 2, "ffn_dim": 32, "synth_encoder_layers": 1,
+             "tts_decoder_layers": 1, "prenet_dim": 16,
+             "conv_channels": 16, "depthwise_kernel_size": 7}
 
 
-def test_refused_models_and_missing_weights(setup):
-    with pytest.raises(NotImplementedError, match="#6"):
-        tgen.build_model_cfg("tts_transformer", None, None)
+def _ar_checkpoints(setup, kind):
+    """(JAX checkpoint dir, port checkpoint dir, YAML) of one set of random
+    weights of an AR model (``kind`` "at_tts" or "mdec"), each package's
+    own format."""
+    import jax
+
+    from daspeech_torch import convert
+    from daspeech_torch.config import MultiDecoderConfig as TMD
+    from daspeech_torch.config import TTSTransformerConfig as TTT
+    from daspeech_torch.config import VocabConfig
+    from daspeech_tpu.models.s2s_multidecoder import S2SMultiDecoderModel
+    from daspeech_tpu.models.tts_transformer import TTSTransformer
+    from daspeech_tpu.train import TrainState as JaxTrainState
+    from daspeech_tpu.train import make_optimizer
+    from daspeech_tpu.train.checkpoint import CheckpointManager as JaxManager
+    from test_torch_models import random_variables
+
+    jdir, pdir = setup / f"{kind}_jax_ckpt", setup / f"{kind}_port_ckpt"
+    yml = setup / f"{kind}.yaml"
+    if jdir.exists():
+        return jdir, pdir, yml
+    if kind == "at_tts":
+        yml.write_text(yaml.safe_dump(AR_TTS_YAML))
+        jm = TTSTransformer(vocab_size=V, pad=1, **AR_TTS_YAML)
+        v = random_variables(jm, 8, np.full((2, 5), 4, np.int32),
+                             np.zeros((2, 6, 80), np.float32))
+        tm = convert.tts_transformer_from_flax(v, TTT(**AR_TTS_YAML), V, 1,
+                                               "cpu")
+    else:
+        yml.write_text(yaml.safe_dump(MDEC_YAML))
+        jm = S2SMultiDecoderModel(vocab_size=V, pad=1, bos=0, eos=2,
+                                  **MDEC_YAML)
+        v = random_variables(jm, 9, np.zeros((2, 40, 80), np.float32),
+                             np.array([40, 32], np.int32),
+                             np.full((2, 5), 4, np.int32),
+                             np.zeros((2, 6, 80), np.float32))
+        # random weights emit <s> at every step; without the <s>, <pad>
+        # and <unk> logits (rows 0, 1, 3 of the tied table) and with
+        # <eos>'s scaled, one utterance ends at once and the others emit
+        # words up to the budget
+        emb = v["params"]["mt_decoder"]["embed_tokens"]["embedding"]
+        emb[[0, 1, 3]] = 0.0
+        emb[2] *= 0.75
+        tm = convert.multidecoder_from_flax(v, TMD(**MDEC_YAML),
+                                            VocabConfig(size=V), "cpu")
+    JaxManager(jdir).save(JaxTrainState.create(
+        jax.tree.map(np.asarray, v), make_optimizer()), 1)
+    CheckpointManager(pdir).save(TrainState.create(tm, GuardedAdam()), 1)
+    return jdir, pdir, yml
+
+
+@pytest.mark.parametrize("flags", [
+    ["--generator-type", "at_tts"],
+    ["--generator-type", "at_s2s"],
+    ["--reranker-dir", "RERANKER"],
+    ["--vocoder-type", "griffin_lim"],
+], ids=["at_tts", "at_s2s", "reranker", "griffin_lim"])
+def test_ar_routes_and_griffin_lim_match_jax_cli(flags, setup):
+    """The options the port once refused, run by both CLIs on one set of
+    weights: ``at_tts`` (mels within 1e-3), ``at_s2s`` (the same
+    hypotheses, mels within 1e-3), the length beam of 3 reranked by an
+    ``s2s_multidecoder`` checkpoint (the same hypotheses) and Griffin-Lim
+    on the S2ST route (the wavs within a relative L2 of 1e-3)."""
+    name = flags[-1].lower()
+    if name == "at_tts":
+        jdir, pdir, yml = _ar_checkpoints(setup, "at_tts")
+        jd, pd = run_both(setup, name, flags + ["--max-mel-len", "16"],
+                          task="text_to_speech", yaml_name=yml.name,
+                          jax_extra=["--checkpoint-dir", str(jdir)],
+                          port_extra=["--checkpoint-dir", str(pdir)])
+        assert len(compare_outputs(jd, pd, 5, hypos=False,
+                                   tol=TTS_TOL)) == 5
+    elif name == "at_s2s":
+        jdir, pdir, yml = _ar_checkpoints(setup, "mdec")
+        jd, pd = run_both(setup, name, flags + ["--max-mel-len", "12",
+                                                "--max-text-len", "6"],
+                          yaml_name=yml.name,
+                          jax_extra=["--checkpoint-dir", str(jdir)],
+                          port_extra=["--checkpoint-dir", str(pdir)])
+        assert len(compare_outputs(jd, pd, 5, tol=TTS_TOL)) == 5
+        hyps = (pd / "hypos.txt").read_text().splitlines()
+        assert sum(len(h.split("\t")[1]) > 0 for h in hyps) == 4
+    elif name == "reranker":
+        jdir, pdir, yml = _ar_checkpoints(setup, "mdec")
+        common = ["--model-torch", str(setup / "daspeech.pt"),
+                  "--length-beam", "3", "--reranker-yaml", str(yml)]
+        jd, pd = run_both(setup, name, common, task="nat_speech_to_text",
+                          yaml_name="s2t.yaml",
+                          jax_extra=["--reranker-dir", str(jdir)],
+                          port_extra=["--reranker-dir", str(pdir)])
+        compare_outputs(jd, pd, 5)
+    else:
+        jd, pd = run_both(setup, name, flags + [
+            "--model-torch", str(setup / "daspeech.pt")])
+        feats = compare_outputs(jd, pd, 5)
+        for f in feats:
+            jw, _ = tgen.read_wav(jd / "wav" / f"{f[:-4]}_pred.wav")
+            pw, _ = tgen.read_wav(pd / "wav" / f"{f[:-4]}_pred.wav")
+            assert pw.shape == jw.shape and len(pw) == np.load(
+                pd / "feat" / f).shape[1] * 256
+            assert np.linalg.norm(pw - jw) <= 1e-3 * np.linalg.norm(jw)
+
+
+def test_model_configs_and_missing_weights(setup):
+    from daspeech_torch.config import MultiDecoderConfig, TTSTransformerConfig
+
+    assert tgen.build_model_cfg("tts_transformer", None,
+                                None) == TTSTransformerConfig()
+    assert tgen.build_model_cfg("s2s_multidecoder", str(setup / "s2t.yaml"),
+                                None) == MultiDecoderConfig()
     with pytest.raises(SystemExit, match="--checkpoint-dir or --model-torch"):
         tgen.main(_common(setup, "none") + ["--device", "cpu"])
 

@@ -91,7 +91,8 @@ def _pad_mask(B, T, n_pad):
 @pytest.mark.parametrize("name", [
     "VocabConfig", "ConformerConfig", "DAGDecoderConfig", "DecodeConfig",
     "FastSpeech2Config", "HiFiGANConfig", "DAGModelConfig",
-    "S2SModelConfig", "GlatConfig", "TrainingConfig"])
+    "S2SModelConfig", "GlatConfig", "TrainingConfig",
+    "TTSTransformerConfig", "MultiDecoderConfig"])
 def test_config_mirrors_jax(name):
     """Every field of the port's config has the JAX field's name and
     default, so the recipe's width is the same in both packages."""
@@ -249,7 +250,7 @@ class TestFastSpeech2:
                         np.int32)
         mel, _, lens, *_ = jm.apply(v, x=x, enc_pad_mask=pad, max_out_len=32,
                                     durations=durs)
-        t_mel, t_lens, *_ = tm(_t(x), _t(pad), 32, _t(durs).long())
+        t_mel, _, t_lens, *_ = tm(_t(x), _t(pad), 32, _t(durs).long())
         np.testing.assert_array_equal(t_lens.numpy(), np.asarray(lens))
         _close(t_mel, mel, 1e-3)
 
@@ -257,7 +258,7 @@ class TestFastSpeech2:
         cfg, x, pad, jm, v, tm = self._build(9)
         mel, _, lens, log_dur, _, _ = jm.apply(v, x=x, enc_pad_mask=pad,
                                                max_out_len=32)
-        t_mel, t_lens, t_log_dur, _, _ = tm(_t(x), _t(pad), 32)
+        t_mel, _, t_lens, t_log_dur, _, _ = tm(_t(x), _t(pad), 32)
 
         def frames(ld):
             d = np.clip(np.round(np.exp(np.asarray(ld)) - 1), 0, None)

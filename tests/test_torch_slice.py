@@ -115,7 +115,7 @@ def test_pipeline_matches_jax_and_golden(golden_setup):
     res = tdec.greedy_or_lookahead_decode(
         logits, links, (prev_t != pad).sum(1), pad, 1.0, True)
     z, zmask = tdec.gather_path_features(feats, res, skip_first=True)
-    mel, _, _, _, _ = tm.synthesize(z[:, :T_PHONE], zmask[:, :T_PHONE], M,
+    mel, _, _, _, _, _ = tm.synthesize(z[:, :T_PHONE], zmask[:, :T_PHONE], M,
                                     torch.from_numpy(durs).long())
     wav = tv(mel[..., :80])
 

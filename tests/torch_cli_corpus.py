@@ -34,11 +34,24 @@ TTS_YAML = {**TINY_TTS, "dropout": 0.0, "attention_dropout": 0.0,
 S2S_YAML = {"dag": S2T_YAML, "tts": TTS_YAML,
             "adaptor_ffn_dim": TINY_ADAPTOR_FFN,
             "adaptor_dropout": 0.0}
+# tests/test_cli_ar.py's TINY_AR_TTS / TINY_MDEC, dropout 0
+AR_TTS_YAML = {"embed_dim": 16, "ffn_dim": 32, "encoder_layers": 1,
+               "decoder_layers": 1, "num_heads": 2, "prenet_dim": 16,
+               "dropout": 0.0}
+MDEC_YAML = {"encoder_embed_dim": 16, "encoder_layers": 1,
+             "encoder_heads": 2, "mt_embed_dim": 16, "mt_layers": 1,
+             "mt_heads": 2, "ffn_dim": 32, "synth_encoder_layers": 1,
+             "tts_decoder_layers": 1, "prenet_dim": 16,
+             "conv_channels": 16, "depthwise_kernel_size": 7,
+             "dropout": 0.0}
 YAMLS = {"nat_dag_loss": S2T_YAML, "s2s_dag_fastspeech2_loss": S2S_YAML,
-         "fastspeech2": TTS_YAML}
+         "fastspeech2": TTS_YAML, "tts_transformer": AR_TTS_YAML,
+         "s2s_multidecoder": MDEC_YAML}
 TASKS = {"nat_dag_loss": "nat_speech_to_text",
          "s2s_dag_fastspeech2_loss": "nat_speech_to_speech",
-         "fastspeech2": "text_to_speech"}
+         "fastspeech2": "text_to_speech",
+         "tts_transformer": "text_to_speech",
+         "s2s_multidecoder": "nat_speech_to_speech"}
 
 
 def _bin_centres(rng, lo, hi, n, n_bins):
