@@ -174,7 +174,11 @@ process.)
    as ``cli_train``), stage 3 ``--restore`` to 9 (its stderr names step 6
    and the saved position), stage 3 under ``torch.distributed.run
    --nproc_per_node 1`` (NCCL: update 1's loss equal, the gradient
-   all-reduce and 24 BatchNorm reductions run), ``cli.train_vocoder`` (20
+   all-reduce and 24 BatchNorm reductions run), stage 3 under ``--fsdp``
+   (a world of one: FSDP2 units, gathered checkpoints) in-process against
+   the unsharded run over the same 4 updates (losses within 1e-4
+   relative, update ms and peak memory of both) and under torchrun
+   (update 1's loss), ``cli.train_vocoder`` (20
    updates at B=16 x 8192), ``cli.eval_pipeline --skip-asr
    --average-last-n 2`` over stage 3's last two checkpoints (shaped as the
    serving phase's decoder) with the vocoder CLI's checkpoint,
@@ -231,7 +235,20 @@ process.)
    update ms unfused and on the kernels);
    and one card-vs-CPU step plus 5 timed updates each of
    ``tts_transformer_criterion`` (TTS A) and ``multidecoder_criterion``
-   (serving A, #5 forward and backward).
+   (serving A, #5 forward and backward);
+17. banded phase (after the AR phase): ``nat_dag_loss`` with
+   ``banded_dp`` (banded link extraction, the block-banded DP and Viterbi,
+   ``max_transition_length`` 128) against the full-matrix masked path
+   (#4 with the band, #8, #9) on the S2TT model at the recipe's widths,
+   J-long's graph (B=14, L=700, T=128), dropout off, GLAT p 0.5: loss
+   within 1e-4 relative, gradients within 1e-3 of their norm, glances
+   equal or a near tie of the full path's decisions within 1e-4; a
+   card-vs-CPU banded step at B=2; 3 + 10 timed updates each way with
+   peak memory and launches (the banded run launches none of #4, #8, #9);
+18. fused-vocab phase: ``fused_vocab_chunk=2048`` against the dense
+   [B, L, V] logits at cell T's shape with a 10 000-entry vocabulary, on
+   the same bars, with a card-vs-CPU step at B=2 and timed updates each
+   way (every training kernel runs in both).
 
 Traces go to ``build/profile/``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernels'
@@ -2118,19 +2135,19 @@ class argmax_spy:
     def __enter__(self):
         from daspeech_torch.losses import s2s_loss as sl
 
-        self.module, self.orig, self.calls = sl, sl.dag_best_alignment, []
+        self.module, self.orig, self.calls = sl, sl._best_alignment, []
 
-        def spy(match, links, ol, tl):
-            path = self.orig(match, links, ol, tl)
+        def spy(match, links, ol, tl, *a):
+            path = self.orig(match, links, ol, tl, *a)
             self.calls.append(tuple(x.detach().cpu() for x in
                                     (match, links, tl, path)))
             return path
 
-        sl.dag_best_alignment = spy
+        sl._best_alignment = spy
         return self
 
     def __exit__(self, *exc):
-        self.module.dag_best_alignment = self.orig
+        self.module._best_alignment = self.orig
 
 
 def viterbi_step_margin(match, links, tl):
@@ -2916,6 +2933,9 @@ BF16_KERNELS = {"fused_attention_packed": "fused_attention_packed_bwd",
 # loss within it floored at one bf16 rounding of the loss
 # (tests/test_torch_bf16_train.py sets out why)
 BF16_PER_TENSOR = 8.0
+# profiles of one same-kernels window: a window whose device events the
+# profiler lost is taken again
+PROFILE_ATTEMPTS = 3
 BF16_LOSS_FLOOR = 2.0 ** -8
 # the convergence run: S2TT at full width on one batch of 16, constant lr
 CONVERGE_B, CONVERGE_LR, CONVERGE_TOL = 16, 3e-4, 0.05
@@ -2941,18 +2961,30 @@ def same_kernels(name, run32, run16, expect):
     ``launches``; returns the kernel count."""
     seen = []
     for tag, fn in (("fp32", run32), ("bf16", run16)):
-        before = read_launches()
-        # a first kernel in the profiled window (a fill) that the
-        # comparison leaves out: the profiler has been seen to miss the
-        # window's first kernel
-        events, _ = profiled_kernels(
-            lambda fn=fn: (torch.ones(1, device="cuda"), fn()),
-            f"bf16_same_kernels_{name}_{tag}")
-        after = read_launches()
-        seen.append((sorted(e["name"] for e in events
-                            if "daspeech" in e["name"]),
-                     {k: after[k] - before[k] for k in after
-                      if not k.endswith(" bf16")}))
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            before = read_launches()
+            # a first kernel in the profiled window (a fill) that the
+            # comparison leaves out: the profiler has been seen to miss
+            # the window's first kernel
+            events, _ = profiled_kernels(
+                lambda fn=fn: (torch.ones(1, device="cuda"), fn()),
+                f"bf16_same_kernels_{name}_{tag}")
+            after = read_launches()
+            ours = sorted(e["name"] for e in events if "daspeech" in e["name"])
+            moved = {k: after[k] - before[k] for k in after
+                     if not k.endswith(" bf16")}
+            # a window whose wrappers launched and where the profiler saw
+            # none of their kernels lost its device events (CUPTI); it is
+            # profiled again. A window that saw other kernels is compared
+            # as it is
+            if ours or not any(moved.values()):
+                break
+            log(f"  {name} {tag}: the profile saw {len(events)} kernels, "
+                f"none of ours, while the wrappers counted "
+                f"{ {k: v for k, v in moved.items() if v} }: the profiler "
+                f"lost the window's device events (attempt {attempt} of "
+                f"{PROFILE_ATTEMPTS})")
+        seen.append((ours, moved))
     if seen[0] != seen[1] or not all(any(x in n for n in seen[0][0])
                                      for x in expect):
         raise AssertionError(f"{name}: the bf16 call launches "
@@ -5164,6 +5196,233 @@ def vocoder_train_phase():
 
 
 # ---------------------------------------------------------------------------
+# the DAG loss's memory variants: the banded DP and the streamed vocabulary
+# ---------------------------------------------------------------------------
+
+BAND_W = 128                      # max_transition_length of the banded phase
+BAND_SHAPE = (14, 1400, 128)      # J-long's graph: B, fbank frames (L 700), T
+FV_SHAPE = (TRAIN_B, TRAIN_S, TRAIN_T)   # cell T: L = 240
+FV_VOCAB = 10000                  # a multilingual subword vocabulary
+FV_CHUNK = 2048                   # --fused-vocab-chunk
+VARIANT_CPU_B = 2                 # utterances of the card-vs-CPU steps
+VARIANT_GLAT = 0.5
+
+
+def variant_config(vocab: int, mtl: int = 99999):
+    """The S2TT model at the recipe's widths, dropout off, with ``vocab``
+    entries and a transition band of ``mtl``."""
+    from daspeech_torch.config import (ConformerConfig, DAGDecoderConfig,
+                                       DAGModelConfig, VocabConfig)
+
+    return DAGModelConfig(
+        vocab=VocabConfig(size=vocab),
+        encoder=ConformerConfig(dropout=0.0, attn_dropout=0.0),
+        decoder=DAGDecoderConfig(dropout=0.0, attn_dropout=0.0,
+                                 activation_dropout=0.0,
+                                 max_transition_length=mtl))
+
+
+def variant_loss_fn(cfg, glat_p, **kw):
+    from daspeech_torch.losses import nat_dag_loss
+
+    return lambda m, b, g: nat_dag_loss(m, b, g, glat_p, cfg.vocab, **kw)
+
+
+def variant_vs_reference(model, batch, loss_var, loss_ref, pad, what):
+    """The variant's loss and gradients against the reference path's on the
+    card, same weights, batch and seeds: loss within TOL_LOSS relative,
+    each gradient within TOL_GRAD of its norm. A glance that differs (the
+    variant's Viterbi against the reference's) must be a near tie of the
+    reference's decisions, within MARGIN; its sample is masked out of a
+    second try."""
+    B = batch["prev_output_tokens"].shape[0]
+    for attempt in range(2):
+        lv, gv, cv = loss_and_grads(model, batch, SEED, loss_var)
+        lr, gr, cr = loss_and_grads(model, batch, SEED, loss_ref)
+        prev_r = cr[0][3].prev_output_tokens
+        differ = (cv[0][3].prev_output_tokens != prev_r).any(dim=1)
+        differ = differ.nonzero()[:, 0].tolist()
+        log(f"  {what}: glanced tokens equal in {B - len(differ)} of {B} "
+            "samples")
+        if not differ:
+            break
+        for b in differ:
+            logits, links, (tgt, prev, *_), _ = cr[0]
+            m = viterbi_margin(logits, links, tgt, prev, pad, b)
+            log(f"  sample {b}: the glance differs; top-2 margin of the "
+                f"reference's decisions {m:.3g} (< {MARGIN})")
+            if not m < MARGIN:
+                raise AssertionError(f"{what}: sample {b}'s glance differs "
+                                     f"with margin {m}")
+        mask = torch.ones(B, device=DEVICE)
+        mask[differ] = 0.0
+        batch = dict(batch, sample_mask=mask)
+    dloss = abs(lv.item() - lr.item()) / abs(lr.item())
+    gerr = grad_error([n for n, _ in model.named_parameters()], gv, gr,
+                      what.split(" ")[0] + "_vs_reference")
+    log(f"  {what}: loss {lv.item():.6f} vs {lr.item():.6f}, rel diff "
+        f"{dloss:.3g} (<= {TOL_LOSS}); worst per-parameter gradient rel "
+        f"diff {gerr:.3g} (<= {TOL_GRAD})")
+    if not (dloss <= TOL_LOSS and gerr <= TOL_GRAD):
+        raise AssertionError(f"{what}: the variant and the reference "
+                             "disagree")
+    return {"loss_rel": dloss, "grad_rel": gerr,
+            "glance_differs": len(differ)}
+
+
+def variant_phase(tag, cfg, shape, var_kw, ref_kw, ref_name, smi):
+    """One memory variant of the S2TT step (``var_kw`` of ``nat_dag_loss``)
+    against its reference path (``ref_kw``) at ``shape`` (B, fbank frames,
+    target tokens), random weights from a seed, dropout off: the
+    comparison on the card (GLAT p 0.5), a card-vs-CPU step of the variant
+    at B = 2 (GLAT p 0), and 3 + 10 timed updates each way with launches
+    and peak memory. Returns ({"variant": launches, "reference":
+    launches}, numbers)."""
+    from daspeech_torch.models import S2TConformerDAG
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    B, S, T = shape
+    model_cpu = init_random_(S2TConformerDAG(cfg), SEED + 71)
+    model = copy.deepcopy(model_cpu).to(DEVICE)
+    batch = make_train_batch(B, S, T, cfg, SEED + 72, DEVICE)
+    out = {"vs_reference": variant_vs_reference(
+        model, batch, variant_loss_fn(cfg, VARIANT_GLAT, **var_kw),
+        variant_loss_fn(cfg, VARIANT_GLAT, **ref_kw), cfg.vocab.pad,
+        f"{tag} against {ref_name} (B={B}, L={S // 2}, T={T})")}
+    del model
+    out["vs_cpu"] = step_parity(
+        f"{tag} card vs CPU (B={VARIANT_CPU_B})", model_cpu,
+        variant_loss_fn(cfg, 0.0, **var_kw),
+        {k: v[:VARIANT_CPU_B].cpu() for k, v in batch.items()})
+    paths = {}
+    for name, kw in (("variant", var_kw), ("reference", ref_kw)):
+        torch.cuda.empty_cache()
+        opt = GuardedAdam()
+        state = TrainState.create(copy.deepcopy(model_cpu).to(DEVICE), opt)
+        step = make_train_step(variant_loss_fn(cfg, VARIANT_GLAT, **kw), opt)
+        label = tag if name == "variant" else ref_name
+        med, iqr, launches, peak, _ = timed_updates(
+            step, state, batch, 3, 10, f"{label} updates at B={B}")
+        paths[name] = launches
+        out[name] = {"ms": med, "iqr": iqr, "peak_gib": peak}
+        say = {k: launches[k] for k in JOINT_KERNELS}
+        log(f"  [{smi}] {label}: update {med:.3f} ms (median of 10 after 3, "
+            f"IQR {iqr[0]:.3f}-{iqr[1]:.3f}), peak memory {peak:.2f} GiB; "
+            f"launches in 13 updates {say}")
+        del state, step
+    return paths, out
+
+
+def banded_phase(smi):
+    """``--banded-dp`` (banded link extraction, the block-banded DP and
+    Viterbi, W = 128) against the full-matrix masked path (#4 with the
+    band, #8, #9) at J-long's graph (B = 14, L = 700, T = 128). The banded
+    run launches the attention kernels (#1, #5) and none of #4, #8, #9;
+    the full run all of them."""
+    cfg = variant_config(128, BAND_W)
+    paths, out = variant_phase(
+        "banded", cfg, BAND_SHAPE,
+        dict(max_transition_length=BAND_W, banded_dp=True),
+        dict(max_transition_length=BAND_W), "full-matrix", smi)
+    full = ("fused_extract_links", "fused_extract_links_bwd",
+            "dag_loss_forward", "dag_best_alignment")
+    for name in TRAIN_KERNELS:
+        if (paths["variant"][name] > 0) == (name in full):
+            raise AssertionError(f"banded run: {name} launched "
+                                 f"{paths['variant'][name]} times")
+        if paths["reference"][name] <= 0:
+            raise AssertionError(f"full-matrix run: {name} not launched")
+    log(f"  [{smi}] banded vs full-matrix at B={BAND_SHAPE[0]}, L="
+        f"{BAND_SHAPE[1] // 2}, W={BAND_W}: update "
+        f"{out['variant']['ms']:.3f} vs {out['reference']['ms']:.3f} ms, "
+        f"peak memory {out['variant']['peak_gib']:.2f} vs "
+        f"{out['reference']['peak_gib']:.2f} GiB")
+    for L in BAND_MEMORY_L:
+        band_loss_memory(cfg, BAND_SHAPE[0], L, BAND_SHAPE[2], smi)
+    return paths
+
+
+# graph sizes of the loss path's memory: J-long's, and the longest the DAG
+# decoder's 1024 learned positions allow
+BAND_MEMORY_L = (700, 1024)
+
+
+def band_loss_memory(cfg, B, L, T, smi):
+    """The memory of the DAG loss path alone, banded and full-matrix, at
+    (B, L, T): from the decoder's features [B, L, 512] and a match [B, T, L]
+    (both needing gradient) through the links, the Viterbi, the DP and the
+    backward to both. Logs the peak above what was allocated before, beside
+    the sizes of the tensors of each path's layout, and returns {path: peak
+    MiB}."""
+    from daspeech_torch.models import S2TConformerDAG
+    from daspeech_torch.ops.dag_banded import (dag_best_alignment_banded,
+                                               dag_loss_banded)
+    from daspeech_torch.ops.dag_ref import dag_best_alignment, dag_loss
+
+    dec = S2TConformerDAG(cfg).decoder.to(DEVICE)
+    g = torch.Generator().manual_seed(SEED + 73)
+    feats = torch.randn(B, L, cfg.decoder.embed_dim, generator=g).to(DEVICE)
+    match = torch.log_softmax(torch.randn(B, T, L, generator=g), dim=-1
+                              ).to(DEVICE)
+    prev = torch.full((B, L), 4, dtype=torch.long, device=DEVICE)
+    out_len = torch.full((B,), L, dtype=torch.long, device=DEVICE)
+    tgt_len = torch.full((B,), T, dtype=torch.long, device=DEVICE)
+    runs = {
+        "banded": (dec.extract_links_banded, dag_best_alignment_banded,
+                   dag_loss_banded),
+        "full": (dec.extract_links, dag_best_alignment, dag_loss)}
+    peaks = {}
+    for name, (links_fn, viterbi, loss_fn) in runs.items():
+        f = feats.clone().requires_grad_()
+        m = match.clone().requires_grad_()
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        links = links_fn(f, prev)
+        viterbi(m.detach(), links.detach(), out_len, tgt_len)
+        loss = -loss_fn(m, links, out_len, tgt_len).sum()
+        loss.backward()
+        sync()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        if not (torch.isfinite(loss) and torch.isfinite(f.grad).all()):
+            raise AssertionError(f"band loss memory {name} L={L}: {loss}")
+        del f, m, links, loss
+    H, W, D = cfg.decoder.num_heads, BAND_W, cfg.decoder.embed_dim
+    mib = 4 / 2 ** 20
+    log(f"  [{smi}] DAG loss path alone at B={B}, L={L}, T={T}, W={W}: "
+        f"peak above its inputs {peaks['banded']:.1f} MiB banded vs "
+        f"{peaks['full']:.1f} MiB full-matrix; one [B, L, L] f32 is "
+        f"{B * L * L * mib:.1f} MiB, one [B, L, W, H] "
+        f"{B * L * W * H * mib:.1f}, the block-pair scores [B, L/W, W, 2W, "
+        f"H] {B * -(-L // W) * W * 2 * W * H * mib:.1f}, q/k [B, L, D] "
+        f"{B * L * D * mib:.1f}")
+    return peaks
+
+
+def fused_vocab_phase(smi):
+    """``--fused-vocab-chunk 2048`` (the streamed vocabulary projection)
+    against the dense [B, L, V] logits at cell T's shape (B = 80, L = 240,
+    T = 64) with a 10 000-entry vocabulary (768 MB of fp32 logits). Both
+    runs launch every training kernel."""
+    cfg = variant_config(FV_VOCAB)
+    paths, out = variant_phase(
+        "fused-vocab", cfg, FV_SHAPE, dict(fused_vocab_chunk=FV_CHUNK), {},
+        "dense", smi)
+    for name in TRAIN_KERNELS:
+        for p in ("variant", "reference"):
+            if paths[p][name] <= 0:
+                raise AssertionError(f"fused-vocab {p} run: {name} not "
+                                     "launched")
+    log(f"  [{smi}] fused-vocab vs dense at B={FV_SHAPE[0]}, L="
+        f"{FV_SHAPE[1] // 2}, |V|={FV_VOCAB}, chunk {FV_CHUNK}: update "
+        f"{out['variant']['ms']:.3f} vs {out['reference']['ms']:.3f} ms, "
+        f"peak memory {out['variant']['peak_gib']:.2f} vs "
+        f"{out['reference']['peak_gib']:.2f} GiB")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # runtime phase
 # ---------------------------------------------------------------------------
 
@@ -5791,6 +6050,8 @@ CLI_DEV = 8               # utterances of the valid split
 CLI_TTS_SENTENCES = 16    # --max-sentences of stage 2
 CLI_VOC = (16, 3 * 8192 + 2048)   # vocoder TSV: waveforms, samples each
 CLI_VOC_UPDATES = 20
+CLI_FSDP_UPDATES = 4      # stage 3 updates under --fsdp and unsharded
+TOL_FSDP = 1e-4           # relative, their losses update by update
 CLI_BF16_UPDATES = 4      # stages 1 and 2 under --dtype bfloat16
 TOL_CLI_LOSS = 1e-5       # stage 3's first update against make_train_step
 LOG_ROUNDING = 5e-5       # the progress log's 4 decimals
@@ -6098,6 +6359,68 @@ def cli_phase(smi):
                 or done.get("bn_syncs", 0) < 2 * 12):
             raise AssertionError(f"torchrun stage 3: {done}")
 
+        # --- stage 3 under --fsdp (a world of one) against the unsharded
+        # run over the same updates, in-process, each validating the dev
+        # split after its last update; then under torchrun
+        fsdp_runs, fsdp_valid, fsdp_launches = {}, {}, None
+        for name, extra in (("unsharded", []), ("fsdp", ["--fsdp"])):
+            argv = list(ddp)
+            for flag, value in (
+                    ("--max-update", str(CLI_FSDP_UPDATES)),
+                    ("--save-dir", str(root / name)),
+                    ("--valid-subset", "dev"),
+                    ("--validate-interval-updates", str(CLI_FSDP_UPDATES))):
+                argv[argv.index(flag) + 1] = value
+            torch.cuda.empty_cache()
+            reset_launches()
+            rc, recs, _, st, wall, peak = run_train_cli(argv + extra)
+            if name == "fsdp":
+                fsdp_launches = read_launches()
+            stage_line(f"stage 3 {name} ({CLI_FSDP_UPDATES} updates)", st,
+                       wall, peak)
+            fsdp_valid[name] = [r["valid_loss"] for r in recs
+                                if r.get("tag") == "valid"]
+            if (rc != 0 or len(st.losses) != CLI_FSDP_UPDATES
+                    or len(fsdp_valid[name]) != 1):
+                raise AssertionError(f"stage 3 {name}: rc {rc}, valid "
+                                     f"{fsdp_valid[name]}")
+            fsdp_runs[name] = st.losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            fsdp_runs["fsdp"] + fsdp_valid["fsdp"],
+            fsdp_runs["unsharded"] + fsdp_valid["unsharded"]))
+        missing = [k for k in TRAIN_KERNELS if fsdp_launches[k] <= 0]
+        say(f"stage 3 --fsdp: losses {fsdp_runs['fsdp']}, valid_loss "
+            f"{fsdp_valid['fsdp']} against the unsharded run's "
+            f"{fsdp_runs['unsharded']}, {fsdp_valid['unsharded']}: worst "
+            f"relative {rel:.3g} (<= {TOL_FSDP}); launches "
+            f"{ {k: fsdp_launches[k] for k in JOINT_KERNELS} }")
+        if not (rel <= TOL_FSDP and np.isfinite(fsdp_runs["fsdp"]).all()
+                and not missing):
+            raise AssertionError(f"stage 3 --fsdp: {rel}, {missing} not "
+                                 "launched")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            cmd[cmd.index("--master_port") + 1] = str(sk.getsockname()[1])
+        cmd[cmd.index("--save-dir") + 1] = str(root / "fsdp_torchrun")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--fsdp"],
+                              cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=900)
+        fsdp_s = time.perf_counter() - t0
+        recs = [json.loads(x) for x in proc.stdout.splitlines()
+                if x.startswith("{")]
+        if proc.returncode != 0 or not recs:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"torchrun --fsdp: rc {proc.returncode}")
+        got = next(r["loss"] for r in recs if r.get("update") == 1
+                   and not r.get("done"))
+        say(f"stage 3 under torchrun --fsdp (world 1, NCCL; {fsdp_s:.1f} s "
+            f"with the process start): update 1 loss {got} against "
+            f"{first['loss']!r}; last record {recs[-1]}")
+        if (abs(got - first["loss"]) > TOL_FSDP * abs(first["loss"])
+                + LOG_ROUNDING or recs[-1].get("world_size") != 1):
+            raise AssertionError(f"torchrun --fsdp: {recs[-1]}")
+
         # --- the vocoder CLI
         voc_ms, last = [], [None]
 
@@ -6233,7 +6556,7 @@ def cli_phase(smi):
             f"{np.median(nbytes) / np.median(pinned[1]) / 1e6:.2f} GB/s "
             f"pinned, {np.median(nbytes) / np.median(plain) / 1e6:.2f} "
             f"plain")
-        return launches
+        return launches, fsdp_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6338,14 +6661,22 @@ def main() -> int:
     log("AR and TTS-options phase (at_tts, at_s2s, the reranker, "
         "Griffin-Lim, FastSpeech 2's options, the AR training steps):")
     ar_paths = ar_phase(ctx, mels["A"])
+    log("banded phase (--banded-dp against the full-matrix path, J-long's "
+        "graph):")
+    variants = {f"banded{'' if k == 'variant' else '_reference'}": v
+                for k, v in banded_phase(smi).items()}
+    log("fused-vocab phase (--fused-vocab-chunk against the dense logits, "
+        "cell T, 10 000 entries):")
+    variants.update({f"fused_vocab{'' if k == 'variant' else '_reference'}":
+                     v for k, v in fused_vocab_phase(smi).items()})
     log("vocoder-training phase:")
     voc_train, _, _ = vocoder_train_phase()
     log("runtime phase (data, tasks, train loop, checkpoints, generate CLI):")
     rt_train_launches, cli_launches = runtime_phase(ctx, smi)
     del ctx
-    log("CLI phase (the three recipe stages, resume, torchrun, vocoder, "
-        "pipeline, parity, pinned copy):")
-    cli_train = cli_phase(smi)
+    log("CLI phase (the three recipe stages, resume, torchrun, --fsdp, "
+        "vocoder, pipeline, parity, pinned copy):")
+    cli_train, cli_fsdp = cli_phase(smi)
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
@@ -6361,7 +6692,7 @@ def main() -> int:
                "vocoder_training": voc_train,
                "runtime_train": rt_train_launches,
                "cli_generate": cli_launches, "cli_train": cli_train,
-               **ar_paths}
+               "cli_fsdp": cli_fsdp, **variants, **ar_paths}
     # the alternate backends launch on no other path
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in ALTERNATE_KERNELS if v[n]}

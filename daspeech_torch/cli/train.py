@@ -30,8 +30,11 @@ rank's rows of it, the criterion's loss and gradients with dropout drawn
 from a generator seeded by (seed, update, rank), gradients summed over the
 ranks, then the guarded Adam update (``train/step.py``). The step returns
 device tensors; they are read in one transfer at each log, validation or
-save boundary. Options whose modules are not ported raise, naming their
-ROADMAP item; the JAX CLI's TPU options are not accepted (README).
+save boundary. ``--banded-dp`` and ``--fused-vocab-chunk`` select the DAG
+loss's memory variants (``losses/dag_loss.py``); ``--fsdp`` shards
+parameters, gradients and Adam's moments over the ranks
+(``parallel/partition.py``; a single process is a world of one). The JAX
+CLI's TPU options are not accepted (README).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from daspeech_torch.cli.generate import build_model_cfg, resolve_device
 from daspeech_torch.config import DecodeConfig
 from daspeech_torch.data.prefetch import consume, prefetch_epoch, to_device
 from daspeech_torch.parallel import multihost as mh
+from daspeech_torch.parallel import partition
 from daspeech_torch.tasks import (
     NATSpeechToSpeechTask,
     NATSpeechToTextTask,
@@ -60,6 +64,7 @@ from daspeech_torch.tasks import (
 )
 from daspeech_torch.train.checkpoint import (
     CheckpointManager,
+    host_state,
     resume_position,
     transfer_dag_params,
     transfer_tts_params,
@@ -72,9 +77,6 @@ from daspeech_torch.train.train_state import (
     anneal_value,
     parse_anneal,
 )
-
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 {item})"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("daspeech-torch-train")
@@ -147,10 +149,16 @@ def parse_args(argv=None):
                    help="keep fresh decoder embeddings when loading the "
                         "pretrained DAG (multilingual vocabulary swap)")
     p.add_argument("--banded-dp", action="store_true",
-                   help="the block-banded DAG DP; not ported yet, raises")
+                   help="block-banded DAG links, DP and Viterbi when the "
+                        "model's max_transition_length W < L-1: no [L, L] "
+                        "matrix, but at L <= 1024 more memory and time "
+                        "than the full-matrix kernels, whose [L, L] "
+                        "tensors are the smaller there (the recipe's "
+                        "99999 is a no-op)")
     p.add_argument("--fused-vocab-chunk", type=int, default=None,
-                   help="the streamed vocabulary projection; not ported "
-                        "yet, raises")
+                   help="stream the vocabulary projection + log-softmax + "
+                        "target gather over chunks of N entries: the "
+                        "[B, L, V] logits never exist (large vocabularies)")
     p.add_argument("--coordinator", default=None,
                    help="rendezvous address host:port of a multi-process "
                         "run (also DASPEECH_COORDINATOR); torchrun and "
@@ -158,10 +166,13 @@ def parse_args(argv=None):
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--fsdp", action="store_true",
-                   help="shard parameters and Adam moments; not ported "
-                        "yet, raises")
-    p.add_argument("--min-fsdp-size", type=int, default=None,
-                   help="with --fsdp; not ported yet, raises")
+                   help="shard parameters, gradients and Adam moments over "
+                        "the data-parallel ranks (ZeRO-3; a single process "
+                        "is a world of one)")
+    p.add_argument("--min-fsdp-size", type=int,
+                   default=partition.MIN_FSDP_SIZE,
+                   help="with --fsdp, keep parameters of fewer elements "
+                        "replicated (fairseq's --min-params-to-wrap)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of updates 5-15 to "
                         "DIR")
@@ -182,18 +193,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise for the options whose modules are not ported, naming their
-    ROADMAP item."""
-    if args.banded_dp:
-        raise NotImplementedError("--banded-dp "
-                                  + NOT_PORTED.format(item="#6b"))
-    if args.fused_vocab_chunk is not None:
-        raise NotImplementedError("--fused-vocab-chunk "
-                                  + NOT_PORTED.format(item="#6b"))
-    if args.fsdp or args.min_fsdp_size is not None:
-        raise NotImplementedError("--fsdp / --min-fsdp-size "
-                                  + NOT_PORTED.format(item="#4c"))
+def check_args(args) -> None:
+    """Raise for an unknown glance strategy."""
     glance = args.glance_strategy
     if glance not in ("number-random", "cmlm", "none", "None"):
         raise ValueError(f"unknown --glance-strategy {glance!r}")
@@ -261,6 +262,19 @@ def load_pretrained_(model: nn.Module, dag_from=None, fastspeech_from=None,
                           strict=False)
 
 
+def dag_options(args, cfg) -> Dict:
+    """The DAG criteria's memory-variant arguments (``cli/train.py:
+    396-436``): ``max_transition_length`` from the model config
+    (``dag.decoder`` of the joint model, ``decoder`` of the S2TT one)."""
+    if args.criterion not in ("nat_dag_loss", "s2s_dag_fastspeech2_loss"):
+        return {}
+    dec = (cfg.dag.decoder if args.criterion == "s2s_dag_fastspeech2_loss"
+           else cfg.decoder)
+    return dict(fused_vocab_chunk=args.fused_vocab_chunk,
+                max_transition_length=dec.max_transition_length,
+                banded_dp=args.banded_dp)
+
+
 def update_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
     """The host generator of update ``step + 1`` on ``rank``: a pure
     function of the three, so a resumed run draws the same dropout without
@@ -279,6 +293,16 @@ class Run:
     batcher: object
     vocab: object
     has_valid: bool
+    dag_kw: Dict = dataclasses.field(default_factory=dict)
+
+    def call(self, fn, *args):
+        """``fn(model, *args)`` for validation (without gradient), under
+        ``--fsdp`` as the root's forward inside ``partition.FSDP.gathered``
+        (:func:`make_validator`)."""
+        if self.state.sharding is None:
+            return fn(self.model, *args)
+        with torch.no_grad():
+            return self.state.sharding.run(fn, *args)
 
 
 def build(args, device, group=None) -> Run:
@@ -341,11 +365,15 @@ def build(args, device, group=None) -> Run:
                       warmup_init_lr=args.warmup_init_lr,
                       weight_decay=args.weight_decay,
                       clip_norm=args.clip_norm)
-    state = TrainState.create(model.to(device).train(), opt)
+    model = model.to(device).train()
+    sharding = (partition.FSDP(model, group, args.min_fsdp_size)
+                if args.fsdp else None)
+    state = TrainState.create(model, opt, sharding)
 
     glat_sched = parse_anneal(args.glat_p)
     glance = (None if args.glance_strategy in ("none", "None")
               else args.glance_strategy)
+    dag_kw = dag_options(args, cfg)
 
     def loss_fn(m, batch, rng):
         # the host's update count decides GLAT p and both freezes: the
@@ -366,11 +394,11 @@ def build(args, device, group=None) -> Run:
                 training_strategy=args.training_strategy,
                 freeze_dag=dag_frozen(step, args.dag_freezing_steps),
                 freeze_encoder=enc_freeze, glance_strategy=glance,
-                no_force_emit=args.no_force_emit)
+                no_force_emit=args.no_force_emit, **dag_kw)
         return nat_dag_loss(m, batch, rng, glat_p, vocab,
                             glance_strategy=glance,
                             no_force_emit=args.no_force_emit,
-                            freeze_encoder=enc_freeze)
+                            freeze_encoder=enc_freeze, **dag_kw)
 
     if is_tts or args.criterion == "tts_transformer":
         batcher = task.get_batch_iterator(args.train_subset,
@@ -381,8 +409,8 @@ def build(args, device, group=None) -> Run:
             args.train_subset, seed=args.seed,
             upsample_scale=args.src_upsample_scale)
     step = make_train_step(loss_fn, opt, accum_steps=args.update_freq,
-                           group=group)
-    return Run(task, model, state, step, batcher, vocab, has_valid)
+                           group=group, sharding=sharding)
+    return Run(task, model, state, step, batcher, vocab, has_valid, dag_kw)
 
 
 # ----------------------------------------------------------- validation
@@ -395,7 +423,21 @@ def make_validator(args, run: Run, device):
     with
     ``--eval-inference``, FastSpeech 2's corpus MCD (``:663-691``). Each
     kind runs on this rank's round-robin share of the valid batches and is
-    gathered over the ranks."""
+    gathered over the ranks. Under ``--fsdp`` the parameters are gathered
+    once for the whole validation: the shares may differ in number."""
+    validate = _validator(args, run, device)
+    sharding = run.state.sharding
+    if validate is None or sharding is None:
+        return validate
+
+    def gathered(state):
+        with sharding.gathered():
+            return validate(state)
+
+    return gathered
+
+
+def _validator(args, run: Run, device):
     if not run.has_valid:
         return None
     task, model = run.task, run.model
@@ -432,7 +474,7 @@ def make_validator(args, run: Run, device):
 
             hyps, refs = [], []
             for vit, idxs, b in batches():
-                out = generator.generate(b)
+                out = run.call(lambda _m: generator.generate(b))
                 for i, local in enumerate(idxs):
                     hyps.append(detok(task.tgt_dict.string(out[i]["tokens"])))
                     refs.append(detok(vit.dataset._tgt_text(int(local))))
@@ -464,13 +506,14 @@ def make_validator(args, run: Run, device):
             model, batch, g, 0.0, run.vocab,
             tts_loss_weight=args.tts_loss_weight,
             training_strategy=args.training_strategy,
-            no_force_emit=args.no_force_emit, train=False)
+            no_force_emit=args.no_force_emit, train=False, **run.dag_kw)
 
     def validate_loss():
         total, n = 0.0, 0
         with torch.no_grad():
             for _, idxs, b in batches():
-                _, m = eval_loss(consume(to_device(b, device)))
+                _, m = run.call(lambda _m, bb: eval_loss(bb),
+                                consume(to_device(b, device)))
                 ns = int(m["nsentences"]) if "nsentences" in m else len(idxs)
                 total += float(m["loss"]) * ns
                 n += ns
@@ -487,8 +530,9 @@ def make_validator(args, run: Run, device):
             for _, idxs, b in batches():
                 M = int(b["target_audio"].shape[1])
                 tokens = torch.as_tensor(b["src_tokens"], device=device)
-                mel, mel_post, out_lens = model(src_tokens=tokens.long(),
-                                                max_out_len=2 * M)[:3]
+                mel, mel_post, out_lens = run.call(
+                    lambda m: m(src_tokens=tokens.long(),
+                                max_out_len=2 * M))[:3]
                 if mel_post is not None:
                     mel = mel_post
                 mel = mel.float().cpu().numpy()
@@ -744,13 +788,14 @@ def train_loop(state: TrainState, step: Callable, batcher, device,
                                 logger.print(rec, update, epoch, tag=tag)
                         if vmetric is not None:
                             metric = vmetric
-                    if need_save and rank == 0:
+                    if need_save:
                         t = time.perf_counter()
-                        manager.save(state, update, metric=metric,
-                                     extra=stats.next_position,
-                                     blocking=False)
+                        save_checkpoint(manager, state, update, rank,
+                                        metric=metric,
+                                        extra=stats.next_position,
+                                        blocking=False)
                         stats.save_s.append(time.perf_counter() - t)
-                        if on_save is not None:
+                        if on_save is not None and rank == 0:
                             manager.wait_until_finished()
                             on_save(update)
                     if done:
@@ -760,7 +805,10 @@ def train_loop(state: TrainState, step: Callable, batcher, device,
             epoch, first = epoch + 1, 0
         return stats
     except Exception:
-        if manager is not None and rank == 0:
+        # a sharded state is gathered by every rank: one that failed alone
+        # cannot, so a --fsdp run of several ranks leaves none
+        if (manager is not None and rank == 0
+                and (state.sharding is None or state.sharding.world == 1)):
             _save_crash_checkpoint(manager, state, stats.next_position)
         raise
     finally:
@@ -768,6 +816,16 @@ def train_loop(state: TrainState, step: Callable, batcher, device,
             _stop_profiler(profiler, cfg.profile_dir)
         stats.wall_s = time.perf_counter() - t_start
         stats.epoch = epoch
+
+
+def save_checkpoint(manager: CheckpointManager, state: TrainState,
+                    step: int, rank: int, **kw) -> None:
+    """Rank 0 writes the checkpoint; under ``--fsdp`` every rank takes part
+    in gathering the shards (``checkpoint.host_state``)."""
+    if rank == 0:
+        manager.save(state, step, **kw)
+    elif state.sharding is not None:
+        host_state(state)
 
 
 def _save_crash_checkpoint(manager: CheckpointManager, state: TrainState,
@@ -832,16 +890,19 @@ def main(argv=None, *, on_update: Optional[Callable] = None,
     """Run the CLI. For in-process callers that inspect the run:
     ``on_update`` is :func:`train_loop`'s hook, ``on_stats(stats)`` gets
     the loop's :class:`LoopStats` when it ends."""
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    refuse_unported(args)
+    check_args(args)
     device = resolve_device(args.device, prog="train")
     multi = mh.initialize_distributed(
         args.coordinator, args.num_processes, args.process_id,
         device_type=device.type)
     group = None
+    if args.fsdp and not multi:
+        partition.init_single_process_group(device)   # a world of one
+        group = dist.group.WORLD
     if multi:
-        import torch.distributed as dist
-
         group = dist.group.WORLD
         if device.type == "cuda":
             device = torch.device("cuda", mh.local_rank())
@@ -878,10 +939,10 @@ def main(argv=None, *, on_update: Optional[Callable] = None,
             logger=logger, validate=make_validator(args, run, device),
             start=start, group=group, watchdog=watchdog,
             on_update=on_update)
-        if rank == 0:
-            t = time.perf_counter()
-            ckpt.save(state, state.step, extra=stats.next_position)
-            stats.save_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        save_checkpoint(ckpt, state, state.step, rank,
+                        extra=stats.next_position)
+        stats.save_s.append(time.perf_counter() - t)
         if on_stats is not None:
             on_stats(stats)
         done = {"done": True, "wall_s": round(stats.wall_s, 3),

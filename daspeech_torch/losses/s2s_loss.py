@@ -1,7 +1,10 @@
 """Joint two-pass S2ST loss (PyTorch): DAG loss + FastSpeech 2 loss over
 expected (or Viterbi-argmax) hidden states.
 
-Counterpart of ``daspeech_tpu/losses/s2s_loss.py`` (full-matrix path):
+Counterpart of ``daspeech_tpu/losses/s2s_loss.py``, with the DAG loss's
+memory variants of ``losses/dag_loss.py`` (``banded_dp``: banded links, the
+block-banded DP and Viterbi; ``fused_vocab_chunk``: the streamed
+vocabulary projection, no [B, L, V] logits):
 
 - ``expect``: posterior weights score = exp(alpha + beta - logsumexp_j(alpha
   + beta)), alpha and beta both including the emission term (the
@@ -25,17 +28,19 @@ import torch
 
 from daspeech_torch.losses.dag_loss import (
     GlanceDraws,
+    _best_alignment,
+    banded_links,
     compute_dag_loss,
     conditional_stop_gradient,
+    dag_decode,
     device_generator,
     glance_pass,
+    vocab_matrix,
 )
 from daspeech_torch.losses.fastspeech2_loss import fastspeech2_losses
 from daspeech_torch.models.layers import lengths_to_padding_mask
-from daspeech_torch.ops.dag_ref import (
-    dag_best_alignment,
-    dag_logsoftmax_gather_tokens,
-)
+from daspeech_torch.ops.dag_ref import dag_logsoftmax_gather_tokens
+from daspeech_torch.ops.fused_vocab import fused_logsoftmax_gather
 
 
 def dag_frozen(step: int, dag_freezing_steps: int) -> bool:
@@ -64,22 +69,31 @@ def expected_features(alpha: torch.Tensor, beta: torch.Tensor,
     return torch.bmm(score.to(features.dtype), features)[:, 1:]
 
 
-def argmax_path_features(logits: torch.Tensor, links: torch.Tensor,
-                         tgt_tokens: torch.Tensor,
+def argmax_path_features(logits: Optional[torch.Tensor],
+                         links: torch.Tensor, tgt_tokens: torch.Tensor,
                          prev_output_tokens: torch.Tensor,
-                         features: torch.Tensor, pad: int):
+                         features: torch.Tensor, pad: int,
+                         match_all: Optional[torch.Tensor] = None,
+                         max_transition_length: Optional[int] = None,
+                         banded_dp: bool = False,
+                         links_banded: bool = False):
     """``argmax`` (``s2s_loss.py:56-92``): the features of the vertices on
     the Viterbi path, without <bos> (``path[:, 0] = -1``); the path's
     vertices increase with their target position, so placing vertex j at
-    slot path[j] - 1 compacts them to the left. Returns (feats [B, T-1, D],
-    lengths [B])."""
+    slot path[j] - 1 compacts them to the left. Pass ``logits`` or a
+    precomputed ``match_all`` [B, T, L] (the streamed vocabulary
+    projection); the Viterbi is routed as the DAG loss routes it. Returns
+    (feats [B, T-1, D], lengths [B])."""
     T = tgt_tokens.shape[1]
     output_length = (prev_output_tokens != pad).sum(dim=1)
     target_length = (tgt_tokens != pad).sum(dim=1)
     with torch.no_grad():
-        match = dag_logsoftmax_gather_tokens(logits, tgt_tokens)
-        path = dag_best_alignment(match.transpose(1, 2), links,
-                                  output_length, target_length).long()
+        match = (dag_logsoftmax_gather_tokens(logits, tgt_tokens
+                                              ).transpose(1, 2)
+                 if match_all is None else match_all.detach())
+        path = _best_alignment(match, links.detach(), output_length,
+                               target_length, max_transition_length,
+                               banded_dp, links_banded).long()
         path[:, 0] = -1                                  # mask <bos>
         onehot = ((path[:, :, None] - 1
                    == torch.arange(T - 1, device=path.device))
@@ -97,20 +111,26 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
                              glat_draws: Optional[GlanceDraws] = None,
                              glance_strategy: Optional[str] = "number-random",
                              no_force_emit: bool = False,
-                             train: bool = True):
-    """Criterion forward of one joint training pass (``s2s_loss.py:95-273``,
-    full-matrix path, ``number-random`` glance): (loss, metrics).
+                             train: bool = True,
+                             fused_vocab_chunk: Optional[int] = None,
+                             max_transition_length: Optional[int] = None,
+                             banded_dp: bool = False):
+    """Criterion forward of one joint training pass (``s2s_loss.py:95-273``):
+    (loss, metrics).
 
     ``model`` is an ``S2SConformerDAGFastSpeech2``; ``batch`` holds device
     tensors fbank [B, S, 80], src_lengths [B], target_text [B, T],
     prev_output_tokens [B, L], target_audio [B, M, 80],
     target_audio_lengths [B], durations / pitches / energies [B, >= T-1]
     and optionally sample_mask [B]. ``freeze_dag`` (see :func:`dag_frozen`)
-    stops every gradient into the DAG half (encoder and decoder) through
-    the DAG loss and the TTS loss; ``freeze_encoder`` stops the encoder's.
+    stops every gradient into the DAG half (encoder and decoder, the
+    streamed projection's vocabulary matrix included) through the DAG loss
+    and the TTS loss; ``freeze_encoder`` stops the encoder's.
     ``glat_draws`` replaces the glance's own draws. ``train=False`` is the
     validation loss (``cli/train.py:622-642``): an inference pass (no
-    dropout, BatchNorm's running statistics), without a glance."""
+    dropout, BatchNorm's running statistics), without a glance.
+    ``fused_vocab_chunk``, ``max_transition_length`` and ``banded_dp``: the
+    DAG loss's memory variants (``losses/dag_loss.py``)."""
     if training_strategy not in ("expect", "argmax"):
         raise ValueError(training_strategy)
     fbank, src_lengths = batch["fbank"], batch["src_lengths"]
@@ -120,6 +140,12 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
     dev = fbank.device
     enc_seed, dec_seed, glat_seed, tts_seed = (
         int(s) for s in torch.randint(0, 2 ** 62, (4,), generator=rng))
+    band = banded_links(model, prev_output_tokens, max_transition_length,
+                        banded_dp)
+    fused = fused_vocab_chunk is not None
+    vocab_w = vocab_matrix(model.dag.decoder) if fused else None
+    route = dict(max_transition_length=max_transition_length,
+                 banded_dp=banded_dp)
 
     def gen(seed):          # a training pass draws; validation does not
         return device_generator(dev, seed) if train else None
@@ -129,28 +155,38 @@ def s2s_dag_fastspeech2_loss(model, batch: Dict[str, torch.Tensor],
 
     info = glance_pass(model, prev_output_tokens, enc, enc_pad, dec_seed,
                        tgt_tokens, glat_p, vocab, glat_seed, glat_draws,
-                       sample_mask, glance_strategy if train else None)
+                       sample_mask, glance_strategy if train else None,
+                       fused_vocab_chunk, vocab_w, band_links=band, **route)
     prev2 = prev_output_tokens if info is None else info.prev_output_tokens
 
-    logits, links, features = model.decode(prev2, enc, enc_pad,
-                                           rng=gen(dec_seed))
-    logits = conditional_stop_gradient(logits, freeze_dag)
+    logits, links, features = dag_decode(model, prev2, enc, enc_pad,
+                                         gen(dec_seed), band, fused)
     links = conditional_stop_gradient(links, freeze_dag)
     features = conditional_stop_gradient(features, freeze_dag)
+    match_all = None
+    if fused:
+        W_vocab, b_vocab = vocab_w
+        match_all = fused_logsoftmax_gather(
+            features, conditional_stop_gradient(W_vocab, freeze_dag),
+            b_vocab, tgt_tokens, fused_vocab_chunk)
+    else:
+        logits = conditional_stop_gradient(logits, freeze_dag)
     dagloss, metrics, alpha, beta = compute_dag_loss(
         logits, links, tgt_tokens, prev2, vocab.pad,
         None if info is None else info.matchmask,
         None if info is None else info.keep_word_mask,
         sample_mask=sample_mask, with_alpha_beta=True,
-        no_force_emit=no_force_emit)
+        no_force_emit=no_force_emit, match_all=match_all,
+        links_banded=band, **route)
 
     # ---- FastSpeech 2 over the selected hidden states
     if training_strategy == "expect":
         z = expected_features(alpha, beta, features)       # [B, T-1, D]
         z_lengths = (tgt_tokens != vocab.pad).sum(dim=1) - 1
     else:
-        z, z_lengths = argmax_path_features(logits, links, tgt_tokens,
-                                            prev2, features, vocab.pad)
+        z, z_lengths = argmax_path_features(
+            logits, links, tgt_tokens, prev2, features, vocab.pad,
+            match_all=match_all, links_banded=band, **route)
     n = z.shape[1]
     z_pad_mask = lengths_to_padding_mask(z_lengths, n)
     mel_tgt = batch["target_audio"]

@@ -43,6 +43,32 @@ class S2SConformerDAGFastSpeech2(nn.Module):
         return self.dag.decode(prev_output_tokens, enc, enc_pad,
                                require_links=require_links, rng=rng)
 
+    def decode_features(self, prev_output_tokens, enc, enc_pad,
+                        rng: Optional[torch.Generator] = None):
+        """The DAG decode without the vocabulary projection."""
+        return self.dag.decode_features(prev_output_tokens, enc, enc_pad,
+                                        rng=rng)
+
+    def decode_banded(self, prev_output_tokens, enc, enc_pad,
+                      rng: Optional[torch.Generator] = None):
+        """The DAG decode with banded links."""
+        return self.dag.decode_banded(prev_output_tokens, enc, enc_pad,
+                                      rng=rng)
+
+    def decode_features_banded(self, prev_output_tokens, enc, enc_pad,
+                               rng: Optional[torch.Generator] = None):
+        """Banded links, no vocabulary projection."""
+        return self.dag.decode_features_banded(prev_output_tokens, enc,
+                                               enc_pad, rng=rng)
+
+    def forward_features(self, fbank, src_lengths, prev_output_tokens):
+        return self.dag.forward_features(fbank, src_lengths,
+                                         prev_output_tokens)
+
+    def forward_banded(self, fbank, src_lengths, prev_output_tokens):
+        return self.dag.forward_banded(fbank, src_lengths,
+                                       prev_output_tokens)
+
     def forward(self, fbank, src_lengths, prev_output_tokens):
         enc, enc_pad, _ = self.encode(fbank, src_lengths)
         return self.decode(prev_output_tokens, enc, enc_pad)

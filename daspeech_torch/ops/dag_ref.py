@@ -155,18 +155,27 @@ def dag_best_alignment_plain(match_all, links, output_length, target_length):
     with first-argmax traces, then the backtrace from (tl-1, ol-1); path[j]
     is the smallest t visiting j, -1 where none (``dag_ref.py:215-278``)."""
     B, T, L = match_all.shape
-    dev = match_all.device
-    f = torch.full((B, L), NEG_INF, dtype=torch.float32, device=dev)
+    f = torch.full((B, L), NEG_INF, dtype=torch.float32,
+                   device=match_all.device)
     f[:, 0] = match_all[:, 0, 0]
     traces = []
     for t in range(1, T):
         best, arg = (f[:, :, None] + links).max(dim=1)   # first argmax
         f = best + match_all[:, t]
         traces.append(arg)
+    return backtrace(traces, output_length, target_length, L)
 
+
+def backtrace(traces, output_length, target_length, L: int) -> torch.Tensor:
+    """The Viterbi backtrace over ``traces`` (T - 1 tensors [B, >= L]: the
+    best predecessor of each vertex at steps 1 .. T-1): from (tl-1, ol-1)
+    back to step 0; path[j] is the smallest t visiting j, -1 where none
+    (``dag_ref.py:256-278``)."""
+    T = len(traces) + 1
+    dev = output_length.device
     ol = output_length.to(torch.int64)
     tl = target_length.to(torch.int64)
-    cur = torch.zeros((B,), dtype=torch.int64, device=dev)
+    cur = torch.zeros_like(ol)
     visited = []
     for t in range(T - 1, -1, -1):
         cur = torch.where(tl - 1 == t, ol - 1, cur)

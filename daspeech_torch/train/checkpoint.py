@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from daspeech_torch.parallel.partition import copy_full_, full
 from daspeech_torch.train.train_state import AdamState, TrainState
 from daspeech_torch.train.vocoder_train import VocoderTrainState
 
@@ -56,11 +57,15 @@ def _optimizer_state(opt) -> Dict[str, Any]:
 
 
 def host_state(state) -> Dict[str, Any]:
-    """The saved form of a training state, as host copies."""
+    """The saved form of a training state, as host copies. A ``--fsdp``
+    state is gathered to full tensors first, the same file as an unsharded
+    run's; the gather is collective (every rank calls this)."""
     if isinstance(state, TrainState):
         s = state.opt_state
-        return {"model": _host(state.model.state_dict()),
-                "opt_state": {"mu": _host(s.mu), "nu": _host(s.nu),
+        model = {k: full(v) for k, v in state.model.state_dict().items()}
+        return {"model": _host(model),
+                "opt_state": {"mu": _host([full(m) for m in s.mu]),
+                              "nu": _host([full(v) for v in s.nu]),
                               "count": _host(s.count),
                               "sched_count": _host(s.sched_count)}}
     if isinstance(state, VocoderTrainState):
@@ -75,13 +80,21 @@ def host_state(state) -> Dict[str, Any]:
 def load_state_(state, data: Dict[str, Any]):
     """Copy a restored checkpoint into ``state`` (a TrainState or a
     VocoderTrainState) in place, on the devices ``state`` lives on; returns
-    ``state``."""
+    ``state``. A ``--fsdp`` state takes each rank's slice of the full
+    tensors."""
     if isinstance(state, TrainState):
-        state.model.load_state_dict(data["model"])
         s, o = state.opt_state, data["opt_state"]
-        with torch.no_grad():
-            for dst, src in zip(s.mu + s.nu, o["mu"] + o["nu"]):
-                dst.copy_(src)
+        if state.sharding is None:
+            state.model.load_state_dict(data["model"])
+        else:
+            own = state.model.state_dict()
+            if set(own) != set(data["model"]):
+                raise KeyError(f"checkpoint keys differ: "
+                               f"{sorted(set(own) ^ set(data['model']))[:8]}")
+            for k, v in own.items():
+                copy_full_(v, data["model"][k])
+        for dst, src in zip(s.mu + s.nu, o["mu"] + o["nu"]):
+            copy_full_(dst, src)
         state.opt_state = AdamState(
             s.mu, s.nu, o["count"].to(s.count.device),
             o["sched_count"].to(s.sched_count.device))

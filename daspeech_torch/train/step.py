@@ -41,7 +41,7 @@ def _sum_metrics_(loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
 
 
 def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
-                    accum_steps: int = 1, group=None):
+                    accum_steps: int = 1, group=None, sharding=None):
     """Build ``train_step(state, batch, rng) -> metrics``.
 
     ``loss_fn(model, batch, rng) -> (loss, metrics)``. ``accum_steps > 1``
@@ -53,7 +53,17 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
     the JAX step.
 
     ``group``: a ``torch.distributed`` process group for data parallelism
-    (module docstring); ``batch`` then holds this rank's rows only."""
+    (module docstring); ``batch`` then holds this rank's rows only.
+    ``sharding``: the ``parallel.partition.FSDP`` of a ``--fsdp`` run over
+    ``group``: the loss runs as its root's forward, the sharded gradients
+    arrive summed by FSDP's reduce-scatter (the replicated ones go through
+    the all-reduce), and the norm and the update work on this rank's
+    shards."""
+
+    def forward(state, batch, rng):
+        if sharding is None:
+            return loss_fn(state.model, batch, rng)
+        return sharding.run(loss_fn, batch, rng)
 
     def train_step(state: TrainState, batch, rng: torch.Generator
                    ) -> Dict[str, torch.Tensor]:
@@ -62,14 +72,14 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
             p.grad = None
         with mh.data_parallel(group):
             if accum_steps == 1:
-                loss, metrics = loss_fn(state.model, batch, rng)
+                loss, metrics = forward(state, batch, rng)
                 loss.backward()
                 loss = loss.detach()
             else:
                 losses, per_micro = [], []
                 assert len(batch) == accum_steps, len(batch)
                 for mb in batch:
-                    micro_loss, m = loss_fn(state.model, mb, rng)
+                    micro_loss, m = forward(state, mb, rng)
                     (micro_loss / accum_steps).backward()
                     losses.append(micro_loss.detach())
                     per_micro.append(m)
@@ -78,13 +88,27 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
                                           ).mean() for k in per_micro[0]}
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
-        if group is not None:
+        if sharding is not None:
+            shard = sharding.sharded(params)
+            grads = sharding.local(grads)
+            params = sharding.local(params)
+            mh.all_reduce_grads_([g for g, s in zip(grads, shard) if not s],
+                                 group)
+        elif group is not None:
             mh.all_reduce_grads_(grads, group)
+        if group is not None:
             loss, metrics = _sum_metrics_(loss, metrics, group)
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if sharding is None
+                 else sharding.global_norm(grads, shard))
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        state.opt_state = optimizer.update_(params, grads, state.opt_state,
-                                            gnorm, ok)
+        s = state.opt_state
+        if sharding is None:
+            state.opt_state = optimizer.update_(params, grads, s, gnorm, ok)
+        else:       # Adam on this rank's shards of the DTensor moments
+            local = s._replace(mu=sharding.local(s.mu),
+                               nu=sharding.local(s.nu))
+            state.opt_state = optimizer.update_(
+                params, grads, local, gnorm, ok)._replace(mu=s.mu, nu=s.nu)
         state.step += 1
         metrics = dict(metrics)
         metrics["gnorm"] = gnorm

@@ -13,7 +13,7 @@ and no value is read back to the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -151,14 +151,19 @@ def make_optimizer(cfg) -> GuardedAdam:
 @dataclass
 class TrainState:
     """The step count, the model (its parameters and BatchNorm running
-    statistics) and the optimizer state."""
+    statistics) and the optimizer state. ``sharding``: the
+    ``parallel.partition.FSDP`` of a ``--fsdp`` run, whose parameters and
+    moments are DTensors."""
     model: nn.Module
     opt_state: AdamState
     step: int = 0
+    sharding: Optional[object] = None
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: GuardedAdam) -> "TrainState":
-        return cls(model, optimizer.init(cls.params_of(model)))
+    def create(cls, model: nn.Module, optimizer: GuardedAdam,
+               sharding=None) -> "TrainState":
+        return cls(model, optimizer.init(cls.params_of(model)),
+                   sharding=sharding)
 
     @staticmethod
     def params_of(model: nn.Module) -> List[nn.Parameter]:

@@ -149,9 +149,15 @@ def _single(corpus, crit, n_real):
 @pytest.mark.parametrize("n_real", CASES)
 def test_two_ranks_equal_one_process(two_ranks, corpus, n_real):
     crit, ranks = two_ranks
-    want = _single(corpus, crit, n_real)
-    got = ranks[0]["updates"][n_real]
-    other = ranks[1]["updates"][n_real]
+    assert_update_matches(ranks[0]["updates"][n_real],
+                          ranks[1]["updates"][n_real],
+                          _single(corpus, crit, n_real))
+
+
+def assert_update_matches(got, other, want):
+    """Rank 0's update (``got``) against one process's (``want``) at the
+    bars of the module docstring; rank 1's (``other``) equal to rank 0's
+    bit for bit."""
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=TOL)
     assert got["skipped"] == other["skipped"] == want["skipped"] == 0.0
     np.testing.assert_allclose(got["gnorm"], want["gnorm"], rtol=TOL)

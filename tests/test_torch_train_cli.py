@@ -18,13 +18,18 @@ with ``--device cpu`` at the tiny widths of ``tests/test_cli.py``:
   checkpoints that the generate CLI decodes;
 * ``--restore``: stopped at 2 and resumed to 4, the parameters and moments
   equal a straight run's bit for bit, and no skipped batch is collated;
+  under ``--fsdp`` too;
 * the stage-3 transfers from stage-1 and stage-2 checkpoint directories;
 * validation: eval-BLEU (sacrebleu) for S2TT with ``checkpoint_best`` at
   the highest; the valid loss with ``checkpoint_best`` at the lowest;
   ``--eval-inference`` MCD against JAX's ``mel_cepstral_distortion`` on
   the same mels;
-* ``--encoder-freezing-updates``, the crash checkpoint, the refused and
-  the not-accepted options, and the exit without a card;
+* ``--banded-dp`` and ``--fused-vocab-chunk`` (alone and together, S2TT
+  and joint) against JAX's ``make_train_step`` with the same options, at
+  the same bars; ``--fsdp --min-fsdp-size 64`` in one process against the
+  unsharded run;
+* ``--encoder-freezing-updates``, the crash checkpoint, the not-accepted
+  options, and the exit without a card;
 * importing the new CLIs in a fresh interpreter loads no jax.
 
 Pitch and energy targets sit at the centres of the variance predictors'
@@ -165,9 +170,11 @@ def _variables(crit, model, batch, seed=3):
                             b["prev_output_tokens"], method=full)
 
 
-def _jax_loss_fn(crit, model, vocab):
+def _jax_loss_fn(crit, model, vocab, kw=None):
     from daspeech_tpu.losses import nat_dag_loss, s2s_dag_fastspeech2_loss
     from daspeech_tpu.losses.tts_loss import fastspeech2_criterion
+
+    kw = kw or {}
 
     def loss_fn(params_dict, batch, key, step):
         if crit == "fastspeech2":
@@ -175,9 +182,9 @@ def _jax_loss_fn(crit, model, vocab):
                                          vocab)
         if crit == "s2s_dag_fastspeech2_loss":
             return s2s_dag_fastspeech2_loss(model, params_dict, batch, key,
-                                            jnp.float32(0.0), vocab)
+                                            jnp.float32(0.0), vocab, **kw)
         return nat_dag_loss(model, params_dict, batch, key,
-                            jnp.float32(0.0), vocab)
+                            jnp.float32(0.0), vocab, **kw)
 
     return loss_fn
 
@@ -196,14 +203,14 @@ def _port_names(tmodel, tree):
     return out
 
 
-def _jax_run(crit, root, batches, variables):
+def _jax_run(crit, root, batches, variables, jax_kw=None):
     """JAX's jitted ``make_train_step`` over ``batches``: the per-update
     losses, each update's gradients (``value_and_grad`` of the same loss at
     the same state) and the final parameters."""
     from daspeech_tpu.train import TrainState, make_optimizer, make_train_step
 
     task, cfg, model, _ = _jax_side(crit, root)
-    loss_fn = _jax_loss_fn(crit, model, task.vocab)
+    loss_fn = _jax_loss_fn(crit, model, task.vocab, jax_kw)
     tx = make_optimizer(lr=LR, warmup_updates=2, warmup_init_lr=1e-7,
                         weight_decay=0.01, clip_norm=1.0)
     state = TrainState.create(jax.tree.map(jnp.asarray, variables), tx)
@@ -230,7 +237,14 @@ def _jax_run(crit, root, batches, variables):
 @pytest.mark.parametrize("crit", ["nat_dag_loss", "s2s_dag_fastspeech2_loss",
                                   "fastspeech2"])
 def test_loop_matches_jax_make_train_step(crit, corpus, tmp_path):
-    args = ttrain.parse_args(cli_args(corpus, crit, "unused"))
+    _assert_loop_matches_jax(crit, corpus)
+
+
+def _assert_loop_matches_jax(crit, root, flags=(), jax_kw=None):
+    """The port's loop (``cli_args(root, crit) + flags``) against JAX's
+    ``make_train_step`` with the criterion's keyword arguments ``jax_kw``
+    (the module docstring's bars). Returns the port's losses."""
+    args = ttrain.parse_args(cli_args(root, crit, "unused", *flags))
     run = ttrain.build(args, "cpu")
     collated = []
     orig = run.batcher.collate
@@ -241,7 +255,7 @@ def test_loop_matches_jax_make_train_step(crit, corpus, tmp_path):
         return out
 
     run.batcher.collate = spy
-    _, _, jmodel, jit = _jax_side(crit, corpus)
+    _, _, jmodel, jit = _jax_side(crit, root)
     order = [x for e in range(1, 4) for x in jit.batches_for_epoch(e)]
     jbatches = [jit.collate(spec, idxs) for spec, idxs in order[:N_UPDATES]]
     variables = _variables(crit, jmodel, jbatches[0])
@@ -264,8 +278,8 @@ def test_loop_matches_jax_make_train_step(crit, corpus, tmp_path):
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
-    want_losses, want_grads, want_params = _jax_run(crit, corpus, jbatches,
-                                                    variables)
+    want_losses, want_grads, want_params = _jax_run(crit, root, jbatches,
+                                                    variables, jax_kw)
     np.testing.assert_allclose(stats.losses, want_losses, rtol=LOSS_RTOL)
 
     tparams = dict(run.model.named_parameters())
@@ -293,6 +307,7 @@ def test_loop_matches_jax_make_train_step(crit, corpus, tmp_path):
         assert float(err[~floor[name]].max(initial=0.0)) <= PARAM_TOL, name
         assert float(err[floor[name]].max(initial=0.0)) <= (
             2 * LR * N_UPDATES), name
+    return stats.losses
 
 
 # ------------------------------------------- the CLI's glance and emission
@@ -490,6 +505,51 @@ def test_restore_reproduces_the_straight_run(corpus, tmp_path, monkeypatch,
     assert collated[:2] == order[2:4]
 
 
+def test_fsdp_accumulates_microbatches(corpus, tmp_path):
+    """``--fsdp --update-freq 2``: each microbatch's backward reduces its
+    share, the sharded gradients accumulate; the losses equal the
+    unsharded run's within 1e-5 relative."""
+    losses = {}
+    for name, extra in (("plain", []),
+                        ("fsdp", ["--fsdp", "--min-fsdp-size", "64"])):
+        seen = []
+        assert ttrain.main(cli_args(corpus, "nat_dag_loss", tmp_path / name,
+                                    "--max-update", "2", "--update-freq",
+                                    "2", "--valid-subset", "none", *extra),
+                           on_stats=seen.append) == 0
+        losses[name] = seen[0].losses
+    assert len(losses["fsdp"]) == 2 and np.isfinite(losses["fsdp"]).all()
+    np.testing.assert_allclose(losses["fsdp"], losses["plain"], rtol=1e-5)
+
+
+def test_fsdp_restore_reproduces_the_straight_run(corpus, tmp_path,
+                                                  capsys):
+    """``--fsdp --restore`` (a world of one): stopped at 2 and resumed at
+    the saved position to 4, the gathered parameters and moments equal a
+    straight ``--fsdp`` run's bit for bit."""
+    crit = "s2s_dag_fastspeech2_loss"
+    flags = ("--save-interval-updates", "2", "--fsdp", "--min-fsdp-size",
+             "64", "--valid-subset", "none")
+    assert ttrain.main(cli_args(corpus, crit, tmp_path / "a", "--max-update",
+                                "4", *flags)) == 0
+    assert ttrain.main(cli_args(corpus, crit, tmp_path / "b", "--max-update",
+                                "2", *flags)) == 0
+    capsys.readouterr()
+    assert ttrain.main(cli_args(corpus, crit, tmp_path / "b", "--max-update",
+                                "4", "--restore", *flags)) == 0
+    assert ("restored checkpoint at step 2 (epoch 1, batch 2)"
+            in capsys.readouterr().err)
+    a = CheckpointManager(tmp_path / "a").restore(step=4)
+    b = CheckpointManager(tmp_path / "b").restore(step=4)
+    assert set(a["model"]) == set(b["model"])
+    for k in a["model"]:
+        assert torch.equal(a["model"][k], b["model"][k]), k
+    for x, y in zip(a["opt_state"]["mu"] + a["opt_state"]["nu"],
+                    b["opt_state"]["mu"] + b["opt_state"]["nu"]):
+        assert torch.equal(x, y)
+    assert int(b["opt_state"]["count"]) == 4
+
+
 def test_stage3_transfers_stage1_and_stage2(corpus, tmp_path):
     assert ttrain.main(cli_args(corpus, "nat_dag_loss", tmp_path / "s1",
                                 "--max-update", "1",
@@ -684,16 +744,104 @@ def test_ar_criteria_train_and_validate(crit, dtype, corpus, tmp_path,
     assert records[0][0]["valid_loss"] == vloss[0]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--banded-dp"], "#6b"),
-    (["--fused-vocab-chunk", "64"], "#6b"),
-    (["--fsdp"], "#4c"),
-    (["--min-fsdp-size", "4096"], "#4c"),
-])
-def test_refused_options(flags, item, corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(cli_args(corpus, "nat_dag_loss", tmp_path / "ck")
-                    + flags)
+@pytest.fixture(scope="module")
+def band_corpus(tmp_path_factory):
+    """The corpus with a transition band of 4 in both DAG models' YAMLs
+    (the graphs hold up to 12 vertices: the band engages)."""
+    import yaml
+
+    root = tmp_path_factory.mktemp("train_cli_band")
+    write_corpus(root)
+    for crit in ("nat_dag_loss", "s2s_dag_fastspeech2_loss"):
+        path = root / f"{crit}.yaml"
+        tree = yaml.safe_load(path.read_text())
+        dec = (tree["dag"] if "dag" in tree else tree)["decoder"]
+        dec["max_transition_length"] = BAND
+        path.write_text(yaml.safe_dump(tree))
+    return root
+
+
+BAND = 4
+
+
+@pytest.mark.parametrize("crit,flags", [
+    ("nat_dag_loss", ["--banded-dp"]),
+    ("nat_dag_loss", ["--fused-vocab-chunk", "64"]),
+    ("nat_dag_loss", ["--banded-dp", "--fused-vocab-chunk", "7"]),
+    ("s2s_dag_fastspeech2_loss", ["--banded-dp", "--fused-vocab-chunk",
+                                  "8"]),
+], ids=["banded", "fused", "both", "joint-both"])
+def test_memory_variants_match_jax_cli(crit, flags, band_corpus,
+                                       monkeypatch):
+    """``--banded-dp`` and ``--fused-vocab-chunk`` reach the criterion
+    (the banded DP or the streamed projection runs, the full-matrix DP or
+    the [B, L, V] logits do not) and the loop matches JAX's
+    ``make_train_step`` with the same options, at the bars of
+    ``test_loop_matches_jax_make_train_step``."""
+    from daspeech_torch.losses import dag_loss as tloss
+    from daspeech_torch.losses import s2s_loss as ts2s
+
+    banded = "--banded-dp" in flags
+    chunk = (int(flags[flags.index("--fused-vocab-chunk") + 1])
+             if "--fused-vocab-chunk" in flags else None)
+    seen = set()
+    for mod, name in ((tloss, "dag_loss_banded"),
+                      (tloss, "dag_loss_banded_with_alpha_beta"),
+                      (tloss, "dag_loss"), (tloss, "dag_loss_with_alpha_beta"),
+                      (tloss, "fused_logsoftmax_gather"),
+                      (ts2s, "fused_logsoftmax_gather")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=fn: (
+            seen.add(_n), _f(*a))[1])
+    losses = _assert_loop_matches_jax(
+        crit, band_corpus, flags,
+        dict(max_transition_length=BAND, banded_dp=banded,
+             fused_vocab_chunk=chunk))
+    assert np.isfinite(losses).all()
+    assert any(n.startswith("dag_loss_banded") for n in seen) == banded
+    assert any(not n.startswith("dag_loss_banded") and n != (
+        "fused_logsoftmax_gather") for n in seen) == (not banded)
+    assert ("fused_logsoftmax_gather" in seen) == (chunk is not None)
+
+
+def test_fsdp_trains_as_one_unsharded_process(corpus, tmp_path, capsys,
+                                              monkeypatch):
+    """``--fsdp --min-fsdp-size 64`` in one process (a world of one): the
+    joint model trains through the FSDP root with finite losses equal to
+    the unsharded run's within 1e-5 relative; its checkpoint holds the
+    unsharded run's tensors, in its format, within 1e-5; the group of one
+    is gone after."""
+    import torch.distributed as dist
+
+    from daspeech_torch.parallel import partition
+
+    calls = []
+    real = partition.FSDP.run
+    monkeypatch.setattr(partition.FSDP, "run", lambda self, *a: (
+        calls.append(1), real(self, *a))[1])
+    losses, states = {}, {}
+    for name, extra in (("plain", []),
+                        ("fsdp", ["--fsdp", "--min-fsdp-size", "64"])):
+        seen = []
+        assert ttrain.main(cli_args(corpus, "s2s_dag_fastspeech2_loss",
+                                    tmp_path / name, "--max-update", "3",
+                                    "--valid-subset", "none", *extra),
+                           on_stats=seen.append) == 0
+        recs = _records(capsys)
+        losses[name] = seen[0].losses
+        states[name] = CheckpointManager(tmp_path / name).restore()
+    assert len(calls) == 3 and recs[-1]["world_size"] == 1
+    assert not dist.is_initialized()
+    assert np.isfinite(losses["fsdp"]).all()
+    np.testing.assert_allclose(losses["fsdp"], losses["plain"], rtol=1e-5)
+    a, b = states["plain"], states["fsdp"]
+    assert set(a["model"]) == set(b["model"]) and b["step"] == 3
+    for k, v in a["model"].items():
+        np.testing.assert_allclose(b["model"][k].numpy(), v.numpy(),
+                                   rtol=0, atol=1e-5, err_msg=k)
+    for x, y in zip(a["opt_state"]["mu"] + a["opt_state"]["nu"],
+                    b["opt_state"]["mu"] + b["opt_state"]["nu"]):
+        assert x.shape == y.shape
 
 
 @pytest.mark.parametrize("flags", [
