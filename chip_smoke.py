@@ -7,8 +7,9 @@ commit unpacked with ``git archive``; its kernels are built too, and the
 kernel phase times the rows of the kernels redesigned since (the training
 forward of #1, #2, #3 and #5, the link extraction #4 forward and backward,
 the DP #8 and the Viterbi #9, the fused FFN #6 forward and backward and
-the MRF level #7) with its library as well, on the same inputs in the same
-process.)
+the MRF level #7, and the bf16 rows of #1 and #2) with its library as
+well, on the same inputs in the same process, and the bf16 phase's bf16
+updates with its kernels too.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -45,7 +46,10 @@ process.)
    levels 1-3, B's level 1 and a chunk window, at every tile, against the
    plain ``F.conv1d`` chain (which is also its library time, cuDNN) and at
    the window against float64; HMMA in the SASS of #6's and #7's kernels
-   and no spills in their ptxas report; the
+   and no spills in their ptxas report; bf16 HMMA
+   (``HMMA.16816.F32.BF16``, and no other) in the SASS of the bf16
+   attention kernels (attention_bf16.cuh) and no spills in their ptxas
+   report; the
    full-bias attention #3 at three shapes with a fully masked row, and
    against the head-major kernel on a column bias, <= 1e-4), with median
    CUDA-event times of the kernel, the plain version and, for attention,
@@ -195,10 +199,13 @@ process.)
    phase): the bf16 entry points of #1, #2, #4 and #5 against their plain
    bf16 versions at cell T's, J-long's and a serving shape (inference and
    training forward and backward, within 2^-7 of the output's largest
-   magnitude; the links and dgates fp32), the same kernels as the fp32
-   call (names and counts under the profiler, and every wrapper's count;
-   these rows are taken in a process of their own, the script run with
-   ``--bf16-kernel-rows``),
+   magnitude; the links and dgates fp32), #4's and #5's the same kernels
+   as the fp32 call (names and counts under the profiler, and every
+   wrapper's count), #1's and #2's the three bf16 tensor-core kernels of
+   attention_bf16.cuh, each once, and none of attention_tc.cuh's or
+   attention_fma.cuh's, while their fp32 call still launches the FMA
+   forward and attention_tc.cuh's backward (these rows are taken in a
+   process of their own, the script run with ``--bf16-kernel-rows``),
    and one row each in the kernels' JSON (forward + backward: kernel,
    plain and SDPA ms in bf16, the bound at 989 TFLOP/s on the bf16
    bytes); the card's bf16 step against the CPU's at T (B=2) and J-long
@@ -687,6 +694,10 @@ def relpos_sdpa(q_ext, k_ext, v, mask, sm_scale, p=0.0):
 TC_KERNELS = ("attn_tc_fwd_kernel", "attn_tc_bwd_dq_kernel",
               "attn_tc_bwd_dkdv_kernel", "attn_tc_chunk_fwd_kernel",
               "attn_tc_chunk_ds_kernel", "attn_tc_grad_kernel")
+# the bf16 mode of #1 and #2 (attention_bf16.cuh): the forward (training
+# and inference) and the two backward kernels, on the bf16 tensor cores
+BF16_ATTN_KERNELS = ("attn_bf16_fwd_kernel", "attn_bf16_dq_kernel",
+                     "attn_bf16_dkdv_kernel")
 # every attention training forward: attention_fma.cuh's register-tiled
 # kernel on the fp32 FMA pipes (instance <1,0>: #1 and #2, <5,0>: #5,
 # <1,1>: #3's full-bias mode), and the merge of its key split
@@ -792,7 +803,8 @@ def kernel_split(fn, tag, reps=3):
     """The device ms of each kernel of one ``fn()``: ``reps`` calls under
     the profiler after a warm one, the mean per call by kernel name (the
     card's own time, without the host's launch overhead that ``cuda_ms``
-    includes)."""
+    includes), logged; returns their sum (None if the profiler saw no
+    kernels)."""
     import re
 
     fn()
@@ -807,13 +819,15 @@ def kernel_split(fn, tag, reps=3):
         + ", ".join(f"{n} {ms:.4f}" for n, ms in by.items())
         + f"; sum {sum(by.values()):.4f}" if by else
         f"  {tag}: the profiler saw no kernels")
+    return sum(by.values()) if by else None
 
 
 def sass_counts(lib_path):
     """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
-    attention_tc.cuh, of the FMA forward, of the link extraction and of
-    #6's and #7's kernels (gemm_tc.cuh's tiles) in the built library's SASS
-    (``cuobjdump -sass``), a template kernel's
+    attention_tc.cuh, of attention_bf16.cuh (and, of the HMMA, those of the
+    bf16 form, ``HMMA.16816.F32.BF16``: HMMA_BF16), of the FMA forward, of
+    the link extraction and of #6's and #7's kernels (gemm_tc.cuh's tiles)
+    in the built library's SASS (``cuobjdump -sass``), a template kernel's
     instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
     #3's; ``attn_fma_fwd_kernel<1,0>``: #1's and #2's, ``<5,0>``: #5's,
     ``<1,1>``: #3's); None without cuobjdump."""
@@ -832,18 +846,21 @@ def sass_counts(lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((t for t in (*TC_KERNELS, FMA_FORWARD, *LINKS_FMA,
-                                     *LINKS_TC, *GEMM_TC)
+            name = next((t for t in (*TC_KERNELS, *BF16_ATTN_KERNELS,
+                                     FMA_FORWARD, *LINKS_FMA, *LINKS_TC,
+                                     *GEMM_TC)
                          if t in m.group(1)), None)
             inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
             if name and inst:
                 name += "<" + ",".join(re.findall(r"L[a-z](\d+)E",
                                                   inst.group(1))) + ">"
             if name:
-                counts[name] = {"HMMA": 0, "FFMA": 0}
+                counts[name] = {"HMMA": 0, "FFMA": 0, "HMMA_BF16": 0}
         elif name:
             for op in re.findall(r"\b(HMMA|FFMA)\b", line):
                 counts[name][op] += 1
+            counts[name]["HMMA_BF16"] += len(
+                re.findall(r"\bHMMA\.16816\.F32\.BF16\b", line))
     return counts
 
 
@@ -878,7 +895,8 @@ def no_spills(ptxas, name, n_instances):
 # fp32 and bf16 weights)
 SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 12,
                  "ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
-                 "ffn_wgrad_kernel": 1}
+                 "ffn_wgrad_kernel": 1,
+                 **{n: 1 for n in BF16_ATTN_KERNELS}}
 
 
 def kernel_phase():
@@ -2954,37 +2972,42 @@ def bf16_close(what, got, want):
     return err
 
 
+def profiled_own_kernels(name, tag, fn):
+    """(the names of our kernels that one ``fn()`` launched, under
+    ``torch.profiler``; each wrapper's launch count it added). A window
+    whose wrappers launched and where the profiler saw none of their
+    kernels lost its device events (CUPTI): it is profiled again, up to
+    PROFILE_ATTEMPTS times; a window that saw other kernels is taken as it
+    is."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = read_launches()
+        # a first kernel in the profiled window (a fill) that the comparison
+        # leaves out: the profiler has been seen to miss the window's first
+        # kernel
+        events, _ = profiled_kernels(
+            lambda: (torch.ones(1, device="cuda"), fn()),
+            f"bf16_kernels_{name}_{tag}")
+        after = read_launches()
+        ours = sorted(e["name"] for e in events if "daspeech" in e["name"])
+        moved = {k: after[k] - before[k] for k in after
+                 if not k.endswith(" bf16")}
+        if ours or not any(moved.values()):
+            return ours, moved
+        log(f"  {name} {tag}: the profile saw {len(events)} kernels, none "
+            f"of ours, while the wrappers counted "
+            f"{ {k: v for k, v in moved.items() if v} }: the profiler lost "
+            f"the window's device events (attempt {attempt} of "
+            f"{PROFILE_ATTEMPTS})")
+    return ours, moved
+
+
 def same_kernels(name, run32, run16, expect):
     """The fp32 and the bf16 call (forward and backward) launch the same
     kernels (by name and count, under ``torch.profiler``; each name of
     ``expect`` among them) and add the same counts to every wrapper's
     ``launches``; returns the kernel count."""
-    seen = []
-    for tag, fn in (("fp32", run32), ("bf16", run16)):
-        for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            before = read_launches()
-            # a first kernel in the profiled window (a fill) that the
-            # comparison leaves out: the profiler has been seen to miss
-            # the window's first kernel
-            events, _ = profiled_kernels(
-                lambda fn=fn: (torch.ones(1, device="cuda"), fn()),
-                f"bf16_same_kernels_{name}_{tag}")
-            after = read_launches()
-            ours = sorted(e["name"] for e in events if "daspeech" in e["name"])
-            moved = {k: after[k] - before[k] for k in after
-                     if not k.endswith(" bf16")}
-            # a window whose wrappers launched and where the profiler saw
-            # none of their kernels lost its device events (CUPTI); it is
-            # profiled again. A window that saw other kernels is compared
-            # as it is
-            if ours or not any(moved.values()):
-                break
-            log(f"  {name} {tag}: the profile saw {len(events)} kernels, "
-                f"none of ours, while the wrappers counted "
-                f"{ {k: v for k, v in moved.items() if v} }: the profiler "
-                f"lost the window's device events (attempt {attempt} of "
-                f"{PROFILE_ATTEMPTS})")
-        seen.append((ours, moved))
+    seen = [profiled_own_kernels(name, tag, fn)
+            for tag, fn in (("fp32", run32), ("bf16", run16))]
     if seen[0] != seen[1] or not all(any(x in n for n in seen[0][0])
                                      for x in expect):
         raise AssertionError(f"{name}: the bf16 call launches "
@@ -2994,12 +3017,44 @@ def same_kernels(name, run32, run16, expect):
     return len(seen[0][0])
 
 
+def bf16_attention_kernels(name, run32, run16):
+    """#1's or #2's bf16 call (training forward and backward) launches the
+    bf16 kernels of attention_bf16.cuh, each once, and none of
+    attention_tc.cuh's or attention_fma.cuh's; the fp32 call launches the
+    FMA training forward and attention_tc.cuh's backward as before, and
+    none of the bf16 kernels (by name, under ``torch.profiler``); both add
+    the same counts to the wrappers' ``launches``. Returns the bf16 call's
+    kernel count."""
+    (k32, m32), (k16, m16) = (profiled_own_kernels(name, tag, fn) for tag, fn
+                              in (("fp32", run32), ("bf16", run16)))
+    fp32_kernels = (FMA_FORWARD, *TC_KERNELS[1:3])
+
+    def count(kernels, t):
+        return sum(t in n for n in kernels)
+
+    ok16 = (all(count(k16, t) == 1 for t in BF16_ATTN_KERNELS)
+            and len(k16) == len(BF16_ATTN_KERNELS)
+            and not any("attn_tc_" in n or "attn_fma_" in n for n in k16))
+    ok32 = (all(count(k32, t) >= 1 for t in fp32_kernels)
+            and all(any(t in n for t in (*fp32_kernels, *FMA_KERNELS))
+                    for n in k32)
+            and not any(count(k32, t) for t in BF16_ATTN_KERNELS))
+    if not (ok16 and ok32 and m32 == m16):
+        raise AssertionError(f"{name}: the bf16 call launches {k16} "
+                             f"({m16}), the fp32 call {k32} ({m32})")
+    log(f"  {name} bf16: {len(k16)} kernels, attention_bf16.cuh's "
+        f"({', '.join(n[:48] for n in k16)}); fp32: {len(k32)} kernels, the "
+        "FMA forward and attention_tc.cuh's backward")
+    return len(k16)
+
+
 def bf16_kernel_rows():
     """Each bf16 entry point (#1, #2, #4, #5) against its plain bf16
     version at cell T's, J-long's and a serving shape: the inference and
     the training forward and the backward, and (forward + backward) the
     kernels', the plain version's and SDPA's bf16 times beside the bound at
-    989 TFLOP/s and on the bf16 bytes. Returns the rows."""
+    989 TFLOP/s and on the bf16 bytes; with --parent, #1's and #2's rows
+    also with the parent tree's kernels ("was_ms"). Returns the rows."""
     from daspeech_torch.ops import fused_attention as fa
     from daspeech_torch.ops import fused_links as fl
     from daspeech_torch.ops import fused_relpos as fr
@@ -3012,15 +3067,31 @@ def bf16_kernel_rows():
             run_library, **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
+        # the kernels this tree redesigned (attention_bf16.cuh) beside the
+        # parent tree's
+        redesigned = name in ("fused_attention_packed", "fused_attention")
+        was = parent_ms(run_kernel) if PARENT and redesigned else None
+        if redesigned:
+            # the kernels' and SDPA's device time alone: at these sizes the
+            # host's launch overhead is a share of both CUDA-event times
+            extra["device_ms"] = kernel_split(run_kernel, f"{name} {shape}")
+            extra["library_device_ms"] = kernel_split(
+                run_library, f"{name} {shape} SDPA")
         b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_BF16)
         rows[f"{name} bf16"].append({
             "shape": shape, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, **extra})
+            "library_ms": lib_ms, "was_ms": was, **extra})
+        tf = lambda t: f" ({flops / t / 1e9:.1f} TFLOP/s)"  # noqa: E731
         log(f"  {name} bf16 {shape}, forward (training) + backward: max abs "
-            f"err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})  library "
-            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms"))
+            f"err {err:.3g}  kernel {ms:.4f} ms{tf(ms)}"
+            + ("" if was is None else f"  parent tree {was:.4f} ms")
+            + f"  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+            "library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms{tf(lib_ms)}")
+            + "".join(f"  {k} {extra[k]:.4f}" for k in
+                      ("device_ms", "library_device_ms")
+                      if extra.get(k) is not None))
 
     def bf16(*shape, scale=1.0):
         return _randn(g, *shape, scale=scale).to(bf)
@@ -3057,9 +3128,8 @@ def bf16_kernel_rows():
         extra = {}
         if i == 0:
             f32 = [x.float() for x in (q, k, v, do)]
-            extra["same_kernels_as_fp32"] = same_kernels(
-                "fused_attention_packed", lambda: run(*f32), run,
-                (FMA_FORWARD, *TC_KERNELS[1:3]))
+            extra["bf16_kernels"] = bf16_attention_kernels(
+                "fused_attention_packed", lambda: run(*f32), run)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         h4 = lambda x: x.reshape(B, x.shape[1], H, d).transpose(1, 2)  # noqa: E731,E501
         mask = bias.to(bf)[:, None, None, :]
@@ -3107,9 +3177,8 @@ def bf16_kernel_rows():
         extra = {}
         if i == 0:
             f32 = [x.float() for x in (q, k, v, do)]
-            extra["same_kernels_as_fp32"] = same_kernels(
-                "fused_attention", lambda: run(*f32), run,
-                (FMA_FORWARD, *TC_KERNELS[1:3]))
+            extra["bf16_kernels"] = bf16_attention_kernels(
+                "fused_attention", lambda: run(*f32), run)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         mask = bias.to(bf)[:, None, None, :]
         row("fused_attention", shape, err, run,
@@ -3237,9 +3306,12 @@ def bf16_kernel_rows_apart():
     process the profiler has been seen to lose every kernel of a short
     window, which the same-kernels check profiles."""
     here = os.path.dirname(os.path.abspath(__file__))
+    parent = (sys.argv[sys.argv.index("--parent"):][:2]
+              if "--parent" in sys.argv else [])
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--bf16-kernel-rows"], capture_output=True,
-                         text=True, cwd=here, timeout=900)
+                          "--bf16-kernel-rows", *parent],
+                         capture_output=True, text=True, cwd=here,
+                         timeout=900)
     for line in out.stderr.splitlines():
         if "UserWarning" not in line and "_warn_once" not in line:
             log(line)
@@ -3404,6 +3476,28 @@ def bf16_phase():
                    f"{busy:.2f} of {wall:.2f} ms ({share:.3f})"))
             updates[(tag, name)] = {"ms": med, "iqr": iqr, "peak_gib": peak,
                                     "busy_ms": busy, "busy_share": share}
+            if dt == bf and PARENT:
+                # the same bf16 updates with the parent tree's kernels, then
+                # with this tree's again (host-clock times drift within a
+                # process)
+                with parent_library():
+                    pmed, _, _, _, _ = timed_updates(
+                        step, state, batch, 3, 10,
+                        f"{tag} {name} update, parent tree's kernels")
+                    pbusy, pwall = busy_share(
+                        lambda: step(state, batch, torch.Generator()),
+                        f"bf16 phase {tag} {name} step, parent tree")
+                log(f"  {tag} {name}, parent tree's kernels: device busy "
+                    + ("not measured" if pbusy is None else
+                       f"{pbusy:.2f} of {pwall:.2f} ms "
+                       f"({pbusy / pwall:.3f})"))
+                again, _, _, _, _ = timed_updates(
+                    step, state, batch, 3, 10, f"{tag} {name} update, again")
+                updates[(tag, name)].update(
+                    parent_ms=pmed, parent_busy_ms=pbusy,
+                    parent_busy_share=(None if pbusy is None
+                                       else pbusy / pwall),
+                    again_ms=again)
             if dt == bf:
                 by_path[f"bf16_{tag}"] = launches
                 own = {n: launches[f"{n} bf16"] for n in BF16_KERNELS} | {
@@ -6623,9 +6717,15 @@ def main() -> int:
         tc = {n: c for n, c in sass.items() if n not in fma_names}
         fma = {n: c for n, c in sass.items() if n in fma_names}
         if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC,
-                                               *GEMM_TC}
+                                               *GEMM_TC, *BF16_ATTN_KERNELS}
                 or not all(c["HMMA"] for c in tc.values())):
             raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
+        # the bf16 attention kernels multiply on the bf16 tensor cores, and
+        # every HMMA they hold is of that form
+        if not all(0 < tc[n]["HMMA_BF16"] == tc[n]["HMMA"]
+                   for n in BF16_ATTN_KERNELS):
+            raise AssertionError("bf16 attention kernels without bf16 HMMA: "
+                                 f"{ {n: tc[n] for n in BF16_ATTN_KERNELS} }")
         if (set(fma) != fma_names
                 or any(c["HMMA"] or not c["FFMA"] for c in fma.values())):
             raise AssertionError(f"FMA kernels not on the FMA pipes: {fma}")
@@ -6759,7 +6859,11 @@ def main() -> int:
             "launches": by_path[main_path][name],
             "bwd_launches": by_path[main_path][f"{BF16_KERNELS[base]} bf16"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
-            "same_kernels_as_fp32": first["same_kernels_as_fp32"],
+            # #1, #2: the bf16 kernels' count (attention_bf16.cuh); #4, #5:
+            # the same kernels as the fp32 call's
+            **{k: first[k] for k in ("bf16_kernels", "same_kernels_as_fp32")
+               if k in first},
+            "was_ms": first["was_ms"],
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

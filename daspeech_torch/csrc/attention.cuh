@@ -20,20 +20,24 @@
 // softmax probabilities by keep/keep_p; the normalizer is taken before
 // dropout, as in the Pallas kernels.
 //
-// Where each kernel lives: every training forward (packed, head-major,
+// Where each kernel lives: every fp32 training forward (packed, head-major,
 // rel-pos and full-bias attention) is attention_fma.cuh's (fp32 FMA,
-// register-tiled); every backward and every inference forward is
+// register-tiled); every fp32 backward and inference forward is
 // attention_tc.cuh's (tensor cores, 3xTF32); the tile primitives both use
-// are tiles.cuh's.
+// are tiles.cuh's. The packed and head-major bf16 entry points run
+// attention_bf16.cuh's kernels (bf16 tensor cores, bf16 tiles in shared
+// memory), forward and backward; the rel-pos and full-bias bf16 entry
+// points run the fp32 kernels on widened operands, as set out next.
 //
 // Element type: every operand, output and gradient view is fp32 or, with its
-// bf16 flag set, bf16 in device memory (the _bf16 entry points). The tiles
-// in shared memory, the products, the softmax and its statistics, the bias,
-// delta and every scratch buffer stay fp32: a bf16 row is widened to fp32
-// as it is loaded (load_rows64, ld4, ld1) and an output is rounded to bf16
-// (round to nearest even) as it is stored (st2, st4). bf16 rows are loaded
-// by plain loads, not cp.async, which cannot convert: their copy into the
-// next stage no longer overlaps this stage's products. A bf16 training
+// bf16 flag set, bf16 in device memory (the _bf16 entry points). In the
+// fp32 kernels that the rel-pos and full-bias bf16 entry points run, the
+// tiles in shared memory, the products, the softmax and its statistics, the
+// bias, delta and every scratch buffer stay fp32: a bf16 row is widened to
+// fp32 as it is loaded (load_rows64, ld4, ld1) and an output is rounded to
+// bf16 (round to nearest even) as it is stored (st2, st4). bf16 rows are
+// loaded by plain loads, not cp.async, which cannot convert: their copy into
+// the next stage no longer overlaps this stage's products. A bf16 training
 // forward also writes its output in fp32 (o32), and the backward reads that
 // for delta = rowsum(dO∘O): from the rounded bf16 O, delta cancels against
 // dO.V where a softmax row is near uniform, and put the q and k gradients

@@ -1,10 +1,15 @@
 // Multi-head attention, forward and backward, for Hopper (sm_90a), fp32, in
 // two layouts and two bias modes. Every entry point has a _bf16 variant (the
-// same arguments, the same kernels; a forward also takes out32) whose q, k,
-// v, out, dout, dq, dk and dv are bf16 in device memory; the bias (the
-// full bias and its gradient dS too), the statistics and delta stay fp32, and every sum is fp32 (attention.cuh,
-// "Element type"), as the Pallas kernels upcast bf16 operands and cast
-// their outputs (fused_attention.py:79-100, :305-321).
+// same arguments; a forward also takes out32) whose q, k, v, out, dout, dq,
+// dk and dv are bf16 in device memory; the bias (the full bias and its
+// gradient dS too), the statistics and delta stay fp32, and every sum is
+// fp32, as the Pallas kernels upcast bf16 operands and cast their outputs
+// (fused_attention.py:79-100, :305-321). The packed and head-major bf16
+// entry points run kernels of their own, on the bf16 tensor cores
+// (attention_bf16.cuh: bf16 mma.sync, ldmatrix, cp.async; P·V one-term,
+// dS·K, (P∘Z)ᵀ·dO and dSᵀ·Q two-term); the full-bias bf16 entry points run
+// the fp32 kernels below on widened operands (attention.cuh, "Element
+// type").
 //
 // Replaces three Pallas kernels of daspeech_tpu/ops/fused_attention.py:
 //   - packed, fused_attention_packed (:522; forward _attn_kernel_packed,
@@ -21,8 +26,8 @@
 // (ops/fused_attention.py packed_route). Both layouts run the same kernels,
 // which address every operand by (batch, row, head) strides: only the
 // strides differ between the entry points below, so at a shape both routes
-// take they compute the same sums in the same order. The backward and the
-// inference forward (no statistics) are the tensor-core kernels of
+// take they compute the same sums in the same order. In fp32 the backward
+// and the inference forward (no statistics) are the tensor-core kernels of
 // attention_tc.cuh; the training forward, which saves the statistics the
 // backward reads, is the register-tiled fp32 FMA kernel of
 // attention_fma.cuh, because the tensor cores' accumulation bias in a
@@ -68,6 +73,7 @@
 // 1.2 GFLOP forward (the bytes bound it); at [14, 8, 700, 64] bias4 is
 // 219 MB.
 #include "attention.cuh"
+#include "attention_bf16.cuh"
 #include "attention_fma.cuh"
 #include "attention_tc.cuh"
 
@@ -121,9 +127,11 @@ int attention_fwd(const void* q, const void* k, const void* v,
     args.o32 = view<float>(out32, Tq, H, head_major, false);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // training (statistics asked for): the fp32 FMA forward of
-  // attention_fma.cuh; inference: the tensor-core forward
+  // bf16: the bf16 tensor-core forward of attention_bf16.cuh, training and
+  // inference; fp32 training (statistics asked for): the FMA forward of
+  // attention_fma.cuh; fp32 inference: the 3xTF32 forward
   // (attention_tc.cuh, "Accumulation")
+  if (bf16) return static_cast<int>(bf::launch_attn_bf16_fwd(args, B, s));
   return static_cast<int>(stats != nullptr
                               ? fma::launch_attn_fma_fwd<1>(args, B, s)
                               : tc::launch_attn_tc_fwd(args, B, s));
@@ -147,8 +155,9 @@ int attention_bwd(const void* q, const void* k, const void* v,
   args.dk = view<float>(dk, Tk, H, head_major, bf16);
   args.dv = view<float>(dv, Tk, H, head_major, bf16);
   args.delta = delta;
-  return static_cast<int>(
-      tc::launch_attn_tc_bwd(args, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? bf::launch_attn_bf16_bwd(args, B, s)
+                               : tc::launch_attn_tc_bwd(args, B, s));
 }
 
 AttnArgs full_bias_args(const void* q, const void* k, const void* v,

@@ -12,8 +12,10 @@ Each C entry point returns a ``cudaError_t`` (0 on success): the caller
 raises on anything else, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it. An entry point whose name
 ends in ``_bf16`` is the bf16 variant of the one without: the same
-arguments and the same kernels, its operands and outputs bf16 in device
-memory (:func:`entry`), except where the Pallas kernel keeps a tensor
+arguments and, but for the packed and head-major attention's (which run
+``csrc/attention_bf16.cuh``'s bf16 tensor-core kernels), the same kernels,
+its operands and outputs bf16 in device memory (:func:`entry`), except
+where the Pallas kernel keeps a tensor
 fp32: the MRF level's bf16 variant takes bf16 weights and fp32
 activations, biases and output; the full-bias attention's keeps its bias
 and dS fp32; the fused FFN's keeps LayerNorm's parameters and the

@@ -18,10 +18,10 @@ dropout on the probabilities:
   no caller in either package: it is the verified alternate backend JAX
   keeps for an arbitrary learned or ALiBi-style bias.
 
-The backward of all three, and their forward where no softmax statistics
-are asked for (inference), run every product on the tensor cores in
-3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``); their
-training forward (``with_stats``) sums on the fp32 FMA pipes, which it
+In fp32, the backward of all three, and their forward where no softmax
+statistics are asked for (inference), run every product on the tensor
+cores in 3xTF32, which keeps fp32's accuracy (``csrc/attention_tc.cuh``);
+their training forward (``with_stats``) sums on the fp32 FMA pipes, which it
 needs: the tensor cores' accumulation bias there moves batch-wide gradient
 sums past fp32's noise. That is a register-tiled kernel
 (``csrc/attention_fma.cuh``) for the packed and head-major layouts and, in
@@ -38,17 +38,21 @@ kernel and plain version agree element for element with dropout on, and so
 do the two layouts at a shape both take. The full-bias op takes one scalar
 seed and keys by (seed, j / 4, i, h, b) (``philox.full_bias_keep``).
 
-bf16: the packed and head-major kernels also take bf16 q, k, v (the bias and
-the softmax statistics stay fp32), through the ``_bf16`` variants of their C
-entry points: the same kernels, which read the bf16 operands, compute in
-fp32 and write out, dq, dk and dv in bf16, as the Pallas kernels upcast
-their operands and cast their outputs (``fused_attention.py:79-100``,
-``:305-321``). A bf16 training forward also writes its output in fp32
-(``out32``), which the backward takes for delta = rowsum(dO∘O): the Pallas
-backward sums P∘dP in fp32, the same value, where the rounded bf16 output
-would cancel against dO·V in a near-uniform softmax row. The full-bias
-kernels take bf16 q, k, v the same way, with an fp32 bias4 and an fp32
-dbias (dS), as the Pallas kernel writes dS in fp32
+bf16: the packed and head-major wrappers also take bf16 q, k, v (the bias
+and the softmax statistics stay fp32), through the ``_bf16`` variants of
+their C entry points, which launch kernels of their own on the bf16 tensor
+cores (``csrc/attention_bf16.cuh``: bf16 ``mma.sync`` with fp32
+accumulators, the forward's P·V with P rounded to bf16, the backward's
+dS·K, (P∘Z)ᵀ·dO and dSᵀ·Q with P and dS split into two bf16 terms; the
+softmax and its statistics in fp32) and write out, dq, dk and dv in bf16,
+as the Pallas kernels upcast their operands and cast their outputs
+(``fused_attention.py:79-100``, ``:305-321``). A bf16 training forward
+also writes its output in fp32 (``out32``), which the backward takes for
+delta = rowsum(dO∘O): the Pallas backward sums P∘dP in fp32, the same
+value, where the rounded bf16 output would cancel against dO·V in a
+near-uniform softmax row. The full-bias kernels take bf16 q, k, v and run
+the fp32 kernels on them (widened as they are loaded), with an fp32 bias4
+and an fp32 dbias (dS), as the Pallas kernel writes dS in fp32
 (``fused_attention.py:664-666``, ``:718``). Each plain version, given
 bf16 operands, upcasts them, runs the fp32 plain version and casts its
 outputs back (dbias stays fp32).

@@ -1164,16 +1164,36 @@ def _bf16(gen, *shape, scale=1.0):
     return _randn(gen, *shape, scale=scale).to(torch.bfloat16)
 
 
+def _plain_stats(q, k, bias, H, head_major):
+    """The [B, H, Tq, 2] row (max, sum of exp(s - max)) of the fp32 scores
+    of bf16 q, k (scale 1) and the column bias."""
+    if head_major:
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    else:
+        B, Tq, C = q.shape
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float().reshape(B, Tq, H, 64),
+                         k.float().reshape(B, k.shape[1], H, 64))
+    s = s + bias[:, None, None, :]
+    m = s.amax(-1)
+    return torch.stack([m, torch.exp(s - m[..., None]).sum(-1)], -1)
+
+
+# (80, 240, 240, 8, 0.1): cell T's decoder self-attention, the exact shape;
+# (2, 100, 37, 4, 0.1): a key count that is not a multiple of 16 (a ragged
+# k-step of the bf16 kernels' P·V) against a ragged query tile
 @pytest.mark.parametrize("head_major", [False, True])
 @pytest.mark.parametrize("B,Tq,Tk,H,p", [(2, 1, 1, 1, 0.0),
                                          (2, 65, 130, 4, 0.1),
                                          (3, 240, 120, 8, 0.1),
+                                         (2, 100, 37, 4, 0.1),
+                                         (80, 240, 240, 8, 0.1),
                                          (2, 1040, 1040, 4, 0.0)])
 def test_bf16_attention(gen, head_major, B, Tq, Tk, H, p):
-    """#1 and #2 on bf16 q, k, v: the inference and the training forward
-    and the backward against the plain bf16 versions (dropout, a fully
-    padded row), bf16 out and gradients; the training forward's fp32
-    statistics and fp32 output."""
+    """#1 and #2 on bf16 q, k, v (attention_bf16.cuh's kernels): the
+    inference and the training forward and the backward against the plain
+    bf16 versions (dropout, a fully padded row), bf16 out and gradients;
+    the training forward's fp32 statistics against the plain scores' and
+    its fp32 output; the backward bit-identical over two runs."""
     shape = (lambda T: (B, H, T, 64)) if head_major else (
         lambda T: (B, T, H * 64))
     q = _bf16(gen, *shape(Tq), scale=0.125)
@@ -1197,14 +1217,20 @@ def test_bf16_attention(gen, head_major, B, Tq, Tk, H, p):
     # the statistics and the output in fp32, for the backward's delta
     assert [x.dtype for x in st] == [torch.float32] * 2
     _bf16_close(st[1].to(torch.bfloat16), out)
+    _bf16_close(st[1], want.float())
+    stats = _plain_stats(q, k, bias, H, head_major)
+    assert ((st[0] - stats).abs()
+            <= BF16_TOL * stats.abs().clamp_min(1.0)).all()
     _bf16_close(infer, want)
     _bf16_close(out, want)
     bwd = fa.attention_hm_bwd_kernel if head_major else (
         lambda *a: fa.attention_bwd_kernel(*a[:7], H, *a[7:]))
     got = bwd(q, k, v, bias, out, st, do, 1.0, p, seeds)
+    again = bwd(q, k, v, bias, out, st, do, 1.0, p, seeds)
     torch.cuda.synchronize()
-    for g, w in zip(got, want_g):
+    for g, w, a in zip(got, want_g, again):
         _bf16_close(g, w)
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("B,T,H,p", [(2, 1, 4, 0.0), (2, 65, 4, 0.1),
