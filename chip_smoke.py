@@ -7,9 +7,11 @@ commit unpacked with ``git archive``; its kernels are built too, and the
 kernel phase times the rows of the kernels redesigned since (the training
 forward of #1, #2, #3 and #5, the link extraction #4 forward and backward,
 the DP #8 and the Viterbi #9, the fused FFN #6 forward and backward and
-the MRF level #7, and the bf16 rows of #1 and #2) with its library as
-well, on the same inputs in the same process, and the bf16 phase's bf16
-updates with its kernels too.)
+the MRF level #7, and the bf16 rows of #1, #2, #6 and #7) with its library
+as well, on the same inputs in the same process (#6's and #7's with its
+own wrappers too, whose scratch differs), and the bf16 phase's bf16
+updates, the alternates phase's bf16 fused-FFN updates and the vocoder
+rungs' bf16 fused-MRF runs with its kernels too, in turns.)
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``daspeech_torch/csrc`` with nvcc
@@ -48,8 +50,9 @@ updates with its kernels too.)
    the window against float64; HMMA in the SASS of #6's and #7's kernels
    and no spills in their ptxas report; bf16 HMMA
    (``HMMA.16816.F32.BF16``, and no other) in the SASS of the bf16
-   attention kernels (attention_bf16.cuh) and no spills in their ptxas
-   report; the
+   attention kernels (attention_bf16.cuh) and of the bf16 modes of #6 and
+   #7 (ffn_bf16.cuh, mrf_bf16.cuh), none in the fp32 modes' kernels, and
+   no spills in their ptxas report; the
    full-bias attention #3 at three shapes with a fully masked row, and
    against the head-major kernel on a column bias, <= 1e-4), with median
    CUDA-event times of the kernel, the plain version and, for attention,
@@ -205,7 +208,8 @@ updates with its kernels too.)
    attention_bf16.cuh, each once, and none of attention_tc.cuh's or
    attention_fma.cuh's, while their fp32 call still launches the FMA
    forward and attention_tc.cuh's backward (these rows are taken in a
-   process of their own, the script run with ``--bf16-kernel-rows``),
+   process of their own, the script run with ``--bf16-kernel-rows``;
+   the bf16 rows of #7, #6 and #3 likewise, ``--bf16-alternate-rows``),
    and one row each in the kernels' JSON (forward + backward: kernel,
    plain and SDPA ms in bf16, the bound at 989 TFLOP/s on the bf16
    bytes); the card's bf16 step against the CPU's at T (B=2) and J-long
@@ -267,6 +271,7 @@ result, as it does without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -391,6 +396,9 @@ ALTERNATE_KERNELS = ("fused_ffn", "fused_ffn_bwd", "fused_attention_full_bias",
                      "fused_attention_full_bias_bwd")
 # the bf16 modes of #7, #6 and #3 (the vocoder-rung and alternates phases)
 BF16_ALTERNATES = ("mrf_level", *ALTERNATE_KERNELS)
+# the sources of the bf16 modes that have kernels of their own (PR 20)
+BF16_SOURCES = {"mrf_level": "daspeech_torch/csrc/mrf_bf16.cuh",
+                "fused_ffn": "daspeech_torch/csrc/ffn_bf16.cuh"}
 
 
 def launch_counters():
@@ -712,6 +720,17 @@ LINKS_TC = ("links_bwd_dq_kernel", "links_bwd_dk_kernel")
 # (#7) and the fused FFN's forward, backward rows and weight gradients (#6)
 GEMM_TC = ("mrf_conv_kernel", "ffn_fwd_kernel", "ffn_bwd_rows_kernel",
            "ffn_wgrad_kernel")
+# the bf16 modes' kernels of #6 and #7 on the bf16 tensor cores
+# (ffn_bf16.cuh, mrf_bf16.cuh), and the kernels their bf16 calls launch
+BF16_GEMM_KERNELS = ("ffn_bf16_fwd_kernel", "ffn_bf16_rows_kernel",
+                     "ffn_bf16_wgrad_kernel", "mrf_bf16_conv_kernel")
+BF16_FFN_LAUNCH = {"ffn_bf16_fwd_kernel": 1, "ffn_bf16_rows_kernel": 1,
+                   "ffn_bf16_wgrad_kernel": 1, "ffn_reduce_kernel": 1}
+FP32_FFN_LAUNCH = {"ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
+                   "ffn_wgrad_kernel": 1, "ffn_reduce_kernel": 1}
+# a config_v1 level: the first pass and 18 convs
+BF16_MRF_LAUNCH = {"mrf_bf16_act_kernel": 1, "mrf_bf16_conv_kernel": 18}
+FP32_MRF_LAUNCH = {"mrf_conv_kernel": 18}
 # rows also timed with the parent tree's library when one is given
 # (--parent): every row of a name, or " training": its training-forward
 # rows
@@ -726,18 +745,64 @@ PARENT = {}               # "lib": the parent tree's kernel library
 SPLITS = []
 
 
+def parent_module(name):
+    """The parent tree's ``daspeech_torch/ops/<name>.py``, loaded beside
+    this tree's: it imports this tree's ``_build``, whose library
+    :class:`parent_library` swaps for the parent's."""
+    import importlib.util
+
+    mods = PARENT.setdefault("modules", {})
+    if name not in mods:
+        path = PARENT["root"] / "daspeech_torch" / "ops" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    return mods[name]
+
+
+# the wrappers whose scratch the parent tree sizes otherwise (the bf16 FFN's
+# and MRF level's): within parent_library the parent tree's own
+PARENT_WRAPPERS = (("fused_ffn", ("ffn_fwd_kernel", "ffn_bwd_kernel")),
+                   ("fused_mrf", ("mrf_level_kernel",)))
+
+
 class parent_library:
     """Within the block the wrappers launch the parent tree's kernels: the
-    same wrappers call the same C entry points in its library."""
+    same wrappers call the same C entry points in its library, and the FFN's
+    and the MRF level's kernel wrappers are the parent tree's (the ops call
+    them by their module's name)."""
 
     def __enter__(self):
+        import importlib
+
         from daspeech_torch.ops import _build
 
         self.build, self.own = _build, _build.library
         _build.library = lambda: PARENT["lib"]
+        self.swapped = []
+        for name, fns in PARENT_WRAPPERS:
+            ours = importlib.import_module(f"daspeech_torch.ops.{name}")
+            for fn in fns:
+                self.swapped.append((ours, fn, getattr(ours, fn)))
+                setattr(ours, fn, getattr(parent_module(name), fn))
 
     def __exit__(self, *exc):
         self.build.library = self.own
+        for mod, fn, own in self.swapped:
+            setattr(mod, fn, own)
+
+
+def in_turns(fn, timer=None):
+    """(this tree's ms, the parent tree's ms) of ``fn``, timed by
+    ``timer`` (``cuda_ms``) in turns: this, parent, parent, this; each the
+    mean of its two."""
+    timer = timer or cuda_ms
+    a = timer(fn)
+    with parent_library():
+        b = timer(fn)
+        c = timer(fn)
+    d = timer(fn)
+    return (a + d) / 2, (b + c) / 2
 
 
 def parent_ms(fn):
@@ -747,8 +812,8 @@ def parent_ms(fn):
 
 
 def parent_mrf_level(x, W, bias, kernel_sizes, dilations):
-    """The parent tree's MRF level at its own tile choice (the same
-    wrapper, the parent's entry point)."""
+    """The parent tree's MRF level at its own tile choice (its wrapper and
+    its entry point)."""
     from daspeech_torch.ops import fused_mrf as fm
 
     with parent_library():
@@ -826,8 +891,8 @@ def sass_counts(lib_path):
     """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
     attention_tc.cuh, of attention_bf16.cuh (and, of the HMMA, those of the
     bf16 form, ``HMMA.16816.F32.BF16``: HMMA_BF16), of the FMA forward, of
-    the link extraction and of #6's and #7's kernels (gemm_tc.cuh's tiles)
-    in the built library's SASS (``cuobjdump -sass``), a template kernel's
+    the link extraction and of #6's and #7's kernels (gemm_tc.cuh's tiles:
+    the fp32 modes' and the bf16 modes') in the built library's SASS (``cuobjdump -sass``), a template kernel's
     instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
     #3's; ``attn_fma_fwd_kernel<1,0>``: #1's and #2's, ``<5,0>``: #5's,
     ``<1,1>``: #3's); None without cuobjdump."""
@@ -848,7 +913,7 @@ def sass_counts(lib_path):
         if m:
             name = next((t for t in (*TC_KERNELS, *BF16_ATTN_KERNELS,
                                      FMA_FORWARD, *LINKS_FMA, *LINKS_TC,
-                                     *GEMM_TC)
+                                     *GEMM_TC, *BF16_GEMM_KERNELS)
                          if t in m.group(1)), None)
             inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
             if name and inst:
@@ -891,12 +956,15 @@ def no_spills(ptxas, name, n_instances):
 
 
 # instances of each kernel checked for spills: the FMA forward's three,
-# the MRF conv's twelve (32, 64 and 128 channels x 64 and 128 frames x
-# fp32 and bf16 weights)
-SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 12,
+# the fp32 MRF conv's six (32, 64 and 128 channels x 64 and 128 frames),
+# the bf16 MRF conv's eight (16, 32, 64 and 128 channels x 64 and 128
+# frames)
+SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 6,
                  "ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
-                 "ffn_wgrad_kernel": 1,
-                 **{n: 1 for n in BF16_ATTN_KERNELS}}
+                 "ffn_wgrad_kernel": 1, "mrf_bf16_conv_kernel": 8,
+                 "mrf_bf16_act_kernel": 1,
+                 **{n: 1 for n in BF16_ATTN_KERNELS},
+                 **{n: 1 for n in BF16_GEMM_KERNELS[:3]}}
 
 
 def kernel_phase():
@@ -2972,9 +3040,10 @@ def bf16_close(what, got, want):
     return err
 
 
-def profiled_own_kernels(name, tag, fn):
+def profiled_own_kernels(name, tag, fn, own=("daspeech",)):
     """(the names of our kernels that one ``fn()`` launched, under
-    ``torch.profiler``; each wrapper's launch count it added). A window
+    ``torch.profiler``: those whose name holds one of ``own``; each
+    wrapper's launch count it added). A window
     whose wrappers launched and where the profiler saw none of their
     kernels lost its device events (CUPTI): it is profiled again, up to
     PROFILE_ATTEMPTS times; a window that saw other kernels is taken as it
@@ -2988,7 +3057,8 @@ def profiled_own_kernels(name, tag, fn):
             lambda: (torch.ones(1, device="cuda"), fn()),
             f"bf16_kernels_{name}_{tag}")
         after = read_launches()
-        ours = sorted(e["name"] for e in events if "daspeech" in e["name"])
+        ours = sorted(e["name"] for e in events
+                      if any(o in e["name"] for o in own))
         moved = {k: after[k] - before[k] for k in after
                  if not k.endswith(" bf16")}
         if ours or not any(moved.values()):
@@ -3300,23 +3370,29 @@ def bf16_kernel_rows():
     return rows
 
 
-def bf16_kernel_rows_apart():
-    """:func:`bf16_kernel_rows` in a fresh process (this script with
-    ``--bf16-kernel-rows``, the library already built): late in a long
-    process the profiler has been seen to lose every kernel of a short
-    window, which the same-kernels check profiles."""
+# the rows taken in a process of their own: flag -> the function whose
+# JSON that process prints
+ROWS_APART = {"--bf16-kernel-rows": "bf16_kernel_rows",
+              "--bf16-alternate-rows": "bf16_alternate_rows"}
+
+
+def rows_apart(flag):
+    """The rows of ``ROWS_APART[flag]`` in a fresh process (this script
+    with ``flag``, the library already built): late in a long process the
+    profiler has been seen to lose every kernel of a short window, or most
+    of them, which the kernel-identity checks profile."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = (sys.argv[sys.argv.index("--parent"):][:2]
               if "--parent" in sys.argv else [])
-    out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--bf16-kernel-rows", *parent],
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                          *parent],
                          capture_output=True, text=True, cwd=here,
                          timeout=900)
     for line in out.stderr.splitlines():
         if "UserWarning" not in line and "_warn_once" not in line:
             log(line)
     if out.returncode != 0 or not out.stdout.strip():
-        raise AssertionError(f"the bf16 kernel rows failed: rc "
+        raise AssertionError(f"{ROWS_APART[flag]} failed: rc "
                              f"{out.returncode}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -3423,7 +3499,7 @@ def bf16_phase():
     from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
 
     bf = torch.bfloat16
-    rows = bf16_kernel_rows_apart()
+    rows = rows_apart("--bf16-kernel-rows")
 
     # --- card vs CPU, dropout 0 and GLAT 0 (T at B=2, J-long at B=1: the
     # CPU's bf16 step is several times slower than its fp32 one)
@@ -3870,9 +3946,38 @@ def vocoder_rung_phase(mels, voc_cpu):
                     f"(<= {bar:.3g})")
             names = device_busy(lambda: fn(mels["A"]), f"vocoder {tag} A")
             if fused and names is not None and not any(
-                    "mrf_conv_kernel" in n and "true" in n for n in names):
+                    "mrf_bf16_conv_kernel" in n for n in names):
                 raise AssertionError(f"vocoder {tag}: the profile holds no "
-                                     "bf16 mrf_conv_kernel")
+                                     "mrf_bf16_conv_kernel")
+            if fused and PARENT:
+                # the fused rung with the parent tree's MRF kernels, in
+                # turns, one-shot and chunked; and the device busy ms of
+                # one call with each tree's kernels
+                for b, mel in mels.items():
+                    for key, f_ in (("ms", fn), ("chunked_ms", fn_c)):
+                        now, was = in_turns(
+                            lambda: f_(mel),
+                            lambda g: cuda_ms(g, reps=5, warm=1))
+                        busy = busy_share(lambda: f_(mel),
+                                          f"vocoder {tag} {b} {key}")[0]
+                        with parent_library():
+                            busy_was = busy_share(
+                                lambda: f_(mel),
+                                f"vocoder {tag} {b} {key} parent")[0]
+                        row[b].update({f"{key}_in_turns": now,
+                                       f"was_{key}": was,
+                                       f"{key}_busy": busy,
+                                       f"was_{key}_busy": busy_was})
+                    log(f"  vocoder {tag} batch {b}, in turns with the "
+                        f"parent tree's kernels: one-shot "
+                        f"{row[b]['ms_in_turns']:.3f} ms (parent tree "
+                        f"{row[b]['was_ms']:.3f}), chunked "
+                        f"{row[b]['chunked_ms_in_turns']:.3f} ms (parent "
+                        f"tree {row[b]['was_chunked_ms']:.3f}); device busy "
+                        f"of one call, this tree / parent: one-shot "
+                        f"{row[b]['ms_busy']} / {row[b]['was_ms_busy']}, "
+                        f"chunked {row[b]['chunked_ms_busy']} / "
+                        f"{row[b]['was_chunked_ms_busy']}")
             if not fused and quant in ("none", "bf16"):
                 # witness of the chunked run's differences: the conv sites'
                 # bits in a window against the whole batch's
@@ -3939,14 +4044,48 @@ def mrf_chain_bf16(x, W, biases, kernel_sizes, dilations):
     return out / len(kernel_sizes)
 
 
+def bf16_gemm_kernels(name, run32, run16, want32, want16):
+    """#6's or #7's bf16 call launches its bf16 kernels (ffn_bf16.cuh's,
+    mrf_bf16.cuh's; ``want16``: name -> count) and none of the fp32 mode's
+    kernels or the casts the bf16 entry points once ran; the fp32 call
+    launches the fp32 mode's (``want32``) as before and no bf16 kernel (by
+    name, under ``torch.profiler``). Returns the bf16 call's kernel
+    count."""
+    # #6's and #7's kernels live outside namespace daspeech
+    own = ("ffn_", "mrf_", "widen_kernel", "narrow_kernel")
+    (k32, _), (k16, _) = (profiled_own_kernels(name, tag, fn, own)
+                          for tag, fn in (("fp32", run32), ("bf16", run16)))
+
+    def counts(kernels, want):
+        return {t: sum(t in n for n in kernels) for t in want}
+
+    ok16 = (counts(k16, want16) == want16
+            and len(k16) == sum(want16.values())
+            and not any(t in n for n in k16 for t in (
+                *GEMM_TC, "widen_kernel", "narrow_kernel")))
+    ok32 = (counts(k32, want32) == want32
+            and len(k32) == sum(want32.values())
+            and not any("_bf16_" in n for n in k32))
+    if not (ok16 and ok32):
+        raise AssertionError(f"{name}: the bf16 call launches {k16}, the "
+                             f"fp32 call {k32}")
+    log(f"  {name} bf16: {len(k16)} kernels, the bf16 mode's "
+        f"({', '.join(sorted(set(n[:48] for n in k16)))}); fp32: "
+        f"{len(k32)} kernels, the 3xTF32 mode's")
+    return len(k16)
+
+
 def bf16_alternate_rows():
     """#7, #6 and #3 with bf16 operands against their plain bf16 versions
     (within 2^-7 of the output's largest magnitude): #7 at serving A's
-    level 1 and a chunk window, #6 at cell T's FFN [80, 120] (forward and
-    backward, dropout 0.1), #3 at the ALiBi shape (training forward and
-    backward, dropout 0.1); each row's kernel, plain and library times
-    beside the bound at 989 TFLOP/s and on the bf16 bytes. Returns
-    {name: rows}."""
+    level 1, serving B's level 1 and a chunk window, #6 at cell T's FFN
+    [80, 120] (forward and backward, dropout 0.1), #3 at the ALiBi shape
+    (training forward and backward, dropout 0.1); each row's kernel, plain
+    and library times beside the bound at 989 TFLOP/s and on the bf16
+    bytes. #7's and #6's rows (the kernels this tree redesigned) also hold
+    their TFLOP/s, the device ms by kernel beside the library's, the
+    kernels each bf16 call launches, and with --parent the parent tree's
+    time (``was_ms``). Returns {name: rows}."""
     from daspeech_torch.models import conformer
     from daspeech_torch.models.layers import set_dtype
     from daspeech_torch.ops import fused_attention as fa
@@ -3959,28 +4098,55 @@ def bf16_alternate_rows():
                             "fused_attention_full_bias bf16")}
 
     def row(name, shape, err, run_kernel, run_plain, flops, nbytes,
-            run_library):
+            run_library, **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library)
         b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_BF16)
+        # the kernels this tree redesigned: the parent tree's time, in turns,
+        # and the device time by kernel beside the library's
+        redesigned = name != "fused_attention_full_bias bf16"
+        was = None
+        if redesigned:
+            if PARENT:
+                ms, was = in_turns(run_kernel)
+            extra["device_ms"] = kernel_split(run_kernel, f"{name} {shape}")
+            extra["library_device_ms"] = kernel_split(
+                run_library, f"{name} {shape} library")
+            extra["tflops"] = flops / ms / 1e9
+            extra["library_tflops"] = flops / lib_ms / 1e9
         rows[name].append({
             "shape": shape, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms})
-        log(f"  {name} {shape}: max abs err {err:.3g}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
-            f"{lib_ms:.4f} ms")
+            "library_ms": lib_ms, "was_ms": was, **extra})
+        tf = lambda t: f" ({flops / t / 1e9:.1f} TFLOP/s)"  # noqa: E731
+        log(f"  {name} {shape}: max abs err {err:.3g}  kernel {ms:.4f} ms"
+            f"{tf(ms)}" + ("" if was is None else
+                           f"  parent tree {was:.4f} ms{tf(was)}")
+            + f"  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+            f"library {lib_ms:.4f} ms{tf(lib_ms)}"
+            + "".join(f"  {k} {extra[k]:.4f}" for k in
+                      ("device_ms", "library_device_ms")
+                      if extra.get(k) is not None))
 
     # --- #7: bf16 weights, fp32 activations and output
     n_taps = 2 * len(MRF_DILATIONS[0]) * sum(MRF_KERNELS)
-    for B, C, T in (MRF_SHAPES[0], MRF_SHAPES[4]):
+    for i, (B, C, T) in enumerate((MRF_SHAPES[0], MRF_SHAPES[3],
+                                   MRF_SHAPES[4])):
         x, W, biases = mrf_inputs(g, B, C, T)
         Wb = W.to(bf)
         shape = f"x[{B},{C},{T}] bf16 W"
+        extra = {}
         with torch.inference_mode():
             got = fm.mrf_level(x, Wb, biases, MRF_KERNELS, MRF_DILATIONS)
             err = bf16_close(f"#7 bf16 {shape}", got, fm.mrf_level_ref(
                 x, Wb, biases, MRF_KERNELS, MRF_DILATIONS))
+            if i == 0:
+                extra["bf16_kernels"] = bf16_gemm_kernels(
+                    "mrf_level", lambda: fm.mrf_level(
+                        x, W, biases, MRF_KERNELS, MRF_DILATIONS),
+                    lambda: fm.mrf_level(x, Wb, biases, MRF_KERNELS,
+                                         MRF_DILATIONS),
+                    FP32_MRF_LAUNCH, BF16_MRF_LAUNCH)
             row("mrf_level bf16", shape, err,
                 lambda: fm.mrf_level(x, Wb, biases, MRF_KERNELS,
                                      MRF_DILATIONS),
@@ -3989,7 +4155,7 @@ def bf16_alternate_rows():
                 2 * B * T * C * C * n_taps,
                 2 * B * C * T * F32 + n_taps * C * C * BF16_BYTES,
                 lambda: mrf_chain_bf16(x, W, biases, MRF_KERNELS,
-                                       MRF_DILATIONS))
+                                       MRF_DILATIONS), **extra)
         del x, W, Wb, biases, got
 
     # --- #6: bf16 x, weights and biases; forward + backward
@@ -4015,15 +4181,23 @@ def bf16_alternate_rows():
         out = lib(lib_ins[0], torch.Generator(device="cuda"))
         return torch.autograd.grad(out, [lib_ins[0], *lib.parameters()], do)
 
-    row("fused_ffn bf16", shape, err,
-        lambda: (ff.ffn_fwd_kernel(x, *params, seeds, p, p),
-                 ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)),
+    def run(x=x, params=params, do=do):
+        return (ff.ffn_fwd_kernel(x, *params, seeds, p, p),
+                ff.ffn_bwd_kernel(x, *params, do, seeds, p, p))
+
+    f32 = [x.float(), gm, bt, w1, b1, w2, b2, do.float()]
+    bf16_kernels = bf16_gemm_kernels(
+        "fused_ffn", lambda: run(f32[0], f32[1:7], f32[7]), run,
+        FP32_FFN_LAUNCH, BF16_FFN_LAUNCH)
+    row("fused_ffn bf16", shape, err, run,
         lambda: (ff.ffn_plain(x, *params, seeds, p, p),
                  ff.ffn_bwd_plain(x, *params, do, seeds, p, p)),
         14 * N * C * Fd,
         (4 * N * C + 2 * C * Fd + Fd + C) * BF16_BYTES
-        + (2 * C * Fd + Fd + 5 * C) * F32, run_lib)
-    del x, params, do, lib, lib_ins
+        + (2 * C * Fd + Fd + 5 * C) * F32, run_lib,
+        bf16_kernels=bf16_kernels,
+        fp32_ms=cuda_ms(lambda: run(f32[0], f32[1:7], f32[7])))
+    del x, params, do, lib, lib_ins, f32
 
     # --- #3: bf16 q, k, v, fp32 bias4; training forward + backward
     B, H, T = ALIBI_SHAPE
@@ -4237,6 +4411,33 @@ def alternates_phase():
     if per != {"fused_ffn": FFN_PER_UPDATE, "fused_ffn_bwd": FFN_PER_UPDATE}:
         raise AssertionError(f"bf16 fused_ffn launches per update {per}")
     del model, step
+    if PARENT:
+        # the same bf16 updates with the parent tree's FFN kernels, in
+        # turns: this tree, parent, parent, this
+        turns = {"this tree": [], "parent tree": []}
+        for mine in (True, False, False, True):
+            model = set_dtype(set_fused_ffn_(
+                copy.deepcopy(model_cpu).to(DEVICE), True), torch.bfloat16)
+            opt = GuardedAdam()
+            step = make_train_step(loss_fn_for(cfg, 0.5), opt)
+            tag = "this tree" if mine else "parent tree"
+            state = TrainState.create(model, opt)
+            with (contextlib.nullcontext() if mine else parent_library()):
+                med, _, _, _, _ = timed_updates(
+                    step, state, batch, 3, 10,
+                    f"S2TT T bf16, encoder FFN fused, {tag}'s kernels")
+                busy, _ = busy_share(
+                    lambda: step(state, batch,
+                                 torch.Generator().manual_seed(SEED)),
+                    f"bf16 fused FFN update {tag}")
+            turns[tag].append((med, busy))
+            del model, state, step
+        ms["fused bf16 in turns"] = turns
+        log("  bf16 fused-FFN updates in turns (median ms, device busy ms "
+            "of one update): " + "; ".join(
+                f"{tag} " + ", ".join(
+                    f"{m:.3f} ({'-' if b is None else f'{b:.2f}'})"
+                    for m, b in v) for tag, v in turns.items()))
 
     # --- the full-bias attention on an ALiBi-style bias, through the op
     B, H, T = ALIBI_SHAPE
@@ -6683,6 +6884,7 @@ def main() -> int:
         # another checkout (the parent commit), whose kernels are built
         # beside this tree's and timed beside the redesigned rows
         root = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
+        PARENT["root"] = root
         parent = threading.Thread(target=lambda: PARENT.update(
             build=_build.build(root / "daspeech_torch" / "csrc",
                                root / "build" / "daspeech_torch")))
@@ -6699,10 +6901,11 @@ def main() -> int:
         PARENT["lib"] = _build.load(PARENT["build"].path, strict=False)
         log(f"parent tree's kernels built in {PARENT['build'].seconds:.1f} s "
             f"-> {PARENT['build'].path}")
-    if "--bf16-kernel-rows" in sys.argv:
-        # the bf16 phase's kernel rows, in a process of their own
-        print(json.dumps(bf16_kernel_rows()))
-        return 0
+    for flag, fn in ROWS_APART.items():
+        if flag in sys.argv:
+            # kernel rows in a process of their own (rows_apart)
+            print(json.dumps(globals()[fn]()))
+            return 0
     if b"15attn_fwd_kernel" in built.path.read_bytes():
         raise AssertionError("a SIMT attention forward (attn_fwd_kernel) is "
                              "in the kernel library")
@@ -6717,15 +6920,23 @@ def main() -> int:
         tc = {n: c for n, c in sass.items() if n not in fma_names}
         fma = {n: c for n, c in sass.items() if n in fma_names}
         if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC,
-                                               *GEMM_TC, *BF16_ATTN_KERNELS}
+                                               *GEMM_TC, *BF16_ATTN_KERNELS,
+                                               *BF16_GEMM_KERNELS}
                 or not all(c["HMMA"] for c in tc.values())):
             raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
-        # the bf16 attention kernels multiply on the bf16 tensor cores, and
-        # every HMMA they hold is of that form
-        if not all(0 < tc[n]["HMMA_BF16"] == tc[n]["HMMA"]
-                   for n in BF16_ATTN_KERNELS):
-            raise AssertionError("bf16 attention kernels without bf16 HMMA: "
-                                 f"{ {n: tc[n] for n in BF16_ATTN_KERNELS} }")
+        # the bf16 attention kernels and the bf16 modes of #6 and #7 multiply
+        # on the bf16 tensor cores, and every HMMA they hold is of that
+        # form; the fp32 modes of #6 and #7 hold none (3xTF32 only)
+        bf16_tc = {n: c for n, c in tc.items() if n.split("<")[0] in (
+            *BF16_ATTN_KERNELS, *BF16_GEMM_KERNELS)}
+        if (len(bf16_tc) != len(BF16_ATTN_KERNELS) + 3 + 8
+                or not all(0 < c["HMMA_BF16"] == c["HMMA"]
+                           for c in bf16_tc.values())):
+            raise AssertionError(f"bf16 kernels without bf16 HMMA: {bf16_tc}")
+        if any(c["HMMA_BF16"] for n, c in tc.items()
+               if n.split("<")[0] in GEMM_TC):
+            raise AssertionError(f"bf16 HMMA in the fp32 modes of #6 and "
+                                 f"#7: {tc}")
         if (set(fma) != fma_names
                 or any(c["HMMA"] or not c["FFMA"] for c in fma.values())):
             raise AssertionError(f"FMA kernels not on the FMA pipes: {fma}")
@@ -6751,7 +6962,7 @@ def main() -> int:
         "int8, int8-skip1; one-shot and chunked):")
     rungs, _ = vocoder_rung_phase(mels, voc_cpu)
     log("bf16 rows of #7, #6 and #3:")
-    bf16_alt_rows = bf16_alternate_rows()
+    bf16_alt_rows = rows_apart("--bf16-alternate-rows")
     log("TTS phase:")
     tts = tts_phase(voc_cpu)
     log("alternates phase (#6 fused FFN, #3 full-bias attention):")
@@ -6878,6 +7089,7 @@ def main() -> int:
     for name, shapes in bf16_alt_rows.items():
         base = name[:-len(" bf16")]
         src, replaces = KERNELS[base]
+        src = BF16_SOURCES.get(base, src)
         main_path, bwd = alt_paths[base]
         first = shapes[0]
         launches = by_path[main_path][name]
@@ -6889,6 +7101,11 @@ def main() -> int:
             **({} if bwd is None else {
                 "bwd_launches": by_path[main_path][f"{bwd} bf16"]}),
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            # #6 and #7 (redesigned): the bf16 kernels' count, the parent
+            # tree's time, TFLOP/s and the device split
+            **{k: first[k] for k in ("bf16_kernels", "was_ms", "tflops",
+                                     "device_ms", "library_device_ms")
+               if k in first},
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -47,17 +47,10 @@
 //
 // bf16 (daspeech_ffn_fwd_bf16, daspeech_ffn_bwd_bf16; x, W1, b1, W2, b2,
 // out, dout and dx bf16 in device memory, gamma, beta and the weight and
-// bias gradients fp32): the same kernels with `lp` set, which round each
-// product's operands to bf16 where _ffn_fwd_kernel and _ffn_bwd_kernel
-// cast them (fused_ffn.py:70-78, :102-128): y before W1, h before W2; in
-// the backward g, gpre and h * m1 (and y) before their products. A bf16
-// value is exact in TF32, so the 3xTF32 split of a rounded operand is the
-// value and a zero lo part, and each product sums the bf16 values in fp32
-// as the Pallas kernel's preferred_element_type=f32 does. LayerNorm, the
-// swish, the masks, the biases and the column sums (db1 over the unrounded
-// gpre, db2 over the unrounded g) stay fp32. The entry points widen the
-// bf16 tensors into fp32 scratch from cudaMallocAsync and round out and dx
-// to bf16 when they are written.
+// bias gradients fp32): ffn_bf16.cuh's kernels on the bf16 tensor cores,
+// which read the bf16 tensors in place. The fp32 kernels' `lp` (round each
+// product's operands to bf16) is always 0 now; it stays so that these
+// kernels compile as before.
 //
 // Dropout (philox.cuh): element (t, j) of batch row b at site s (1: after
 // the swish, width F; 2: after the second product, width C) is kept when
@@ -716,111 +709,23 @@ FfnArgs ffn_args(const float* x, const float* gamma, const float* beta,
   return a;
 }
 
-// dst[i] = widen or round src[i] over several arrays (blockIdx.y a job)
-struct CastJob {
-  const void* src;
-  void* dst;
-  long long n;
-};
-
-struct CastArgs {
-  CastJob job[6];
-};
-
-__global__ void widen_kernel(const CastArgs a) {
-  const CastJob& jb = a.job[blockIdx.y];
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < jb.n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    static_cast<float*>(jb.dst)[i] =
-        __bfloat162float(static_cast<const __nv_bfloat16*>(jb.src)[i]);
-  }
-}
-
-__global__ void narrow_kernel(const float* src, __nv_bfloat16* dst,
-                              long long n) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    dst[i] = __float2bfloat16_rn(src[i]);
-  }
-}
-
-constexpr int kCastBlocks = 1024;
-
-// fp32 copies, from one cudaMallocAsync block, of the bf16 operands of a
-// bf16 entry point (x, W1, b1, W2, b2 and, for the backward, dout) and an
-// fp32 output buffer of N C floats; release() frees them in stream order
-struct Widened {
-  float *x = nullptr, *w1, *b1, *w2, *b2, *dout, *out;
-  void* block = nullptr;
-  cudaStream_t st;
-
-  cudaError_t make(const void* x16, const void* w116, const void* b116,
-                   const void* w216, const void* b216, const void* dout16,
-                   int N, int F, cudaStream_t stream) {
-    st = stream;
-    const long long NC = static_cast<long long>(N) * C,
-                    FC_ = static_cast<long long>(F) * C;
-    // each array starts on a 16-byte boundary (cp.async, float4 reads)
-    auto up4 = [](long long n) { return (n + 3) / 4 * 4; };
-    const long long total = up4(NC) * (dout16 ? 3 : 2) + 2 * up4(FC_) +
-                            up4(F) + up4(C);
-    cudaError_t err = cudaMallocAsync(&block, total * sizeof(float), st);
-    if (err != cudaSuccess) return err;
-    float* p = static_cast<float*>(block);
-    x = p;
-    p += up4(NC);
-    out = p;
-    p += up4(NC);
-    w1 = p;
-    p += up4(FC_);
-    w2 = p;
-    p += up4(FC_);
-    b1 = p;
-    p += up4(F);
-    b2 = p;
-    p += up4(C);
-    dout = dout16 ? p : nullptr;
-    CastArgs c{};
-    c.job[0] = {x16, x, NC};
-    c.job[1] = {w116, w1, FC_};
-    c.job[2] = {b116, b1, F};
-    c.job[3] = {w216, w2, FC_};
-    c.job[4] = {b216, b2, C};
-    c.job[5] = {dout16, dout, dout16 ? NC : 0};
-    widen_kernel<<<dim3(kCastBlocks, 6), 256, 0, st>>>(c);
-    return cudaGetLastError();
-  }
-
-  // out rounded into dst (bf16), then the scratch freed
-  cudaError_t finish(void* dst, int N) {
-    narrow_kernel<<<kCastBlocks, 256, 0, st>>>(
-        out, static_cast<__nv_bfloat16*>(dst), static_cast<long long>(N) * C);
-    cudaError_t err = cudaGetLastError();
-    const cudaError_t ferr = cudaFreeAsync(block, st);
-    return err != cudaSuccess ? err : ferr;
-  }
-};
-
 // a row kernel on clusters of cluster_size(F) blocks along x, one cluster
 // per BM-row tile along y, `smem` bytes of shared memory a block
 template <typename... Params, typename... Args>
-cudaError_t launch_rows(void (*kernel)(Params...), size_t smem,
-                        const FfnArgs& a, cudaStream_t stream,
-                        Args... args) {
+cudaError_t launch_rows(void (*kernel)(Params...), size_t smem, int F, int N,
+                        cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int cs = cluster_size(a.F);
+  const int cs = cluster_size(F);
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cs;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (a.N + BM - 1) / BM);
+  cfg.gridDim = dim3(cs, (N + BM - 1) / BM);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -830,8 +735,57 @@ cudaError_t launch_rows(void (*kernel)(Params...), size_t smem,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// the fixed-order sums of the weight gradients' slices (part_w [2, S, F C])
+// and of the row tiles' column sums (part_rows [ntiles, F + 3C])
+cudaError_t reduce(const float* part_w, const float* part_rows, float* dw1,
+                   float* dw2, float* db1, float* db2, float* dgamma,
+                   float* dbeta, int F, int ntiles, int S, cudaStream_t st) {
+  const long long FC_ = static_cast<long long>(F) * C;
+  const long long width = F + 3 * C;
+  ReduceArgs r;
+  r.job[0] = {part_w, dw1, FC_, FC_, S};
+  r.job[1] = {part_w + S * FC_, dw2, FC_, FC_, S};
+  r.job[2] = {part_rows, db1, F, width, ntiles};
+  r.job[3] = {part_rows + F, db2, C, width, ntiles};
+  r.job[4] = {part_rows + F + C, dgamma, C, width, ntiles};
+  r.job[5] = {part_rows + F + 2 * C, dbeta, C, width, ntiles};
+  ffn_reduce_kernel<<<dim3(static_cast<unsigned>((FC_ + 255) / 256), 6), 256,
+                      0, st>>>(r);
+  return cudaGetLastError();
+}
+
+#include "ffn_bf16.cuh"
+
+bf::Args bf_args(const void* x, const float* gamma, const float* beta,
+                 const void* w1, const void* b1, const void* w2,
+                 const void* b2, const uint32_t* seeds, int drop1,
+                 uint32_t thresh1, float scale1, int drop2, uint32_t thresh2,
+                 float scale2, int B, int T, int F) {
+  bf::Args a;
+  a.x = static_cast<const uint16_t*>(x);
+  a.gamma = gamma;
+  a.beta = beta;
+  a.w1 = static_cast<const uint16_t*>(w1);
+  a.b1 = static_cast<const uint16_t*>(b1);
+  a.w2 = static_cast<const uint16_t*>(w2);
+  a.b2 = static_cast<const uint16_t*>(b2);
+  a.seeds = seeds;
+  a.drop1 = seeds != nullptr && drop1;
+  a.drop2 = seeds != nullptr && drop2;
+  a.thresh1 = thresh1;
+  a.thresh2 = thresh2;
+  a.scale1 = scale1;
+  a.scale2 = scale2;
+  a.N = B * T;
+  a.T = T;
+  a.F = F;
+  a.Fp = (F + 7) / 8 * 8;
+  a.vec_w2 = F % 8 == 0 && bf::aligned16(w2);
+  return a;
+}
+
 cudaError_t ffn_fwd(const FfnArgs& a, float* out, cudaStream_t st) {
-  return launch_rows(ffn_fwd_kernel, kFwdSmem, a, st, a, out);
+  return launch_rows(ffn_fwd_kernel, kFwdSmem, a.F, a.N, st, a, out);
 }
 
 cudaError_t ffn_bwd(const FfnArgs& a, const float* dout, float* dx,
@@ -841,8 +795,8 @@ cudaError_t ffn_bwd(const FfnArgs& a, const float* dout, float* dx,
                     cudaStream_t st) {
   const int F = a.F;
   const int ntiles = (a.N + BM - 1) / BM;
-  cudaError_t err = launch_rows(ffn_bwd_rows_kernel, kBwdSmem, a, st, a,
-                                dout, dx,
+  cudaError_t err = launch_rows(ffn_bwd_rows_kernel, kBwdSmem, a.F, a.N, st,
+                                a, dout, dx,
                                 FfnScratch{y, g, hd, gpre, part_rows});
   if (err != cudaSuccess) return err;
 
@@ -861,17 +815,8 @@ cudaError_t ffn_bwd(const FfnArgs& a, const float* dout, float* dx,
   ffn_wgrad_kernel<<<dim3(tiles, 1, 2 * S), NT, kWgradSmem, st>>>(w);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const long long width = F + 3 * C;
-  ReduceArgs r;
-  r.job[0] = {part_w, dw1, FC_, FC_, S};
-  r.job[1] = {part_w + S * FC_, dw2, FC_, FC_, S};
-  r.job[2] = {part_rows, db1, F, width, ntiles};
-  r.job[3] = {part_rows + F, db2, C, width, ntiles};
-  r.job[4] = {part_rows + F + C, dgamma, C, width, ntiles};
-  r.job[5] = {part_rows + F + 2 * C, dbeta, C, width, ntiles};
-  ffn_reduce_kernel<<<dim3(static_cast<unsigned>((FC_ + 255) / 256), 6), 256,
-                      0, st>>>(r);
-  return cudaGetLastError();
+  return reduce(part_w, part_rows, dw1, dw2, db1, db2, dgamma, dbeta, F,
+                ntiles, S, st);
 }
 
 }  // namespace
@@ -894,7 +839,8 @@ extern "C" int daspeech_ffn_fwd(const float* x, const float* gamma,
       ffn_fwd(a, out, static_cast<cudaStream_t>(stream)));
 }
 
-// bf16 x, w1, b1, w2, b2 and out; gamma and beta fp32
+// bf16 x, w1, b1, w2, b2 and out (x, w1 and out 16-byte aligned); gamma
+// and beta fp32
 extern "C" int daspeech_ffn_fwd_bf16(const void* x, const float* gamma,
                                      const float* beta, const void* w1,
                                      const void* b1, const void* w2,
@@ -904,20 +850,15 @@ extern "C" int daspeech_ffn_fwd_bf16(const void* x, const float* gamma,
                                      uint32_t thresh2, float scale2,
                                      void* out, int B, int T, int Cw, int F,
                                      void* stream) {
-  if (Cw != C || B < 1 || T < 1 || F < 1) {
+  if (Cw != C || B < 1 || T < 1 || F < 1 || !bf::aligned16(x) ||
+      !bf::aligned16(w1) || !bf::aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Widened wd;
-  cudaError_t err = wd.make(x, w1, b1, w2, b2, nullptr, B * T, F, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  FfnArgs a = ffn_args(wd.x, gamma, beta, wd.w1, wd.b1, wd.w2, wd.b2, seeds,
-                       drop1, thresh1, scale1, drop2, thresh2, scale2, B, T,
-                       F);
-  a.lp = 1;
-  err = ffn_fwd(a, wd.out, st);
-  const cudaError_t ferr = wd.finish(out, B * T);
-  return static_cast<int>(err != cudaSuccess ? err : ferr);
+  const bf::Args a = bf_args(x, gamma, beta, w1, b1, w2, b2, seeds, drop1,
+                             thresh1, scale1, drop2, thresh2, scale2, B, T,
+                             F);
+  return static_cast<int>(bf::fwd(a, static_cast<uint16_t*>(out),
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 // scratch: y, g [N, C]; hd, gpre [N, F]; part_rows [ceil(N / 32),
@@ -941,29 +882,32 @@ extern "C" int daspeech_ffn_bwd(
                                   static_cast<cudaStream_t>(stream)));
 }
 
-// bf16 x, w1, b1, w2, b2, dout and dx; the parameter gradients and the
-// scratch fp32
+// bf16 x, w1, b1, w2, b2, dout and dx (x, w1, dout and dx 16-byte
+// aligned); the parameter gradients fp32; scratch: y, g bf16 [N, C], hd,
+// gpre bf16 [N, Fp] (Fp = F rounded up to 8), part_rows and part_w fp32 as
+// daspeech_ffn_bwd's
 extern "C" int daspeech_ffn_bwd_bf16(
     const void* x, const float* gamma, const float* beta, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* dout,
     const uint32_t* seeds, int drop1, uint32_t thresh1, float scale1,
     int drop2, uint32_t thresh2, float scale2, void* dx, float* dgamma,
-    float* dbeta, float* dw1, float* db1, float* dw2, float* db2, float* y,
-    float* g, float* hd, float* gpre, float* part_rows, float* part_w, int B,
+    float* dbeta, float* dw1, float* db1, float* dw2, float* db2, void* y,
+    void* g, void* hd, void* gpre, float* part_rows, float* part_w, int B,
     int T, int Cw, int F, int S, void* stream) {
-  if (Cw != C || B < 1 || T < 1 || F < 1 || S < 1) {
+  if (Cw != C || B < 1 || T < 1 || F < 1 || S < 1 || !bf::aligned16(x) ||
+      !bf::aligned16(w1) || !bf::aligned16(dout) || !bf::aligned16(dx) ||
+      !bf::aligned16(y) || !bf::aligned16(g) || !bf::aligned16(hd) ||
+      !bf::aligned16(gpre)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Widened wd;
-  cudaError_t err = wd.make(x, w1, b1, w2, b2, dout, B * T, F, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  FfnArgs a = ffn_args(wd.x, gamma, beta, wd.w1, wd.b1, wd.w2, wd.b2, seeds,
-                       drop1, thresh1, scale1, drop2, thresh2, scale2, B, T,
-                       F);
-  a.lp = 1;
-  err = ffn_bwd(a, wd.dout, wd.out, dgamma, dbeta, dw1, db1, dw2, db2, y, g,
-                hd, gpre, part_rows, part_w, S, st);
-  const cudaError_t ferr = wd.finish(dx, B * T);
-  return static_cast<int>(err != cudaSuccess ? err : ferr);
+  const bf::Args a = bf_args(x, gamma, beta, w1, b1, w2, b2, seeds, drop1,
+                             thresh1, scale1, drop2, thresh2, scale2, B, T,
+                             F);
+  const bf::Scratch sc{static_cast<uint16_t*>(y), static_cast<uint16_t*>(g),
+                       static_cast<uint16_t*>(hd),
+                       static_cast<uint16_t*>(gpre), part_rows};
+  return static_cast<int>(bf::bwd(a, static_cast<const uint16_t*>(dout),
+                                  static_cast<uint16_t*>(dx), dgamma, dbeta,
+                                  dw1, db1, dw2, db2, sc, part_w, S,
+                                  static_cast<cudaStream_t>(stream)));
 }

@@ -1,9 +1,10 @@
 // One HiFi-GAN MRF level for Hopper (sm_90a), inference only, in two
-// modes: fp32 weights (daspeech_mrf_level, 3xTF32 products) and bf16 weights
-// (daspeech_mrf_level_bf16, the TPU kernel's arithmetic: each conv's input
-// activation rounded to bf16, fused_mrf.py:120, bf16 products with fp32
-// sums). In both the activations, biases, residual spine and output are
-// fp32.
+// modes: fp32 weights (daspeech_mrf_level, 3xTF32 products, this file's
+// mrf_conv_kernel) and bf16 weights (daspeech_mrf_level_bf16, the TPU
+// kernel's arithmetic: each conv's input activation rounded to bf16,
+// fused_mrf.py:120, bf16 products with fp32 sums; mrf_bf16.cuh's kernels
+// on the bf16 tensor cores). In both the biases, residual spine and output
+// are fp32.
 //
 // Replaces the Pallas kernel of daspeech_tpu/ops/fused_mrf.py:156
 // (mrf_level; _mrf_kernel at :87, pallas_call at :182).
@@ -46,17 +47,6 @@
 // take ~140 KB of hi/lo planes at C = 128, against ~1.2 ms of traffic for
 // the level's 18 x 2 passes over [B, C, T] at serving A (3.35 TB/s).
 //
-// bf16 mode: the same tiles, stages and epilogue; each operand is staged
-// as bf16 pairs along the contraction (one 32-bit word holds channels 2r and
-// 2r + 1, the lower one in the low half), so a (chunk, tap) stage is one
-// mma.sync m16n8k16 per 16 x 8 block whose fragments are the same word
-// indices as a TF32 k-step's: a0a1 (t, gid), a2a3 (t, gid + 8), a4a5
-// (t + 4, gid), a6a7 (t + 4, gid + 8); b0b1 (t, gid), b2b3 (t + 4, gid). A
-// thread copies both channels of its pairs (the weight rows 2r, 2r + 1 of
-// an 8-column group; the activation rows 2r, 2r + 1 of a frame) and packs
-// them itself, so no barrier sits between the copy and the packing. Each
-// stage's product goes into a fresh accumulator added in fp32.
-//
 // Sum order: every output sums its ci chunks in order, each chunk's taps in
 // order, each (chunk, tap) as two k-steps whose three products go into a
 // fresh accumulator added in fp32; it does not depend on the frame's place
@@ -84,7 +74,7 @@ __device__ __forceinline__ float lrelu(float v) {
 
 struct ConvArgs {
   const float* in;     // [B, C, T] conv input (before lrelu)
-  const void* w;       // [K, C, C] (tap, in, out), fp32 or bf16
+  const float* w;      // [K, C, C] (tap, in, out)
   const float* bias;   // [C]
   const float* res;    // [B, C, T] residual added to the output, or null
   float* out;          // [B, C, T] output, or null
@@ -124,9 +114,8 @@ __host__ __device__ inline int smem_words(int nx) {
 }
 
 // minimum blocks 1: a bound of two blocks an SM caps a thread at 128
-// registers, and the 32 x 64 accumulator then spills. BF: bf16 weights
-// (the packed pairs above) in place of the TF32 hi/lo planes.
-template <int CP, int BN, bool BF>
+// registers, and the 32 x 64 accumulator then spills
+template <int CP, int BN>
 __global__ void __launch_bounds__(Tile<CP, BN>::kThreads, 1)
     mrf_conv_kernel(const ConvArgs a, int C, int T) {
   using S = Tile<CP, BN>;
@@ -150,57 +139,17 @@ __global__ void __launch_bounds__(Tile<CP, BN>::kThreads, 1)
 
   // the cp.async copies of stage s's weights W[s % K, 16 (s / K) .., :]
   // and of chunk ch's activations; thread tid owns elements tid + i NT
-  // (bf16: the pairs of rows 2r, 2r + 1 of 8-column weight groups and of
-  // frames)
   auto copy_w = [&](int s) {
-    const int ci0 = (s / K) * KC;
-    if constexpr (BF) {
-      const uint16_t* w = static_cast<const uint16_t*>(a.w) +
-                          static_cast<long long>(s % K) * C * C;
-      uint16_t* raw = reinterpret_cast<uint16_t*>(wraw + (s % kRing) *
-                                                             S::kWRaw);
-      for (int g = threadIdx.x; g < CP; g += NT) {
-        const int r2 = g / (CP / 8), c0 = 8 * (g % (CP / 8));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 2 * r2 + h, ci = ci0 + r;
-          uint16_t* dst = raw + r * CP + c0;
-          const uint16_t* src = w + static_cast<long long>(ci) * C + c0;
-          if (C % 8 == 0) {
-            const bool ok = ci < C && c0 < C;
-            cp_async<16>(dst, ok ? src : w, ok);
-          } else {
-            for (int u = 0; u < 8; ++u)
-              dst[u] = ci < C && c0 + u < C ? src[u] : uint16_t(0);
-          }
-        }
-      }
-    } else {
-      WChunk::copy(wraw + (s % kRing) * S::kWRaw, CP,
-                   static_cast<const float*>(a.w) +
-                       static_cast<long long>(s % K) * C * C,
-                   C, ci0, 0, C, C, C % 4 == 0);
-    }
+    WChunk::copy(wraw + (s % kRing) * S::kWRaw, CP,
+                 a.w + static_cast<long long>(s % K) * C * C, C,
+                 (s / K) * KC, 0, C, C, C % 4 == 0);
   };
   auto copy_x = [&](int ch) {
-    if constexpr (BF) {
-      for (int e = threadIdx.x; e < (KC / 2) * NX; e += NT) {
-        const int r2 = e / NX, col = e - r2 * NX, g = xbase + col;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 2 * r2 + h, ci = ch * KC + r;
-          const bool ok = ci < C && g >= 0 && g < T;
-          cp_async<4>(xraw + r * NX + col,
-                      ok ? in + static_cast<long long>(ci) * T + g : in, ok);
-        }
-      }
-    } else {
-      for (int e = threadIdx.x; e < KC * NX; e += NT) {
-        const int r = e / NX, ci = ch * KC + r, g = xbase + e - r * NX;
-        const bool ok = ci < C && g >= 0 && g < T;
-        cp_async<4>(xraw + e,
-                    ok ? in + static_cast<long long>(ci) * T + g : in, ok);
-      }
+    for (int e = threadIdx.x; e < KC * NX; e += NT) {
+      const int r = e / NX, ci = ch * KC + r, g = xbase + e - r * NX;
+      const bool ok = ci < C && g >= 0 && g < T;
+      cp_async<4>(xraw + e,
+                  ok ? in + static_cast<long long>(ci) * T + g : in, ok);
     }
   };
 
@@ -216,50 +165,23 @@ __global__ void __launch_bounds__(Tile<CP, BN>::kThreads, 1)
     if (j == 0) {
       if (s) __syncthreads();             // the last chunk's products are done
       cp_async_wait<0>();                 // this chunk's activations
-      if constexpr (BF) {
-        for (int e = threadIdx.x; e < (KC / 2) * NX; e += NT) {
-          const int r2 = e / NX, col = e - r2 * NX;
-          xs[r2 * NXP + col] = gemm::pack_bf16(lrelu(xraw[2 * r2 * NX + col]),
-                                         lrelu(xraw[(2 * r2 + 1) * NX + col]));
-        }
-      } else {
-        for (int e = threadIdx.x; e < KC * NX; e += NT) {
-          const int r = e / NX;
-          gemm::put(xs, XPLANE, r * NXP + e - r * NX, lrelu(xraw[e]));
-        }
+      for (int e = threadIdx.x; e < KC * NX; e += NT) {
+        const int r = e / NX;
+        gemm::put(xs, XPLANE, r * NXP + e - r * NX, lrelu(xraw[e]));
       }
     } else {
       cp_async_wait<kRing - 2>();         // stage s's weights
     }
     uint32_t* wb = ws + (s & 1) * 2 * WPLANE;
-    if constexpr (BF) {
-      const uint16_t* raw =
-          reinterpret_cast<const uint16_t*>(wraw + (s % kRing) * S::kWRaw);
-      for (int g = threadIdx.x; g < CP; g += NT) {
-        const int r2 = g / (CP / 8), c0 = 8 * (g % (CP / 8));
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          wb[r2 * WP + c0 + u] =
-              uint32_t(raw[2 * r2 * CP + c0 + u]) |
-              (uint32_t(raw[(2 * r2 + 1) * CP + c0 + u]) << 16);
-        }
-      }
-    } else {
-      WChunk::split(wraw + (s % kRing) * S::kWRaw, CP, wb, WPLANE, WP);
-    }
+    WChunk::split(wraw + (s % kRing) * S::kWRaw, CP, wb, WPLANE, WP);
     __syncthreads();
     if (j == 0 && s / K + 1 < nchunk) copy_x(s / K + 1);
     if (s + kRing - 1 < nstage) copy_w(s + kRing - 1);
     cp_async_commit();
     // A = W_tap [ci][co] (k outer), B = the tile shifted by j d frames
-    if constexpr (BF) {
-      gemm::warp_mma_bf16<MT, NTW>(acc, wb, WP, wm * 16 * MT, xs, NXP,
-                             wn * 8 * NTW + j * d);
-    } else {
-      gemm::warp_mma<MT, NTW, KC / 8, true, true>(
-          acc, gemm::Op{wb, WPLANE, WP, wm * 16 * MT, 0},
-          gemm::Op{xs, XPLANE, NXP, wn * 8 * NTW + j * d, 0});
-    }
+    gemm::warp_mma<MT, NTW, KC / 8, true, true>(
+        acc, gemm::Op{wb, WPLANE, WP, wm * 16 * MT, 0},
+        gemm::Op{xs, XPLANE, NXP, wn * 8 * NTW + j * d, 0});
   }
   const int lane = threadIdx.x % 32, gid = lane >> 2, tq = lane & 3;
   const int t0 = blockIdx.x * BN, b = blockIdx.y;
@@ -292,7 +214,7 @@ __global__ void __launch_bounds__(Tile<CP, BN>::kThreads, 1)
   }
 }
 
-template <int CP, int BN, bool BF>
+template <int CP, int BN>
 cudaError_t launch_conv(const ConvArgs& a, int B, int C, int T,
                         cudaStream_t stream) {
   using S = Tile<CP, BN>;
@@ -302,18 +224,17 @@ cudaError_t launch_conv(const ConvArgs& a, int B, int C, int T,
   const size_t smem = sizeof(uint32_t) * smem_words<CP, BN>(nx);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      mrf_conv_kernel<CP, BN, BF>,
+      mrf_conv_kernel<CP, BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BN - 1) / BN, B);
-  mrf_conv_kernel<CP, BN, BF><<<grid, S::kThreads, smem, stream>>>(a, C, T);
+  mrf_conv_kernel<CP, BN><<<grid, S::kThreads, smem, stream>>>(a, C, T);
   return cudaGetLastError();
 }
 
-// All n_blocks x n_dil iterations of a level, two convs each; WT the
-// weights' element type (float, or uint16_t for bf16)
-template <int CP, int BN, typename WT>
-cudaError_t run_level(const float* x, const WT* w, const float* bias,
+// All n_blocks x n_dil iterations of a level, two convs each
+template <int CP, int BN>
+cudaError_t run_level(const float* x, const float* w, const float* bias,
                       float* out, float* tmp0, float* tmp1, float* ybuf,
                       int B, int C, int T, int n_blocks,
                       const int* kernel_sizes, int n_dil,
@@ -333,8 +254,7 @@ cudaError_t run_level(const float* x, const WT* w, const float* bias,
       a.out = ybuf;
       a.K = K;
       a.d = dilations[blk * n_dil + it];
-      constexpr bool BF = sizeof(WT) == 2;
-      cudaError_t err = launch_conv<CP, BN, BF>(a, B, C, T, stream);
+      cudaError_t err = launch_conv<CP, BN>(a, B, C, T, stream);
       if (err != cudaSuccess) return err;
       ConvArgs p{};
       p.in = ybuf;
@@ -347,7 +267,7 @@ cudaError_t run_level(const float* x, const WT* w, const float* bias,
       p.d = 1;
       p.acc_mode = !last ? 0 : (blk == 0 ? 1 : 2);
       p.acc_scale = last && blk == n_blocks - 1 ? 1.f / n_blocks : 1.f;
-      if ((err = launch_conv<CP, BN, BF>(p, B, C, T, stream)) !=
+      if ((err = launch_conv<CP, BN>(p, B, C, T, stream)) !=
           cudaSuccess) {
         return err;
       }
@@ -359,50 +279,40 @@ cudaError_t run_level(const float* x, const WT* w, const float* bias,
   return cudaSuccess;
 }
 
-template <int BN, typename WT>
-cudaError_t dispatch_channels(int C, const float* x, const WT* w,
+template <int BN>
+cudaError_t dispatch_channels(int C, const float* x, const float* w,
                               const float* bias, float* out, float* tmp0,
                               float* tmp1, float* ybuf, int B, int T,
                               int n_blocks, const int* ks, int n_dil,
                               const int* ds, cudaStream_t s) {
   if (C < 1 || C > 128 || (C & (C - 1))) return cudaErrorInvalidValue;
   if (C <= 32) {
-    return run_level<32, BN, WT>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
+    return run_level<32, BN>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
                              n_blocks, ks, n_dil, ds, s);
   }
   if (C == 64) {
-    return run_level<64, BN, WT>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
+    return run_level<64, BN>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
                              n_blocks, ks, n_dil, ds, s);
   }
-  return run_level<128, BN, WT>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
+  return run_level<128, BN>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
                             n_blocks, ks, n_dil, ds, s);
 }
 
-template <typename WT>
-int mrf_level(const float* x, const WT* w, const float* bias, float* out,
-              float* tmp0, float* tmp1, float* ybuf, int B, int C, int T,
-              int n_blocks, const int* kernel_sizes, int n_dil,
-              const int* dilations, int tile, void* stream) {
-  if (B < 1 || T < 1 || n_blocks < 1 || n_dil < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+#include "mrf_bf16.cuh"
+
+// what both modes take: n_blocks >= 1 chains of n_dil >= 1 iterations,
+// odd kernel sizes <= kMaxK, dilations >= 1, tile 64 or 128
+bool level_ok(int B, int T, int n_blocks, const int* kernel_sizes, int n_dil,
+              const int* dilations, int tile) {
+  if (B < 1 || T < 1 || n_blocks < 1 || n_dil < 1) return false;
+  if (tile != 64 && tile != 128) return false;
   for (int blk = 0; blk < n_blocks; ++blk) {
     const int K = kernel_sizes[blk];
-    if (K < 1 || K > kMaxK || K % 2 == 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (K < 1 || K > kMaxK || K % 2 == 0) return false;
     for (int it = 0; it < n_dil; ++it)
-      if (dilations[blk * n_dil + it] < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
+      if (dilations[blk * n_dil + it] < 1) return false;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 64)
-    return static_cast<int>(dispatch_channels<64, WT>(
-        C, x, w, bias, out, tmp0, tmp1, ybuf, B, T, n_blocks, kernel_sizes,
-        n_dil, dilations, s));
-  if (tile == 128)
-    return static_cast<int>(dispatch_channels<128, WT>(
-        C, x, w, bias, out, tmp0, tmp1, ybuf, B, T, n_blocks, kernel_sizes,
-        n_dil, dilations, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return true;
 }
 
 }  // namespace
@@ -423,21 +333,41 @@ extern "C" int daspeech_mrf_level(const float* x, const float* w,
                                   const int* kernel_sizes, int n_dil,
                                   const int* dilations, int tile,
                                   void* stream) {
-  return mrf_level<float>(x, w, bias, out, tmp0, tmp1, ybuf, B, C, T,
-                          n_blocks, kernel_sizes, n_dil, dilations, tile,
-                          stream);
+  if (!level_ok(B, T, n_blocks, kernel_sizes, n_dil, dilations, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      tile == 64 ? dispatch_channels<64>(C, x, w, bias, out, tmp0, tmp1,
+                                         ybuf, B, T, n_blocks, kernel_sizes,
+                                         n_dil, dilations, s)
+                 : dispatch_channels<128>(C, x, w, bias, out, tmp0, tmp1,
+                                          ybuf, B, T, n_blocks, kernel_sizes,
+                                          n_dil, dilations, s));
 }
 
-// the same with bf16 w (every conv's input rounded to bf16, bf16 products,
-// fp32 sums); x, bias, out and the scratch stay fp32
+// the same with bf16 w, the taps [n_taps, CP, CP] (in, out) zero-padded to
+// CP = max(C, 16) channels (every conv's input rounded to bf16, bf16
+// products, fp32 sums); x, bias, out, tmp0 and tmp1 stay fp32, and ws (the
+// fp32 mode's ybuf) is bf16 [3, B, T, CP] scratch for the convs' inputs
 extern "C" int daspeech_mrf_level_bf16(const float* x, const void* w,
                                        const float* bias, float* out,
-                                       float* tmp0, float* tmp1, float* ybuf,
+                                       float* tmp0, float* tmp1, void* ws,
                                        int B, int C, int T, int n_blocks,
                                        const int* kernel_sizes, int n_dil,
                                        const int* dilations, int tile,
                                        void* stream) {
-  return mrf_level<uint16_t>(x, static_cast<const uint16_t*>(w), bias, out,
-                             tmp0, tmp1, ybuf, B, C, T, n_blocks,
-                             kernel_sizes, n_dil, dilations, tile, stream);
+  if (!level_ok(B, T, n_blocks, kernel_sizes, n_dil, dilations, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint16_t* wb = static_cast<const uint16_t*>(w);
+  uint16_t* wsb = static_cast<uint16_t*>(ws);
+  return static_cast<int>(
+      tile == 64 ? bf::dispatch_channels<64>(C, x, wb, bias, out, tmp0, tmp1,
+                                             wsb, B, T, n_blocks,
+                                             kernel_sizes, n_dil, dilations,
+                                             s)
+                 : bf::dispatch_channels<128>(C, x, wb, bias, out, tmp0,
+                                              tmp1, wsb, B, T, n_blocks,
+                                              kernel_sizes, n_dil, dilations,
+                                              s));
 }

@@ -1,10 +1,13 @@
-// GEMM-shaped 3xTF32 tensor-core tiles for Hopper (sm_90a), fp32, shared by
-// the fused Conformer FFN (fused_ffn.cu) and the HiFi-GAN MRF level
-// (fused_mrf.cu): operands staged into shared memory already split into
-// TF32 hi/lo planes, warp products of mma.sync m16n8k8 over them (or, for
-// bf16 operands, packed bf16 pairs and mma.sync m16n8k16), and the
-// cp.async copy of a 2-D chunk of a row-major matrix into a ring of raw
-// fp32 tiles, several chunks ahead of the products.
+// GEMM-shaped tensor-core tiles for Hopper (sm_90a), shared by the fused
+// Conformer FFN (fused_ffn.cu, ffn_bf16.cuh) and the HiFi-GAN MRF level
+// (fused_mrf.cu, mrf_bf16.cuh). fp32 modes: operands staged into shared
+// memory already split into TF32 hi/lo planes, warp products of 3xTF32
+// mma.sync m16n8k8 over them, and the cp.async copy of a 2-D chunk of a
+// row-major matrix into a ring of raw fp32 tiles, several chunks ahead of
+// the products. bf16 modes (the section "bf16 tiles" below): bf16 tiles
+// copied as they are by 16-byte cp.async, fragments by ldmatrix (.trans
+// for a tile whose rows are the contraction), one mma.sync m16n8k16 a
+// k-step of 16 with fp32 accumulators.
 //
 // Precision (attention_tc.cuh's top comment, "Precision"): x = hi + lo with
 // hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and a·b is taken as
@@ -30,6 +33,7 @@
 // C 16x8 c0 (gid, 2t) c1 (gid, 2t+1) c2 (gid+8, 2t) c3 (gid+8, 2t+1).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -163,52 +167,141 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
   }
 }
 
-// d = a·b (m16n8k16, bf16 operands, fp32 out) with a zero accumulator
-__device__ __forceinline__ void mma_bf16_0(float d[4], const uint32_t a[4],
-                                           uint32_t b0, uint32_t b1) {
+// ---- bf16 tiles (ffn_bf16.cuh, mrf_bf16.cuh) ------------------------------
+// A bf16 tile lies in shared memory row-major with a pitch (in elements) of
+// 8 more than a multiple of 8 (tile width + 8): the eight 16-byte rows an
+// ldmatrix phase reads then fall on distinct banks, and every row stays
+// 16-byte aligned for cp.async. Fragments come by ldmatrix.x4, with .trans
+// where the tile is stored with the contraction index as its rows.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const uint16_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const uint16_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a·b, m16n8k16, bf16 operands, fp32 accumulators (chained in place:
+// the accumulation's truncation bias, ~2^-23 relative an add, is far below
+// bf16's rounding)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// acc[m][n] += A · B for one 16-deep stage of packed bf16 pairs: A the
-// weight plane [8][wp] (rows co from a0), B the activation plane [8][xp]
-// (frames from b0)
-template <int MT, int NTW>
-__device__ __forceinline__ void warp_mma_bf16(float (&acc)[MT][NTW][4],
-                                              const uint32_t* w, int wp,
-                                              int a0, const uint32_t* x,
-                                              int xp, int b0) {
-  const int lane = threadIdx.x % 32, gid = lane >> 2, t = lane & 3;
-  uint32_t a[MT][4];
+// acc[m][n] (the 16 x 8 block at rows 16 m, columns 8 n of this warp's
+// result) += A · B over KS k-steps of 16. A: the warp's 16 MT rows, at `a`
+// (row 0, k 0) with pitch ap, stored [m][k] or, with AT, [k][m]; B: its
+// 8 NB columns at `b` (column 0, k 0) with pitch bp, stored [n][k] or,
+// with BT, [k][n]. Each k-step's sums chain in the accumulators in order.
+template <int MT, int NB, int KS, bool AT, bool BT>
+__device__ __forceinline__ void warp_mma_bf16(float (&acc)[MT][NB][4],
+                                              const uint16_t* a, int ap,
+                                              const uint16_t* b, int bp) {
+  static_assert(NB % 2 == 0, "B fragments come two 8-column blocks a load");
+  const int lane = threadIdx.x % 32;
+  // ldmatrix.x4: lane l gives the address of row l % 8 of matrix l / 8;
+  // A's matrices (a0 .. a3) are (rows 0-7, k 0-7), (8-15, 0-7), (0-7,
+  // 8-15), (8-15, 8-15); B's (b0, b1 of block 2np, then of 2np + 1) are
+  // (k 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+  const uint16_t* pa =
+      AT ? a + ((lane >> 4) * 8 + (lane & 7)) * ap + ((lane >> 3) & 1) * 8
+         : a + (lane & 15) * ap + (lane >> 4) * 8;
+  const uint16_t* pb =
+      BT ? b + (((lane >> 3) & 1) * 8 + (lane & 7)) * bp + (lane >> 4) * 8
+         : b + ((lane >> 4) * 8 + (lane & 7)) * bp + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int r = a0 + 16 * m + gid;
-    a[m][0] = w[t * wp + r];
-    a[m][1] = w[t * wp + r + 8];
-    a[m][2] = w[(t + 4) * wp + r];
-    a[m][3] = w[(t + 4) * wp + r + 8];
-  }
-#pragma unroll
-  for (int n = 0; n < NTW; ++n) {
-    const int c = b0 + 8 * n + gid;
-    const uint32_t b_lo = x[t * xp + c], b_hi = x[(t + 4) * xp + c];
+  for (int u = 0; u < KS; ++u) {
+    uint32_t af[MT][4];
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      float f[4];
-      mma_bf16_0(f, a[m], b_lo, b_hi);
+      if constexpr (AT) {
+        ldsm4_t(af[m], pa + 16 * m + 16 * u * ap);
+      } else {
+        ldsm4(af[m], pa + 16 * m * ap + 16 * u);
+      }
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] += f[e];
+    for (int np = 0; np < NB / 2; ++np) {
+      uint32_t bf[4];
+      if constexpr (BT) {
+        ldsm4_t(bf, pb + 16 * np + 16 * u * bp);
+      } else {
+        ldsm4(bf, pb + 16 * np * bp + 16 * u);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(acc[m][2 * np], af[m], bf[0], bf[1]);
+        mma_bf16(acc[m][2 * np + 1], af[m], bf[2], bf[3]);
+      }
     }
   }
 }
+
+// bf16 bits to fp32 (exact) and fp32 to bf16 bits (round to nearest even)
+__device__ __forceinline__ float bf2f(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+__device__ __forceinline__ uint16_t f2bf(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+// two fp32 values as one word of bf16 bits, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(f2bf(lo)) |
+         (static_cast<uint32_t>(f2bf(hi)) << 16);
+}
+
+// A ROWS x COLS chunk of a row-major bf16 matrix m (row stride ld
+// elements) from row r0, column c0, into a tile [ROWS][pitch], zero outside
+// [0, rmax) x [0, cmax). NT threads; thread tid owns the 8-column groups
+// g = tid + i NT, (g / (COLS / 8), 8 (g % (COLS / 8))), each one 16-byte
+// cp.async when `vec` (ld and cmax multiples of 8, m 16-byte aligned), else
+// eight loads and stores of its own (visible, like the copies, after the
+// barrier that precedes the tile's use).
+template <int ROWS, int COLS, int NT>
+struct BfChunk {
+  static constexpr int kGroups = ROWS * COLS / 8;
+  static constexpr int kIters = (kGroups + NT - 1) / NT;
+
+  __device__ __forceinline__ static void copy(uint16_t* dst, int pitch,
+                                              const uint16_t* m, long long ld,
+                                              int r0, int c0, int rmax,
+                                              int cmax, bool vec) {
+#pragma unroll
+    for (int i = 0; i < kIters; ++i) {
+      const int g = static_cast<int>(threadIdx.x) + i * NT;
+      if (kGroups % NT != 0 && g >= kGroups) break;
+      const int r = g / (COLS / 8), c = 8 * (g % (COLS / 8));
+      const int gr = r0 + r, gc = c0 + c;
+      uint16_t* d = dst + r * pitch + c;
+      if (vec) {
+        const bool ok = gr < rmax && gc < cmax;
+        cp_async<16>(d, ok ? m + gr * ld + gc : m, ok);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          d[u] = gr < rmax && gc + u < cmax ? m[gr * ld + gc + u]
+                                            : uint16_t(0);
+        }
+      }
+    }
+  }
+};
 
 template <int MT, int NT>
 __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {

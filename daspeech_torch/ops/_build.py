@@ -12,14 +12,16 @@ Each C entry point returns a ``cudaError_t`` (0 on success): the caller
 raises on anything else, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it. An entry point whose name
 ends in ``_bf16`` is the bf16 variant of the one without: the same
-arguments and, but for the packed and head-major attention's (which run
-``csrc/attention_bf16.cuh``'s bf16 tensor-core kernels), the same kernels,
-its operands and outputs bf16 in device memory (:func:`entry`), except
-where the Pallas kernel keeps a tensor
-fp32: the MRF level's bf16 variant takes bf16 weights and fp32
-activations, biases and output; the full-bias attention's keeps its bias
-and dS fp32; the fused FFN's keeps LayerNorm's parameters and the
-parameter gradients fp32.
+arguments, its operands and outputs bf16 in device memory (:func:`entry`),
+except where the Pallas kernel keeps a tensor fp32: the MRF level's bf16
+variant takes bf16 weights and fp32 activations, biases and output (and
+bf16 scratch where the fp32 one takes ``ybuf``); the full-bias attention's
+keeps its bias and dS fp32; the fused FFN's keeps LayerNorm's parameters
+and the parameter gradients fp32 (and takes bf16 scratch). The packed and
+head-major attention's (``csrc/attention_bf16.cuh``), the fused FFN's
+(``csrc/ffn_bf16.cuh``) and the MRF level's (``csrc/mrf_bf16.cuh``) bf16
+variants run bf16 tensor-core kernels of their own; the others run the
+fp32 entry point's kernels.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 -> W2 -> dropout, plain PyTorch version and CUDA kernels.
 
 Counterpart of ``daspeech_tpu/ops/fused_ffn.py``. The CUDA kernels
-(``csrc/fused_ffn.cu``) replace its Pallas kernels (:175 ``fused_ffn``:
-forward ``_ffn_fwd_kernel`` at :59, backward ``_ffn_bwd_kernel`` at :84).
-Every product runs on the tensor cores (3xTF32). A thread-block cluster of
+(``csrc/fused_ffn.cu``; bf16: ``csrc/ffn_bf16.cuh``) replace its Pallas
+kernels (:175 ``fused_ffn``: forward ``_ffn_fwd_kernel`` at :59, backward
+``_ffn_bwd_kernel`` at :84). Every product runs on the tensor cores (fp32:
+3xTF32; bf16: bf16 MMAs with fp32 sums). A thread-block cluster of
 up to 8 blocks owns 32 rows and splits F between its blocks, whose partial
 sums meet in distributed shared memory in a fixed order; the forward keeps
 the [T, F] intermediate on the chip; the backward recomputes LayerNorm,
@@ -22,12 +23,13 @@ plain version agree element for element with dropout on, and the backward
 replays the forward's masks.
 
 bf16: with bf16 x, w1, b1, w2 and b2 (gamma and beta fp32) the kernels
-round each product's operands to bf16 where the Pallas kernels cast them
-(``fused_ffn.py:70-78``, ``:102-128``): y before W1 and h before W2; in
-the backward g, h·m1, gpre and y before their products. LayerNorm, the
-swish, the masks and the bias and column sums stay fp32; out and dx are
-bf16, the parameter gradients fp32. The plain versions round at the same
-points.
+read the bf16 tensors in place and take each product's operands as bf16
+where the Pallas kernels cast them (``fused_ffn.py:70-78``, ``:102-128``):
+y before W1 and h before W2; in the backward g, h·m1, gpre and y before
+their products. LayerNorm, the swish, the masks and the bias and column
+sums stay fp32 (db1 sums the unrounded gpre, db2 the unrounded g); out and
+dx are bf16, the parameter gradients fp32, and the backward's scratch
+(y, g, h·m1, gpre) bf16. The plain versions round at the same points.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels, which
 take fp32 or bf16 (as above), contiguous tensors of width C = 256 (the
@@ -51,6 +53,7 @@ LN_EPS = 1e-6        # flax nn.LayerNorm's default, as the module
 WIDTH = 256          # the one model width C the kernels are built for
 ROW_TILE = 32        # rows per cluster of the kernels (csrc/fused_ffn.cu BM)
 SLICE_ROWS = 1024    # about this many rows per slice of the dW sums
+BF16_ROW_ALIGN = 8   # the bf16 [N, F] scratch's rows are padded to this
 
 
 def _masks(seeds, T, C, Fd, p1, p2):
@@ -185,8 +188,9 @@ def ffn_fwd_kernel(x, gamma, beta, w1, b1, w2, b2, seeds=None,
 def ffn_bwd_kernel(x, gamma, beta, w1, b1, w2, b2, dout, seeds=None,
                    p1: float = 0.0, p2: float = 0.0):
     """Launch the backward kernels: (dx, dgamma, dbeta, dw1, db1, dw2,
-    db2). Scratch: y and g [N, C], h·m1 and gpre [N, F] (N = B·T), the row
-    tiles' column sums and the dW slices' partial sums."""
+    db2). Scratch: y and g [N, C], h·m1 and gpre [N, F] (N = B·T; bf16 x:
+    bf16, and [N, F rounded up to 8]), the row tiles' column sums and the
+    dW slices' partial sums."""
     _check("fused_ffn backward", x, gamma, beta, w1, b1, w2, b2, seeds, p1,
            p2, extra=(dout,))
     B, T, C = x.shape
@@ -197,8 +201,14 @@ def ffn_bwd_kernel(x, gamma, beta, w1, b1, w2, b2, dout, seeds=None,
                                      device=x.device)
     dx = torch.empty_like(x)
     grads = (new(C), new(C), new(Fd, C), new(Fd), new(C, Fd), new(C))
-    scratch = (new(N, C), new(N, C), new(N, Fd), new(N, Fd),
-               new(math.ceil(N / ROW_TILE), Fd + 3 * C), new(2, S, Fd * C))
+    if x.dtype == torch.bfloat16:
+        Fp = -(-Fd // BF16_ROW_ALIGN) * BF16_ROW_ALIGN
+        acts = tuple(torch.empty(N, w, dtype=x.dtype, device=x.device)
+                     for w in (C, C, Fp, Fp))
+    else:
+        acts = (new(N, C), new(N, C), new(N, Fd), new(N, Fd))
+    scratch = (*acts, new(math.ceil(N / ROW_TILE), Fd + 3 * C),
+               new(2, S, Fd * C))
     with torch.cuda.device(x.device):
         rc = _build.entry("daspeech_ffn_bwd", x.dtype)(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),

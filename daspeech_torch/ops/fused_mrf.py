@@ -14,7 +14,12 @@ Two modes, picked by the weights' dtype. fp32 weights: every product in
 TPU kernel always takes these, ``fused_mrf.py:120``, ``:178``): each conv's
 input activation rounded to bf16, native bf16 products with fp32 sums;
 the residual spine, biases, sequence masking, the average and the output
-stay fp32, as in the Pallas kernel.
+stay fp32, as in the Pallas kernel. The bf16 mode has kernels of its own
+(``csrc/mrf_bf16.cuh``): inside the level each conv's input is a bf16
+``[B, T, C]`` tensor of lrelu'd, rounded values that the conv before it
+wrote, a tap contracts all input channels at once on the bf16 tensor
+cores, and the taps are read in their ``[in, out]`` layout
+(:func:`pack_bf16_taps`).
 
 Inference only, as in JAX: neither version has a gradient. CPU tensors take
 the plain version (:func:`mrf_level_ref`, the convs through ``F.conv1d``);
@@ -35,6 +40,7 @@ LRELU_SLOPE = 0.1
 TILES = (64, 128)           # output frames per block the kernel is built for
 MAX_KERNEL = 17             # largest conv kernel size the kernel takes
 MAX_CHANNELS = 128
+BF16_MIN_CHANNELS = 16      # the bf16 kernel's channels (a k-step of 16)
 
 
 def prepare_level(resblocks, dtype: torch.dtype = torch.float32
@@ -52,6 +58,21 @@ def prepare_level(resblocks, dtype: torch.dtype = torch.float32
                 biases.append(conv.bias)
     return (torch.cat(mats).to(dtype).contiguous(),
             torch.stack(biases).contiguous())
+
+
+def pack_bf16_taps(W: torch.Tensor) -> torch.Tensor:
+    """The bf16 taps ``[n_taps, C, C]`` (in, out) as the bf16 kernel reads
+    them: ``[n_taps, CP, CP]`` with CP = max(C, 16), zero beyond C (a k-step
+    of the bf16 products is 16 input channels, and the tile of a tap 16
+    output channels at least). The layout is unchanged: its rows are the
+    contraction, which ldmatrix.trans turns into the products' fragments,
+    so for C >= 16 this is ``W`` itself."""
+    n, C, _ = W.shape
+    if C >= BF16_MIN_CHANNELS:
+        return W.contiguous()
+    Wp = W.new_zeros(n, BF16_MIN_CHANNELS, BF16_MIN_CHANNELS)
+    Wp[:, :C, :C] = W
+    return Wp
 
 
 def mrf_level_ref(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
@@ -132,16 +153,24 @@ def mrf_level_kernel(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
     if tile is None:
         tile = pick_tile(B, T, x.device)
     n_dil = len(dilations[0])
-    out, ybuf = torch.empty_like(x), torch.empty_like(x)
+    out = torch.empty_like(x)
     tmp = [torch.empty_like(x) if n_dil > i + 1 else None for i in range(2)]
+    if W.dtype == torch.bfloat16:
+        # the convs' bf16 inputs [B, T, CP]: the level's, the dilated
+        # conv's output's and the running value's
+        W = pack_bf16_taps(W)
+        scratch = torch.empty(3, B, T, W.shape[1], dtype=torch.bfloat16,
+                              device=x.device)
+    else:
+        scratch = torch.empty_like(x)    # each dilated conv's output
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds = (ctypes.c_int * (len(kernel_sizes) * n_dil))(
         *(d for blk in dilations for d in blk))
     with torch.cuda.device(x.device):
         rc = _build.entry("daspeech_mrf_level", W.dtype)(
             x.data_ptr(), W.data_ptr(), biases.data_ptr(), out.data_ptr(),
-            _build.ptr(tmp[0]), _build.ptr(tmp[1]), ybuf.data_ptr(), B, C, T,
-            len(kernel_sizes), ks, n_dil, ds, tile, _build.stream_of(x))
+            _build.ptr(tmp[0]), _build.ptr(tmp[1]), scratch.data_ptr(), B, C,
+            T, len(kernel_sizes), ks, n_dil, ds, tile, _build.stream_of(x))
     _build.check(rc, "daspeech_mrf_level")
     mrf_level.launches += 1
     mrf_level.bf16_launches += W.dtype == torch.bfloat16
@@ -158,8 +187,8 @@ def mrf_level(x: torch.Tensor, W: torch.Tensor, biases: torch.Tensor,
 
     ``x`` and ``biases`` are fp32; ``W`` is fp32 (3xTF32 products) or bf16
     (each conv's input rounded to bf16, bf16 products with fp32 sums: the
-    bf16 vocoder's level and the TPU kernel's arithmetic); the output is
-    fp32. CPU tensors take the plain version. CUDA tensors launch the
+    bf16 vocoder's level and the TPU kernel's arithmetic, on kernels of its
+    own); the output is fp32. CPU tensors take the plain version. CUDA tensors launch the
     kernel, which takes contiguous inputs with C a power of two <= 128
     (C < 32 padded with zero channels inside it) and odd kernel sizes
     <= 17, and raises on anything else. Neither has a gradient: under

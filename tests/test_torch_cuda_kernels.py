@@ -668,9 +668,11 @@ def test_mrf_level_tensor_cores_every_tile(gen, C, T):
         assert torch.equal(o, outs[0])
 
 
-def test_mrf_level_window_reproduces_the_whole_sequence(gen):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mrf_level_window_reproduces_the_whole_sequence(gen, dtype):
     halo = sum((k - 1) // 2 * (d + 1) for k in V1_KERNELS for d in (1, 3, 5))
     x, W, biases = _mrf_inputs(gen, 2, 128, 3000, V1_KERNELS, V1_DILATIONS)
+    W = W.to(dtype)
     whole = fm.mrf_level(x, W, biases, V1_KERNELS, V1_DILATIONS)
     a, n = 1237, 300
     win = x[1:, :, a - halo:a + n + halo].contiguous()
@@ -1303,9 +1305,11 @@ def test_bf16_wrappers_refuse_mixed_dtypes(gen):
         fa.fused_attention_packed(q.half(), q.half(), q.half(), bias, 2)
 
 
+# (8, 128, 26624): serving A's level 1, the exact shape
 @pytest.mark.parametrize("B,C,T,tile", [(3, 128, 200, 64), (3, 64, 257, 128),
                                         (1, 32, 513, None), (3, 8, 100, 64),
-                                        (2, 128, 1, 64)])
+                                        (2, 128, 1, 64),
+                                        (8, 128, 26624, None)])
 def test_bf16_mrf_level(gen, B, C, T, tile):
     """#7 with bf16 weights (each conv's input rounded to bf16, bf16
     products, fp32 sums) against its plain bf16 version: fp32 out within
@@ -1325,8 +1329,12 @@ def test_bf16_mrf_level(gen, B, C, T, tile):
     assert _max_err(got, want) < _max_err(f32, want)
 
 
+# (80, 120, 2048, 0.1): cell T's FFN, the exact shape; F = 300 and 1100
+# are not multiples of 8 (W2's rows take no 16-byte copies, the scratch's
+# rows are padded)
 @pytest.mark.parametrize("B,T,Fd,p", [(3, 37, 2048, 0.1), (1, 1, 300, 0.0),
-                                      (5, 29, 1100, 0.1)])
+                                      (5, 29, 1100, 0.1),
+                                      (80, 120, 2048, 0.1)])
 def test_bf16_fused_ffn(gen, B, T, Fd, p):
     """#6 on bf16 x, weights and biases (fp32 LayerNorm parameters): the
     forward and the backward against the plain bf16 versions (bf16 out and
@@ -1352,6 +1360,65 @@ def test_bf16_fused_ffn(gen, B, T, Fd, p):
         _bf16_close(u, w)
     for u, v in zip(got, ff.ffn_bwd_kernel(x, *params, do, seeds, p, p)):
         assert torch.equal(u, v)
+
+
+def _launched(fn):
+    """The names of the kernels that one ``fn()`` launched, under
+    ``torch.profiler`` (after a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# the fp32 kernels of #6 and #7 (3xTF32) and the casts the bf16 entry
+# points ran before they had kernels of their own
+FP32_GEMM_KERNELS = ("ffn_fwd_kernel", "ffn_bwd_rows_kernel",
+                     "ffn_wgrad_kernel", "mrf_conv_kernel")
+CASTS = ("widen_kernel", "narrow_kernel")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_and_mrf_launch_their_own_kernels(gen, dtype):
+    """A bf16 call of #6 (forward and backward) and #7 launches the bf16
+    kernels (ffn_bf16.cuh's, mrf_bf16.cuh's) and none of the fp32
+    kernels or casts; an fp32 call the fp32 kernels and none of the bf16
+    ones."""
+    from daspeech_torch.ops import fused_ffn as ff
+
+    x = _randn(gen, 2, 37, 256).to(dtype)
+    params = list(_ffn_params(gen, 256, 600))
+    params[2:] = [t.to(dtype) for t in params[2:]]
+    seeds = _seeds(gen, 2)
+    do = _randn(gen, 2, 37, 256, scale=0.1).to(dtype)
+    xm, W, biases = _mrf_inputs(gen, 2, 64, 300, V1_KERNELS, V1_DILATIONS)
+    W = W.to(dtype)
+
+    def run():
+        ff.ffn_fwd_kernel(x, *params, seeds, 0.1, 0.1)
+        ff.ffn_bwd_kernel(x, *params, do, seeds, 0.1, 0.1)
+        fm.mrf_level(xm, W, biases, V1_KERNELS, V1_DILATIONS)
+
+    names = _launched(run)
+    assert names, "the profiler saw no kernels"
+    has = lambda t: sum(t in n for n in names)  # noqa: E731
+    if dtype == torch.bfloat16:
+        want = {"ffn_bf16_fwd_kernel": 1, "ffn_bf16_rows_kernel": 1,
+                "ffn_bf16_wgrad_kernel": 1, "ffn_reduce_kernel": 1,
+                "mrf_bf16_act_kernel": 1, "mrf_bf16_conv_kernel": 18}
+        assert not any(has(t) for t in (*FP32_GEMM_KERNELS, *CASTS)), names
+    else:
+        want = {"ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
+                "ffn_wgrad_kernel": 1, "ffn_reduce_kernel": 1,
+                "mrf_conv_kernel": 18}
+        assert not any("_bf16_" in n for n in names), names
+    assert {t: has(t) for t in want} == want, names
+    assert len(names) == sum(want.values()), names
 
 
 @pytest.mark.parametrize("B,H,Tq,Tk,p", [(3, 2, 65, 130, 0.1),
