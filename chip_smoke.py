@@ -50,9 +50,11 @@ rungs' bf16 fused-MRF runs with its kernels too, in turns.)
    the window against float64; HMMA in the SASS of #6's and #7's kernels
    and no spills in their ptxas report; bf16 HMMA
    (``HMMA.16816.F32.BF16``, and no other) in the SASS of the bf16
-   attention kernels (attention_bf16.cuh) and of the bf16 modes of #6 and
-   #7 (ffn_bf16.cuh, mrf_bf16.cuh), none in the fp32 modes' kernels, and
-   no spills in their ptxas report; the
+   attention kernels (attention_bf16.cuh), of the bf16 modes of #5 and #4
+   (relpos_bf16.cuh, links_bf16.cuh) and of #6 and #7 (ffn_bf16.cuh,
+   mrf_bf16.cuh), none in the fp32 modes' kernels of #6 and #7, and no
+   spills in their ptxas report; with ``--parent``, the SASS of the fp32
+   kernels of #5 and #4 the same as the parent tree's; the
    full-bias attention #3 at three shapes with a fully masked row, and
    against the head-major kernel on a column bias, <= 1e-4), with median
    CUDA-event times of the kernel, the plain version and, for attention,
@@ -202,12 +204,14 @@ rungs' bf16 fused-MRF runs with its kernels too, in turns.)
    phase): the bf16 entry points of #1, #2, #4 and #5 against their plain
    bf16 versions at cell T's, J-long's and a serving shape (inference and
    training forward and backward, within 2^-7 of the output's largest
-   magnitude; the links and dgates fp32), #4's and #5's the same kernels
-   as the fp32 call (names and counts under the profiler, and every
-   wrapper's count), #1's and #2's the three bf16 tensor-core kernels of
-   attention_bf16.cuh, each once, and none of attention_tc.cuh's or
-   attention_fma.cuh's, while their fp32 call still launches the FMA
-   forward and attention_tc.cuh's backward (these rows are taken in a
+   magnitude; #4's links within 1e-4 with the plain version's -inf
+   pattern, its dgates fp32), #1's and #2's the three bf16 tensor-core
+   kernels of attention_bf16.cuh, each once, and none of attention_tc.cuh's
+   or attention_fma.cuh's, while their fp32 call still launches the FMA
+   forward and attention_tc.cuh's backward; #5's and #4's the bf16 kernels
+   of relpos_bf16.cuh and links_bf16.cuh, each once, and none of the fp32
+   mode's, which their fp32 call launches as before (names and counts
+   under the profiler; these rows are taken in a
    process of their own, the script run with ``--bf16-kernel-rows``;
    the bf16 rows of #7, #6 and #3 likewise, ``--bf16-alternate-rows``),
    and one row each in the kernels' JSON (forward + backward: kernel,
@@ -398,7 +402,13 @@ ALTERNATE_KERNELS = ("fused_ffn", "fused_ffn_bwd", "fused_attention_full_bias",
 BF16_ALTERNATES = ("mrf_level", *ALTERNATE_KERNELS)
 # the sources of the bf16 modes that have kernels of their own (PR 20)
 BF16_SOURCES = {"mrf_level": "daspeech_torch/csrc/mrf_bf16.cuh",
-                "fused_ffn": "daspeech_torch/csrc/ffn_bf16.cuh"}
+                "fused_ffn": "daspeech_torch/csrc/ffn_bf16.cuh",
+                "fused_attention_packed":
+                    "daspeech_torch/csrc/attention_bf16.cuh",
+                "fused_attention": "daspeech_torch/csrc/attention_bf16.cuh",
+                "fused_attention_relpos":
+                    "daspeech_torch/csrc/relpos_bf16.cuh",
+                "fused_extract_links": "daspeech_torch/csrc/links_bf16.cuh"}
 
 
 def launch_counters():
@@ -716,6 +726,16 @@ FMA_INSTANCES = ("<1,0>", "<5,0>", "<1,1>")
 # the tensor cores
 LINKS_FMA = ("links_lse_kernel", "links_fold_kernel")
 LINKS_TC = ("links_bwd_dq_kernel", "links_bwd_dk_kernel")
+# the bf16 modes of #5 and #4 on the bf16 tensor cores (relpos_bf16.cuh,
+# links_bf16.cuh): the kernels of one training forward and backward, each
+# launched once, and those of the fp32 mode's call
+BF16_RELPOS_KERNELS = ("relpos_bf16_fwd_kernel", "relpos_bf16_ds_kernel",
+                       "relpos_bf16_grad_kernel")
+BF16_LINKS_KERNELS = ("links_bf16_lse_kernel", "links_bf16_fold_kernel",
+                      "links_bf16_dq_kernel", "links_bf16_dk_kernel")
+FP32_RELPOS_LAUNCH = {FMA_FORWARD: 1, "attn_tc_chunk_ds_kernel": 1,
+                      "attn_tc_grad_kernel": 1}
+FP32_LINKS_LAUNCH = {n: 1 for n in (*LINKS_FMA, *LINKS_TC)}
 # the kernels of gemm_tc.cuh's tiles (tensor cores): the MRF level's conv
 # (#7) and the fused FFN's forward, backward rows and weight gradients (#6)
 GEMM_TC = ("mrf_conv_kernel", "ffn_fwd_kernel", "ffn_bwd_rows_kernel",
@@ -889,13 +909,38 @@ def kernel_split(fn, tag, reps=3):
 
 def sass_counts(lib_path):
     """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
-    attention_tc.cuh, of attention_bf16.cuh (and, of the HMMA, those of the
-    bf16 form, ``HMMA.16816.F32.BF16``: HMMA_BF16), of the FMA forward, of
-    the link extraction and of #6's and #7's kernels (gemm_tc.cuh's tiles:
-    the fp32 modes' and the bf16 modes') in the built library's SASS (``cuobjdump -sass``), a template kernel's
-    instances apart (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``:
-    #3's; ``attn_fma_fwd_kernel<1,0>``: #1's and #2's, ``<5,0>``: #5's,
+    attention_tc.cuh, of attention_bf16.cuh, relpos_bf16.cuh and
+    links_bf16.cuh (and, of the HMMA, those of the bf16 form,
+    ``HMMA.16816.F32.BF16``: HMMA_BF16), of the FMA forward, of the link
+    extraction and of #6's and #7's kernels (gemm_tc.cuh's tiles: the fp32
+    modes' and the bf16 modes') in the built library's SASS
+    (``kernel_sass``), a template kernel's instances apart
+    (``attn_tc_chunk_fwd_kernel<5,0>``: #5's, ``<1,1>``: #3's;
+    ``attn_fma_fwd_kernel<1,0>``: #1's and #2's, ``<5,0>``: #5's,
     ``<1,1>``: #3's); None without cuobjdump."""
+    import re
+
+    sass = kernel_sass(lib_path, (
+        *TC_KERNELS, *BF16_ATTN_KERNELS, *BF16_RELPOS_KERNELS,
+        *BF16_LINKS_KERNELS, FMA_FORWARD, *LINKS_FMA, *LINKS_TC, *GEMM_TC,
+        *BF16_GEMM_KERNELS))
+    if sass is None:
+        return None
+    counts = {}
+    for (_, name), lines in sass.items():
+        text = "\n".join(lines)
+        counts[name] = {
+            "HMMA": len(re.findall(r"\bHMMA\b", text)),
+            "FFMA": len(re.findall(r"\bFFMA\b", text)),
+            "HMMA_BF16": len(re.findall(r"\bHMMA\.16816\.F32\.BF16\b",
+                                        text))}
+    return counts
+
+
+def kernel_sass(lib_path, names):
+    """The SASS (``cuobjdump -sass``) of each kernel whose name holds one of
+    ``names``, by (source, kernel<template instance>): its instructions
+    without their addresses and encodings; None without cuobjdump."""
     import re
     import shutil
 
@@ -907,26 +952,93 @@ def sass_counts(lib_path):
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    counts, name = {}, None
+    out, key = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((t for t in (*TC_KERNELS, *BF16_ATTN_KERNELS,
-                                     FMA_FORWARD, *LINKS_FMA, *LINKS_TC,
-                                     *GEMM_TC, *BF16_GEMM_KERNELS)
-                         if t in m.group(1)), None)
-            inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", m.group(1))
+            fn = m.group(1)
+            name = next((t for t in names if t in fn), None)
+            src = re.search(r"(fused_\w+?)_cu_", fn)
+            inst = re.search(r"kernelI((?:L[a-z]\d+E)+)E", fn)
             if name and inst:
                 name += "<" + ",".join(re.findall(r"L[a-z](\d+)E",
                                                   inst.group(1))) + ">"
-            if name:
-                counts[name] = {"HMMA": 0, "FFMA": 0, "HMMA_BF16": 0}
-        elif name:
-            for op in re.findall(r"\b(HMMA|FFMA)\b", line):
-                counts[name][op] += 1
-            counts[name]["HMMA_BF16"] += len(
-                re.findall(r"\bHMMA\.16816\.F32\.BF16\b", line))
-    return counts
+            key = None if name is None else (src.group(1) if src else "",
+                                             name)
+            if key is not None:
+                out[key] = []
+        elif key is not None:
+            ins = re.sub(r"/\*[0-9a-fx]+\*/", "", line).split(";")[0].strip()
+            if ins and not ins.startswith("/*"):
+                out[key].append(ins)
+    return out
+
+
+# the fp32 kernels of #5 and #4, whose SASS this tree keeps as the parent
+# tree built it (checked with --parent)
+FP32_KEPT = (FMA_FORWARD, "attn_tc_chunk_fwd_kernel",
+             "attn_tc_chunk_ds_kernel", "attn_tc_grad_kernel", *LINKS_FMA,
+             *LINKS_TC)
+
+
+def fp32_sass_kept(lib, parent_lib):
+    """The fp32 kernels of #5 and #4 (FP32_KEPT) in this tree's library
+    have the SASS of the parent tree's, instruction for instruction (the
+    rel-pos instances of the attention kernels and every link kernel);
+    returns how many were compared, or None without cuobjdump."""
+    ours, theirs = kernel_sass(lib, FP32_KEPT), kernel_sass(parent_lib,
+                                                            FP32_KEPT)
+    if ours is None:
+        return None
+    keys = sorted(k for k in ours if k[0] in ("fused_relpos", "fused_links"))
+    if not keys or set(keys) != {k for k in theirs
+                                 if k[0] in ("fused_relpos", "fused_links")}:
+        raise AssertionError(f"fp32 kernels of #5 and #4: {keys} here, "
+                             f"{sorted(theirs)} in the parent tree")
+    changed = [k for k in keys if ours[k] != theirs[k]]
+    if changed:
+        raise AssertionError(f"fp32 kernels whose SASS changed: {changed}")
+    log(f"  SASS of the fp32 kernels of #5 and #4 as the parent tree's: "
+        f"{len(keys)} kernels ({', '.join('/'.join(k) for k in keys)})")
+    return len(keys)
+
+
+def check_sass(lib_path):
+    """The HMMA and FFMA counts of sass_counts: HMMA in every tensor-core
+    kernel, only bf16 HMMA in the bf16 kernels and none in the fp32 ones,
+    FFMA and no HMMA in the FMA kernels."""
+    sass = sass_counts(lib_path)
+    log(f"HMMA and FFMA instructions in the SASS of attention_tc.cuh's "
+        "kernels, of the FMA forward, of the link extraction and of #6's "
+        "and #7's kernels: "
+        + ("cuobjdump not found, not checked" if sass is None else str(sass)))
+    if sass is not None:
+        fma_names = {f"{FMA_FORWARD}{i}" for i in FMA_INSTANCES} | set(
+            LINKS_FMA)
+        tc = {n: c for n, c in sass.items() if n not in fma_names}
+        fma = {n: c for n, c in sass.items() if n in fma_names}
+        bf16_names = (*BF16_ATTN_KERNELS, *BF16_RELPOS_KERNELS,
+                      *BF16_LINKS_KERNELS, *BF16_GEMM_KERNELS)
+        if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC,
+                                               *GEMM_TC, *bf16_names}
+                or not all(c["HMMA"] for c in tc.values())):
+            raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
+        # the bf16 attention kernels and the bf16 modes of #5, #4, #6 and
+        # #7 multiply on the bf16 tensor cores, and every HMMA they hold is
+        # of that form; the fp32 tensor-core kernels hold none (3xTF32 only)
+        bf16_tc = {n: c for n, c in tc.items()
+                   if n.split("<")[0] in bf16_names}
+        if (len(bf16_tc) != len(bf16_names) - 1 + 8
+                or not all(0 < c["HMMA_BF16"] == c["HMMA"]
+                           for c in bf16_tc.values())):
+            raise AssertionError(f"bf16 kernels without bf16 HMMA: {bf16_tc}")
+        if any(c["HMMA_BF16"] for n, c in tc.items()
+               if n.split("<")[0] in (*TC_KERNELS, *LINKS_TC, *GEMM_TC)):
+            raise AssertionError(f"bf16 HMMA in the fp32 tensor-core "
+                                 f"kernels: {tc}")
+        if (set(fma) != fma_names
+                or any(c["HMMA"] or not c["FFMA"] for c in fma.values())):
+            raise AssertionError(f"FMA kernels not on the FMA pipes: {fma}")
 
 
 def no_spills(ptxas, name, n_instances):
@@ -963,7 +1075,8 @@ SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 6,
                  "ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
                  "ffn_wgrad_kernel": 1, "mrf_bf16_conv_kernel": 8,
                  "mrf_bf16_act_kernel": 1,
-                 **{n: 1 for n in BF16_ATTN_KERNELS},
+                 **{n: 1 for n in (*BF16_ATTN_KERNELS, *BF16_RELPOS_KERNELS,
+                                   *BF16_LINKS_KERNELS)},
                  **{n: 1 for n in BF16_GEMM_KERNELS[:3]}}
 
 
@@ -3071,22 +3184,6 @@ def profiled_own_kernels(name, tag, fn, own=("daspeech",)):
     return ours, moved
 
 
-def same_kernels(name, run32, run16, expect):
-    """The fp32 and the bf16 call (forward and backward) launch the same
-    kernels (by name and count, under ``torch.profiler``; each name of
-    ``expect`` among them) and add the same counts to every wrapper's
-    ``launches``; returns the kernel count."""
-    seen = [profiled_own_kernels(name, tag, fn)
-            for tag, fn in (("fp32", run32), ("bf16", run16))]
-    if seen[0] != seen[1] or not all(any(x in n for n in seen[0][0])
-                                     for x in expect):
-        raise AssertionError(f"{name}: the bf16 call launches "
-                             f"{seen[1]}, the fp32 call {seen[0]}")
-    log(f"  {name} bf16: the same {len(seen[0][0])} kernels as the fp32 "
-        f"call ({', '.join(sorted(set(n[:40] for n in seen[0][0])))})")
-    return len(seen[0][0])
-
-
 def bf16_attention_kernels(name, run32, run16):
     """#1's or #2's bf16 call (training forward and backward) launches the
     bf16 kernels of attention_bf16.cuh, each once, and none of
@@ -3123,8 +3220,10 @@ def bf16_kernel_rows():
     version at cell T's, J-long's and a serving shape: the inference and
     the training forward and the backward, and (forward + backward) the
     kernels', the plain version's and SDPA's bf16 times beside the bound at
-    989 TFLOP/s and on the bf16 bytes; with --parent, #1's and #2's rows
-    also with the parent tree's kernels ("was_ms"). Returns the rows."""
+    989 TFLOP/s and on the bf16 bytes, the device ms by kernel beside
+    SDPA's, and with --parent the parent tree's kernels ("was_ms"); each
+    entry point's first row also the kernels its bf16 call launches, by
+    name. Returns the rows."""
     from daspeech_torch.ops import fused_attention as fa
     from daspeech_torch.ops import fused_links as fl
     from daspeech_torch.ops import fused_relpos as fr
@@ -3137,16 +3236,15 @@ def bf16_kernel_rows():
             run_library, **extra):
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library) if run_library is not None else None
-        # the kernels this tree redesigned (attention_bf16.cuh) beside the
-        # parent tree's
-        redesigned = name in ("fused_attention_packed", "fused_attention")
-        was = parent_ms(run_kernel) if PARENT and redesigned else None
-        if redesigned:
-            # the kernels' and SDPA's device time alone: at these sizes the
-            # host's launch overhead is a share of both CUDA-event times
-            extra["device_ms"] = kernel_split(run_kernel, f"{name} {shape}")
-            extra["library_device_ms"] = kernel_split(
-                run_library, f"{name} {shape} SDPA")
+        # the kernels redesigned for the bf16 tensor cores (attention_bf16.cuh,
+        # relpos_bf16.cuh, links_bf16.cuh) beside the parent tree's
+        was = parent_ms(run_kernel) if PARENT else None
+        # the kernels' and SDPA's device time alone: at these sizes the
+        # host's launch overhead is a share of both CUDA-event times
+        extra["device_ms"] = kernel_split(run_kernel, f"{name} {shape}")
+        extra["library_device_ms"] = (
+            kernel_split(run_library, f"{name} {shape} SDPA")
+            if run_library is not None else None)
         b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_BF16)
         rows[f"{name} bf16"].append({
             "shape": shape, "max_abs_err": err, "ms": ms,
@@ -3297,10 +3395,10 @@ def bf16_kernel_rows():
         extra = {}
         if i == 0:
             f32 = [x.float() for x in (q, k, v, a, e, do)]
-            extra["same_kernels_as_fp32"] = same_kernels(
+            extra["bf16_kernels"] = bf16_mode_kernels(
                 "fused_attention_relpos", lambda: run(*f32), run,
-                (FMA_FORWARD, "attn_tc_chunk_ds_kernel",
-                 "attn_tc_grad_kernel"))
+                FP32_RELPOS_LAUNCH, {n: 1 for n in BF16_RELPOS_KERNELS},
+                own=("daspeech",))
         ops = relpos_sdpa_operands(q, k, v, a, e, bias.to(bf), H)
         leaves = [x.detach().requires_grad_(True) for x in ops[:3]]
         do4 = do.reshape(B, T, H, d).transpose(1, 2)
@@ -3338,6 +3436,8 @@ def bf16_kernel_rows():
             raise AssertionError(f"#4 bf16 {shape}: links {links.dtype}, "
                                  f"lse {lse.dtype}")
         err = _finite_err(links, want, f"#4 bf16 links {shape}")
+        if not err <= TOL_KERNEL:
+            raise AssertionError(f"#4 bf16 links {shape}: max abs err {err}")
         got = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H, sc,
                                   None)
         wq, wk, wg = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, None)
@@ -3358,9 +3458,10 @@ def bf16_kernel_rows():
         extra = {}
         if i == 0:
             f32 = [q.float(), k.float()]
-            extra["same_kernels_as_fp32"] = same_kernels(
+            extra["bf16_kernels"] = bf16_mode_kernels(
                 "fused_extract_links", lambda: run(*f32), run,
-                (*LINKS_FMA, *LINKS_TC))
+                FP32_LINKS_LAUNCH, {n: 1 for n in BF16_LINKS_KERNELS},
+                own=("daspeech",))
         row("fused_extract_links", shape, err, run,
             lambda: fl.links_bwd_plain(q, k, gates, ol, dlinks, H, sc, None)
             + (fl.links_plain(q, k, gates, ol, H, sc, None),),
@@ -4044,15 +4145,16 @@ def mrf_chain_bf16(x, W, biases, kernel_sizes, dilations):
     return out / len(kernel_sizes)
 
 
-def bf16_gemm_kernels(name, run32, run16, want32, want16):
-    """#6's or #7's bf16 call launches its bf16 kernels (ffn_bf16.cuh's,
-    mrf_bf16.cuh's; ``want16``: name -> count) and none of the fp32 mode's
-    kernels or the casts the bf16 entry points once ran; the fp32 call
-    launches the fp32 mode's (``want32``) as before and no bf16 kernel (by
-    name, under ``torch.profiler``). Returns the bf16 call's kernel
-    count."""
-    # #6's and #7's kernels live outside namespace daspeech
-    own = ("ffn_", "mrf_", "widen_kernel", "narrow_kernel")
+def bf16_mode_kernels(name, run32, run16, want32, want16,
+                      own=("ffn_", "mrf_", "widen_kernel", "narrow_kernel")):
+    """#6's, #7's, #5's or #4's bf16 call launches its bf16 kernels
+    (ffn_bf16.cuh's, mrf_bf16.cuh's, relpos_bf16.cuh's, links_bf16.cuh's;
+    ``want16``: name -> count) and none of the fp32 mode's kernels or the
+    casts the bf16 entry points once ran; the fp32 call launches the fp32
+    mode's (``want32``) as before and no bf16 kernel (by name, under
+    ``torch.profiler``; ``own``: what the names of our kernels hold, #6's
+    and #7's living outside namespace daspeech). Returns the bf16 call's
+    kernel count."""
     (k32, _), (k16, _) = (profiled_own_kernels(name, tag, fn, own)
                           for tag, fn in (("fp32", run32), ("bf16", run16)))
 
@@ -4141,7 +4243,7 @@ def bf16_alternate_rows():
             err = bf16_close(f"#7 bf16 {shape}", got, fm.mrf_level_ref(
                 x, Wb, biases, MRF_KERNELS, MRF_DILATIONS))
             if i == 0:
-                extra["bf16_kernels"] = bf16_gemm_kernels(
+                extra["bf16_kernels"] = bf16_mode_kernels(
                     "mrf_level", lambda: fm.mrf_level(
                         x, W, biases, MRF_KERNELS, MRF_DILATIONS),
                     lambda: fm.mrf_level(x, Wb, biases, MRF_KERNELS,
@@ -4186,7 +4288,7 @@ def bf16_alternate_rows():
                 ff.ffn_bwd_kernel(x, *params, do, seeds, p, p))
 
     f32 = [x.float(), gm, bt, w1, b1, w2, b2, do.float()]
-    bf16_kernels = bf16_gemm_kernels(
+    bf16_kernels = bf16_mode_kernels(
         "fused_ffn", lambda: run(f32[0], f32[1:7], f32[7]), run,
         FP32_FFN_LAUNCH, BF16_FFN_LAUNCH)
     row("fused_ffn bf16", shape, err, run,
@@ -6909,38 +7011,9 @@ def main() -> int:
     if b"15attn_fwd_kernel" in built.path.read_bytes():
         raise AssertionError("a SIMT attention forward (attn_fwd_kernel) is "
                              "in the kernel library")
-    sass = sass_counts(built.path)
-    log(f"HMMA and FFMA instructions in the SASS of attention_tc.cuh's "
-        "kernels, of the FMA forward, of the link extraction and of #6's "
-        "and #7's kernels: "
-        + ("cuobjdump not found, not checked" if sass is None else str(sass)))
-    if sass is not None:
-        fma_names = {f"{FMA_FORWARD}{i}" for i in FMA_INSTANCES} | set(
-            LINKS_FMA)
-        tc = {n: c for n, c in sass.items() if n not in fma_names}
-        fma = {n: c for n, c in sass.items() if n in fma_names}
-        if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC,
-                                               *GEMM_TC, *BF16_ATTN_KERNELS,
-                                               *BF16_GEMM_KERNELS}
-                or not all(c["HMMA"] for c in tc.values())):
-            raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
-        # the bf16 attention kernels and the bf16 modes of #6 and #7 multiply
-        # on the bf16 tensor cores, and every HMMA they hold is of that
-        # form; the fp32 modes of #6 and #7 hold none (3xTF32 only)
-        bf16_tc = {n: c for n, c in tc.items() if n.split("<")[0] in (
-            *BF16_ATTN_KERNELS, *BF16_GEMM_KERNELS)}
-        if (len(bf16_tc) != len(BF16_ATTN_KERNELS) + 3 + 8
-                or not all(0 < c["HMMA_BF16"] == c["HMMA"]
-                           for c in bf16_tc.values())):
-            raise AssertionError(f"bf16 kernels without bf16 HMMA: {bf16_tc}")
-        if any(c["HMMA_BF16"] for n, c in tc.items()
-               if n.split("<")[0] in GEMM_TC):
-            raise AssertionError(f"bf16 HMMA in the fp32 modes of #6 and "
-                                 f"#7: {tc}")
-        if (set(fma) != fma_names
-                or any(c["HMMA"] or not c["FFMA"] for c in fma.values())):
-            raise AssertionError(f"FMA kernels not on the FMA pipes: {fma}")
-
+    check_sass(built.path)
+    if parent is not None:
+        fp32_sass_kept(built.path, PARENT["build"].path)
     log("kernel phase:")
     cases = kernel_phase()
     log("end-to-end phase (serving):")
@@ -7062,6 +7135,7 @@ def main() -> int:
     for name, shapes in bf16_rows.items():
         base = name[:-len(" bf16")]
         src, replaces = KERNELS[base]
+        src = BF16_SOURCES.get(base, src)
         main_path = "bf16_J-long" if base == "fused_attention" else "bf16_T"
         first = shapes[0]
         kernels.append({
@@ -7070,10 +7144,10 @@ def main() -> int:
             "launches": by_path[main_path][name],
             "bwd_launches": by_path[main_path][f"{BF16_KERNELS[base]} bf16"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
-            # #1, #2: the bf16 kernels' count (attention_bf16.cuh); #4, #5:
-            # the same kernels as the fp32 call's
-            **{k: first[k] for k in ("bf16_kernels", "same_kernels_as_fp32")
-               if k in first},
+            # the bf16 kernels' count (attention_bf16.cuh, relpos_bf16.cuh,
+            # links_bf16.cuh) and the device split beside SDPA's
+            **{k: first[k] for k in ("bf16_kernels", "device_ms",
+                                     "library_device_ms") if k in first},
             "was_ms": first["was_ms"],
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],

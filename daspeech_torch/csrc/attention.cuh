@@ -25,13 +25,14 @@
 // register-tiled); every fp32 backward and inference forward is
 // attention_tc.cuh's (tensor cores, 3xTF32); the tile primitives both use
 // are tiles.cuh's. The packed and head-major bf16 entry points run
-// attention_bf16.cuh's kernels (bf16 tensor cores, bf16 tiles in shared
-// memory), forward and backward; the rel-pos and full-bias bf16 entry
-// points run the fp32 kernels on widened operands, as set out next.
+// attention_bf16.cuh's kernels and the rel-pos ones relpos_bf16.cuh's (bf16
+// tensor cores, bf16 tiles in shared memory; tiles_bf16.cuh), forward and
+// backward; the full-bias bf16 entry points run the fp32 kernels on
+// widened operands, as set out next.
 //
 // Element type: every operand, output and gradient view is fp32 or, with its
 // bf16 flag set, bf16 in device memory (the _bf16 entry points). In the
-// fp32 kernels that the rel-pos and full-bias bf16 entry points run, the
+// fp32 kernels that the full-bias bf16 entry points run, the
 // tiles in shared memory, the products, the softmax and its statistics, the
 // bias, delta and every scratch buffer stay fp32: a bf16 row is widened to
 // fp32 as it is loaded (load_rows64, ld4, ld1) and an output is rounded to

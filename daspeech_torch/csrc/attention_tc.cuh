@@ -114,36 +114,6 @@ namespace tc {
 // this header, and a kernel with external linkage would be defined twice
 namespace {
 
-// keep bits of one Philox draw: bit w = word w <= thresh
-__device__ __forceinline__ uint32_t keep4(const uint4& r, uint32_t thresh) {
-  return static_cast<uint32_t>(r.x <= thresh) |
-         (static_cast<uint32_t>(r.y <= thresh) << 1) |
-         (static_cast<uint32_t>(r.z <= thresh) << 2) |
-         (static_cast<uint32_t>(r.w <= thresh) << 3);
-}
-
-// Forward, dq and dS kernels: keep bits of 8-key block j8 (keys j8 ..
-// j8 + 7) for this thread's rows ia (half 0) and ia + 8 (half 1). Thread t
-// draws (row half t & 1, group j8 / 4 + t / 2); the pair t, t ^ 1 swaps
-// draws. Returns (own, other): the draw of half t & 1 and of the other
-// half; key j8 + 2t + c of either half is bit 2 (t & 1) + c. c3 is the
-// fourth counter word: the batch row in the full-bias mode, else 0.
-__device__ __forceinline__ uint2 row_keep_bits(const DropoutArgs& d,
-                                               uint32_t seed, int ia, int j8,
-                                               int h, int t,
-                                               uint32_t c3 = 0u) {
-  const int row = ia + 8 * (t & 1);
-  const uint32_t own = keep4(
-      philox4x32_10(make_uint4((j8 >> 2) + (t >> 1), row, h, c3), seed, 0u),
-      d.thresh);
-  return make_uint2(own, __shfl_xor_sync(0xffffffffu, own, 1));
-}
-
-__device__ __forceinline__ bool row_keep(uint2 bits, int half, int c, int t) {
-  const uint32_t m = (half == (t & 1)) ? bits.x : bits.y;
-  return (m >> (2 * (t & 1) + c)) & 1u;
-}
-
 // ---------------------------------------------------------------- forward
 
 // dynamic shared memory: two stages of [K tile, V tile, 64 biases]

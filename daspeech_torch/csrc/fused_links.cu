@@ -1,9 +1,9 @@
 // DAG link extraction, forward and backward, for Hopper (sm_90a), fp32.
-// The _bf16 entry points (the same arguments, the same kernels) take bf16 q
-// and k and write bf16 dq and dk; log_gates, links, lse, dlinks and dgates
-// stay fp32 and every sum is fp32 (attention.cuh, "Element type"), as the
-// Pallas kernel upcasts q and k and writes fp32 links
-// (fused_links.py:62-66, :177-199).
+// The _bf16 entry points (the same arguments) take bf16 q and k and write
+// bf16 dq and dk; log_gates, links, lse, dlinks and dgates stay fp32, as
+// the Pallas kernel upcasts q and k and writes fp32 links
+// (fused_links.py:62-66, :177-199). They run links_bf16.cuh's kernels, on
+// the bf16 tensor cores with fp32 sums, over the same live tiles.
 //
 // Replaces the Pallas kernels of daspeech_tpu/ops/fused_links.py:141
 // (fused_extract_links: forward _links_fwd_kernel, :70; backward
@@ -558,6 +558,15 @@ links_bwd_dk_kernel(const LinksArgs a) {
   }
 }
 
+}  // namespace
+}  // namespace daspeech
+
+// the bf16 entry points' kernels, on the bf16 tensor cores
+#include "links_bf16.cuh"
+
+namespace daspeech {
+namespace {
+
 template <class Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
                    const LinksArgs& a, cudaStream_t stream) {
@@ -592,11 +601,16 @@ int links_fwd(const void* q, const void* k, const float* log_gates,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = (L + kTileW - 1) / kTileW;
   // the fold reads lse: same stream
-  cudaError_t err = launch(links_lse_kernel, dim3(nt, H, B), fma::kThreads,
-                           kLseSmem, a, st);
+  cudaError_t err =
+      bf16 ? launch(bf::links_bf16_lse_kernel, dim3(nt, H, B), bf::kThreads,
+                    bf::kLinksLseSmem, a, st)
+           : launch(links_lse_kernel, dim3(nt, H, B), fma::kThreads,
+                    kLseSmem, a, st);
   if (err == cudaSuccess) {
-    err = launch(links_fold_kernel, dim3(nt, nt, B), fma::kThreads,
-                 kFoldSmem, a, st);
+    err = bf16 ? launch(bf::links_bf16_fold_kernel, dim3(nt, nt, B),
+                        bf::kThreads, bf::kLinksFoldSmem, a, st)
+               : launch(links_fold_kernel, dim3(nt, nt, B), fma::kThreads,
+                        kFoldSmem, a, st);
   }
   return static_cast<int>(err);
 }
@@ -628,10 +642,15 @@ int links_bwd(const void* q, const void* k, const float* log_gates,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((L + kTileW - 1) / kTileW, H, B);
   // the dq kernel writes r (= dgates), which the dk kernel reads
-  cudaError_t err = launch(links_bwd_dq_kernel, grid, tc::kThreads, kDqSmem,
-                           a, st);
+  cudaError_t err =
+      bf16 ? launch(bf::links_bf16_dq_kernel, grid, bf::kThreads,
+                    bf::kLinksDqSmem, a, st)
+           : launch(links_bwd_dq_kernel, grid, tc::kThreads, kDqSmem, a, st);
   if (err == cudaSuccess) {
-    err = launch(links_bwd_dk_kernel, grid, tc::kThreads, kDkSmem, a, st);
+    err = bf16 ? launch(bf::links_bf16_dk_kernel, grid, bf::kThreads,
+                        bf::kLinksDkSmem, a, st)
+               : launch(links_bwd_dk_kernel, grid, tc::kThreads, kDkSmem, a,
+                        st);
   }
   return static_cast<int>(err);
 }

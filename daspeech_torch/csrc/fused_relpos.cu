@@ -1,8 +1,8 @@
 // Conformer relative-position self-attention, forward and backward, for
-// Hopper (sm_90a), fp32. The _bf16 entry points (the same arguments, the
-// same kernels) take bf16 q, k, v, a, e, out, dout, dq, dk, dv and da in
-// device memory, every sum fp32 (attention.cuh, "Element type"), as the
-// Pallas kernels upcast bf16 operands (fused_relpos.py:102-122).
+// Hopper (sm_90a), fp32. The _bf16 entry points (the same arguments) take
+// bf16 q, k, v, a, e, out, dout, dq, dk, dv and da in device memory and
+// run relpos_bf16.cuh's kernels on the bf16 tensor cores, every sum fp32,
+// as the Pallas kernels upcast bf16 operands (fused_relpos.py:102-122).
 //
 // Replaces the Pallas kernels of daspeech_tpu/ops/fused_relpos.py:373
 // (fused_attention_relpos: forward _relpos_fwd_kernel, :90; backward
@@ -48,6 +48,7 @@
 #include "attention.cuh"
 #include "attention_fma.cuh"
 #include "attention_tc.cuh"
+#include "relpos_bf16.cuh"
 
 namespace {
 
@@ -95,12 +96,13 @@ int relpos_fwd(const void* q, const void* k, const void* v, const void* a,
                               out, stats, T, H, scale, bf16);
   if (out32 != nullptr) args.o32 = packed<float>(out32, T, H, D, false);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // training (statistics asked for): the fp32 FMA forward of
-  // attention_fma.cuh; inference: the tensor cores (attention_tc.cuh)
+  // bf16: relpos_bf16.cuh's kernel (training and inference); fp32
+  // training (statistics asked for): the FMA forward of attention_fma.cuh;
+  // fp32 inference: the tensor cores (attention_tc.cuh)
   return static_cast<int>(
-      stats != nullptr
-          ? fma::launch_attn_fma_fwd<5>(args, B, s)
-          : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
+      bf16               ? bf::launch_relpos_bf16_fwd(args, B, s)
+      : stats != nullptr ? fma::launch_attn_fma_fwd<5>(args, B, s)
+                         : tc::launch_attn_tc_chunk_fwd<5, false>(args, B, s));
 }
 
 int relpos_bwd(const void* q, const void* k, const void* v, const void* a,
@@ -126,8 +128,10 @@ int relpos_bwd(const void* q, const void* k, const void* v, const void* a,
   args.delta = scratch;
   args.dbias = scratch + (rows + 3) / 4 * 4;
   args.pz = args.dbias + rows * T;
-  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<5, false>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? bf::launch_relpos_bf16_bwd(args, B, s)
+           : tc::launch_attn_tc_chunk_bwd<5, false>(args, B, s));
 }
 
 }  // namespace

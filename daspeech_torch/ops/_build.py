@@ -18,10 +18,12 @@ variant takes bf16 weights and fp32 activations, biases and output (and
 bf16 scratch where the fp32 one takes ``ybuf``); the full-bias attention's
 keeps its bias and dS fp32; the fused FFN's keeps LayerNorm's parameters
 and the parameter gradients fp32 (and takes bf16 scratch). The packed and
-head-major attention's (``csrc/attention_bf16.cuh``), the fused FFN's
-(``csrc/ffn_bf16.cuh``) and the MRF level's (``csrc/mrf_bf16.cuh``) bf16
-variants run bf16 tensor-core kernels of their own; the others run the
-fp32 entry point's kernels.
+head-major attention's (``csrc/attention_bf16.cuh``), the rel-pos
+attention's (``csrc/relpos_bf16.cuh``), the link extraction's
+(``csrc/links_bf16.cuh``), the fused FFN's (``csrc/ffn_bf16.cuh``) and the
+MRF level's (``csrc/mrf_bf16.cuh``) bf16 variants run bf16 tensor-core
+kernels of their own; the full-bias attention's runs the fp32 entry
+point's kernels.
 """
 
 from __future__ import annotations

@@ -13,11 +13,13 @@ FMA pipes) or dq, dk and dgates (backward, on the tensor cores).
 tensors take the plain versions, CUDA tensors the kernels; there is no
 fallback between the two.
 
-bf16: the kernels also take bf16 q and k (log_gates stays fp32) through the
-``_bf16`` variants of their C entry points: they compute in fp32, write fp32
-links and lse, and return bf16 dq and dk with fp32 dgates, as the Pallas
-kernel does (``fused_links.py:62-66``, ``:177-199``); the plain versions
-upcast q and k and cast dq and dk back.
+bf16: the ``_bf16`` variants of the C entry points take bf16 q and k
+(log_gates stays fp32) and run kernels of their own on the bf16 tensor
+cores over the same live tiles (``csrc/links_bf16.cuh``: bf16 products,
+fp32 sums, the forward too); they write fp32 links and lse, and return bf16
+dq and dk with fp32 dgates, as the Pallas kernel does
+(``fused_links.py:62-66``, ``:177-199``); the plain versions upcast q and
+k and cast dq and dk back.
 """
 
 from __future__ import annotations

@@ -21,13 +21,15 @@ every length on the card.
 a constant basis). CPU tensors take the plain versions, CUDA tensors the
 kernels; there is no fallback between the two.
 
-bf16: the kernels also take bf16 q, k, v, a and e (the bias and the
-statistics stay fp32) through the ``_bf16`` variants of their C entry
-points, compute in fp32 and write out, dq, dk, dv and da in bf16, as the
-Pallas kernels do (``fused_relpos.py:102-122``); a bf16 training forward
-also writes its output in fp32, for the backward's delta (as
-``ops/fused_attention.py``'s). The plain versions upcast bf16 operands and
-cast their outputs back (``fused_attention._bf16_plain``).
+bf16: the ``_bf16`` variants of the C entry points take bf16 q, k, v, a
+and e (the bias and the statistics stay fp32) and run kernels of their own
+on the bf16 tensor cores (``csrc/relpos_bf16.cuh``: bf16 products, fp32
+sums, training and inference forward and a two-kernel backward) and write
+out, dq, dk, dv and da in bf16, as the Pallas kernels do
+(``fused_relpos.py:102-122``); a bf16 training forward also writes its
+output in fp32, for the backward's delta (as ``ops/fused_attention.py``'s).
+The plain versions upcast bf16 operands and cast their outputs back
+(``fused_attention._bf16_plain``).
 """
 
 from __future__ import annotations

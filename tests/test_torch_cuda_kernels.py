@@ -30,7 +30,12 @@ with and without the transition band, and at J-long's [14, 700] H = 8
 over two runs); the full-bias attention's training forward (the FMA
 kernel's full-bias mode) with dropout and a fully masked row, its
 statistics through the tensor-core backward; a library that holds no
-SIMT attention forward; and the int8 vocoder rungs' int32 sums and one
+SIMT attention forward; the bf16 tensor-core kernels of #5 and #4
+(relpos_bf16.cuh, links_bf16.cuh) at T' = 1, 63, 65, 120, 350 with a
+fully padded row and at L = 63, 65, 129, 1024 with and without the band,
+their backward bit-identical over two runs, and each dtype's kernels of
+#5 and #4 by name under the profiler; and the int8 vocoder rungs' int32
+sums and one
 short utterance at 16 rows or fewer (``torch._int_mm``'s floor on CUDA).
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
@@ -1235,11 +1240,18 @@ def test_bf16_attention(gen, head_major, B, Tq, Tk, H, p):
         assert torch.equal(g, a)
 
 
+# (3, .., 4, ..): batch row 2 fully padded; (80, 120, 4, 0.1): cell T's
+# encoder, the exact shape; (1, 350, 4, 0.1): J-long's encoder length
 @pytest.mark.parametrize("B,T,H,p", [(2, 1, 4, 0.0), (2, 65, 4, 0.1),
-                                     (3, 120, 4, 0.1), (2, 300, 4, 0.0)])
+                                     (3, 120, 4, 0.1), (2, 300, 4, 0.0),
+                                     (3, 1, 4, 0.1), (3, 63, 4, 0.1),
+                                     (3, 65, 4, 0.0), (3, 350, 4, 0.1),
+                                     (1, 350, 4, 0.1), (80, 120, 4, 0.1)])
 def test_bf16_relpos(gen, B, T, H, p):
-    """#5 on bf16 q, k, v, a and e, forward (inference and training) and
-    backward, against the plain bf16 versions."""
+    """#5 on bf16 q, k, v, a and e (relpos_bf16.cuh's kernels), forward
+    (inference and training) and backward, against the plain bf16
+    versions; the training forward's fp32 output and statistics; the
+    backward bit-identical over two runs."""
     C = 256
     q, k, v = (_bf16(gen, B, T, H * 64, scale=0.5) for _ in range(3))
     a = _bf16(gen, B, T, H * C, scale=0.1)
@@ -1254,20 +1266,38 @@ def test_bf16_relpos(gen, B, T, H, p):
     torch.cuda.synchronize()
     _bf16_close(infer, want)
     _bf16_close(out, want)
+    # the statistics and the output in fp32, for the backward's delta
+    assert [x.dtype for x in st] == [torch.float32] * 2
+    _bf16_close(st[1].to(torch.bfloat16), out)
+    _bf16_close(st[1], want.float())
+    s = (torch.einsum("bqhd,bkhd->bhqk", *(x.float().reshape(B, T, H, -1)
+                                           for x in (q, k)))
+         + torch.einsum("bqhc,kc->bhqk", a.float().reshape(B, T, H, C),
+                        e.float())) * 0.125 + bias[:, None, None, :]
+    m = s.amax(-1)
+    assert ((st[0][..., 0] - m).abs() <= BF16_TOL * m.abs().clamp_min(1.0)).all()
     got = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, 0.125, p,
                                seeds)
+    again = fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, 0.125,
+                                 p, seeds)
     torch.cuda.synchronize()
     want_g = fr.relpos_bwd_plain(q, k, v, a, e, bias, do, H, 0.125, p, seeds)
-    for g, w in zip(got, want_g):
+    for g, w, x in zip(got, want_g, again):
         _bf16_close(g, w)
+        assert torch.equal(g, x)
 
 
+# L = 63, 65, 129 around the 64-wide tile, 1024 the cap, mtl = 5 the band
 @pytest.mark.parametrize("B,L,H,mtl", [(2, 1, 8, None), (3, 65, 8, 5),
-                                       (2, 240, 8, None), (1, 1024, 8, None)])
+                                       (2, 240, 8, None), (1, 1024, 8, None),
+                                       (3, 63, 8, None), (3, 65, 8, None),
+                                       (3, 129, 8, None), (3, 129, 8, 5),
+                                       (3, 1024, 8, 5)])
 def test_bf16_links(gen, B, L, H, mtl):
-    """#4 on bf16 q and k: fp32 links (the -inf pattern of the plain
-    version, 1e-4 on the finite ones) and lse; bf16 dq, dk and fp32
-    dgates against the plain bf16 versions."""
+    """#4 on bf16 q and k (links_bf16.cuh's kernels): fp32 links (the -inf
+    pattern of the plain version, 1e-4 on the finite ones) and lse; bf16
+    dq, dk and fp32 dgates against the plain bf16 versions, bit-identical
+    over two runs."""
     q, k = _bf16(gen, B, L, H * 64, scale=0.5), _bf16(gen, B, L, H * 64)
     gates = torch.log_softmax(_randn(gen, B, L, H), dim=-1)
     ol = torch.randint(1, L + 1, (B,), generator=gen)
@@ -1278,6 +1308,7 @@ def test_bf16_links(gen, B, L, H, mtl):
     torch.cuda.synchronize()
     want = fl.links_plain(q, k, gates, ol, H, 0.125, mtl)
     assert links.dtype == torch.float32 and lse.dtype == torch.float32
+    assert torch.isfinite(lse).all()
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(links), finite)
     if finite.any():
@@ -1285,12 +1316,68 @@ def test_bf16_links(gen, B, L, H, mtl):
     dlinks = _randn(gen, B, L, L)
     dq, dk_, dg = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H,
                                       0.125, mtl)
+    again = fl.links_bwd_kernel(q, k, gates, ol, links, lse, dlinks, H,
+                                0.125, mtl)
     torch.cuda.synchronize()
     wq, wk, wg = fl.links_bwd_plain(q, k, gates, ol, dlinks, H, 0.125, mtl)
     _bf16_close(dq, wq)
     _bf16_close(dk_, wk)
     assert dg.dtype == torch.float32
     assert _max_err(dg, wg) <= TOL
+    for x, y in zip((dq, dk_, dg), again):
+        assert torch.equal(x, y)
+
+
+# the kernels of #5 and #4 by dtype: the bf16 ones (relpos_bf16.cuh,
+# links_bf16.cuh) and the fp32 ones (the FMA training forward and
+# attention_tc.cuh's chunked-score backward; fused_links.cu's)
+RELPOS_LINKS_KERNELS = {
+    torch.bfloat16: {"relpos_bf16_fwd_kernel": 1, "relpos_bf16_ds_kernel": 1,
+                     "relpos_bf16_grad_kernel": 1, "links_bf16_lse_kernel": 1,
+                     "links_bf16_fold_kernel": 1, "links_bf16_dq_kernel": 1,
+                     "links_bf16_dk_kernel": 1},
+    torch.float32: {"attn_fma_fwd_kernel": 1, "attn_tc_chunk_ds_kernel": 1,
+                    "attn_tc_grad_kernel": 1, "links_lse_kernel": 1,
+                    "links_fold_kernel": 1, "links_bwd_dq_kernel": 1,
+                    "links_bwd_dk_kernel": 1}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relpos_and_links_launch_their_own_kernels(gen, dtype):
+    """A bf16 call of #5 (training forward and backward) and #4 (forward
+    and backward) launches the bf16 kernels and none of the fp32 ones; an
+    fp32 call the fp32 kernels and none of the bf16 ones (by name, under
+    the profiler)."""
+    B, T, H = 2, 37, 4
+    q, k, v, do = (_randn(gen, B, T, H * 64, scale=0.5).to(dtype)
+                   for _ in range(4))
+    a = _randn(gen, B, T, H * 256, scale=0.1).to(dtype)
+    e = fr.relpos_basis(T, 256, device="cuda")[2].to(dtype).contiguous()
+    bias = _bias(gen, B, T)
+    seeds = _seeds(gen, B)
+    gates = torch.log_softmax(_randn(gen, B, T, H), dim=-1)
+    ol = torch.tensor([T, T - 5], dtype=torch.int32).cuda()
+    dl = _randn(gen, B, T, T)
+
+    def run():
+        out, st = fr.relpos_fwd_kernel(q, k, v, a, e, bias, H, 0.125, 0.1,
+                                       seeds, with_stats=True)
+        fr.relpos_bwd_kernel(q, k, v, a, e, bias, out, st, do, H, 0.125, 0.1,
+                             seeds)
+        links, lse = fl.links_fwd_kernel(q, k, gates, ol, H, 0.125, None,
+                                         with_lse=True)
+        fl.links_bwd_kernel(q, k, gates, ol, links, lse, dl, H, 0.125, None)
+
+    names = _launched(run)
+    assert names, "the profiler saw no kernels"
+    want = RELPOS_LINKS_KERNELS[dtype]
+    other = RELPOS_LINKS_KERNELS[torch.float32 if dtype == torch.bfloat16
+                                 else torch.bfloat16]
+    has = lambda t: sum(t in n for n in names)  # noqa: E731
+    assert {t: has(t) for t in want} == want, names
+    assert not any(has(t) for t in other), names
+    ours = [n for n in names if any(t in n for t in (*want, *other))]
+    assert len(ours) == sum(want.values()), names
 
 
 def test_bf16_wrappers_refuse_mixed_dtypes(gen):
