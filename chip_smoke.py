@@ -7,7 +7,7 @@ commit unpacked with ``git archive``; its kernels are built too, and the
 kernel phase times the rows of the kernels redesigned since (the training
 forward of #1, #2, #3 and #5, the link extraction #4 forward and backward,
 the DP #8 and the Viterbi #9, the fused FFN #6 forward and backward and
-the MRF level #7, and the bf16 rows of #1, #2, #6 and #7) with its library
+the MRF level #7, and the bf16 rows of #1 to #7) with its library
 as well, on the same inputs in the same process (#6's and #7's with its
 own wrappers too, whose scratch differs), and the bf16 phase's bf16
 updates, the alternates phase's bf16 fused-FFN updates and the vocoder
@@ -213,7 +213,9 @@ rungs' bf16 fused-MRF runs with its kernels too, in turns.)
    mode's, which their fp32 call launches as before (names and counts
    under the profiler; these rows are taken in a
    process of their own, the script run with ``--bf16-kernel-rows``;
-   the bf16 rows of #7, #6 and #3 likewise, ``--bf16-alternate-rows``),
+   the bf16 rows of #7, #6 and #3 likewise, ``--bf16-alternate-rows``,
+   #3's call the three kernels of attention_bf16.cuh's full-bias mode,
+   each once, and none of the fp32 mode's, which its fp32 call launches),
    and one row each in the kernels' JSON (forward + backward: kernel,
    plain and SDPA ms in bf16, the bound at 989 TFLOP/s on the bf16
    bytes); the card's bf16 step against the CPU's at T (B=2) and J-long
@@ -408,7 +410,9 @@ BF16_SOURCES = {"mrf_level": "daspeech_torch/csrc/mrf_bf16.cuh",
                 "fused_attention": "daspeech_torch/csrc/attention_bf16.cuh",
                 "fused_attention_relpos":
                     "daspeech_torch/csrc/relpos_bf16.cuh",
-                "fused_extract_links": "daspeech_torch/csrc/links_bf16.cuh"}
+                "fused_extract_links": "daspeech_torch/csrc/links_bf16.cuh",
+                "fused_attention_full_bias":
+                    "daspeech_torch/csrc/attention_bf16.cuh"}
 
 
 def launch_counters():
@@ -716,6 +720,11 @@ TC_KERNELS = ("attn_tc_fwd_kernel", "attn_tc_bwd_dq_kernel",
 # and inference) and the two backward kernels, on the bf16 tensor cores
 BF16_ATTN_KERNELS = ("attn_bf16_fwd_kernel", "attn_bf16_dq_kernel",
                      "attn_bf16_dkdv_kernel")
+# the bf16 mode of #3: the same three kernels' full-bias mode
+# (attention_bf16.cuh), each launched once by a training forward and
+# backward
+BF16_FB_KERNELS = ("attn_bf16_fb_fwd_kernel", "attn_bf16_fb_dq_kernel",
+                   "attn_bf16_fb_dkdv_kernel")
 # every attention training forward: attention_fma.cuh's register-tiled
 # kernel on the fp32 FMA pipes (instance <1,0>: #1 and #2, <5,0>: #5,
 # <1,1>: #3's full-bias mode), and the merge of its key split
@@ -909,8 +918,8 @@ def kernel_split(fn, tag, reps=3):
 
 def sass_counts(lib_path):
     """HMMA (tensor-core) and FFMA (fp32 FMA) instructions per kernel of
-    attention_tc.cuh, of attention_bf16.cuh, relpos_bf16.cuh and
-    links_bf16.cuh (and, of the HMMA, those of the bf16 form,
+    attention_tc.cuh, of attention_bf16.cuh (both modes), relpos_bf16.cuh
+    and links_bf16.cuh (and, of the HMMA, those of the bf16 form,
     ``HMMA.16816.F32.BF16``: HMMA_BF16), of the FMA forward, of the link
     extraction and of #6's and #7's kernels (gemm_tc.cuh's tiles: the fp32
     modes' and the bf16 modes') in the built library's SASS
@@ -921,9 +930,9 @@ def sass_counts(lib_path):
     import re
 
     sass = kernel_sass(lib_path, (
-        *TC_KERNELS, *BF16_ATTN_KERNELS, *BF16_RELPOS_KERNELS,
-        *BF16_LINKS_KERNELS, FMA_FORWARD, *LINKS_FMA, *LINKS_TC, *GEMM_TC,
-        *BF16_GEMM_KERNELS))
+        *TC_KERNELS, *BF16_ATTN_KERNELS, *BF16_FB_KERNELS,
+        *BF16_RELPOS_KERNELS, *BF16_LINKS_KERNELS, FMA_FORWARD, *LINKS_FMA,
+        *LINKS_TC, *GEMM_TC, *BF16_GEMM_KERNELS))
     if sass is None:
         return None
     counts = {}
@@ -974,31 +983,43 @@ def kernel_sass(lib_path, names):
     return out
 
 
-# the fp32 kernels of #5 and #4, whose SASS this tree keeps as the parent
-# tree built it (checked with --parent)
+# the fp32 kernels of #5, #4 and #3, whose SASS this tree keeps as the
+# parent tree built it (checked with --parent): every instance in the
+# rel-pos and link libraries, and #3's in the fused_attention one (the FMA
+# forward's full-bias mode, the chunked-score kernels and the gradient
+# kernel of its backward)
 FP32_KEPT = (FMA_FORWARD, "attn_tc_chunk_fwd_kernel",
              "attn_tc_chunk_ds_kernel", "attn_tc_grad_kernel", *LINKS_FMA,
              *LINKS_TC)
+FP32_KEPT_FB = {("fused_attention", n) for n in (
+    f"{FMA_FORWARD}<1,1>", "attn_tc_chunk_fwd_kernel<1,1>",
+    "attn_tc_chunk_ds_kernel<1,1>", "attn_tc_grad_kernel")}
 
 
 def fp32_sass_kept(lib, parent_lib):
-    """The fp32 kernels of #5 and #4 (FP32_KEPT) in this tree's library
-    have the SASS of the parent tree's, instruction for instruction (the
-    rel-pos instances of the attention kernels and every link kernel);
-    returns how many were compared, or None without cuobjdump."""
+    """The fp32 kernels of #5, #4 and #3 (FP32_KEPT, FP32_KEPT_FB) in this
+    tree's library have the SASS of the parent tree's, instruction for
+    instruction (the rel-pos instances of the attention kernels, every link
+    kernel and #3's fp32 instances); returns how many were compared, or
+    None without cuobjdump."""
     ours, theirs = kernel_sass(lib, FP32_KEPT), kernel_sass(parent_lib,
                                                             FP32_KEPT)
     if ours is None:
         return None
-    keys = sorted(k for k in ours if k[0] in ("fused_relpos", "fused_links"))
-    if not keys or set(keys) != {k for k in theirs
-                                 if k[0] in ("fused_relpos", "fused_links")}:
-        raise AssertionError(f"fp32 kernels of #5 and #4: {keys} here, "
+
+    def kept(sass):
+        return {k for k in sass if k[0] in ("fused_relpos", "fused_links")
+                or k in FP32_KEPT_FB}
+
+    keys = sorted(kept(ours))
+    if (not keys or set(keys) != kept(theirs)
+            or not FP32_KEPT_FB <= set(keys)):
+        raise AssertionError(f"fp32 kernels of #5, #4 and #3: {keys} here, "
                              f"{sorted(theirs)} in the parent tree")
     changed = [k for k in keys if ours[k] != theirs[k]]
     if changed:
         raise AssertionError(f"fp32 kernels whose SASS changed: {changed}")
-    log(f"  SASS of the fp32 kernels of #5 and #4 as the parent tree's: "
+    log(f"  SASS of the fp32 kernels of #5, #4 and #3 as the parent tree's: "
         f"{len(keys)} kernels ({', '.join('/'.join(k) for k in keys)})")
     return len(keys)
 
@@ -1017,15 +1038,17 @@ def check_sass(lib_path):
             LINKS_FMA)
         tc = {n: c for n, c in sass.items() if n not in fma_names}
         fma = {n: c for n, c in sass.items() if n in fma_names}
-        bf16_names = (*BF16_ATTN_KERNELS, *BF16_RELPOS_KERNELS,
-                      *BF16_LINKS_KERNELS, *BF16_GEMM_KERNELS)
+        bf16_names = (*BF16_ATTN_KERNELS, *BF16_FB_KERNELS,
+                      *BF16_RELPOS_KERNELS, *BF16_LINKS_KERNELS,
+                      *BF16_GEMM_KERNELS)
         if ({n.split("<")[0] for n in tc} != {*TC_KERNELS, *LINKS_TC,
                                                *GEMM_TC, *bf16_names}
                 or not all(c["HMMA"] for c in tc.values())):
             raise AssertionError(f"tensor-core kernels without HMMA: {tc}")
-        # the bf16 attention kernels and the bf16 modes of #5, #4, #6 and
-        # #7 multiply on the bf16 tensor cores, and every HMMA they hold is
-        # of that form; the fp32 tensor-core kernels hold none (3xTF32 only)
+        # the bf16 attention kernels (both modes) and the bf16 modes of #5,
+        # #4, #6 and #7 multiply on the bf16 tensor cores, and every HMMA
+        # they hold is of that form; the fp32 tensor-core kernels hold none
+        # (3xTF32 only)
         bf16_tc = {n: c for n, c in tc.items()
                    if n.split("<")[0] in bf16_names}
         if (len(bf16_tc) != len(bf16_names) - 1 + 8
@@ -1075,7 +1098,8 @@ SPILL_CHECKED = {FMA_FORWARD: len(FMA_INSTANCES), "mrf_conv_kernel": 6,
                  "ffn_fwd_kernel": 1, "ffn_bwd_rows_kernel": 1,
                  "ffn_wgrad_kernel": 1, "mrf_bf16_conv_kernel": 8,
                  "mrf_bf16_act_kernel": 1,
-                 **{n: 1 for n in (*BF16_ATTN_KERNELS, *BF16_RELPOS_KERNELS,
+                 **{n: 1 for n in (*BF16_ATTN_KERNELS, *BF16_FB_KERNELS,
+                                   *BF16_RELPOS_KERNELS,
                                    *BF16_LINKS_KERNELS)},
                  **{n: 1 for n in BF16_GEMM_KERNELS[:3]}}
 
@@ -4147,9 +4171,10 @@ def mrf_chain_bf16(x, W, biases, kernel_sizes, dilations):
 
 def bf16_mode_kernels(name, run32, run16, want32, want16,
                       own=("ffn_", "mrf_", "widen_kernel", "narrow_kernel")):
-    """#6's, #7's, #5's or #4's bf16 call launches its bf16 kernels
-    (ffn_bf16.cuh's, mrf_bf16.cuh's, relpos_bf16.cuh's, links_bf16.cuh's;
-    ``want16``: name -> count) and none of the fp32 mode's kernels or the
+    """#6's, #7's, #5's, #4's or #3's bf16 call launches its bf16 kernels
+    (ffn_bf16.cuh's, mrf_bf16.cuh's, relpos_bf16.cuh's, links_bf16.cuh's,
+    attention_bf16.cuh's full-bias mode; ``want16``: name -> count) and
+    none of the fp32 mode's kernels or the
     casts the bf16 entry points once ran; the fp32 call launches the fp32
     mode's (``want32``) as before and no bf16 kernel (by name, under
     ``torch.profiler``; ``own``: what the names of our kernels hold, #6's
@@ -4184,10 +4209,9 @@ def bf16_alternate_rows():
     [80, 120] (forward and backward, dropout 0.1), #3 at the ALiBi shape
     (training forward and backward, dropout 0.1); each row's kernel, plain
     and library times beside the bound at 989 TFLOP/s and on the bf16
-    bytes. #7's and #6's rows (the kernels this tree redesigned) also hold
-    their TFLOP/s, the device ms by kernel beside the library's, the
-    kernels each bf16 call launches, and with --parent the parent tree's
-    time (``was_ms``). Returns {name: rows}."""
+    bytes, its TFLOP/s, the device ms by kernel beside the library's, the
+    kernels each bf16 call launches (by name), and with --parent the
+    parent tree's time timed in turns (``was_ms``). Returns {name: rows}."""
     from daspeech_torch.models import conformer
     from daspeech_torch.models.layers import set_dtype
     from daspeech_torch.ops import fused_attention as fa
@@ -4204,18 +4228,16 @@ def bf16_alternate_rows():
         ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
         lib_ms = cuda_ms(run_library)
         b_ms, b_by = bound(flops, nbytes, PEAK_FLOPS_BF16)
-        # the kernels this tree redesigned: the parent tree's time, in turns,
-        # and the device time by kernel beside the library's
-        redesigned = name != "fused_attention_full_bias bf16"
+        # every bf16 mode here has kernels of its own: the parent tree's
+        # time, in turns, and the device time by kernel beside the library's
         was = None
-        if redesigned:
-            if PARENT:
-                ms, was = in_turns(run_kernel)
-            extra["device_ms"] = kernel_split(run_kernel, f"{name} {shape}")
-            extra["library_device_ms"] = kernel_split(
-                run_library, f"{name} {shape} library")
-            extra["tflops"] = flops / ms / 1e9
-            extra["library_tflops"] = flops / lib_ms / 1e9
+        if PARENT:
+            ms, was = in_turns(run_kernel)
+        extra["device_ms"] = kernel_split(run_kernel, f"{name} {shape}")
+        extra["library_device_ms"] = kernel_split(
+            run_library, f"{name} {shape} library")
+        extra["tflops"] = flops / ms / 1e9
+        extra["library_tflops"] = flops / lib_ms / 1e9
         rows[name].append({
             "shape": shape, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -4320,12 +4342,18 @@ def bf16_alternate_rows():
                                                      0.1, seed)):
         err = max(err, bf16_close(f"#3 bf16 {shape} backward", u, w))
 
-    def run():
+    def run(q=q, k=k, v=v, do=do):
         o, s = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, 0.1, seed,
                                           with_stats=True)
         return fa.attention_fb_bwd_kernel(q, k, v, bias4, o, s, do, 1.0, 0.1,
                                           seed)
 
+    f32 = [x.float() for x in (q, k, v, do)]
+    # the fp32 call launches #5's fp32 kernels in their full-bias instances
+    bf16_kernels = bf16_mode_kernels(
+        "fused_attention_full_bias", lambda: run(*f32), run,
+        FP32_RELPOS_LAUNCH, {n: 1 for n in BF16_FB_KERNELS},
+        own=("daspeech",))
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     mask = bias4.to(bf).requires_grad_(True)
     row("fused_attention_full_bias bf16", shape, err, run,
@@ -4337,7 +4365,8 @@ def bf16_alternate_rows():
         lambda: torch.autograd.grad(
             torch.nn.functional.scaled_dot_product_attention(
                 *leaves, attn_mask=mask, dropout_p=0.1, scale=1.0),
-            [*leaves, mask], do))
+            [*leaves, mask], do),
+        bf16_kernels=bf16_kernels, fp32_ms=cuda_ms(lambda: run(*f32)))
     return rows
 
 

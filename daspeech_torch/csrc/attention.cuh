@@ -24,27 +24,27 @@
 // rel-pos and full-bias attention) is attention_fma.cuh's (fp32 FMA,
 // register-tiled); every fp32 backward and inference forward is
 // attention_tc.cuh's (tensor cores, 3xTF32); the tile primitives both use
-// are tiles.cuh's. The packed and head-major bf16 entry points run
-// attention_bf16.cuh's kernels and the rel-pos ones relpos_bf16.cuh's (bf16
-// tensor cores, bf16 tiles in shared memory; tiles_bf16.cuh), forward and
-// backward; the full-bias bf16 entry points run the fp32 kernels on
-// widened operands, as set out next.
+// are tiles.cuh's. The packed, head-major and full-bias bf16 entry points
+// run attention_bf16.cuh's kernels (the full bias in their full-bias mode)
+// and the rel-pos ones relpos_bf16.cuh's (bf16 tensor cores, bf16 tiles in
+// shared memory; tiles_bf16.cuh), forward and backward.
 //
 // Element type: every operand, output and gradient view is fp32 or, with its
-// bf16 flag set, bf16 in device memory (the _bf16 entry points). In the
-// fp32 kernels that the full-bias bf16 entry points run, the
-// tiles in shared memory, the products, the softmax and its statistics, the
-// bias, delta and every scratch buffer stay fp32: a bf16 row is widened to
-// fp32 as it is loaded (load_rows64, ld4, ld1) and an output is rounded to
-// bf16 (round to nearest even) as it is stored (st2, st4). bf16 rows are
-// loaded by plain loads, not cp.async, which cannot convert: their copy into
-// the next stage no longer overlaps this stage's products. A bf16 training
-// forward also writes its output in fp32 (o32), and the backward reads that
-// for delta = rowsum(dO∘O): from the rounded bf16 O, delta cancels against
-// dO.V where a softmax row is near uniform, and put the q and k gradients
-// of cell T's deep decoder layers off by up to three times their norm. The
-// Pallas kernels take delta = rowsum(P∘dP) in fp32, which is the same sum
-// over the unrounded O.
+// bf16 flag set, bf16 in device memory (the _bf16 entry points). The bf16
+// kernels copy bf16 tiles as they are (tiles_bf16.cuh) and read and write
+// single rows through ld4 and st2, which widen a bf16 row to fp32 as it is
+// loaded and round an output to bf16 (round to nearest even) as it is
+// stored. The fp32 kernels take the same views: a bf16 view would be
+// widened by load_rows64, ld1 and ld4 and rounded by st2 and st4, with its
+// rows loaded by plain loads, not cp.async, which cannot convert; but no
+// entry point hands an fp32 kernel a bf16 view, so those branches run only
+// in the bf16 kernels' ld4 and st2. A bf16 training forward also writes its
+// output in fp32 (o32), and the backward reads that for delta =
+// rowsum(dO∘O): from the rounded bf16 O, delta cancels against dO.V where a
+// softmax row is near uniform, and put the q and k gradients of cell T's
+// deep decoder layers off by up to three times their norm. The Pallas
+// kernels take delta = rowsum(P∘dP) in fp32, which is the same sum over the
+// unrounded O.
 //
 // The backward, with P = softmax(s), Z the dropout multipliers, O the
 // output, is attention_tc.cuh's:

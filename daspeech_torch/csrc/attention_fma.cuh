@@ -79,10 +79,11 @@
 // there can be), packs the 16 keep bits, and 3 shuffles among the four
 // threads hand each its words.
 //
-// bf16 operands (attention.cuh, "Element type"): the tiles are widened as
-// they are loaded and the output rounded as it is stored, and written in
-// fp32 too where args.o32 is set; the split's partial rows and (m, l) stay
-// fp32.
+// bf16 operands (attention.cuh, "Element type"): the tiles would be widened
+// as they are loaded and the output rounded as it is stored, and written in
+// fp32 too where args.o32 is set; but no entry point hands this kernel bf16
+// operands (every bf16 training forward runs attention_bf16.cuh's or
+// relpos_bf16.cuh's kernel), so only its fp32 path runs.
 //
 // Ragged tiles: keys past Tk are zero-filled by cp.async and get score
 // -inf; query rows past Tq are zero-filled, give finite scores and are

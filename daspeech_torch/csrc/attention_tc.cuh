@@ -11,13 +11,14 @@
 // helpers are attention.cuh's; the fragment and tile-product helpers this
 // comment describes are tiles.cuh's.
 //
-// Precision: fp32 in and out (or, for the full-bias and rel-pos bf16 entry
-// points, bf16 in device memory, widened to fp32 as it is loaded and
-// rounded as it is stored: attention.cuh, "Element type"; the packed and
-// head-major bf16 entry points run attention_bf16.cuh's bf16 kernels
-// instead); every matrix product runs on the tensor cores as 3xTF32. On
-// widened bf16 operands the lo terms of their split are 0 (a bf16 value is
-// a TF32 value), so those products cost three mma.sync for one's worth.
+// Precision: fp32 in and out; every matrix product runs on the tensor
+// cores as 3xTF32. No bf16 entry point runs these kernels: the packed,
+// head-major and full-bias ones run attention_bf16.cuh's bf16 kernels, the
+// rel-pos ones relpos_bf16.cuh's. Their loads still take a bf16 view,
+// widened to fp32 as it is loaded and rounded as it is stored
+// (attention.cuh, "Element type"), which no caller reaches; on such
+// operands the lo terms of the split would be 0 (a bf16 value is a TF32
+// value), three mma.sync for one's worth.
 // Each operand x is split into hi = cvt.rna.tf32(x) and
 // lo = cvt.rna.tf32(x - hi), and a·b is taken as lo·hi + hi·lo + hi·hi
 // (the small terms first), each an mma.sync m16n8k8 tf32 with fp32

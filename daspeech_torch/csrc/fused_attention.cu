@@ -4,12 +4,18 @@
 // dk and dv are bf16 in device memory; the bias (the full bias and its
 // gradient dS too), the statistics and delta stay fp32, and every sum is
 // fp32, as the Pallas kernels upcast bf16 operands and cast their outputs
-// (fused_attention.py:79-100, :305-321). The packed and head-major bf16
-// entry points run kernels of their own, on the bf16 tensor cores
-// (attention_bf16.cuh: bf16 mma.sync, ldmatrix, cp.async; P·V one-term,
-// dS·K, (P∘Z)ᵀ·dO and dSᵀ·Q two-term); the full-bias bf16 entry points run
-// the fp32 kernels below on widened operands (attention.cuh, "Element
-// type").
+// (fused_attention.py:79-100, :305-321). Every bf16 entry point runs
+// kernels of its own, on the bf16 tensor cores (attention_bf16.cuh: bf16
+// mma.sync, ldmatrix, cp.async; P·V one-term, dS·K, (P∘Z)ᵀ·dO and dSᵀ·Q
+// two-term): the packed and head-major ones its column-bias kernels, the
+// full-bias ones the same three kernels in their full-bias mode
+// (attn_bf16_fb_*: the bias4 tile streamed into each stage, dbias written
+// by the dq kernel). At chip_smoke.py's ALiBi shape [8, 8, 240, 64], p =
+// 0.1, the full-bias bf16 forward and backward took 0.0753 ms of device
+// time on an NVIDIA H100 80GB HBM3 at 700 W (SDPA on a bf16 mask 0.0987;
+// bound 0.0135, bytes), the fp32 kernels on widened tiles that they
+// replace 0.3301 ms a call against their 0.2084 (attention_bf16.cuh, "The
+// full-bias mode").
 //
 // Replaces three Pallas kernels of daspeech_tpu/ops/fused_attention.py:
 //   - packed, fused_attention_packed (:522; forward _attn_kernel_packed,
@@ -60,8 +66,8 @@
 // 4-query x 4-key micro-tile of the score and a 4-query x 4-channel one of
 // the output, fed by 16-byte shared-memory reads.
 //
-// The full-bias entry points run the chunked-score tensor-core kernels of
-// attention_tc.cuh with one chunk (NC = 1) and the bias as a
+// The full-bias fp32 entry points run the chunked-score tensor-core kernels
+// of attention_tc.cuh with one chunk (NC = 1) and the bias as a
 // [query tile, key tile] block per stage, streamed beside K by cp.async;
 // their training forward is attention_fma.cuh's kernel in its full-bias
 // mode (FULL), each thread reading its 4 x 4 biases from device memory.
@@ -131,7 +137,9 @@ int attention_fwd(const void* q, const void* k, const void* v,
   // inference; fp32 training (statistics asked for): the FMA forward of
   // attention_fma.cuh; fp32 inference: the 3xTF32 forward
   // (attention_tc.cuh, "Accumulation")
-  if (bf16) return static_cast<int>(bf::launch_attn_bf16_fwd(args, B, s));
+  if (bf16) {
+    return static_cast<int>(bf::launch_attn_bf16_fwd<false>(args, B, s));
+  }
   return static_cast<int>(stats != nullptr
                               ? fma::launch_attn_fma_fwd<1>(args, B, s)
                               : tc::launch_attn_tc_fwd(args, B, s));
@@ -156,7 +164,7 @@ int attention_bwd(const void* q, const void* k, const void* v,
   args.dv = view<float>(dv, Tk, H, head_major, bf16);
   args.delta = delta;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? bf::launch_attn_bf16_bwd(args, B, s)
+  return static_cast<int>(bf16 ? bf::launch_attn_bf16_bwd<false>(args, B, s)
                                : tc::launch_attn_tc_bwd(args, B, s));
 }
 
@@ -184,6 +192,12 @@ int full_bias_fwd(const void* q, const void* k, const void* v,
     args.o32 = view<float>(out32, Tq, H, true, false);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // bf16: attention_bf16.cuh's forward in its full-bias mode, training and
+  // inference; fp32 training: the FMA forward's full-bias mode; fp32
+  // inference: the chunked-score 3xTF32 forward
+  if (bf16) {
+    return static_cast<int>(bf::launch_attn_bf16_fwd<true>(args, B, s));
+  }
   return static_cast<int>(
       stats != nullptr
           ? fma::launch_attn_fma_fwd<1, true>(args, B, s)
@@ -208,13 +222,15 @@ int full_bias_bwd(const void* q, const void* k, const void* v,
   args.dk = view<float>(dk, Tk, H, true, bf16);
   args.dv = view<float>(dv, Tk, H, true, bf16);
   // scratch: delta [B, H, Tq] (padded to 4 floats), then P∘Z
-  // [B, H, Tq, Tk]
+  // [B, H, Tq, Tk] (the fp32 kernels'; the bf16 ones recompute P∘Z)
   const long long rows = static_cast<long long>(B) * H * Tq;
   args.delta = scratch;
   args.dbias = dbias;
   args.pz = scratch + (rows + 3) / 4 * 4;
-  return static_cast<int>(tc::launch_attn_tc_chunk_bwd<1, true>(
-      args, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? bf::launch_attn_bf16_bwd<true>(args, B, s)
+                               : tc::launch_attn_tc_chunk_bwd<1, true>(
+                                     args, B, s));
 }
 
 }  // namespace

@@ -207,30 +207,38 @@ __device__ __forceinline__ void load_f32_tile(float* tile, int pitch,
 
 // The forward's online softmax of one 64-key tile: s holds the warp's 16
 // rows of the tile's scores (q·k, before scale and bias; keys past Tk are
-// masked here), Bs the tile's 64 column biases. Rescales o, the running max
-// m, the fp32 sum l of exp(s − m) (the saved statistic) and the sum lr of
-// the values P·V takes (the output's normalizer), and leaves in s those
-// values, dropped where dropout drops it: the A operand of O += P·V. With
-// PV_TERMS == 1, P·V takes exp(s − m) rounded to bf16, so lr sums the
-// rounded values; with 2 it takes hi + lo, within 2^-16 of exp(s − m),
-// and lr sums the unrounded ones.
-template <int PV_TERMS>
+// masked here), Bs the tile's biases of the thread's row ia: the 64 column
+// biases (BIAS_PITCH == 0), or row ia of a [64 query][BIAS_PITCH] fp32 tile
+// of the full bias, row ia + 8 BIAS_PITCH floats further on. Rescales o,
+// the running max m, the fp32 sum l of exp(s − m) (the saved statistic) and
+// the sum lr of the values P·V takes (the output's normalizer), and leaves
+// in s those values, dropped where dropout drops it (c3: the keep bits'
+// fourth counter word): the A operand of O += P·V. With PV_TERMS == 1, P·V
+// takes exp(s − m) rounded to bf16, so lr sums the rounded values; with 2
+// it takes hi + lo, within 2^-16 of exp(s − m), and lr sums the unrounded
+// ones.
+template <int PV_TERMS, int BIAS_PITCH = 0>
 __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
                                              float (&o)[8][4], float (&m)[2],
                                              float (&l)[2], float (&lr)[2],
                                              const float* Bs, int j0,
                                              const AttnArgs& args,
                                              uint32_t seed, int ia, int h,
-                                             int t) {
+                                             int t, uint32_t c3 = 0u) {
   const bool drop = args.drop.seeds != nullptr;
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int jj = n * 8 + 2 * t;
-    const float2 bias = *reinterpret_cast<const float2*>(Bs + jj);
+    const float2 b0 = *reinterpret_cast<const float2*>(Bs + jj);
+    const float2 b1 =
+        BIAS_PITCH ? *reinterpret_cast<const float2*>(Bs + 8 * BIAS_PITCH +
+                                                      jj)
+                   : b0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = e & 1;
+      const float2 bias = (e >> 1) ? b1 : b0;
       const float sc = (j0 + jj + c < args.Tk)
                            ? s[n][e] * args.scale + (c ? bias.y : bias.x)
                            : -INFINITY;
@@ -258,7 +266,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4],
     o[n][3] *= corr[1];
     uint2 bits = make_uint2(0u, 0u);
     if (drop) {
-      bits = tc::row_keep_bits(args.drop, seed, ia, j0 + n * 8, h, t);
+      bits = tc::row_keep_bits(args.drop, seed, ia, j0 + n * 8, h, t, c3);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {

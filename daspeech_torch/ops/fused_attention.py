@@ -38,10 +38,10 @@ kernel and plain version agree element for element with dropout on, and so
 do the two layouts at a shape both take. The full-bias op takes one scalar
 seed and keys by (seed, j / 4, i, h, b) (``philox.full_bias_keep``).
 
-bf16: the packed and head-major wrappers also take bf16 q, k, v (the bias
-and the softmax statistics stay fp32), through the ``_bf16`` variants of
-their C entry points, which launch kernels of their own on the bf16 tensor
-cores (``csrc/attention_bf16.cuh``: bf16 ``mma.sync`` with fp32
+bf16: all three take bf16 q, k, v (the bias and the softmax statistics
+stay fp32), through the ``_bf16`` variants of their C entry points, which
+launch kernels of their own on the bf16 tensor cores
+(``csrc/attention_bf16.cuh``: bf16 ``mma.sync`` with fp32
 accumulators, the forward's P·V with P rounded to bf16, the backward's
 dS·K, (P∘Z)ᵀ·dO and dSᵀ·Q with P and dS split into two bf16 terms; the
 softmax and its statistics in fp32) and write out, dq, dk and dv in bf16,
@@ -50,10 +50,12 @@ as the Pallas kernels upcast their operands and cast their outputs
 also writes its output in fp32 (``out32``), which the backward takes for
 delta = rowsum(dO∘O): the Pallas backward sums P∘dP in fp32, the same
 value, where the rounded bf16 output would cancel against dO·V in a
-near-uniform softmax row. The full-bias kernels take bf16 q, k, v and run
-the fp32 kernels on them (widened as they are loaded), with an fp32 bias4
-and an fp32 dbias (dS), as the Pallas kernel writes dS in fp32
-(``fused_attention.py:664-666``, ``:718``). Each plain version, given
+near-uniform softmax row. The full-bias op runs the same three kernels in
+their full-bias mode (``attn_bf16_fb_*``: the fp32 bias4 tile streamed
+into each key tile's stage, the fp32 dbias (dS) written by the dq kernel),
+as the Pallas kernel keeps the bias and writes dS in fp32
+(``fused_attention.py:664-666``, ``:718``); its wrappers count their bf16
+launches in ``bf16_launches`` too. Each plain version, given
 bf16 operands, upcasts them, runs the fp32 plain version and casts its
 outputs back (dbias stays fp32).
 """

@@ -34,9 +34,13 @@ SIMT attention forward; the bf16 tensor-core kernels of #5 and #4
 (relpos_bf16.cuh, links_bf16.cuh) at T' = 1, 63, 65, 120, 350 with a
 fully padded row and at L = 63, 65, 129, 1024 with and without the band,
 their backward bit-identical over two runs, and each dtype's kernels of
-#5 and #4 by name under the profiler; and the int8 vocoder rungs' int32
-sums and one
-short utterance at 16 rows or fewer (``torch._int_mm``'s floor on CUDA).
+#5 and #4 by name under the profiler; the bf16 kernels of #3
+(attention_bf16.cuh's full-bias mode) at Tq = Tk = 1, 63, 65, 120, Tq !=
+Tk both ways and chip_smoke.py's ALiBi shape with a fully masked row,
+their fp32 output and statistics, the backward bit-identical over two
+runs, and each dtype's kernels of #3 by name; and the int8 vocoder
+rungs' int32 sums and one short utterance at 16 rows or fewer
+(``torch._int_mm``'s floor on CUDA).
 
 Tolerances: 1e-4 absolute for outputs and gradients of O(1) (fp32 sums in
 another order); the DP's log-probabilities grow with T: they are held
@@ -1508,18 +1512,36 @@ def test_ffn_and_mrf_launch_their_own_kernels(gen, dtype):
     assert len(names) == sum(want.values()), names
 
 
-@pytest.mark.parametrize("B,H,Tq,Tk,p", [(3, 2, 65, 130, 0.1),
-                                         (1, 4, 1, 1, 0.0),
-                                         (3, 8, 120, 120, 0.1)])
-def test_bf16_full_bias(gen, B, H, Tq, Tk, p):
-    """#3 on bf16 q, k, v with an fp32 bias4 (a fully masked row): the
-    inference and training forward and the backward against the plain
-    bf16 versions; dbias fp32."""
+def _alibi(B, H, T):
+    """``chip_smoke.alibi_bias``: -m_h |i - j|, m_h = 2^(-8 (h + 1) / H)."""
+    m = 2.0 ** (-8.0 * torch.arange(1, H + 1) / H)
+    i = torch.arange(T)
+    dist = (i[None, :] - i[:, None]).abs().float()
+    return (-m[:, None, None] * dist).expand(B, H, T, T).contiguous().cuda()
+
+
+# (8, 8, 240, 240, 0.1, "alibi"): chip_smoke.py's ALiBi shape and bias
+@pytest.mark.parametrize("B,H,Tq,Tk,p,kind", [
+    (3, 2, 65, 130, 0.1, "random"), (1, 4, 1, 1, 0.0, "random"),
+    (3, 8, 120, 120, 0.1, "random"), (2, 2, 1, 1, 0.1, "random"),
+    (2, 2, 63, 63, 0.1, "random"), (2, 3, 65, 65, 0.0, "random"),
+    (2, 2, 130, 65, 0.1, "random"), (2, 2, 37, 100, 0.0, "random"),
+    (8, 8, 240, 240, 0.1, "alibi")])
+def test_bf16_full_bias(gen, B, H, Tq, Tk, p, kind):
+    """#3 on bf16 q, k, v with an fp32 bias4 (attention_bf16.cuh's kernels
+    in their full-bias mode; a random bias with a fully masked row, or the
+    ALiBi bias): the inference and training forward and the backward
+    against the plain bf16 versions; dbias fp32; the training forward's
+    fp32 output and statistics against the plain scores'; the backward
+    bit-identical over two runs."""
     q = _bf16(gen, B, H, Tq, 64, scale=0.125)
     k, v = _bf16(gen, B, H, Tk, 64), _bf16(gen, B, H, Tk, 64)
     do = _bf16(gen, B, H, Tq, 64)
-    bias4 = _randn(gen, B, H, Tq, Tk)
-    bias4[-1, 0, 0] = -1e30
+    if kind == "alibi":
+        bias4 = _alibi(B, H, Tq)
+    else:
+        bias4 = _randn(gen, B, H, Tq, Tk)
+        bias4[-1, 0, 0] = -1e30
     seed = torch.tensor([7], dtype=torch.int32, device="cuda") if p else None
     want = fa.attention_full_bias_plain(q, k, v, bias4, 1.0, p, seed)
     infer, _ = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, p, seed)
@@ -1528,13 +1550,69 @@ def test_bf16_full_bias(gen, B, H, Tq, Tk, p):
     torch.cuda.synchronize()
     _bf16_close(infer, want)
     _bf16_close(out, want)
+    # the statistics and the output in fp32, for the backward's delta
+    assert [x.dtype for x in st] == [torch.float32] * 2
+    _bf16_close(st[1].to(torch.bfloat16), out)
+    _bf16_close(st[1], want.float())
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) + bias4
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).sum(-1)
+    assert ((st[0][..., 0] - m).abs()
+            <= BF16_TOL * m.abs().clamp_min(1.0)).all()
+    assert ((st[0][..., 1] - l).abs() <= BF16_TOL * l).all()
     got = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0, p,
                                      seed)
+    again = fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0, p,
+                                       seed)
     torch.cuda.synchronize()
     wants = fa.attention_full_bias_bwd_plain(q, k, v, bias4, do, 1.0, p, seed)
     assert got[3].dtype == torch.float32
-    for u, w in zip(got, wants):
+    for u, w, a in zip(got, wants, again):
         _bf16_close(u, w)
+        assert torch.equal(u, a)
+
+
+# the kernels of one training forward and backward of #3 in each dtype:
+# bf16 attention_bf16.cuh's full-bias mode; fp32 the FMA forward's
+# full-bias mode and the chunked-score dS and gradient kernels
+FULL_BIAS_KERNELS = {
+    torch.bfloat16: {"attn_bf16_fb_fwd_kernel": 1, "attn_bf16_fb_dq_kernel": 1,
+                     "attn_bf16_fb_dkdv_kernel": 1},
+    torch.float32: {"attn_fma_fwd_kernel": 1, "attn_tc_chunk_ds_kernel": 1,
+                    "attn_tc_grad_kernel": 1}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_bias_launches_its_own_kernels(gen, dtype):
+    """A bf16 call of #3 (training forward and backward) launches the
+    full-bias mode of attention_bf16.cuh's kernels and none of the fp32
+    ones or of the column-bias bf16 ones; an fp32 call the fp32 kernels and
+    no bf16 one (by name, under the profiler)."""
+    B, H, T = 2, 4, 37
+    q, k, v, do = (_randn(gen, B, H, T, 64, scale=0.5).to(dtype)
+                   for _ in range(4))
+    bias4 = _randn(gen, B, H, T, T)
+    seed = _seeds(gen, 1)
+
+    def run():
+        out, st = fa.attention_fb_fwd_kernel(q, k, v, bias4, 1.0, 0.1, seed,
+                                             with_stats=True)
+        fa.attention_fb_bwd_kernel(q, k, v, bias4, out, st, do, 1.0, 0.1,
+                                   seed)
+
+    names = _launched(run)
+    assert names, "the profiler saw no kernels"
+    want = FULL_BIAS_KERNELS[dtype]
+    has = lambda t: sum(t in n for n in names)  # noqa: E731
+    assert {t: has(t) for t in want} == want, names
+    if dtype == torch.bfloat16:
+        assert not any("attn_tc_" in n or "attn_fma_" in n for n in names)
+        assert not any(has(t) for t in ("attn_bf16_fwd_kernel",
+                                        "attn_bf16_dq_kernel",
+                                        "attn_bf16_dkdv_kernel")), names
+    else:
+        assert not any("_bf16_" in n for n in names), names
+    assert len(names) == sum(want.values()), names
 
 
 @pytest.mark.parametrize("T", [1, 9, 16])
