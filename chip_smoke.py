@@ -996,12 +996,27 @@ FP32_KEPT_FB = {("fused_attention", n) for n in (
     "attn_tc_chunk_ds_kernel<1,1>", "attn_tc_grad_kernel")}
 
 
+# the fp32 instances of #5 that draw dropout (their counter's head word is
+# h + AttnArgs::h0, the model axis's head offset): their SASS may differ from
+# the parent tree's, and their times are held to the parent's spread in
+# the same call instead (head0_retime)
+HEAD0_CHANGED = (FMA_FORWARD, "attn_tc_chunk_fwd_kernel",
+                 "attn_tc_chunk_ds_kernel")
+
+
+def head0_changed(key) -> bool:
+    """Whether the SASS key (source, kernel<instance>) is one of #5's fp32
+    instances of HEAD0_CHANGED."""
+    return key[0] == "fused_relpos" and key[1].split("<")[0] in HEAD0_CHANGED
+
+
 def fp32_sass_kept(lib, parent_lib):
     """The fp32 kernels of #5, #4 and #3 (FP32_KEPT, FP32_KEPT_FB) in this
     tree's library have the SASS of the parent tree's, instruction for
     instruction (the rel-pos instances of the attention kernels, every link
-    kernel and #3's fp32 instances); returns how many were compared, or
-    None without cuobjdump."""
+    kernel and #3's fp32 instances), but for the instances of HEAD0_CHANGED,
+    which may differ; returns the keys compared and those of HEAD0_CHANGED
+    that differ, or None without cuobjdump."""
     ours, theirs = kernel_sass(lib, FP32_KEPT), kernel_sass(parent_lib,
                                                             FP32_KEPT)
     if ours is None:
@@ -1017,11 +1032,163 @@ def fp32_sass_kept(lib, parent_lib):
         raise AssertionError(f"fp32 kernels of #5, #4 and #3: {keys} here, "
                              f"{sorted(theirs)} in the parent tree")
     changed = [k for k in keys if ours[k] != theirs[k]]
-    if changed:
+    if not all(head0_changed(k) for k in changed):
         raise AssertionError(f"fp32 kernels whose SASS changed: {changed}")
+    same = [k for k in keys if k not in changed]
     log(f"  SASS of the fp32 kernels of #5, #4 and #3 as the parent tree's: "
-        f"{len(keys)} kernels ({', '.join('/'.join(k) for k in keys)})")
-    return len(keys)
+        f"{len(same)} kernels ({', '.join('/'.join(k) for k in same)}); "
+        f"changed (the head offset; timed against the parent instead): "
+        f"{', '.join('/'.join(k) for k in changed) or 'none'}")
+    return keys, changed
+
+
+HEAD0_ROUNDS = 5
+
+
+def head0_retime():
+    """The rows of #1, #2 and #5 (PERF.md section 6's shapes: fp32
+    inference, training forward and backward, bf16 forward + backward)
+    timed in turns with the parent tree's kernels (``in_turns``,
+    HEAD0_ROUNDS times): each row's mean and range, this tree's and the
+    parent's. The fp32 rows of #5, whose SASS changed (HEAD0_CHANGED), must
+    keep a median within the parent's range (at most its slowest). Returns
+    {row: {"ms": [...], "parent_ms": [...]}}."""
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_relpos as fr
+
+    g = torch.Generator().manual_seed(SEED + 50)
+    bf = torch.bfloat16
+
+    def attn(B, Tq, Tk, C, H, p, dt=torch.float32):
+        q = _randn(g, B, Tq, C, scale=(C // H) ** -0.5).to(dt)
+        k, v = _randn(g, B, Tk, C).to(dt), _randn(g, B, Tk, C).to(dt)
+        return (q, k, v, _key_bias(B, Tk, g), H, 1.0, p,
+                _seeds(g, B) if p else None), _randn(g, B, Tq, C).to(dt)
+
+    def hm(B, H, T, p, dt=torch.float32):
+        q = _randn(g, B, H, T, 64, scale=0.125).to(dt)
+        k, v = _randn(g, B, H, T, 64).to(dt), _randn(g, B, H, T, 64).to(dt)
+        return (q, k, v, _key_bias(B, T, g), 1.0, p,
+                _seeds(g, B) if p else None), _randn(g, B, H, T, 64).to(dt)
+
+    def rel(B, T, H, p, dt=torch.float32):
+        q = _randn(g, B, T, H * 64, scale=0.125).to(dt)
+        k, v = _randn(g, B, T, H * 64).to(dt), _randn(g, B, T, H * 64).to(dt)
+        a = _randn(g, B, T, H * 256, scale=0.05).to(dt)
+        e = fr.relpos_basis(T, 256, device=DEVICE)[2].to(dt).contiguous()
+        return ((q, k, v, a, e, _key_bias(B, T, g), H, 0.125, p,
+                 _seeds(g, B) if p else None), _randn(g, B, T, H * 64).to(dt))
+
+    def rows_of(name, fwd, bwd, args, do, n_in, train_only=False):
+        out, st = fwd(*args, with_stats=True)
+        rows = {} if train_only else {
+            f"{name} inference": lambda: fwd(*args)}
+        rows[f"{name} training"] = lambda: fwd(*args, with_stats=True)
+        rows[f"{name} bwd"] = lambda: bwd(*args[:n_in], out, st, do,
+                                          *args[n_in:])
+        return rows
+
+    rows = {}
+    a, do = attn(80, 240, 240, 512, 8, 0.1)
+    rows.update(rows_of("#1 T q[80,240,512] p=0.1", fa.attention_fwd_kernel,
+                        fa.attention_bwd_kernel, a, do, 4, train_only=True))
+    a8, _ = attn(8, 240, 240, 512, 8, 0.0)
+    rows["#1 A q[8,240,512] inference"] = lambda: fa.attention_fwd_kernel(*a8)
+    a, do = hm(14, 4, 1040, 0.0)
+    rows.update(rows_of("#2 J-long FS2 [14,4,1040,64]",
+                        fa.attention_hm_fwd_kernel,
+                        fa.attention_hm_bwd_kernel, a, do, 4))
+    r, do = rel(80, 120, 4, 0.1)
+    rows.update(rows_of("#5 T [80,120,256] p=0.1", fr.relpos_fwd_kernel,
+                        fr.relpos_bwd_kernel, r, do, 6, train_only=True))
+    r8, _ = rel(8, 120, 4, 0.0)
+    rows["#5 A [8,120,256] inference"] = lambda: fr.relpos_fwd_kernel(*r8)
+    for name, mk, fwd, bwd, n_in in (
+            ("#1 bf16 T q[80,240,512] p=0.1", lambda: attn(
+                80, 240, 240, 512, 8, 0.1, bf), fa.attention_fwd_kernel,
+             fa.attention_bwd_kernel, 4),
+            ("#2 bf16 J-long FS2 [14,4,1040,64]", lambda: hm(
+                14, 4, 1040, 0.0, bf), fa.attention_hm_fwd_kernel,
+             fa.attention_hm_bwd_kernel, 4),
+            ("#5 bf16 T [80,120,256] p=0.1", lambda: rel(80, 120, 4, 0.1, bf),
+             fr.relpos_fwd_kernel, fr.relpos_bwd_kernel, 6)):
+        args, do = mk()
+
+        def both(fwd=fwd, bwd=bwd, args=args, do=do, n_in=n_in):
+            out, st = fwd(*args, with_stats=True)
+            return bwd(*args[:n_in], out, st, do, *args[n_in:])
+
+        rows[f"{name} fwd + bwd"] = both
+    out = {}
+    for name, fn in rows.items():
+        ours, theirs = zip(*(in_turns(fn) for _ in range(HEAD0_ROUNDS)))
+        out[name] = {"ms": list(ours), "parent_ms": list(theirs)}
+        med = sorted(ours)[len(ours) // 2]
+        log(f"  {name}: {med:.4f} ms (range {min(ours):.4f}-"
+            f"{max(ours):.4f}), the parent tree's "
+            f"{sorted(theirs)[len(theirs) // 2]:.4f} ({min(theirs):.4f}-"
+            f"{max(theirs):.4f}), in turns x {HEAD0_ROUNDS}")
+        if name.startswith("#5 ") and "bf16" not in name \
+                and not med <= max(theirs):
+            raise AssertionError(f"{name}: {med} ms, beyond the parent "
+                                 f"tree's range {min(theirs)}-{max(theirs)}")
+    return out
+
+
+HEAD0_GRID_ROUNDS = 3
+
+
+def head0_grid_cost():
+    """The bf16 rows of #1 and #2 (PERF.md section 6's shapes) at head
+    offsets 0, H/2 and 7H (the last rank of a model axis of 8): with an
+    offset their dq kernel launches h0 more heads' blocks per batch row,
+    which return at once. The backward and the forward + backward, timed
+    in turns (0, H/2, 7H, 7H, H/2, 0; HEAD0_GRID_ROUNDS times), each
+    offset's median; returns {row: {offset: [ms, ...]}}."""
+    from daspeech_torch.ops import fused_attention as fa
+
+    g = torch.Generator().manual_seed(SEED + 51)
+    bf = torch.bfloat16
+    B, T, C, H = 80, 240, 512, 8
+    q = _randn(g, B, T, C, scale=(C // H) ** -0.5).to(bf)
+    k, v, do = (_randn(g, B, T, C).to(bf) for _ in range(3))
+    packed = ((q, k, v, _key_bias(B, T, g), H, 1.0, 0.1, _seeds(g, B)), do,
+              fa.attention_fwd_kernel, fa.attention_bwd_kernel, H)
+    Bh, Hh, Th = 14, 4, 1040
+    qh = _randn(g, Bh, Hh, Th, 64, scale=0.125).to(bf)
+    kh, vh, doh = (_randn(g, Bh, Hh, Th, 64).to(bf) for _ in range(3))
+    hm = ((qh, kh, vh, _key_bias(Bh, Th, g), 1.0, 0.0, None), doh,
+          fa.attention_hm_fwd_kernel, fa.attention_hm_bwd_kernel, Hh)
+    out = {}
+    for name, (args, do, fwd, bwd, heads) in (
+            ("#1 bf16 T q[80,240,512] p=0.1", packed),
+            ("#2 bf16 J-long FS2 [14,4,1040,64]", hm)):
+        offsets = (0, heads // 2, 7 * heads)
+
+        def back(h0, o, st, args=args, do=do, bwd=bwd):
+            return bwd(*args[:4], o, st, do, *args[4:], head0=h0)
+
+        def both(h0, args=args, fwd=fwd):
+            return back(h0, *fwd(*args, with_stats=True, head0=h0))
+
+        rows = {f"{name} bwd": {}, f"{name} fwd + bwd": {}}
+        for h0 in offsets:
+            o, st = fwd(*args, with_stats=True, head0=h0)
+            rows[f"{name} bwd"][h0] = lambda h0=h0, o=o, st=st: back(h0, o,
+                                                                     st)
+            rows[f"{name} fwd + bwd"][h0] = lambda h0=h0: both(h0)
+        for row, by in rows.items():
+            times = {h0: [] for h0 in offsets}
+            for _ in range(HEAD0_GRID_ROUNDS):
+                for h0 in offsets + offsets[::-1]:
+                    times[h0].append(cuda_ms(by[h0]))
+            out[row] = times
+            med = {h0: float(np.median(t)) for h0, t in times.items()}
+            log(f"  {row} at head0 " + ", ".join(
+                f"{h0}: {m:.4f} ms" for h0, m in med.items())
+                + f" (x{med[offsets[-1]] / med[0]:.3f} at 7H), in turns x "
+                f"{HEAD0_GRID_ROUNDS}")
+    return out
 
 
 def check_sass(lib_path):
@@ -6987,6 +7154,308 @@ def cli_phase(smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------- the model and seq axes
+
+TP_LAYERS = {   # the recipe's layers: (kind, width, heads, B, T)
+    "conformer": (256, 4, 8, 120), "decoder": (512, 8, 8, 240),
+    "fft": (256, 4, 8, 416)}
+TP_KERNELS = ("fused_attention_packed", "fused_extract_links",
+              "fused_attention_relpos", "dag_loss_forward",
+              "dag_best_alignment")
+
+
+def head0_kernels(g):
+    """#1, #2 and #5 on a tensor-parallel rank's heads (the second half of
+    a layer's: ``head0`` = H/2), dropout 0.1, in fp32 and bf16, training
+    forward, inference forward and backward, each against its plain version
+    at the same ``head0`` (fp32 within TOL_KERNEL, bf16 within TOL_BF16 of
+    the output's largest magnitude); and the masks at ``head0`` are not
+    those at 0. Returns {kernel: max abs err} (fp32)."""
+    from daspeech_torch.ops import fused_attention as fa
+    from daspeech_torch.ops import fused_relpos as fr
+
+    errs = {}
+    p = 0.1
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dt == torch.float32 else "bf16"
+
+        def close(what, got, want):
+            if dt == torch.bfloat16:
+                return bf16_close(what, got, want)
+            err = _max_err(got, want)
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f"{what}: max abs err {err}")
+            return err
+
+        # #1: decoder self-attention's 4 of 8 heads at T's shape
+        B, T, H, h0 = 80, 240, 4, 4
+        q = _randn(g, B, T, H * 64, scale=0.125).to(dt)
+        k, v = _randn(g, B, T, H * 64).to(dt), _randn(g, B, T, H * 64).to(dt)
+        bias, seeds = _key_bias(B, T, g), _seeds(g, B)
+        do = _randn(g, B, T, H * 64).to(dt)
+        out, stats = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                             with_stats=True, head0=h0)
+        inf, _ = fa.attention_fwd_kernel(q, k, v, bias, H, 1.0, p, seeds,
+                                         head0=h0)
+        want = fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds, h0)
+        at0 = fa.attention_plain(q, k, v, bias, H, 1.0, p, seeds)
+        e = [close(f"#1 {tag} head0={h0} training", out, want),
+             close(f"#1 {tag} head0={h0} inference", inf, want)]
+        e += [close(f"#1 {tag} head0={h0} bwd", a, b_) for a, b_ in zip(
+            fa.attention_bwd_kernel(q, k, v, bias, out, stats, do, H, 1.0, p,
+                                    seeds, h0),
+            fa.attention_bwd_plain(q, k, v, bias, do, H, 1.0, p, seeds, h0))]
+        if torch.equal(want, at0):
+            raise AssertionError("#1: head0 does not move the masks")
+        errs[f"fused_attention_packed {tag}"] = max(e)
+
+        # #2: the DAG decoder's 4 of 8 heads at J-long's 700 vertices
+        B, H, T = 14, 4, 700
+        q = _randn(g, B, H, T, 64, scale=0.125).to(dt)
+        k, v = _randn(g, B, H, T, 64).to(dt), _randn(g, B, H, T, 64).to(dt)
+        bias, seeds = _key_bias(B, T, g), _seeds(g, B)
+        do = _randn(g, B, H, T, 64).to(dt)
+        out, stats = fa.attention_hm_fwd_kernel(
+            q, k, v, bias, 1.0, p, seeds, with_stats=True, head0=h0)
+        inf, _ = fa.attention_hm_fwd_kernel(q, k, v, bias, 1.0, p, seeds,
+                                            head0=h0)
+        want = fa.attention_hm_plain(q, k, v, bias, 1.0, p, seeds, h0)
+        e = [close(f"#2 {tag} head0={h0} training", out, want),
+             close(f"#2 {tag} head0={h0} inference", inf, want)]
+        e += [close(f"#2 {tag} head0={h0} bwd", a, b_) for a, b_ in zip(
+            fa.attention_hm_bwd_kernel(q, k, v, bias, out, stats, do, 1.0,
+                                       p, seeds, h0),
+            fa.attention_hm_bwd_plain(q, k, v, bias, do, 1.0, p, seeds, h0))]
+        errs[f"fused_attention {tag}"] = max(e)
+
+        # #5: the Conformer's 2 of 4 heads at T's 120 frames
+        B, T, H, h0r = 80, 120, 2, 2
+        q = _randn(g, B, T, H * 64, scale=0.125).to(dt)
+        k, v = _randn(g, B, T, H * 64).to(dt), _randn(g, B, T, H * 64).to(dt)
+        a = _randn(g, B, T, H * 256, scale=0.05).to(dt)
+        e_ = _randn(g, T, 256).to(dt)
+        bias, seeds = _key_bias(B, T, g), _seeds(g, B)
+        do = _randn(g, B, T, H * 64).to(dt)
+        out, stats = fr.relpos_fwd_kernel(q, k, v, a, e_, bias, H, 0.125, p,
+                                          seeds, with_stats=True, head0=h0r)
+        inf, _ = fr.relpos_fwd_kernel(q, k, v, a, e_, bias, H, 0.125, p,
+                                      seeds, head0=h0r)
+        want = fr.relpos_plain(q, k, v, a, e_, bias, H, 0.125, p, seeds, h0r)
+        e = [close(f"#5 {tag} head0={h0r} training", out, want),
+             close(f"#5 {tag} head0={h0r} inference", inf, want)]
+        e += [close(f"#5 {tag} head0={h0r} bwd", x, y) for x, y in zip(
+            fr.relpos_bwd_kernel(q, k, v, a, e_, bias, out, stats, do, H,
+                                 0.125, p, seeds, h0r),
+            fr.relpos_bwd_plain(q, k, v, a, e_, bias, do, H, 0.125, p, seeds,
+                                h0r))]
+        errs[f"fused_attention_relpos {tag}"] = max(e)
+    log("  #1, #2, #5 at head0 = H/2, dropout 0.1, fwd (training and "
+        "inference) and bwd against their plain versions: "
+        + ", ".join(f"{n} {v:.3g}" for n, v in errs.items()))
+    return errs
+
+
+def tp_layer(kind):
+    """A recipe-width layer with dropout 0.1 and its forward's inputs."""
+    from daspeech_torch.models.conformer import ConformerEncoderLayer
+    from daspeech_torch.models.fastspeech2 import FFTLayer
+    from daspeech_torch.models.layers import TransformerDecoderLayer
+
+    C, H, B, T = TP_LAYERS[kind]
+    g = torch.Generator().manual_seed(SEED + 40)
+    x = _randn(g, B, T, C)
+    pad = (torch.arange(T, device=DEVICE)[None, :]
+           >= torch.randint(T // 2, T + 1, (B, 1), generator=g).to(DEVICE))
+    if kind == "conformer":
+        layer = ConformerEncoderLayer(C, 2048, H, 31, 0.1, 0.1)
+        args = (x, pad)
+    elif kind == "decoder":
+        layer = TransformerDecoderLayer(C, 2048, H, dropout=0.1,
+                                        attention_dropout=0.1,
+                                        activation_dropout=0.1)
+        S = T // 2
+        args = (x, pad, _randn(g, B, S, C),
+                torch.zeros(B, S, dtype=torch.bool, device=DEVICE))
+    else:
+        layer = FFTLayer(C, H, 1024, 9, 0.1, 0.1)
+        args = (x, pad)
+    return init_random_(layer, SEED + 41).to(DEVICE).train(), args
+
+
+def emulated_two_shards():
+    """Shard 0 and shard 1 of a model-2 split of a Conformer layer (256d,
+    H = 4), a DAG decoder layer (512d, H = 8) and an FFT layer (256d,
+    H = 4) run on two threads of this process
+    (``partition.emulated_shards``), their row-parallel outputs summed in
+    rank order, dropout 0.1 from one seed: each layer's output within
+    TOL_KERNEL of the unsharded layer's. Shard 1 runs the attention
+    kernels on heads H/2 .. H - 1 with ``head0`` = H/2 (the FFT layer is
+    FastSpeech 2's: two heads a shard at the kernels' depth of 64)."""
+    from daspeech_torch.parallel import partition, shard
+
+    errs = {}
+    for kind in TP_LAYERS:
+        layer, args = tp_layer(kind)
+
+        def fwd(m):
+            with torch.no_grad():       # per thread
+                return m(*args, rng=torch.Generator(
+                    device=DEVICE).manual_seed(5))
+
+        want = fwd(layer)
+        group, shards = partition.emulated_shards(layer, 2)
+        outs = shard.run_ranks(group, [lambda m=m: fwd(m) for m in shards])
+        sync()
+        errs[kind] = _max_err(outs[0], want)
+        if not (errs[kind] <= TOL_KERNEL and torch.equal(outs[0], outs[1])):
+            raise AssertionError(f"two emulated shards of the {kind} layer: "
+                                 f"max abs err {errs[kind]}")
+        if shards[1].self_attn.tp.rank != 1:
+            raise AssertionError("the second shard is not rank 1")
+    log("  two emulated model shards against the unsharded layer (max abs "
+        "err, dropout 0.1): " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in errs.items()))
+    return errs
+
+
+# the relative size of the forward noise of tp_seq_phase's floor: fp32's
+# rounding of a Conformer layer's output
+FLOOR_NOISE = 2.0 ** -23
+
+
+@contextlib.contextmanager
+def layer_noise(eps, seed):
+    """Within the block each Conformer layer's output is multiplied by
+    1 + eps or 1 - eps, the signs drawn on the card from ``seed``."""
+    from daspeech_torch.models import conformer
+
+    real = conformer.ConformerEncoderLayer.forward
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def noisy(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        sign = 2 * torch.randint(0, 2, out.shape, generator=gen,
+                                 device=out.device) - 1
+        return out * (1 + eps * sign.to(out.dtype))
+
+    conformer.ConformerEncoderLayer.forward = noisy
+    try:
+        yield
+    finally:
+        conformer.ConformerEncoderLayer.forward = real
+
+
+def tp_seq_phase():
+    """The data x seq x model code on the one card (``parallel.partition``,
+    ``parallel.shard``): #1, #2 and #5 on a rank's heads (``head0``) and
+    the bf16 rows' cost of an offset (:func:`head0_grid_cost`); the joint
+    step at J's widths (B = 40 x 480 frames, M = 512, GLAT 0: its argmax is
+    a discrete choice that rounding may flip) through
+    ``partition.MeshParallel`` on a data 1 x seq 1 x model 1 mesh over NCCL
+    against the unsharded step from the same weights, the glance pass
+    running the Viterbi: with dropout off the loss within TOL_LOSS and each
+    gradient within TOL_GRAD of its norm; with dropout 0.1 the loss within
+    TOL_LOSS and the worst gradient within twice the floor or within
+    TOL_GRAD. The floor is the unsharded step against itself with each
+    Conformer layer's output moved by fp32's rounding (:func:`layer_noise`,
+    FLOOR_NOISE): the mesh's forward rounds in another order (its
+    collectives and split products), and at dropout 0.1 this step's
+    gradients move by that much under such a change, while the same step
+    run again, the other floor logged, moves them far less; two model
+    shards of three layers emulated in this
+    process; ``dryrun_multichip(1)`` on the card, and a request for two
+    cards refused. Returns the dropout-0.1 mesh step's launches (#1, #4,
+    #5, #8, #9 each at least once)."""
+    from daspeech_torch.models import S2SConformerDAGFastSpeech2
+    from daspeech_torch.parallel import partition
+    from daspeech_torch.parallel.dryrun import dryrun_multichip
+    from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
+
+    head0_kernels(torch.Generator().manual_seed(SEED + 42))
+    log("  the bf16 rows of #1 and #2 at a head offset (the dq kernel's "
+        "grid):")
+    head0_grid_cost()
+
+    partition.init_single_process_group(DEVICE)
+    mesh = partition.make_mesh(1, (("data", -1), ("seq", 1), ("model", 1)),
+                               device=DEVICE)
+
+    def steps(cfg, tags):
+        """{tag: (loss, gnorm, gradients, launches)} of one step from the
+        same weights and batch."""
+        base = init_random_(S2SConformerDAGFastSpeech2(cfg), SEED)
+        batch = make_joint_batch(*JOINT_SHAPES["J"], cfg, SEED + 30, DEVICE)
+        loss_fn = joint_loss_fn(cfg, 0.0)
+        got = {}
+        for tag in tags:
+            model = copy.deepcopy(base).to(DEVICE)
+            opt = GuardedAdam()
+            plan = (partition.MeshParallel(model, mesh) if tag == "mesh"
+                    else None)
+            state = TrainState.create(model, opt, plan)
+            step = make_train_step(loss_fn, opt, group=None if plan is None
+                                   else plan.group, sharding=plan)
+            b = batch if plan is None else plan.shard_batch(batch)
+            reset_launches()
+            with (layer_noise(FLOOR_NOISE, SEED + 32) if tag == "noise"
+                  else contextlib.nullcontext()):
+                m = step(state, b, torch.Generator().manual_seed(SEED + 31))
+            sync()
+            launches = read_launches()
+            got[tag] = (float(m["loss"]), float(m["gnorm"]),
+                        [p.grad.detach().clone()
+                         for _, p in model.named_parameters()], launches)
+        return [n for n, _ in base.named_parameters()], got
+
+    drop_cfg, no_drop_cfg = joint_configs()
+    for rate, cfg, tags in ((0.0, no_drop_cfg, ("unsharded", "mesh")),
+                            (0.1, drop_cfg, ("unsharded", "again", "noise",
+                                             "mesh"))):
+        names, got = steps(cfg, tags)
+        (lu, gu, grads_u, _), (lm, gm, grads_m, launches) = (
+            got["unsharded"], got["mesh"])
+        rel_loss = abs(lm - lu) / abs(lu)
+        worst = grad_error(names, grads_m, grads_u, f"tp_seq_mesh1_p{rate}")
+        bar = TOL_GRAD
+        if rate:
+            again = grad_error(names, got["again"][2], grads_u,
+                               "tp_seq_again")
+            floor = grad_error(names, got["noise"][2], grads_u,
+                               "tp_seq_floor")
+            bar = max(TOL_GRAD, 2 * floor)
+            log(f"  at dropout 0.1 the unsharded step run again: worst "
+                f"gradient {again:.3g}; with each Conformer layer's output "
+                f"moved by 2^-23 (the floor): {floor:.3g}")
+        log(f"  J step (dropout {rate}, GLAT 0) on a data 1 x seq 1 x model "
+            f"1 mesh (NCCL) against the unsharded step: loss {lm:.6f} / "
+            f"{lu:.6f} (rel {rel_loss:.3g}, <= {TOL_LOSS}), gnorm {gm:.4f} "
+            f"/ {gu:.4f}, worst gradient {worst:.3g} (<= {bar:.3g})")
+        if not (rel_loss <= TOL_LOSS and worst <= bar):
+            raise AssertionError(f"the mesh-of-one J step at dropout {rate}"
+                                 " is not the unsharded step")
+        del got
+
+    missing = [n for n in TP_KERNELS if launches[n] <= 0]
+    log("  mesh step launches: " + ", ".join(f"{n} {launches[n]}"
+                                             for n in TP_KERNELS))
+    if missing:
+        raise AssertionError(f"not launched by the mesh step: {missing}")
+
+    emulated_two_shards()
+
+    t = time.perf_counter()
+    res = dryrun_multichip(1)
+    log(f"  dryrun_multichip(1) on the card: {res} "
+        f"({time.perf_counter() - t:.1f} s)")
+    try:
+        dryrun_multichip(torch.cuda.device_count() + 1)
+    except RuntimeError as e:
+        log(f"  dryrun_multichip(2) refused: {e}")
+    else:
+        raise AssertionError("dryrun_multichip ran on more cards than exist")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -7045,6 +7514,10 @@ def main() -> int:
         fp32_sass_kept(built.path, PARENT["build"].path)
     log("kernel phase:")
     cases = kernel_phase()
+    if parent is not None:
+        log("#1, #2 and #5 in turns with the parent tree's kernels (the head "
+            "offset of the model axis):")
+        head0_retime()
     log("end-to-end phase (serving):")
     serving, mels, ctx = e2e_phase()
     log("training phase (S2TT):")
@@ -7090,6 +7563,9 @@ def main() -> int:
     log("CLI phase (the three recipe stages, resume, torchrun, --fsdp, "
         "vocoder, pipeline, parity, pinned copy):")
     cli_train, cli_fsdp = cli_phase(smi)
+    log("model and seq axes phase (head0 kernels, the J step on a mesh of "
+        "one, two emulated model shards, dryrun_multichip):")
+    tp_seq = tp_seq_phase()
 
     # launches: each kernel's count is that of the run of the path it was
     # ported for (the forward kernels of the first slice: serving; the
@@ -7105,7 +7581,8 @@ def main() -> int:
                "vocoder_training": voc_train,
                "runtime_train": rt_train_launches,
                "cli_generate": cli_launches, "cli_train": cli_train,
-               "cli_fsdp": cli_fsdp, **variants, **ar_paths}
+               "cli_fsdp": cli_fsdp, "tp_seq": tp_seq, **variants,
+               **ar_paths}
     # the alternate backends launch on no other path
     stray = {(p, n): v[n] for p, v in by_path.items()
              for n in ALTERNATE_KERNELS if v[n]}

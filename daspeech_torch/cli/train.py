@@ -283,6 +283,17 @@ def update_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
         ((seed * 1000003 + step) * 4096 + rank) % 2 ** 63)
 
 
+def step_generator(seed: int, step: int, rank: int,
+                   sharding=None) -> torch.Generator:
+    """:func:`update_generator` keyed by the data coordinate of ``rank``
+    (``sharding.data_rank`` on a ``partition.MeshParallel`` mesh): ranks
+    that differ only in their ``seq`` or ``model`` coordinate draw the same
+    dropout, so that their replicated activations stay equal. Without a
+    mesh the rank itself."""
+    return update_generator(seed, step,
+                            getattr(sharding, "data_rank", rank))
+
+
 @dataclasses.dataclass
 class Run:
     """What :func:`build` sets up from the arguments."""
@@ -297,7 +308,7 @@ class Run:
 
     def call(self, fn, *args):
         """``fn(model, *args)`` for validation (without gradient), under
-        ``--fsdp`` as the root's forward inside ``partition.FSDP.gathered``
+        ``--fsdp`` as the root's forward inside its ``gathered``
         (:func:`make_validator`)."""
         if self.state.sharding is None:
             return fn(self.model, *args)
@@ -305,10 +316,18 @@ class Run:
             return self.state.sharding.run(fn, *args)
 
 
-def build(args, device, group=None) -> Run:
+def build(args, device, group=None, mesh=None) -> Run:
     """The task and its datasets (the valid split when present), the model
     initialised from ``--seed``, the stage-3 transfers, the optimizer, the
-    training state on ``device``, the criterion and the step."""
+    training state on ``device``, the criterion and the step. ``mesh``: a
+    ``partition.make_mesh`` mesh of data, seq and model axes, over which
+    the model is split (``partition.MeshParallel``, ``--fsdp`` over its
+    ``data`` axis, which is then the step's group); each rank's batch is
+    then ``run.state.sharding.shard_batch`` of the global batch. ``--fsdp``
+    without a mesh: a mesh of ``data`` alone over the default process
+    group's ranks."""
+    import torch.distributed as dist
+
     from daspeech_torch.config import to_dict
     from daspeech_torch.losses import (dag_frozen, fastspeech2_criterion,
                                        multidecoder_criterion, nat_dag_loss,
@@ -366,8 +385,13 @@ def build(args, device, group=None) -> Run:
                       weight_decay=args.weight_decay,
                       clip_norm=args.clip_norm)
     model = model.to(device).train()
-    sharding = (partition.FSDP(model, group, args.min_fsdp_size)
-                if args.fsdp else None)
+    if mesh is None and args.fsdp:
+        mesh = partition.make_mesh(dist.get_world_size(), device=device)
+    sharding = None
+    if mesh is not None:
+        sharding = partition.MeshParallel(model, mesh, args.fsdp,
+                                          args.min_fsdp_size)
+        group = sharding.group
     state = TrainState.create(model, opt, sharding)
 
     glat_sched = parse_anneal(args.glat_p)
@@ -755,8 +779,8 @@ def train_loop(state: TrainState, step: Callable, batcher, device,
                         profiler = None
                     t0 = pending.mark()
                     metrics = step(state, batch,
-                                   update_generator(cfg.seed, state.step,
-                                                    rank))
+                                   step_generator(cfg.seed, state.step,
+                                                  rank, state.sharding))
                     pending.add(metrics, t0, pending.mark())
                     update = state.step
                     nxt = ((epoch, i + 1) if i + 1 < n_batches

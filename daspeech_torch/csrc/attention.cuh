@@ -161,7 +161,12 @@ struct DropoutArgs {
 struct AttnArgs {
   Operand q, a, k, e, v;
   const float* bias;     // [B, Tk] additive column bias (0 or -1e30)
-  long long bias_sb;
+  int bias_sb;
+  // the dropout counter's head word of local head h is h + h0: a
+  // tensor-parallel rank that holds heads h0 .. h0 + H - 1 of a layer
+  // draws their masks (tiles.cuh drop_head; the full-bias mode keys by its
+  // own h). Beside bias_sb, so that the layout of every other field stays.
+  uint32_t h0 = 0u;
   const float* bias4 = nullptr;  // full bias: contiguous [B, H, Tq, Tk]
   View<float> o;
   float* stats;          // [B, H, Tq, 2] row (max, sum) out, or nullptr

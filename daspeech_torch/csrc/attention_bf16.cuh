@@ -279,8 +279,9 @@ __device__ __forceinline__ void attn_bf16_fwd(const AttnArgs& args) {
     tc::zero(s);
     mma_rows<8>(s, Qw, Ks, lane);
 
-    softmax_tile<PV, FULL ? kFbPitch : 0>(s, o, m, l, lr, Bs, j0, args, seed,
-                                          ia, h, t, c3);
+    softmax_tile<PV, FULL ? kFbPitch : 0>(
+        s, o, m, l, lr, Bs, j0, args, seed, ia,
+        tc::drop_head<FULL>(args, h), t, c3);
     mma_cols<PV, 4>(o, elems(s), Vs, lane);
   }
 
@@ -338,7 +339,13 @@ __device__ __forceinline__ void attn_bf16_dq(const AttnBwdArgs& args) {
   const AttnArgs& f = args.f;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int gid = lane >> 2, t = lane & 3;
+  // h: the layer's head, which indexes the tiles and counts the dropout.
+  // With a head offset h0 (a tensor-parallel rank's heads) the grid spans
+  // heads 0 .. h0 + H - 1, every per-head pointer starts h0 heads back
+  // (launch_attn_bf16_bwd) and the blocks below h0 return; h0 is taken
+  // from the grid, not read from AttnArgs: read here, it spilled 4 bytes
   const int h = blockIdx.y, b = blockIdx.z;
+  if (!FULL && h < static_cast<int>(gridDim.y) - f.H) return;
   const int i0 = blockIdx.x * kRows;
   const int ia = i0 + warp * 16 + gid;
   const bool drop = f.drop.seeds != nullptr;
@@ -561,7 +568,9 @@ __device__ __forceinline__ void attn_bf16_dkdv(const AttnBwdArgs& args) {
         if (drop) {
           const int q = i0 + ih + n * 8 + 2 * t + (w & 1);
           bits[n] = tc::keep4(
-                        philox4x32_10(make_uint4(group, q, h, c3), seed, 0u),
+                        philox4x32_10(make_uint4(group, q,
+                                                 tc::drop_head<FULL>(f, h), c3),
+                                      seed, 0u),
                         f.drop.thresh)
                     << (4 * w);
           bits[n] |= __shfl_xor_sync(0xffffffffu, bits[n], 4);
@@ -662,9 +671,27 @@ inline cudaError_t launch_attn_bf16_bwd(const AttnBwdArgs& args, int B,
         dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem<FULL>);
   }
   if (err != cudaSuccess) return err;
-  // the dq kernel writes delta, which the dk/dv kernel reads: same stream
-  dim3 grid_q((args.f.Tq + kRows - 1) / kRows, args.f.H, B);
-  dq<<<grid_q, kThreads, kDqSmem<FULL>, stream>>>(args);
+  // the dq kernel writes delta, which the dk/dv kernel reads: same stream.
+  // With a head offset h0 (AttnArgs::h0, the first of a tensor-parallel
+  // rank's heads) it runs over the layer's heads 0 .. h0 + H - 1 from
+  // per-head pointers that start h0 heads back, and its blocks below h0
+  // return: its key loop is the one without an offset (at its 128-register
+  // bound the offset carried through the loop beside h spilled 16 bytes,
+  // or took 5% of its time where h was read again from the grid)
+  AttnBwdArgs qa = args;
+  const long long h0 = FULL ? 0 : args.f.h0;
+  if (h0) {
+    qa.f.q = qa.f.q.plus(-h0 * qa.f.q.sh);
+    qa.f.k = qa.f.k.plus(-h0 * qa.f.k.sh);
+    qa.f.v = qa.f.v.plus(-h0 * qa.f.v.sh);
+    qa.f.o = qa.f.o.plus(-h0 * qa.f.o.sh);
+    qa.dout = qa.dout.plus(-h0 * qa.dout.sh);
+    qa.dq = qa.dq.plus(-h0 * qa.dq.sh);
+    qa.f.stats -= h0 * args.f.Tq * 2;
+    qa.delta -= h0 * args.f.Tq;
+  }
+  dim3 grid_q((args.f.Tq + kRows - 1) / kRows, args.f.H + h0, B);
+  dq<<<grid_q, kThreads, kDqSmem<FULL>, stream>>>(qa);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid_k((args.f.Tk + kRows - 1) / kRows, args.f.H, B);

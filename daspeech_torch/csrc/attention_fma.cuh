@@ -281,8 +281,8 @@ attn_fma_fwd_kernel(const AttnArgs args, float* part, int nsplit) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const uint4 x = philox4x32_10(
-            make_uint4((j0 >> 2) + (tx >> 2) + 4 * w, i0 + 4 * ty + r, h,
-                       c3),
+            make_uint4((j0 >> 2) + (tx >> 2) + 4 * w, i0 + 4 * ty + r,
+                       tc::drop_head<FULL>(args, h), c3),
             seed, 0u);
         const uint32_t t = args.drop.thresh;
         own |= (static_cast<uint32_t>(x.x <= t) |

@@ -218,7 +218,10 @@ attn_tc_fwd_kernel(const AttnArgs args) {
       o[n][2] *= corr[1];
       o[n][3] *= corr[1];
       uint2 bits = make_uint2(0u, 0u);
-      if (drop) bits = row_keep_bits(args.drop, seed, ia, j0 + n * 8, h, t);
+      if (drop) {
+        bits = row_keep_bits(args.drop, seed, ia, j0 + n * 8,
+                             drop_head(args, h), t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[n][e] - m[e >> 1]);
@@ -333,7 +336,10 @@ attn_tc_bwd_dq_kernel(const AttnBwdArgs args) {
       const int jj = n * 8 + 2 * t;
       const float2 bias = *reinterpret_cast<const float2*>(Bs + jj);
       uint2 bits = make_uint2(0u, 0u);
-      if (drop) bits = row_keep_bits(f.drop, seed, ia, j0 + n * 8, h, t);
+      if (drop) {
+        bits = row_keep_bits(f.drop, seed, ia, j0 + n * 8,
+                             drop_head(f, h), t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, c = e & 1;
@@ -452,7 +458,8 @@ attn_tc_bwd_dkdv_kernel(const AttnBwdArgs args) {
       uint32_t bits = 0u;
       if (drop) {
         const int q = i0 + n * 8 + 2 * t + (w & 1);
-        bits = keep4(philox4x32_10(make_uint4(group, q, h, 0u), seed, 0u),
+        bits = keep4(philox4x32_10(make_uint4(group, q, drop_head(f, h), 0u),
+                                   seed, 0u),
                      f.drop.thresh)
                << (4 * w);
         bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
@@ -687,7 +694,8 @@ attn_tc_chunk_fwd_kernel(const AttnArgs args) {
       o[n][3] *= corr[1];
       uint2 bits = make_uint2(0u, 0u);
       if (drop) {
-        bits = row_keep_bits(args.drop, seed, ia, j0 + n * 8, h, t, c3);
+        bits = row_keep_bits(args.drop, seed, ia, j0 + n * 8,
+                             drop_head<FULL>(args, h), t, c3);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -801,7 +809,10 @@ attn_tc_chunk_ds_kernel(const AttnBwdArgs args) {
     for (int n = 0; n < 8; ++n) {
       const int jj = n * 8 + 2 * t;
       uint2 bits = make_uint2(0u, 0u);
-      if (drop) bits = row_keep_bits(f.drop, seed, ia, j0 + n * 8, h, t, c3);
+      if (drop) {
+        bits = row_keep_bits(f.drop, seed, ia, j0 + n * 8,
+                             drop_head<FULL>(f, h), t, c3);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float2 bias = stage_bias<FULL>(Bs, wrow, r, jj);

@@ -125,10 +125,11 @@ int attention_fwd(const void* q, const void* k, const void* v,
                   const float* bias, const uint32_t* seeds, uint32_t thresh,
                   float keep_scale, void* out, float* stats, float* out32,
                   int B, int Tq, int Tk, int H, int D, float scale,
-                  void* stream, bool head_major, bool bf16) {
+                  void* stream, bool head_major, bool bf16, int head0) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs args = attn_args(q, k, v, bias, seeds, thresh, keep_scale, out,
                             stats, Tq, Tk, H, scale, head_major, bf16);
+  args.h0 = static_cast<uint32_t>(head0);
   if (out32 != nullptr) {
     args.o32 = view<float>(out32, Tq, H, head_major, false);
   }
@@ -150,12 +151,14 @@ int attention_bwd(const void* q, const void* k, const void* v,
                   float keep_scale, const void* out, const float* stats,
                   const void* dout, void* dq, void* dk, void* dv,
                   float* delta, int B, int Tq, int Tk, int H, int D,
-                  float scale, void* stream, bool head_major, bool bf16) {
+                  float scale, void* stream, bool head_major, bool bf16,
+                  int head0) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   AttnBwdArgs args;
   args.f = attn_args(q, k, v, bias, seeds, thresh, keep_scale,
                      const_cast<void*>(out), const_cast<float*>(stats), Tq,
                      Tk, H, scale, head_major, bf16);
+  args.f.h0 = static_cast<uint32_t>(head0);
   args.f.o.bf16 = false;   // the fp32 output (a bf16 forward's out32)
   args.dout = view<const float>(dout, Tq, H, head_major, bf16);
   args.dq = view<float>(dq, Tq, H, head_major, bf16);
@@ -235,15 +238,20 @@ int full_bias_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// head0 (the last argument): the first of the call's H heads among the
+// layer's, the dropout counter's head offset (AttnArgs::h0): a
+// tensor-parallel rank passes the first head it holds, every other
+// caller 0
 extern "C" int daspeech_attention_fwd(const float* q, const float* k,
                                       const float* v, const float* bias,
                                       const uint32_t* seeds, uint32_t thresh,
                                       float keep_scale, float* out,
                                       float* stats, int B, int Tq, int Tk,
                                       int H, int D, float scale,
-                                      void* stream) {
+                                      void* stream, int head0) {
   return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
-                       nullptr, B, Tq, Tk, H, D, scale, stream, false, false);
+                       nullptr, B, Tq, Tk, H, D, scale, stream, false, false,
+                       head0);
 }
 
 // bf16 q, k, v and out; out32 [B, Tq, H*64] fp32, written by a training
@@ -255,9 +263,10 @@ extern "C" int daspeech_attention_fwd_bf16(const void* q, const void* k,
                                            void* out, float* stats,
                                            float* out32, int B, int Tq,
                                            int Tk, int H, int D, float scale,
-                                           void* stream) {
+                                           void* stream, int head0) {
   return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
-                       out32, B, Tq, Tk, H, D, scale, stream, false, true);
+                       out32, B, Tq, Tk, H, D, scale, stream, false, true,
+                       head0);
 }
 
 extern "C" int daspeech_attention_bwd(
@@ -265,10 +274,10 @@ extern "C" int daspeech_attention_bwd(
     const uint32_t* seeds, uint32_t thresh, float keep_scale,
     const float* out, const float* stats, const float* dout, float* dq,
     float* dk, float* dv, float* delta, int B, int Tq, int Tk, int H, int D,
-    float scale, void* stream) {
+    float scale, void* stream, int head0) {
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
-                       stream, false, false);
+                       stream, false, false, head0);
 }
 
 extern "C" int daspeech_attention_bwd_bf16(
@@ -276,10 +285,10 @@ extern "C" int daspeech_attention_bwd_bf16(
     const uint32_t* seeds, uint32_t thresh, float keep_scale,
     const void* out, const float* stats, const void* dout, void* dq,
     void* dk, void* dv, float* delta, int B, int Tq, int Tk, int H, int D,
-    float scale, void* stream) {
+    float scale, void* stream, int head0) {
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
-                       stream, false, true);
+                       stream, false, true, head0);
 }
 
 extern "C" int daspeech_attention_hm_fwd(const float* q, const float* k,
@@ -288,18 +297,20 @@ extern "C" int daspeech_attention_hm_fwd(const float* q, const float* k,
                                          uint32_t thresh, float keep_scale,
                                          float* out, float* stats, int B,
                                          int Tq, int Tk, int H, int D,
-                                         float scale, void* stream) {
+                                         float scale, void* stream, int head0) {
   return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
-                       nullptr, B, Tq, Tk, H, D, scale, stream, true, false);
+                       nullptr, B, Tq, Tk, H, D, scale, stream, true, false,
+                       head0);
 }
 
 extern "C" int daspeech_attention_hm_fwd_bf16(
     const void* q, const void* k, const void* v, const float* bias,
     const uint32_t* seeds, uint32_t thresh, float keep_scale, void* out,
     float* stats, float* out32, int B, int Tq, int Tk, int H, int D,
-    float scale, void* stream) {
+    float scale, void* stream, int head0) {
   return attention_fwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
-                       out32, B, Tq, Tk, H, D, scale, stream, true, true);
+                       out32, B, Tq, Tk, H, D, scale, stream, true, true,
+                       head0);
 }
 
 extern "C" int daspeech_attention_hm_bwd(
@@ -307,10 +318,10 @@ extern "C" int daspeech_attention_hm_bwd(
     const uint32_t* seeds, uint32_t thresh, float keep_scale,
     const float* out, const float* stats, const float* dout, float* dq,
     float* dk, float* dv, float* delta, int B, int Tq, int Tk, int H, int D,
-    float scale, void* stream) {
+    float scale, void* stream, int head0) {
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
-                       stream, true, false);
+                       stream, true, false, head0);
 }
 
 extern "C" int daspeech_attention_hm_bwd_bf16(
@@ -318,10 +329,10 @@ extern "C" int daspeech_attention_hm_bwd_bf16(
     const uint32_t* seeds, uint32_t thresh, float keep_scale,
     const void* out, const float* stats, const void* dout, void* dq,
     void* dk, void* dv, float* delta, int B, int Tq, int Tk, int H, int D,
-    float scale, void* stream) {
+    float scale, void* stream, int head0) {
   return attention_bwd(q, k, v, bias, seeds, thresh, keep_scale, out, stats,
                        dout, dq, dk, dv, delta, B, Tq, Tk, H, D, scale,
-                       stream, true, true);
+                       stream, true, true, head0);
 }
 
 // full bias: bias4 [B, H, Tq, Tk] contiguous, seed a pointer to ONE int32

@@ -90,10 +90,11 @@ int relpos_fwd(const void* q, const void* k, const void* v, const void* a,
                const void* e, const float* bias, const uint32_t* seeds,
                uint32_t thresh, float keep_scale, void* out, float* stats,
                float* out32, int B, int T, int H, int D, int C, float scale,
-               void* stream, bool bf16) {
+               void* stream, bool bf16, int head0) {
   if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs args = relpos_args(q, k, v, a, e, bias, seeds, thresh, keep_scale,
                               out, stats, T, H, scale, bf16);
+  args.h0 = static_cast<uint32_t>(head0);
   if (out32 != nullptr) args.o32 = packed<float>(out32, T, H, D, false);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // bf16: relpos_bf16.cuh's kernel (training and inference); fp32
@@ -110,12 +111,13 @@ int relpos_bwd(const void* q, const void* k, const void* v, const void* a,
                uint32_t thresh, float keep_scale, const void* out,
                const float* stats, const void* dout, void* dq, void* dk,
                void* dv, void* da, float* scratch, int B, int T, int H, int D,
-               int C, float scale, void* stream, bool bf16) {
+               int C, float scale, void* stream, bool bf16, int head0) {
   if (D != 64 || C != 256) return static_cast<int>(cudaErrorInvalidValue);
   AttnBwdArgs args;
   args.f = relpos_args(q, k, v, a, e, bias, seeds, thresh, keep_scale,
                        const_cast<void*>(out), const_cast<float*>(stats), T,
                        H, scale, bf16);
+  args.f.h0 = static_cast<uint32_t>(head0);
   args.f.o.bf16 = false;   // the fp32 output (a bf16 forward's out32)
   args.dout = packed<const float>(dout, T, H, 64, bf16);
   args.dq = packed<float>(dq, T, H, 64, bf16);
@@ -136,15 +138,19 @@ int relpos_bwd(const void* q, const void* k, const void* v, const void* a,
 
 }  // namespace
 
+// head0 (the last argument): the first of the call's H heads among the
+// layer's, the dropout counter's head offset (AttnArgs::h0): a
+// tensor-parallel rank passes the first head it holds, every other
+// caller 0
 extern "C" int daspeech_relpos_fwd(const float* q, const float* k,
                                    const float* v, const float* a,
                                    const float* e, const float* bias,
                                    const uint32_t* seeds, uint32_t thresh,
                                    float keep_scale, float* out, float* stats,
                                    int B, int T, int H, int D, int C,
-                                   float scale, void* stream) {
+                                   float scale, void* stream, int head0) {
   return relpos_fwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
-                    stats, nullptr, B, T, H, D, C, scale, stream, false);
+                    stats, nullptr, B, T, H, D, C, scale, stream, false, head0);
 }
 
 // bf16 q, k, v, a, e and out; out32 [B, T, H*64] fp32, written by a
@@ -156,9 +162,9 @@ extern "C" int daspeech_relpos_fwd_bf16(const void* q, const void* k,
                                         uint32_t thresh, float keep_scale,
                                         void* out, float* stats, float* out32,
                                         int B, int T, int H, int D, int C,
-                                        float scale, void* stream) {
+                                        float scale, void* stream, int head0) {
   return relpos_fwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
-                    stats, out32, B, T, H, D, C, scale, stream, true);
+                    stats, out32, B, T, H, D, C, scale, stream, true, head0);
 }
 
 extern "C" int daspeech_relpos_bwd(
@@ -166,10 +172,10 @@ extern "C" int daspeech_relpos_bwd(
     const float* e, const float* bias, const uint32_t* seeds, uint32_t thresh,
     float keep_scale, const float* out, const float* stats, const float* dout,
     float* dq, float* dk, float* dv, float* da, float* scratch, int B, int T,
-    int H, int D, int C, float scale, void* stream) {
+    int H, int D, int C, float scale, void* stream, int head0) {
   return relpos_bwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
                     stats, dout, dq, dk, dv, da, scratch, B, T, H, D, C, scale,
-                    stream, false);
+                    stream, false, head0);
 }
 
 extern "C" int daspeech_relpos_bwd_bf16(
@@ -177,8 +183,8 @@ extern "C" int daspeech_relpos_bwd_bf16(
     const void* e, const float* bias, const uint32_t* seeds, uint32_t thresh,
     float keep_scale, const void* out, const float* stats, const void* dout,
     void* dq, void* dk, void* dv, void* da, float* scratch, int B, int T,
-    int H, int D, int C, float scale, void* stream) {
+    int H, int D, int C, float scale, void* stream, int head0) {
   return relpos_bwd(q, k, v, a, e, bias, seeds, thresh, keep_scale, out,
                     stats, dout, dq, dk, dv, da, scratch, B, T, H, D, C, scale,
-                    stream, true);
+                    stream, true, head0);
 }

@@ -189,7 +189,7 @@ relpos_bf16_fwd_kernel(const AttnArgs args) {
     if (c == kRelChunks - 1) {
       softmax_tile<kTermsRelPV>(s, o, m, l, lr,
                    reinterpret_cast<const float*>(X + 2 * kTileBytes), j0,
-                   args, seed, ia, h, t);
+                   args, seed, ia, tc::drop_head(args, h), t);
     }
   }
   finish_forward(args, b, h, ia, t, o, m, l, lr);
@@ -208,8 +208,10 @@ relpos_bf16_ds_kernel(const AttnBwdArgs args) {
   const int ia = i0 + warp * 16 + gid;
   const bool drop = f.drop.seeds != nullptr;
   const uint32_t seed = drop ? f.drop.seeds[b] : 0u;
-  const long long mat0 = (static_cast<long long>(b) * f.H + h) * f.Tq * f.Tk;
   const int nsteps = (f.Tk + kRows - 1) / kRows * kRelSteps;
+  // the register the step loop keeps: the dropout counter's head; its
+  // loads and stores take h from the grid (tc::grid_head)
+  const int hd = tc::drop_head(f, h);
 
   rel_load_step<true>(smem, f, args.dout, b, h, i0, 0, 0);
   cp_async_commit();
@@ -224,8 +226,9 @@ relpos_bf16_ds_kernel(const AttnBwdArgs args) {
     __syncthreads();
     if (st + 1 < nsteps) {
       const int nx = st + 1;
-      rel_load_step<true>(smem + (nx & 1) * kRelStage, f, args.dout, b, h,
-                          i0, nx / kRelSteps * kRows, nx % kRelSteps);
+      rel_load_step<true>(smem + (nx & 1) * kRelStage, f, args.dout, b,
+                          tc::grid_head(), i0, nx / kRelSteps * kRows,
+                          nx % kRelSteps);
       cp_async_commit();
     }
     const unsigned char* X = smem + (st & 1) * kRelStage;
@@ -245,7 +248,9 @@ relpos_bf16_ds_kernel(const AttnBwdArgs args) {
       const int jj = n * 8 + 2 * t;
       const float2 bias = *reinterpret_cast<const float2*>(Bs + jj);
       uint2 bits = make_uint2(0u, 0u);
-      if (drop) bits = tc::row_keep_bits(f.drop, seed, ia, j0 + n * 8, h, t);
+      if (drop) {
+        bits = tc::row_keep_bits(f.drop, seed, ia, j0 + n * 8, hd, t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, cc = e & 1;
@@ -266,8 +271,11 @@ relpos_bf16_ds_kernel(const AttnBwdArgs args) {
     for (int r = 0; r < 2; ++r) {
       const int i = ia + 8 * r;
       if (i >= f.Tq) continue;
-      float* ds_row = args.dbias + mat0 + static_cast<long long>(i) * f.Tk;
-      float* pz_row = args.pz + mat0 + static_cast<long long>(i) * f.Tk;
+      const long long row =
+          ((static_cast<long long>(blockIdx.z) * f.H + tc::grid_head()) * f.Tq +
+           i) * f.Tk;
+      float* ds_row = args.dbias + row;
+      float* pz_row = args.pz + row;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int j = j0 + n * 8 + 2 * t;

@@ -172,6 +172,25 @@ __device__ __forceinline__ uint32_t keep4(const uint4& r, uint32_t thresh) {
          (static_cast<uint32_t>(r.w <= thresh) << 3);
 }
 
+// The head word of the dropout counter: local head h offset by the call's
+// first head (AttnArgs::h0), except in the full-bias mode (FULL), whose
+// counters stay its own.
+template <bool FULL = false>
+__device__ __forceinline__ int drop_head(const AttnArgs& f, int h) {
+  return FULL ? h : h + static_cast<int>(f.h0);
+}
+
+// blockIdx.y read where it is used (a volatile read of %ctaid.y): the bf16
+// rel-pos dS kernel, at its register bound, keeps the dropout counter's
+// head (drop_head) in a register across its step loop and takes the tile's
+// head from the grid at each load and store instead (one more live
+// register spilled 16 bytes)
+__device__ __forceinline__ int grid_head() {
+  uint32_t y;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
+  return static_cast<int>(y);
+}
+
 // Forward, dq and dS kernels: keep bits of 8-key block j8 (keys j8 ..
 // j8 + 7) for this thread's rows ia (half 0) and ia + 8 (half 1). Thread t
 // draws (row half t & 1, group j8 / 4 + t / 2); the pair t, t ^ 1 swaps

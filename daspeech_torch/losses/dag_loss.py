@@ -56,12 +56,14 @@ from daspeech_torch.ops.dag_ref import (
     dag_logsoftmax_gather_tokens,
     dag_loss,
     dag_loss_with_alpha_beta,
+    vocab_argmax,
 )
 from daspeech_torch.ops.fused_vocab import (
     fused_logsoftmax_gather,
     streaming_argmax_and_match,
 )
 from daspeech_torch.ops.links_utils import band_to_full, full_to_band
+from daspeech_torch.parallel import shard
 from daspeech_torch.parallel.multihost import global_sum
 
 GLANCE_STRATEGIES = ("number-random", "cmlm")
@@ -106,8 +108,15 @@ def vocab_matrix(decoder):
     """(W [D, V], zero bias [V] f32) of a ``GlatLinkDecoder``'s output
     projection: the tied embedding's transpose, or ``output_projection``'s
     (``dag_loss.py:376-382``)."""
-    W = (decoder.embed_tokens.weight if decoder.share_input_output_embed
-         else decoder.output_projection.weight).t()
+    if decoder.share_input_output_embed:
+        W = decoder.embed_tokens.weight
+        if decoder.embed_tokens.tp is not None:
+            # the vocabulary split over model: the stream runs on the
+            # whole table on every rank, each keeping its rows' gradient
+            W = shard.gather(W, decoder.embed_tokens.tp, 0, summed=False)
+        W = W.t()
+    else:
+        W = decoder.output_projection.weight.t()
     return W, torch.zeros((W.shape[1],), dtype=torch.float32,
                           device=W.device)
 
@@ -174,7 +183,7 @@ def glat_glance(logits: Optional[torch.Tensor], links: torch.Tensor,
     output_length = (prev_output_tokens != pad).sum(dim=1)
 
     if logits is not None:
-        pred_tokens = logits.argmax(dim=-1)
+        pred_tokens = vocab_argmax(logits)
         match = dag_logsoftmax_gather_tokens(logits, tgt_tokens
                                              ).transpose(1, 2)
     path = _best_alignment(match, links, output_length, target_length,

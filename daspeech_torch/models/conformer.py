@@ -7,6 +7,17 @@ through ``ops.fused_relpos.fused_attention_relpos`` (CUDA kernels for CUDA
 tensors, plain versions for CPU tensors). A forward given ``rng`` is a
 training pass (``models/layers.py``): dropout on, BatchNorm on the batch's
 valid frames.
+
+Over a ``seq`` axis (``ConformerEncoder.seq``, set by
+``parallel.partition.tensor_parallel``) the subsampler runs on every frame
+and each rank keeps its share of the T' frames (``parallel.shard``): the
+FFNs, the LayerNorms, the residuals, the pointwise convs and BatchNorm
+(its sums over ``seq`` too) run on the rank's frames; the rel-pos
+attention, the depthwise conv and the fused FFN gather the frames and
+keep the rank's share of their output; the output is gathered again for
+the decoder. A T' that the axis does not divide stays whole on every rank,
+as JAX replicates it (``constrain_btc``), its gradient kept on the first
+(``shard.first_grad``: the encoder's gradients are summed over ``seq``).
 """
 
 from __future__ import annotations
@@ -24,14 +35,17 @@ from daspeech_torch.models.layers import (
     Conv1d,
     Linear,
     dropout,
+    heads,
     layer_norm,
     padding_bias,
     row_seeds,
     set_dtype,
+    tp_shards,
 )
 from daspeech_torch.ops import fused_ffn as _ff
 from daspeech_torch.ops import fused_relpos as _fr
 from daspeech_torch.parallel import multihost as mh
+from daspeech_torch.parallel import shard
 
 
 class Conv1dSubsampler(nn.Module):
@@ -68,7 +82,15 @@ class RelPosMultiHeadAttention(Compute, nn.Module):
     form (``conformer.py:99-189``), dropout on the probabilities. In bf16,
     pos_bias_u/v, the permuted ``linear_pos`` kernel, the rotation's sin/cos
     and the basis e are rounded to bf16 (``conformer.py:143-154``), and the
-    attention kernel takes bf16 q_u, k, v, a and e."""
+    attention kernel takes bf16 q_u, k, v, a and e.
+
+    With ``tp`` each rank runs its heads (linear_q/k/v, linear_pos and
+    pos_bias_u/v hold their rows; linear_out row-parallel). With ``seq`` (a
+    ``shard.SeqShard``) the input is the rank's frames: they are gathered,
+    the attention runs on every frame, and the rank's frames of its output
+    go on to linear_out."""
+
+    tp: Optional[shard.Axis] = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -89,10 +111,13 @@ class RelPosMultiHeadAttention(Compute, nn.Module):
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                seq: Optional[shard.SeqShard] = None) -> torch.Tensor:
+        if seq is not None:
+            x = seq.gather(x)
         B, T, C = x.shape
-        H = self.num_heads
-        d = C // H
+        d = C // self.num_heads
+        H, h0 = heads(self.num_heads, self.tp)
         q = self.linear_q(x)
         k = self.linear_k(x)
         v = self.linear_v(x)
@@ -104,12 +129,14 @@ class RelPosMultiHeadAttention(Compute, nn.Module):
         z = torch.einsum("bthm,chm->bthc", q_v, Kr)          # [B, T, H, C]
         s_i, c_i, e = _fr.relpos_basis(T, C, device=x.device)
         a = _fr.relpos_rotate(z, cast(s_i[:, None]), cast(c_i[:, None]))
-        e = cast(e)
+        e = e.to(q.dtype)       # the compute dtype (a float64 model keeps it)
         bias = padding_bias(key_padding_mask, B, T, x.device)
         seeds = row_seeds(rng, self.dropout, B, x.device)
         out = _fr.fused_attention_relpos(
             q_u, k, v, a.reshape(B, T, H * C), e, bias, H, 1.0 / math.sqrt(d),
-            0.0 if seeds is None else self.dropout, seeds)
+            0.0 if seeds is None else self.dropout, seeds, h0)
+        if seq is not None:
+            out = seq.split(out)
         return self.linear_out(out)
 
 
@@ -137,7 +164,7 @@ class MaskedBatchNorm(nn.Module):
         if valid is None:
             mean, var = self.running_mean, self.running_var
         else:
-            if mh.step_group() is not None:
+            if mh.stats_group() is not None:
                 mean, var = self._group_statistics(x, valid)
             else:
                 w = valid[:, :, None].to(FP32)
@@ -189,18 +216,27 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv2 = Linear(embed_dim, embed_dim, bias=False)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                seq: Optional[shard.SeqShard] = None) -> torch.Tensor:
+        """``x`` the rank's frames under ``seq`` (``pad_mask`` all of
+        them): the depthwise conv runs on the gathered frames."""
+        if seq is not None and pad_mask is not None:
+            pad_mask = seq.local(pad_mask)
         x = F.glu(self.pointwise_conv1(self.layer_norm(x)), dim=-1)
         if pad_mask is not None:
             x = x * (~pad_mask)[:, :, None]
+        if seq is not None:
+            x = seq.gather(x)
         x = self.depthwise_conv(x.transpose(1, 2)).transpose(1, 2)
+        if seq is not None:
+            x = seq.split(x)
         valid = None
         if rng is not None:
             valid = (torch.ones(x.shape[:2], dtype=torch.bool,
                                 device=x.device)
                      if pad_mask is None else ~pad_mask)
         x = self.pointwise_conv2(F.silu(self.batch_norm(x, valid)))
-        return dropout(x, self.dropout, rng)
+        return dropout(x, self.dropout, rng, seq_shards(seq))
 
 
 class FeedForwardModule(Compute, nn.Module):
@@ -216,7 +252,16 @@ class FeedForwardModule(Compute, nn.Module):
     TPU, and XLA's unfused path otherwise; the port's kernel tiles rows and
     takes any T. Both routes compute the same function. In bf16 the fused
     route hands the kernel x and the weights and biases in bf16 and
-    LayerNorm's parameters in fp32 (``conformer.py:359-363``)."""
+    LayerNorm's parameters in fp32 (``conformer.py:359-363``).
+
+    With ``tp`` w_1 is column- and w_2 row-parallel over F; the fused route
+    gathers their shards and runs the kernel whole on every rank, as JAX's
+    ``pallas_call`` runs replicated (it has no partitioning rule). Under
+    ``seq`` the unfused route runs on the rank's frames, the fused one on
+    the gathered frames (the kernel's dropout counts a row's frames from
+    its first)."""
+
+    tp: Optional[shard.Axis] = None
 
     def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0,
                  fused: bool = False):
@@ -228,17 +273,29 @@ class FeedForwardModule(Compute, nn.Module):
         self.w_2 = Linear(ffn_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                seq: Optional[shard.SeqShard] = None) -> torch.Tensor:
         if self.fused and x.dim() == 3:
-            seeds = row_seeds(rng, self.dropout, x.shape[0], x.device)
-            p = 0.0 if seeds is None else self.dropout
-            c = self.compute
-            return _ff.fused_ffn(
-                c(x), self.layer_norm.weight, self.layer_norm.bias,
-                c(self.w_1.weight), c(self.w_1.bias), c(self.w_2.weight),
-                c(self.w_2.bias), seeds, p, p, seeds is not None)
-        x = dropout(F.silu(self.w_1(self.layer_norm(x))), self.dropout, rng)
-        return dropout(self.w_2(x), self.dropout, rng)
+            return self._fused(x, rng, seq)
+        x = dropout(F.silu(self.w_1(self.layer_norm(x))), self.dropout, rng,
+                    seq_shards(seq) + tp_shards(self.tp, -1))
+        return dropout(self.w_2(x), self.dropout, rng, seq_shards(seq))
+
+    def _fused(self, x, rng, seq):
+        w1, b1, w2 = self.w_1.weight, self.w_1.bias, self.w_2.weight
+        if self.tp is not None:
+            w1 = shard.gather(w1, self.tp, 0, summed=False)
+            b1 = shard.gather(b1, self.tp, 0, summed=False)
+            w2 = shard.gather(w2, self.tp, 1, summed=False)
+        if seq is not None:
+            x = seq.gather(x)
+        seeds = row_seeds(rng, self.dropout, x.shape[0], x.device)
+        p = 0.0 if seeds is None else self.dropout
+        c = self.compute
+        out = _ff.fused_ffn(
+            c(x), self.layer_norm.weight, self.layer_norm.bias, c(w1), c(b1),
+            c(w2), c(self.w_2.bias), seeds, p, p, seeds is not None)
+        return out if seq is None else seq.split(out)
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -259,13 +316,16 @@ class ConformerEncoderLayer(nn.Module):
         self.final_layer_norm = layer_norm(embed_dim)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + 0.5 * self.ffn1(x, rng)
+                rng: Optional[torch.Generator] = None,
+                seq: Optional[shard.SeqShard] = None) -> torch.Tensor:
+        """``x`` the rank's frames under ``seq``; ``pad_mask`` all of
+        them."""
+        x = x + 0.5 * self.ffn1(x, rng, seq)
         y = self.self_attn(self.self_attn_layer_norm(x),
-                           key_padding_mask=pad_mask, rng=rng)
-        x = x + dropout(y, self.dropout, rng)
-        x = x + self.conv_module(x, pad_mask, rng)
-        x = x + 0.5 * self.ffn2(x, rng)
+                           key_padding_mask=pad_mask, rng=rng, seq=seq)
+        x = x + dropout(y, self.dropout, rng, seq_shards(seq))
+        x = x + self.conv_module(x, pad_mask, rng, seq)
+        x = x + 0.5 * self.ffn2(x, rng, seq)
         return self.final_layer_norm(x)
 
 
@@ -273,7 +333,12 @@ class ConformerEncoder(nn.Module):
     """``S2TConformerEncoder``, rel_pos variant (``conformer.py:415-463``):
     fbank [B, T, 80] + lengths -> states [B, T', C], padding mask [B, T']
     (True = pad) and T' lengths; ``dtype`` is the compute dtype
-    (``set_dtype``)."""
+    (``set_dtype``). ``seq``: the ``seq`` axis (module docstring);
+    ``seq_stats``: the process group of the data and ``seq`` ranks, over
+    which BatchNorm sums while the frames are split."""
+
+    seq: Optional[shard.Axis] = None
+    seq_stats = None
 
     def __init__(self, cfg, dtype: torch.dtype = FP32):
         super().__init__()
@@ -292,11 +357,31 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, fbank: torch.Tensor, lengths: torch.Tensor,
                 rng: Optional[torch.Generator] = None):
+        frames = shard.fbank_frames()
+        if self.seq is not None and frames not in (None, fbank.shape[1]):
+            # the batch came with its frames split over seq
+            fbank = shard.all_gather(fbank, self.seq, 1)
         x, out_lengths = self.subsample(fbank, lengths)
         T = x.shape[1]
         pad_mask = (torch.arange(T, device=x.device)[None, :]
                     >= out_lengths[:, None])
-        x = dropout(self.linear(x * self.scale), self.dropout, rng)
-        for layer in self.layers:
-            x = layer(x, pad_mask, rng)
+        seq = shard.seq_split(self.seq, T)
+        if seq is not None:
+            x = seq.split(x)
+        x = dropout(self.linear(x * self.scale), self.dropout, rng,
+                    seq_shards(seq))
+        with mh.batch_norm_group(None if seq is None else self.seq_stats):
+            for layer in self.layers:
+                x = layer(x, pad_mask, rng, seq)
+        if seq is not None:
+            x = shard.gather(x.masked_fill(seq.local(pad_mask)[:, :, None],
+                                           0.0), seq.axis, 1, summed=False)
+            return x, pad_mask, out_lengths
+        if self.seq is not None:
+            x = shard.first_grad(x, self.seq)
         return x.masked_fill(pad_mask[:, :, None], 0.0), pad_mask, out_lengths
+
+
+def seq_shards(seq: Optional[shard.SeqShard]):
+    """The dropout shards of a [B, T', ...] activation under ``seq``."""
+    return () if seq is None else seq.drop()

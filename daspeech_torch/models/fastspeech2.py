@@ -35,7 +35,9 @@ from daspeech_torch.models.layers import (
     lengths_to_padding_mask,
     set_dtype,
     sinusoidal_embedding_table,
+    tp_shards,
 )
+from daspeech_torch.parallel import shard
 
 
 def _conv_btc(conv: Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -329,7 +331,10 @@ class FastSpeech2Encoder(Compute, nn.Module):
 
 class FFNAdapter(nn.Module):
     """DAG hidden state -> TTS input adaptor: Linear -> ReLU -> dropout ->
-    Linear (``fastspeech2.py:334-348``)."""
+    Linear (``fastspeech2.py:334-348``); with ``tp`` fc1 column- and fc2
+    row-parallel over the hidden width."""
+
+    tp: Optional[shard.Axis] = None
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dropout: float = 0.0):
@@ -340,4 +345,5 @@ class FFNAdapter(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.fc2(dropout(F.relu(self.fc1(x)), self.dropout, rng))
+        return self.fc2(dropout(F.relu(self.fc1(x)), self.dropout, rng,
+                                tp_shards(self.tp, -1)))

@@ -25,6 +25,18 @@ training pass. It draws its dropout masks and the attention kernels'
 per-row dropout seeds from ``rng``, in call order, so two passes handed
 generators with the same seed drop the same elements; BatchNorm takes batch
 statistics. Without ``rng`` a forward is the inference path.
+
+Tensor parallelism (``parallel.partition.tensor_parallel``) leaves each
+module its rank's shard of the parameters JAX's rules place over ``model``
+and sets ``tp`` (a ``parallel.shard.Axis``) on the modules that hold one:
+a :class:`Linear` then runs column-parallel (``tp_mode`` "col": its input
+enters through ``shard.copy_to``), row-parallel ("row": its product summed
+over the ranks, then the bias) or row-parallel on a replicated input
+("row_rep": the rank's slice of the input first); an :class:`Embedding`
+holds its rank's rows of the vocabulary; the attention runs its rank's
+heads, the FFNs their slice of the inner width. Every dropout draws the
+unsharded mask and keeps the rank's slice (:func:`dropout`'s ``shards``),
+so that a sharded step drops what one process drops.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from torch import nn
 
 from daspeech_torch.ops import fused_attention as _fa
 from daspeech_torch.ops.fused_attention import NEG
+from daspeech_torch.parallel import shard
 
 LN_EPS = 1e-6
 FP32 = torch.float32
@@ -73,13 +86,36 @@ def set_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 class Linear(Compute, nn.Linear):
     """``nn.Dense(dtype=...)``: in bf16, x and the weight rounded to bf16,
     the product summed in fp32 and rounded once, then the bf16 bias added
-    in bf16 (flax's ``y += bias`` after the dot)."""
+    in bf16 (flax's ``y += bias`` after the dot). ``tp``/``tp_mode``: its
+    tensor-parallel role (module docstring)."""
+
+    tp: Optional[shard.Axis] = None
+    tp_mode: str = ""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            if self.tp_mode == "col":
+                x = shard.copy_to(x, self.tp)
+            else:
+                return self._row(x)
         if self.dtype == FP32:
             return F.linear(x, self.weight, self.bias)
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         return y if self.bias is None else y + self.bias.to(self.dtype)
+
+    def _row(self, x: torch.Tensor) -> torch.Tensor:
+        """Row-parallel: the rank's partial product (fp32 sums of the
+        rounded operands in bf16) summed over the ranks, rounded once,
+        then the (replicated) bias."""
+        if self.tp_mode == "row_rep":
+            x = shard.split(x, self.tp, -1, gathered=True)
+        if self.dtype == FP32:
+            y = shard.reduce_from(F.linear(x, self.weight), self.tp)
+        else:
+            y = shard.reduce_from(F.linear(
+                x.to(self.dtype).float(),
+                self.weight.to(self.dtype).float()), self.tp).to(self.dtype)
+        return y if self.bias is None else y + self.compute(self.bias)
 
 
 class _ComputeConv(Compute):
@@ -136,13 +172,34 @@ class LayerNorm(Compute, nn.LayerNorm):
 class Embedding(Compute, nn.Embedding):
     """``nn.Embed(dtype=...)``: rows of the table in the compute dtype;
     :meth:`attend` is the tied output projection, ``x @ tableᵀ`` with the
-    rounding of :class:`Linear`."""
+    rounding of :class:`Linear`.
+
+    With ``tp`` the table is the rank's rows of the vocabulary (rows
+    ``tp.rank * n`` onward, n rows each): a lookup takes the rows it holds
+    and sums over the ranks (one rank holds each token); :meth:`attend`
+    gives the rank's columns of the logits inside a step's loss
+    (``shard.vocab_axis``), the whole logits elsewhere."""
+
+    tp: Optional[shard.Axis] = None
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.compute(super().forward(idx))
+        if self.tp is None:
+            return self.compute(super().forward(idx))
+        n = self.weight.shape[0]
+        local = idx - self.tp.rank * n
+        held = (local >= 0) & (local < n)
+        rows = F.embedding(local.clamp(0, n - 1), self.weight)
+        return self.compute(shard.reduce_from(
+            rows * held[..., None].to(rows.dtype), self.tp))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return self.compute(x) @ self.compute(self.weight).t()
+        if self.tp is None:
+            return self.compute(x) @ self.compute(self.weight).t()
+        logits = (self.compute(shard.copy_to(x, self.tp))
+                  @ self.compute(self.weight).t())
+        if shard.vocab_axis() is not None:
+            return logits
+        return shard.gather(logits, self.tp, -1, summed=False)
 
 
 def layer_norm(dim: int) -> LayerNorm:
@@ -161,13 +218,16 @@ ACTIVATIONS = {"relu": F.relu, "gelu": gelu, "swish": F.silu,
                "silu": F.silu, "tanh": torch.tanh}
 
 
-def dropout(x: torch.Tensor, rate: float,
-            rng: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator],
+            shards=()) -> torch.Tensor:
     """JAX's u16-threshold dropout (``layers.py:39-71``): keep where a
     16-bit draw is below q = round((1 - rate) * 65536), scale kept values
     by 1 / keep_p with keep_p = q / 65536, that factor rounded to x's
     dtype as JAX rounds it (``jnp.asarray(1 / keep_p, x.dtype)``: 1.109375
-    in bf16 at rate 0.1). Off without ``rng``."""
+    in bf16 at rate 0.1). Off without ``rng``. ``shards``: the ``(dim,
+    shard.Axis)`` pairs along which ``x`` is a rank's equal share of the
+    unsharded tensor; the draws are then the unsharded tensor's and x keeps
+    its slice of them."""
     if rng is None or rate == 0.0:
         return x
     if rate == 1.0:
@@ -175,12 +235,26 @@ def dropout(x: torch.Tensor, rate: float,
     q = int(round((1.0 - rate) * 65536))
     if q >= 65536:            # rate below 2**-17 rounds to keep-all
         return x
-    bits = torch.randint(0, 65536, x.shape, generator=rng, device=x.device,
-                         dtype=torch.int32)
+    full, idx = shard.full_shape(x.shape, shards)
+    bits = torch.randint(0, 65536, full, generator=rng, device=x.device,
+                         dtype=torch.int32)[idx]
     scale = 65536.0 / q
     if x.dtype != FP32:
         scale = torch.tensor(scale, dtype=x.dtype).item()
     return torch.where(bits < q, x * scale, torch.zeros_like(x))
+
+
+def heads(num_heads: int, tp: Optional[shard.Axis]):
+    """(the heads this rank runs, the first of them among the layer's)."""
+    if tp is None:
+        return num_heads, 0
+    return num_heads // tp.size, tp.rank * (num_heads // tp.size)
+
+
+def tp_shards(tp: Optional[shard.Axis], dim: int):
+    """The dropout shards of an activation split over ``tp`` along
+    ``dim`` (none without ``tp``)."""
+    return () if tp is None else ((dim, tp),)
 
 
 def row_seeds(rng: Optional[torch.Generator], rate: float, B: int,
@@ -265,7 +339,14 @@ class MultiHeadAttention(nn.Module):
     path, ``:215-237``) the scores are an einsum summed in fp32, -inf at
     padded keys (all-padded rows unmasked) and above the diagonal when
     causal, softmax in fp32, the probabilities in the compute dtype, then
-    dropout (from ``rng``, as every other site) and the einsum with v."""
+    dropout (from ``rng``, as every other site) and the einsum with v.
+
+    With ``tp`` each rank runs its ``H / size`` heads (from head ``h0``):
+    q/k/v column-parallel, out_proj row-parallel; the route is decided
+    from the layer's whole width, and the kernels and the plain path take
+    the rank's heads with their dropout counted from ``h0``."""
+
+    tp: Optional[shard.Axis] = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  causal: bool = False, fused: bool = True):
@@ -284,36 +365,37 @@ class MultiHeadAttention(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         B, Tq, C = query.shape
         Tk = key.shape[1]
-        H = self.num_heads
-        d_head = C // H
+        d_head = C // self.num_heads
+        H, h0 = heads(self.num_heads, self.tp)
         q = self.q_proj(query) * (d_head ** -0.5)
         k = self.k_proj(key)
         v = self.v_proj(value)
         if not self.fused or self.causal:
-            out = self._plain(q, k, v, key_padding_mask, rng)
-            return self.out_proj(out.reshape(B, Tq, C))
+            out = self._plain(q, k, v, key_padding_mask, rng, H)
+            return self.out_proj(out.reshape(B, Tq, H * d_head))
         bias = padding_bias(key_padding_mask, B, Tk, key.device)
         seeds = row_seeds(rng, self.dropout, B, key.device)
         p = 0.0 if seeds is None else self.dropout
-        if _fa.packed_route(Tq, Tk, C, H):
-            out = _fa.fused_attention_packed(q, k, v, bias, H, 1.0, p, seeds)
+        if _fa.packed_route(Tq, Tk, C, self.num_heads):
+            out = _fa.fused_attention_packed(q, k, v, bias, H, 1.0, p, seeds,
+                                             h0)
         else:
             def to_bhtd(x):
                 return x.reshape(B, x.shape[1], H, d_head).transpose(
                     1, 2).contiguous()
 
             out = _fa.fused_attention(to_bhtd(q), to_bhtd(k), to_bhtd(v),
-                                      bias, 1.0, p, seeds)
-            out = out.transpose(1, 2).reshape(B, Tq, C)
+                                      bias, 1.0, p, seeds, h0)
+            out = out.transpose(1, 2).reshape(B, Tq, H * d_head)
         return self.out_proj(out)
 
-    def _plain(self, q, k, v, key_padding_mask, rng) -> torch.Tensor:
+    def _plain(self, q, k, v, key_padding_mask, rng, H) -> torch.Tensor:
         """``layers.py:215-235`` on the projected q (scaled), k, v
-        [B, T, C] -> [B, Tq, H, d]. The scores take fp32 operands (a bf16
+        [B, T, H·d] -> [B, Tq, H, d]. The scores take fp32 operands (a bf16
         product is exact in fp32, as ``preferred_element_type=float32``
         keeps it); the output is summed in fp32 and rounded once."""
         B, Tq, C = q.shape
-        Tk, H = k.shape[1], self.num_heads
+        Tk = k.shape[1]
 
         def split(x):       # [B, T, H, d], bf16 widened to fp32
             x = x.reshape(B, x.shape[1], H, C // H)
@@ -329,13 +411,18 @@ class MultiHeadAttention(nn.Module):
                                device=q.device).triu(1)
             scores = scores.masked_fill(above, -math.inf)
         probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype),
-                        self.dropout, rng)
+                        self.dropout, rng, tp_shards(self.tp, 1))
         out = torch.einsum("bhqk,bkhd->bqhd", probs.to(scores.dtype),
                            split(v))
         return out.to(q.dtype)
 
 
 class TransformerFFN(nn.Module):
+    """fc1 -> activation -> dropout -> fc2 -> dropout; with ``tp`` fc1
+    column- and fc2 row-parallel over the inner width."""
+
+    tp: Optional[shard.Axis] = None
+
     def __init__(self, ffn_dim: int, embed_dim: int, activation: str = "relu",
                  dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
@@ -346,7 +433,8 @@ class TransformerFFN(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = dropout(self.act(self.fc1(x)), self.activation_dropout, rng)
+        x = dropout(self.act(self.fc1(x)), self.activation_dropout, rng,
+                    tp_shards(self.tp, -1))
         return dropout(self.fc2(x), self.dropout, rng)
 
 

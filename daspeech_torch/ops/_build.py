@@ -101,6 +101,14 @@ SIGNATURES.update({
                   SIGNATURES[n][:OUT32_AT[n]] + (_P,)
                   + SIGNATURES[n][OUT32_AT[n]:])
     for n in BF16_ENTRIES})
+# the packed, head-major and rel-pos attention take the first head of the
+# call among the layer's heads last (the dropout counter's offset, 0 but for
+# a tensor-parallel rank's heads)
+HEAD0_ENTRIES = ("daspeech_attention_fwd", "daspeech_attention_bwd",
+                 "daspeech_attention_hm_fwd", "daspeech_attention_hm_bwd",
+                 "daspeech_relpos_fwd", "daspeech_relpos_bwd")
+SIGNATURES.update({n: SIGNATURES[n] + (_I,) for n in HEAD0_ENTRIES
+                   + tuple(f"{n}_bf16" for n in HEAD0_ENTRIES)})
 
 
 class Build(NamedTuple):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from daspeech_torch.ops import dag_kernels
+from daspeech_torch.parallel import shard
 
 NEG_INF = -torch.inf
 
@@ -209,9 +210,35 @@ def dag_best_alignment(match_all, links, output_length, target_length):
 def dag_logsoftmax_gather_tokens(word_ins_out: torch.Tensor,
                                  tgt_tokens: torch.Tensor) -> torch.Tensor:
     """match [B, L, T] f32: log_softmax(logits)[b, j, tgt[b, t]] — every
-    vertex gathers the same target row (``dag_ref.py:304-335``)."""
+    vertex gathers the same target row (``dag_ref.py:304-335``). Inside a
+    step whose logits are split by vocabulary (``shard.vocab_axis``) they
+    are the rank's columns: the maximum and the sum of exponentials are
+    reduced over the ranks, and each target's logit comes from the rank
+    that holds it (the vocab-parallel log-softmax of SURVEY.md §2d)."""
     logits = word_ins_out.float()
-    B, L, _ = logits.shape
-    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    B, L, n = logits.shape
     idx = tgt_tokens.to(torch.int64)[:, None, :].expand(B, L, -1)
-    return logits.gather(-1, idx) - logz
+    ax = shard.vocab_axis()
+    if ax is None:
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        return logits.gather(-1, idx) - logz
+    m = shard.all_reduce(logits.detach().amax(-1, keepdim=True), ax, "max")
+    logz = torch.log(shard.reduce_from(
+        torch.exp(logits - m).sum(-1, keepdim=True), ax)) + m
+    local = idx - ax.rank * n
+    held = (local >= 0) & (local < n)
+    picked = torch.where(held, logits.gather(-1, local.clamp(0, n - 1)), 0.0)
+    return shard.reduce_from(picked, ax) - logz
+
+
+def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """``logits.argmax(-1)``, the first maximal index; inside a step whose
+    logits are split by vocabulary, over every rank's columns (the first
+    rank's maximum on ties, which holds the lower index)."""
+    ax = shard.vocab_axis()
+    if ax is None:
+        return logits.argmax(dim=-1)
+    val, idx = logits.max(dim=-1)
+    vals = shard.all_gather(val[None], ax, 0)
+    idxs = shard.all_gather((idx + ax.rank * logits.shape[-1])[None], ax, 0)
+    return idxs.gather(0, vals.argmax(dim=0)[None])[0]

@@ -107,35 +107,40 @@ def _probs(q, k, bias, num_heads, sm_scale):
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, num_heads: int,
                     sm_scale: float = 1.0, dropout_p: float = 0.0,
-                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seeds: Optional[torch.Tensor] = None,
+                    head0: int = 0) -> torch.Tensor:
     """softmax(q_h k_hᵀ·sm_scale + bias[b]) v_h per head on packed
     q [B, Tq, H·d], k/v [B, Tk, H·d], bias [B, Tk] -> [B, Tq, H·d]; with
     ``dropout_p`` > 0 the probabilities take the Philox mask of the int32
-    per-row ``seeds`` [B]. bf16 operands: see :func:`_bf16_plain`."""
+    per-row ``seeds`` [B], the H heads counted from ``head0`` (a
+    tensor-parallel rank's heads of a layer). bf16 operands: see
+    :func:`_bf16_plain`."""
     if q.dtype == BF16:
         return _bf16_plain(attention_plain, q, k, v, bias, num_heads,
-                           sm_scale, dropout_p, seeds)
+                           sm_scale, dropout_p, seeds, head0)
     B, Tq, C = q.shape
     p = _probs(q, k, bias, num_heads, sm_scale)
     if dropout_p > 0.0:
-        p = p * attention_keep(seeds, num_heads, Tq, k.shape[1], dropout_p)
+        p = p * attention_keep(seeds, num_heads, Tq, k.shape[1], dropout_p,
+                               head0)
     out = torch.einsum("bhqk,bkhd->bqhd", p, _heads(v, num_heads))
     return out.reshape(B, Tq, C)
 
 
 def attention_bwd_plain(q, k, v, bias, dout, num_heads: int,
                         sm_scale: float = 1.0, dropout_p: float = 0.0,
-                        seeds: Optional[torch.Tensor] = None):
+                        seeds: Optional[torch.Tensor] = None,
+                        head0: int = 0):
     """(dq, dk, dv) of :func:`attention_plain` for the cotangent ``dout``,
     in closed form: dV = (P∘Z)ᵀ dO, dS = P∘(Z∘(dO Vᵀ) − rowsum(P∘Z∘(dO Vᵀ))),
     dQ = dS K·scale, dK = dSᵀ Q·scale (Z the dropout multipliers)."""
     if q.dtype == BF16:
         return _bf16_plain(attention_bwd_plain, q, k, v, bias, dout,
-                           num_heads, sm_scale, dropout_p, seeds)
+                           num_heads, sm_scale, dropout_p, seeds, head0)
     B, Tq, C = q.shape
     Tk = k.shape[1]
     p = _probs(q, k, bias, num_heads, sm_scale)
-    z = (attention_keep(seeds, num_heads, Tq, Tk, dropout_p)
+    z = (attention_keep(seeds, num_heads, Tq, Tk, dropout_p, head0)
          if dropout_p > 0.0 else torch.ones_like(p))
     do4, v4 = _heads(dout, num_heads), _heads(v, num_heads)
     dv = torch.einsum("bhqk,bqhd->bkhd", p * z, do4)
@@ -234,7 +239,7 @@ def _drop_args(dropout_p, seeds):
 
 def attention_fwd_kernel(q, k, v, bias, num_heads: int, sm_scale: float,
                          dropout_p: float = 0.0, seeds=None,
-                         with_stats: bool = False):
+                         with_stats: bool = False, head0: int = 0):
     """Launch the forward kernel: (out, stats) with stats the [B, H, Tq, 2]
     row softmax (max, sum) the backward needs (bf16 operands: the pair
     (stats, out32), out32 the output in fp32), or None."""
@@ -248,7 +253,7 @@ def attention_fwd_kernel(q, k, v, bias, num_heads: int, sm_scale: float,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *_drop_args(dropout_p, seeds), out.data_ptr(), _build.ptr(stats),
             *extra, B, Tq, k.shape[1], num_heads, HEAD_DIM, float(sm_scale),
-            _build.stream_of(q))
+            _build.stream_of(q), int(head0))
     _build.check(rc, "daspeech_attention_fwd")
     fused_attention_packed.launches += 1
     fused_attention_packed.train_launches += with_stats
@@ -258,7 +263,7 @@ def attention_fwd_kernel(q, k, v, bias, num_heads: int, sm_scale: float,
 
 def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
                          sm_scale: float, dropout_p: float = 0.0,
-                         seeds=None):
+                         seeds=None, head0: int = 0):
     """Launch the backward kernels: (dq, dk, dv). ``stats``: what the
     training forward returned."""
     _check("fused_attention_packed backward", q, k, v, bias, num_heads, seeds,
@@ -282,7 +287,7 @@ def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
             *_drop_args(dropout_p, seeds), out.data_ptr(), stats.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), B, Tq, k.shape[1], num_heads, HEAD_DIM,
-            float(sm_scale), _build.stream_of(q))
+            float(sm_scale), _build.stream_of(q), int(head0))
     _build.check(rc, "daspeech_attention_bwd")
     attention_bwd_kernel.launches += 1
     attention_bwd_kernel.bf16_launches += q.dtype == BF16
@@ -291,48 +296,51 @@ def attention_bwd_kernel(q, k, v, bias, out, stats, dout, num_heads: int,
 
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads, sm_scale, dropout_p, seeds):
-        ctx.cfg = (num_heads, sm_scale, dropout_p)
+    def forward(ctx, q, k, v, bias, num_heads, sm_scale, dropout_p, seeds,
+                head0):
+        ctx.cfg = (num_heads, sm_scale, dropout_p, head0)
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias, seeds)
             return attention_plain(q, k, v, bias, num_heads, sm_scale,
-                                   dropout_p, seeds)
+                                   dropout_p, seeds, head0)
         out, stats = attention_fwd_kernel(
             q, k, v, bias, num_heads, sm_scale, dropout_p, seeds,
-            with_stats=any(ctx.needs_input_grad))
+            with_stats=any(ctx.needs_input_grad), head0=head0)
         ctx.save_for_backward(q, k, v, bias, seeds, out, *_flat(stats))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        num_heads, sm_scale, dropout_p = ctx.cfg
+        num_heads, sm_scale, dropout_p, head0 = ctx.cfg
         q, k, v, bias, seeds, *saved = ctx.saved_tensors
         dout = dout.contiguous()
         if q.device.type == "cpu":
             grads = attention_bwd_plain(q, k, v, bias, dout, num_heads,
-                                        sm_scale, dropout_p, seeds)
+                                        sm_scale, dropout_p, seeds, head0)
         else:
             out, stats = _unflat(saved)
             grads = attention_bwd_kernel(q, k, v, bias, out, stats, dout,
                                          num_heads, sm_scale, dropout_p,
-                                         seeds)
-        return (*grads, None, None, None, None, None)
+                                         seeds, head0)
+        return (*grads, None, None, None, None, None, None)
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, num_heads: int,
                            sm_scale: float = 1.0, dropout_p: float = 0.0,
-                           seeds: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           seeds: Optional[torch.Tensor] = None,
+                           head0: int = 0) -> torch.Tensor:
     """Packed-layout attention (see :func:`attention_plain`), differentiable
-    in q, k and v.
+    in q, k and v. ``head0``: the first of the H heads among the layer's,
+    which keys their dropout (0 unless the heads are a tensor-parallel
+    rank's share).
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
     which take fp32 or bf16, contiguous q, k, v with head depth 64, an fp32
     bias (and int32 seeds with dropout), and raise on anything else; the
     output and the gradients have q's dtype."""
     return _PackedAttention.apply(q, k, v, bias, num_heads, sm_scale,
-                                  dropout_p, seeds)
+                                  dropout_p, seeds, head0)
 
 
 fused_attention_packed.launches = 0
@@ -359,36 +367,38 @@ def packed_route(Tq: int, Tk: int, C: int, num_heads: int) -> bool:
 def attention_hm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: torch.Tensor, sm_scale: float = 1.0,
                        dropout_p: float = 0.0,
-                       seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       seeds: Optional[torch.Tensor] = None,
+                       head0: int = 0) -> torch.Tensor:
     """softmax(q kᵀ·sm_scale + bias[b]) v on head-major q [B, H, Tq, d],
     k/v [B, H, Tk, d], bias [B, Tk] -> [B, H, Tq, d]; with ``dropout_p`` > 0
     the probabilities take the Philox mask of the int32 per-row ``seeds``
-    [B] (the packed layout's mask). bf16 operands: see
-    :func:`_bf16_plain`."""
+    [B] (the packed layout's mask, the heads counted from ``head0``). bf16
+    operands: see :func:`_bf16_plain`."""
     if q.dtype == BF16:
         return _bf16_plain(attention_hm_plain, q, k, v, bias, sm_scale,
-                           dropout_p, seeds)
+                           dropout_p, seeds, head0)
     B, H, Tq, _ = q.shape
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     p = torch.softmax(s + bias[:, None, None, :], dim=-1)
     if dropout_p > 0.0:
-        p = p * attention_keep(seeds, H, Tq, k.shape[2], dropout_p)
+        p = p * attention_keep(seeds, H, Tq, k.shape[2], dropout_p, head0)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
 def attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale: float = 1.0,
                            dropout_p: float = 0.0,
-                           seeds: Optional[torch.Tensor] = None):
+                           seeds: Optional[torch.Tensor] = None,
+                           head0: int = 0):
     """(dq, dk, dv) of :func:`attention_hm_plain` for the cotangent
     ``dout``, in the closed form of :func:`attention_bwd_plain`."""
     if q.dtype == BF16:
         return _bf16_plain(attention_hm_bwd_plain, q, k, v, bias, dout,
-                           sm_scale, dropout_p, seeds)
+                           sm_scale, dropout_p, seeds, head0)
     B, H, Tq, _ = q.shape
     Tk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
     p = torch.softmax(s + bias[:, None, None, :], dim=-1)
-    z = (attention_keep(seeds, H, Tq, Tk, dropout_p)
+    z = (attention_keep(seeds, H, Tq, Tk, dropout_p, head0)
          if dropout_p > 0.0 else torch.ones_like(p))
     dv = torch.einsum("bhqk,bhqd->bhkd", p * z, dout)
     dp = z * torch.einsum("bhqd,bhkd->bhqk", dout, v)
@@ -423,7 +433,7 @@ def _check_hm(name, q, k, v, bias, seeds, dropout_p):
 
 def attention_hm_fwd_kernel(q, k, v, bias, sm_scale: float,
                             dropout_p: float = 0.0, seeds=None,
-                            with_stats: bool = False):
+                            with_stats: bool = False, head0: int = 0):
     """Launch the head-major forward kernel: (out [B, H, Tq, d], stats) with
     stats the [B, H, Tq, 2] row softmax (max, sum) (bf16 operands: the pair
     (stats, out32)), or None."""
@@ -436,7 +446,7 @@ def attention_hm_fwd_kernel(q, k, v, bias, sm_scale: float,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *_drop_args(dropout_p, seeds), out.data_ptr(), _build.ptr(stats),
             *extra, B, Tq, k.shape[2], H, HEAD_DIM, float(sm_scale),
-            _build.stream_of(q))
+            _build.stream_of(q), int(head0))
     _build.check(rc, "daspeech_attention_hm_fwd")
     fused_attention.launches += 1
     fused_attention.train_launches += with_stats
@@ -445,7 +455,8 @@ def attention_hm_fwd_kernel(q, k, v, bias, sm_scale: float,
 
 
 def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
-                            dropout_p: float = 0.0, seeds=None):
+                            dropout_p: float = 0.0, seeds=None,
+                            head0: int = 0):
     """Launch the head-major backward kernels: (dq, dk, dv). ``stats``:
     what the training forward returned."""
     _check_hm("fused_attention backward", q, k, v, bias, seeds, dropout_p)
@@ -468,7 +479,7 @@ def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
             *_drop_args(dropout_p, seeds), out.data_ptr(), stats.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), B, Tq, k.shape[2], H, HEAD_DIM,
-            float(sm_scale), _build.stream_of(q))
+            float(sm_scale), _build.stream_of(q), int(head0))
     _build.check(rc, "daspeech_attention_hm_bwd")
     attention_hm_bwd_kernel.launches += 1
     attention_hm_bwd_kernel.bf16_launches += q.dtype == BF16
@@ -477,46 +488,49 @@ def attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout, sm_scale: float,
 
 class _HeadMajorAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, sm_scale, dropout_p, seeds):
-        ctx.cfg = (sm_scale, dropout_p)
+    def forward(ctx, q, k, v, bias, sm_scale, dropout_p, seeds, head0):
+        ctx.cfg = (sm_scale, dropout_p, head0)
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias, seeds)
             return attention_hm_plain(q, k, v, bias, sm_scale, dropout_p,
-                                      seeds)
+                                      seeds, head0)
         out, stats = attention_hm_fwd_kernel(
             q, k, v, bias, sm_scale, dropout_p, seeds,
-            with_stats=any(ctx.needs_input_grad))
+            with_stats=any(ctx.needs_input_grad), head0=head0)
         ctx.save_for_backward(q, k, v, bias, seeds, out, *_flat(stats))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        sm_scale, dropout_p = ctx.cfg
+        sm_scale, dropout_p, head0 = ctx.cfg
         q, k, v, bias, seeds, *saved = ctx.saved_tensors
         dout = dout.contiguous()
         if q.device.type == "cpu":
             grads = attention_hm_bwd_plain(q, k, v, bias, dout, sm_scale,
-                                           dropout_p, seeds)
+                                           dropout_p, seeds, head0)
         else:
             out, stats = _unflat(saved)
             grads = attention_hm_bwd_kernel(q, k, v, bias, out, stats, dout,
-                                            sm_scale, dropout_p, seeds)
-        return (*grads, None, None, None, None)
+                                            sm_scale, dropout_p, seeds,
+                                            head0)
+        return (*grads, None, None, None, None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, sm_scale: float = 1.0,
                     dropout_p: float = 0.0,
-                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seeds: Optional[torch.Tensor] = None,
+                    head0: int = 0) -> torch.Tensor:
     """Head-major attention (see :func:`attention_hm_plain`),
-    differentiable in q, k and v.
+    differentiable in q, k and v; ``head0`` as in
+    :func:`fused_attention_packed`.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
     which take fp32 or bf16, contiguous [B, H, T, 64] q, k, v, an fp32 bias
     (and int32 seeds with dropout), and raise on anything else; the output
     and the gradients have q's dtype."""
     return _HeadMajorAttention.apply(q, k, v, bias, sm_scale, dropout_p,
-                                     seeds)
+                                     seeds, head0)
 
 
 fused_attention.launches = 0

@@ -86,34 +86,36 @@ def _relpos_probs(q, k, a, e, bias, num_heads, sm_scale):
 def relpos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  a: torch.Tensor, e: torch.Tensor, bias: torch.Tensor,
                  num_heads: int, sm_scale: float, dropout_p: float = 0.0,
-                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 seeds: Optional[torch.Tensor] = None,
+                 head0: int = 0) -> torch.Tensor:
     """softmax((q_h k_hᵀ + a_h eᵀ)·sm_scale + bias[b]) v_h per head:
     q/k/v [B, T, H·d], a [B, T, H·C], e [T, C], bias [B, T]; with
     ``dropout_p`` > 0 the probabilities take the Philox mask of the int32
-    per-row ``seeds`` [B]."""
+    per-row ``seeds`` [B], the heads counted from ``head0``."""
     if q.dtype == BF16:
         return _bf16_plain(relpos_plain, q, k, v, a, e, bias, num_heads,
-                           sm_scale, dropout_p, seeds)
+                           sm_scale, dropout_p, seeds, head0)
     B, T, Cq = q.shape
     p = _relpos_probs(q, k, a, e, bias, num_heads, sm_scale)
     if dropout_p > 0.0:
-        p = p * attention_keep(seeds, num_heads, T, T, dropout_p)
+        p = p * attention_keep(seeds, num_heads, T, T, dropout_p, head0)
     v4 = v.reshape(B, T, num_heads, -1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v4).reshape(B, T, Cq)
 
 
 def relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads: int,
-                     sm_scale: float, dropout_p: float = 0.0, seeds=None):
+                     sm_scale: float, dropout_p: float = 0.0, seeds=None,
+                     head0: int = 0):
     """(dq, dk, dv, da) of :func:`relpos_plain` for the cotangent ``dout``
     in closed form (as ``attention_bwd_plain``; da = dS e·scale per head)."""
     if q.dtype == BF16:
         return _bf16_plain(relpos_bwd_plain, q, k, v, a, e, bias, dout,
-                           num_heads, sm_scale, dropout_p, seeds)
+                           num_heads, sm_scale, dropout_p, seeds, head0)
     B, T, Cq = q.shape
     H = num_heads
     p = _relpos_probs(q, k, a, e, bias, H, sm_scale)
-    z = (attention_keep(seeds, H, T, T, dropout_p) if dropout_p > 0.0
-         else torch.ones_like(p))
+    z = (attention_keep(seeds, H, T, T, dropout_p, head0)
+         if dropout_p > 0.0 else torch.ones_like(p))
     do4, v4 = dout.reshape(B, T, H, -1), v.reshape(B, T, H, -1)
     dv = torch.einsum("bhqk,bqhd->bkhd", p * z, do4)
     dp = z * torch.einsum("bqhd,bkhd->bhqk", do4, v4)
@@ -150,7 +152,7 @@ def _check(name, q, k, v, a, e, bias, num_heads, seeds, dropout_p):
 
 def relpos_fwd_kernel(q, k, v, a, e, bias, num_heads: int, sm_scale: float,
                       dropout_p: float = 0.0, seeds=None,
-                      with_stats: bool = False):
+                      with_stats: bool = False, head0: int = 0):
     """Launch the forward kernel: (out, stats) with stats the [B, H, T, 2]
     row softmax (max, sum) the backward needs (bf16 operands: the pair
     (stats, out32)), or None."""
@@ -164,7 +166,8 @@ def relpos_fwd_kernel(q, k, v, a, e, bias, num_heads: int, sm_scale: float,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
             e.data_ptr(), bias.data_ptr(), *_drop_args(dropout_p, seeds),
             out.data_ptr(), _build.ptr(stats), *extra, B, T, num_heads,
-            HEAD_DIM, POS_DIM, float(sm_scale), _build.stream_of(q))
+            HEAD_DIM, POS_DIM, float(sm_scale), _build.stream_of(q),
+            int(head0))
     _build.check(rc, "daspeech_relpos_fwd")
     fused_attention_relpos.launches += 1
     fused_attention_relpos.train_launches += with_stats
@@ -173,7 +176,8 @@ def relpos_fwd_kernel(q, k, v, a, e, bias, num_heads: int, sm_scale: float,
 
 
 def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
-                      sm_scale: float, dropout_p: float = 0.0, seeds=None):
+                      sm_scale: float, dropout_p: float = 0.0, seeds=None,
+                      head0: int = 0):
     """Launch the backward kernels: (dq, dk, dv, da). ``stats``: what the
     training forward returned."""
     _check("fused_attention_relpos backward", q, k, v, a, e, bias, num_heads,
@@ -200,7 +204,7 @@ def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
             out.data_ptr(), stats.data_ptr(), dout.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), da.data_ptr(), scratch.data_ptr(),
             B, T, num_heads, HEAD_DIM, POS_DIM, float(sm_scale),
-            _build.stream_of(q))
+            _build.stream_of(q), int(head0))
     _build.check(rc, "daspeech_relpos_bwd")
     relpos_bwd_kernel.launches += 1
     relpos_bwd_kernel.bf16_launches += q.dtype == BF16
@@ -210,48 +214,51 @@ def relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout, num_heads: int,
 class _RelPosAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, a, e, bias, num_heads, sm_scale, dropout_p,
-                seeds):
-        ctx.cfg = (num_heads, sm_scale, dropout_p)
+                seeds, head0):
+        ctx.cfg = (num_heads, sm_scale, dropout_p, head0)
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, a, e, bias, seeds)
             return relpos_plain(q, k, v, a, e, bias, num_heads, sm_scale,
-                                dropout_p, seeds)
+                                dropout_p, seeds, head0)
         out, stats = relpos_fwd_kernel(q, k, v, a, e, bias, num_heads,
                                      sm_scale, dropout_p, seeds,
-                                     with_stats=any(ctx.needs_input_grad))
+                                     with_stats=any(ctx.needs_input_grad),
+                                     head0=head0)
         ctx.save_for_backward(q, k, v, a, e, bias, seeds, out, *_flat(stats))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        num_heads, sm_scale, dropout_p = ctx.cfg
+        num_heads, sm_scale, dropout_p, head0 = ctx.cfg
         q, k, v, a, e, bias, seeds, *saved = ctx.saved_tensors
         dout = dout.contiguous()
         if q.device.type == "cpu":
             grads = relpos_bwd_plain(q, k, v, a, e, bias, dout, num_heads,
-                                     sm_scale, dropout_p, seeds)
+                                     sm_scale, dropout_p, seeds, head0)
         else:
             out, stats = _unflat(saved)
             grads = relpos_bwd_kernel(q, k, v, a, e, bias, out, stats, dout,
-                                      num_heads, sm_scale, dropout_p, seeds)
-        return (*grads, None, None, None, None, None, None)
+                                      num_heads, sm_scale, dropout_p, seeds,
+                                      head0)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def fused_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            a: torch.Tensor, e: torch.Tensor,
                            bias: torch.Tensor, num_heads: int,
                            sm_scale: float, dropout_p: float = 0.0,
-                           seeds: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           seeds: Optional[torch.Tensor] = None,
+                           head0: int = 0) -> torch.Tensor:
     """Rel-pos attention (see :func:`relpos_plain`), differentiable in q, k,
-    v and a.
+    v and a; ``head0``: the first of the H heads among the layer's, which
+    keys their dropout (a tensor-parallel rank's share; 0 otherwise).
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels,
     which take fp32 or bf16, contiguous q, k, v, a, e (one dtype) with
     d = 64 and C = 256, an fp32 bias (and int32 seeds with dropout), and
     raise on anything else; the output and the gradients have q's dtype."""
     return _RelPosAttention.apply(q, k, v, a, e, bias, num_heads, sm_scale,
-                                  dropout_p, seeds)
+                                  dropout_p, seeds, head0)
 
 
 fused_attention_relpos.launches = 0

@@ -11,7 +11,9 @@ An element in column j is kept when word ``j % 4`` of
 scaled by ``1 / keep_p``. The counters and key of each kernel's streams:
 
 - attention probability (i, j) of head h in batch row b (packed, head-major
-  and rel-pos kernels): counters (j // 4, i, h, 0), key seed[b];
+  and rel-pos kernels): counters (j // 4, i, h, 0), key seed[b]; a call on
+  heads h0 .. h0 + H - 1 of a layer (a tensor-parallel rank's) counts its
+  local head h as h0 + h, so that it draws those heads' masks;
 - the full-bias attention (one scalar seed, as ``fused_attention.py:589``
   keys by the program b·H + h): counters (j // 4, i, h, b), key seed;
 - the Conformer FFN's two sites, element (t, j) of batch row b: counters
@@ -80,13 +82,15 @@ def _key(seeds: torch.Tensor) -> torch.Tensor:
 
 
 def attention_keep(seeds: torch.Tensor, num_heads: int, Tq: int, Tk: int,
-                   dropout_p: float) -> torch.Tensor:
+                   dropout_p: float, head0: int = 0) -> torch.Tensor:
     """[B, H, Tq, Tk] float multipliers ``keep / keep_p`` (0 where dropped)
-    of the attention probabilities, from per-row int32 ``seeds`` [B]."""
+    of the attention probabilities of heads ``head0`` .. ``head0 + H - 1``,
+    from per-row int32 ``seeds`` [B]."""
     dev = seeds.device
     return _keep(_key(seeds)[:, None, None, None],
                  _ar(Tq, dev)[None, None, :, None],
-                 _ar(num_heads, dev)[None, :, None, None], 0, Tk, dropout_p)
+                 _ar(num_heads, dev)[None, :, None, None] + head0, 0, Tk,
+                 dropout_p)
 
 
 def full_bias_keep(seed: torch.Tensor, B: int, num_heads: int, Tq: int,

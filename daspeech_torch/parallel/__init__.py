@@ -1,4 +1,6 @@
-"""Data parallelism over processes (``torch.distributed``); see
-:mod:`daspeech_torch.parallel.multihost`. The JAX package's GSPMD
-partitioning (``daspeech_tpu/parallel/partition.py``) is not ported:
-``--fsdp`` is refused (ROADMAP Queue 1 #4c)."""
+"""Parallelism over processes (``torch.distributed``): data parallelism
+(:mod:`daspeech_torch.parallel.multihost`), ``--fsdp`` and the data x seq x
+model mesh of the JAX package's ``partition.py``
+(:mod:`daspeech_torch.parallel.partition`, the modules' part in
+:mod:`daspeech_torch.parallel.shard`) and its ``dryrun_multichip``
+(:mod:`daspeech_torch.parallel.dryrun`)."""

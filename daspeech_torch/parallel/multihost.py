@@ -211,6 +211,7 @@ def broadcast_host(value):
 # ------------------------------------------------------ the data-parallel step
 
 _STEP_GROUP: List = [None]
+_STATS_GROUP: List = [None]
 
 
 @contextlib.contextmanager
@@ -226,9 +227,30 @@ def data_parallel(group):
         _STEP_GROUP[0] = prev
 
 
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Within this block BatchNorm's statistics are reduced over ``group``
+    instead of the step's group: the ranks of the data and ``seq`` axes
+    (``parallel.partition``), whose frames together are the global
+    batch's."""
+    prev = _STATS_GROUP[0]
+    _STATS_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _STATS_GROUP[0] = prev
+
+
 def step_group():
     """The process group of the data-parallel step in progress, or None."""
     return _STEP_GROUP[0]
+
+
+def stats_group():
+    """The process group BatchNorm's statistics are reduced over: the
+    :func:`batch_norm_group`'s, else the step's; None outside a step."""
+    return _STATS_GROUP[0] if _STATS_GROUP[0] is not None \
+        else _STEP_GROUP[0]
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -244,13 +266,13 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_sum_autograd(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the step's process group, differentiably: the
-    backward sums the incoming gradients over the group (each rank's
-    output feeds every rank's loss)."""
+    """``x`` summed over BatchNorm's process group (:func:`stats_group`),
+    differentiably: the backward sums the incoming gradients over the group
+    (each rank's output feeds every rank's loss)."""
     from torch.distributed.nn.functional import all_reduce
 
     COUNTS["bn_sync"] += 1
-    return all_reduce(x, group=_STEP_GROUP[0])
+    return all_reduce(x, group=stats_group())
 
 
 def all_reduce_grads_(grads: List[torch.Tensor], group,

@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from daspeech_torch.parallel.partition import copy_full_, full
+from daspeech_torch.parallel.partition import copy_full_
 from daspeech_torch.train.train_state import AdamState, TrainState
 from daspeech_torch.train.vocoder_train import VocoderTrainState
 
@@ -57,15 +57,21 @@ def _optimizer_state(opt) -> Dict[str, Any]:
 
 
 def host_state(state) -> Dict[str, Any]:
-    """The saved form of a training state, as host copies. A ``--fsdp``
-    state is gathered to full tensors first, the same file as an unsharded
-    run's; the gather is collective (every rank calls this)."""
+    """The saved form of a training state, as host copies. A sharded state
+    (``--fsdp``, a ``partition.MeshParallel``) is gathered to full tensors
+    first, the same file as an unsharded run's; the gather is collective
+    (every rank calls this)."""
     if isinstance(state, TrainState):
         s = state.opt_state
-        model = {k: full(v) for k, v in state.model.state_dict().items()}
+        whole = (state.sharding.full if state.sharding is not None
+                 else lambda name, x: x)
+        names = _param_names(state)
+        model = {k: whole(k, v) for k, v in state.model.state_dict().items()}
         return {"model": _host(model),
-                "opt_state": {"mu": _host([full(m) for m in s.mu]),
-                              "nu": _host([full(v) for v in s.nu]),
+                "opt_state": {"mu": _host([whole(n, m) for n, m
+                                           in zip(names, s.mu)]),
+                              "nu": _host([whole(n, v) for n, v
+                                           in zip(names, s.nu)]),
                               "count": _host(s.count),
                               "sched_count": _host(s.sched_count)}}
     if isinstance(state, VocoderTrainState):
@@ -77,6 +83,11 @@ def host_state(state) -> Dict[str, Any]:
     return {"tree": _host(state)}
 
 
+def _param_names(state: TrainState) -> List[str]:
+    """The names of ``state.params``, in their order (the moments')."""
+    return [n for n, p in state.model.named_parameters() if p.requires_grad]
+
+
 def load_state_(state, data: Dict[str, Any]):
     """Copy a restored checkpoint into ``state`` (a TrainState or a
     VocoderTrainState) in place, on the devices ``state`` lives on; returns
@@ -84,6 +95,8 @@ def load_state_(state, data: Dict[str, Any]):
     tensors."""
     if isinstance(state, TrainState):
         s, o = state.opt_state, data["opt_state"]
+        copy = (state.sharding.copy_full_ if state.sharding is not None
+                else lambda name, dst, src: copy_full_(dst, src))
         if state.sharding is None:
             state.model.load_state_dict(data["model"])
         else:
@@ -92,9 +105,10 @@ def load_state_(state, data: Dict[str, Any]):
                 raise KeyError(f"checkpoint keys differ: "
                                f"{sorted(set(own) ^ set(data['model']))[:8]}")
             for k, v in own.items():
-                copy_full_(v, data["model"][k])
-        for dst, src in zip(s.mu + s.nu, o["mu"] + o["nu"]):
-            copy_full_(dst, src)
+                copy(k, v, data["model"][k])
+        names = _param_names(state) * 2
+        for n, dst, src in zip(names, s.mu + s.nu, o["mu"] + o["nu"]):
+            copy(n, dst, src)
         state.opt_state = AdamState(
             s.mu, s.nu, o["count"].to(s.count.device),
             o["sched_count"].to(s.sched_count.device))

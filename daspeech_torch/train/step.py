@@ -54,16 +54,18 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
 
     ``group``: a ``torch.distributed`` process group for data parallelism
     (module docstring); ``batch`` then holds this rank's rows only.
-    ``sharding``: the ``parallel.partition.FSDP`` of a ``--fsdp`` run over
-    ``group``: the loss runs as its root's forward, the sharded gradients
-    arrive summed by FSDP's reduce-scatter (the replicated ones go through
-    the all-reduce), and the norm and the update work on this rank's
-    shards."""
+    ``sharding``: the ``parallel.partition.MeshParallel`` of a ``--fsdp``
+    run or of a data x seq x model mesh (``group`` its ``data`` axis's):
+    the loss runs through it
+    (``sharding.loss``), the gradients split over ``data`` arrive summed
+    by FSDP's reduce-scatter, the others are summed by
+    ``sharding.reduce_grads_``, and the norm and the update work on this
+    rank's shards."""
 
     def forward(state, batch, rng):
         if sharding is None:
             return loss_fn(state.model, batch, rng)
-        return sharding.run(loss_fn, batch, rng)
+        return sharding.loss(loss_fn, batch, rng)
 
     def train_step(state: TrainState, batch, rng: torch.Generator
                    ) -> Dict[str, torch.Tensor]:
@@ -92,8 +94,7 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
             shard = sharding.sharded(params)
             grads = sharding.local(grads)
             params = sharding.local(params)
-            mh.all_reduce_grads_([g for g, s in zip(grads, shard) if not s],
-                                 group)
+            sharding.reduce_grads_(grads, shard, group)
         elif group is not None:
             mh.all_reduce_grads_(grads, group)
         if group is not None:

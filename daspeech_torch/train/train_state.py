@@ -152,8 +152,8 @@ def make_optimizer(cfg) -> GuardedAdam:
 class TrainState:
     """The step count, the model (its parameters and BatchNorm running
     statistics) and the optimizer state. ``sharding``: the
-    ``parallel.partition.FSDP`` of a ``--fsdp`` run, whose parameters and
-    moments are DTensors."""
+    ``parallel.partition.MeshParallel`` of a ``--fsdp`` or mesh run (under
+    ``--fsdp`` its parameters and moments are DTensors)."""
     model: nn.Module
     opt_state: AdamState
     step: int = 0

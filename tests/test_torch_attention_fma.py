@@ -49,6 +49,7 @@ from daspeech_torch.ops.philox import (attention_keep, full_bias_keep,
                                        keep_threshold, philox4x32_10)
 from daspeech_tpu.ops import fused_attention as jfa
 from daspeech_tpu.ops import fused_relpos as jfr
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 TILE = 64            # keys of a tile, and the depth of a score chunk

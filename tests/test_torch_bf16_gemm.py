@@ -49,6 +49,7 @@ from daspeech_torch.ops import fused_mrf as tfm
 from daspeech_tpu.ops import fused_ffn as jff
 from daspeech_tpu.ops import fused_mrf as jfm
 from test_torch_fused_ffn import interpret_pallas  # noqa: F401
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 from test_torch_vocoder_rungs import (V1_DILATIONS, V1_KERNELS,
                                       _level_params, jax_mrf_level_bf16)
 

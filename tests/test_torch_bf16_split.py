@@ -50,6 +50,7 @@ import jax.numpy as jnp
 from daspeech_torch.ops import fused_attention as tfa
 from daspeech_torch.ops.philox import attention_keep
 from daspeech_tpu.ops import fused_attention as jfa
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 
 TOL_BF16 = 2.0 ** -7
 BAR = TOL_BF16 / 4

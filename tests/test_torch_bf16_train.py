@@ -1,7 +1,9 @@
 """The port's bf16 training (``--dtype bfloat16``) against the JAX package,
 on the CPU at small widths: one S2TT (``nat_dag_loss``), one joint S2ST
-(``s2s_dag_fastspeech2_loss``, ``expect``) and one FastSpeech 2 step, and
-the train CLI.
+(``s2s_dag_fastspeech2_loss``, ``expect``) and one FastSpeech 2 step (the
+last two in ``tests/test_torch_bf16_train_joint.py`` and
+``tests/test_torch_bf16_train_fs2.py``, which xdist can run beside this
+file), and the train CLI.
 
 Each step runs with dropout 0 and GLAT p = 0 (GLAT's argmax over bf16
 logits is a discrete decision the two packages could take differently at
@@ -47,26 +49,13 @@ import jax.numpy as jnp
 from daspeech_torch import convert
 from daspeech_torch.cli import train as ttrain
 from daspeech_torch.losses import dag_loss as tloss
-from daspeech_torch.losses import s2s_loss as ts2s
-from daspeech_torch.losses import tts_loss as ttts
 from daspeech_torch.models import dag_model as tdag
-from daspeech_torch.models import fastspeech2 as tfs
-from daspeech_torch.models import s2s_model as tmodel
 from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
 from daspeech_torch.train.checkpoint import CheckpointManager
 from daspeech_tpu.losses import dag_loss as jloss
-from daspeech_tpu.losses import s2s_loss as js2s
-from daspeech_tpu.losses import tts_loss as jtts
 from daspeech_tpu.models import dag_model as jdag
-from daspeech_tpu.models import fastspeech2 as jfs
-from daspeech_tpu.models import s2s_model as jmodel
 from test_torch_bf16_models import (bf16_gap, jax_kernel_route,  # noqa: F401
                                     one_thread)
-from test_torch_fs2_train import V, VOCAB
-from test_torch_fs2_train import _batch as fs2_batch
-from test_torch_fs2_train import _cfg as fs2_cfg
-from test_torch_joint import _joint_batch, _joint_variables
-from test_torch_joint import _small_cfg as joint_cfg
 from test_torch_models import random_variables
 from test_torch_train import _grad_pairs, _small_batch, _small_cfg
 from torch_cli_corpus import cli_args, write_corpus
@@ -135,52 +124,6 @@ def test_s2tt_step():
     loss, metrics = tloss.nat_dag_loss(tm, _tb(batch), torch.Generator(),
                                        0.0, cfg.vocab)
     assert loss.dtype == torch.float32
-    loss.backward()
-    _assert_step(tm, loss, want)
-
-
-def test_joint_step():
-    cfg = joint_cfg()
-    batch = _joint_batch(cfg, 0)
-    v = _joint_variables(jmodel.S2SConformerDAGFastSpeech2(cfg), batch, 1)
-    jb = {k: jnp.asarray(x) for k, x in batch.items()}
-
-    def loss_of(dt, params):
-        return js2s.s2s_dag_fastspeech2_loss(
-            jmodel.S2SConformerDAGFastSpeech2(cfg, dtype=dt),
-            {"params": params, "batch_stats": v["batch_stats"]}, jb,
-            jax.random.key(3), jnp.float32(0.0), cfg.dag.vocab)
-
-    want = _jax_value_and_grad(loss_of, v)
-    tm = convert.load_flax_(
-        tmodel.S2SConformerDAGFastSpeech2(cfg, dtype=BF16), v).train()
-    loss, _ = ts2s.s2s_dag_fastspeech2_loss(tm, _tb(batch),
-                                            torch.Generator(), 0.0,
-                                            cfg.dag.vocab)
-    loss.backward()
-    _assert_step(tm, loss, want)
-
-
-def test_fastspeech2_step():
-    cfg = fs2_cfg()
-    batch = fs2_batch(cfg, 9)
-    v = random_variables(jfs.FastSpeech2Encoder(cfg, vocab_size=V,
-                                                pad=VOCAB.pad), 10,
-                         src_tokens=batch["src_tokens"],
-                         max_out_len=batch["target_audio"].shape[1])
-    jb = {k: jnp.asarray(x) for k, x in batch.items()}
-
-    def loss_of(dt, params):
-        return jtts.fastspeech2_criterion(
-            jfs.FastSpeech2Encoder(cfg, vocab_size=V, pad=VOCAB.pad,
-                                   dtype=dt), {"params": params}, jb,
-            jax.random.key(0), VOCAB)
-
-    want = _jax_value_and_grad(loss_of, v)
-    tm = convert.load_flax_(
-        tfs.FastSpeech2Encoder(cfg, V, VOCAB.pad, dtype=BF16), v).train()
-    loss, _ = ttts.fastspeech2_criterion(tm, _tb(batch), torch.Generator(),
-                                         VOCAB)
     loss.backward()
     _assert_step(tm, loss, want)
 

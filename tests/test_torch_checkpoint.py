@@ -32,6 +32,7 @@ from daspeech_torch.train import GuardedAdam, TrainState, make_train_step
 from daspeech_torch.train import checkpoint as tck
 from daspeech_tpu.train import checkpoint as jck
 from daspeech_tpu.train import torch_import as ti
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 
 
 def make_state(value):

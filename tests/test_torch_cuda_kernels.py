@@ -1657,3 +1657,62 @@ def test_int8_vocoder_serves_a_short_utterance(gen, quant):
         want, f32 = cpu(mel), cpu32(mel)
     assert got.shape == (1, 8 * 256) and torch.isfinite(got).all()
     assert (got - want).norm() <= (want - f32).norm()
+
+
+# ------------------------------------- a tensor-parallel rank's heads (head0)
+
+@pytest.mark.parametrize("op", ["packed", "head_major", "relpos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h0", [0, 2])
+def test_attention_at_head0(gen, op, dtype, h0):
+    """#1, #2 and #5 on heads h0 .. h0 + 1 of a 4-head layer, dropout 0.1:
+    the training forward, the inference forward and the backward against
+    the plain versions at the same ``head0`` (fp32 within TOL, bf16 within
+    2^-7 of the largest magnitude); at h0 = 2 the masks are those of the
+    layer's heads 2 and 3, not of 0 and 1."""
+    B, T, H, p = 3, 70, 2, 0.1
+    bf16 = dtype == torch.bfloat16
+
+    def mk(*shape, scale=1.0):
+        return _randn(gen, *shape, scale=scale).to(dtype)
+
+    def close(got, want):
+        if bf16:
+            _bf16_close(got, want)
+        else:
+            assert _max_err(got, want) <= TOL
+
+    bias, seeds = _bias(gen, B, T, all_padded_row=True), _seeds(gen, B)
+    if op == "relpos":
+        q, k, v = (mk(B, T, H * 64, scale=0.5) for _ in range(3))
+        a = mk(B, T, H * 256, scale=0.1)
+        e = fr.relpos_basis(T, 256, device="cuda")[2].to(dtype).contiguous()
+        args = (q, k, v, a, e, bias, H, 0.125, p, seeds)
+        fwd, plain = fr.relpos_fwd_kernel, fr.relpos_plain
+        bwd, bwd_plain = fr.relpos_bwd_kernel, fr.relpos_bwd_plain
+        do, n_in = mk(B, T, H * 64), 6
+    elif op == "packed":
+        q = mk(B, T, H * 64, scale=0.125)
+        k, v = mk(B, T, H * 64), mk(B, T, H * 64)
+        args = (q, k, v, bias, H, 1.0, p, seeds)
+        fwd, plain = fa.attention_fwd_kernel, fa.attention_plain
+        bwd, bwd_plain = fa.attention_bwd_kernel, fa.attention_bwd_plain
+        do, n_in = mk(B, T, H * 64), 4
+    else:
+        q = mk(B, H, T, 64, scale=0.125)
+        k, v = mk(B, H, T, 64), mk(B, H, T, 64)
+        args = (q, k, v, bias, 1.0, p, seeds)
+        fwd, plain = fa.attention_hm_fwd_kernel, fa.attention_hm_plain
+        bwd, bwd_plain = fa.attention_hm_bwd_kernel, fa.attention_hm_bwd_plain
+        do, n_in = mk(B, H, T, 64), 4
+    out, st = fwd(*args, with_stats=True, head0=h0)
+    inf, _ = fwd(*args, head0=h0)
+    want = plain(*args, h0)
+    close(out, want)
+    close(inf, want)
+    got = bwd(*args[:n_in], out, st, do, *args[n_in:], h0)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, bwd_plain(*args[:n_in], do, *args[n_in:], h0)):
+        close(g_, w)
+    if h0:
+        assert not torch.equal(want, plain(*args)), "head0 moved no mask"

@@ -31,6 +31,7 @@ import torch
 
 from daspeech_torch.ops import dag_kernels as dk
 from daspeech_torch.ops import dag_ref as dr
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 
 H100_SMS = 132
 

@@ -23,7 +23,8 @@ from daspeech_torch.eval import asr_bleu as tab
 from daspeech_torch.eval import mcd as tmcd
 from daspeech_tpu.eval import asr_bleu as jab
 from daspeech_tpu.eval import mcd as jmcd
-from torch_cli_corpus import cli_args, write_corpus
+from torch_cli_corpus import (cli_args, one_torch_thread,  # noqa: F401
+                              write_corpus)
 
 TOL = 1e-6
 HYPS = ["The cat sat on the mat.", "a quick brown fox", "Hello, world!",

@@ -94,7 +94,7 @@ def _rank_main(rank, init_file, root, crit, out_dir, single_dir):
         out["updates"][n_real] = _one_update(run, local)
 
     # the placement
-    out["dims"] = dict(run.state.sharding.dims)
+    out["dims"] = dict(run.state.sharding.fsdp.dims)
     out["replicated"] = [n for n, p in run.model.named_parameters()
                          if not run.state.sharding.sharded([p])[0]]
     out["local_shapes"] = {n: tuple(p._local_tensor.shape)
@@ -124,11 +124,11 @@ def _rank_main(rank, init_file, root, crit, out_dir, single_dir):
     if rank == 1:
         batch["fbank"][0, 0, 0] = np.inf
     s = skip.state
-    before = [x.clone() for x in partition.FSDP.local(
+    before = [x.clone() for x in partition.local(
         s.params + s.opt_state.mu + s.opt_state.nu)]
     m = skip.step(s, to_device(batch, "cpu"), ttrain.update_generator(1, 0,
                                                                       0))
-    after = partition.FSDP.local(s.params + s.opt_state.mu + s.opt_state.nu)
+    after = partition.local(s.params + s.opt_state.mu + s.opt_state.nu)
     out["skip"] = {"skipped": float(m["skipped"]),
                    "same": all(torch.equal(a, b)
                                for a, b in zip(before, after)),

@@ -48,6 +48,7 @@ from daspeech_torch.train import GuardedAdam, TrainState
 from daspeech_torch.train.checkpoint import CheckpointManager
 from daspeech_torch.train.fairseq_import import (import_s2s_daspeech,
                                                  import_s2t_conformer_dag)
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 
 FEAT_TOL = 1e-2
 WAV_TOL = 1e-3

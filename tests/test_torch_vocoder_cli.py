@@ -21,6 +21,7 @@ from daspeech_torch.cli import generate
 from daspeech_torch.cli import train_vocoder as tv
 from daspeech_torch.preprocess.prep_data import pack_features_to_zip
 from daspeech_torch.train.checkpoint import CheckpointManager
+from torch_cli_corpus import one_torch_thread  # noqa: F401
 
 SEG = 1024
 SEED = 5

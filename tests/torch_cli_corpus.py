@@ -7,6 +7,7 @@ import csv
 from pathlib import Path
 
 import numpy as np
+import pytest
 import yaml
 
 # tests/test_cli.py's TINY_MODEL / TINY_S2S widths, every dropout rate 0
@@ -102,3 +103,17 @@ def cli_args(root: Path, crit: str, save: str, *extra):
             "--lr", str(LR), "--warmup-updates", "2", "--glat-p", "0",
             "--log-interval", "1", "--validate-interval-updates", "1000",
             *extra]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread in a test module that imports this fixture: the
+    tier-1 run's workers share the host's cores, and torch's default of one
+    thread a core each oversubscribes them (a config_v1 vocoder update on
+    the CPU took 140 s at 8 threads, 3.9 s at 1)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
