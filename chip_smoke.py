@@ -417,28 +417,9 @@ BF16_SOURCES = {"mrf_level": "daspeech_torch/csrc/mrf_bf16.cuh",
 
 def launch_counters():
     """name -> the wrapper whose ``launches`` counts that kernel."""
-    from daspeech_torch.ops import dag_kernels as dk
-    from daspeech_torch.ops import fused_attention as fa
-    from daspeech_torch.ops import fused_ffn as ff
-    from daspeech_torch.ops import fused_links as fl
-    from daspeech_torch.ops import fused_mrf as fm
-    from daspeech_torch.ops import fused_relpos as fr
+    from daspeech_torch.telemetry import launch_counters as counters
 
-    return {"fused_attention_packed": fa.fused_attention_packed,
-            "fused_extract_links": fl.fused_extract_links,
-            "fused_attention_relpos": fr.fused_attention_relpos,
-            "dag_loss_forward": dk.dag_loss_forward_kernel,
-            "dag_best_alignment": dk.dag_best_alignment_kernel,
-            "fused_attention_packed_bwd": fa.attention_bwd_kernel,
-            "fused_attention_relpos_bwd": fr.relpos_bwd_kernel,
-            "fused_extract_links_bwd": fl.links_bwd_kernel,
-            "fused_attention": fa.fused_attention,
-            "fused_attention_bwd": fa.attention_hm_bwd_kernel,
-            "mrf_level": fm.mrf_level,
-            "fused_ffn": ff.ffn_fwd_kernel,
-            "fused_ffn_bwd": ff.ffn_bwd_kernel,
-            "fused_attention_full_bias": fa.attention_fb_fwd_kernel,
-            "fused_attention_full_bias_bwd": fa.attention_fb_bwd_kernel}
+    return counters()
 
 
 # the forward wrappers that count their training launches (the FMA

@@ -15,7 +15,8 @@ two-pass multi-decoder S2ST)::
        | --vocoder-type griffin_lim] \\
       [--vocoder-quant {none,bf16,int8,int8-skip1}] \\
       [--vocoder-calib-batches N] [--vocoder-chunk N] \\
-      [--length-beam N --reranker-dir RDIR [--reranker-yaml R.yaml]]
+      [--length-beam N --reranker-dir RDIR [--reranker-yaml R.yaml]] \\
+      [--profile DIR]
 
 The weights come from a port checkpoint directory (``--checkpoint-dir``,
 written by ``daspeech_torch.train.checkpoint.CheckpointManager``) or a
@@ -27,6 +28,10 @@ It runs on ``--device`` (default ``cuda``) and exits non-zero when that
 device is missing: it never falls back to the CPU on its own. Outputs:
 ``hypos.txt``, ``feat/<id>.npy`` ([80, T]), ``wav/<id>_pred.wav``, and as
 the last line of standard output ``{"generated": n, "results": DIR}``.
+With ``--profile DIR`` the batches run under ``torch.profiler`` with the
+port's spans and counters recording (``daspeech_torch.telemetry``): the
+chrome trace goes to ``DIR/trace.json`` and a table of the spans (calls,
+host, device and self ms) and counters to standard error.
 
 Batches are the task's buckets, collated without padding the batch axis to
 the bucket's size (the card needs no fixed batch shape).
@@ -44,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from daspeech_torch import telemetry
 from daspeech_torch.config import (
     DAGModelConfig,
     DecodeConfig,
@@ -182,6 +188,11 @@ def parse_args(argv=None):
                         "(decode/speech_generator.py::make_vocode_fn)")
     p.add_argument("--gcmvn-stats", default=None,
                    help="gcmvn_stats.npz for mel denormalization")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the batches under torch.profiler into "
+                        "DIR/trace.json, with the spans and counters "
+                        "recording, and print their table to standard "
+                        "error at the end")
     return p.parse_args(argv)
 
 
@@ -270,7 +281,8 @@ def main(argv=None):
     return emit_outputs(
         it, gen, Path(args.results_path),
         hypo_line=lambda utt_id, h:
-            f"{utt_id}\t{task.tgt_dict.string(h['tokens'])}\n")
+            f"{utt_id}\t{task.tgt_dict.string(h['tokens'])}\n",
+        profile=args.profile, device=device)
 
 
 def load_fairseq_(model, path, model_cfg, is_s2s: bool) -> None:
@@ -328,7 +340,8 @@ def _generate_tts(args, device):
     gen = task.build_generator(model, max_mel_len=args.max_mel_len,
                                vocoder=vocoder, gcmvn=gcmvn)
     return emit_outputs(task.get_batch_iterator(args.gen_subset), gen,
-                        Path(args.results_path))
+                        Path(args.results_path), profile=args.profile,
+                        device=device)
 
 
 def _generate_ar_tts(args, device):
@@ -354,7 +367,8 @@ def _generate_ar_tts(args, device):
         model, vocab, max_mel_len=args.max_mel_len, vocoder=vocoder,
         gcmvn=gcmvn, stop_threshold=args.stop_threshold)
     return emit_outputs(task.get_batch_iterator(args.gen_subset), gen,
-                        Path(args.results_path))
+                        Path(args.results_path), profile=args.profile,
+                        device=device)
 
 
 def _generate_at_s2s(args, device):
@@ -384,7 +398,8 @@ def _generate_at_s2s(args, device):
     return emit_outputs(
         it, gen, Path(args.results_path),
         hypo_line=lambda utt_id, h:
-            f"{utt_id}\t{task.tgt_dict.string(h['tokens'])}\n")
+            f"{utt_id}\t{task.tgt_dict.string(h['tokens'])}\n",
+        profile=args.profile, device=device)
 
 
 def build_multidecoder(model_yaml, vocab):
@@ -408,11 +423,24 @@ def load_reranker(args, vocab, device):
     return model.to(device).eval()
 
 
-def emit_outputs(it, gen, out_dir: Path, hypo_line=None):
+def emit_outputs(it, gen, out_dir: Path, hypo_line=None, profile=None,
+                 device="cpu"):
     """The batch loop (``generate_features.py:87-133``): per utterance a
     ``hypos.txt`` line (given ``hypo_line``), its mel transposed to
-    [80, T] under ``feat/`` and, with a vocoder, its wav under ``wav/``."""
+    [80, T] under ``feat/`` and, with a vocoder, its wav under ``wav/``.
+    ``profile``: the directory of the batches' trace (``--profile``)."""
     (out_dir / "feat").mkdir(parents=True, exist_ok=True)
+    if profile:
+        with telemetry.profile(profile, device):
+            n = _emit_batches(it, gen, out_dir, hypo_line)
+        print(telemetry.table(telemetry.snapshot()), file=sys.stderr)
+    else:
+        n = _emit_batches(it, gen, out_dir, hypo_line)
+    print(json.dumps({"generated": n, "results": str(out_dir)}))
+    return 0
+
+
+def _emit_batches(it, gen, out_dir: Path, hypo_line) -> int:
     hypos_file = (out_dir / "hypos.txt").open("w") if hypo_line else None
     n = 0
     for spec, idxs in it.batches_for_epoch(0):
@@ -432,8 +460,7 @@ def emit_outputs(it, gen, out_dir: Path, hypo_line=None):
             n += 1
     if hypos_file is not None:
         hypos_file.close()
-    print(json.dumps({"generated": n, "results": str(out_dir)}))
-    return 0
+    return n
 
 
 def load_vocoder_and_gcmvn(args, task, device):

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from daspeech_torch import telemetry
 from daspeech_torch.cli.generate import build_model_cfg, resolve_device
 from daspeech_torch.config import DecodeConfig
 from daspeech_torch.data.prefetch import consume, prefetch_epoch, to_device
@@ -175,7 +176,9 @@ def parse_args(argv=None):
                         "replicated (fairseq's --min-params-to-wrap)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of updates 5-15 to "
-                        "DIR")
+                        "DIR/trace_rank<r>.json, with the update's "
+                        "train.forward, train.backward and train.optimizer "
+                        "spans")
     p.add_argument("--tensorboard-logdir", default=None)
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--dtype", default="float32",
@@ -773,9 +776,11 @@ def train_loop(state: TrainState, step: Callable, batcher, device,
                         batch = accum.pop(spec)
                     stats.window["steps"] += 1
                     if cfg.profile_dir and update == 5:
-                        profiler = _start_profiler(device)
+                        profiler = telemetry.profile(
+                            cfg.profile_dir, device,
+                            f"trace_rank{mh.process_index()}.json").start()
                     if profiler is not None and update == 15:
-                        _stop_profiler(profiler, cfg.profile_dir)
+                        profiler.stop()
                         profiler = None
                     t0 = pending.mark()
                     metrics = step(state, batch,
@@ -837,7 +842,7 @@ def train_loop(state: TrainState, step: Callable, batcher, device,
         raise
     finally:
         if profiler is not None:
-            _stop_profiler(profiler, cfg.profile_dir)
+            profiler.stop()
         stats.wall_s = time.perf_counter() - t_start
         stats.epoch = epoch
 
@@ -872,24 +877,6 @@ def _save_crash_checkpoint(manager: CheckpointManager, state: TrainState,
               file=sys.stderr)
     except Exception:
         pass
-
-
-def _start_profiler(device):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.__enter__()
-    return prof
-
-
-def _stop_profiler(prof, directory):
-    prof.__exit__(None, None, None)
-    Path(directory).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(
-        str(Path(directory) / f"trace_rank{mh.process_index()}.json"))
 
 
 def make_sinks(args):

@@ -29,6 +29,7 @@ import numpy as np
 from daspeech_torch.data.audio_utils import get_features_or_waveform
 from daspeech_torch.data import native
 from daspeech_torch.data.dictionary import Dictionary
+from daspeech_torch.telemetry import span
 
 
 def load_tsv(path) -> List[Dict[str, str]]:
@@ -259,7 +260,13 @@ class BucketBatcher:
     def collate(self, spec: BucketSpec, idxs: Sequence[int],
                 pad_last: bool = True) -> Dict[str, np.ndarray]:
         """Pad items to the bucket's static dims; short batches are filled
-        by repeating the first item with zero weight via ``sample_mask``."""
+        by repeating the first item with zero weight via ``sample_mask``.
+        Runs in a ``data.collate`` span."""
+        with span("data.collate"):
+            return self._collate(spec, idxs, pad_last)
+
+    def _collate(self, spec: BucketSpec, idxs: Sequence[int],
+                 pad_last: bool) -> Dict[str, np.ndarray]:
         items = [self.dataset[i] for i in idxs]
         B = spec.batch if pad_last else len(items)
         n_real = len(items)

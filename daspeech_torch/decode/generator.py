@@ -28,6 +28,7 @@ from daspeech_torch.decode.dag_decode import (
 )
 from daspeech_torch.decode.speech_generator import make_vocode_fn
 from daspeech_torch.models.dag_model import initialize_output_tokens
+from daspeech_torch.telemetry import count, span
 
 HOP = 256        # samples per mel frame (generator.py:334)
 
@@ -97,7 +98,8 @@ def decoder_pass(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
     beam-wise, and the graph sizes ``glen + arange(beam) - beam // 2``,
     clipped to [2, L], become the graph inputs
     (``generator.py:117-128``)."""
-    enc, enc_pad, _ = model.encode(fbank, src_lengths)
+    with span("decode.encoder"):
+        enc, enc_pad, _ = model.encode(fbank, src_lengths)
     if beam > 1:
         L = prev.shape[1]
         glen = (prev != vocab.pad).sum(dim=1)
@@ -106,7 +108,8 @@ def decoder_pass(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
             (glen[:, None] + offs[None, :]).reshape(-1).clamp(2, L), L, vocab)
         enc = enc.repeat_interleave(beam, dim=0)
         enc_pad = enc_pad.repeat_interleave(beam, dim=0)
-    logits, links, feats = model.decode(prev, enc, enc_pad)
+    with span("decode.decoder"):
+        logits, links, feats = model.decode(prev, enc, enc_pad)
     return logits, links, feats, prev
 
 
@@ -127,7 +130,8 @@ def dag_forward_decode(model, fbank: torch.Tensor, src_lengths: torch.Tensor,
                          "beamsearch strategy; use lookahead/viterbi")
     logits, links, feats, prev = decoder_pass(model, fbank, src_lengths,
                                               prev, vocab, beam)
-    res = _strategy_decode(cfg, vocab, logits, links, prev)
+    with span("decode.walk"):
+        res = _strategy_decode(cfg, vocab, logits, links, prev)
     if beam > 1:
         if reranker is not None:
             sc = rerank_scores(reranker, fbank, src_lengths, res.tokens,
@@ -173,10 +177,12 @@ class S2TNATGenerator:
         """(fbank, src_lengths, prev_output_tokens) as tensors on the
         model's device."""
         d = self.device
-        return (torch.as_tensor(batch["fbank"], dtype=torch.float32,
-                                device=d),
-                torch.as_tensor(batch["src_lengths"], device=d).long(),
-                torch.as_tensor(batch["prev_output_tokens"], device=d).long())
+        with span("generate.h2d"):
+            return (torch.as_tensor(batch["fbank"], dtype=torch.float32,
+                                    device=d),
+                    torch.as_tensor(batch["src_lengths"], device=d).long(),
+                    torch.as_tensor(batch["prev_output_tokens"],
+                                    device=d).long())
 
     def run(self, fbank, src_lengths, prev):
         """One decode pass: (DecodeResult, features [B, L, D])."""
@@ -212,15 +218,19 @@ class S2TNATGenerator:
         return DecodeResult(*accepted), accepted_input
 
     def generate(self, batch: Dict[str, np.ndarray]) -> List[Dict]:
-        with torch.inference_mode():
+        with span("generate"), torch.inference_mode():
+            _count_batch(batch)
             inputs = self.to_device(batch)
-            res = (self.refine(*inputs)[0]
-                   if self.cfg.iter_decode_max_iter > 0
-                   else self.run(*inputs)[0])
-            tokens = res.tokens.cpu().numpy()
-            lengths = res.lengths.cpu().numpy()
-        return [{"tokens": tokens[b, : lengths[b]]}
-                for b in range(tokens.shape[0])]
+            with span("generate.decode"):
+                res = (self.refine(*inputs)[0]
+                       if self.cfg.iter_decode_max_iter > 0
+                       else self.run(*inputs)[0])
+            with span("generate.results"):
+                with span("results.d2h"):
+                    tokens, lengths = _to_host(res.tokens, res.lengths)
+                with span("results.split"):
+                    return [{"tokens": tokens[b, : lengths[b]]}
+                            for b in range(tokens.shape[0])]
 
 
 class S2SNATGenerator(S2TNATGenerator):
@@ -257,33 +267,40 @@ class S2SNATGenerator(S2TNATGenerator):
         (DecodeResult, path features [B, L, D], their pad mask). Under
         refinement, the tokens are refined first and this pass runs on the
         accepted graph input (``generator.py:309-320``)."""
-        if self.cfg.iter_decode_max_iter > 0:
-            _, prev = self.refine(fbank, src_lengths, prev)
-        res, feats = self.run(fbank, src_lengths, prev)
-        # lookahead/greedy: slot 0 (<bos>) carries no feature; Viterbi
-        # keeps the first emitted vertex's
-        z, zmask = gather_path_features(
-            feats, res,
-            skip_first=self.cfg.strategy in ("lookahead", "greedy"))
-        return res, z, zmask
+        with span("generate.decode"):
+            if self.cfg.iter_decode_max_iter > 0:
+                _, prev = self.refine(fbank, src_lengths, prev)
+            res, feats = self.run(fbank, src_lengths, prev)
+            # lookahead/greedy: slot 0 (<bos>) carries no feature; Viterbi
+            # keeps the first emitted vertex's
+            with span("decode.gather"):
+                z, zmask = gather_path_features(
+                    feats, res,
+                    skip_first=self.cfg.strategy in ("lookahead", "greedy"))
+            return res, z, zmask
 
     def synthesize(self, z, zmask):
         """Stage 2: adaptor + FastSpeech 2 -> (mel [B, M, 80], mel_lens):
         the Postnet's mel when the model has one (``generator.py:
         291-294``)."""
-        mel, mel_post, mel_lens = self.model.synthesize(
-            z, zmask, self.max_mel_len, d_factor=self.d_factor)[:3]
-        return (mel if mel_post is None else mel_post), mel_lens
+        with span("generate.synthesize"):
+            mel, mel_post, mel_lens = self.model.synthesize(
+                z, zmask, self.max_mel_len, d_factor=self.d_factor)[:3]
+            # the frames synthesised, and vocoded: the whole mel bucket
+            count("synth.mel_frames", mel.shape[0] * mel.shape[1])
+            return (mel if mel_post is None else mel_post), mel_lens
 
     def vocode(self, mel):
         """Stage 3: gcmvn denormalization + HiFi-GAN -> wav [B, M*256],
         one-shot or, for a vocoder with ``serve_chunk > 0``, chunked
         (``generator.py:324-328`` through ``make_vocode_fn``)."""
-        return self._vocode(mel)
+        with span("generate.vocode"):
+            return self._vocode(mel)
 
     def generate(self, batch: Dict[str, np.ndarray],
                  generate_waveform: bool = True) -> List[Dict]:
-        with torch.inference_mode():
+        with span("generate"), torch.inference_mode():
+            _count_batch(batch)
             res, z, zmask = self.decode(*self.to_device(batch))
             mel, mel_lens = self.synthesize(z, zmask)
             wav = (self.vocode(mel)
@@ -294,18 +311,37 @@ class S2SNATGenerator(S2TNATGenerator):
     def _hypotheses(self, res: DecodeResult, mel, mel_lens, wav):
         """One device-to-host transfer per output, then per-utterance
         slicing (``generator.py:329-347``)."""
-        tokens = res.tokens.cpu().numpy()
-        lengths = res.lengths.cpu().numpy()
-        mel = mel.cpu().numpy()
-        mel_lens = mel_lens.cpu().numpy()
-        wav_np = None if wav is None else wav.cpu().numpy()
-        out = []
-        for b in range(tokens.shape[0]):
-            m = mel[b, : mel_lens[b]]
-            if self.gcmvn is not None:
-                m = self.gcmvn.denormalize(m)
-            hypo = {"tokens": tokens[b, : lengths[b]], "feature": m}
-            if wav_np is not None:
-                hypo["waveform"] = wav_np[b, : mel_lens[b] * HOP]
-            out.append(hypo)
-        return out
+        with span("generate.results"):
+            with span("results.d2h"):
+                host = _to_host(res.tokens, res.lengths, mel, mel_lens,
+                                *(() if wav is None else (wav,)))
+            tokens, lengths, mel, mel_lens = host[:4]
+            wav_np = host[4] if wav is not None else None
+            # a row keeps at most the frames that were synthesised
+            count("results.mel_frames_kept",
+                  int(np.minimum(mel_lens, mel.shape[1]).sum()))
+            with span("results.split"):
+                out = []
+                for b in range(tokens.shape[0]):
+                    m = mel[b, : mel_lens[b]]
+                    if self.gcmvn is not None:
+                        m = self.gcmvn.denormalize(m)
+                    hypo = {"tokens": tokens[b, : lengths[b]], "feature": m}
+                    if wav_np is not None:
+                        hypo["waveform"] = wav_np[b, : mel_lens[b] * HOP]
+                    out.append(hypo)
+                return out
+
+
+def _count_batch(batch: Dict[str, np.ndarray]) -> None:
+    count("generate.batches")
+    count("generate.utterances", len(batch["src_lengths"]))
+
+
+def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Each tensor copied to the host (one ``.cpu()`` each), counted in
+    ``results.d2h_copies`` and ``results.d2h_bytes``."""
+    out = [t.cpu().numpy() for t in tensors]
+    count("results.d2h_copies", len(out))
+    count("results.d2h_bytes", sum(a.nbytes for a in out))
+    return out

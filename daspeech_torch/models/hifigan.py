@@ -49,6 +49,7 @@ from torch import nn
 from daspeech_torch.models.layers import (FP32, Conv1d, ConvTranspose1d,
                                           set_dtype)
 from daspeech_torch.ops.fused_mrf import mrf_level, prepare_level
+from daspeech_torch.telemetry import span
 
 LRELU_SLOPE = 0.1
 # JAX serves with fold_to=128 (cli/generate.py:492-493); a level takes the
@@ -323,25 +324,29 @@ class HiFiGANGenerator(nn.Module):
         return y + up.bias[:, None]
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """Each upsampling level (its transposed conv and its MRF) runs in
+        a ``vocoder.level<i>`` span."""
         c = self.cfg
         x = self.conv_pre(mel.transpose(1, 2))               # [B, C, T]
         for i in range(len(self.ups)):
-            quant = self.quant_int8 and i >= self.quant_skip_levels
-            x = self._upsample(i, F.leaky_relu(x, LRELU_SLOPE), quant)
-            blocks = self.resblocks[i * self.num_kernels:
-                                    (i + 1) * self.num_kernels]
-            if self.fused_mrf and fused_mrf_route(c.resblock, x.shape[1],
-                                                  x.shape[2]):
-                W, biases = prepare_level(blocks, self.dtype)
-                x = mrf_level(x.float(), W, biases, c.resblock_kernel_sizes,
-                              c.resblock_dilation_sizes, self.mrf_tile)
-                continue
-            f = level_fold(x.shape[1])
-            xs = None
-            for block in blocks:
-                y = block(x, f, quant, self.calibrate)
-                xs = y if xs is None else xs + y
-            x = xs / self.num_kernels
+            with span(f"vocoder.level{i}"):
+                quant = self.quant_int8 and i >= self.quant_skip_levels
+                x = self._upsample(i, F.leaky_relu(x, LRELU_SLOPE), quant)
+                blocks = self.resblocks[i * self.num_kernels:
+                                        (i + 1) * self.num_kernels]
+                if self.fused_mrf and fused_mrf_route(
+                        c.resblock, x.shape[1], x.shape[2]):
+                    W, biases = prepare_level(blocks, self.dtype)
+                    x = mrf_level(x.float(), W, biases,
+                                  c.resblock_kernel_sizes,
+                                  c.resblock_dilation_sizes, self.mrf_tile)
+                    continue
+                f = level_fold(x.shape[1])
+                xs = None
+                for block in blocks:
+                    y = block(x, f, quant, self.calibrate)
+                    xs = y if xs is None else xs + y
+                x = xs / self.num_kernels
         # the reference's final activation uses torch's default slope 0.01
         x = F.leaky_relu(x, 0.01)
         if self.conv_post.dtype == FP32 or level_fold(x.shape[1]) == 1:

@@ -16,6 +16,7 @@ from torch import nn
 from daspeech_torch.models.dag_model import S2TConformerDAG
 from daspeech_torch.models.fastspeech2 import FastSpeech2Encoder, FFNAdapter
 from daspeech_torch.models.layers import FP32, set_dtype
+from daspeech_torch.telemetry import span
 
 
 class S2SConformerDAGFastSpeech2(nn.Module):
@@ -81,7 +82,11 @@ class S2SConformerDAGFastSpeech2(nn.Module):
                    energies: Optional[torch.Tensor] = None,
                    rng: Optional[torch.Generator] = None):
         """adaptor -> FastSpeech2 NoEmb: (mel [B, M, 80], mel_post or None,
-        mel_lens [B], log_dur_out, pitch_out, energy_out)."""
-        return self.tts(self.adaptor(features, rng), features_pad_mask,
-                        max_mel_len, durations, d_factor, pitches=pitches,
-                        energies=energies, rng=rng)
+        mel_lens [B], log_dur_out, pitch_out, energy_out), in the spans
+        ``synth.adaptor`` and ``synth.fastspeech2``."""
+        with span("synth.adaptor"):
+            x = self.adaptor(features, rng)
+        with span("synth.fastspeech2"):
+            return self.tts(x, features_pad_mask, max_mel_len, durations,
+                            d_factor, pitches=pitches, energies=energies,
+                            rng=rng)

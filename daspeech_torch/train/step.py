@@ -18,6 +18,7 @@ from typing import Callable, Dict, List
 import torch
 
 from daspeech_torch.parallel import multihost as mh
+from daspeech_torch.telemetry import span
 from daspeech_torch.train.train_state import GuardedAdam, TrainState
 
 
@@ -60,34 +61,23 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
     (``sharding.loss``), the gradients split over ``data`` arrive summed
     by FSDP's reduce-scatter, the others are summed by
     ``sharding.reduce_grads_``, and the norm and the update work on this
-    rank's shards."""
+    rank's shards.
+
+    Each update runs in the spans ``train.forward`` and ``train.backward``
+    (one of each a microbatch) and ``train.optimizer`` (the gradients'
+    reduction over the group, the norm and the guarded update)."""
 
     def forward(state, batch, rng):
-        if sharding is None:
-            return loss_fn(state.model, batch, rng)
-        return sharding.loss(loss_fn, batch, rng)
+        with span("train.forward"):
+            if sharding is None:
+                return loss_fn(state.model, batch, rng)
+            return sharding.loss(loss_fn, batch, rng)
 
-    def train_step(state: TrainState, batch, rng: torch.Generator
-                   ) -> Dict[str, torch.Tensor]:
-        params = state.params
-        for p in params:
-            p.grad = None
-        with mh.data_parallel(group):
-            if accum_steps == 1:
-                loss, metrics = forward(state, batch, rng)
-                loss.backward()
-                loss = loss.detach()
-            else:
-                losses, per_micro = [], []
-                assert len(batch) == accum_steps, len(batch)
-                for mb in batch:
-                    micro_loss, m = forward(state, mb, rng)
-                    (micro_loss / accum_steps).backward()
-                    losses.append(micro_loss.detach())
-                    per_micro.append(m)
-                loss = torch.stack(losses).mean()
-                metrics = {k: torch.stack([m[k].float() for m in per_micro]
-                                          ).mean() for k in per_micro[0]}
+    def backward(loss):
+        with span("train.backward"):
+            loss.backward()
+
+    def update(state, params, loss, metrics):
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         if sharding is not None:
@@ -115,5 +105,29 @@ def make_train_step(loss_fn: Callable, optimizer: GuardedAdam,
         metrics["gnorm"] = gnorm
         metrics["skipped"] = (~ok).to(torch.float32)
         return metrics
+
+    def train_step(state: TrainState, batch, rng: torch.Generator
+                   ) -> Dict[str, torch.Tensor]:
+        params = state.params
+        for p in params:
+            p.grad = None
+        with mh.data_parallel(group):
+            if accum_steps == 1:
+                loss, metrics = forward(state, batch, rng)
+                backward(loss)
+                loss = loss.detach()
+            else:
+                losses, per_micro = [], []
+                assert len(batch) == accum_steps, len(batch)
+                for mb in batch:
+                    micro_loss, m = forward(state, mb, rng)
+                    backward(micro_loss / accum_steps)
+                    losses.append(micro_loss.detach())
+                    per_micro.append(m)
+                loss = torch.stack(losses).mean()
+                metrics = {k: torch.stack([m[k].float() for m in per_micro]
+                                          ).mean() for k in per_micro[0]}
+        with span("train.optimizer"):
+            return update(state, params, loss, metrics)
 
     return train_step

@@ -816,13 +816,17 @@ def test_update_freq_accumulates_batches(corpus, tmp_path, capsys):
 
 def test_profile_dir_writes_a_trace(corpus, tmp_path, capsys):
     """``--profile-dir``: a ``torch.profiler`` trace from update 5 on
-    (stopped at 15, or at the end of a shorter run)."""
+    (stopped at 15, or at the end of a shorter run), with the step's
+    spans."""
     assert ttrain.main(cli_args(corpus, "fastspeech2", tmp_path / "ck",
                                 "--max-update", "6", "--valid-subset",
                                 "none", "--profile-dir",
                                 str(tmp_path / "prof"))) == 0
     trace = json.loads((tmp_path / "prof" / "trace_rank0.json").read_text())
     assert trace["traceEvents"]
+    names = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"train.forward", "train.backward", "train.optimizer"} <= names
 
 
 def test_staging_holds_the_batch():
